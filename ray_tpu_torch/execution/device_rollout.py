@@ -1,0 +1,178 @@
+"""Device rollout engine: act → step → auto-reset → GAE on the card.
+
+Counterpart of ``ray_tpu/execution/jax_rollout.py`` (``JaxRolloutEngine``),
+following its order: per step, the act forward (actions, logp, logits,
+value), the batched env step, a reset of every row and a select for the
+rows that finished (the terminal-observation contract of
+``env/tensor_env.py``), and a fresh ``V(next_obs)`` forward for the
+bootstraps. After T steps: ``next_values`` (the act-path value of the
+next row inside an episode, the fresh value at a boundary and at the
+tail), :func:`compute_gae_fragment` (the GAE kernel on CUDA),
+standardisation of the advantages with the population variance and
+``max(1e-4, std)``, and env-major (N·T, ...) rows, the host lane's
+concat order. The rollout never leaves the device; only the (T, N)
+episode metrics are read back, once per rollout.
+
+Randomness comes from the policy's action generator and the engine's
+env generator; :class:`RolloutDraws` injects both instead (tests).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from ray_tpu_torch.data.sample_batch import SampleBatch
+from ray_tpu_torch.env.tensor_env import TensorVectorEnv, tree_where
+from ray_tpu_torch.evaluation.metrics import RolloutMetrics
+from ray_tpu_torch.ops.gae import compute_gae_fragment
+
+# columns the PPO-family learn call drops (its loss never reads them)
+_LEARN_DROP = (SampleBatch.NEXT_OBS, SampleBatch.AGENT_INDEX, SampleBatch.T)
+
+
+class RolloutDraws(NamedTuple):
+    """Injected randomness for one rollout of T steps over N envs."""
+
+    # (T, N) actions taken instead of sampled ones; None samples
+    actions: Optional[torch.Tensor]
+    # (T, N, num_draws) env draws of each step and of each step's reset
+    step: torch.Tensor
+    reset: torch.Tensor
+
+
+class DeviceRolloutEngine:
+    """One policy + one TensorVectorEnv with N env slots on the
+    policy's device. ``seed`` seeds the env generator (default 0);
+    ``initial_draws`` replaces the first reset's draws."""
+
+    def __init__(
+        self,
+        policy,
+        env: TensorVectorEnv,
+        num_envs: int,
+        rollout_length: int,
+        *,
+        seed: Optional[int] = None,
+        initial_draws: Optional[torch.Tensor] = None,
+    ):
+        if policy.model.is_recurrent:
+            raise ValueError("the device lane runs feedforward models only")
+        self.policy = policy
+        self.env = env
+        self.device = policy.device
+        self.N = int(num_envs)
+        self.T = int(rollout_length)
+        self.batch_size = self.N * self.T
+        self.gamma = float(policy.config.get("gamma", 0.99))
+        self.lambda_ = float(policy.config.get("lambda", 1.0))
+        self.env_generator = torch.Generator(device=self.device)
+        self.env_generator.manual_seed(0 if seed is None else int(seed))
+        self._metrics: List[RolloutMetrics] = []
+
+        state = env.init(self.N, self.device)
+        if initial_draws is None:
+            initial_draws = self._draw()
+        state, obs = env.reset(state, initial_draws.to(self.device))
+        self.carry = {
+            "env": state,
+            "obs": obs,
+            "ep_ret": torch.zeros(self.N, device=self.device),
+            "ep_len": torch.zeros(self.N, dtype=torch.int32, device=self.device),
+        }
+
+    def _draw(self) -> torch.Tensor:
+        return self.env.draw(self.env_generator, self.N, self.device)
+
+    @torch.no_grad()
+    def rollout(self, draws: Optional[RolloutDraws] = None) -> Tuple[Dict[str, torch.Tensor], int]:
+        """T steps on the device: ``(batch of (N·T, ...) columns,
+        batch_size)``, with the carry advanced and episode metrics
+        absorbed."""
+        policy, env = self.policy, self.env
+        policy.exploration.update_coeffs(policy.coeff_values, policy.global_timestep)
+        c = self.carry
+        state, obs, ep_ret, ep_len = c["env"], c["obs"], c["ep_ret"], c["ep_len"]
+        steps: List[Dict[str, torch.Tensor]] = []
+        met: List[Tuple[torch.Tensor, ...]] = []
+        for t in range(self.T):
+            given = None if draws is None or draws.actions is None else draws.actions[t]
+            actions, _, extra = policy._action_step_body(
+                obs, policy.action_generator, explore=True, actions=given
+            )
+            step_draws = self._draw() if draws is None else draws.step[t]
+            state2, obs2, rew, term, trunc = env.step(state, actions, step_draws)
+            done = term | trunc
+            reset_draws = self._draw() if draws is None else draws.reset[t]
+            state3, obs3 = env.reset(state2, reset_draws)
+            rew = rew.float()
+            ep_ret2 = ep_ret + rew
+            ep_len2 = ep_len + 1
+            steps.append({
+                SampleBatch.OBS: obs,
+                SampleBatch.NEXT_OBS: obs2,
+                SampleBatch.ACTIONS: actions,
+                SampleBatch.REWARDS: rew,
+                SampleBatch.TERMINATEDS: term,
+                SampleBatch.TRUNCATEDS: trunc,
+                SampleBatch.T: ep_len,
+                **extra,
+                # fresh V(final obs) for boundary and tail bootstraps
+                "_v_next": policy.model_forward(obs2)[1],
+            })
+            met.append((
+                torch.where(done, ep_ret2, 0.0),
+                torch.where(done, ep_len2, 0).float(),
+                done.float(),
+            ))
+            state = tree_where(done, state3, state2)
+            obs = torch.where(done[:, None, None, None], obs3, obs2)
+            ep_ret = torch.where(done, 0.0, ep_ret2)
+            ep_len = torch.where(done, 0, ep_len2)
+        self.carry = {"env": state, "obs": obs, "ep_ret": ep_ret, "ep_len": ep_len}
+
+        rows = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}  # (T, N, ...)
+        rows[SampleBatch.AGENT_INDEX] = torch.arange(
+            self.N, dtype=torch.int32, device=self.device
+        ).expand(self.T, self.N)
+        values = rows[SampleBatch.VF_PREDS]
+        fresh = rows.pop("_v_next")
+        term = rows[SampleBatch.TERMINATEDS]
+        done = term | rows[SampleBatch.TRUNCATEDS]
+        # interior rows reuse the act-path values; boundary and tail
+        # rows use the fresh terminal-observation values
+        shifted = torch.cat([values[1:], fresh[-1:]], dim=0)
+        next_values = torch.where(done, fresh, shifted)
+        adv, vt = compute_gae_fragment(
+            rows[SampleBatch.REWARDS].T, values.T, next_values.T,
+            term.T, done.T, self.gamma, self.lambda_,
+        )  # (N, T)
+        m = adv.mean()
+        var = ((adv - m) ** 2).mean()
+        adv = (adv - m) / torch.clamp_min(torch.sqrt(var), 1e-4)
+        rows[SampleBatch.ADVANTAGES] = adv.T
+        rows[SampleBatch.VALUE_TARGETS] = vt.T
+
+        batch = {
+            k: v.transpose(0, 1).reshape((self.batch_size,) + v.shape[2:])
+            for k, v in rows.items()
+        }
+        self._record_metrics(torch.stack([torch.stack(m) for m in met]).cpu())
+        return batch, self.batch_size
+
+    def learn_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The learn-column subset of a :meth:`rollout` batch."""
+        return {k: v for k, v in batch.items() if k not in _LEARN_DROP}
+
+    def _record_metrics(self, met: torch.Tensor) -> None:
+        """``met``: (T, 3, N) host tensor of (return, length, done)."""
+        ret, length, done = met.permute(1, 0, 2).reshape(3, -1)
+        mask = done > 0
+        for r, n in zip(ret[mask].tolist(), length[mask].tolist()):
+            self._metrics.append(RolloutMetrics(int(n), float(r)))
+
+    def get_metrics(self) -> List[RolloutMetrics]:
+        out = self._metrics
+        self._metrics = []
+        return out

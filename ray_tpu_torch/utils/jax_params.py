@@ -1,0 +1,82 @@
+"""Load the JAX package's parameters and Adam state into the port.
+
+Takes plain numpy trees (what ``jax.device_get`` returns; nothing here
+imports JAX) and maps flax's layouts onto the port's:
+
+- ``{"params": {"conv_0": {"kernel", "bias"}, ...}}`` → the module's
+  parameters of the same layer name (``conv_0.weight``, ...);
+- conv kernels HWIO → OIHW;
+- dense kernels (in, out) → (out, in).
+
+Flax flattens its last conv map in (H, W, C) order. The port's
+``VisionNet`` flattens its NCHW map in that same (H, W, C) order, so
+``post_fc_0``'s rows need no permutation: the kernel is only transposed.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def flax_to_state_dict(tree) -> Dict[str, np.ndarray]:
+    """Flax param tree → ``{"layer.weight" | "layer.bias": array}`` in
+    PyTorch layouts."""
+    params = tree.get("params", tree)
+    out = {}
+    for layer, leaves in params.items():
+        kernel = np.asarray(leaves["kernel"])
+        if kernel.ndim == 4:  # HWIO → OIHW
+            out[f"{layer}.weight"] = np.transpose(kernel, (3, 2, 0, 1))
+        elif kernel.ndim == 2:  # (in, out) → (out, in)
+            out[f"{layer}.weight"] = kernel.T
+        else:
+            raise ValueError(f"{layer}: unexpected kernel rank {kernel.ndim}")
+        out[f"{layer}.bias"] = np.asarray(leaves["bias"])
+    return out
+
+
+def from_jax_params(tree, module: nn.Module) -> nn.Module:
+    """Copy a flax param tree into ``module`` in place; every parameter
+    of the module must be covered, with matching shapes."""
+    sd = flax_to_state_dict(tree)
+    own = dict(module.named_parameters())
+    if set(sd) != set(own):
+        raise ValueError(
+            "flax tree and module disagree: missing "
+            f"{sorted(set(own) - set(sd))}, extra {sorted(set(sd) - set(own))}"
+        )
+    with torch.no_grad():
+        for name, p in own.items():
+            src = torch.tensor(np.asarray(sd[name]))
+            if src.shape != p.shape:
+                raise ValueError(f"{name}: {tuple(src.shape)} != {tuple(p.shape)}")
+            p.copy_(src)
+    return module
+
+
+def _find_adam(opt_state):
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_adam_state(opt_state) -> Tuple[int, Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """optax chain state (numpy leaves) → ``(count, mu, nu)`` with the
+    moments keyed and laid out like :func:`flax_to_state_dict`."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no scale_by_adam state in the optax state")
+    return (
+        int(np.asarray(adam.count)),
+        flax_to_state_dict(adam.mu),
+        flax_to_state_dict(adam.nu),
+    )
