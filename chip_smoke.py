@@ -9,27 +9,51 @@ and ``nvcc``. Phases, each printing its own lines:
 1. build    -- compile every CUDA kernel from ``ray_tpu_torch/csrc``
                (one nvcc per source, started together);
 2. gather   -- the row-gather kernel against its plain PyTorch version,
-               bitwise, at the PPO bench geometry, at a ragged width and
-               through ``build_stacks`` on uint8 frames; CUDA-event
-               times of kernel, plain version and ``index_select``;
+               bitwise, at the PPO bench geometry, at ragged widths,
+               on byte rows (bool, uint8, 2-byte) at the DQN sample
+               geometry and through ``build_stacks`` on uint8 frames;
+               CUDA-event times of kernel, plain version and
+               ``index_select``;
 3. gae      -- the GAE kernel against its plain version, bitwise, at the
                device lane's (16, 128) and at ragged shapes with episode
                ends inside the fragment; times (no single PyTorch call
                computes this function, so there is no library time);
-4. learner  -- ``PPOTorchPolicy.learn_on_batch`` twice on a frame-pool
+4. scatter  -- the row-scatter kernel against its plain version,
+               bitwise: the replay insert (64 rows into a (50000, 1764)
+               int32 ring, wrapping), duplicate positions, bool, 2-, 4-
+               and odd-byte columns, and a whole-ring ``set_state``;
+               times of kernel, plain version and ``index_copy_``;
+5. descent  -- the f64 prefix-descent kernel against its plain version
+               and the host sum tree, bitwise, at capacity 65536 (32,
+               512 and 4096 draws, node boundaries, masses at and past
+               the total) and at capacities 1 and 2; the device tree's
+               leaf write (repeated indices) and draw against the host
+               trees; times, and ``searchsorted`` as a yardstick;
+6. learner  -- ``PPOTorchPolicy.learn_on_batch`` twice on a frame-pool
                batch at the bench geometry (84x84x4, 6 actions, B=4096,
                minibatch 512, 10 epochs, lr 5e-5): env-steps/s, finite
                stats, and the row-gather launches of that run;
-5. lane     -- ``PPO`` from tuned_examples/ppo/ponglitejax-ppo.yaml for 2
+7. lane     -- ``PPO`` from tuned_examples/ppo/ponglitejax-ppo.yaml for 2
                training iterations on the device lane (N=16, T=128,
                minibatch 512, 6 epochs): reward, env-steps/s, the GAE
                launches of that run, and that params, env state and batch
                live on the card;
-6. a ``{"kernels": [...]}`` line, the card's name and power limit, and
+8. dqn      -- ``DQN`` on the PongLite device lane at full width
+               (:func:`dqn_config`) for 16 + 24 iterations, past learning
+               starts and a target update: env-steps/s and updates/s over
+               the last 23 (the first update's set-up is timed apart), the
+               gather, scatter and descent launches of that run, replay
+               occupancy, that rings, trees and params live on the card,
+               one synchronised split (fill, insert, sample, learn,
+               priority update), then the same update with the ring
+               filled to 50000 rows;
+               (phases 7 and 8 also print the device's busy share over
+               a few more iterations, from ``torch.profiler``);
+9. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before phases 4 and 5 and read just
-after; the comparison launches of phases 2 and 3 do not count. Any
+Launch counts are set to 0 just before phases 6, 7 and 8 and read just
+after; the comparison launches of phases 2-5 do not count. Any
 failed check raises, and the script exits non-zero without printing a
 result. Without a CUDA device it exits 1 at once.
 """
@@ -48,6 +72,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 B, MB, ITERS = 4096, 512, 10  # the PPO learner bench geometry
 H, W, C, NUM_ACTIONS = 84, 84, 4, 6
 TUNED = os.path.join(REPO, "tuned_examples", "ppo", "ponglitejax-ppo.yaml")
+# the DQN device lane at full width: DQNConfig's defaults on PongLite
+REPLAY_CAPACITY, TREE_CAPACITY = 50000, 65536
+TRAIN_BATCH, INSERT_ROWS = 32, 64  # one sample; 16 envs x 4 steps per insert
+OBS_WORDS = 84 * 84 // 4  # one 84x84x1 uint8 frame as int32 words
 
 
 def say(phase, **kv):
@@ -74,6 +102,31 @@ def cuda_ms(fn, iters=50, warmup=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_busy(fn, n):
+    """Device busy share of ``n`` calls of ``fn``: the device time of
+    the kernels and copies that ``torch.profiler`` records over ``n``
+    calls, divided by the host-clock time of ``n`` unprofiled calls
+    (the profiler slows the host, not the kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(device_us > 0, "the profiler recorded no device time")
+    return {"calls": n, "wall_s": round(wall, 6), "device_s": round(device_us / 1e6, 6),
+            "busy_share": round(device_us / 1e6 / wall, 4)}
 
 
 def make_frames(rng, n, h=H, w=W):
@@ -152,6 +205,16 @@ def phase_gather(rng):
     host = materialize_stacks_np(frames[:64].cpu().numpy(), np.arange(60), C)
     require(np.array_equal(build_stacks(frames, first[:60], C).cpu().numpy(), host),
             "build_stacks differs from the numpy materialisation")
+    # byte rows (the replay rings' bool, 2-byte and odd-width columns)
+    # at the DQN sample geometry: 32 rows drawn from 50000
+    ridx = torch.randint(0, REPLAY_CAPACITY, (TRAIN_BATCH,), device=dev)
+    for dtype, row in ((torch.bool, ()), (torch.uint8, ()), (torch.float16, ()),
+                       (torch.int16, (3,)), (torch.uint8, (7,))):
+        src = torch.randint(0, 2 if dtype == torch.bool else 127,
+                            (REPLAY_CAPACITY,) + row, device=dev).to(dtype)
+        require(torch.equal(gather_rows(src, ridx), gather_rows_plain(src, ridx)),
+                f"row gather differs on {dtype} rows of {row}")
+        checked.append(("bytes", str(dtype), row, TRAIN_BATCH))
     say("gather", bitwise=True, checked=json.dumps(checked))
 
     # the kernel's own time: raw launches on prepared buffers; the
@@ -160,7 +223,7 @@ def phase_gather(rng):
     stream = torch.cuda.current_stream().cuda_stream
     ms = cuda_ms(lambda: lib.row_gather_launch(
         pool.data_ptr(), idx.data_ptr(), out_k.data_ptr(), idx.numel(),
-        pool.shape[0], pool.shape[1], stream))
+        pool.shape[0], pool.shape[1] * 4, stream))
     wrapper_ms = cuda_ms(lambda: gather_rows(pool, idx))
     plain_ms = cuda_ms(lambda: gather_rows_plain(pool, idx))
     lib_ms = cuda_ms(lambda: torch.index_select(pool, 0, idx))
@@ -181,6 +244,198 @@ def phase_gather(rng):
         "name": "row_gather", "route": "cuda",
         "source": "ray_tpu_torch/csrc/row_gather.cu",
         "replaces": "ray_tpu/ops/framestack.py:65",
+        "max_abs_err": 0.0, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+        "passed": True,
+    }
+
+
+def phase_scatter():
+    import torch
+
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.framestack import scatter_rows, scatter_rows_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def check(ring, pos, vals, what):
+        k, p = ring.clone(), ring.clone()
+        require(scatter_rows(k, pos, vals) is k, "scatter_rows did not write in place")
+        scatter_rows_plain(p, pos, vals)
+        torch.cuda.synchronize()
+        require(torch.equal(k, p), f"row scatter differs from plain: {what}")
+        checked.append(what)
+
+    def words(m, d):
+        return torch.randint(-2**31, 2**31 - 1, (m, d), dtype=torch.int32, device=dev, generator=gen)
+
+    checked = []
+    ring = words(REPLAY_CAPACITY, OBS_WORDS)
+    vals = words(INSERT_ROWS, OBS_WORDS)
+    # the insert: 64 rows at the write head, wrapping past the end
+    pos = (REPLAY_CAPACITY - 20 + torch.arange(INSERT_ROWS, device=dev)) % REPLAY_CAPACITY
+    check(ring, pos, vals, "insert obs words, wrapping")
+    dup = torch.randint(0, REPLAY_CAPACITY, (INSERT_ROWS,), device=dev, generator=gen)
+    dup[1::3] = dup[0]
+    check(ring, dup, vals, "obs words, duplicate positions")
+    small = words(100, OBS_WORDS)
+    many = words(640, OBS_WORDS)
+    check(small, torch.randint(0, 100, (640,), device=dev, generator=gen), many,
+          "640 rows into 100, many duplicates")
+    # scalar and narrow columns: bool, 4-byte, 2-byte, odd-width rows
+    for dtype, row in ((torch.bool, ()), (torch.int32, ()), (torch.float32, ()),
+                       (torch.float16, ()), (torch.uint8, (7,)), (torch.float32, (3,))):
+        col = torch.randint(0, 2 if dtype == torch.bool else 100,
+                            (REPLAY_CAPACITY,) + row, device=dev, generator=gen).to(dtype)
+        v = torch.randint(0, 2 if dtype == torch.bool else 100,
+                          (INSERT_ROWS,) + row, device=dev, generator=gen).to(dtype)
+        check(col, pos, v, f"{dtype} rows of {row}, wrapping")
+        check(col, dup, v, f"{dtype} rows of {row}, duplicates")
+    # set_state: the whole ring in one scatter
+    full = words(REPLAY_CAPACITY, OBS_WORDS)
+    every = torch.arange(REPLAY_CAPACITY, device=dev)
+    check(ring, every, full, f"set_state, {REPLAY_CAPACITY} obs rows")
+    flags = torch.rand(REPLAY_CAPACITY, device=dev, generator=gen) < 0.5
+    check(flags.clone(), every, ~flags, f"set_state, {REPLAY_CAPACITY} bool rows")
+    say("scatter", bitwise=True, checked=json.dumps(checked))
+
+    lib = _kernels.library("row_scatter")
+    stream = torch.cuda.current_stream().cuda_stream
+    owner = torch.empty(REPLAY_CAPACITY, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: lib.row_scatter_launch(
+        vals.data_ptr(), pos.data_ptr(), ring.data_ptr(), owner.data_ptr(),
+        INSERT_ROWS, REPLAY_CAPACITY, OBS_WORDS * 4, stream), iters=200)
+    wrapper_ms = cuda_ms(lambda: scatter_rows(ring, pos, vals), iters=200)
+    plain_ms = cuda_ms(lambda: scatter_rows_plain(ring, pos, vals), iters=50)
+    lib_ms = cuda_ms(lambda: ring.index_copy_(0, pos, vals), iters=200)
+    full_ms = cuda_ms(lambda: scatter_rows(ring, every, full), iters=20)
+    # bytes the function must move: each value row read once, each ring
+    # row written once, the positions read once
+    nbytes = 2 * vals.numel() * 4 + pos.numel() * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    full_bytes = 2 * full.numel() * 4 + every.numel() * 8
+    say("scatter", ms=f"{ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+        index_copy_ms=f"{lib_ms:.5f}", bound_ms=f"{bound_ms:.6f}", bytes=nbytes,
+        shape=f"{INSERT_ROWS} rows of {OBS_WORDS} words into {REPLAY_CAPACITY}",
+        note="three launches (reset, claim, copy); launch-bound at the insert")
+    say("scatter", set_state_ms=f"{full_ms:.5f}",
+        set_state_bound_ms=f"{full_bytes / HBM_BYTES_PER_S * 1e3:.5f}", set_state_bytes=full_bytes)
+    return {
+        "name": "row_scatter", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/row_scatter.cu",
+        "replaces": "ray_tpu/ops/framestack.py:71",
+        "max_abs_err": 0.0, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+        "passed": True,
+    }
+
+
+def _boundary_masses(host, size):
+    """Masses on exact node boundaries (the sums of the leftmost node of
+    every level and a few leaf prefix sums, as the tree rounds them),
+    zero, the total and past it."""
+    import numpy as np
+
+    total = host.sum(0, size)
+    cap = host.capacity
+    lefts = [host.value[1 << k] for k in range(cap.bit_length())]
+    prefix = [host.sum(0, e) for e in (1, 2, 3, size // 3, size // 2, size - 1) if 0 < e <= size]
+    return np.array(lefts + prefix + [0.0, total, np.nextafter(total, np.inf), 1.5 * total])
+
+
+def phase_descent(rng):
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.execution.replay_buffer import powered_priorities
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.segment_tree import (
+        DeviceSumTree, MinSegmentTree, SumSegmentTree, find_prefixsum, find_prefixsum_plain,
+    )
+
+    dev = torch.device("cuda")
+    checked = []
+
+    def check(host, size, mass, what):
+        tree = torch.as_tensor(host.value, device=dev)
+        m = torch.as_tensor(mass, device=dev)
+        k = find_prefixsum(tree, m, host.capacity)
+        p = find_prefixsum_plain(tree, m, host.capacity)
+        torch.cuda.synchronize()
+        require(torch.equal(k, p), f"prefix descent differs from plain: {what}")
+        require(np.array_equal(k.cpu().numpy(), host.find_prefixsum_idx(mass)),
+                f"prefix descent differs from the host tree: {what}")
+        checked.append(what)
+
+    size = REPLAY_CAPACITY
+    host = SumSegmentTree(TREE_CAPACITY)
+    powered, _ = powered_priorities(rng.random(size) * 4, 0.6)
+    host.set_items(np.arange(size), powered)  # leaves past size stay 0
+    total = host.sum(0, size)
+    for n in (TRAIN_BATCH, 512, 4096):
+        check(host, size, (rng.random(n) + np.arange(n)) / n * total, f"{n} stratified draws")
+    check(host, size, _boundary_masses(host, size), "node boundaries, total and past it")
+    for cap in (1, 2):
+        small = SumSegmentTree(cap)
+        small.set_items(np.arange(cap), rng.random(cap) + 0.5)
+        check(small, cap, np.concatenate([_boundary_masses(small, cap), rng.random(8) * 2]),
+              f"capacity {cap}")
+    say("descent", bitwise=True, checked=json.dumps(checked))
+
+    # the whole f64 draw and the leaf write on the card against the host
+    # trees: repeated indices in one write, then the stratified draw
+    dt = DeviceSumTree(TREE_CAPACITY, dev)
+    hs, hm = SumSegmentTree(TREE_CAPACITY), MinSegmentTree(TREE_CAPACITY)
+    for t in (hs, hm):
+        t.set_items(np.arange(size), powered)
+    dt.set_powered(np.arange(size), powered)
+    upd = rng.integers(0, size, TRAIN_BATCH)
+    upd[1::4] = upd[0]
+    pv, _ = powered_priorities(rng.random(TRAIN_BATCH) * 9, 0.6)
+    for t in (hs, hm):
+        t.set_items(upd, pv)
+    dt.set_powered(torch.as_tensor(upd, device=dev), pv)
+    require(dt.sum_value.cpu().numpy().tobytes() == hs.value.tobytes()
+            and dt.min_value.cpu().numpy().tobytes() == hm.value.tobytes(),
+            "device trees differ from the host trees after a write with repeats")
+    rand = rng.random(TRAIN_BATCH)
+    idx, w = dt.draw(rand, size, 0.4)
+    tot = hs.sum(0, size)
+    hidx = np.clip(hs.find_prefixsum_idx((rand + np.arange(TRAIN_BATCH)) / TRAIN_BATCH * tot), 0, size - 1)
+    hw = ((hs[hidx] / tot * size) ** -0.4 / (hm.min(0, size) / tot * size) ** -0.4).astype(np.float32)
+    require(np.array_equal(idx.cpu().numpy(), hidx), "device draw indices differ from the host oracle")
+    w_ulps = int(np.abs(w.cpu().numpy().view(np.int32) - hw.view(np.int32)).max())
+    require(w_ulps <= 1, f"IS weights {w_ulps} f32 ulps from the host oracle")
+    say("descent", device_tree_bitwise=True, draw_indices_bitwise=True, weight_max_ulps=w_ulps)
+
+    tree = torch.as_tensor(host.value, device=dev)
+    mass = torch.as_tensor((rng.random(TRAIN_BATCH) + np.arange(TRAIN_BATCH)) / TRAIN_BATCH * total,
+                           device=dev)
+    out = torch.empty(TRAIN_BATCH, dtype=torch.int64, device=dev)
+    lib = _kernels.library("prefix_descent")
+    stream = torch.cuda.current_stream().cuda_stream
+    levels = TREE_CAPACITY.bit_length() - 1
+    ms = cuda_ms(lambda: lib.prefix_descent_launch(
+        tree.data_ptr(), mass.data_ptr(), out.data_ptr(), TRAIN_BATCH, levels,
+        TREE_CAPACITY, stream), iters=200)
+    wrapper_ms = cuda_ms(lambda: find_prefixsum(tree, mass, TREE_CAPACITY), iters=200)
+    plain_ms = cuda_ms(lambda: find_prefixsum_plain(tree, mass, TREE_CAPACITY), iters=50)
+    cumsum = torch.cumsum(tree[TREE_CAPACITY:], 0)
+    lib_ms = cuda_ms(lambda: torch.searchsorted(cumsum, mass, right=True), iters=200)
+    # bytes the function needs: one left child per level per draw, the
+    # masses read once, the indices written once
+    nbytes = TRAIN_BATCH * levels * 8 + TRAIN_BATCH * 8 + TRAIN_BATCH * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    say("descent", ms=f"{ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+        searchsorted_ms=f"{lib_ms:.5f}", bound_ms=f"{bound_ms:.8f}", bytes=nbytes,
+        shape=f"{TRAIN_BATCH} draws, {levels} levels",
+        note="latency-bound: 16 dependent loads per draw; searchsorted over an f64 "
+             "cumsum is a yardstick only, it does not round as the tree does")
+    return {
+        "name": "prefix_descent", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/prefix_descent.cu",
+        "replaces": "ray_tpu/ops/segment_tree.py:176",
         "max_abs_err": 0.0, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
         "passed": True,
@@ -327,6 +582,137 @@ def phase_lane():
         env_steps_per_s=f"{bsize / times[1]:.1f}", iter_s=json.dumps([round(t, 4) for t in times]),
         gae_launches=launches, on_card=on_card, batch_size=bsize, split=json.dumps(split))
     say("lane", learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
+    say("lane", device_busy=json.dumps(device_busy(algo.train, 1)))
+    return launches
+
+
+def dqn_config():
+    """DQN on the PongLite device lane at full width: DQNConfig's own
+    defaults (lr 5e-4, batch 32, grad clip 40, double-Q, dueling,
+    n_step 1, learning starts 1000, target update 500, epsilon 1.0 ->
+    0.02 over 10000 steps, Nature CNN with a 512 hidden layer), with
+    these overrides named: the device lane with 16 envs (as the PPO
+    lane), prioritized replay of 50000 rows with its rows and its sum
+    tree on the card, seed 0."""
+    from ray_tpu_torch.algorithms.dqn.dqn import DQNConfig
+
+    return (
+        DQNConfig()
+        .environment("PongLiteJax-v0", env_backend="jax")
+        .rollouts(num_envs_per_worker=16, rollout_fragment_length=4)
+        .training(
+            replay_buffer_config={
+                "capacity": REPLAY_CAPACITY, "prioritized_replay": True,
+                "prioritized_replay_alpha": 0.6, "prioritized_replay_beta": 0.4,
+            },
+            replay_device_resident=True, replay_device_tree=True,
+        )
+        .debugging(seed=0)
+    )
+
+
+def phase_dqn():
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ops.framestack import gather_rows, scatter_rows
+    from ray_tpu_torch.ops.segment_tree import find_prefixsum
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    algo = dqn_config().build()
+    policy = algo.get_policy()
+    kernels = (gather_rows, scatter_rows, find_prefixsum)
+    for k in kernels:
+        k.launches = 0
+    warm, warm_s = 16, 0.0
+    results = []
+    for _ in range(warm):  # fill up to learning starts (16 x 64 = 1024 steps)
+        r, dt = sync_time(algo.train)
+        results.append(r)
+        warm_s += dt
+    # the first update pays the backward's cuDNN set-up: timed apart
+    r, first_s = sync_time(algo.train)
+    results.append(r)
+    learn_iters = 23
+    r0 = results[-1]["info"]
+    _, learn_s = sync_time(lambda: [results.append(algo.train()) for _ in range(learn_iters)])
+    launches = {k.__name__: k.launches for k in kernels}
+    last = results[-1]
+    info = last["info"]
+    updates = (info["num_env_steps_trained"] - r0.get("num_env_steps_trained", 0)) // TRAIN_BATCH
+    for name, n in launches.items():
+        require(n >= 1, f"the DQN lane did not launch {name}")
+    require(info.get("num_target_updates", 0) >= 1, f"no target update: {info}")
+    learner = info["learner"]["default_policy"]
+    require(all(math.isfinite(v) for v in learner.values()), f"non-finite learner stats {learner}")
+    buf = algo.local_replay_buffer.buffers["default_policy"]
+    on_card = (
+        all(r.is_cuda for r in buf._store.values())
+        and buf._dtree.sum_value.is_cuda and buf._dtree.min_value.is_cuda
+        and all(p.is_cuda for p in policy.params)
+        and all(t.is_cuda for t in policy.aux_state["target_params"])
+    )
+    require(on_card, "ring columns, trees or params left the card")
+    say("dqn", iters=len(results), env_steps_per_s=f"{learn_iters * INSERT_ROWS / learn_s:.1f}",
+        updates_per_s=f"{updates / learn_s:.2f}", fill_env_steps_per_s=f"{warm * INSERT_ROWS / warm_s:.1f}",
+        first_update_iter_s=f"{first_s:.4f}",
+        launches=json.dumps(launches), replay_size=len(buf), storage_bytes=buf.storage_bytes,
+        num_target_updates=info["num_target_updates"],
+        num_env_steps_sampled=info["num_env_steps_sampled"],
+        num_env_steps_trained=info["num_env_steps_trained"],
+        epsilon=f"{policy.coeff_values['epsilon']:.4f}", on_card=on_card,
+        episode_reward_mean=last["episode_reward_mean"])
+    say("dqn", learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
+    say("dqn", device_busy=json.dumps(device_busy(algo.train, 8)))
+
+    eng = algo._jax_rollout_engine_get()
+
+    def one_update():
+        """sample -> learn -> priority update, each timed, synchronised."""
+        b, t_sample = sync_time(lambda: buf.sample(TRAIN_BATCH, beta=0.4))
+        _, t_learn = sync_time(lambda: policy.learn_on_device_batch(dict(b.tree), b.count))
+        _, t_prio = sync_time(lambda: buf.update_priorities(
+            b.indices, policy.compute_td_error(b) + 1e-6))
+        return {"sample_s": t_sample, "learn_s": t_learn, "priority_update_s": t_prio}
+
+    (tree, count), t_fill = sync_time(eng.rollout)
+    _, t_insert = sync_time(lambda: algo._insert_rollout_tree(tree))
+    split = {"rollout_fill_s": t_fill, "insert_s": t_insert, **one_update()}
+    say("dqn", split=json.dumps({k: round(v, 6) for k, v in split.items()}),
+        rows=count, replay_size=len(buf))
+
+    # the ring at capacity: synthetic rows in the lane's columns and
+    # types, 5000 at a time, then the update at 50000 rows
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    chunk = 5000
+    t_full = 0.0
+    while len(buf) < REPLAY_CAPACITY:
+        rows = {}
+        for k, ring in buf._store.items():
+            row_shape, dtype, _ = buf._meta[k]
+            if dtype == torch.bool:
+                rows[k] = torch.rand((chunk,) + row_shape, device="cuda", generator=gen) < 0.01
+            elif dtype.is_floating_point:
+                rows[k] = torch.randn((chunk,) + row_shape, device="cuda", generator=gen).to(dtype)
+            else:
+                hi = 255 if dtype == torch.uint8 else 3
+                rows[k] = torch.randint(0, hi, (chunk,) + row_shape, device="cuda",
+                                        generator=gen).to(dtype)
+        _, dt = sync_time(lambda: buf.add_device_tree(rows))
+        t_full += dt
+    require(len(buf) == REPLAY_CAPACITY, f"ring holds {len(buf)} rows")
+    full = [one_update() for _ in range(5)]
+    med = {k: float(np.median([u[k] for u in full])) for k in full[0]}
+    say("dqn", at_capacity=json.dumps({k: round(v, 6) for k, v in med.items()}),
+        replay_size=len(buf), storage_bytes=buf.storage_bytes,
+        fill_chunk_rows=chunk, fill_s=f"{t_full:.3f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     return launches
 
 
@@ -359,9 +745,17 @@ def main() -> int:
     phase_build()
     gather = phase_gather(rng)
     gae = phase_gae()
-    gather["launches"] = phase_learner(rng)
+    scatter = phase_scatter()
+    descent = phase_descent(rng)
+    # the main paths, each with its launch counts set to 0 just before
+    learner_gathers = phase_learner(rng)
     gae["launches"] = phase_lane()
-    print(json.dumps({"kernels": [gather, gae]}), flush=True)
+    dqn = phase_dqn()
+    gather["launches"] = learner_gathers + dqn["gather_rows"]
+    gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"]}
+    scatter["launches"] = dqn["scatter_rows"]
+    descent["launches"] = dqn["find_prefixsum"]
+    print(json.dumps({"kernels": [gather, gae, scatter, descent]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({
         "ok": True,

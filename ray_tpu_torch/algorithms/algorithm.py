@@ -5,6 +5,8 @@ policy and no worker fleet: ``train()`` runs one ``training_step`` and
 returns a result dict with the reference's keys (``episode_reward_mean``,
 ``episodes_this_iter``, ``num_env_steps_sampled``, ``timesteps_total``,
 ``training_iteration``, ``info/learner/default_policy``, ...).
+``__getstate__``/``__setstate__`` carry the policy state and counters
+(the off-policy family adds its replay buffer).
 """
 
 from __future__ import annotations
@@ -92,6 +94,23 @@ class Algorithm:
         self._episodes_total += len(episodes)
         summary["episodes_total"] = self._episodes_total
         return summary
+
+    # -- checkpoint state ----------------------------------------------------
+
+    def __getstate__(self) -> Dict:
+        """Policy state, counters and episode total (host numpy only)."""
+        return {
+            "policy": self.get_policy().get_state(),
+            "counters": dict(self._counters),
+            "episodes_total": self._episodes_total,
+            "iteration": self._iteration,
+        }
+
+    def __setstate__(self, state: Dict) -> None:
+        self.get_policy().set_state(state["policy"])
+        self._counters = collections.defaultdict(int, state.get("counters", {}))
+        self._episodes_total = state.get("episodes_total", 0)
+        self._iteration = state.get("iteration", 0)
 
     def stop(self) -> None:
         """Nothing to release: no worker processes in this slice."""

@@ -6,6 +6,13 @@ of the tuned-example yamls (``update_from_dict`` sets any key, as the
 reference does). ``env_backend: "jax"`` selects the device rollout lane.
 The one new key is ``device``: None runs on CUDA (and raises without
 it), ``"cpu"`` runs on the CPU.
+
+The replay keys of the off-policy family keep the reference's names and
+defaults: ``replay_buffer_config``, ``replay_device_resident`` and
+``replay_device_tree`` (``"auto"``: on; ``False`` raises, see
+``execution/replay_buffer.resolve_device_resident``),
+``replay_memory_cap_bytes``, ``num_steps_sampled_before_learning_starts``,
+``target_network_update_freq`` and ``training_intensity``.
 """
 
 from __future__ import annotations
@@ -37,6 +44,15 @@ class AlgorithmConfig:
         self.grad_clip = None
         self.seed = None
         self.exploration_config: Dict = {}
+
+        # off-policy replay
+        self.replay_buffer_config: Dict = {}
+        self.replay_device_resident = "auto"
+        self.replay_device_tree = "auto"
+        self.replay_memory_cap_bytes = None
+        self.num_steps_sampled_before_learning_starts = 0
+        self.target_network_update_freq = 0
+        self.training_intensity = None
 
         # resources
         self.device = None
@@ -85,8 +101,19 @@ class AlgorithmConfig:
         train_batch_size: Optional[int] = None,
         model: Optional[Dict] = None,
         grad_clip: Optional[float] = None,
+        replay_buffer_config: Optional[Dict] = None,
+        replay_device_resident=None,
+        replay_device_tree=None,
+        replay_memory_cap_bytes: Optional[int] = None,
+        num_steps_sampled_before_learning_starts: Optional[int] = None,
+        target_network_update_freq: Optional[int] = None,
+        training_intensity: Optional[float] = None,
         **kwargs,
     ) -> "AlgorithmConfig":
+        """Training keys; ``replay_buffer_config`` updates the current
+        dict key by key, as the reference's DQNConfig does."""
+        if replay_buffer_config is not None:
+            self.replay_buffer_config = {**self.replay_buffer_config, **replay_buffer_config}
         for name, value in (
             ("gamma", gamma),
             ("lr", lr),
@@ -94,6 +121,13 @@ class AlgorithmConfig:
             ("train_batch_size", train_batch_size),
             ("model", model),
             ("grad_clip", grad_clip),
+            ("replay_device_resident", replay_device_resident),
+            ("replay_device_tree", replay_device_tree),
+            ("replay_memory_cap_bytes", replay_memory_cap_bytes),
+            ("num_steps_sampled_before_learning_starts",
+             num_steps_sampled_before_learning_starts),
+            ("target_network_update_freq", target_network_update_freq),
+            ("training_intensity", training_intensity),
         ):
             if value is not None:
                 setattr(self, name, value)

@@ -1,0 +1,401 @@
+"""DQN: double/dueling DQN with (prioritized) replay on the device lane.
+
+Counterpart of ``ray_tpu/algorithms/dqn/dqn.py``. The rollout lane
+fills a device-resident replay buffer (``postprocess="none"`` rows,
+inserted with the row-scatter kernel); each round then makes one
+replay update: a prioritized draw on the device sum tree (the
+prefix-descent kernel) and a row gather of every column (the row-gather
+kernel), one learn call with the TD loss, a per-row |TD error| readback
+and a priority write. The target network is the policy's aux state,
+copied from the online params every ``target_network_update_freq``
+trained steps.
+
+Not ported yet (ROADMAP queue 1): the actor lane, ``n_step > 1`` on the
+lane (n-step folding is a host postprocess), C51 and noisy heads, the
+chained/superstep update (K > 1) and ``learn_while_rollout``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.algorithms.algorithm import (
+    NUM_ENV_STEPS_SAMPLED,
+    NUM_ENV_STEPS_TRAINED,
+    Algorithm,
+)
+from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
+from ray_tpu_torch.algorithms.dqn.dqn_model import DQNModel
+from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, SampleBatch
+from ray_tpu_torch.execution.replay_buffer import (
+    MultiAgentReplayBuffer,
+    resolve_device_resident,
+    resolve_device_tree,
+)
+from ray_tpu_torch.models.catalog import MODEL_DEFAULTS
+from ray_tpu_torch.models.cnn import get_filter_config
+from ray_tpu_torch.policy.torch_policy import TorchPolicy
+
+
+class DQNConfig(AlgorithmConfig):
+    """The reference's DQNConfig defaults (RLlib's DQN defaults)."""
+
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or DQN)
+        self.lr = 5e-4
+        self.train_batch_size = 32
+        self.rollout_fragment_length = 4
+        self.gamma = 0.99
+        self.num_steps_sampled_before_learning_starts = 1000
+        self.target_network_update_freq = 500
+        self.double_q = True
+        self.dueling = True
+        self.n_step = 1
+        self.num_atoms = 1
+        self.noisy = False
+        self.replay_buffer_config = {
+            "capacity": 50000,
+            "prioritized_replay": False,
+            "prioritized_replay_alpha": 0.6,
+            "prioritized_replay_beta": 0.4,
+        }
+        self.epsilon_timesteps = 10000
+        self.final_epsilon = 0.02
+        self.initial_epsilon = 1.0
+        self.training_intensity = None
+        self.grad_clip = 40.0
+
+    def training(
+        self,
+        *,
+        double_q: Optional[bool] = None,
+        dueling: Optional[bool] = None,
+        n_step: Optional[int] = None,
+        num_atoms: Optional[int] = None,
+        noisy: Optional[bool] = None,
+        epsilon_timesteps: Optional[int] = None,
+        final_epsilon: Optional[float] = None,
+        initial_epsilon: Optional[float] = None,
+        **kwargs,
+    ) -> "DQNConfig":
+        super().training(**kwargs)
+        for name, value in (
+            ("double_q", double_q),
+            ("dueling", dueling),
+            ("n_step", n_step),
+            ("num_atoms", num_atoms),
+            ("noisy", noisy),
+            ("epsilon_timesteps", epsilon_timesteps),
+            ("final_epsilon", final_epsilon),
+            ("initial_epsilon", initial_epsilon),
+        ):
+            if value is not None:
+                setattr(self, name, value)
+        return self
+
+
+_EPSILON_KEYS = ("initial_epsilon", "final_epsilon", "epsilon_timesteps")
+
+
+def _epsilon_exploration_config(config: Dict) -> Dict:
+    """Fold DQN's flat epsilon knobs into ``exploration_config``: a
+    user-supplied ``exploration_config`` wins over the flat defaults.
+    (The reference's Ape-X per-worker ladder waits for the actor lane.)"""
+    ec = dict(config.get("exploration_config") or {})
+    for key in _EPSILON_KEYS:
+        if key in config and key not in ec:
+            ec[key] = config[key]
+    return ec
+
+
+class DQNTorchPolicy(TorchPolicy):
+    """Double/dueling TD loss (Huber, IS ``weights``), epsilon-greedy
+    acting, and the target network as aux state."""
+
+    default_exploration = "EpsilonGreedy"
+
+    def __init__(self, observation_space, action_space, config: Dict, device=None):
+        config = dict(config)
+        config["exploration_config"] = _epsilon_exploration_config(config)
+        model_cfg = config.get("model") or {}
+        for key in ("use_lstm", "use_attention", "use_transformer", "custom_model"):
+            if model_cfg.get(key):
+                raise NotImplementedError(
+                    f"DQN with model option {key!r} is not ported yet"
+                )
+        super().__init__(observation_space, action_space, config, device=device)
+
+    def _make_model(self, observation_space, action_space, num_outputs, generator):
+        cfg = {**MODEL_DEFAULTS, **self.model_config}
+        shape = tuple(observation_space.shape)
+        is_image = len(shape) == 3
+        if is_image:
+            hiddens = tuple(cfg["post_fcnet_hiddens"] or [512])
+            activation = cfg["post_fcnet_activation"]
+            filters = cfg["conv_filters"] or get_filter_config(shape)
+            conv_filters = tuple(
+                (
+                    int(c),
+                    tuple(k) if isinstance(k, (list, tuple)) else (k, k),
+                    tuple(s) if isinstance(s, (list, tuple)) else (s, s),
+                )
+                for c, k, s in filters
+            )
+        else:
+            hiddens = tuple(cfg["fcnet_hiddens"])
+            activation = cfg["fcnet_activation"]
+            conv_filters = None
+        return DQNModel(
+            shape,
+            num_outputs,
+            hiddens=hiddens,
+            activation=activation,
+            use_conv=is_image,
+            conv_filters=conv_filters,
+            conv_activation=cfg["conv_activation"],
+            conv_dtype=cfg["dtype"] or "bfloat16",
+            num_atoms=int(self.config.get("num_atoms", 1)),
+            dueling=bool(self.config.get("dueling", True)),
+            noisy=bool(self.config.get("noisy", False)),
+            generator=generator,
+        )
+
+    def _init_aux_state(self) -> Dict[str, Any]:
+        return {"target_params": [p.detach().clone() for p in self.params]}
+
+    def update_target(self) -> None:
+        """Copy the online params into the target network."""
+        self.aux_state = self._init_aux_state()
+
+    def extra_action_out(self, dist_inputs, value, dist) -> Dict[str, torch.Tensor]:
+        # the Q values already ride ACTION_DIST_INPUTS
+        return {}
+
+    # -- loss ----------------------------------------------------------------
+
+    def _q(self, params, obs: torch.Tensor) -> torch.Tensor:
+        if params is self.params:
+            return self.model_forward(obs)[0]
+        return self.functional_forward(params, obs)[0]
+
+    def _td_error(self, batch: Dict[str, torch.Tensor], aux: Dict[str, Any]):
+        """Per-row TD error ``q(s, a) - (r + gamma^n (1 - done)
+        q_target(s', a'))``, with ``a'`` the online argmax under
+        double-Q and the target argmax otherwise; ``(td_error, q_sel,
+        q_all)``."""
+        cfg = self.config
+        gamma = cfg.get("gamma", 0.99)
+        q_all = self._q(self.params, batch[SampleBatch.OBS])
+        with torch.no_grad():
+            q_next_target = self._q(aux["target_params"], batch[SampleBatch.NEXT_OBS])
+            if cfg.get("double_q", True):
+                next_q_online = self._q(self.params, batch[SampleBatch.NEXT_OBS])
+                next_actions = torch.argmax(next_q_online, dim=-1)
+            else:
+                next_actions = torch.argmax(q_next_target, dim=-1)
+        actions = batch[SampleBatch.ACTIONS].long()
+        q_sel = q_all.gather(1, actions[:, None]).squeeze(1)
+        not_done = 1.0 - batch[SampleBatch.TERMINATEDS].float()
+        steps = batch.get("n_steps")
+        if steps is not None:
+            bootstrap = torch.pow(gamma, steps.float())
+        else:
+            bootstrap = torch.full_like(q_sel, gamma ** cfg.get("n_step", 1))
+        q_next = q_next_target.gather(1, next_actions[:, None]).squeeze(1)
+        td_target = batch[SampleBatch.REWARDS] + bootstrap * not_done * q_next
+        return q_sel - td_target.detach(), q_sel, q_all
+
+    def loss_with_aux(self, batch, aux, coeffs):
+        td_error, q_sel, q_all = self._td_error(batch, aux)
+        abs_err = torch.abs(td_error)
+        per_sample = torch.where(
+            abs_err < 1.0, 0.5 * torch.square(td_error), abs_err - 0.5
+        )
+        weights = batch.get("weights")
+        if weights is None:
+            weights = torch.ones_like(per_sample)
+        loss = torch.mean(weights * per_sample)
+        with torch.no_grad():
+            stats = {
+                "mean_q": torch.mean(q_sel),
+                "mean_td_error": torch.mean(td_error),
+                "max_q": torch.max(q_all),
+            }
+        return loss, stats
+
+    def _td_input_tree(self, samples) -> Dict[str, torch.Tensor]:
+        if getattr(samples, "is_device_resident", False):
+            return samples.tree
+        return {
+            k: torch.as_tensor(np.asarray(v)).to(self.device)
+            for k, v in self._batch_to_train_tree(samples).items()
+        }
+
+    @torch.no_grad()
+    def compute_td_error(self, samples) -> np.ndarray:
+        """Per-row |TD error| for the priority refresh (host numpy f32):
+        the one readback of a replay update."""
+        td, _, _ = self._td_error(self._td_input_tree(samples), self.aux_state)
+        return np.abs(td.cpu().numpy())
+
+    def get_state(self) -> Dict[str, Any]:
+        state = super().get_state()
+        state["target_weights"] = {
+            n: t.cpu().numpy() for n, t in zip(self.param_names, self.aux_state["target_params"])
+        }
+        return state
+
+    @torch.no_grad()
+    def set_state(self, state: Dict[str, Any]) -> None:
+        super().set_state(state)
+        target = state.get("target_weights")
+        if target is None:
+            self.update_target()
+            return
+        for n, t in zip(self.param_names, self.aux_state["target_params"]):
+            t.copy_(torch.as_tensor(np.asarray(target[n])))
+
+
+class DQN(Algorithm):
+    _default_policy_class = DQNTorchPolicy
+
+    @classmethod
+    def get_default_config(cls) -> DQNConfig:
+        return DQNConfig(cls)
+
+    def __init__(self, config=None, env=None):
+        super().__init__(config, env)
+        cfg = self.config
+        rb_cfg = cfg.get("replay_buffer_config") or {}
+        prioritized = rb_cfg.get("prioritized_replay", False)
+        resolve_device_resident(cfg)  # both raise where the port has no path
+        if prioritized:
+            resolve_device_tree(cfg)
+        self.local_replay_buffer = MultiAgentReplayBuffer(
+            capacity=rb_cfg.get("capacity", 50000),
+            prioritized=prioritized,
+            alpha=rb_cfg.get("prioritized_replay_alpha", 0.6),
+            seed=cfg.get("seed"),
+            device=self.device,
+            memory_cap_bytes=cfg.get("replay_memory_cap_bytes"),
+        )
+        self._last_target_update = 0
+        self._training_debt = 0.0
+
+    # -- the device lane ---------------------------------------------------
+
+    def _jax_rollout_engine_get(self):
+        """The device rollout engine (``postprocess="none"``), built on
+        first use: N = num_envs_per_worker x max(1, num_workers) env
+        slots, T = rollout_fragment_length."""
+        if self._rollout_engine is None:
+            from ray_tpu_torch.execution.device_rollout import DeviceRolloutEngine
+
+            cfg = self.config
+            if int(cfg.get("n_step", 1)) > 1:
+                raise ValueError(
+                    "env_backend='jax' supports n_step=1 only (n-step folding "
+                    "is a host-side postprocess)"
+                )
+            n = int(cfg.get("num_envs_per_worker", 1)) * max(1, int(cfg.get("num_workers", 0)))
+            t = int(cfg.get("rollout_fragment_length", 4))
+            self._rollout_engine = DeviceRolloutEngine(
+                self.get_policy(), self.env, n, t, seed=cfg.get("seed"), postprocess="none",
+            )
+            self._extra_metric_sources.append(self._rollout_engine.get_metrics)
+        return self._rollout_engine
+
+    def _insert_rollout_tree(self, tree: Dict[str, torch.Tensor]) -> None:
+        """Absorb one rollout's device rows into the device rings."""
+        self.local_replay_buffer.add_device_tree(tree, DEFAULT_POLICY_ID)
+
+    def _jax_rollout_fill(self) -> int:
+        """One rollout into the replay buffer; returns the env steps."""
+        tree, count = self._jax_rollout_engine_get().rollout()
+        self._insert_rollout_tree(tree)
+        return count
+
+    # -- replay updates ----------------------------------------------------
+
+    def _single_update(self, prioritized: bool, kwargs: Dict) -> Dict:
+        """One replay sample + learn call, then the per-row priority
+        refresh ``|td| + 1e-6`` (added in float32, as the reference's
+        host call site rounds it)."""
+        train_info: Dict = {}
+        train_batch = self.local_replay_buffer.sample(self.config["train_batch_size"], **kwargs)
+        for pid, b in train_batch.items():
+            policy = self.get_policy(pid)
+            train_info[pid] = policy.learn_on_device_batch(dict(b.tree), b.count)
+            if prioritized:
+                self.local_replay_buffer.buffers[pid].update_priorities(
+                    b.indices, policy.compute_td_error(b) + 1e-6
+                )
+            self._counters[NUM_ENV_STEPS_TRAINED] += b.count
+        return train_info
+
+    def _replay_update_phase(self, sampled_steps: int) -> Dict:
+        """Once learning has started: ``training_intensity`` debt → the
+        number of updates this round (one by default, and always one
+        under prioritized replay, whose priorities refresh between
+        samples), then the target-network sync."""
+        cfg = self.config
+        train_info: Dict = {}
+        if not (
+            self._counters[NUM_ENV_STEPS_SAMPLED]
+            >= cfg.get("num_steps_sampled_before_learning_starts", 0)
+            and len(self.local_replay_buffer) > 0
+        ):
+            return train_info
+        rb_cfg = cfg.get("replay_buffer_config") or {}
+        prioritized = rb_cfg.get("prioritized_replay", False)
+        kwargs = {"beta": rb_cfg.get("prioritized_replay_beta", 0.4)} if prioritized else {}
+        updates = 1
+        ti = cfg.get("training_intensity")
+        if ti and not prioritized:
+            self._training_debt += sampled_steps * float(ti)
+            updates = int(self._training_debt // cfg["train_batch_size"])
+            self._training_debt -= updates * cfg["train_batch_size"]
+        for _ in range(updates):
+            train_info.update(self._single_update(prioritized, kwargs))
+        if (
+            self._counters[NUM_ENV_STEPS_TRAINED] - self._last_target_update
+            >= cfg.get("target_network_update_freq", 500)
+        ):
+            self.get_policy().update_target()
+            self._last_target_update = self._counters[NUM_ENV_STEPS_TRAINED]
+            self._counters["num_target_updates"] += 1
+        return train_info
+
+    def training_step(self) -> Dict:
+        """One round on the device lane: rollout fill, then the replay
+        update phase (K = 1)."""
+        cfg = self.config
+        if cfg.get("env_backend") != "jax":
+            raise NotImplementedError(
+                "the actor lane is not ported yet; set env_backend='jax' "
+                "to run DQN on the device lane"
+            )
+        if cfg.get("learn_while_rollout"):
+            raise NotImplementedError("learn_while_rollout is not ported yet")
+        sampled = self._jax_rollout_fill()
+        self._counters[NUM_ENV_STEPS_SAMPLED] += sampled
+        train_info = self._replay_update_phase(sampled)
+        self.get_policy().global_timestep = self._counters[NUM_ENV_STEPS_SAMPLED]
+        return train_info
+
+    # -- checkpoint state ----------------------------------------------------
+
+    def __getstate__(self) -> Dict:
+        state = super().__getstate__()
+        state["replay_buffer"] = self.local_replay_buffer.get_state()
+        state["last_target_update"] = self._last_target_update
+        return state
+
+    def __setstate__(self, state: Dict) -> None:
+        super().__setstate__(state)
+        if "replay_buffer" in state:
+            self.local_replay_buffer.set_state(state["replay_buffer"])
+        self._last_target_update = state.get("last_target_update", 0)

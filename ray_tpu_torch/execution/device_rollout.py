@@ -1,4 +1,4 @@
-"""Device rollout engine: act → step → auto-reset → GAE on the card.
+"""Device rollout engine: act → step → auto-reset (→ GAE) on the card.
 
 Counterpart of ``ray_tpu/execution/jax_rollout.py`` (``JaxRolloutEngine``),
 following its order: per step, the act forward (actions, logp, logits,
@@ -12,6 +12,9 @@ standardisation of the advantages with the population variance and
 ``max(1e-4, std)``, and env-major (N·T, ...) rows, the host lane's
 concat order. The rollout never leaves the device; only the (T, N)
 episode metrics are read back, once per rollout.
+
+``postprocess="none"`` (the replay fill of the off-policy family) emits
+the raw transition rows instead: no ``V(next_obs)`` forward and no GAE.
 
 Randomness comes from the policy's action generator and the engine's
 env generator; :class:`RolloutDraws` injects both instead (tests).
@@ -45,7 +48,8 @@ class RolloutDraws(NamedTuple):
 class DeviceRolloutEngine:
     """One policy + one TensorVectorEnv with N env slots on the
     policy's device. ``seed`` seeds the env generator (default 0);
-    ``initial_draws`` replaces the first reset's draws."""
+    ``initial_draws`` replaces the first reset's draws; ``postprocess``
+    is ``"gae"`` (on-policy batches) or ``"none"`` (raw transitions)."""
 
     def __init__(
         self,
@@ -56,9 +60,13 @@ class DeviceRolloutEngine:
         *,
         seed: Optional[int] = None,
         initial_draws: Optional[torch.Tensor] = None,
+        postprocess: str = "gae",
     ):
         if policy.model.is_recurrent:
             raise ValueError("the device lane runs feedforward models only")
+        if postprocess not in ("gae", "none"):
+            raise ValueError(f"unknown postprocess {postprocess!r}")
+        self.postprocess = postprocess
         self.policy = policy
         self.env = env
         self.device = policy.device
@@ -118,9 +126,10 @@ class DeviceRolloutEngine:
                 SampleBatch.TRUNCATEDS: trunc,
                 SampleBatch.T: ep_len,
                 **extra,
-                # fresh V(final obs) for boundary and tail bootstraps
-                "_v_next": policy.model_forward(obs2)[1],
             })
+            if self.postprocess == "gae":
+                # fresh V(final obs) for boundary and tail bootstraps
+                steps[-1]["_v_next"] = policy.model_forward(obs2)[1]
             met.append((
                 torch.where(done, ep_ret2, 0.0),
                 torch.where(done, ep_len2, 0).float(),
@@ -136,6 +145,17 @@ class DeviceRolloutEngine:
         rows[SampleBatch.AGENT_INDEX] = torch.arange(
             self.N, dtype=torch.int32, device=self.device
         ).expand(self.T, self.N)
+        if self.postprocess == "gae":
+            self._gae(rows)
+        batch = {
+            k: v.transpose(0, 1).reshape((self.batch_size,) + v.shape[2:])
+            for k, v in rows.items()
+        }
+        self._record_metrics(torch.stack([torch.stack(m) for m in met]).cpu())
+        return batch, self.batch_size
+
+    def _gae(self, rows: Dict[str, torch.Tensor]) -> None:
+        """Advantages and value targets of (T, N) rows, in place."""
         values = rows[SampleBatch.VF_PREDS]
         fresh = rows.pop("_v_next")
         term = rows[SampleBatch.TERMINATEDS]
@@ -153,13 +173,6 @@ class DeviceRolloutEngine:
         adv = (adv - m) / torch.clamp_min(torch.sqrt(var), 1e-4)
         rows[SampleBatch.ADVANTAGES] = adv.T
         rows[SampleBatch.VALUE_TARGETS] = vt.T
-
-        batch = {
-            k: v.transpose(0, 1).reshape((self.batch_size,) + v.shape[2:])
-            for k, v in rows.items()
-        }
-        self._record_metrics(torch.stack([torch.stack(m) for m in met]).cpu())
-        return batch, self.batch_size
 
     def learn_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The learn-column subset of a :meth:`rollout` batch."""

@@ -51,6 +51,28 @@ KERNELS = {
             "row_gather_error_string": ([ctypes.c_int], ctypes.c_char_p),
         },
     ),
+    "row_scatter": (
+        "row_scatter.cu",
+        (),
+        {
+            "row_scatter_launch": (
+                [_P, _P, _P, _P, _I64, _I64, _I64, _P], ctypes.c_int
+            ),
+            "row_scatter_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        },
+    ),
+    "prefix_descent": (
+        "prefix_descent.cu",
+        ("-fmad=false",),
+        {
+            "prefix_descent_launch": (
+                [_P, _P, _P, _I64, ctypes.c_int, _I64, _P], ctypes.c_int
+            ),
+            "prefix_descent_error_string": (
+                [ctypes.c_int], ctypes.c_char_p
+            ),
+        },
+    ),
     "gae_scan": (
         "gae_scan.cu",
         ("-fmad=false",),
@@ -89,6 +111,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     source, extra, _ = KERNELS[name]
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # what a source may include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + extra).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -8,8 +8,11 @@ the (N, H, W, k) stacks on the device with one row gather.
 
 :func:`gather_rows` launches the hand-written CUDA row-gather kernel
 (``csrc/row_gather.cu``) for CUDA tensors and runs its plain PyTorch
-version (:func:`gather_rows_plain`) for CPU tensors. There is no other
-choice between them: a CUDA tensor launches the kernel or raises.
+version (:func:`gather_rows_plain`) for CPU tensors. :func:`scatter_rows`
+does the same with the row-scatter kernel (``csrc/row_scatter.cu``) and
+:func:`scatter_rows_plain`: the replay ring's insert. There is no other
+choice between a kernel and its plain version: a CUDA tensor launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,54 +35,122 @@ def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return src[idx.long()]
 
 
-def _as_words(src: torch.Tensor) -> torch.Tensor:
-    """(M, ...) contiguous store → (M, D) view of 4-byte words."""
+def _row_bytes(src: torch.Tensor, what: str) -> int:
+    """Bytes per leading-axis row of a contiguous (M, ...) tensor."""
     if not src.is_contiguous():
-        raise ValueError("gather_rows needs a contiguous source")
-    row_bytes = int(np.prod(src.shape[1:])) * src.element_size()
-    if row_bytes % 4 == 0:
-        return src.reshape(src.shape[0], -1).view(torch.int32)
-    raise TypeError(
-        f"the row-gather kernel copies 4-byte words; rows of "
-        f"{src.dtype} x {tuple(src.shape[1:])} are {row_bytes} bytes"
-    )
+        raise ValueError(f"{what} needs a contiguous tensor")
+    return int(np.prod(src.shape[1:])) * src.element_size()
+
+
+def _check_cuda_index(src: torch.Tensor, idx: torch.Tensor, what: str) -> None:
+    if src.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {src.device}")
+    if idx.device != src.device:
+        raise ValueError(f"{what}: idx on {idx.device}, src on {src.device}")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{what}: integer idx required, got {idx.dtype}")
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``src[idx]`` over the leading axis. ``src``: (M, ...) of any
-    dtype whose rows are whole 4-byte words on CUDA; ``idx``: any int
-    shape. CUDA tensors go through the row-gather kernel (bitwise equal
-    to the plain version, pure data movement); CPU tensors through
+    """``src[idx]`` over the leading axis. ``src``: (M, ...) contiguous,
+    of any dtype and row width; ``idx``: any int shape. CUDA tensors go
+    through the row-gather kernel (bitwise equal to the plain version,
+    pure data movement; rows of whole 4-byte words take its word path,
+    other rows its byte path); CPU tensors through
     :func:`gather_rows_plain`."""
     if src.device.type == "cpu":
         return gather_rows_plain(src, idx)
-    if src.device.type != "cuda":
-        raise ValueError(f"gather_rows: unsupported device {src.device}")
-    if idx.device != src.device:
-        raise ValueError(
-            f"gather_rows: idx on {idx.device}, src on {src.device}"
-        )
-    if idx.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"gather_rows: integer idx required, got {idx.dtype}")
-    words = _as_words(src)
+    _check_cuda_index(src, idx, "gather_rows")
+    row_bytes = _row_bytes(src, "gather_rows")
     flat_idx = idx.reshape(-1).to(torch.int64).contiguous()
     out = torch.empty(
-        (flat_idx.shape[0], words.shape[1]), dtype=words.dtype,
+        tuple(idx.shape) + tuple(src.shape[1:]), dtype=src.dtype,
         device=src.device,
     )
     lib = _kernels.library("row_gather")
     with torch.cuda.device(src.device):
         rc = lib.row_gather_launch(
-            words.data_ptr(), flat_idx.data_ptr(), out.data_ptr(),
-            flat_idx.shape[0], words.shape[0], words.shape[1],
+            src.data_ptr(), flat_idx.data_ptr(), out.data_ptr(),
+            flat_idx.shape[0], src.shape[0], row_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(rc, lib, "row_gather_error_string", "row_gather")
     gather_rows.launches += 1
-    return out.view(src.dtype).reshape(tuple(idx.shape) + tuple(src.shape[1:]))
+    return out
 
 
 gather_rows.launches = 0
+
+
+def scatter_rows_plain(
+    ring: torch.Tensor, pos: torch.Tensor, vals: torch.Tensor
+) -> torch.Tensor:
+    """``ring[pos[i]] = vals[i]`` over the leading axis, in place, in
+    plain PyTorch; returns ``ring``. Where positions repeat, the last
+    write wins: ``ring[pos] = vals`` leaves the order of repeated
+    indices undefined, so each position's last occurrence is found
+    first (a max over row numbers, which any order computes alike) and
+    only those rows are written. Raises IndexError on a position
+    outside ``[0, M)``."""
+    pos = pos.reshape(-1).long()
+    if pos.numel() == 0:
+        return ring
+    m = ring.shape[0]
+    if int(pos.min()) < 0 or int(pos.max()) >= m:
+        raise IndexError(f"scatter_rows: a position is outside [0, {m})")
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    owner = torch.full((m,), -1, dtype=torch.int64, device=pos.device)
+    owner.scatter_reduce_(0, pos, rows, reduce="amax")
+    last = owner[pos] == rows
+    ring[pos[last]] = vals.reshape((pos.shape[0],) + tuple(ring.shape[1:]))[last]
+    return ring
+
+
+def scatter_rows(
+    ring: torch.Tensor, pos: torch.Tensor, vals: torch.Tensor
+) -> torch.Tensor:
+    """``ring[pos[i]] = vals[i]`` over the leading axis, **in place**
+    (the reference aliased the ring into its output; the port writes
+    the ring tensor itself and returns it). ``ring``: (M, ...)
+    contiguous; ``pos``: (R,) int; ``vals``: (R, ...) of ring's dtype
+    and row shape. Rows no position names keep their contents; where
+    positions repeat, the last write wins. CUDA tensors go through the
+    row-scatter kernel (bitwise equal to the plain version); CPU
+    tensors through :func:`scatter_rows_plain`."""
+    if vals.dtype != ring.dtype:
+        raise TypeError(
+            f"scatter_rows: vals {vals.dtype} into a {ring.dtype} ring"
+        )
+    r = int(pos.numel())
+    if tuple(vals.shape) != (r,) + tuple(ring.shape[1:]):
+        raise ValueError(
+            f"scatter_rows: vals {tuple(vals.shape)} for {r} rows of "
+            f"{tuple(ring.shape[1:])}"
+        )
+    if ring.device.type == "cpu":
+        return scatter_rows_plain(ring, pos, vals)
+    _check_cuda_index(ring, pos, "scatter_rows")
+    if vals.device != ring.device:
+        raise ValueError(f"scatter_rows: vals on {vals.device}, ring on {ring.device}")
+    row_bytes = _row_bytes(ring, "scatter_rows")
+    if r >= 2**31:
+        raise ValueError(f"scatter_rows: {r} rows (at most 2^31 - 1)")
+    flat_pos = pos.reshape(-1).to(torch.int64).contiguous()
+    vals = vals.contiguous()
+    owner = torch.empty(ring.shape[0], dtype=torch.int32, device=ring.device)
+    lib = _kernels.library("row_scatter")
+    with torch.cuda.device(ring.device):
+        rc = lib.row_scatter_launch(
+            vals.data_ptr(), flat_pos.data_ptr(), ring.data_ptr(),
+            owner.data_ptr(), r, ring.shape[0], row_bytes,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(rc, lib, "row_scatter_error_string", "row_scatter")
+    scatter_rows.launches += 1
+    return ring
+
+
+scatter_rows.launches = 0
 
 
 def build_stacks(frames: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:

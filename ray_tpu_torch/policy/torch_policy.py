@@ -107,12 +107,14 @@ class TorchPolicy(Policy):
             action_space, self.model_config
         )
         seed = int(config.get("seed") or 0)
-        self.model = ModelCatalog.get_model(
+        self.model = self._make_model(
             observation_space, action_space, self.num_outputs,
-            self.model_config, generator=torch.Generator().manual_seed(seed),
+            torch.Generator().manual_seed(seed),
         ).to(self.device)
         self.param_names = [n for n, _ in self.model.named_parameters()]
         self.params = [p for _, p in self.model.named_parameters()]
+        # non-gradient state the loss reads (DQN's target network)
+        self.aux_state: Dict[str, Any] = self._init_aux_state()
 
         self.grad_clip = config.get("grad_clip")
         self.adam_eps = float(config.get("adam_epsilon", 1e-8))
@@ -151,13 +153,31 @@ class TorchPolicy(Policy):
 
     # -- subclass hooks --------------------------------------------------
 
+    def _make_model(self, observation_space, action_space, num_outputs, generator):
+        """The policy's model on the CPU, initialised from ``generator``."""
+        return ModelCatalog.get_model(
+            observation_space, action_space, num_outputs, self.model_config,
+            generator=generator,
+        )
+
     def _init_coeffs(self) -> None:
         """Subclasses add extra coefficients to self.coeff_values."""
+
+    def _init_aux_state(self) -> Dict[str, Any]:
+        """Initial non-gradient state, e.g. target-network params."""
+        return {}
 
     def loss(
         self, batch: Dict[str, torch.Tensor], coeffs: Dict[str, float]
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         raise NotImplementedError
+
+    def loss_with_aux(
+        self, batch: Dict[str, torch.Tensor], aux: Dict[str, Any], coeffs: Dict[str, float]
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The nest's loss entry point; ``aux`` is :attr:`aux_state`.
+        Policies without aux state ignore it."""
+        return self.loss(batch, coeffs)
 
     def extra_action_out(self, dist_inputs, value, dist) -> Dict[str, torch.Tensor]:
         return {SampleBatch.VF_PREDS: value}
@@ -171,6 +191,13 @@ class TorchPolicy(Policy):
     def model_forward(self, obs: torch.Tensor):
         """(dist_inputs, value, state_out) for a flat (N, ...) obs batch."""
         return self.model(obs)
+
+    def functional_forward(self, params: List[torch.Tensor], obs: torch.Tensor):
+        """:meth:`model_forward` with another parameter list in the
+        order of :attr:`param_names` (e.g. target-network params)."""
+        return torch.func.functional_call(
+            self.model, dict(zip(self.param_names, params)), (obs,)
+        )
 
     def _action_step_body(
         self,
@@ -305,7 +332,7 @@ class TorchPolicy(Policy):
             idx = perms[epoch, : num_mb * mb].reshape(num_mb, mb)
             for j in range(num_mb):
                 minibatch = {k: v[idx[j]] for k, v in batch.items()}
-                loss, stats = self.loss(minibatch, coeffs)
+                loss, stats = self.loss_with_aux(minibatch, self.aux_state, coeffs)
                 grads = torch.autograd.grad(loss, self.params)
                 last = epoch == self.num_sgd_iter - 1 and j == num_mb - 1
                 gnorm = global_norm(grads) if last else torch.zeros(

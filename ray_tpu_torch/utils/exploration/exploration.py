@@ -1,9 +1,11 @@
 """Exploration strategy API and stochastic sampling.
 
-Counterpart of ``ray_tpu/utils/exploration/exploration.py``; this slice
-ports :class:`StochasticSampling`, the default of the PPO family. A
-strategy's ``sample_fn`` turns an action distribution into actions and
-their log-probabilities, drawing from the caller's generator.
+Counterpart of ``ray_tpu/utils/exploration/exploration.py``; ported:
+:class:`StochasticSampling`, the default of the PPO family, and
+:class:`EpsilonGreedy`, the DQN family's. A strategy's ``sample_fn``
+turns an action distribution into actions and their log-probabilities,
+drawing from the caller's generator; scheduled knobs (epsilon) live in
+the policy's ``coeff_values`` and advance on the host.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ray_tpu_torch.utils.schedules import PiecewiseSchedule
 
 
 class Exploration:
@@ -49,7 +53,47 @@ class StochasticSampling(Exploration):
     otherwise (the base-class behaviour, named for config symmetry)."""
 
 
-_REGISTRY = {"StochasticSampling": StochasticSampling}
+class EpsilonGreedy(Exploration):
+    """Epsilon-greedy over the distribution's greedy action, with epsilon
+    annealed linearly from ``initial_epsilon`` to ``final_epsilon`` over
+    ``epsilon_timesteps`` (``coeffs["epsilon"]``). Exploring, each row
+    takes a uniform random action with probability epsilon; the draws
+    (a uniform action, then a uniform [0, 1) decision, per row) come
+    from the caller's generator, so they are not the reference's
+    ``jax.random`` draws."""
+
+    def __init__(self, action_space, config, model_config=None):
+        super().__init__(action_space, config, model_config)
+        cfg = self.config
+        self.schedule = PiecewiseSchedule([
+            (0, float(cfg.get("initial_epsilon", 1.0))),
+            (int(cfg.get("epsilon_timesteps", 10000)), float(cfg.get("final_epsilon", 0.02))),
+        ])
+
+    def init_coeffs(self) -> Dict[str, float]:
+        return {"epsilon": float(self.schedule(0))}
+
+    def update_coeffs(self, coeff_values: Dict, timestep: int) -> None:
+        coeff_values["epsilon"] = float(self.schedule(timestep))
+
+    def sample_fn(self, dist, generator, explore, coeffs, state):
+        greedy = dist.deterministic_sample()
+        if not explore:
+            return greedy, dist.logp(greedy), state
+        num_actions = dist.inputs.shape[-1]
+        device = dist.inputs.device
+        random_actions = torch.randint(
+            0, num_actions, greedy.shape, generator=generator, device=device
+        )
+        use_random = (
+            torch.rand(greedy.shape, generator=generator, device=device)
+            < coeffs["epsilon"]
+        )
+        actions = torch.where(use_random, random_actions, greedy)
+        return actions, dist.logp(actions), state
+
+
+_REGISTRY = {"StochasticSampling": StochasticSampling, "EpsilonGreedy": EpsilonGreedy}
 
 
 def exploration_from_config(

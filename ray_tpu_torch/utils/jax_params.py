@@ -11,10 +11,16 @@ imports JAX) and maps flax's layouts onto the port's:
 Flax flattens its last conv map in (H, W, C) order. The port's
 ``VisionNet`` flattens its NCHW map in that same (H, W, C) order, so
 ``post_fc_0``'s rows need no permutation: the kernel is only transposed.
+
+Layer names pass through unchanged, except the flax ``DQNModel``'s
+private ones (:data:`FLAX_RENAMES`): ``_convs_i`` → ``conv_i``,
+``_fcs_i`` → ``fc_i``, ``_adv_head`` → ``adv_head``, ``_value_head`` →
+``value_head``.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Tuple
 
 import numpy as np
@@ -22,12 +28,29 @@ import torch
 from torch import nn
 
 
+# (flax layer-name pattern, port layer name)
+FLAX_RENAMES = (
+    (re.compile(r"^_convs_(\d+)$"), r"conv_\1"),
+    (re.compile(r"^_fcs_(\d+)$"), r"fc_\1"),
+    (re.compile(r"^_adv_head$"), "adv_head"),
+    (re.compile(r"^_value_head$"), "value_head"),
+)
+
+
+def port_layer_name(flax_name: str) -> str:
+    for pattern, repl in FLAX_RENAMES:
+        if pattern.match(flax_name):
+            return pattern.sub(repl, flax_name)
+    return flax_name
+
+
 def flax_to_state_dict(tree) -> Dict[str, np.ndarray]:
     """Flax param tree → ``{"layer.weight" | "layer.bias": array}`` in
-    PyTorch layouts."""
+    PyTorch layouts and the port's layer names."""
     params = tree.get("params", tree)
     out = {}
-    for layer, leaves in params.items():
+    for flax_layer, leaves in params.items():
+        layer = port_layer_name(flax_layer)
         kernel = np.asarray(leaves["kernel"])
         if kernel.ndim == 4:  # HWIO → OIHW
             out[f"{layer}.weight"] = np.transpose(kernel, (3, 2, 0, 1))

@@ -5,8 +5,11 @@ without a CUDA device. Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Contracts: bitwise for both kernels (the row gather is data movement;
-the GAE kernel rounds every operation in the plain version's order).
+Contracts: bitwise for every kernel (the row gather and the row scatter
+are data movement; the GAE kernel and the f64 prefix descent round every
+operation in the plain version's order). The device sum tree's whole
+draw agrees with the host trees bitwise in its indices; its IS weights
+within 1 float32 ulp (host and card round the f64 ``pow`` apart).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.ops import framestack, gae
+from ray_tpu_torch.ops import framestack, gae, segment_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -52,13 +55,126 @@ def test_row_gather_refuses_what_it_cannot_copy(cuda):
     src = torch.zeros((8, 6), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         framestack.gather_rows(src.t(), torch.zeros(2, dtype=torch.int64, device=cuda))
-    with pytest.raises(TypeError, match="4-byte words"):
-        framestack.gather_rows(
-            torch.zeros((8, 3), dtype=torch.uint8, device=cuda),
-            torch.zeros(2, dtype=torch.int64, device=cuda),
-        )
     with pytest.raises(ValueError, match="idx on"):
         framestack.gather_rows(src, torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(TypeError, match="integer idx"):
+        framestack.gather_rows(src, torch.zeros(2, device=cuda))
+
+
+# rows that are not whole 4-byte words take the kernel's byte path
+BYTE_ROWS = [
+    (torch.bool, ()), (torch.uint8, ()), (torch.uint8, (3,)), (torch.uint8, (7056 + 1,)),
+    (torch.int16, ()), (torch.float16, (5,)), (torch.bfloat16, (3, 3)),
+]
+
+
+def _rand_rows(shape, dtype, gen, device):
+    raw = torch.randint(0, 2 if dtype == torch.bool else 127, shape, device=device, generator=gen)
+    return raw.to(dtype)
+
+
+@pytest.mark.parametrize("dtype,row", BYTE_ROWS)
+def test_row_gather_byte_rows_bitwise(cuda, dtype, row):
+    gen = torch.Generator(device=cuda).manual_seed(len(row))
+    src = _rand_rows((5000,) + row, dtype, gen, cuda)
+    idx = torch.randint(0, 5000, (32, 3), device=cuda, generator=gen)
+    before = framestack.gather_rows.launches
+    got = framestack.gather_rows(src, idx)
+    assert framestack.gather_rows.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, framestack.gather_rows_plain(src, idx))
+
+
+SCATTER_ROWS = [(torch.int32, (1764,)), (torch.int32, (7,))] + BYTE_ROWS + [(torch.float64, (1,))]
+
+
+@pytest.mark.parametrize("positions", ["wrapping", "duplicates", "whole_ring"])
+@pytest.mark.parametrize("dtype,row", SCATTER_ROWS)
+def test_scatter_rows_kernel_bitwise(cuda, dtype, row, positions):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    m = 3000
+    if positions == "wrapping":
+        pos = (m - 20 + torch.arange(64, device=cuda)) % m
+    elif positions == "duplicates":
+        pos = torch.randint(0, 200, (640,), device=cuda, generator=gen)
+    else:
+        pos = torch.randperm(m, device=cuda, generator=gen)
+    ring = _rand_rows((m,) + row, dtype, gen, cuda)
+    vals = _rand_rows((pos.shape[0],) + row, dtype, gen, cuda)
+    want = framestack.scatter_rows_plain(ring.clone(), pos, vals)
+    before = framestack.scatter_rows.launches
+    got = framestack.scatter_rows(ring, pos.to(torch.int32), vals)
+    assert framestack.scatter_rows.launches == before + 1
+    assert got is ring and torch.equal(ring, want)
+
+
+def test_scatter_rows_refuses_out_of_range(cuda):
+    ring = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="vals on"):
+        framestack.scatter_rows(ring, torch.zeros(1, dtype=torch.int64, device=cuda),
+                                torch.zeros((1, 4), dtype=torch.int32))
+    with pytest.raises(TypeError, match="integer idx"):
+        framestack.scatter_rows(ring, torch.zeros(1, device=cuda),
+                                torch.zeros((1, 4), dtype=torch.int32, device=cuda))
+
+
+def _host_tree(cap, size, seed):
+    from ray_tpu_torch.execution.replay_buffer import powered_priorities
+
+    rng = np.random.default_rng(seed)
+    host = segment_tree.SumSegmentTree(cap)
+    powered, _ = powered_priorities(rng.random(size) * 3, 0.6)
+    powered[rng.random(size) < 0.1] = 0.0
+    host.set_items(np.arange(size), powered)
+    return host, rng
+
+
+@pytest.mark.parametrize("cap,size,n", [(1, 1, 8), (2, 2, 8), (1024, 700, 32), (65536, 50000, 32),
+                                        (65536, 50000, 4096)])
+def test_find_prefixsum_kernel_bitwise(cuda, cap, size, n):
+    host, rng = _host_tree(cap, size, cap + n)
+    total = host.sum(0, size)
+    mass = np.concatenate([
+        (rng.random(n) + np.arange(n)) / n * total,
+        [host.value[1 << k] for k in range(cap.bit_length())],
+        [0.0, total, np.nextafter(total, np.inf), 2 * total],
+    ])
+    tree = torch.as_tensor(host.value, device=cuda)
+    m = torch.as_tensor(mass, device=cuda)
+    before = segment_tree.find_prefixsum.launches
+    got = segment_tree.find_prefixsum(tree, m, cap)
+    assert segment_tree.find_prefixsum.launches == before + 1
+    assert torch.equal(got, segment_tree.find_prefixsum_plain(tree, m, cap))
+    np.testing.assert_array_equal(got.cpu().numpy(), host.find_prefixsum_idx(mass))
+
+
+def test_device_sum_tree_on_card_matches_host(cuda):
+    """Leaf writes with repeated indices, the rebuild and the whole f64
+    draw on the card: bitwise the host trees' (weights within 1 f32 ulp)."""
+    from ray_tpu_torch.execution.replay_buffer import powered_priorities
+
+    cap, size = 4096, 3000
+    rng = np.random.default_rng(0)
+    hs, hm = segment_tree.SumSegmentTree(cap), segment_tree.MinSegmentTree(cap)
+    dt = segment_tree.DeviceSumTree(cap, cuda)
+    for step in range(5):
+        idx = rng.integers(0, size, 64)
+        idx[1::5] = idx[0]
+        pv, _ = powered_priorities(rng.random(64) * 3 + 0.01, 0.6)
+        if step == 0:
+            idx, pv = np.arange(size), powered_priorities(rng.random(size) + 0.01, 0.6)[0]
+        for t in (hs, hm):
+            t.set_items(idx, pv)
+        dt.set_powered(torch.as_tensor(idx, device=cuda), pv)
+        assert dt.sum_value.cpu().numpy().tobytes() == hs.value.tobytes()
+        assert dt.min_value.cpu().numpy().tobytes() == hm.value.tobytes()
+        rand = rng.random(32)
+        got_idx, w = dt.draw(rand, size, 0.4)
+        total = hs.sum(0, size)
+        want = np.clip(hs.find_prefixsum_idx((rand + np.arange(32)) / 32 * total), 0, size - 1)
+        np.testing.assert_array_equal(got_idx.cpu().numpy(), want)
+        hw = ((hs[want] / total * size) ** -0.4 / (hm.min(0, size) / total * size) ** -0.4)
+        ulps = np.abs(w.cpu().numpy().view(np.int32) - hw.astype(np.float32).view(np.int32))
+        assert ulps.max() <= 1
 
 
 @pytest.mark.parametrize("n,t", [(16, 128), (1, 1), (3, 1), (5, 7), (33, 300), (257, 64)])
