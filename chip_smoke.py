@@ -29,16 +29,24 @@ and ``nvcc``. Phases, each printing its own lines:
                the total) and at capacities 1 and 2; the device tree's
                leaf write (repeated indices) and draw against the host
                trees; times, and ``searchsorted`` as a yardstick;
-6. learner  -- ``PPOTorchPolicy.learn_on_batch`` twice on a frame-pool
+6. flash    -- the flash-attention kernel against its plain version
+               (within 2e-5 abs/rel in f32, 3e-2 in bf16, rows that see
+               no key exactly 0): the torso's four path shapes (B·H =
+               2048, 4096, 128, 256 at T = S = 8, D = 32), the
+               reference test's shapes and offsets, D in {16, 32, 64,
+               128} and one bf16 case; at the learner shape, times of
+               kernel, plain version and ``scaled_dot_product_attention``
+               with the same band mask, and the bound;
+7. learner  -- ``PPOTorchPolicy.learn_on_batch`` twice on a frame-pool
                batch at the bench geometry (84x84x4, 6 actions, B=4096,
                minibatch 512, 10 epochs, lr 5e-5): env-steps/s, finite
                stats, and the row-gather launches of that run;
-7. lane     -- ``PPO`` from tuned_examples/ppo/ponglitejax-ppo.yaml for 2
+8. lane     -- ``PPO`` from tuned_examples/ppo/ponglitejax-ppo.yaml for 2
                training iterations on the device lane (N=16, T=128,
                minibatch 512, 6 epochs): reward, env-steps/s, the GAE
                launches of that run, and that params, env state and batch
                live on the card;
-8. dqn      -- ``DQN`` on the PongLite device lane at full width
+9. dqn      -- ``DQN`` on the PongLite device lane at full width
                (:func:`dqn_config`) for 16 + 24 iterations, past learning
                starts and a target update: env-steps/s and updates/s over
                the last 23 (the first update's set-up is timed apart), the
@@ -47,13 +55,26 @@ and ``nvcc``. Phases, each printing its own lines:
                one synchronised split (fill, insert, sample, learn,
                priority update), then the same update with the ring
                filled to 50000 rows;
-               (phases 7 and 8 also print the device's busy share over
+               (phases 8 and 9 also print the device's busy share over
                a few more iterations, from ``torch.profiler``);
-9. a ``{"kernels": [...]}`` line, the card's name and power limit, and
+10. transformer_learner -- the decoder-transformer torso at the width of
+               bench.py's model-parallel A/B (d_model 256, 4 layers, 8
+               heads of 32, ff 1024, 8 tokens): ``PPOTorchPolicy.
+               learn_on_batch`` twice on Box(64) obs and Discrete(8),
+               batch 512, minibatch 256, 2 epochs, lr 3e-4, seed 0:
+               env-steps/s, flash launches, finite stats, parameter
+               count and peak memory;
+11. transformer_lane -- ponglitejax-ppo.yaml with that torso for 2
+               training iterations: env-steps/s, flash and GAE launches,
+               on-card checks and the device's busy share;
+12. transformer_dqn -- :func:`dqn_config` with that torso, 16 fill and 8
+               update iterations: updates/s and the flash, gather,
+               scatter and descent launches;
+13. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before phases 6, 7 and 8 and read just
-after; the comparison launches of phases 2-5 do not count. Any
+Launch counts are set to 0 just before each of phases 7-12 and read
+just after; the comparison launches of phases 2-6 do not count. Any
 failed check raises, and the script exits non-zero without printing a
 result. Without a CUDA device it exits 1 at once.
 """
@@ -76,6 +97,13 @@ TUNED = os.path.join(REPO, "tuned_examples", "ppo", "ponglitejax-ppo.yaml")
 REPLAY_CAPACITY, TREE_CAPACITY = 50000, 65536
 TRAIN_BATCH, INSERT_ROWS = 32, 64  # one sample; 16 envs x 4 steps per insert
 OBS_WORDS = 84 * 84 // 4  # one 84x84x1 uint8 frame as int32 words
+F32_FLOPS_PER_S = 67e12  # H100 SXM published f32 rate outside the tensor cores
+# the decoder-transformer torso at the width of bench.py's --model-parallel A/B
+TORSO = {
+    "use_transformer": True, "transformer_dim": 256, "transformer_num_layers": 4,
+    "transformer_num_heads": 8, "transformer_ff_dim": 1024, "transformer_seq_len": 8,
+}
+TF_B, TF_OBS, TF_ACTIONS = 512, 64, 8
 
 
 def say(phase, **kv):
@@ -716,6 +744,227 @@ def phase_dqn():
     return launches
 
 
+def _flash_inputs(gen, b, h, t, s, d, dtype):
+    import torch
+
+    return [torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype) for n in (t, s, s)]
+
+
+def phase_flash():
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    heads = TORSO["transformer_num_heads"]
+    dh = TORSO["transformer_dim"] // heads
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    # (name, B, H, T, S, D, offset, dtype): the torso's path shapes (B·H =
+    # 2048 learner minibatch, 4096 lane minibatch, 128 lane act step, 256
+    # DQN forward), the reference test's shapes and offsets, head widths
+    cases = [
+        ("learner", TF_B // 2, heads, 8, 8, dh, 0, f32),
+        ("lane_learn", 512, heads, 8, 8, dh, 0, f32),
+        ("lane_act", 16, heads, 8, 8, dh, 0, f32),
+        ("dqn", TRAIN_BATCH, heads, 8, 8, dh, 0, f32),
+        ("full_24x40", 2, 2, 24, 40, 16, None, f32),
+        ("band16_24x40", 2, 2, 24, 40, 16, 16, f32),
+        ("causal_32x32", 2, 2, 32, 32, 16, 0, f32),
+        ("band7_130x200", 2, 2, 130, 200, 16, 7, f32),
+        ("zero_rows_8x8_m3", 2, 2, 8, 8, 16, -3, f32),
+    ] + [(f"d{d}", 64, 4, 16, 16, d, 0, f32) for d in (16, 32, 64, 128)] + [
+        ("bf16_16x16", 2, 2, 16, 16, 16, None, bf16),
+    ]
+    errs = {}
+    for name, b, h, t, s, d, off, dtype in cases:
+        q, k, v = _flash_inputs(gen, b, h, t, s, d, dtype)
+        got = flash_attention(q, k, v, causal_offset=off)
+        want = reference_attention(q.reshape(b * h, t, d), k.reshape(b * h, s, d),
+                                    v.reshape(b * h, s, d), off).reshape(b, h, t, d)
+        torch.cuda.synchronize()
+        require(got.dtype == dtype and got.shape == (b, h, t, d), f"flash output of {name}")
+        tol = 3e-2 if dtype == bf16 else 2e-5
+        require(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+                f"flash kernel differs from plain at {name}")
+        errs[name] = float((got.float() - want.float()).abs().max())
+        if off is not None and off < 0:
+            require(torch.equal(got[:, :, :-off], torch.zeros_like(got[:, :, :-off])),
+                    "rows that see no key are not exactly 0")
+            require(bool(got[:, :, -off:].abs().max() > 0), "rows that see keys are 0")
+    worst = max(errs[c[0]] for c in cases if c[-1] == f32)
+    say("flash", checked=json.dumps(errs), max_abs_err_f32=worst, max_abs_err_bf16=errs["bf16_16x16"],
+        zero_rows_exact=True)
+
+    # times at the learner minibatch (B·H = 2048, T = S = 8, D = 32, f32)
+    lib = _kernels.library("flash_fwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    shape_ms = {}
+    for name, b, h, t, s, d, off, dtype in cases[:4]:
+        q, k, v = _flash_inputs(gen, b, h, t, s, d, dtype)
+        out = torch.empty_like(q)
+        shape_ms[name] = cuda_ms(lambda: lib.flash_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, s, d, 0, 1, off,
+            stream), iters=200)
+    name, b, h, t, s, d, off, dtype = cases[0]
+    q, k, v = _flash_inputs(gen, b, h, t, s, d, dtype)
+    n = b * h
+    mask = torch.arange(s, device="cuda")[None, :] <= torch.arange(t, device="cuda")[:, None] + off
+    ms = shape_ms[name]
+    wrapper_ms = cuda_ms(lambda: flash_attention(q, k, v, causal_offset=off), iters=200)
+    plain_ms = cuda_ms(lambda: reference_attention(
+        q.reshape(n, t, d), k.reshape(n, s, d), v.reshape(n, s, d), off), iters=200)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters=200)
+    sdpa_err = float((F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                      - flash_attention(q, k, v, causal_offset=off)).abs().max())
+    # bytes: q, k, v read once and o written once; operations: a
+    # multiply-add for q·k and one for p·v per visible (query, key) pair
+    nbytes = 4 * n * t * d * 4
+    pairs = int(mask.sum())
+    flops = 4 * n * pairs * d
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    bound_ms = max(by_bytes, by_ops)
+    say("flash", ms=f"{ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+        sdpa_ms=f"{lib_ms:.5f}", sdpa_max_abs_diff=sdpa_err, bound_ms=f"{bound_ms:.6f}",
+        bytes=nbytes, flops=flops, shape=f"B*H={n} T={t} S={s} D={d} f32 band 0",
+        kernel_ms_by_path=json.dumps({k: round(v, 5) for k, v in shape_ms.items()}))
+    return {
+        "name": "flash_fwd", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:117",
+        "max_abs_err": worst, "max_abs_err_bf16": errs["bf16_16x16"],
+        "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "library_ms": lib_ms, "kernel_ms_by_path": shape_ms, "passed": True,
+    }
+
+
+def phase_transformer_learner():
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+    from ray_tpu_torch.env.spaces import Box, Discrete
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+
+    policy = PPOTorchPolicy(
+        Box(-1, 1, (TF_OBS,), np.float32), Discrete(TF_ACTIONS),
+        {"train_batch_size": TF_B, "sgd_minibatch_size": TF_B // 2, "num_sgd_iter": 2,
+         "lr": 3e-4, "seed": 0, "model": dict(TORSO)},
+    )
+    require(all(p.is_cuda for p in policy.params), "torso params are not on the card")
+    rng = np.random.default_rng(0)  # the batch of bench.py's model-parallel A/B
+    batch = {
+        "obs": rng.standard_normal((TF_B, TF_OBS)).astype(np.float32),
+        "actions": rng.integers(0, TF_ACTIONS, TF_B).astype(np.int64),
+        "action_logp": np.full(TF_B, -2.0, np.float32),
+        "action_dist_inputs": rng.standard_normal((TF_B, TF_ACTIONS)).astype(np.float32),
+        "advantages": rng.standard_normal(TF_B).astype(np.float32),
+        "value_targets": rng.standard_normal(TF_B).astype(np.float32),
+    }
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    times, stats = [], None
+    for _ in range(2):
+        t0 = time.perf_counter()
+        stats = policy.learn_on_batch(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = flash_attention.launches
+    require(launches >= 1, "the transformer learner did not launch the flash kernel")
+    require(all(math.isfinite(v) for v in stats.values()), f"non-finite learner stats {stats}")
+    say("transformer_learner", env_steps_per_s=f"{TF_B / times[1]:.1f}",
+        call_s=json.dumps([round(t, 4) for t in times]), flash_launches=launches,
+        num_params=policy.model.num_params(), params_total=sum(p.numel() for p in policy.params),
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}", on_card=True)
+    say("transformer_learner", stats=json.dumps({k: round(v, 6) for k, v in stats.items()}))
+    return launches
+
+
+def phase_transformer_lane():
+    import torch
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.gae import compute_gae_fragment
+    from ray_tpu_torch.utils.tuned_example import load_tuned_example
+
+    (exp,) = load_tuned_example(TUNED).values()
+    cfg = PPOConfig().update_from_dict({**exp["config"], "model": dict(TORSO)})
+    cfg.env = exp["env"]
+    algo = cfg.build()
+    flash_attention.launches = 0
+    compute_gae_fragment.launches = 0
+    results, times = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        results.append(algo.train())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {"flash": flash_attention.launches, "gae": compute_gae_fragment.launches}
+    require(min(launches.values()) >= 1, f"the transformer lane missed a kernel: {launches}")
+    policy, eng = algo.get_policy(), algo._rollout_engine
+    batch, bsize = eng.rollout()
+    on_card = (
+        all(p.is_cuda for p in policy.params)
+        and all(v.is_cuda for v in eng.carry["env"].values())
+        and all(v.is_cuda for v in batch.values())
+    )
+    require(on_card, "params, env state or batch left the card")
+    for k in ("advantages", "value_targets", "vf_preds", "action_logp"):
+        require(bool(torch.isfinite(batch[k]).all()), f"non-finite {k}")
+    learner = results[-1]["info"]["learner"]["default_policy"]
+    require(all(math.isfinite(v) for v in learner.values()), f"non-finite learner stats {learner}")
+    say("transformer_lane", episode_reward_mean=results[-1]["episode_reward_mean"],
+        env_steps_per_s=f"{bsize / times[1]:.1f}", iter_s=json.dumps([round(t, 4) for t in times]),
+        launches=json.dumps(launches), on_card=on_card, batch_size=bsize)
+    say("transformer_lane", learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
+    say("transformer_lane", device_busy=json.dumps(device_busy(algo.train, 1)))
+    return launches
+
+
+def phase_transformer_dqn():
+    import torch
+
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.framestack import gather_rows, scatter_rows
+    from ray_tpu_torch.ops.segment_tree import find_prefixsum
+
+    algo = dqn_config().training(model=dict(TORSO)).build()
+    policy = algo.get_policy()
+    kernels = (flash_attention, gather_rows, scatter_rows, find_prefixsum)
+    for k in kernels:
+        k.launches = 0
+    fill, learn_iters = 16, 8
+    for _ in range(fill):  # up to learning starts (16 x 64 = 1024 steps)
+        algo.train()
+    torch.cuda.synchronize()
+    trained0 = algo._counters["num_env_steps_trained"]
+    t0 = time.perf_counter()
+    results = [algo.train() for _ in range(learn_iters)]
+    torch.cuda.synchronize()
+    learn_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    for name, n in launches.items():
+        require(n >= 1, f"the transformer DQN lane did not launch {name}")
+    info = results[-1]["info"]
+    updates = (info["num_env_steps_trained"] - trained0) // TRAIN_BATCH
+    require(updates >= 1, f"no replay update in {learn_iters} iterations: {info}")
+    learner = info["learner"]["default_policy"]
+    require(all(math.isfinite(v) for v in learner.values()), f"non-finite learner stats {learner}")
+    on_card = (all(p.is_cuda for p in policy.params)
+               and all(t.is_cuda for t in policy.aux_state["target_params"]))
+    require(on_card, "torso or target params left the card")
+    say("transformer_dqn", iters=fill + learn_iters, updates=updates,
+        updates_per_s=f"{updates / learn_s:.2f}",
+        env_steps_per_s=f"{learn_iters * INSERT_ROWS / learn_s:.1f}",
+        launches=json.dumps(launches), on_card=on_card,
+        num_env_steps_trained=info["num_env_steps_trained"])
+    say("transformer_dqn", learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
+    return launches
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -747,15 +996,28 @@ def main() -> int:
     gae = phase_gae()
     scatter = phase_scatter()
     descent = phase_descent(rng)
+    flash = phase_flash()
     # the main paths, each with its launch counts set to 0 just before
     learner_gathers = phase_learner(rng)
-    gae["launches"] = phase_lane()
+    lane_gaes = phase_lane()
     dqn = phase_dqn()
-    gather["launches"] = learner_gathers + dqn["gather_rows"]
-    gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"]}
-    scatter["launches"] = dqn["scatter_rows"]
-    descent["launches"] = dqn["find_prefixsum"]
-    print(json.dumps({"kernels": [gather, gae, scatter, descent]}), flush=True)
+    tf_learner = phase_transformer_learner()
+    tf_lane = phase_transformer_lane()
+    tf_dqn = phase_transformer_dqn()
+    gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"],
+                                  "transformer_dqn": tf_dqn["gather_rows"]}
+    gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"]}
+    scatter["launches_by_path"] = {"dqn": dqn["scatter_rows"],
+                                   "transformer_dqn": tf_dqn["scatter_rows"]}
+    descent["launches_by_path"] = {"dqn": dqn["find_prefixsum"],
+                                   "transformer_dqn": tf_dqn["find_prefixsum"]}
+    flash["launches_by_path"] = {"transformer_learner": tf_learner,
+                                 "transformer_lane": tf_lane["flash"],
+                                 "transformer_dqn": tf_dqn["flash_attention"]}
+    kernels = [gather, gae, scatter, descent, flash]
+    for k in kernels:
+        k["launches"] = sum(k["launches_by_path"].values())
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({
         "ok": True,

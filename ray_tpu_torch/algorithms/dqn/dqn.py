@@ -10,6 +10,10 @@ and a priority write. The target network is the policy's aux state,
 copied from the online params every ``target_network_update_freq``
 trained steps.
 
+With ``model: {"use_transformer": True}`` the policy takes the catalog's
+transformer torso instead of ``DQNModel`` and reads its logits as Q
+values, as the reference's fallback does.
+
 Not ported yet (ROADMAP queue 1): the actor lane, ``n_step > 1`` on the
 lane (n-step folding is a host postprocess), C51 and noisy heads, the
 chained/superstep update (K > 1) and ``learn_while_rollout``.
@@ -121,14 +125,30 @@ class DQNTorchPolicy(TorchPolicy):
         config = dict(config)
         config["exploration_config"] = _epsilon_exploration_config(config)
         model_cfg = config.get("model") or {}
-        for key in ("use_lstm", "use_attention", "use_transformer", "custom_model"):
+        for key in ("use_lstm", "use_attention", "custom_model"):
             if model_cfg.get(key):
                 raise NotImplementedError(
                     f"DQN with model option {key!r} is not ported yet"
                 )
+        # the catalog's torso stands in for DQNModel and its logits are
+        # read as Q values: no atoms, no weight noise
+        self._uses_dqn_model = not model_cfg.get("use_transformer")
+        if not self._uses_dqn_model:
+            if int(config.get("num_atoms", 1)) > 1:
+                raise ValueError(
+                    "distributional Q (num_atoms > 1) requires the built-in "
+                    "DQNModel; it is unavailable with use_transformer"
+                )
+            if config.get("noisy"):
+                raise ValueError(
+                    "noisy nets require the built-in DQNModel; unavailable "
+                    "with use_transformer"
+                )
         super().__init__(observation_space, action_space, config, device=device)
 
     def _make_model(self, observation_space, action_space, num_outputs, generator):
+        if not self._uses_dqn_model:
+            return super()._make_model(observation_space, action_space, num_outputs, generator)
         cfg = {**MODEL_DEFAULTS, **self.model_config}
         shape = tuple(observation_space.shape)
         is_image = len(shape) == 3

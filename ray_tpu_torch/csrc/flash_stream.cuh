@@ -1,0 +1,154 @@
+// The online-softmax stream of fused attention, as device functions.
+//
+// Counterpart of ray_tpu/ops/flash_attention.py:_online_softmax_stream,
+// the body both TPU kernels share (_fwd_kernel, which normalises, and
+// _block_kernel, which returns the unnormalised accumulator and the row
+// statistics for ring attention). flash_fwd.cu is the first entry point;
+// a block-statistics entry point reuses these functions and writes
+// RowState out instead of acc / l.
+//
+// Layout: one warp owns one query row at a time. Lane `lane` owns the
+// head dimensions lane, lane + 32, ... (kChunks of them, D <= 32 *
+// kChunks), so the row's q, its running max m, its running sum l and its
+// D-wide accumulator stay in registers, in f32. A key's score is each
+// lane's partial dot product summed across the warp with xor shuffles,
+// so every lane holds the same m and l.
+//
+// K and V tiles are staged in shared memory as f32 by the whole block
+// (stage_tile); a lane reads its own dimensions of a key row, so the 32
+// lanes touch 32 consecutive words: no bank conflicts.
+//
+// Masking follows the reference: key j is visible to query i iff
+// j <= i + offset (when banded) and j < S. A masked key contributes no
+// mass and does not move m. Keys arrive in increasing order, so a row
+// simply stops at its first masked key. m starts at -1e30 (finite, as the
+// reference's fill), so the first rescale exp(m_prev - m_new) is exp of a
+// finite number and never inf - inf; a row that sees no key keeps l = 0
+// and acc = 0, and its output acc / max(l, 1e-30) is exactly 0.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace flash {
+
+constexpr float kNegInf = -1e30f;  // the reference's _NEG_INF
+
+template <int kChunks>
+struct RowState {
+  float m;
+  float l;
+  float acc[kChunks];
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);  // round to nearest even, as astype does
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int delta = 16; delta > 0; delta >>= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, delta);
+  }
+  return x;
+}
+
+template <int kChunks>
+__device__ __forceinline__ void init_row(RowState<kChunks>& st) {
+  st.m = kNegInf;
+  st.l = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    st.acc[c] = 0.0f;
+  }
+}
+
+// Copy `keys` rows of D elements, starting at row `first`, of `heads`
+// consecutive heads into shared memory as f32: dst[(h * keys + j) * D + e]
+// = src[((head0 + h) * s + first + j) * D + e]. Rows past S and heads past
+// N are zero-filled. Every thread of the block takes part; the caller
+// synchronises.
+template <typename T>
+__device__ __forceinline__ void stage_tile(float* __restrict__ dst,
+                                           const T* __restrict__ src,
+                                           int64_t head0, int heads, int keys,
+                                           int64_t n, int64_t s, int64_t first,
+                                           int d) {
+  const int per_head = keys * d;
+  const int total = heads * per_head;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int h = e / per_head;
+    const int rem = e - h * per_head;
+    const int j = rem / d;
+    const int64_t head = head0 + h;
+    const int64_t col = first + j;
+    float x = 0.0f;
+    if (head < n && col < s) {
+      x = to_f32(src[(head * s + first) * d + rem]);
+    }
+    dst[e] = x;
+  }
+}
+
+// Stream `count` staged keys (rows of ks / vs, stride d) through one query
+// row held by the calling warp. q holds the lane's dimensions of the
+// query, already scaled by 1/sqrt(D), and 0 past D. The whole warp must
+// call this together (the shuffles).
+template <int kChunks>
+__device__ __forceinline__ void stream_keys(RowState<kChunks>& st,
+                                            const float (&q)[kChunks],
+                                            const float* __restrict__ ks,
+                                            const float* __restrict__ vs,
+                                            int count, int d, int lane) {
+  for (int j = 0; j < count; ++j) {
+    const float* krow = ks + j * d;
+    const float* vrow = vs + j * d;
+    float part = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int e = lane + 32 * c;
+      if (e < d) {
+        part = fmaf(q[c], krow[e], part);
+      }
+    }
+    const float score = warp_sum(part);
+    const float m_new = fmaxf(st.m, score);
+    const float corr = expf(st.m - m_new);
+    const float p = expf(score - m_new);
+    st.l = st.l * corr + p;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int e = lane + 32 * c;
+      const float vv = e < d ? vrow[e] : 0.0f;
+      st.acc[c] = fmaf(p, vv, st.acc[c] * corr);
+    }
+    st.m = m_new;
+  }
+}
+
+// How many of a tile's `count` keys, starting at key `first`, query row
+// `row` may see: all of them without a band, else those with
+// j <= row + offset (never negative).
+__device__ __forceinline__ int visible_keys(int count, int64_t first,
+                                            int64_t row, bool banded,
+                                            int64_t offset) {
+  if (!banded) {
+    return count;
+  }
+  const int64_t last = row + offset;  // the last visible key
+  if (last < first) {
+    return 0;
+  }
+  const int64_t seen = last - first + 1;
+  return seen < count ? static_cast<int>(seen) : count;
+}
+
+}  // namespace flash

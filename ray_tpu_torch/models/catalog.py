@@ -1,11 +1,13 @@
 """Model catalog: space + config → model and action distribution.
 
 Counterpart of ``ray_tpu/models/catalog.py`` for the models this slice
-ports: image observations (H, W, C) get :class:`VisionNet`, flat ones
-:class:`FCNet`, and Discrete action spaces :class:`Categorical`. The
-``dtype`` key picks the compute dtype (None: bfloat16 for the vision
-net, float32 for the MLP), as in the reference. Spaces are duck-typed
-(``shape``; ``n`` for a discrete space).
+ports: ``use_transformer`` gets :class:`TransformerPolicyNet` (checked
+first, as in the reference), image observations (H, W, C)
+:class:`VisionNet`, flat ones :class:`FCNet`, and Discrete action spaces
+:class:`Categorical`. The ``dtype`` key picks the compute dtype (None:
+bfloat16 for the vision net, float32 for the MLP and the transformer),
+as in the reference. Spaces are duck-typed (``shape``; ``n`` for a
+discrete space).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ray_tpu_torch.models import distributions as dists
 from ray_tpu_torch.models.base import TorchModel
 from ray_tpu_torch.models.cnn import VisionNet, get_filter_config
 from ray_tpu_torch.models.fcnet import FCNet
+from ray_tpu_torch.models.transformer import TransformerPolicyNet
 
 MODEL_DEFAULTS: Dict[str, Any] = {
     "fcnet_hiddens": [256, 256],
@@ -29,9 +32,18 @@ MODEL_DEFAULTS: Dict[str, Any] = {
     "post_fcnet_activation": "relu",
     "vf_share_layers": False,
     "dtype": None,  # None → per-model default (bf16 convs, f32 mlps)
+    # decoder-style transformer torso (models/transformer.py)
+    "use_transformer": False,
+    "transformer_num_layers": 2,
+    "transformer_dim": 64,
+    "transformer_num_heads": 4,
+    "transformer_head_dim": None,  # None → dim // num_heads
+    "transformer_ff_dim": None,  # None → 4 * dim
+    "transformer_seq_len": 8,
+    "partition_rules": None,
 }
 
-_UNPORTED = ("use_lstm", "use_attention", "use_transformer", "custom_model")
+_UNPORTED = ("use_lstm", "use_attention", "custom_model")
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -66,7 +78,25 @@ class ModelCatalog:
                 raise NotImplementedError(
                     f"model option {key!r} is not ported yet"
                 )
+        if cfg.get("partition_rules"):
+            raise NotImplementedError(
+                "partition_rules (tensor-parallel placement) waits for the "
+                "distributed layer, ROADMAP queue 1, item 7"
+            )
         obs_shape = tuple(obs_space.shape)
+        if cfg["use_transformer"]:
+            return TransformerPolicyNet(
+                int(np.prod(obs_shape)),
+                num_outputs,
+                d_model=cfg["transformer_dim"],
+                num_layers=cfg["transformer_num_layers"],
+                num_heads=cfg["transformer_num_heads"],
+                head_dim=cfg["transformer_head_dim"],
+                ff_dim=cfg["transformer_ff_dim"],
+                seq_len=cfg["transformer_seq_len"],
+                dtype=cfg["dtype"] or "float32",
+                generator=generator,
+            )
         if len(obs_shape) == 3:
             filters = cfg["conv_filters"] or get_filter_config(obs_shape)
             return VisionNet(

@@ -333,7 +333,12 @@ class TorchPolicy(Policy):
             for j in range(num_mb):
                 minibatch = {k: v[idx[j]] for k, v in batch.items()}
                 loss, stats = self.loss_with_aux(minibatch, self.aux_state, coeffs)
-                grads = torch.autograd.grad(loss, self.params)
+                # a parameter the loss does not read (the transformer's
+                # value head under DQN) gets a zero gradient, as jax.grad
+                # gives it
+                grads = torch.autograd.grad(
+                    loss, self.params, allow_unused=True, materialize_grads=True
+                )
                 last = epoch == self.num_sgd_iter - 1 and j == num_mb - 1
                 gnorm = global_norm(grads) if last else torch.zeros(
                     (), device=self.device

@@ -16,11 +16,17 @@ Layer names pass through unchanged, except the flax ``DQNModel``'s
 private ones (:data:`FLAX_RENAMES`): ``_convs_i`` → ``conv_i``,
 ``_fcs_i`` → ``fc_i``, ``_adv_head`` → ``adv_head``, ``_value_head`` →
 ``value_head``.
+
+Models that are not flax modules (the transformer torso) keep a plain
+nested dict with no ``"params"`` collection; the port's module keeps
+their names and layouts, so such a tree maps leaf for leaf, its path
+joined with dots (:func:`plain_to_state_dict`).
 """
 
 from __future__ import annotations
 
 import re
+from collections.abc import Mapping
 from typing import Dict, Tuple
 
 import numpy as np
@@ -62,10 +68,32 @@ def flax_to_state_dict(tree) -> Dict[str, np.ndarray]:
     return out
 
 
+def plain_to_state_dict(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A plain nested-dict param tree → ``{"a.b.leaf": array}``, layouts
+    unchanged."""
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(plain_to_state_dict(value, name + "."))
+        else:
+            out[name] = np.asarray(value)
+    return out
+
+
+def to_state_dict(tree) -> Dict[str, np.ndarray]:
+    """A flax tree (a ``"params"`` collection) through
+    :func:`flax_to_state_dict`, any other nested dict through
+    :func:`plain_to_state_dict`."""
+    if "params" in tree:
+        return flax_to_state_dict(tree)
+    return plain_to_state_dict(tree)
+
+
 def from_jax_params(tree, module: nn.Module) -> nn.Module:
-    """Copy a flax param tree into ``module`` in place; every parameter
-    of the module must be covered, with matching shapes."""
-    sd = flax_to_state_dict(tree)
+    """Copy a reference param tree into ``module`` in place; every
+    parameter of the module must be covered, with matching shapes."""
+    sd = to_state_dict(tree)
     own = dict(module.named_parameters())
     if set(sd) != set(own):
         raise ValueError(
@@ -94,12 +122,12 @@ def _find_adam(opt_state):
 
 def from_jax_adam_state(opt_state) -> Tuple[int, Dict[str, np.ndarray], Dict[str, np.ndarray]]:
     """optax chain state (numpy leaves) → ``(count, mu, nu)`` with the
-    moments keyed and laid out like :func:`flax_to_state_dict`."""
+    moments keyed and laid out like :func:`to_state_dict`."""
     adam = _find_adam(opt_state)
     if adam is None:
         raise ValueError("no scale_by_adam state in the optax state")
     return (
         int(np.asarray(adam.count)),
-        flax_to_state_dict(adam.mu),
-        flax_to_state_dict(adam.nu),
+        to_state_dict(adam.mu),
+        to_state_dict(adam.nu),
     )

@@ -5,11 +5,15 @@ without a CUDA device. Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Contracts: bitwise for every kernel (the row gather and the row scatter
-are data movement; the GAE kernel and the f64 prefix descent round every
-operation in the plain version's order). The device sum tree's whole
-draw agrees with the host trees bitwise in its indices; its IS weights
-within 1 float32 ulp (host and card round the f64 ``pow`` apart).
+Contracts: bitwise for the data-movement and scan kernels (the row
+gather and the row scatter are data movement; the GAE kernel and the f64
+prefix descent round every operation in the plain version's order). The
+device sum tree's whole draw agrees with the host trees bitwise in its
+indices; its IS weights within 1 float32 ulp (host and card round the
+f64 ``pow`` apart). The flash-attention kernel sums in another order
+than the plain version (online softmax over key tiles, q scaled before
+the product): within 2e-5 abs/rel in float32 and 3e-2 in bfloat16, and
+rows that see no key exactly 0.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.ops import framestack, gae, segment_tree
+from ray_tpu_torch.ops import flash_attention as fa, framestack, gae, segment_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -188,3 +192,66 @@ def test_gae_kernel_bitwise(cuda, n, t):
     assert gae.compute_gae_fragment.launches == before + 1
     p_adv, p_vt = gae.compute_gae_fragment_plain(r, v, nv, term, done, 0.99, 0.95)
     assert torch.equal(adv, p_adv) and torch.equal(vt, p_vt)
+
+
+# (B·H, T, S, D, offset): the torso's four path shapes, then the
+# reference test's shapes and offsets, then the head widths
+FLASH_CASES = [
+    (2048, 8, 8, 32, 0), (4096, 8, 8, 32, 0), (128, 8, 8, 32, 0), (256, 8, 8, 32, 0),
+    (4, 24, 40, 16, None), (4, 24, 40, 16, 16), (4, 32, 32, 16, 0), (4, 130, 200, 16, 7),
+    (4, 8, 8, 16, -3), (6, 8, 8, 16, 40),
+    (64, 16, 16, 16, 0), (64, 16, 16, 64, 0), (64, 16, 16, 128, 0), (64, 8, 24, 100, 5),
+]
+
+
+@pytest.mark.parametrize("n,t,s,d,offset", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, n, t, s, d, offset):
+    gen = torch.Generator(device=cuda).manual_seed(n + t + s + d)
+    q = torch.randn(1, n, t, d, device=cuda, generator=gen)
+    k = torch.randn(1, n, s, d, device=cuda, generator=gen)
+    v = torch.randn(1, n, s, d, device=cuda, generator=gen)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal_offset=offset)
+    assert fa.flash_attention.launches == before + 1
+    want = fa.reference_attention(q[0], k[0], v[0], offset)[None]
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    if offset is not None and offset < 0:
+        assert torch.equal(got[:, :, :-offset], torch.zeros_like(got[:, :, :-offset]))
+        assert got[:, :, -offset:].abs().max() > 0
+
+
+def test_flash_attention_kernel_bf16(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 2, 16, 16, device=cuda, generator=gen).bfloat16() for _ in range(3))
+    got = fa.flash_attention(q, k, v)
+    assert got.dtype == torch.bfloat16
+    want = fa.reference_attention(q.reshape(4, 16, 16), k.reshape(4, 16, 16),
+                                  v.reshape(4, 16, 16), None).reshape(2, 2, 16, 16)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+def test_flash_attention_gradient_through_kernel(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    qkv = [torch.randn(2, 2, 16, 8, device=cuda, generator=gen, requires_grad=True) for _ in range(3)]
+    (fa.flash_attention(*qkv, causal_offset=0) ** 2).sum().backward()
+    got = [x.grad.clone() for x in qkv]
+    plain = [x.detach().reshape(4, 16, 8).requires_grad_() for x in qkv]
+    (fa.reference_attention(*plain, 0) ** 2).sum().backward()
+    for g, p in zip(got, plain):
+        torch.testing.assert_close(g, p.grad.reshape(2, 2, 16, 8), atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attention_refusals(cuda):
+    q = torch.randn(1, 2, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = torch.randn(1, 2, 8, 129, device=cuda)
+        fa.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="k on"):
+        fa.flash_attention(q, q.cpu(), q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="v is"):
+        fa.flash_attention(q, q, q.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.randn(1, 2, 32, 8, device=cuda).transpose(2, 3)
+        fa.flash_attention(t, q, q)

@@ -116,6 +116,7 @@ def test_algorithm_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_kernel_wrappers_refuse_other_devices():
+    from ray_tpu_torch.ops.flash_attention import flash_attention
     from ray_tpu_torch.ops.framestack import gather_rows
     from ray_tpu_torch.ops.gae import compute_gae_fragment
 
@@ -125,3 +126,6 @@ def test_kernel_wrappers_refuse_other_devices():
     x = torch.empty((2, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         compute_gae_fragment(x, x, x, x.bool(), x.bool())
+    qkv = torch.empty((1, 2, 8, 32), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(qkv, qkv, qkv, causal_offset=0)
