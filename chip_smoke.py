@@ -37,6 +37,19 @@ and ``nvcc``. Phases, each printing its own lines:
                128} and one bf16 case; at the learner shape, times of
                kernel, plain version and ``scaled_dot_product_attention``
                with the same band mask, and the bound;
+   flash_block -- ring attention's block kernel against its plain version
+               on float64 copies of its inputs (acc, m and l within 2e-5
+               abs/rel, 1e-4 over the hop's 4096 keys, in f32 and in bf16,
+               whose inputs float64 holds exactly; rows that see no key
+               exactly (0, -1e30, 0)): the
+               ring's hop (B·H = 8, T = S = 4096, D = 32) on the diagonal,
+               one and three shards behind and one ahead, the torso's
+               shape, the reference test's shard, ragged T and S, D in
+               {16, 32, 64, 128}, bf16 at the hop (diagonal and one shard
+               behind) and ragged; the plain version's own float32 error
+               at each case beside the kernel's; times of kernel,
+               wrapper, plain version and ``scaled_dot_product_attention``
+               at the hop (diagonal and every key visible) and the bounds;
 7. learner  -- ``PPOTorchPolicy.learn_on_batch`` twice on a frame-pool
                batch at the bench geometry (84x84x4, 6 actions, B=4096,
                minibatch 512, 10 epochs, lr 5e-5): env-steps/s, finite
@@ -70,13 +83,30 @@ and ``nvcc``. Phases, each printing its own lines:
 12. transformer_dqn -- :func:`dqn_config` with that torso, 16 fill and 8
                update iterations: updates/s and the flash, gather,
                scatter and descent launches;
-13. a ``{"kernels": [...]}`` line, the card's name and power limit, and
+13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
+               and ``make_mesh``: 4 rank processes of this script
+               (``--ring-rank gloo``) on the one card over a gloo group
+               (NCCL refuses two ranks on one card; each hop is staged
+               through host memory), tcp rendezvous on 127.0.0.1, each on
+               the same seeded B = 1, T = 16384, H = 8, D = 32 arrays, f32
+               causal, f32 full and bf16 causal, two calls each: launches
+               (4 per call) and staged exchanges (3 per call) per rank,
+               rank 0's output against ``full_attention_reference`` on the
+               card (2e-4 in f32; in bf16 one bf16 ulp, 2**-7, relative
+               and 1e-5 absolute), second-call wall times, each rank's
+               busiest-hop kernel time and one staged exchange's time;
+               with two or more cards
+               the same on NCCL, one rank per card; NCCL at world size 1
+               in this process;
+14. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each of phases 7-12 and read
-just after; the comparison launches of phases 2-6 do not count. Any
-failed check raises, and the script exits non-zero without printing a
-result. Without a CUDA device it exits 1 at once.
+Launch counts are set to 0 just before each of phases 7-13 and read
+just after (the ring's in each rank, before each call); the comparison
+launches of phases 2-6 do not count. Any failed check raises, and the
+script exits non-zero without printing a result; a ring rank that fails
+or outlives its timeout fails the script. Without a CUDA device it exits
+1 at once.
 """
 
 from __future__ import annotations
@@ -104,6 +134,16 @@ TORSO = {
     "transformer_num_heads": 8, "transformer_ff_dim": 1024, "transformer_seq_len": 8,
 }
 TF_B, TF_OBS, TF_ACTIONS = 512, 64, 8
+# sequence-parallel ring attention at the torso's head width (8 heads of
+# 32): 16384 tokens over 4 ranks on the one card, 4096 per rank and hop
+RING_B, RING_T, RING_H, RING_D, RING_RANKS = 1, 16384, 8, 32, 4
+RING_HOP = RING_T // RING_RANKS
+RING_TIMEOUT_S = 300
+# the flash block kernel against float64 copies of its inputs (f32 or
+# bf16), abs/rel: 2e-5 up to a few hundred keys per row, as the forward;
+# 1e-4 over the hop's 4096, where a float32 running sum drifts further
+# (the plain version in float32 needs up to 4.1e-5 there on an H100)
+BLOCK_TOL, BLOCK_TOL_HOP = 2e-5, 1e-4
 
 
 def say(phase, **kv):
@@ -840,6 +880,152 @@ def phase_flash():
     }
 
 
+def _band_pairs(t, s, offset):
+    """Visible (query, key) pairs of one head: j <= i + offset, j < s."""
+    import torch
+
+    return int((torch.arange(t) + offset + 1).clamp(0, s).sum())
+
+
+def phase_flash_block():
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_block_attention_stats, reference_block_attention_stats,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    n_hop = RING_B * RING_H
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    # (name, B·H, T, S, D, offset, dtype): the ring's hop on the diagonal,
+    # one and three shards behind (every key visible) and one ahead (none),
+    # the torso's shape, the reference test's shard, ragged T and S, the
+    # head widths, and bf16 at the hop and ragged
+    cases = [
+        ("hop_diagonal", n_hop, RING_HOP, RING_HOP, RING_D, 0, f32),
+        ("hop_behind_1", n_hop, RING_HOP, RING_HOP, RING_D, RING_HOP, f32),
+        ("hop_behind_3", n_hop, RING_HOP, RING_HOP, RING_D, 3 * RING_HOP, f32),
+        ("hop_ahead_1", n_hop, RING_HOP, RING_HOP, RING_D, -RING_HOP, f32),
+        ("torso", TF_B // 2 * TORSO["transformer_num_heads"], 8, 8, 32, 0, f32),
+        ("shard_8x8", 4, 8, 8, 16, 0, f32),
+        ("shard_8x8_behind", 4, 8, 8, 16, 8, f32),
+        ("shard_8x8_ahead", 4, 8, 8, 16, -8, f32),
+        ("ragged_130x200_7", 4, 130, 200, 16, 7, f32),
+        ("ragged_130x200_m150", 4, 130, 200, 16, -150, f32),
+    ] + [(f"d{d}", 64, 16, 16, d, 0, f32) for d in (16, 32, 64, 128)] + [
+        ("bf16_hop_diagonal", n_hop, RING_HOP, RING_HOP, RING_D, 0, bf16),
+        ("bf16_hop_behind_1", n_hop, RING_HOP, RING_HOP, RING_D, RING_HOP, bf16),
+        ("bf16_130x200_7", 4, 130, 200, 16, 7, bf16),
+    ]
+
+    def need(g, w):
+        # the least t with |g - w| <= t + t·|w| everywhere: allclose's
+        # tolerance that this pair needs
+        return float(((g.double() - w).abs() / (1 + w.abs())).max())
+
+    errs, needs, blind_rows, failed = {}, {}, 0, []
+    for name, n, t, s, d, off, dtype in cases:
+        q, k, v = (torch.randn(n, x, d, device="cuda", generator=gen).to(dtype) for x in (t, s, s))
+        got = flash_block_attention_stats(q, k, v, off)
+        # the plain version on float64 copies of the same inputs (bf16
+        # inputs are exact there), so this measures the kernel's own
+        # float32 error; the plain version in float32 beside it
+        want = reference_block_attention_stats(q.double(), k.double(), v.double(), off)
+        plain32 = reference_block_attention_stats(q, k, v, off)
+        torch.cuda.synchronize()
+        blind = torch.arange(t, device="cuda") + off < 0  # rows that see no key
+        errs[name] = []  # max |kernel - plain| of acc, m, l over the rows that see keys
+        needs[name] = {"kernel": [], "plain_f32": []}  # need() of acc, m, l
+        for what, g, w, p32 in zip(("acc", "m", "l"), got, want, plain32):
+            require(g.dtype == f32 and g.shape == w.shape, f"flash_block {what} of {name}")
+            needs[name]["kernel"].append(need(g, w))
+            needs[name]["plain_f32"].append(need(p32, w))
+            tol = BLOCK_TOL_HOP if s >= RING_HOP else BLOCK_TOL
+            if not torch.allclose(g.double(), w, atol=tol, rtol=tol):
+                failed.append(f"{what} at {name}")
+            errs[name].append(float((g.double() - w)[:, ~blind].abs().max()) if bool((~blind).any()) else 0.0)
+        acc, m, l = got
+        require(bool((m[:, blind] == -1e30).all()) and bool((l[:, blind] == 0).all())
+                and bool((acc[:, blind] == 0).all()), f"rows that see no key are not exact at {name}")
+        require(bool((l[:, ~blind] > 0).all()), f"rows that see keys have l = 0 at {name}")
+        blind_rows += int(blind.sum()) * n
+    worst = max(max(errs[c[0]]) for c in cases if c[-1] == f32)
+    worst_bf16 = max(max(errs[c[0]]) for c in cases if c[-1] == bf16)
+    say("flash_block", checked_acc_m_l=json.dumps(errs), max_abs_err_f32=worst,
+        max_abs_err_bf16=worst_bf16, blind_rows_exact=blind_rows,
+        plain="reference_block_attention_stats on float64 copies of the inputs")
+    say("flash_block", tolerance_needed_acc_m_l=json.dumps(needs),
+        tolerance=json.dumps({"hop": BLOCK_TOL_HOP, "other": BLOCK_TOL}),
+        note="least atol = rtol that allclose against float64 needs: the kernel's, "
+        "and the plain version's in float32 on the same inputs")
+    require(not failed, f"flash_block kernel differs from plain (float64) in {failed}")
+    q, k, v = (torch.randn(n_hop, RING_HOP, RING_D, device="cuda", generator=gen) for _ in range(3))
+
+    # times at the ring's hop (B·H = 8, T = S = 4096, D = 32, f32): the
+    # diagonal hop and a hop with every key visible, and at the torso's shape
+    lib = _kernels.library("flash_block")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw(q, k, v, off):
+        n, t, d = q.shape
+        acc = torch.empty((n, t, d), device="cuda")
+        ml = torch.empty((2, n, t), device="cuda")
+        return lambda: lib.flash_block_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), ml[0].data_ptr(),
+            ml[1].data_ptr(), n, t, k.shape[1], d, 0, off, stream)
+
+    def bound(n, t, s, d, off):
+        # bytes: q, k, v read once, acc, m, l written once; operations: a
+        # multiply-add for q·k and one for p·v per visible pair
+        nbytes = (n * t * d + 2 * n * s * d + n * t * d + 2 * n * t) * 4
+        flops = 4 * d * n * _band_pairs(t, s, off)
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes, flops
+
+    times = {}
+    for label, off in (("diagonal", 0), ("all_visible", RING_HOP)):
+        mask = None
+        if off < RING_HOP - 1:
+            idx = torch.arange(RING_HOP, device="cuda")
+            mask = idx[None, :] <= idx[:, None] + off
+        b_ms, b_by, nbytes, flops = bound(n_hop, RING_HOP, RING_HOP, RING_D, off)
+        times[label] = {
+            "ms": cuda_ms(raw(q, k, v, off), iters=20, warmup=3),
+            "wrapper_ms": cuda_ms(lambda: flash_block_attention_stats(q, k, v, off), iters=20, warmup=3),
+            "plain_ms": cuda_ms(lambda: reference_block_attention_stats(q, k, v, off), iters=5, warmup=2),
+            "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], attn_mask=mask), iters=20, warmup=3),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+        }
+        say("flash_block", hop=label, offset=off, **{k_: (f"{v_:.5f}" if isinstance(v_, float) else v_)
+                                                     for k_, v_ in times[label].items()},
+            shape=f"B*H={n_hop} T=S={RING_HOP} D={RING_D} f32",
+            sdpa="normalised output only (no m, l), same band mask" if mask is not None
+            else "normalised output only (no m, l), no mask")
+    name, n, t, s, d, off, _ = cases[4]
+    tq, tk, tv = (torch.randn(n, x, d, device="cuda", generator=gen) for x in (t, s, s))
+    torso_ms = cuda_ms(raw(tq, tk, tv, off), iters=200)
+    torso_bound = bound(n, t, s, d, off)
+    say("flash_block", torso_ms=f"{torso_ms:.5f}", torso_bound_ms=f"{torso_bound[0]:.6f}",
+        torso_bound_by=torso_bound[1], shape=f"B*H={n} T=S={t} D={d} f32 band 0",
+        note="operation-bound at the hop (a dependent shuffle and expf chain per key and row)")
+    hop = times["all_visible"]
+    return {
+        "name": "flash_block", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/flash_block.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:131",
+        "max_abs_err": worst, "max_abs_err_bf16": worst_bf16,
+        "ms": hop["ms"], "wrapper_ms": hop["wrapper_ms"], "plain_ms": hop["plain_ms"],
+        "bound_ms": hop["bound_ms"], "bound_by": hop["bound_by"], "library_ms": hop["sdpa_ms"],
+        "library": "scaled_dot_product_attention (normalised output only)",
+        "shape": f"B*H={n_hop} T=S={RING_HOP} D={RING_D} f32, every key visible",
+        "times_by_hop": times, "torso_ms": torso_ms, "torso_bound_ms": torso_bound[0],
+        "passed": True,
+    }
+
+
 def phase_transformer_learner():
     import numpy as np
     import torch
@@ -965,6 +1151,212 @@ def phase_transformer_dqn():
     return launches
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_ring_ranks(n, backend):
+    """Start ``n`` rank processes of this script (``--ring-rank``) over a
+    ``tcp://127.0.0.1`` rendezvous and wait for them. A rank that fails,
+    or a phase that outlives RING_TIMEOUT_S, raises with every rank's
+    output, after every rank has been killed."""
+    import tempfile
+
+    env = {**os.environ, "RAY_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "RAY_TPU_NUM_PROCESSES": str(n)}
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(n)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ring-rank", backend],
+                                  env={**env, "RAY_TPU_PROCESS_ID": str(r)}, cwd=REPO,
+                                  stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+                 for r in range(n)]
+        deadline = time.monotonic() + RING_TIMEOUT_S
+        try:
+            while time.monotonic() < deadline:
+                codes = [p.poll() for p in procs]
+                if all(c == 0 for c in codes) or any(c not in (None, 0) for c in codes):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        out = []
+        for log in logs:
+            log.seek(0)
+            out.append(log.read())
+            log.close()
+    codes = [p.returncode for p in procs]
+    require(all(c == 0 for c in codes),
+            f"ring ranks ({backend}) exited {codes} (a negative code: killed at the "
+            f"{RING_TIMEOUT_S} s timeout or after another rank failed):\n"
+            + "\n".join(f"--- rank {r}\n{o[-3000:]}" for r, o in enumerate(out)))
+    results = []
+    for text in out:  # each rank's report is its last JSON line
+        lines = text.strip().splitlines()
+        last = max(i for i, line in enumerate(lines) if line.startswith("{"))
+        for line in lines[:last] + lines[last + 1:]:
+            print(line, flush=True)
+        results.append(json.loads(lines[last]))
+    return results
+
+
+def ring_rank_main(backend):
+    """One rank of the ring phase: ``ring_attention`` on the same seeded
+    full arrays as every other rank, in three cases, each called twice."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from ray_tpu_torch.ops.flash_attention import flash_block_attention_stats
+    from ray_tpu_torch.parallel.collectives import send_recv_shift
+    from ray_tpu_torch.parallel.distributed import initialize, shutdown, sync_global
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.ring_attention import full_attention_reference, ring_attention
+
+    dev = initialize(backend=backend)
+    mesh = make_mesh([("sp", torch.distributed.get_world_size())])
+    n, rank = mesh.size("sp"), mesh.index("sp")
+    shape = (RING_B, RING_T, RING_H, RING_D)
+    gen = torch.Generator().manual_seed(7)  # the same arrays on every rank
+    report = {"rank": rank, "backend": backend, "device": str(dev), "calls": {}}
+    for name, dtype, causal in (("f32_causal", torch.float32, True), ("f32_full", torch.float32, False),
+                                ("bf16_causal", torch.bfloat16, True)):
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(3))
+        calls = []
+        for _ in range(2):
+            flash_block_attention_stats.launches = 0
+            send_recv_shift.staged = 0
+            torch.cuda.synchronize()
+            sync_global()
+            t0 = time.perf_counter()
+            out = ring_attention(q, k, v, mesh, axis_name="sp", causal=causal)
+            torch.cuda.synchronize()
+            calls.append({"wall_s": time.perf_counter() - t0,
+                          "launches": flash_block_attention_stats.launches,
+                          "staged": send_recv_shift.staged})
+        require(all(c["launches"] == n for c in calls), f"rank {rank}: launches per call {calls}")
+        require(out.shape == shape and out.dtype == dtype and bool(torch.isfinite(out).all()),
+                f"rank {rank}: ring output of {name}")
+        entry = {"calls": calls}
+        if rank == 0:  # the golden on the card, 1024 query rows at a time
+            want = full_attention_reference(q.float(), k.float(), v.float(), causal, query_chunk=1024)
+            # f32: the reference test's 2e-4. bf16: the golden runs in f32
+            # on the same bf16 values, so the two differ by the output's
+            # rounding to bf16 (at most half a bf16 ulp, 2**-8 relative)
+            # and float32 drift: one ulp (2**-7) relative, 1e-5 absolute
+            atol, rtol = (1e-5, 2 ** -7) if dtype == torch.bfloat16 else (2e-4, 2e-4)
+            entry["max_abs_err"] = float((out.float() - want).abs().max())
+            entry["tol_used"] = float(((out.float() - want).abs() / (atol + rtol * want.abs())).max())
+            require(torch.allclose(out.float(), want, atol=atol, rtol=rtol),
+                    f"ring {name} differs from full attention by {entry['max_abs_err']}")
+        report["calls"][name] = entry
+    # the kernel's time at this rank's busiest causal hop, ranks in turn
+    busiest = RING_HOP if rank > 0 else 0
+    qf, kf, vf = (torch.randn(RING_B * RING_H, RING_HOP, RING_D, generator=gen).to(dev) for _ in range(3))
+    for r in range(n):
+        sync_global()
+        if r == rank:
+            report["busiest_hop"] = {"offset": busiest, "kernel_ms": cuda_ms(
+                lambda: flash_block_attention_stats(qf, kf, vf, busiest), iters=10, warmup=2)}
+    # one hop's exchange of the stacked f32 K/V (2, B·H, 4096, 32), every
+    # rank together, host clock
+    kv = torch.stack([kf, vf])
+    send_recv_shift(kv, mesh.group("sp"))
+    torch.cuda.synchronize()
+    sync_global()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        kv = send_recv_shift(kv, mesh.group("sp"))
+    torch.cuda.synchronize()
+    report["hop_exchange_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    sync_global()
+    shutdown()
+    print(f"[ring] rank={rank} backend={backend} device={dev} " + " ".join(
+        f"{name}_s={json.dumps([round(c['wall_s'], 5) for c in e['calls']])}"
+        for name, e in report["calls"].items()), flush=True)
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def ring_nccl(n):
+    """The ring on NCCL with ``n`` ranks, one per card (``n`` >= 2 cards):
+    every hop moves the CUDA K/V directly, none is staged. Returns the
+    kernel launches of every rank's calls."""
+    ranks = _run_ring_ranks(n, "nccl")
+    for r in ranks:
+        for e in r["calls"].values():
+            require(all(c["launches"] == n and c["staged"] == 0 for c in e["calls"]),
+                    f"rank {r['rank']}: NCCL launches and staged exchanges {e['calls']}")
+    errs = {name: e["max_abs_err"] for name, e in ranks[0]["calls"].items()}
+    say("ring", backend="nccl", ranks=n, cards=n, staged_per_call=0, max_abs_err=json.dumps(errs),
+        second_call_s_by_rank=json.dumps({k: [round(r["calls"][k]["calls"][1]["wall_s"], 5) for r in ranks]
+                                          for k in errs}),
+        busiest_hop_kernel_ms=json.dumps({r["rank"]: round(r["busiest_hop"]["kernel_ms"], 5) for r in ranks}))
+    return sum(c["launches"] for r in ranks for e in r["calls"].values() for c in e["calls"])
+
+
+def phase_ring():
+    """Ring attention through its entry points: RING_RANKS ranks on the
+    one card over gloo (NCCL refuses two ranks on one card), each hop
+    staged through host memory; NCCL with one rank per card where there
+    are several cards; and NCCL at world size 1 in this process."""
+    import torch
+
+    from ray_tpu_torch.ops.flash_attention import flash_block_attention_stats
+    from ray_tpu_torch.parallel.distributed import initialize, shutdown
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.ring_attention import ring_attention
+
+    t0 = time.perf_counter()
+    ranks = _run_ring_ranks(RING_RANKS, "gloo")
+    wall = time.perf_counter() - t0
+    launches = {"gloo": sum(c["launches"] for r in ranks for e in r["calls"].values() for c in e["calls"])}
+    for r in ranks:
+        for e in r["calls"].values():
+            require(all(c["staged"] == RING_RANKS - 1 for c in e["calls"]),
+                    f"rank {r['rank']}: staged exchanges {e['calls']}")
+    errs = {name: e["max_abs_err"] for name, e in ranks[0]["calls"].items()}
+    second = {name: [round(r["calls"][name]["calls"][1]["wall_s"], 5) for r in ranks] for name in errs}
+    say("ring", backend="gloo", ranks=RING_RANKS, device="one card",
+        shape=f"B={RING_B} T={RING_T} H={RING_H} D={RING_D}", launches_per_call=RING_RANKS,
+        staged_per_call=RING_RANKS - 1, max_abs_err=json.dumps(errs),
+        tol_used=json.dumps({name: e["tol_used"] for name, e in ranks[0]["calls"].items()}),
+        second_call_s_by_rank=json.dumps(second),
+        busiest_hop_kernel_ms=json.dumps({r["rank"]: round(r["busiest_hop"]["kernel_ms"], 5) for r in ranks}),
+        hop_exchange_ms=json.dumps({r["rank"]: round(r["hop_exchange_ms"], 4) for r in ranks}),
+        phase_s=f"{wall:.2f}")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        launches["nccl"] = ring_nccl(RING_RANKS if cards >= RING_RANKS else 2)  # T divides by either
+    else:
+        say("ring", backend="nccl", ranks=1, note="one card: the NCCL hop was not exercised "
+            "(NCCL refuses two ranks on one card); a world of one runs without exchange")
+    # NCCL at world size 1 in this process: no exchange, one launch, and
+    # the result is that launch's acc / l
+    dev = initialize(backend="nccl")
+    try:
+        mesh = make_mesh([("sp", 1)])
+        gen = torch.Generator().manual_seed(8)
+        q, k, v = (torch.randn(1, 512, RING_H, RING_D, generator=gen).to(dev) for _ in range(3))
+        flash_block_attention_stats.launches = 0
+        out = ring_attention(q, k, v, mesh, axis_name="sp", causal=True)
+        launches["nccl_world_1"] = flash_block_attention_stats.launches
+        flat = [x.transpose(1, 2).reshape(RING_H, 512, RING_D).contiguous() for x in (q, k, v)]
+        acc, _, l = flash_block_attention_stats(*flat, 0)
+        want = (acc / l.clamp(min=1e-30)[..., None]).reshape(1, RING_H, 512, RING_D).transpose(1, 2)
+        torch.cuda.synchronize()
+        require(launches["nccl_world_1"] == 1 and torch.equal(out, want),
+                "the NCCL ring of one is not its one block")
+    finally:
+        shutdown()
+    say("ring", backend="nccl", world=1, launches=launches["nccl_world_1"], equal_to_one_block=True)
+    return launches
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -979,6 +1371,8 @@ def card_line():
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--ring-rank"]:
+        return ring_rank_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 1
@@ -997,6 +1391,7 @@ def main() -> int:
     scatter = phase_scatter()
     descent = phase_descent(rng)
     flash = phase_flash()
+    flash_block = phase_flash_block()
     # the main paths, each with its launch counts set to 0 just before
     learner_gathers = phase_learner(rng)
     lane_gaes = phase_lane()
@@ -1004,6 +1399,7 @@ def main() -> int:
     tf_learner = phase_transformer_learner()
     tf_lane = phase_transformer_lane()
     tf_dqn = phase_transformer_dqn()
+    ring = phase_ring()
     gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"],
                                   "transformer_dqn": tf_dqn["gather_rows"]}
     gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"]}
@@ -1014,7 +1410,9 @@ def main() -> int:
     flash["launches_by_path"] = {"transformer_learner": tf_learner,
                                  "transformer_lane": tf_lane["flash"],
                                  "transformer_dqn": tf_dqn["flash_attention"]}
-    kernels = [gather, gae, scatter, descent, flash]
+    flash_block["launches_by_path"] = {"ring": ring["gloo"], "ring_nccl_world_1": ring["nccl_world_1"],
+                                       **({"ring_nccl": ring["nccl"]} if "nccl" in ring else {})}
+    kernels = [gather, gae, scatter, descent, flash, flash_block]
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,9 +3,16 @@
 // Counterpart of ray_tpu/ops/flash_attention.py:_online_softmax_stream,
 // the body both TPU kernels share (_fwd_kernel, which normalises, and
 // _block_kernel, which returns the unnormalised accumulator and the row
-// statistics for ring attention). flash_fwd.cu is the first entry point;
-// a block-statistics entry point reuses these functions and writes
-// RowState out instead of acc / l.
+// statistics for ring attention). Both entry points run attend_block
+// below and differ only in what they write: flash_fwd.cu writes
+// acc / max(l, 1e-30), flash_block.cu writes acc, m and l as they are.
+//
+// Block layout: a block of kWarps warps owns kRows query rows, a tile of
+// bq rows (the smallest power of two >= T, at most kRows) from each of
+// kRows / bq consecutive heads, so short heads share a block. Grid:
+// (head groups, row tiles). The block stages the K/V rows of its heads
+// in shared memory, kTileKeys rows at a time (bq keys of each head), and
+// every warp streams them through its kRowsPerWarp rows.
 //
 // Layout: one warp owns one query row at a time. Lane `lane` owns the
 // head dimensions lane, lane + 32, ... (kChunks of them, D <= 32 *
@@ -35,6 +42,11 @@
 namespace flash {
 
 constexpr float kNegInf = -1e30f;  // the reference's _NEG_INF
+constexpr int kWarps = 8;
+constexpr int kRowsPerWarp = 4;
+constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
+constexpr int kTileKeys = kRows;              // staged key rows per tile
+constexpr int kMaxD = 128;
 
 template <int kChunks>
 struct RowState {
@@ -149,6 +161,99 @@ __device__ __forceinline__ int visible_keys(int count, int64_t first,
   }
   const int64_t seen = last - first + 1;
   return seen < count ? static_cast<int>(seen) : count;
+}
+
+// The query rows the calling warp owns, and their state after the stream.
+template <int kChunks>
+struct WarpRows {
+  RowState<kChunks> st[kRowsPerWarp];
+  int64_t head[kRowsPerWarp];  // global head
+  int64_t row[kRowsPerWarp];   // query row within the head
+  bool live[kRowsPerWarp];     // head < N and row < T
+};
+
+// Stream every key this block's rows can see through the calling warp's
+// rows (the block layout above). q, k, v: (N, T, D) and (N, S, D). Every
+// thread of the block calls this together. A row that sees no key keeps
+// m = -1e30, l = 0 and acc = 0; a block none of whose rows sees a key
+// stages no tile at all.
+template <typename T, int kChunks>
+__device__ __forceinline__ void attend_block(
+    WarpRows<kChunks>& w, const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, int64_t n, int64_t t, int64_t s, int d, int bq,
+    bool banded, int64_t offset) {
+  __shared__ float ks[kTileKeys * 32 * kChunks];
+  __shared__ float vs[kTileKeys * 32 * kChunks];
+
+  const int heads = kRows / bq;      // heads per block
+  const int bk = kTileKeys / heads;  // keys of each head per tile (= bq)
+  const int64_t head0 = static_cast<int64_t>(blockIdx.x) * heads;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.y) * bq;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const float scale = 1.0f / sqrtf(static_cast<float>(d));
+
+  float qr[kRowsPerWarp][kChunks];
+  int local[kRowsPerWarp];  // head within the block
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp * kRowsPerWarp + i;
+    local[i] = r / bq;
+    w.head[i] = head0 + local[i];
+    w.row[i] = q0 + r % bq;
+    w.live[i] = w.head[i] < n && w.row[i] < t;
+    init_row(w.st[i]);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int e = lane + 32 * c;
+      qr[i][c] = w.live[i] && e < d
+                     ? to_f32(q[(w.head[i] * t + w.row[i]) * d + e]) * scale
+                     : 0.0f;
+    }
+  }
+
+  // the keys this block's rows can see at all
+  int64_t key_end = s;
+  if (banded) {
+    const int64_t last_row = (q0 + bq < t ? q0 + bq : t) - 1;
+    const int64_t band_end = last_row + offset + 1;
+    key_end = band_end < 0 ? 0 : (band_end < s ? band_end : s);
+  }
+  for (int64_t first = 0; first < key_end; first += bk) {
+    stage_tile(ks, k, head0, heads, bk, n, s, first, d);
+    stage_tile(vs, v, head0, heads, bk, n, s, first, d);
+    __syncthreads();
+    const int in_tile = static_cast<int>(s - first < bk ? s - first : bk);
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      if (w.live[i]) {  // warp-uniform: the whole warp owns row i
+        const int count =
+            visible_keys(in_tile, first, w.row[i], banded, offset);
+        const int base = local[i] * bk * d;
+        stream_keys(w.st[i], qr[i], ks + base, vs + base, count, d, lane);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The launch geometry of the block layout: bq (the smallest power of two
+// >= t, at most kRows) and the grid. False when the grid is too large.
+inline bool block_grid(int64_t n, int64_t t, int* bq, dim3* grid) {
+  int rows = 1;
+  while (rows < t && rows < kRows) {
+    rows *= 2;
+  }
+  const int heads = kRows / rows;
+  const int64_t head_blocks = (n + heads - 1) / heads;
+  const int64_t row_blocks = (t + rows - 1) / rows;
+  if (head_blocks > 2147483647LL || row_blocks > 65535) {
+    return false;
+  }
+  *bq = rows;
+  *grid = dim3(static_cast<unsigned>(head_blocks),
+               static_cast<unsigned>(row_blocks));
+  return true;
 }
 
 }  // namespace flash

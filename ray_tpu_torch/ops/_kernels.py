@@ -99,6 +99,18 @@ KERNELS = {
             "flash_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
         },
     ),
+    "flash_block": (
+        "flash_block.cu",
+        (),
+        {
+            "flash_block_launch": (
+                [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int,
+                 ctypes.c_int, _I64, _P],
+                ctypes.c_int,
+            ),
+            "flash_block_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        },
+    ),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -14,11 +14,18 @@ key at all is defined as zero output, in both versions.
 The gradient recomputes the forward through :func:`reference_attention`
 under autograd, as the reference's ``custom_vjp`` does: the kernel is
 forward-only.
+
+:func:`flash_block_attention_stats` is ring attention's block: the same
+stream with a band offset known only at run time, returning the
+unnormalised accumulator with the row max and row sum so that the ring
+can merge blocks exactly. On CUDA tensors it is one launch of
+``csrc/flash_block.cu``; on CPU tensors :func:`reference_block_attention_stats`.
+It is forward-only, as the reference's (``ray_tpu/ops/flash_attention.py:151``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,36 +59,38 @@ def reference_attention(
     return torch.einsum("nts,nsd->ntd", probs, v.float()).to(q.dtype)
 
 
-def _check_kernel_inputs(q, k, v) -> None:
-    """Raise on what the kernel does not take."""
+def _check_kernel_inputs(q, k, v, what: str = "flash_attention", lead: str = "B, H") -> None:
+    """Raise on what the kernel does not take: q (``lead``, T, D) and
+    k, v (``lead``, S, D) of one device and type, contiguous."""
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
+        raise ValueError(f"{what}: unsupported device {dev}")
     for name, x in (("k", k), ("v", v)):
         if x.device != dev:
-            raise ValueError(f"flash_attention: {name} on {x.device}, q on {dev}")
+            raise ValueError(f"{what}: {name} on {x.device}, q on {dev}")
         if x.dtype != q.dtype:
-            raise TypeError(f"flash_attention: {name} is {x.dtype}, q is {q.dtype}")
+            raise TypeError(f"{what}: {name} is {x.dtype}, q is {q.dtype}")
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(
-            f"flash_attention: the kernel takes float32 or bfloat16, got {q.dtype}"
+            f"{what}: the kernel takes float32 or bfloat16, got {q.dtype}"
         )
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+    ndim = len(lead.split(",")) + 2
+    if q.dim() != ndim or k.shape != v.shape or k.dim() != ndim:
         raise ValueError(
-            "flash_attention: q (B, H, T, D) and k, v (B, H, S, D); got "
+            f"{what}: q ({lead}, T, D) and k, v ({lead}, S, D); got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+    if k.shape[:-2] != q.shape[:-2] or k.shape[-1] != q.shape[-1]:
         raise ValueError(
-            f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} disagree"
+            f"{what}: q {tuple(q.shape)} and k {tuple(k.shape)} disagree"
         )
-    if not 1 <= q.shape[3] <= MAX_HEAD_DIM:
+    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
         raise ValueError(
-            f"flash_attention: head dim {q.shape[3]} outside [1, {MAX_HEAD_DIM}]"
+            f"{what}: head dim {q.shape[-1]} outside [1, {MAX_HEAD_DIM}]"
         )
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def _launch(q, k, v, causal_offset: Optional[int]) -> torch.Tensor:
@@ -145,3 +154,60 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def reference_block_attention_stats(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, offset: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain block statistics on (N, T, D) queries and (N, S, D) keys and
+    values: ``m`` is the row max of the scaled scores over the visible
+    keys (j <= i + offset), ``l`` the sum of ``exp(s - m)`` over them and
+    ``acc`` the unnormalised ``Σ exp(s - m) v``. Masked keys add no mass,
+    so a row that sees no key is exactly (acc, m, l) = (0, -1e30, 0), as
+    the TPU kernel leaves it. Computed and returned in float32, or in
+    float64 for float64 inputs (the card's check of the kernel measures
+    its float32 error against float64 copies of its inputs)."""
+    work = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
+    scores = torch.einsum("ntd,nsd->nts", q.to(work), k.to(work)) * scale
+    t, s = scores.shape[-2:]
+    i = torch.arange(t, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    valid = j <= i + int(offset)
+    m = torch.where(valid, scores, NEG_INF).amax(-1)
+    p = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
+    acc = torch.einsum("nts,nsd->ntd", p, v.to(work))
+    return acc, m, p.sum(-1)
+
+
+def flash_block_attention_stats(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, offset: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One attention block with its running statistics. q: (N, T, D);
+    k, v: (N, S, D); ``offset`` a Python int: key j is visible to query
+    i iff ``j <= i + offset`` (``S`` or more: no mask). Returns float32
+    (acc (N, T, D) unnormalised, m (N, T), l (N, T)). CUDA tensors go
+    through the kernel, CPU tensors through
+    :func:`reference_block_attention_stats`."""
+    offset = int(offset)
+    if q.device.type == "cpu":
+        return reference_block_attention_stats(q, k, v, offset)
+    _check_kernel_inputs(q, k, v, "flash_block_attention_stats", lead="N")
+    n, t, d = q.shape
+    acc = torch.empty((n, t, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((n, t), dtype=torch.float32, device=q.device)
+    l = torch.empty((n, t), dtype=torch.float32, device=q.device)
+    lib = _kernels.library("flash_block")
+    with torch.cuda.device(q.device):
+        rc = lib.flash_block_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), n, t, k.shape[1], d,
+            _KERNEL_DTYPES[q.dtype], offset,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(rc, lib, "flash_block_error_string", "flash_block")
+    flash_block_attention_stats.launches += 1
+    return acc, m, l
+
+
+flash_block_attention_stats.launches = 0

@@ -13,7 +13,14 @@ indices; its IS weights within 1 float32 ulp (host and card round the
 f64 ``pow`` apart). The flash-attention kernel sums in another order
 than the plain version (online softmax over key tiles, q scaled before
 the product): within 2e-5 abs/rel in float32 and 3e-2 in bfloat16, and
-rows that see no key exactly 0.
+rows that see no key exactly 0. The flash block kernel of ring attention
+on acc, m and l against the plain version on float64 copies of its
+inputs, in float32 and in bfloat16 (whose inputs float64 holds exactly):
+within 2e-5, and 1e-4 over the ring hop's 4096 keys, where a float32
+running sum drifts further (the plain version in float32 needs up to
+4.1e-5 there); rows that see no key exactly (0, -1e30, 0); and a ring
+of two gloo ranks on the one card against the full attention within the
+reference test's tolerances.
 """
 
 from __future__ import annotations
@@ -255,3 +262,81 @@ def test_flash_attention_refusals(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.randn(1, 2, 32, 8, device=cuda).transpose(2, 3)
         fa.flash_attention(t, q, q)
+
+
+def _block_tol(s):
+    """The flash block kernel's abs/rel tolerance against float64 over
+    ``s`` keys (the 4096-key ring hop or a few hundred)."""
+    return 1e-4 if s >= 4096 else 2e-5
+
+
+# (B·H, T, S, D, offset): the ring's hop at its four kinds of offset (the
+# diagonal, one and three shards behind, one ahead), the torso's shape,
+# the reference test's shard, ragged T and S, the head widths
+FLASH_BLOCK_CASES = [
+    (8, 4096, 4096, 32, 0), (8, 4096, 4096, 32, 4096), (8, 4096, 4096, 32, 12288),
+    (8, 4096, 4096, 32, -4096), (2048, 8, 8, 32, 0), (4, 8, 8, 16, 0), (4, 8, 8, 16, -8),
+    (4, 130, 200, 16, 7), (4, 130, 200, 16, -150),
+    (64, 16, 16, 16, 0), (64, 16, 16, 32, 0), (64, 16, 16, 64, 0), (64, 16, 16, 128, 3),
+]
+
+
+@pytest.mark.parametrize("n,t,s,d,offset", FLASH_BLOCK_CASES)
+def test_flash_block_kernel_matches_plain(cuda, n, t, s, d, offset):
+    gen = torch.Generator(device=cuda).manual_seed(n + t + s + d)
+    q, k, v = (torch.randn(n, x, d, device=cuda, generator=gen) for x in (t, s, s))
+    before = fa.flash_block_attention_stats.launches
+    got = fa.flash_block_attention_stats(q, k, v, offset)
+    assert fa.flash_block_attention_stats.launches == before + 1
+    # the plain version on float64 copies: the kernel's own float32 error
+    want = fa.reference_block_attention_stats(q.double(), k.double(), v.double(), offset)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g.double(), w, atol=_block_tol(s), rtol=_block_tol(s))
+    blind = torch.arange(t, device=cuda) + offset < 0  # rows that see no key
+    acc, m, l = got
+    assert bool((m[:, blind] == -1e30).all()) and bool((l[:, blind] == 0).all())
+    assert bool((acc[:, blind] == 0).all()) and bool((l[:, ~blind] > 0).all())
+
+
+@pytest.mark.parametrize("n,t,s,d,offset", [(8, 4096, 4096, 32, 0), (8, 4096, 4096, 32, 4096),
+                                             (4, 130, 130, 16, 7)])
+def test_flash_block_kernel_bf16(cuda, n, t, s, d, offset):
+    """bf16 in, float32 out: held like float32 against float64 copies,
+    which hold the bf16 inputs exactly."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(n, x, d, device=cuda, generator=gen).bfloat16() for x in (t, s, s))
+    got = fa.flash_block_attention_stats(q, k, v, offset)
+    want = fa.reference_block_attention_stats(q.double(), k.double(), v.double(), offset)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g.double(), w, atol=_block_tol(s), rtol=_block_tol(s))
+
+
+def test_flash_block_refusals(cuda):
+    q = torch.randn(2, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match=r"q \(N, T, D\)"):
+        fa.flash_block_attention_stats(q[None], q[None], q[None], 0)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = torch.randn(2, 8, 129, device=cuda)
+        fa.flash_block_attention_stats(wide, wide, wide, 0)
+    with pytest.raises(ValueError, match="k on"):
+        fa.flash_block_attention_stats(q, q.cpu(), q, 0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_block_attention_stats(q.half(), q.half(), q.half(), 0)
+
+
+def test_ring_of_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """Two ranks on the card over gloo: each hop launches the kernel, and
+    the one exchange of each call is staged through host memory."""
+    from _torch_ring_worker import RING_CASES, ring_inputs, run_ranks
+
+    from ray_tpu_torch.parallel.ring_attention import full_attention_reference
+
+    ranks = run_ranks(2, tmp_path, device="cuda", timeout_s=300)
+    for seed, (name, shape, causal) in enumerate(RING_CASES):
+        want = full_attention_reference(*map(torch.as_tensor, ring_inputs(shape, seed)), causal=causal)
+        tol = 5e-4 if name == "long_sequence_causal" else 2e-4
+        for r in ranks:
+            np.testing.assert_allclose(r[f"ring/{name}"], want.numpy(), atol=tol, rtol=tol)
+            assert int(r[f"launches/{name}"]) == 2 and int(r[f"staged/{name}"]) == 1

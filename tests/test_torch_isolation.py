@@ -116,7 +116,7 @@ def test_algorithm_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_kernel_wrappers_refuse_other_devices():
-    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.flash_attention import flash_attention, flash_block_attention_stats
     from ray_tpu_torch.ops.framestack import gather_rows
     from ray_tpu_torch.ops.gae import compute_gae_fragment
 
@@ -129,3 +129,5 @@ def test_kernel_wrappers_refuse_other_devices():
     qkv = torch.empty((1, 2, 8, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(qkv, qkv, qkv, causal_offset=0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_block_attention_stats(qkv[0], qkv[0], qkv[0], 0)
