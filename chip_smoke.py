@@ -21,8 +21,11 @@ and ``nvcc``. Phases, each printing its own lines:
 4. scatter  -- the row-scatter kernel against its plain version,
                bitwise: the replay insert (64 rows into a (50000, 1764)
                int32 ring, wrapping), duplicate positions, bool, 2-, 4-
-               and odd-byte columns, and a whole-ring ``set_state``;
-               times of kernel, plain version and ``index_copy_``;
+               and odd-byte columns, int32 positions, the one-launch
+               limit of rows and one past it, and a whole-ring
+               ``set_state``; times of kernel, plain version and
+               ``index_copy_``; the kernels one call at the insert
+               launches (``torch.profiler``: exactly 1);
 5. descent  -- the f64 prefix-descent kernel against its plain version
                and the host sum tree, bitwise, at capacity 65536 (32,
                512 and 4096 draws, node boundaries, masses at and past
@@ -45,11 +48,16 @@ and ``nvcc``. Phases, each printing its own lines:
                ring's hop (B·H = 8, T = S = 4096, D = 32) on the diagonal,
                one and three shards behind and one ahead, the torso's
                shape, the reference test's shard, ragged T and S, D in
-               {16, 32, 64, 128}, bf16 at the hop (diagonal and one shard
-               behind) and ragged; the plain version's own float32 error
-               at each case beside the kernel's; times of kernel,
-               wrapper, plain version and ``scaled_dot_product_attention``
-               at the hop (diagonal and every key visible) and the bounds;
+               {16, 32, 64, 128}, the 64-row, 64-key tile's edges (D of
+               7, 8 and 40; T and S of 63, 65 and 129; offsets on and
+               beside a tile edge), bf16 at the hop (diagonal and one
+               shard behind), ragged and at tile edges; the plain
+               version's own float32 error at each case beside the
+               kernel's; times of kernel, wrapper, plain version and
+               ``scaled_dot_product_attention`` at the hop (diagonal and
+               every key visible) in f32 and in bf16, and the bounds
+               (q·k held to the f32 rate for f32 inputs and to the bf16
+               tensor-core rate for bf16 ones, p·v to the f32 rate);
 7. learner  -- ``PPOTorchPolicy.learn_on_batch`` twice on a frame-pool
                batch at the bench geometry (84x84x4, 6 actions, B=4096,
                minibatch 512, 10 epochs, lr 5e-5): env-steps/s, finite
@@ -128,6 +136,7 @@ REPLAY_CAPACITY, TREE_CAPACITY = 50000, 65536
 TRAIN_BATCH, INSERT_ROWS = 32, 64  # one sample; 16 envs x 4 steps per insert
 OBS_WORDS = 84 * 84 // 4  # one 84x84x1 uint8 frame as int32 words
 F32_FLOPS_PER_S = 67e12  # H100 SXM published f32 rate outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core rate
 # the decoder-transformer torso at the width of bench.py's --model-parallel A/B
 TORSO = {
     "use_transformer": True, "transformer_dim": 256, "transformer_num_layers": 4,
@@ -195,6 +204,19 @@ def device_busy(fn, n):
     require(device_us > 0, "the profiler recorded no device time")
     return {"calls": n, "wall_s": round(wall, 6), "device_s": round(device_us / 1e6, 6),
             "busy_share": round(device_us / 1e6 / wall, 4)}
+
+
+def device_kernels(fn):
+    """Names of the device activities (kernels, copies, sets) that
+    ``torch.profiler`` records over one call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def make_frames(rng, n, h=H, w=W):
@@ -360,6 +382,19 @@ def phase_scatter():
                           (INSERT_ROWS,) + row, device=dev, generator=gen).to(dtype)
         check(col, pos, v, f"{dtype} rows of {row}, wrapping")
         check(col, dup, v, f"{dtype} rows of {row}, duplicates")
+    # the one-launch limit and one past it (the three-launch path), and
+    # int32 positions, which the one-launch path reads as given
+    lib = _kernels.library("row_scatter")
+    limit = lib.row_scatter_one_launch_rows()
+    for r in (limit, limit + 1):
+        rpos = torch.randint(0, 4 * limit, (r,), device=dev, generator=gen)
+        rpos[1::7] = rpos[0]
+        check(words(4 * limit, 7), rpos, words(r, 7), f"{r} rows of 7 words, duplicates")
+        check(words(4 * limit, 7), rpos.to(torch.int32), words(r, 7),
+              f"{r} rows of 7 words, int32 positions")
+    check(ring, pos.to(torch.int32), vals, "insert obs words, int32 positions")
+    check(torch.rand(REPLAY_CAPACITY, device=dev, generator=gen) < 0.5, dup.to(torch.int32),
+          torch.rand(INSERT_ROWS, device=dev, generator=gen) < 0.5, "bool rows, int32 duplicates")
     # set_state: the whole ring in one scatter
     full = words(REPLAY_CAPACITY, OBS_WORDS)
     every = torch.arange(REPLAY_CAPACITY, device=dev)
@@ -368,16 +403,20 @@ def phase_scatter():
     check(flags.clone(), every, ~flags, f"set_state, {REPLAY_CAPACITY} bool rows")
     say("scatter", bitwise=True, checked=json.dumps(checked))
 
-    lib = _kernels.library("row_scatter")
     stream = torch.cuda.current_stream().cuda_stream
-    owner = torch.empty(REPLAY_CAPACITY, dtype=torch.int32, device=dev)
     ms = cuda_ms(lambda: lib.row_scatter_launch(
-        vals.data_ptr(), pos.data_ptr(), ring.data_ptr(), owner.data_ptr(),
+        vals.data_ptr(), pos.data_ptr(), 8, ring.data_ptr(), None,
         INSERT_ROWS, REPLAY_CAPACITY, OBS_WORDS * 4, stream), iters=200)
     wrapper_ms = cuda_ms(lambda: scatter_rows(ring, pos, vals), iters=200)
     plain_ms = cuda_ms(lambda: scatter_rows_plain(ring, pos, vals), iters=50)
     lib_ms = cuda_ms(lambda: ring.index_copy_(0, pos, vals), iters=200)
     full_ms = cuda_ms(lambda: scatter_rows(ring, every, full), iters=20)
+    # the CUDA kernels that one scatter_rows call at the insert launches
+    # (int64 positions, as the replay buffer passes them, and int32)
+    per_call = {str(p.dtype): device_kernels(lambda p=p: scatter_rows(ring, p, vals))
+                for p in (pos, pos.to(torch.int32))}
+    require(all(len(names) == 1 for names in per_call.values()),
+            f"one scatter_rows call at the insert launched {per_call}")
     # bytes the function must move: each value row read once, each ring
     # row written once, the positions read once
     nbytes = 2 * vals.numel() * 4 + pos.numel() * 8
@@ -386,16 +425,18 @@ def phase_scatter():
     say("scatter", ms=f"{ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
         index_copy_ms=f"{lib_ms:.5f}", bound_ms=f"{bound_ms:.6f}", bytes=nbytes,
         shape=f"{INSERT_ROWS} rows of {OBS_WORDS} words into {REPLAY_CAPACITY}",
-        note="three launches (reset, claim, copy); launch-bound at the insert")
+        kernels_per_call=json.dumps(per_call), one_launch_rows=limit,
+        note="one launch up to one_launch_rows rows; launch-bound at the insert")
     say("scatter", set_state_ms=f"{full_ms:.5f}",
-        set_state_bound_ms=f"{full_bytes / HBM_BYTES_PER_S * 1e3:.5f}", set_state_bytes=full_bytes)
+        set_state_bound_ms=f"{full_bytes / HBM_BYTES_PER_S * 1e3:.5f}", set_state_bytes=full_bytes,
+        note="three launches (reset, claim, copy) above one_launch_rows")
     return {
         "name": "row_scatter", "route": "cuda",
         "source": "ray_tpu_torch/csrc/row_scatter.cu",
         "replaces": "ray_tpu/ops/framestack.py:71",
         "max_abs_err": 0.0, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
-        "passed": True,
+        "kernels_per_call": len(per_call["torch.int64"]), "passed": True,
     }
 
 
@@ -915,9 +956,19 @@ def phase_flash_block():
         ("ragged_130x200_7", 4, 130, 200, 16, 7, f32),
         ("ragged_130x200_m150", 4, 130, 200, 16, -150, f32),
     ] + [(f"d{d}", 64, 16, 16, d, 0, f32) for d in (16, 32, 64, 128)] + [
+        # the tile's edges (64 rows, 64 keys): D short of or between the
+        # mma's depths, T and S beside a tile edge, offsets on and beside it
+        ("tile_63x65_d8", 4, 63, 65, 8, 0, f32),
+        ("tile_65x63_d40_1", 4, 65, 63, 40, 1, f32),
+        ("tile_129_63", 4, 129, 129, 16, 63, f32),
+        ("tile_129_64", 4, 129, 129, 16, 64, f32),
+        ("tile_129x65_d40_m64", 4, 129, 65, 40, -64, f32),
+        ("tile_65x129_d7_2", 4, 65, 129, 7, 2, f32),
         ("bf16_hop_diagonal", n_hop, RING_HOP, RING_HOP, RING_D, 0, bf16),
         ("bf16_hop_behind_1", n_hop, RING_HOP, RING_HOP, RING_D, RING_HOP, bf16),
         ("bf16_130x200_7", 4, 130, 200, 16, 7, bf16),
+        ("bf16_tile_129_d40_63", 4, 129, 129, 40, 63, bf16),
+        ("bf16_tile_65x129_d7_2", 4, 65, 129, 7, 2, bf16),
     ]
 
     def need(g, w):
@@ -961,10 +1012,10 @@ def phase_flash_block():
         note="least atol = rtol that allclose against float64 needs: the kernel's, "
         "and the plain version's in float32 on the same inputs")
     require(not failed, f"flash_block kernel differs from plain (float64) in {failed}")
-    q, k, v = (torch.randn(n_hop, RING_HOP, RING_D, device="cuda", generator=gen) for _ in range(3))
 
-    # times at the ring's hop (B·H = 8, T = S = 4096, D = 32, f32): the
-    # diagonal hop and a hop with every key visible, and at the torso's shape
+    # times at the ring's hop (B·H = 8, T = S = 4096, D = 32, f32 and
+    # bf16): the diagonal hop and a hop with every key visible, and at
+    # the torso's shape
     lib = _kernels.library("flash_block")
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -974,43 +1025,57 @@ def phase_flash_block():
         ml = torch.empty((2, n, t), device="cuda")
         return lambda: lib.flash_block_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), ml[0].data_ptr(),
-            ml[1].data_ptr(), n, t, k.shape[1], d, 0, off, stream)
+            ml[1].data_ptr(), n, t, k.shape[1], d, int(q.dtype == bf16), off, stream)
 
-    def bound(n, t, s, d, off):
+    def bound(n, t, s, d, off, dtype):
         # bytes: q, k, v read once, acc, m, l written once; operations: a
-        # multiply-add for q·k and one for p·v per visible pair
-        nbytes = (n * t * d + 2 * n * s * d + n * t * d + 2 * n * t) * 4
+        # multiply-add for q·k and one for p·v per visible pair. The rate
+        # each is held to: p·v at the f32 rate (p is float32 and the
+        # function keeps float32 accuracy), q·k at the same for f32
+        # inputs and at the bf16 tensor-core rate for bf16 inputs (whose
+        # products are exact there)
+        item = 2 if dtype == bf16 else 4
+        nbytes = (n * t * d + 2 * n * s * d) * item + (n * t * d + 2 * n * t) * 4
         flops = 4 * d * n * _band_pairs(t, s, off)
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        qk_rate = BF16_FLOPS_PER_S if dtype == bf16 else F32_FLOPS_PER_S
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = (flops / 2 / qk_rate + flops / 2 / F32_FLOPS_PER_S) * 1e3
         return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes, flops
 
     times = {}
-    for label, off in (("diagonal", 0), ("all_visible", RING_HOP)):
-        mask = None
-        if off < RING_HOP - 1:
-            idx = torch.arange(RING_HOP, device="cuda")
-            mask = idx[None, :] <= idx[:, None] + off
-        b_ms, b_by, nbytes, flops = bound(n_hop, RING_HOP, RING_HOP, RING_D, off)
-        times[label] = {
-            "ms": cuda_ms(raw(q, k, v, off), iters=20, warmup=3),
-            "wrapper_ms": cuda_ms(lambda: flash_block_attention_stats(q, k, v, off), iters=20, warmup=3),
-            "plain_ms": cuda_ms(lambda: reference_block_attention_stats(q, k, v, off), iters=5, warmup=2),
-            "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                q[None], k[None], v[None], attn_mask=mask), iters=20, warmup=3),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
-        }
-        say("flash_block", hop=label, offset=off, **{k_: (f"{v_:.5f}" if isinstance(v_, float) else v_)
-                                                     for k_, v_ in times[label].items()},
-            shape=f"B*H={n_hop} T=S={RING_HOP} D={RING_D} f32",
-            sdpa="normalised output only (no m, l), same band mask" if mask is not None
-            else "normalised output only (no m, l), no mask")
+    for dtype in (f32, bf16):
+        q, k, v = (torch.randn(n_hop, RING_HOP, RING_D, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        for label, off in (("diagonal", 0), ("all_visible", RING_HOP)):
+            mask = None
+            if off < RING_HOP - 1:
+                idx = torch.arange(RING_HOP, device="cuda")
+                mask = idx[None, :] <= idx[:, None] + off
+            b_ms, b_by, nbytes, flops = bound(n_hop, RING_HOP, RING_HOP, RING_D, off, dtype)
+            key = label if dtype == f32 else f"bf16_{label}"
+            row = times[key] = {
+                "ms": cuda_ms(raw(q, k, v, off), iters=20, warmup=3),
+                "wrapper_ms": cuda_ms(lambda: flash_block_attention_stats(q, k, v, off), iters=20, warmup=3),
+                "plain_ms": cuda_ms(lambda: reference_block_attention_stats(q, k, v, off), iters=5, warmup=2),
+                "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], attn_mask=mask), iters=20, warmup=3),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            }
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            say("flash_block", hop=key, offset=off, **{k_: (f"{v_:.5f}" if isinstance(v_, float) else v_)
+                                                      for k_, v_ in row.items()},
+                shape=f"B*H={n_hop} T=S={RING_HOP} D={RING_D} {str(dtype)[6:]}",
+                sdpa="normalised output only (no m, l), same band mask" if mask is not None
+                else "normalised output only (no m, l), no mask")
     name, n, t, s, d, off, _ = cases[4]
     tq, tk, tv = (torch.randn(n, x, d, device="cuda", generator=gen) for x in (t, s, s))
     torso_ms = cuda_ms(raw(tq, tk, tv, off), iters=200)
-    torso_bound = bound(n, t, s, d, off)
+    torso_bound = bound(n, t, s, d, off, f32)
     say("flash_block", torso_ms=f"{torso_ms:.5f}", torso_bound_ms=f"{torso_bound[0]:.6f}",
         torso_bound_by=torso_bound[1], shape=f"B*H={n} T=S={t} D={d} f32 band 0",
-        note="operation-bound at the hop (a dependent shuffle and expf chain per key and row)")
+        note="operation-bound at the hop; tensor-core tiles of 64 rows x 64 keys, 3xTF32 for f32",
+        rates=json.dumps({"f32": {"q.k": F32_FLOPS_PER_S, "p.v": F32_FLOPS_PER_S},
+                          "bf16": {"q.k": BF16_FLOPS_PER_S, "p.v": F32_FLOPS_PER_S}}))
     hop = times["all_visible"]
     return {
         "name": "flash_block", "route": "cuda",

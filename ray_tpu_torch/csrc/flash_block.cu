@@ -5,11 +5,11 @@
 //
 // Replaces ray_tpu/ops/flash_attention.py:_block_kernel (reached through
 // flash_block_attention_stats from the ring's hops,
-// ray_tpu/parallel/ring_attention.py:_block_attn_flash). It runs the same
-// stream as flash_fwd.cu (flash_stream.cuh's attend_block: 32 query rows
-// per block of 8 warps, heads packed when T < 32, K/V staged in shared
-// memory, a warp per query row) and writes acc, m and l as they are
-// instead of acc / l. On the TPU the band offset lived in SMEM because
+// ray_tpu/parallel/ring_attention.py:_block_attn_flash). It runs the
+// tensor-core tile stream of flash_tile.cuh (64 query rows of one head
+// per block of 4 warps, 64-key K/V tiles double-buffered with cp.async,
+// S = Q·Kᵀ and P·V through mma.sync, a softmax per tile) and writes acc,
+// m and l as they are. On the TPU the band offset lived in SMEM because
 // the device index was traced; here every rank knows its offset on the
 // host, so it is passed by value. Key j is visible to query i iff
 // j <= i + offset; an offset >= S - 1 shows every key and runs unbanded.
@@ -19,88 +19,115 @@
 // tile and only writes those values.
 //
 // What bounds it on an H100: at the ring's hop shape (8 heads of
-// T = S = 4096, D = 32, f32) the arithmetic, about 17 GFLOP when every
-// key is visible (0.26 ms at the 67 TFLOP/s f32 rate of the CUDA cores),
-// is far above the bytes (about 16 MB, 5 us at 3.35 TB/s). The kernel
-// is bound by its instruction stream instead: a warp per query row makes
-// every (row, key) pair a warp-wide step (a five-shuffle reduction, two
-// expf and the rescaled update) for D = 32 useful multiply-adds, so it
-// runs tens of times above the bound. A thread per row, or tensor-core
-// tiles with a per-tile softmax, is the redesign. acc, m and l are plain
-// float32 running values, as in the TPU kernel.
+// T = S = 4096, D = 32) the arithmetic, about 17 GFLOP when every key is
+// visible, is far above the bytes (about 16 MB, 5 us at 3.35 TB/s): it is
+// bound by operations. The kernel must keep float32 accuracy, so its
+// bound counts the 67 TFLOP/s f32 rate. The tile design moves the
+// products onto the tensor cores (3xTF32 for f32 inputs, three TF32
+// products per f32 product; exact bf16 products for bf16), and pays the
+// softmax once per (row, key) with one exp2f and no shuffles: the tile
+// max takes two quad shuffles per row and 64 keys, the correction one
+// exp2f per row and tile. The warp-per-row stream it replaced spent a
+// five-shuffle reduction and two expf per (row, key) on D multiply-adds.
 //
 // Types: q, k, v f32 or bf16 (one type), accumulation and the outputs
-// f32. D <= 128.
+// f32. D <= 128, padded to 16, 32, 64 or 128; T <= 65535 * 64 and
+// S < 2^31 - 64.
 
-#include "flash_stream.cuh"
+#include "flash_tile.cuh"
 
 namespace {
 
-template <typename T, int kChunks>
-__global__ void __launch_bounds__(flash::kWarps * 32)
+using flash_tile::kRows;
+using flash_tile::kThreads;
+
+// Up to D = 32, registers are held to 128 a thread so that four blocks
+// share an SM (as their shared memory allows): the hop's 8 × 64 blocks
+// then run in one wave on 132 SMs.
+template <typename T, int kDp>
+__global__ void __launch_bounds__(kThreads, kDp <= 32 ? 4 : 1)
 flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, float* __restrict__ acc,
-                   float* __restrict__ m, float* __restrict__ l, int64_t n,
-                   int64_t t, int64_t s, int d, int bq, bool banded,
-                   int64_t offset) {
-  flash::WarpRows<kChunks> w;
-  flash::attend_block<T, kChunks>(w, q, k, v, n, t, s, d, bq, banded, offset);
+                   float* __restrict__ m, float* __restrict__ l, int t, int s,
+                   int d, float scale, bool banded, int64_t offset) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t head = blockIdx.x;
+  const int q0 = blockIdx.y * kRows;
+  flash_tile::Rows<kDp> st;
+  flash_tile::attend<T, kDp>(st, reinterpret_cast<T*>(smem_raw), q, k, v,
+                             head, q0, t, s, d, scale, banded, offset);
+  flash_tile::finish(st);
+  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
 #pragma unroll
-  for (int i = 0; i < flash::kRowsPerWarp; ++i) {
-    if (!w.live[i]) {
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + g + 8 * r;
+    if (row >= t) {
       continue;
     }
-    const int64_t r = w.head[i] * t + w.row[i];
-    float* out = acc + r * d;
+    const int64_t o = head * t + row;
+    float* out = acc + o * d;
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int e = lane + 32 * c;
-      if (e < d) {
-        out[e] = w.st[i].acc[c];
+    for (int nd = 0; nd < kDp / 8; ++nd) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * nd + 2 * tig + c;
+        if (col < d) {
+          out[col] = st.acc[nd][2 * r + c];
+        }
       }
     }
-    if (lane == 0) {
-      m[r] = w.st[i].m;
-      l[r] = w.st[i].l;
+    if (tig == 0) {
+      m[o] = st.m[r];
+      l[o] = st.l[r];
     }
   }
 }
 
+template <typename T, int kDp>
+cudaError_t launch_padded(const void* q, const void* k, const void* v,
+                          float* acc, float* m, float* l, int64_t n, int t,
+                          int s, int d, bool banded, int64_t offset,
+                          cudaStream_t stream) {
+  constexpr int kBytes = flash_tile::Layout<T, kDp>::kBytes;
+  if (kBytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_block_kernel<T, kDp>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (err != cudaSuccess) {
+      return err;
+    }
+  }
+  const dim3 grid(static_cast<unsigned>(n),
+                  static_cast<unsigned>((t + kRows - 1) / kRows));
+  const float scale = 1.0f / sqrtf(static_cast<float>(d));
+  flash_block_kernel<T, kDp><<<grid, kThreads, kBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), acc, m, l, t, s, d, scale, banded, offset);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         float* acc, float* m, float* l, int64_t n, int64_t t,
-                         int64_t s, int d, bool banded, int64_t offset,
+                         float* acc, float* m, float* l, int64_t n, int t,
+                         int s, int d, bool banded, int64_t offset,
                          cudaStream_t stream) {
-  int bq = 0;
-  dim3 grid;
-  if (!flash::block_grid(n, t, &bq, &grid)) {
-    return cudaErrorInvalidConfiguration;
+  if (d <= 16) {
+    return launch_padded<T, 16>(q, k, v, acc, m, l, n, t, s, d, banded,
+                                offset, stream);
   }
-  const dim3 block(flash::kWarps * 32);
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
-  const int chunks = (d + 31) / 32;
-  switch (chunks) {
-    case 1:
-      flash_block_kernel<T, 1><<<grid, block, 0, stream>>>(
-          qq, kk, vv, acc, m, l, n, t, s, d, bq, banded, offset);
-      break;
-    case 2:
-      flash_block_kernel<T, 2><<<grid, block, 0, stream>>>(
-          qq, kk, vv, acc, m, l, n, t, s, d, bq, banded, offset);
-      break;
-    case 3:
-      flash_block_kernel<T, 3><<<grid, block, 0, stream>>>(
-          qq, kk, vv, acc, m, l, n, t, s, d, bq, banded, offset);
-      break;
-    default:
-      flash_block_kernel<T, 4><<<grid, block, 0, stream>>>(
-          qq, kk, vv, acc, m, l, n, t, s, d, bq, banded, offset);
-      break;
+  if (d <= 32) {
+    return launch_padded<T, 32>(q, k, v, acc, m, l, n, t, s, d, banded,
+                                offset, stream);
   }
-  return cudaGetLastError();
+  if (d <= 64) {
+    return launch_padded<T, 64>(q, k, v, acc, m, l, n, t, s, d, banded,
+                                offset, stream);
+  }
+  return launch_padded<T, 128>(q, k, v, acc, m, l, n, t, s, d, banded, offset,
+                               stream);
 }
 
 }  // namespace
@@ -110,22 +137,28 @@ extern "C" int flash_block_launch(const void* q, const void* k, const void* v,
                                   void* acc, void* m, void* l, long long n,
                                   long long t, long long s, int d, int dtype,
                                   long long offset, void* stream) {
-  if (d <= 0 || d > flash::kMaxD || dtype < 0 || dtype > 1 || s < 0) {
+  if (d <= 0 || d > flash_tile::kMaxD || dtype < 0 || dtype > 1 || s < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0 || t <= 0) {
     return 0;
+  }
+  if (n > 2147483647LL || t > 65535LL * kRows ||
+      s > 2147483647LL - flash_tile::kKeys) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool banded = offset < s - 1;
   float* a = static_cast<float*>(acc);
   float* mm = static_cast<float*>(m);
   float* ll = static_cast<float*>(l);
+  const int ti = static_cast<int>(t);
+  const int si = static_cast<int>(s);
   const cudaError_t err =
-      dtype == 0 ? launch_typed<float>(q, k, v, a, mm, ll, n, t, s, d, banded,
-                                       offset, st)
-                 : launch_typed<__nv_bfloat16>(q, k, v, a, mm, ll, n, t, s, d,
-                                               banded, offset, st);
+      dtype == 0 ? launch_typed<float>(q, k, v, a, mm, ll, n, ti, si, d,
+                                       banded, offset, st)
+                 : launch_typed<__nv_bfloat16>(q, k, v, a, mm, ll, n, ti, si,
+                                               d, banded, offset, st);
   return static_cast<int>(err);
 }
 

@@ -11,7 +11,7 @@
 // block per 8 rows. The block stages the K/V rows of its heads in shared
 // memory, 32 key rows at a time (bq keys of each head), and every warp
 // streams them through its 4 rows with flash_stream.cuh's online softmax
-// (attend_block, shared with flash_block.cu). The band (j <= i + offset)
+// (attend_block). The band (j <= i + offset)
 // and the ragged edges (i < T, j < S, heads < N) are masked from indices;
 // nothing is padded or copied, and a block stops streaming past the last
 // key its band can see.

@@ -3,9 +3,9 @@
 // Counterpart of ray_tpu/ops/flash_attention.py:_online_softmax_stream,
 // the body both TPU kernels share (_fwd_kernel, which normalises, and
 // _block_kernel, which returns the unnormalised accumulator and the row
-// statistics for ring attention). Both entry points run attend_block
-// below and differ only in what they write: flash_fwd.cu writes
-// acc / max(l, 1e-30), flash_block.cu writes acc, m and l as they are.
+// statistics for ring attention). flash_fwd.cu runs attend_block below
+// and writes acc / max(l, 1e-30); flash_block.cu runs the tensor-core
+// tile stream of flash_tile.cuh instead.
 //
 // Block layout: a block of kWarps warps owns kRows query rows, a tile of
 // bq rows (the smallest power of two >= T, at most kRows) from each of

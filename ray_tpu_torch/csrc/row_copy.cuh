@@ -6,7 +6,9 @@
 //                               where owner[idx[r]] == r
 //
 // The reference had one routine for both directions as well
-// (ray_tpu/ops/framestack.py:_pallas_rows(scatter=...)).
+// (ray_tpu/ops/framestack.py:_pallas_rows(scatter=...)). The scatter
+// takes these kernels only above its one-launch limit; below it,
+// row_scatter.cu's own kernel copies each row with copy_row.
 //
 // Design, for an H100, where a copy is bound by memory traffic and
 // latency, never by arithmetic; it keeps many bytes in flight:
@@ -52,6 +54,32 @@ __device__ __forceinline__ bool take_row(const int64_t* __restrict__ idx,
   return true;
 }
 
+// The word path's body: the calling warp copies one row of `words`
+// words, neighbouring lanes on neighbouring words, kUnroll loads in
+// flight per lane before its stores.
+template <typename Word>
+__device__ __forceinline__ void copy_row(const Word* __restrict__ in,
+                                         Word* __restrict__ o, int64_t words,
+                                         int lane) {
+  for (int64_t j = lane; j < words; j += 32 * kUnroll) {
+    Word buf[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t k = j + u * 32;
+      if (k < words) {
+        buf[u] = in[k];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t k = j + u * 32;
+      if (k < words) {
+        o[k] = buf[u];
+      }
+    }
+  }
+}
+
 template <bool kScatter, typename Word>
 __global__ void __launch_bounds__(kWarps * 32)
 word_kernel(const Word* __restrict__ src, const int64_t* __restrict__ idx,
@@ -65,25 +93,8 @@ word_kernel(const Word* __restrict__ src, const int64_t* __restrict__ idx,
     if (!take_row<kScatter>(idx, owner, r, m, &p)) {
       continue;
     }
-    const Word* in = src + (kScatter ? r : p) * words;
-    Word* o = out + (kScatter ? p : r) * words;
-    for (int64_t j = lane; j < words; j += 32 * kUnroll) {
-      Word buf[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int64_t k = j + u * 32;
-        if (k < words) {
-          buf[u] = in[k];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int64_t k = j + u * 32;
-        if (k < words) {
-          o[k] = buf[u];
-        }
-      }
-    }
+    copy_row(src + (kScatter ? r : p) * words, out + (kScatter ? p : r) * words,
+             words, lane);
   }
 }
 

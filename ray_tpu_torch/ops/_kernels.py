@@ -56,8 +56,10 @@ KERNELS = {
         (),
         {
             "row_scatter_launch": (
-                [_P, _P, _P, _P, _I64, _I64, _I64, _P], ctypes.c_int
+                [_P, _P, ctypes.c_int, _P, _P, _I64, _I64, _I64, _P],
+                ctypes.c_int,
             ),
+            "row_scatter_one_launch_rows": ([], ctypes.c_int),
             "row_scatter_error_string": ([ctypes.c_int], ctypes.c_char_p),
         },
     ),

@@ -115,8 +115,11 @@ def scatter_rows(
     contiguous; ``pos``: (R,) int; ``vals``: (R, ...) of ring's dtype
     and row shape. Rows no position names keep their contents; where
     positions repeat, the last write wins. CUDA tensors go through the
-    row-scatter kernel (bitwise equal to the plain version); CPU
-    tensors through :func:`scatter_rows_plain`."""
+    row-scatter kernel (bitwise equal to the plain version): one launch
+    that reads int32 or int64 positions as given, up to the source's
+    one-launch limit of rows (the replay insert, the priority leaf
+    write), and three launches with int64 positions and an owner
+    scratch above it; CPU tensors through :func:`scatter_rows_plain`."""
     if vals.dtype != ring.dtype:
         raise TypeError(
             f"scatter_rows: vals {vals.dtype} into a {ring.dtype} ring"
@@ -135,14 +138,20 @@ def scatter_rows(
     row_bytes = _row_bytes(ring, "scatter_rows")
     if r >= 2**31:
         raise ValueError(f"scatter_rows: {r} rows (at most 2^31 - 1)")
-    flat_pos = pos.reshape(-1).to(torch.int64).contiguous()
     vals = vals.contiguous()
-    owner = torch.empty(ring.shape[0], dtype=torch.int32, device=ring.device)
     lib = _kernels.library("row_scatter")
+    flat_pos = pos.reshape(-1).contiguous()
+    owner = None
+    if r > lib.row_scatter_one_launch_rows():
+        # the three-launch path (set_state's whole ring): int64
+        # positions and an owner scratch of one int32 per ring row
+        flat_pos = flat_pos.to(torch.int64)
+        owner = torch.empty(ring.shape[0], dtype=torch.int32, device=ring.device)
     with torch.cuda.device(ring.device):
         rc = lib.row_scatter_launch(
-            vals.data_ptr(), flat_pos.data_ptr(), ring.data_ptr(),
-            owner.data_ptr(), r, ring.shape[0], row_bytes,
+            vals.data_ptr(), flat_pos.data_ptr(), flat_pos.element_size(),
+            ring.data_ptr(), None if owner is None else owner.data_ptr(),
+            r, ring.shape[0], row_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(rc, lib, "row_scatter_error_string", "row_scatter")

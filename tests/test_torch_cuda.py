@@ -118,6 +118,47 @@ def test_scatter_rows_kernel_bitwise(cuda, dtype, row, positions):
     assert got is ring and torch.equal(ring, want)
 
 
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("past_limit", [0, 1])
+@pytest.mark.parametrize("dtype,row", [(torch.int32, (1764,)), (torch.bool, ()), (torch.float64, (1,))])
+def test_scatter_rows_at_the_one_launch_limit(cuda, dtype, row, past_limit, index_dtype):
+    """R at the kernel's one-launch limit (one launch) and one past it
+    (the three-launch path), with repeated positions, bitwise."""
+    from ray_tpu_torch.ops import _kernels
+
+    r = _kernels.library("row_scatter").row_scatter_one_launch_rows() + past_limit
+    gen = torch.Generator(device=cuda).manual_seed(r)
+    m = 3 * r
+    pos = torch.randint(0, m, (r,), device=cuda, generator=gen)
+    pos[1::9] = pos[0]
+    ring = _rand_rows((m,) + row, dtype, gen, cuda)
+    vals = _rand_rows((r,) + row, dtype, gen, cuda)
+    want = framestack.scatter_rows_plain(ring.clone(), pos, vals)
+    before = framestack.scatter_rows.launches
+    got = framestack.scatter_rows(ring, pos.to(index_dtype), vals)
+    assert framestack.scatter_rows.launches == before + 1
+    assert got is ring and torch.equal(ring, want)
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+def test_scatter_rows_insert_is_one_kernel(cuda, index_dtype):
+    """One scatter_rows call at the replay insert (64 rows of 1764 words)
+    runs exactly one CUDA kernel: no cast, no scratch, no second pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ring = torch.zeros((50000, 1764), dtype=torch.int32, device=cuda)
+    vals = torch.ones((64, 1764), dtype=torch.int32, device=cuda)
+    pos = ((49980 + torch.arange(64, device=cuda)) % 50000).to(index_dtype)
+    framestack.scatter_rows(ring, pos, vals)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        framestack.scatter_rows(ring, pos, vals)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 1, device
+    assert bool((ring[pos.long()] == 1).all())
+
+
 def test_scatter_rows_refuses_out_of_range(cuda):
     ring = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="vals on"):
@@ -278,6 +319,12 @@ FLASH_BLOCK_CASES = [
     (8, 4096, 4096, 32, -4096), (2048, 8, 8, 32, 0), (4, 8, 8, 16, 0), (4, 8, 8, 16, -8),
     (4, 130, 200, 16, 7), (4, 130, 200, 16, -150),
     (64, 16, 16, 16, 0), (64, 16, 16, 32, 0), (64, 16, 16, 64, 0), (64, 16, 16, 128, 3),
+    # the tile's edges (64 query rows, 64 keys): D short of the mma's
+    # depth or not a multiple of it, T and S beside a tile edge, offsets
+    # on and beside it
+    (4, 63, 65, 8, 0), (4, 64, 64, 40, 0), (4, 65, 63, 40, 1), (4, 129, 129, 16, 63),
+    (4, 129, 129, 16, 64), (4, 129, 129, 16, 65), (4, 65, 129, 8, -1), (4, 129, 65, 40, -64),
+    (4, 64, 64, 16, -63), (4, 65, 129, 7, 2), (3, 129, 64, 100, 127),
 ]
 
 
@@ -300,7 +347,8 @@ def test_flash_block_kernel_matches_plain(cuda, n, t, s, d, offset):
 
 
 @pytest.mark.parametrize("n,t,s,d,offset", [(8, 4096, 4096, 32, 0), (8, 4096, 4096, 32, 4096),
-                                             (4, 130, 130, 16, 7)])
+                                             (4, 130, 130, 16, 7), (4, 129, 129, 40, 63),
+                                             (4, 65, 63, 8, 1), (4, 65, 129, 7, 2)])
 def test_flash_block_kernel_bf16(cuda, n, t, s, d, offset):
     """bf16 in, float32 out: held like float32 against float64 copies,
     which hold the bf16 inputs exactly."""
