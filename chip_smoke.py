@@ -34,12 +34,16 @@ and ``nvcc``. Phases, each printing its own lines:
                trees; times, and ``searchsorted`` as a yardstick;
 6. flash    -- the flash-attention kernel against its plain version
                (within 2e-5 abs/rel in f32, 3e-2 in bf16, rows that see
-               no key exactly 0): the torso's four path shapes (B·H =
-               2048, 4096, 128, 256 at T = S = 8, D = 32), the
-               reference test's shapes and offsets, D in {16, 32, 64,
-               128} and one bf16 case; at the learner shape, times of
-               kernel, plain version and ``scaled_dot_product_attention``
-               with the same band mask, and the bound;
+               no key exactly 0, the output in q's layout): the torso's
+               four path shapes (B·H = 2048, 4096, 128, 256 at T = S =
+               8, D = 32) in the torso's (B, T, H, D) memory and
+               contiguous, the reference test's shapes and offsets, D in
+               {16, 32, 64, 128}, the query row per thread's edges (T of
+               1, 3, 17, 32; D of 1, 33, 64; ragged heads; the chunk
+               merge) and bf16; at each path shape, the kernel's and
+               ``scaled_dot_product_attention``'s (same band mask) times
+               and the bound; at the learner shape, the wrapper's time
+               with and without autograd and the plain version's;
    flash_block -- ring attention's block kernel against its plain version
                on float64 copies of its inputs (acc, m and l within 2e-5
                abs/rel, 1e-4 over the hop's 4096 keys, in f32 and in bf16,
@@ -84,7 +88,9 @@ and ``nvcc``. Phases, each printing its own lines:
                learn_on_batch`` twice on Box(64) obs and Discrete(8),
                batch 512, minibatch 256, 2 epochs, lr 3e-4, seed 0:
                env-steps/s, flash launches, finite stats, parameter
-               count and peak memory;
+               count and peak memory; then the device activities of one
+               forward at the minibatch (one short-head flash kernel a
+               layer, and its copies);
 11. transformer_lane -- ponglitejax-ppo.yaml with that torso for 2
                training iterations: env-steps/s, flash and GAE launches,
                on-card checks and the device's busy share;
@@ -109,6 +115,14 @@ and ``nvcc``. Phases, each printing its own lines:
 14. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
+Times: ``ms`` is CUDA events around back-to-back raw launches on
+prepared buffers (``cuda_ms``); where a kernel is shorter than its
+Python launch, that times the host's launch loop. ``device_ms`` is the
+kernel's own device duration from ``torch.profiler`` over the same
+launches (``device_ms``), and ``library_device_ms`` the summed device
+time of a library call's own kernels; every kernel phase prints both.
+``wrapper_ms`` times the Python wrapper by events (host-bound).
+
 Launch counts are set to 0 just before each of phases 7-13 and read
 just after (the ring's in each rank, before each call); the comparison
 launches of phases 2-6 do not count. Any failed check raises, and the
@@ -119,6 +133,7 @@ or outlives its timeout fails the script. Without a CUDA device it exits
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -187,7 +202,6 @@ def device_busy(fn, n):
     calls, divided by the host-clock time of ``n`` unprofiled calls
     (the profiler slows the host, not the kernels)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -195,10 +209,9 @@ def device_busy(fn, n):
         fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
     device_us = sum(e.time_range.elapsed_us() for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     require(device_us > 0, "the profiler recorded no device time")
@@ -206,17 +219,71 @@ def device_busy(fn, n):
             "busy_share": round(device_us / 1e6 / wall, 4)}
 
 
-def device_kernels(fn):
-    """Names of the device activities (kernels, copies, sets) that
-    ``torch.profiler`` records over one call of ``fn``."""
+# idle host time at both ends of a profiler session, in seconds: the
+# profiler drops device records that fall outside its window, and on an
+# H100 its device timestamps can lie milliseconds before or after the
+# host's, which lost the first or last records of back-to-back launches
+PROFILE_PAD_S = 0.1
+
+
+@contextlib.contextmanager
+def profiled():
+    """A ``torch.profiler`` session over the CPU and the card whose window
+    reaches ``PROFILE_PAD_S`` past the work inside it on both sides; the
+    card is synchronised before the session ends."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        time.sleep(PROFILE_PAD_S)
+        yield prof
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        time.sleep(PROFILE_PAD_S)
+
+
+def _profiled_kernels(fn, calls, warmup):
+    """Device activities (kernels, copies, sets) of ``calls`` back-to-back
+    calls of ``fn``, by ``torch.profiler``: {name: [durations in ms]}.
+    ``warmup`` calls run first, before the profiler starts."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        for _ in range(calls):
+            fn()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation",
+                                                                             False):
+            out.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    return out
+
+
+def device_ms(fn, name=None, iters=50, warmup=5):
+    """Device time per call of ``fn`` by ``torch.profiler``, unlike
+    ``cuda_ms`` free of the host's launch loop. With ``name``: the mean
+    duration of the kernel whose name contains it, over the launches the
+    profiler recorded of ``iters`` back-to-back calls (it can miss some;
+    at least half are required). Without: the sum over every kernel a
+    call launches (e.g. a library call's own kernels), each at its mean
+    duration and its launches a call."""
+    per_name = _profiled_kernels(fn, iters, warmup)
+    if name is not None:
+        times = [t for n, ts in per_name.items() if name in n for t in ts]
+        require(len(times) >= iters // 2, f"the profiler recorded {len(times)} kernels named "
+                f"{name} in {iters} calls")
+        return sum(times) / len(times)
+    require(per_name, "the profiler recorded no device activity")
+    return sum(sum(ts) / len(ts) * -(-len(ts) // iters) for ts in per_name.values())
+
+
+def device_kernels(fn, calls=3):
+    """The device activities that one call of ``fn`` launches, by name,
+    with their count a call (``torch.profiler`` over ``calls`` calls,
+    rounded up, since it can miss some)."""
+    return {n: -(-len(ts) // calls) for n, ts in _profiled_kernels(fn, calls, 1).items()}
 
 
 def make_frames(rng, n, h=H, w=W):
@@ -251,7 +318,8 @@ def phase_build():
     built = _kernels.build()
     secs = time.perf_counter() - t0
     for name, info in built.items():
-        usage = [ln.strip() for ln in info["log"].splitlines() if "Used" in ln or "spill" in ln]
+        usage = [ln.strip().replace("ptxas info    : ", "") for ln in info["log"].splitlines()
+                 if "Used" in ln or "spill" in ln or "entry function" in ln]
         say("build", kernel=name, seconds=f"{info['seconds']:.2f}",
             cached=info["cached"], ptxas=json.dumps(usage))
     say("build", total_seconds=f"{secs:.2f}")
@@ -311,12 +379,16 @@ def phase_gather(rng):
     # wrapper adds host-side checks and an allocation per call
     lib = _kernels.library("row_gather")
     stream = torch.cuda.current_stream().cuda_stream
-    ms = cuda_ms(lambda: lib.row_gather_launch(
-        pool.data_ptr(), idx.data_ptr(), out_k.data_ptr(), idx.numel(),
-        pool.shape[0], pool.shape[1] * 4, stream))
+    def raw():
+        return lib.row_gather_launch(pool.data_ptr(), idx.data_ptr(), out_k.data_ptr(), idx.numel(),
+                                     pool.shape[0], pool.shape[1] * 4, stream)
+
+    ms = cuda_ms(raw)
+    dev_ms = device_ms(raw, "word_kernel")
     wrapper_ms = cuda_ms(lambda: gather_rows(pool, idx))
     plain_ms = cuda_ms(lambda: gather_rows_plain(pool, idx))
     lib_ms = cuda_ms(lambda: torch.index_select(pool, 0, idx))
+    lib_dev_ms = device_ms(lambda: torch.index_select(pool, 0, idx))
     stacks_ms = cuda_ms(lambda: build_stacks(frames, first, C))
     stacks_copy_ms = cuda_ms(lambda: build_stacks(frames, first, C).contiguous())
     # bytes the function must move: referenced pool rows read once, the
@@ -324,8 +396,9 @@ def phase_gather(rng):
     rows_read = int(torch.unique(idx).numel())
     nbytes = rows_read * pool.shape[1] * 4 + idx.numel() * 8 + out_k.numel() * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    say("gather", ms=f"{ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-        index_select_ms=f"{lib_ms:.5f}",
+    say("gather", ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}",
+        plain_ms=f"{plain_ms:.5f}", index_select_ms=f"{lib_ms:.5f}",
+        index_select_device_ms=f"{lib_dev_ms:.5f}",
         bound_ms=f"{bound_ms:.5f}", bytes=nbytes, gbps=f"{nbytes / ms / 1e6:.1f}")
     say("gather", build_stacks_ms=f"{stacks_ms:.5f}",
         build_stacks_contiguous_ms=f"{stacks_copy_ms:.5f}",
@@ -334,8 +407,9 @@ def phase_gather(rng):
         "name": "row_gather", "route": "cuda",
         "source": "ray_tpu_torch/csrc/row_gather.cu",
         "replaces": "ray_tpu/ops/framestack.py:65",
-        "max_abs_err": 0.0, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+        "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+        "library_device_ms": lib_dev_ms,
         "passed": True,
     }
 
@@ -404,26 +478,31 @@ def phase_scatter():
     say("scatter", bitwise=True, checked=json.dumps(checked))
 
     stream = torch.cuda.current_stream().cuda_stream
-    ms = cuda_ms(lambda: lib.row_scatter_launch(
-        vals.data_ptr(), pos.data_ptr(), 8, ring.data_ptr(), None,
-        INSERT_ROWS, REPLAY_CAPACITY, OBS_WORDS * 4, stream), iters=200)
+    def raw():
+        return lib.row_scatter_launch(vals.data_ptr(), pos.data_ptr(), 8, ring.data_ptr(), None,
+                                      INSERT_ROWS, REPLAY_CAPACITY, OBS_WORDS * 4, stream)
+
+    ms = cuda_ms(raw, iters=200)
+    dev_ms = device_ms(raw, "one_launch_word_kernel", iters=200)
     wrapper_ms = cuda_ms(lambda: scatter_rows(ring, pos, vals), iters=200)
     plain_ms = cuda_ms(lambda: scatter_rows_plain(ring, pos, vals), iters=50)
     lib_ms = cuda_ms(lambda: ring.index_copy_(0, pos, vals), iters=200)
+    lib_dev_ms = device_ms(lambda: ring.index_copy_(0, pos, vals), iters=200)
     full_ms = cuda_ms(lambda: scatter_rows(ring, every, full), iters=20)
     # the CUDA kernels that one scatter_rows call at the insert launches
     # (int64 positions, as the replay buffer passes them, and int32)
     per_call = {str(p.dtype): device_kernels(lambda p=p: scatter_rows(ring, p, vals))
                 for p in (pos, pos.to(torch.int32))}
-    require(all(len(names) == 1 for names in per_call.values()),
+    require(all(sum(names.values()) == 1 for names in per_call.values()),
             f"one scatter_rows call at the insert launched {per_call}")
     # bytes the function must move: each value row read once, each ring
     # row written once, the positions read once
     nbytes = 2 * vals.numel() * 4 + pos.numel() * 8
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     full_bytes = 2 * full.numel() * 4 + every.numel() * 8
-    say("scatter", ms=f"{ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-        index_copy_ms=f"{lib_ms:.5f}", bound_ms=f"{bound_ms:.6f}", bytes=nbytes,
+    say("scatter", ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}",
+        plain_ms=f"{plain_ms:.5f}", index_copy_ms=f"{lib_ms:.5f}",
+        index_copy_device_ms=f"{lib_dev_ms:.5f}", bound_ms=f"{bound_ms:.6f}", bytes=nbytes,
         shape=f"{INSERT_ROWS} rows of {OBS_WORDS} words into {REPLAY_CAPACITY}",
         kernels_per_call=json.dumps(per_call), one_launch_rows=limit,
         note="one launch up to one_launch_rows rows; launch-bound at the insert")
@@ -434,9 +513,10 @@ def phase_scatter():
         "name": "row_scatter", "route": "cuda",
         "source": "ray_tpu_torch/csrc/row_scatter.cu",
         "replaces": "ray_tpu/ops/framestack.py:71",
-        "max_abs_err": 0.0, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
-        "kernels_per_call": len(per_call["torch.int64"]), "passed": True,
+        "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+        "library_device_ms": lib_dev_ms,
+        "kernels_per_call": sum(per_call["torch.int64"].values()), "passed": True,
     }
 
 
@@ -525,19 +605,24 @@ def phase_descent(rng):
     lib = _kernels.library("prefix_descent")
     stream = torch.cuda.current_stream().cuda_stream
     levels = TREE_CAPACITY.bit_length() - 1
-    ms = cuda_ms(lambda: lib.prefix_descent_launch(
-        tree.data_ptr(), mass.data_ptr(), out.data_ptr(), TRAIN_BATCH, levels,
-        TREE_CAPACITY, stream), iters=200)
+    def raw():
+        return lib.prefix_descent_launch(tree.data_ptr(), mass.data_ptr(), out.data_ptr(),
+                                         TRAIN_BATCH, levels, TREE_CAPACITY, stream)
+
+    ms = cuda_ms(raw, iters=200)
+    dev_ms = device_ms(raw, "prefix_descent_kernel", iters=200)
     wrapper_ms = cuda_ms(lambda: find_prefixsum(tree, mass, TREE_CAPACITY), iters=200)
     plain_ms = cuda_ms(lambda: find_prefixsum_plain(tree, mass, TREE_CAPACITY), iters=50)
     cumsum = torch.cumsum(tree[TREE_CAPACITY:], 0)
     lib_ms = cuda_ms(lambda: torch.searchsorted(cumsum, mass, right=True), iters=200)
+    lib_dev_ms = device_ms(lambda: torch.searchsorted(cumsum, mass, right=True), iters=200)
     # bytes the function needs: one left child per level per draw, the
     # masses read once, the indices written once
     nbytes = TRAIN_BATCH * levels * 8 + TRAIN_BATCH * 8 + TRAIN_BATCH * 8
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    say("descent", ms=f"{ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-        searchsorted_ms=f"{lib_ms:.5f}", bound_ms=f"{bound_ms:.8f}", bytes=nbytes,
+    say("descent", ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}",
+        plain_ms=f"{plain_ms:.5f}", searchsorted_ms=f"{lib_ms:.5f}",
+        searchsorted_device_ms=f"{lib_dev_ms:.5f}", bound_ms=f"{bound_ms:.8f}", bytes=nbytes,
         shape=f"{TRAIN_BATCH} draws, {levels} levels",
         note="latency-bound: 16 dependent loads per draw; searchsorted over an f64 "
              "cumsum is a yardstick only, it does not round as the tree does")
@@ -545,8 +630,9 @@ def phase_descent(rng):
         "name": "prefix_descent", "route": "cuda",
         "source": "ray_tpu_torch/csrc/prefix_descent.cu",
         "replaces": "ray_tpu/ops/segment_tree.py:176",
-        "max_abs_err": 0.0, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+        "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+        "library_device_ms": lib_dev_ms,
         "passed": True,
     }
 
@@ -589,14 +675,18 @@ def phase_gae():
     lib = _kernels.library("gae_scan")
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [a.data_ptr() for a in args] + [adv.data_ptr(), vt.data_ptr()]
-    ms = cuda_ms(lambda: lib.gae_fragment_launch(*ptrs, 16, 128, 0.99, 0.99 * 0.95, stream),
-                 iters=200)
+    def raw():
+        return lib.gae_fragment_launch(*ptrs, 16, 128, 0.99, 0.99 * 0.95, stream)
+
+    ms = cuda_ms(raw, iters=200)
+    dev_ms = device_ms(raw, "gae_fragment_kernel", iters=200)
     wrapper_ms = cuda_ms(lambda: compute_gae_fragment(*args, 0.99, 0.95), iters=200)
     plain_ms = cuda_ms(lambda: compute_gae_fragment_plain(*args, 0.99, 0.95), iters=20)
     nt = 16 * 128
     nbytes = 3 * nt * 4 + 2 * nt + 2 * nt * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    say("gae", ms=f"{ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+    say("gae", ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}",
+        plain_ms=f"{plain_ms:.5f}",
         bound_ms=f"{bound_ms:.7f}",
         bytes=nbytes, library="none: no single PyTorch call computes this function",
         note="launch-latency bound")
@@ -604,8 +694,9 @@ def phase_gae():
         "name": "gae_scan", "route": "cuda",
         "source": "ray_tpu_torch/csrc/gae_scan.cu",
         "replaces": "ray_tpu/ops/gae.py:130",
-        "max_abs_err": worst, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "library_device_ms": None,
         "passed": True,
     }
 
@@ -825,10 +916,29 @@ def phase_dqn():
     return launches
 
 
-def _flash_inputs(gen, b, h, t, s, d, dtype):
+def _flash_inputs(gen, b, h, t, s, d, dtype, layout="bhtd"):
+    """q (B, H, T, D), k and v (B, H, S, D): contiguous ("bhtd"), or
+    (B, H, n, D) views over (B, n, H, D) memory ("bthd"), as the torso's
+    projections come."""
     import torch
 
-    return [torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype) for n in (t, s, s)]
+    if layout == "bhtd":
+        return [torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype) for n in (t, s, s)]
+    return [torch.randn(b, n, h, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+            for n in (t, s, s)]
+
+
+def flash_raw(lib, q, k, v, out, offset, stream):
+    """A function that launches flash_fwd_launch once on prepared (B, H,
+    T, D) tensors, read through their strides."""
+    import torch
+
+    b, h, t, d = q.shape
+    strides = [x for y in (q, k, v, out) for x in y.stride()[:3]]
+    banded = offset is not None
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t, k.shape[2], d,
+            *strides, int(q.dtype == torch.bfloat16), int(banded), offset if banded else 0, stream)
+    return lambda: lib.flash_fwd_launch(*args)
 
 
 def phase_flash():
@@ -842,30 +952,40 @@ def phase_flash():
     heads = TORSO["transformer_num_heads"]
     dh = TORSO["transformer_dim"] // heads
     gen = torch.Generator(device="cuda").manual_seed(5)
-    # (name, B, H, T, S, D, offset, dtype): the torso's path shapes (B·H =
-    # 2048 learner minibatch, 4096 lane minibatch, 128 lane act step, 256
-    # DQN forward), the reference test's shapes and offsets, head widths
-    cases = [
-        ("learner", TF_B // 2, heads, 8, 8, dh, 0, f32),
-        ("lane_learn", 512, heads, 8, 8, dh, 0, f32),
-        ("lane_act", 16, heads, 8, 8, dh, 0, f32),
-        ("dqn", TRAIN_BATCH, heads, 8, 8, dh, 0, f32),
-        ("full_24x40", 2, 2, 24, 40, 16, None, f32),
-        ("band16_24x40", 2, 2, 24, 40, 16, 16, f32),
-        ("causal_32x32", 2, 2, 32, 32, 16, 0, f32),
-        ("band7_130x200", 2, 2, 130, 200, 16, 7, f32),
-        ("zero_rows_8x8_m3", 2, 2, 8, 8, 16, -3, f32),
-    ] + [(f"d{d}", 64, 4, 16, 16, d, 0, f32) for d in (16, 32, 64, 128)] + [
-        ("bf16_16x16", 2, 2, 16, 16, 16, None, bf16),
+    # (name, B, H, T, S, D, offset, dtype, layout): the torso's path shapes
+    # (B·H = 2048 learner minibatch, 4096 lane minibatch, 128 lane act
+    # step, 256 DQN forward) in the layout the torso gives them (bthd) and
+    # contiguous; the reference test's shapes and offsets; head widths
+    # (D > 64 takes the warp-per-row stream); the short-head path's edges:
+    # heads not a multiple of a warp's, T of 1, 3, 17 and 32, D of 1 and
+    # 33, S past an 8-key chunk (the chunk merge), rows that see no key;
+    # bf16 contiguous and in the torso's layout
+    path = [("learner", TF_B // 2, heads, 8, 8, dh, 0), ("lane_learn", 512, heads, 8, 8, dh, 0),
+            ("lane_act", 16, heads, 8, 8, dh, 0), ("dqn", TRAIN_BATCH, heads, 8, 8, dh, 0)]
+    cases = [c + (f32, "bthd") for c in path] + [(f"{c[0]}_contiguous",) + c[1:] + (f32, "bhtd")
+                                                 for c in path] + [
+        ("full_24x40", 2, 2, 24, 40, 16, None, f32, "bhtd"),
+        ("band16_24x40", 2, 2, 24, 40, 16, 16, f32, "bhtd"),
+        ("causal_32x32", 2, 2, 32, 32, 16, 0, f32, "bhtd"),
+        ("band7_130x200", 2, 2, 130, 200, 16, 7, f32, "bhtd"),
+        ("zero_rows_8x8_m3", 2, 2, 8, 8, 16, -3, f32, "bhtd"),
+    ] + [(f"d{d}", 64, 4, 16, 16, d, 0, f32, "bhtd") for d in (16, 32, 64, 128)] + [
+        ("t3_9_heads", 3, 3, 3, 3, 32, 0, f32, "bthd"),
+        ("t1_d1", 4, 5, 1, 9, 1, None, f32, "bhtd"),
+        ("t17x40_band5", 2, 3, 17, 40, 16, 5, f32, "bthd"),
+        ("t32x70_d64_m3", 1, 3, 32, 70, 64, -3, f32, "bthd"),
+        ("d33", 2, 2, 8, 8, 33, 0, f32, "bhtd"),
+        ("bf16_16x16", 2, 2, 16, 16, 16, None, bf16, "bhtd"),
+        ("bf16_learner_bthd", 64, heads, 8, 8, dh, 0, bf16, "bthd"),
     ]
     errs = {}
-    for name, b, h, t, s, d, off, dtype in cases:
-        q, k, v = _flash_inputs(gen, b, h, t, s, d, dtype)
+    for name, b, h, t, s, d, off, dtype, layout in cases:
+        q, k, v = _flash_inputs(gen, b, h, t, s, d, dtype, layout)
         got = flash_attention(q, k, v, causal_offset=off)
-        want = reference_attention(q.reshape(b * h, t, d), k.reshape(b * h, s, d),
-                                    v.reshape(b * h, s, d), off).reshape(b, h, t, d)
+        want = reference_attention(q, k, v, off)
         torch.cuda.synchronize()
         require(got.dtype == dtype and got.shape == (b, h, t, d), f"flash output of {name}")
+        require(got.stride() == q.stride(), f"flash output of {name} is not in q's layout")
         tol = 3e-2 if dtype == bf16 else 2e-5
         require(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
                 f"flash kernel differs from plain at {name}")
@@ -874,50 +994,78 @@ def phase_flash():
             require(torch.equal(got[:, :, :-off], torch.zeros_like(got[:, :, :-off])),
                     "rows that see no key are not exactly 0")
             require(bool(got[:, :, -off:].abs().max() > 0), "rows that see keys are 0")
-    worst = max(errs[c[0]] for c in cases if c[-1] == f32)
-    say("flash", checked=json.dumps(errs), max_abs_err_f32=worst, max_abs_err_bf16=errs["bf16_16x16"],
-        zero_rows_exact=True)
+    worst = max(errs[c[0]] for c in cases if c[-2] == f32)
+    worst_bf16 = max(errs[c[0]] for c in cases if c[-2] == bf16)
+    say("flash", checked=json.dumps(errs), max_abs_err_f32=worst, max_abs_err_bf16=worst_bf16,
+        zero_rows_exact=True, output_layout_is_q=True)
 
-    # times at the learner minibatch (B·H = 2048, T = S = 8, D = 32, f32)
+    # times at the four path shapes, on inputs in the torso's layout:
+    # the kernel by CUDA events over raw launches (ms) and by its own
+    # device duration (device_ms); SDPA with the same band mask, both ways
     lib = _kernels.library("flash_fwd")
     stream = torch.cuda.current_stream().cuda_stream
-    shape_ms = {}
-    for name, b, h, t, s, d, off, dtype in cases[:4]:
-        q, k, v = _flash_inputs(gen, b, h, t, s, d, dtype)
+    by_path = {}
+    for name, b, h, t, s, d, off in path:
+        q, k, v = _flash_inputs(gen, b, h, t, s, d, f32, "bthd")
         out = torch.empty_like(q)
-        shape_ms[name] = cuda_ms(lambda: lib.flash_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, s, d, 0, 1, off,
-            stream), iters=200)
-    name, b, h, t, s, d, off, dtype = cases[0]
-    q, k, v = _flash_inputs(gen, b, h, t, s, d, dtype)
-    n = b * h
-    mask = torch.arange(s, device="cuda")[None, :] <= torch.arange(t, device="cuda")[:, None] + off
-    ms = shape_ms[name]
+        raw = flash_raw(lib, q, k, v, out, off, stream)
+        mask = torch.arange(s, device="cuda")[None, :] <= torch.arange(t, device="cuda")[:, None] + off
+
+        def sdpa(q=q, k=k, v=v, mask=mask):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        n = b * h
+        nbytes = 4 * n * t * d * 4  # q, k, v read once, o written once
+        flops = 4 * n * int(mask.sum()) * d  # two multiply-adds per visible pair
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        by_path[name] = {
+            "bh": n, "ms": cuda_ms(raw, iters=200),
+            "device_ms": device_ms(raw, "flash_rows_kernel", iters=200),
+            "sdpa_ms": cuda_ms(sdpa, iters=200), "sdpa_device_ms": device_ms(sdpa, iters=200),
+            "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+        }
+        by_path[name]["bound_share"] = by_path[name]["bound_ms"] / by_path[name]["device_ms"]
+        say("flash", path=name, shape=f"B*H={n} T={t} S={s} D={d} f32 band {off}, (B, T, H, D) memory",
+            **{k_: (f"{v_:.6f}" if isinstance(v_, float) else v_) for k_, v_ in by_path[name].items()})
+    # one long head on the warp-per-row stream (T > 32: GTrXL's memory of
+    # keys), not on any main path, timed by device
+    b, h, t, s, d, off = 64, heads, 130, 200, dh, 7
+    q, k, v = _flash_inputs(gen, b, h, t, s, d, f32, "bthd")
+    out = torch.empty_like(q)
+    long_head = {"bh": b * h, "shape": f"T={t} S={s} D={d} f32 band {off}, (B, T, H, D) memory",
+                 "device_ms": device_ms(flash_raw(lib, q, k, v, out, off, stream),
+                                        "flash_fwd_kernel", iters=50)}
+    say("flash", long_head=long_head["shape"], bh=long_head["bh"],
+        device_ms=f"{long_head['device_ms']:.6f}")
+    # the wrapper at the learner shape: a plain call (the act path and
+    # the target forwards, under no_grad or with inputs that need no
+    # gradient: a direct launch) and one through autograd (training)
+    name, b, h, t, s, d, off = path[0]
+    q, k, v = _flash_inputs(gen, b, h, t, s, d, f32, "bthd")
     wrapper_ms = cuda_ms(lambda: flash_attention(q, k, v, causal_offset=off), iters=200)
-    plain_ms = cuda_ms(lambda: reference_attention(
-        q.reshape(n, t, d), k.reshape(n, s, d), v.reshape(n, s, d), off), iters=200)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters=200)
+    gq, gk, gv = (x.detach().requires_grad_() for x in (q, k, v))
+    wrapper_grad_ms = cuda_ms(lambda: flash_attention(gq, gk, gv, causal_offset=off), iters=200)
+    plain_ms = cuda_ms(lambda: reference_attention(q, k, v, off), iters=200)
+    mask = torch.arange(s, device="cuda")[None, :] <= torch.arange(t, device="cuda")[:, None] + off
     sdpa_err = float((F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
                       - flash_attention(q, k, v, causal_offset=off)).abs().max())
-    # bytes: q, k, v read once and o written once; operations: a
-    # multiply-add for q·k and one for p·v per visible (query, key) pair
-    nbytes = 4 * n * t * d * 4
-    pairs = int(mask.sum())
-    flops = 4 * n * pairs * d
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-    bound_ms = max(by_bytes, by_ops)
-    say("flash", ms=f"{ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-        sdpa_ms=f"{lib_ms:.5f}", sdpa_max_abs_diff=sdpa_err, bound_ms=f"{bound_ms:.6f}",
-        bytes=nbytes, flops=flops, shape=f"B*H={n} T={t} S={s} D={d} f32 band 0",
-        kernel_ms_by_path=json.dumps({k: round(v, 5) for k, v in shape_ms.items()}))
+    row = by_path[name]
+    say("flash", ms=f"{row['ms']:.5f}", device_ms=f"{row['device_ms']:.6f}",
+        wrapper_ms=f"{wrapper_ms:.5f}", wrapper_autograd_ms=f"{wrapper_grad_ms:.5f}",
+        plain_ms=f"{plain_ms:.5f}", sdpa_ms=f"{row['sdpa_ms']:.5f}",
+        sdpa_device_ms=f"{row['sdpa_device_ms']:.6f}", sdpa_max_abs_diff=sdpa_err,
+        bound_ms=f"{row['bound_ms']:.6f}", shape=f"B*H={b * h} T={t} S={s} D={d} f32 band 0")
     return {
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:117",
-        "max_abs_err": worst, "max_abs_err_bf16": errs["bf16_16x16"],
-        "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-        "library_ms": lib_ms, "kernel_ms_by_path": shape_ms, "passed": True,
+        "max_abs_err": worst, "max_abs_err_bf16": worst_bf16,
+        "ms": row["ms"], "device_ms": row["device_ms"], "wrapper_ms": wrapper_ms,
+        "wrapper_autograd_ms": wrapper_grad_ms, "plain_ms": plain_ms,
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["sdpa_ms"], "library_device_ms": row["sdpa_device_ms"],
+        "times_by_path": by_path, "long_head": long_head, "passed": True,
     }
 
 
@@ -969,6 +1117,13 @@ def phase_flash_block():
         ("bf16_130x200_7", 4, 130, 200, 16, 7, bf16),
         ("bf16_tile_129_d40_63", 4, 129, 129, 40, 63, bf16),
         ("bf16_tile_65x129_d7_2", 4, 65, 129, 7, 2, bf16),
+        # the query row per thread (T <= 32, D <= 64): ragged heads, the
+        # chunk merge past 32 and 16 keys, blind rows, D of 1 and 33, bf16
+        ("rows_17x40_m5", 3, 17, 40, 16, -5, f32),
+        ("rows_32x70_d64_3", 2, 32, 70, 64, 3, f32),
+        ("rows_3x5_d1", 9, 3, 5, 1, 0, f32),
+        ("rows_8x8_d33_m2", 5, 8, 8, 33, -2, f32),
+        ("bf16_rows_8x8_m2", 64, 8, 8, 32, -2, bf16),
     ]
 
     def need(g, w):
@@ -1023,9 +1178,9 @@ def phase_flash_block():
         n, t, d = q.shape
         acc = torch.empty((n, t, d), device="cuda")
         ml = torch.empty((2, n, t), device="cuda")
-        return lambda: lib.flash_block_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), ml[0].data_ptr(),
-            ml[1].data_ptr(), n, t, k.shape[1], d, int(q.dtype == bf16), off, stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), ml[0].data_ptr(),
+                ml[1].data_ptr(), n, t, k.shape[1], d, int(q.dtype == bf16), off, stream)
+        return lambda: lib.flash_block_launch(*args)  # acc and ml stay alive in the closure
 
     def bound(n, t, s, d, off, dtype):
         # bytes: q, k, v read once, acc, m, l written once; operations: a
@@ -1053,12 +1208,16 @@ def phase_flash_block():
                 mask = idx[None, :] <= idx[:, None] + off
             b_ms, b_by, nbytes, flops = bound(n_hop, RING_HOP, RING_HOP, RING_D, off, dtype)
             key = label if dtype == f32 else f"bf16_{label}"
+            def sdpa(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=mask)
+
             row = times[key] = {
                 "ms": cuda_ms(raw(q, k, v, off), iters=20, warmup=3),
+                "device_ms": device_ms(raw(q, k, v, off), "flash_block_kernel", iters=20, warmup=3),
                 "wrapper_ms": cuda_ms(lambda: flash_block_attention_stats(q, k, v, off), iters=20, warmup=3),
                 "plain_ms": cuda_ms(lambda: reference_block_attention_stats(q, k, v, off), iters=5, warmup=2),
-                "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q[None], k[None], v[None], attn_mask=mask), iters=20, warmup=3),
+                "sdpa_ms": cuda_ms(sdpa, iters=20, warmup=3),
+                "sdpa_device_ms": device_ms(sdpa, iters=20, warmup=3),
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
             }
             row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -1070,10 +1229,13 @@ def phase_flash_block():
     name, n, t, s, d, off, _ = cases[4]
     tq, tk, tv = (torch.randn(n, x, d, device="cuda", generator=gen) for x in (t, s, s))
     torso_ms = cuda_ms(raw(tq, tk, tv, off), iters=200)
+    torso_device_ms = device_ms(raw(tq, tk, tv, off), "flash_rows_kernel", iters=200)
     torso_bound = bound(n, t, s, d, off, f32)
-    say("flash_block", torso_ms=f"{torso_ms:.5f}", torso_bound_ms=f"{torso_bound[0]:.6f}",
+    say("flash_block", torso_ms=f"{torso_ms:.5f}", torso_device_ms=f"{torso_device_ms:.6f}",
+        torso_bound_ms=f"{torso_bound[0]:.6f}",
         torso_bound_by=torso_bound[1], shape=f"B*H={n} T=S={t} D={d} f32 band 0",
-        note="operation-bound at the hop; tensor-core tiles of 64 rows x 64 keys, 3xTF32 for f32",
+        note="operation-bound at the hop: tensor-core tiles of 64 rows x 64 keys, 3xTF32 for "
+             "f32; the torso's shape (T <= 32, D <= 64) runs a query row per thread",
         rates=json.dumps({"f32": {"q.k": F32_FLOPS_PER_S, "p.v": F32_FLOPS_PER_S},
                           "bf16": {"q.k": BF16_FLOPS_PER_S, "p.v": F32_FLOPS_PER_S}}))
     hop = times["all_visible"]
@@ -1082,13 +1244,30 @@ def phase_flash_block():
         "source": "ray_tpu_torch/csrc/flash_block.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:131",
         "max_abs_err": worst, "max_abs_err_bf16": worst_bf16,
-        "ms": hop["ms"], "wrapper_ms": hop["wrapper_ms"], "plain_ms": hop["plain_ms"],
-        "bound_ms": hop["bound_ms"], "bound_by": hop["bound_by"], "library_ms": hop["sdpa_ms"],
+        "ms": hop["ms"], "device_ms": hop["device_ms"], "wrapper_ms": hop["wrapper_ms"],
+        "plain_ms": hop["plain_ms"], "bound_ms": hop["bound_ms"], "bound_by": hop["bound_by"],
+        "library_ms": hop["sdpa_ms"], "library_device_ms": hop["sdpa_device_ms"],
         "library": "scaled_dot_product_attention (normalised output only)",
         "shape": f"B*H={n_hop} T=S={RING_HOP} D={RING_D} f32, every key visible",
-        "times_by_hop": times, "torso_ms": torso_ms, "torso_bound_ms": torso_bound[0],
+        "times_by_hop": times, "torso_ms": torso_ms, "torso_device_ms": torso_device_ms,
+        "torso_bound_ms": torso_bound[0],
         "passed": True,
     }
+
+
+def torso_forward_kernels(policy, obs):
+    """The device activities of one torso forward under ``no_grad``
+    (``torch.profiler``): their count, the copies among them, and the
+    flash kernels by name."""
+    import torch
+
+    with torch.no_grad():
+        names = device_kernels(lambda: policy.model(obs))
+    flash = {k: sum(c for n, c in names.items() if k in n)
+             for k in ("flash_rows_kernel", "flash_fwd_kernel")}
+    return {"activities": sum(names.values()),
+            "copies": sum(c for n, c in names.items() if "copy" in n.lower()),
+            "flash": {k: c for k, c in flash.items() if c}}
 
 
 def phase_transformer_learner():
@@ -1130,6 +1309,20 @@ def phase_transformer_learner():
         num_params=policy.model.num_params(), params_total=sum(p.numel() for p in policy.params),
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}", on_card=True)
     say("transformer_learner", stats=json.dumps({k: round(v, 6) for k, v in stats.items()}))
+    # one forward at the minibatch (B·H = 2048 heads of 8 tokens): every
+    # attention call is the query row per thread, and no copy is launched
+    # for q, k or v. The wrapper's count gives the launches (4 forwards:
+    # a warmup and 3 profiled); the profiler, which can miss some records
+    # of a ctypes library's kernels, names them
+    before = flash_attention.launches
+    fwd = torso_forward_kernels(policy, torch.as_tensor(batch["obs"][:TF_B // 2], device="cuda"))
+    layers = TORSO["transformer_num_layers"]
+    per_forward = (flash_attention.launches - before) / 4
+    require(per_forward == layers and set(fwd["flash"]) == {"flash_rows_kernel"},
+            f"a torso forward launched {per_forward} flash kernels ({fwd['flash']} recorded), "
+            f"not {layers} short-head kernels")
+    say("transformer_learner", forward_device_activities=fwd["activities"],
+        forward_copies=fwd["copies"], forward_flash=json.dumps(fwd["flash"]))
     return launches
 
 
@@ -1325,8 +1518,12 @@ def ring_rank_main(backend):
     for r in range(n):
         sync_global()
         if r == rank:
-            report["busiest_hop"] = {"offset": busiest, "kernel_ms": cuda_ms(
-                lambda: flash_block_attention_stats(qf, kf, vf, busiest), iters=10, warmup=2)}
+            def hop():
+                return flash_block_attention_stats(qf, kf, vf, busiest)
+
+            report["busiest_hop"] = {"offset": busiest, "kernel_ms": cuda_ms(hop, iters=10, warmup=2),
+                                     "device_ms": device_ms(hop, "flash_block_kernel", iters=10,
+                                                            warmup=2)}
     # one hop's exchange of the stacked f32 K/V (2, B·H, 4096, 32), every
     # rank together, host clock
     kv = torch.stack([kf, vf])
@@ -1392,6 +1589,7 @@ def phase_ring():
         tol_used=json.dumps({name: e["tol_used"] for name, e in ranks[0]["calls"].items()}),
         second_call_s_by_rank=json.dumps(second),
         busiest_hop_kernel_ms=json.dumps({r["rank"]: round(r["busiest_hop"]["kernel_ms"], 5) for r in ranks}),
+        busiest_hop_device_ms=json.dumps({r["rank"]: round(r["busiest_hop"]["device_ms"], 5) for r in ranks}),
         hop_exchange_ms=json.dumps({r["rank"]: round(r["hop_exchange_ms"], 4) for r in ranks}),
         phase_s=f"{wall:.2f}")
     cards = torch.cuda.device_count()

@@ -30,13 +30,66 @@
 // exp2f per row and tile. The warp-per-row stream it replaced spent a
 // five-shuffle reduction and two expf per (row, key) on D multiply-adds.
 //
+// Heads of T <= 32 rows and D <= 64 (the decoder torso's 8-token heads)
+// run flash_rows.cuh's query row per thread instead, with an epilogue that
+// writes the statistics: a 64-row tile would be 56 rows of padding at
+// T = 8. Its rows that see no key write (0, -1e30, 0) the same way.
+//
 // Types: q, k, v f32 or bf16 (one type), accumulation and the outputs
 // f32. D <= 128, padded to 16, 32, 64 or 128; T <= 65535 * 64 and
 // S < 2^31 - 64.
 
+#include "flash_rows.cuh"
 #include "flash_tile.cuh"
 
 namespace {
+
+// The short-head path's epilogue: acc (n, t, d), m and l (n, t), f32 and
+// contiguous, as they are; acc through the warp's row buffer, 16-byte
+// stores when D allows them.
+struct Stats {
+  float* acc;
+  float* m;
+  float* l;
+  bool vec;  // D a multiple of 4
+
+  template <typename T, int kDp>
+  __device__ __forceinline__ void store(const flash::ThreadRow<kDp>& st,
+                                        const flash::RowsWarp<T, kDp>& w,
+                                        const flash::RowsProblem& p) const {
+    constexpr int kStride = flash::RowsLayout<T, kDp>::kBufStride;
+    if (st.live) {
+#pragma unroll
+      for (int c = 0; c < kDp; c += 4) {
+        const float x[4] = {st.acc[c], st.acc[c + 1], st.acc[c + 2],
+                            st.acc[c + 3]};
+        flash::Pack<float>::store(w.buf + w.lane * kStride + c, x);
+      }
+      const int64_t o = st.head * p.t + st.row;
+      m[o] = st.m;
+      l[o] = st.l;
+    }
+    // f32 rows: kDp / 4 chunks, the lane's own slot and chunk
+    const auto cl = flash::copy_lane<kDp / 4>(w.lane, w.hpw, w.hshift);
+    const int64_t n = w.head0 + cl.slot;
+    float* dst = n < p.n ? acc + n * p.t * p.d : nullptr;
+    flash::rows_store<float, kDp, kDp / 4>(cl, dst, w.buf, kStride, p.d, p,
+                                           vec);
+  }
+};
+
+template <typename T>
+cudaError_t launch_rows(const void* q, const void* k, const void* v,
+                        float* acc, float* m, float* l, int64_t n, int t,
+                        int s, int d, bool banded, int64_t offset,
+                        cudaStream_t stream) {
+  const flash::Strides sq{0, static_cast<int64_t>(t) * d, d};
+  const flash::Strides sk{0, static_cast<int64_t>(s) * d, d};
+  // one batch of n heads
+  const flash::RowsProblem p = flash::rows_problem<T>(
+      q, k, v, sq, sk, sk, n, n, s, t, d, banded, offset);
+  return flash::launch_rows<T>(p, Stats{acc, m, l, d % 4 == 0}, stream);
+}
 
 using flash_tile::kRows;
 using flash_tile::kThreads;
@@ -154,6 +207,13 @@ extern "C" int flash_block_launch(const void* q, const void* k, const void* v,
   float* ll = static_cast<float*>(l);
   const int ti = static_cast<int>(t);
   const int si = static_cast<int>(s);
+  if (t <= flash::kRowsMaxT && d <= flash::kRowsMaxD) {
+    return static_cast<int>(
+        dtype == 0 ? launch_rows<float>(q, k, v, a, mm, ll, n, ti, si, d,
+                                        banded, offset, st)
+                   : launch_rows<__nv_bfloat16>(q, k, v, a, mm, ll, n, ti, si,
+                                                d, banded, offset, st));
+  }
   const cudaError_t err =
       dtype == 0 ? launch_typed<float>(q, k, v, a, mm, ll, n, ti, si, d,
                                        banded, offset, st)

@@ -1,11 +1,19 @@
-// The online-softmax stream of fused attention, as device functions.
+// The online-softmax stream of fused attention, as device functions, and
+// the pieces both flash_fwd.cu paths share.
 //
 // Counterpart of ray_tpu/ops/flash_attention.py:_online_softmax_stream,
 // the body both TPU kernels share (_fwd_kernel, which normalises, and
 // _block_kernel, which returns the unnormalised accumulator and the row
 // statistics for ring attention). flash_fwd.cu runs attend_block below
-// and writes acc / max(l, 1e-30); flash_block.cu runs the tensor-core
-// tile stream of flash_tile.cuh instead.
+// for heads longer than 32 rows or wider than 64 (no main path runs
+// them) and writes acc / max(l, 1e-30); shorter heads take the row per
+// thread of flash_rows.cuh, and flash_block.cu the tensor-core tiles of
+// flash_tile.cuh.
+//
+// Addressing: a head n of the N = B·H heads is (b, h) = (n / H, n % H),
+// and its row r starts at element b·sb + h·sh + r·sr (Strides); the head
+// dim is contiguous. So a (B, H, T, D) view over (B, T, H, D) memory is
+// read and written where it is.
 //
 // Block layout: a block of kWarps warps owns kRows query rows, a tile of
 // bq rows (the smallest power of two >= T, at most kRows) from each of
@@ -65,6 +73,33 @@ __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
+// Element strides of one tensor: batch, head, row (the head dim is 1).
+struct Strides {
+  int64_t b;
+  int64_t h;
+  int64_t r;
+};
+
+// Head n's (b, h) with `heads` heads a batch: a 32-bit division where
+// both fit, as they do at every real shape.
+__device__ __forceinline__ void batch_head(int64_t n, int64_t heads,
+                                           int64_t* b, int64_t* h) {
+  *b = ((n | heads) >> 31) == 0
+           ? static_cast<int64_t>(static_cast<uint32_t>(n) /
+                                  static_cast<uint32_t>(heads))
+           : n / heads;
+  *h = n - *b * heads;
+}
+
+// The element offset of row `row` of head n.
+__device__ __forceinline__ int64_t row_offset(const Strides& st, int64_t n,
+                                              int64_t heads, int64_t row) {
+  int64_t b;
+  int64_t h;
+  batch_head(n, heads, &b, &h);
+  return b * st.b + h * st.h + row * st.r;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int delta = 16; delta > 0; delta >>= 1) {
@@ -84,27 +119,29 @@ __device__ __forceinline__ void init_row(RowState<kChunks>& st) {
 }
 
 // Copy `keys` rows of D elements, starting at row `first`, of `heads`
-// consecutive heads into shared memory as f32: dst[(h * keys + j) * D + e]
-// = src[((head0 + h) * s + first + j) * D + e]. Rows past S and heads past
-// N are zero-filled. Every thread of the block takes part; the caller
+// consecutive heads into shared memory as f32: dst[(i * keys + j) * D + e]
+// = src[base[i] + (first + j) * row_stride + e], base[i] being row 0 of
+// the block's head i (-1 past N). Rows past S and heads past N are
+// zero-filled. Every thread of the block takes part; the caller
 // synchronises.
 template <typename T>
 __device__ __forceinline__ void stage_tile(float* __restrict__ dst,
                                            const T* __restrict__ src,
-                                           int64_t head0, int heads, int keys,
-                                           int64_t n, int64_t s, int64_t first,
+                                           const int64_t* __restrict__ base,
+                                           int64_t row_stride, int heads,
+                                           int keys, int64_t s, int64_t first,
                                            int d) {
   const int per_head = keys * d;
   const int total = heads * per_head;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int h = e / per_head;
-    const int rem = e - h * per_head;
+    const int i = e / per_head;
+    const int rem = e - i * per_head;
     const int j = rem / d;
-    const int64_t head = head0 + h;
+    const int64_t b0 = base[i];
     const int64_t col = first + j;
     float x = 0.0f;
-    if (head < n && col < s) {
-      x = to_f32(src[(head * s + first) * d + rem]);
+    if (b0 >= 0 && col < s) {
+      x = to_f32(src[b0 + col * row_stride + rem - j * d]);
     }
     dst[e] = x;
   }
@@ -173,17 +210,21 @@ struct WarpRows {
 };
 
 // Stream every key this block's rows can see through the calling warp's
-// rows (the block layout above). q, k, v: (N, T, D) and (N, S, D). Every
+// rows (the block layout above). q, k, v: N = B·H heads of T and S rows
+// of D, addressed through their Strides (H = per_batch). Every
 // thread of the block calls this together. A row that sees no key keeps
 // m = -1e30, l = 0 and acc = 0; a block none of whose rows sees a key
 // stages no tile at all.
 template <typename T, int kChunks>
 __device__ __forceinline__ void attend_block(
     WarpRows<kChunks>& w, const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, int64_t n, int64_t t, int64_t s, int d, int bq,
-    bool banded, int64_t offset) {
+    const T* __restrict__ v, const Strides& sq, const Strides& sk,
+    const Strides& sv, int64_t n, int64_t per_batch, int64_t t, int64_t s,
+    int d, int bq, bool banded, int64_t offset) {
   __shared__ float ks[kTileKeys * 32 * kChunks];
   __shared__ float vs[kTileKeys * 32 * kChunks];
+  __shared__ int64_t kbase[kRows];  // row 0 of each head of the block
+  __shared__ int64_t vbase[kRows];
 
   const int heads = kRows / bq;      // heads per block
   const int bk = kTileKeys / heads;  // keys of each head per tile (= bq)
@@ -207,7 +248,8 @@ __device__ __forceinline__ void attend_block(
     for (int c = 0; c < kChunks; ++c) {
       const int e = lane + 32 * c;
       qr[i][c] = w.live[i] && e < d
-                     ? to_f32(q[(w.head[i] * t + w.row[i]) * d + e]) * scale
+                     ? to_f32(q[row_offset(sq, w.head[i], per_batch,
+                                           w.row[i]) + e]) * scale
                      : 0.0f;
     }
   }
@@ -219,9 +261,16 @@ __device__ __forceinline__ void attend_block(
     const int64_t band_end = last_row + offset + 1;
     key_end = band_end < 0 ? 0 : (band_end < s ? band_end : s);
   }
+  const int tid = threadIdx.x;
+  if (tid < heads) {
+    const int64_t head = head0 + tid;
+    kbase[tid] = head < n ? row_offset(sk, head, per_batch, 0) : -1;
+    vbase[tid] = head < n ? row_offset(sv, head, per_batch, 0) : -1;
+  }
+  __syncthreads();
   for (int64_t first = 0; first < key_end; first += bk) {
-    stage_tile(ks, k, head0, heads, bk, n, s, first, d);
-    stage_tile(vs, v, head0, heads, bk, n, s, first, d);
+    stage_tile(ks, k, kbase, sk.r, heads, bk, s, first, d);
+    stage_tile(vs, v, vbase, sv.r, heads, bk, s, first, d);
     __syncthreads();
     const int in_tile = static_cast<int>(s - first < bk ? s - first : bk);
 #pragma unroll

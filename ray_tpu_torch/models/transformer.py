@@ -122,9 +122,9 @@ class TransformerPolicyNet(TorchModel):
         q = torch.einsum("bsd,dhk->bhsk", x, ap.wq) + ap.bq[None, :, None, :]
         k = torch.einsum("bsd,dhk->bhsk", x, ap.wk) + ap.bk[None, :, None, :]
         v = torch.einsum("bsd,dhk->bhsk", x, ap.wv) + ap.bv[None, :, None, :]
-        o = flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal_offset=0
-        )
+        # (B, H, S, K) views over (B, S, H, K) memory: the kernel reads
+        # them where they are, and o takes q's layout
+        o = flash_attention(q, k, v, causal_offset=0)
         return torch.einsum("bhsk,hkd->bsd", o, ap.wo) + ap.bo
 
     def _mlp(self, mp: ParamGroup, x: torch.Tensor) -> torch.Tensor:

@@ -93,9 +93,11 @@ KERNELS = {
         "flash_fwd.cu",
         (),
         {
+            # q, k, v, o; B, H, T, S, D; (batch, head, row) strides of
+            # q, k, v and o; dtype, banded, offset; stream
             "flash_fwd_launch": (
-                [_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, _I64, _P],
+                [_P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int]
+                + [_I64] * 12 + [ctypes.c_int, ctypes.c_int, _I64, _P],
                 ctypes.c_int,
             ),
             "flash_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),

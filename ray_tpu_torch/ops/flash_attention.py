@@ -2,10 +2,17 @@
 
 Counterpart of ``ray_tpu/ops/flash_attention.py``. On CUDA tensors the
 forward is one launch of the hand-written kernel in
-``csrc/flash_fwd.cu`` (online softmax over key tiles staged in shared
-memory, f32 accumulation, output in q's type); on CPU tensors it is
+``csrc/flash_fwd.cu`` (heads of at most 32 rows and 64 wide: a query row
+per thread, ``csrc/flash_rows.cuh``; longer or wider heads: a warp per
+row with an online softmax over key tiles, ``csrc/flash_stream.cuh``;
+f32 accumulation, output in q's type); on CPU tensors it is
 :func:`reference_attention`, the plain version with the (T, S) scores
 materialised. A CUDA tensor launches the kernel or raises.
+
+The kernel reads q, k and v where they are: any (B, H, T, D) layout
+whose head dim is contiguous, such as the torso's projections, (B, H,
+T, D) views over (B, T, H, D) memory. The output takes q's layout
+(``torch.empty_like``).
 
 Masking is the reference's banded-causal form: query i sees key j iff
 ``j <= i + causal_offset`` (``None``: no mask). A query row that sees no
@@ -13,7 +20,9 @@ key at all is defined as zero output, in both versions.
 
 The gradient recomputes the forward through :func:`reference_attention`
 under autograd, as the reference's ``custom_vjp`` does: the kernel is
-forward-only.
+forward-only. Without a gradient to take (``no_grad``, as the act path
+and the target forwards run, or inputs that need none) the kernel is
+launched directly, outside autograd.
 
 :func:`flash_block_attention_stats` is ring attention's block: the same
 stream with a band offset known only at run time, returning the
@@ -40,12 +49,12 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def reference_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: Optional[int]
 ) -> torch.Tensor:
-    """Plain attention on (N, T, D) queries and (N, S, D) keys/values,
+    """Plain attention on (..., T, D) queries and (..., S, D) keys/values,
     in float32, returned in q's type: the scores are scaled after the
     product, masked with ``-1e30``, and rows with no visible key are 0."""
     d = q.shape[-1]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
-    scores = torch.einsum("ntd,nsd->nts", q.float(), k.float()) * scale
+    scores = torch.einsum("...td,...sd->...ts", q.float(), k.float()) * scale
     if causal_offset is not None:
         t, s = scores.shape[-2:]
         i = torch.arange(t, device=q.device)[:, None]
@@ -56,71 +65,83 @@ def reference_attention(
         probs = torch.where(valid.any(-1, keepdim=True), probs, 0.0)
     else:
         probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("nts,nsd->ntd", probs, v.float()).to(q.dtype)
+    return torch.einsum("...ts,...sd->...td", probs, v.float()).to(q.dtype)
 
 
-def _check_kernel_inputs(q, k, v, what: str = "flash_attention", lead: str = "B, H") -> None:
+def _check_kernel_inputs(
+    q, k, v, what: str = "flash_attention", lead: str = "B, H", ndim: int = 4,
+    contiguous: bool = False,
+) -> None:
     """Raise on what the kernel does not take: q (``lead``, T, D) and
-    k, v (``lead``, S, D) of one device and type, contiguous."""
-    dev = q.device
+    k, v (``lead``, S, D), ``ndim`` dims each, of one CUDA device and
+    type, with a contiguous head dim (wholly contiguous if
+    ``contiguous``)."""
+    dev, dtype = q.device, q.dtype
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
     for name, x in (("k", k), ("v", v)):
         if x.device != dev:
             raise ValueError(f"{what}: {name} on {x.device}, q on {dev}")
-        if x.dtype != q.dtype:
-            raise TypeError(f"{what}: {name} is {x.dtype}, q is {q.dtype}")
-    if q.dtype not in _KERNEL_DTYPES:
-        raise TypeError(
-            f"{what}: the kernel takes float32 or bfloat16, got {q.dtype}"
-        )
-    ndim = len(lead.split(",")) + 2
-    if q.dim() != ndim or k.shape != v.shape or k.dim() != ndim:
+        if x.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {x.dtype}, q is {dtype}")
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{what}: the kernel takes float32 or bfloat16, got {dtype}")
+    qs, ks = q.shape, k.shape
+    if len(qs) != ndim or len(ks) != ndim or ks != v.shape:
         raise ValueError(
             f"{what}: q ({lead}, T, D) and k, v ({lead}, S, D); got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            f"{tuple(qs)}, {tuple(ks)}, {tuple(v.shape)}"
         )
-    if k.shape[:-2] != q.shape[:-2] or k.shape[-1] != q.shape[-1]:
-        raise ValueError(
-            f"{what}: q {tuple(q.shape)} and k {tuple(k.shape)} disagree"
-        )
-    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"{what}: head dim {q.shape[-1]} outside [1, {MAX_HEAD_DIM}]"
-        )
+    d = qs[-1]
+    if ks[:-2] != qs[:-2] or ks[-1] != d:
+        raise ValueError(f"{what}: q {tuple(qs)} and k {tuple(ks)} disagree")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d} outside [1, {MAX_HEAD_DIM}]")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous():
+        if contiguous and not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+        if d > 1 and x.stride(-1) != 1:
+            raise ValueError(
+                f"{what}: {name} must be contiguous in its head dim "
+                f"(stride {x.stride(-1)})"
+            )
 
 
 def _launch(q, k, v, causal_offset: Optional[int]) -> torch.Tensor:
-    """One kernel launch on validated contiguous (N, T, D) / (N, S, D)."""
-    n, t, d = q.shape
+    """One kernel launch on validated (B, H, T, D) / (B, H, S, D), read
+    through their strides; the output takes q's layout."""
+    b, h, t, d = q.shape
     out = torch.empty_like(q)
+    qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), out.stride()
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, t, k.shape[2], d,
+        qs[0], qs[1], qs[2], ks[0], ks[1], ks[2],
+        vs[0], vs[1], vs[2], os_[0], os_[1], os_[2],
+        _KERNEL_DTYPES[q.dtype], causal_offset is not None,
+        0 if causal_offset is None else causal_offset,
+    )
     lib = _kernels.library("flash_fwd")
-    with torch.cuda.device(q.device):
-        rc = lib.flash_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            n, t, k.shape[1], d, _KERNEL_DTYPES[q.dtype],
-            int(causal_offset is not None),
-            0 if causal_offset is None else int(causal_offset),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _kernels.check(rc, lib, "flash_fwd_error_string", "flash_fwd")
+    index = q.device.index
+    if index == torch.cuda.current_device():
+        rc = lib.flash_fwd_launch(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = lib.flash_fwd_launch(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        _kernels.check(rc, lib, "flash_fwd_error_string", "flash_fwd")
     flash_attention.launches += 1
     return out
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernel (CUDA) or plain (CPU) forward; the backward differentiates
+    """Kernel forward on CUDA tensors; the backward differentiates
     :func:`reference_attention` on the saved inputs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal_offset):
         ctx.causal_offset = causal_offset
         ctx.save_for_backward(q, k, v)
-        if q.device.type == "cpu":
-            return reference_attention(q, k, v, causal_offset)
         return _launch(q, k, v, causal_offset)
 
     @staticmethod
@@ -139,18 +160,17 @@ def flash_attention(
     *,
     causal_offset: Optional[int] = None,
 ) -> torch.Tensor:
-    """Fused multi-head attention. q: (B, H, T, D); k, v: (B, H, S, D)
-    → (B, H, T, D) in q's type. ``causal_offset=M`` hides key j from
-    query i unless ``j <= i + M``; ``None`` is full attention."""
-    if q.device.type != "cpu":
-        _check_kernel_inputs(q, k, v)
-    b, h, t, d = q.shape
-    s = k.shape[2]
+    """Fused multi-head attention. q: (B, H, T, D); k, v: (B, H, S, D),
+    in any layout with a contiguous head dim → (B, H, T, D) in q's type
+    and layout. ``causal_offset=M`` hides key j from query i unless
+    ``j <= i + M``; ``None`` is full attention."""
     offset = None if causal_offset is None else int(causal_offset)
-    out = _FlashAttention.apply(
-        q.reshape(b * h, t, d), k.reshape(b * h, s, d), v.reshape(b * h, s, d), offset
-    )
-    return out.reshape(b, h, t, d)
+    if q.device.type == "cpu":
+        return reference_attention(q, k, v, offset)
+    _check_kernel_inputs(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, offset)
+    return _launch(q, k, v, offset)
 
 
 flash_attention.launches = 0
@@ -192,7 +212,8 @@ def flash_block_attention_stats(
     offset = int(offset)
     if q.device.type == "cpu":
         return reference_block_attention_stats(q, k, v, offset)
-    _check_kernel_inputs(q, k, v, "flash_block_attention_stats", lead="N")
+    _check_kernel_inputs(q, k, v, "flash_block_attention_stats", lead="N", ndim=3,
+                         contiguous=True)
     n, t, d = q.shape
     acc = torch.empty((n, t, d), dtype=torch.float32, device=q.device)
     m = torch.empty((n, t), dtype=torch.float32, device=q.device)

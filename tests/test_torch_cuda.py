@@ -11,9 +11,11 @@ prefix descent round every operation in the plain version's order). The
 device sum tree's whole draw agrees with the host trees bitwise in its
 indices; its IS weights within 1 float32 ulp (host and card round the
 f64 ``pow`` apart). The flash-attention kernel sums in another order
-than the plain version (online softmax over key tiles, q scaled before
-the product): within 2e-5 abs/rel in float32 and 3e-2 in bfloat16, and
-rows that see no key exactly 0. The flash block kernel of ring attention
+than the plain version (a softmax per chunk of keys, or online key by
+key, q scaled before the product): within 2e-5 abs/rel in float32 and
+3e-2 in bfloat16, rows that see no key exactly 0, on contiguous inputs
+and on the torso's (B, H, T, D) views over (B, T, H, D) memory, with
+the output in q's layout; a torso forward launches no copy kernel. The flash block kernel of ring attention
 on acc, m and l against the plain version on float64 copies of its
 inputs, in float32 and in bfloat16 (whose inputs float64 holds exactly):
 within 2e-5, and 1e-4 over the ring hop's 4096 keys, where a float32
@@ -25,6 +27,9 @@ reference test's tolerances.
 
 from __future__ import annotations
 
+import contextlib
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +37,21 @@ import torch
 from ray_tpu_torch.ops import flash_attention as fa, framestack, gae, segment_tree
 
 pytestmark = pytest.mark.cuda
+
+
+@contextlib.contextmanager
+def _profiled(pad_s=0.1):
+    """torch.profiler over the CPU and the card, its window reaching
+    ``pad_s`` past the work on both sides: the profiler drops device
+    records outside its window, and its device timestamps can lie
+    milliseconds off the host's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
 
 
 @pytest.fixture
@@ -144,16 +164,13 @@ def test_scatter_rows_at_the_one_launch_limit(cuda, dtype, row, past_limit, inde
 def test_scatter_rows_insert_is_one_kernel(cuda, index_dtype):
     """One scatter_rows call at the replay insert (64 rows of 1764 words)
     runs exactly one CUDA kernel: no cast, no scratch, no second pass."""
-    from torch.profiler import ProfilerActivity, profile
-
     ring = torch.zeros((50000, 1764), dtype=torch.int32, device=cuda)
     vals = torch.ones((64, 1764), dtype=torch.int32, device=cuda)
     pos = ((49980 + torch.arange(64, device=cuda)) % 50000).to(index_dtype)
     framestack.scatter_rows(ring, pos, vals)  # builds and loads the kernel
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         framestack.scatter_rows(ring, pos, vals)
-        torch.cuda.synchronize()
     device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(device) == 1, device
     assert bool((ring[pos.long()] == 1).all())
@@ -242,51 +259,118 @@ def test_gae_kernel_bitwise(cuda, n, t):
     assert torch.equal(adv, p_adv) and torch.equal(vt, p_vt)
 
 
-# (B·H, T, S, D, offset): the torso's four path shapes, then the
-# reference test's shapes and offsets, then the head widths
+def _flash_qkv(gen, b, h, t, s, d, layout, dtype=torch.float32):
+    """q (B, H, T, D), k and v (B, H, S, D): contiguous ("bhtd"), or
+    (B, H, n, D) views over (B, n, H, D) memory ("bthd"), as the torso's
+    projections come."""
+    def one(n):
+        if layout == "bhtd":
+            return torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
+        return torch.randn(b, n, h, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+
+    return one(t), one(s), one(s)
+
+
+# (B, H, T, S, D, offset, layout): the torso's four path shapes (B·H =
+# 2048, 4096, 128, 256) contiguous and in the torso's layout, the
+# reference test's shapes and offsets, the head widths (D > 64 takes the
+# warp-per-row stream), then the query row per thread at its edges: T of
+# 1, 3, 17 and 32, D of 1, 33 and 64, heads not a multiple of a warp's
+# (32 / bq), offsets -3, 0, 5 and None, S past a chunk (the chunk merge)
 FLASH_CASES = [
-    (2048, 8, 8, 32, 0), (4096, 8, 8, 32, 0), (128, 8, 8, 32, 0), (256, 8, 8, 32, 0),
-    (4, 24, 40, 16, None), (4, 24, 40, 16, 16), (4, 32, 32, 16, 0), (4, 130, 200, 16, 7),
-    (4, 8, 8, 16, -3), (6, 8, 8, 16, 40),
-    (64, 16, 16, 16, 0), (64, 16, 16, 64, 0), (64, 16, 16, 128, 0), (64, 8, 24, 100, 5),
+    (1, 2048, 8, 8, 32, 0, "bhtd"), (1, 4096, 8, 8, 32, 0, "bhtd"),
+    (1, 128, 8, 8, 32, 0, "bhtd"), (1, 256, 8, 8, 32, 0, "bhtd"),
+    (256, 8, 8, 8, 32, 0, "bthd"), (512, 8, 8, 8, 32, 0, "bthd"),
+    (16, 8, 8, 8, 32, 0, "bthd"), (32, 8, 8, 8, 32, 0, "bthd"),
+    (1, 4, 24, 40, 16, None, "bhtd"), (1, 4, 24, 40, 16, 16, "bhtd"), (1, 4, 32, 32, 16, 0, "bhtd"),
+    (1, 4, 130, 200, 16, 7, "bhtd"), (1, 4, 8, 8, 16, -3, "bhtd"), (1, 6, 8, 8, 16, 40, "bhtd"),
+    (1, 64, 16, 16, 16, 0, "bhtd"), (1, 64, 16, 16, 64, 0, "bhtd"), (1, 64, 16, 16, 128, 0, "bhtd"),
+    (1, 64, 8, 24, 100, 5, "bhtd"),
+    (3, 5, 1, 9, 32, None, "bthd"), (2, 7, 3, 3, 32, 0, "bthd"), (3, 3, 3, 5, 1, -3, "bhtd"),
+    (2, 5, 17, 40, 16, 5, "bthd"), (1, 3, 17, 17, 33, 0, "bthd"), (2, 3, 32, 32, 64, -3, "bthd"),
+    (1, 3, 32, 70, 64, 5, "bthd"), (1, 9, 8, 100, 32, None, "bthd"), (1, 5, 8, 8, 33, -3, "bhtd"),
+    (1, 2, 1, 1, 1, 0, "bhtd"), (4, 3, 32, 33, 8, None, "bthd"),
 ]
 
 
-@pytest.mark.parametrize("n,t,s,d,offset", FLASH_CASES)
-def test_flash_attention_kernel_matches_plain(cuda, n, t, s, d, offset):
-    gen = torch.Generator(device=cuda).manual_seed(n + t + s + d)
-    q = torch.randn(1, n, t, d, device=cuda, generator=gen)
-    k = torch.randn(1, n, s, d, device=cuda, generator=gen)
-    v = torch.randn(1, n, s, d, device=cuda, generator=gen)
+@pytest.mark.parametrize("b,h,t,s,d,offset,layout", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, b, h, t, s, d, offset, layout):
+    gen = torch.Generator(device=cuda).manual_seed(b + h + t + s + d)
+    q, k, v = _flash_qkv(gen, b, h, t, s, d, layout)
     before = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v, causal_offset=offset)
     assert fa.flash_attention.launches == before + 1
-    want = fa.reference_attention(q[0], k[0], v[0], offset)[None]
+    assert got.stride() == q.stride()  # the output takes q's layout
+    want = fa.reference_attention(q, k, v, offset)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
-    if offset is not None and offset < 0:
+    if offset is not None and offset < 0:  # rows 0 .. -offset - 1 see no key
         assert torch.equal(got[:, :, :-offset], torch.zeros_like(got[:, :, :-offset]))
-        assert got[:, :, -offset:].abs().max() > 0
+        assert -offset >= t or got[:, :, -offset:].abs().max() > 0
 
 
-def test_flash_attention_kernel_bf16(cuda):
+@pytest.mark.parametrize("b,h,t,s,d,offset,layout", [(2, 2, 16, 16, 16, None, "bhtd"),
+                                                      (64, 8, 8, 8, 32, 0, "bthd"),
+                                                      (2, 3, 17, 40, 24, 5, "bthd")])
+def test_flash_attention_kernel_bf16(cuda, b, h, t, s, d, offset, layout):
     gen = torch.Generator(device=cuda).manual_seed(3)
-    q, k, v = (torch.randn(2, 2, 16, 16, device=cuda, generator=gen).bfloat16() for _ in range(3))
-    got = fa.flash_attention(q, k, v)
-    assert got.dtype == torch.bfloat16
-    want = fa.reference_attention(q.reshape(4, 16, 16), k.reshape(4, 16, 16),
-                                  v.reshape(4, 16, 16), None).reshape(2, 2, 16, 16)
+    q, k, v = _flash_qkv(gen, b, h, t, s, d, layout, torch.bfloat16)
+    got = fa.flash_attention(q, k, v, causal_offset=offset)
+    assert got.dtype == torch.bfloat16 and got.stride() == q.stride()
+    want = fa.reference_attention(q, k, v, offset)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
 
 
-def test_flash_attention_gradient_through_kernel(cuda):
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+def test_flash_attention_gradient_through_kernel(cuda, layout):
     gen = torch.Generator(device=cuda).manual_seed(2)
-    qkv = [torch.randn(2, 2, 16, 8, device=cuda, generator=gen, requires_grad=True) for _ in range(3)]
+    qkv = [x.detach().requires_grad_() for x in _flash_qkv(gen, 2, 2, 16, 16, 8, layout)]
+    before = fa.flash_attention.launches
     (fa.flash_attention(*qkv, causal_offset=0) ** 2).sum().backward()
+    assert fa.flash_attention.launches == before + 1
     got = [x.grad.clone() for x in qkv]
-    plain = [x.detach().reshape(4, 16, 8).requires_grad_() for x in qkv]
+    plain = [x.detach().clone().requires_grad_() for x in qkv]
     (fa.reference_attention(*plain, 0) ** 2).sum().backward()
     for g, p in zip(got, plain):
-        torch.testing.assert_close(g, p.grad.reshape(2, 2, 16, 8), atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(g, p.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attention_without_grad_launches_directly(cuda):
+    """Under no_grad (the act path, the target forwards) the kernel runs
+    outside autograd: same values, no graph."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (x.requires_grad_() for x in _flash_qkv(gen, 4, 8, 8, 8, 32, "bhtd"))
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v, causal_offset=0)
+    assert got.grad_fn is None and not got.requires_grad
+    torch.testing.assert_close(got, fa.flash_attention(q, k, v, causal_offset=0).detach(),
+                               atol=0, rtol=0)
+
+
+def test_torso_forward_launches_no_copy_for_qkv(cuda):
+    """A torso forward on the card reads the projections where they are:
+    its attention launches no copy kernel (by the profiler's list), and
+    each layer one short-head flash kernel (by the wrapper's count, the
+    profiler naming the kernel). A first forward builds and loads the
+    kernel before the profiler starts."""
+    from ray_tpu_torch.env.spaces import Box, Discrete
+    from ray_tpu_torch.models.catalog import ModelCatalog
+
+    cfg = {"use_transformer": True, "transformer_dim": 64, "transformer_num_layers": 2,
+           "transformer_num_heads": 2, "transformer_ff_dim": 128, "transformer_seq_len": 8}
+    model = ModelCatalog.get_model(Box(-1, 1, (32,), np.float32), Discrete(4), 4, cfg).to(cuda)
+    obs = torch.randn(64, 32, device=cuda)
+    forwards = 4
+    with torch.no_grad():
+        model(obs)
+        torch.cuda.synchronize()
+        before = fa.flash_attention.launches
+        with _profiled() as prof:
+            for _ in range(forwards):
+                model(obs)
+    assert fa.flash_attention.launches == before + 2 * forwards
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("flash_rows_kernel" in n for n in names), names
+    assert not [n for n in names if "flash_fwd_kernel" in n or "copy" in n.lower()], names
 
 
 def test_flash_attention_refusals(cuda):
@@ -325,6 +409,11 @@ FLASH_BLOCK_CASES = [
     (4, 63, 65, 8, 0), (4, 64, 64, 40, 0), (4, 65, 63, 40, 1), (4, 129, 129, 16, 63),
     (4, 129, 129, 16, 64), (4, 129, 129, 16, 65), (4, 65, 129, 8, -1), (4, 129, 65, 40, -64),
     (4, 64, 64, 16, -63), (4, 65, 129, 7, 2), (3, 129, 64, 100, 127),
+    # the query row per thread (T <= 32, D <= 64): ragged heads and rows,
+    # the chunk merge past 32 and 16 keys, D of 1, 33 and 64, blind rows,
+    # a block that sees no key at all
+    (3, 17, 40, 16, -5), (2, 32, 70, 64, 3), (9, 3, 5, 1, 0), (5, 8, 8, 33, -2),
+    (7, 32, 33, 8, -40), (11, 1, 9, 32, 4), (2, 32, 32, 64, 31),
 ]
 
 
@@ -348,7 +437,8 @@ def test_flash_block_kernel_matches_plain(cuda, n, t, s, d, offset):
 
 @pytest.mark.parametrize("n,t,s,d,offset", [(8, 4096, 4096, 32, 0), (8, 4096, 4096, 32, 4096),
                                              (4, 130, 130, 16, 7), (4, 129, 129, 40, 63),
-                                             (4, 65, 63, 8, 1), (4, 65, 129, 7, 2)])
+                                             (4, 65, 63, 8, 1), (4, 65, 129, 7, 2),
+                                             (64, 8, 8, 32, -2), (3, 17, 40, 16, 5)])
 def test_flash_block_kernel_bf16(cuda, n, t, s, d, offset):
     """bf16 in, float32 out: held like float32 against float64 copies,
     which hold the bf16 inputs exactly."""

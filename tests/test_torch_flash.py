@@ -25,11 +25,12 @@ from ray_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from ray_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 
 CASES = [
-    (24, 40, None),  # full attention, uneven shapes
-    (24, 40, 16),  # GTrXL's band
-    (32, 32, 0),  # causal self-attention
-    (130, 200, 7),  # past the reference's 128 block
-    (8, 8, -3),  # queries 0..2 see no key
+    (24, 40, None, 16),  # full attention, uneven shapes
+    (24, 40, 16, 16),  # GTrXL's band
+    (32, 32, 0, 16),  # causal self-attention
+    (130, 200, 7, 16),  # past the reference's 128 block
+    (8, 8, -3, 16),  # queries 0..2 see no key
+    (8, 8, 0, 32),  # the decoder torso's heads
 ]
 
 
@@ -39,13 +40,25 @@ def _qkv(seed, B=2, H=2, T=24, S=40, D=16):
             for shape in ((B, H, T, D), (B, H, S, D), (B, H, S, D))]
 
 
+def _torch(x, layout):
+    """A numpy (B, H, n, D) array as a torch tensor: contiguous, or a
+    (B, H, n, D) view over (B, n, H, D) memory, as the torso's
+    projections come."""
+    if layout == "contiguous":
+        return torch.as_tensor(x)
+    return torch.as_tensor(np.ascontiguousarray(x.transpose(0, 2, 1, 3))).transpose(1, 2)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "bthd"])
 @pytest.mark.parametrize("path", ["interpret", "xla"])
-@pytest.mark.parametrize("t,s,offset", CASES)
-def test_forward_matches_reference(t, s, offset, path):
-    q, k, v = _qkv(t + s, T=t, S=s)
+@pytest.mark.parametrize("t,s,offset,d", CASES)
+def test_forward_matches_reference(t, s, offset, d, path, layout):
+    q, k, v = _qkv(t + s, T=t, S=s, D=d)
     kw = {"interpret": True} if path == "interpret" else {"use_pallas": False}
     ref = np.asarray(jax_flash_attention(*map(jnp.asarray, (q, k, v)), causal_offset=offset, **kw))
-    got = flash_attention(*map(torch.as_tensor, (q, k, v)), causal_offset=offset)
+    tq, tk, tv = (_torch(x, layout) for x in (q, k, v))
+    assert tq.is_contiguous() == (layout == "contiguous")
+    got = flash_attention(tq, tk, tv, causal_offset=offset)
     assert got.dtype == torch.float32 and got.shape == q.shape
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=2e-5)
     if offset is not None and offset < 0:
