@@ -15,9 +15,12 @@ and ``nvcc``. Phases, each printing its own lines:
                CUDA-event times of kernel, plain version and
                ``index_select``;
 3. gae      -- the GAE kernel against its plain version, bitwise, at the
-               device lane's (16, 128) and at ragged shapes with episode
-               ends inside the fragment; times (no single PyTorch call
-               computes this function, so there is no library time);
+               device lane's (16, 128), at ragged shapes and several
+               tiles with episode ends inside the fragment and a row done
+               at every step, under two (gamma, lambda), and on unaligned
+               inputs; times and the launch floor (``floor_device_ms``;
+               no single PyTorch call computes this function, so there is
+               no library time);
 4. scatter  -- the row-scatter kernel against its plain version,
                bitwise: the replay insert (64 rows into a (50000, 1764)
                int32 ring, wrapping), duplicate positions, bool, 2-, 4-
@@ -27,11 +30,13 @@ and ``nvcc``. Phases, each printing its own lines:
                ``index_copy_``; the kernels one call at the insert
                launches (``torch.profiler``: exactly 1);
 5. descent  -- the f64 prefix-descent kernel against its plain version
-               and the host sum tree, bitwise, at capacity 65536 (32,
+               and the host sum tree, bitwise, at capacity 65536 (1, 32,
                512 and 4096 draws, node boundaries, masses at and past
-               the total) and at capacities 1 and 2; the device tree's
-               leaf write (repeated indices) and draw against the host
-               trees; times, and ``searchsorted`` as a yardstick;
+               the total, a NaN mass) and at capacities 1, 2, 32, 64,
+               2048 and 131072; the device tree's leaf write (repeated
+               indices) and draw against the host trees; times, the
+               launch floor (``floor_device_ms``), and ``searchsorted``
+               as a yardstick;
 6. flash    -- the flash-attention kernel against its plain version
                (within 2e-5 abs/rel in f32, 3e-2 in bf16, rows that see
                no key exactly 0, the output in q's layout): the torso's
@@ -101,14 +106,19 @@ and ``nvcc``. Phases, each printing its own lines:
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
                (NCCL refuses two ranks on one card; each hop is staged
-               through host memory), tcp rendezvous on 127.0.0.1, each on
-               the same seeded B = 1, T = 16384, H = 8, D = 32 arrays, f32
-               causal, f32 full and bf16 causal, two calls each: launches
-               (4 per call) and staged exchanges (3 per call) per rank,
-               rank 0's output against ``full_attention_reference`` on the
-               card (2e-4 in f32; in bf16 one bf16 ulp, 2**-7, relative
-               and 1e-5 absolute), second-call wall times, each rank's
-               busiest-hop kernel time and one staged exchange's time;
+               through host memory), tcp rendezvous on 127.0.0.1; every
+               rank makes the same seeded B = 1, T = 16384, H = 8, D = 32
+               arrays on the host and keeps its block of 4096 rows
+               (``shard_sequence``) on the card, f32 causal, f32 full and
+               bf16 causal, two calls each on the blocks: launches (4 per
+               call), staged exchanges (3 per call) and no gather per
+               rank, the card's peak memory over each call
+               (``peak_mb``), second-call wall times; after the calls,
+               the rows gathered (``gather_sequence``) and rank 0's
+               against ``full_attention_reference`` on the card (2e-4 in
+               f32; in bf16 one bf16 ulp, 2**-7, relative and 1e-5
+               absolute); each rank's busiest-hop kernel time and one
+               staged exchange's time;
                with two or more cards
                the same on NCCL, one rank per card; NCCL at world size 1
                in this process;
@@ -122,6 +132,8 @@ kernel's own device duration from ``torch.profiler`` over the same
 launches (``device_ms``), and ``library_device_ms`` the summed device
 time of a library call's own kernels; every kernel phase prints both.
 ``wrapper_ms`` times the Python wrapper by events (host-bound).
+``floor_device_ms`` is the ``device_ms`` of a one-element ``zero_()``,
+the least a kernel launch shows by that timer.
 
 Launch counts are set to 0 just before each of phases 7-13 and read
 just after (the ring's in each rank, before each call); the comparison
@@ -277,6 +289,16 @@ def device_ms(fn, name=None, iters=50, warmup=5):
         return sum(times) / len(times)
     require(per_name, "the profiler recorded no device activity")
     return sum(sum(ts) / len(ts) * -(-len(ts) // iters) for ts in per_name.values())
+
+
+def floor_device_ms():
+    """The launch floor beside the µs-scale kernels: the ``device_ms`` of a
+    one-element ``zero_()`` on the card (one fill kernel a call), timed
+    as the kernels are."""
+    import torch
+
+    x = torch.empty(1, device="cuda")
+    return device_ms(x.zero_, iters=200)
 
 
 def device_kernels(fn, calls=3):
@@ -565,10 +587,14 @@ def phase_descent(rng):
     for n in (TRAIN_BATCH, 512, 4096):
         check(host, size, (rng.random(n) + np.arange(n)) / n * total, f"{n} stratified draws")
     check(host, size, _boundary_masses(host, size), "node boundaries, total and past it")
-    for cap in (1, 2):
+    check(host, size, np.array([np.nan, total / 3]), "a NaN mass (leaf 0)")
+    check(host, size, np.array([total / 3]), "one draw")
+    # levels that are not a multiple of the kernel's 8-level chunk: 0, 1,
+    # 5, 6, 11 and 17
+    for cap in (1, 2, 32, 64, 2048, 131072):
         small = SumSegmentTree(cap)
         small.set_items(np.arange(cap), rng.random(cap) + 0.5)
-        check(small, cap, np.concatenate([_boundary_masses(small, cap), rng.random(8) * 2]),
+        check(small, cap, np.concatenate([_boundary_masses(small, cap), rng.random(TRAIN_BATCH) * cap]),
               f"capacity {cap}")
     say("descent", bitwise=True, checked=json.dumps(checked))
 
@@ -620,19 +646,22 @@ def phase_descent(rng):
     # masses read once, the indices written once
     nbytes = TRAIN_BATCH * levels * 8 + TRAIN_BATCH * 8 + TRAIN_BATCH * 8
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    say("descent", ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}",
+    floor_ms = floor_device_ms()
+    say("descent", ms=f"{ms:.5f}", device_ms=f"{dev_ms:.6f}", floor_device_ms=f"{floor_ms:.6f}",
+        wrapper_ms=f"{wrapper_ms:.5f}",
         plain_ms=f"{plain_ms:.5f}", searchsorted_ms=f"{lib_ms:.5f}",
-        searchsorted_device_ms=f"{lib_dev_ms:.5f}", bound_ms=f"{bound_ms:.8f}", bytes=nbytes,
+        searchsorted_device_ms=f"{lib_dev_ms:.6f}", bound_ms=f"{bound_ms:.8f}", bytes=nbytes,
         shape=f"{TRAIN_BATCH} draws, {levels} levels",
-        note="latency-bound: 16 dependent loads per draw; searchsorted over an f64 "
-             "cumsum is a yardstick only, it does not round as the tree does")
+        note="latency-bound: a warp a draw, 8 levels a round trip (2 at 16 levels); "
+             "searchsorted over an f64 cumsum is a yardstick only, it does not round as the "
+             "tree does")
     return {
         "name": "prefix_descent", "route": "cuda",
         "source": "ray_tpu_torch/csrc/prefix_descent.cu",
         "replaces": "ray_tpu/ops/segment_tree.py:176",
-        "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "wrapper_ms": wrapper_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
-        "library_device_ms": lib_dev_ms,
+        "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "floor_device_ms": floor_ms,
+        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
         "passed": True,
     }
 
@@ -657,18 +686,35 @@ def phase_gae():
     from ray_tpu_torch.ops.gae import compute_gae_fragment, compute_gae_fragment_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [(16, 128), (1, 1), (3, 1), (5, 7), (33, 200), (257, 64)]
+    # several tiles of 128 steps, T = 1, rows not a multiple of 16, T not
+    # a multiple of 4; every case has a row done at every step
+    shapes = [(16, 128), (1, 1), (3, 1), (5, 7), (33, 200), (257, 64), (1, 129), (16, 256)]
     worst = 0.0
-    for n, t in shapes:
-        args = _gae_inputs(n, t, gen)
+
+    def check(args, what):
+        nonlocal worst
         for gamma, lam in ((0.99, 0.95), (0.9, 1.0)):
             ak, vk = compute_gae_fragment(*args, gamma, lam)
             ap, vp = compute_gae_fragment_plain(*args, gamma, lam)
             torch.cuda.synchronize()
             worst = max(worst, float((ak - ap).abs().max()), float((vk - vp).abs().max()))
             require(torch.equal(ak, ap) and torch.equal(vk, vp),
-                    f"GAE kernel differs from plain at ({n}, {t}), gamma={gamma}, lambda={lam}")
-    say("gae", bitwise=True, shapes=json.dumps(shapes), max_abs_err=worst)
+                    f"GAE kernel differs from plain at {what}, gamma={gamma}, lambda={lam}")
+
+    for n, t in shapes:
+        args = _gae_inputs(n, t, gen)
+        args[4][0] = True
+        check(args, f"({n}, {t})")
+    # contiguous inputs off their 16-byte (flags: 4-byte) boundary take the
+    # kernel's element-wise staging
+    unaligned = []
+    for x in _gae_inputs(16, 128, gen):
+        base = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+        base[1:] = x.reshape(-1)
+        unaligned.append(base[1:].view(x.shape))
+    check(unaligned, "(16, 128) unaligned")
+    say("gae", bitwise=True, shapes=json.dumps(shapes), unaligned=True, all_done_row=True,
+        max_abs_err=worst)
 
     args = _gae_inputs(16, 128, gen)
     adv, vt = torch.empty_like(args[0]), torch.empty_like(args[0])
@@ -685,17 +731,18 @@ def phase_gae():
     nt = 16 * 128
     nbytes = 3 * nt * 4 + 2 * nt + 2 * nt * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    say("gae", ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", wrapper_ms=f"{wrapper_ms:.5f}",
-        plain_ms=f"{plain_ms:.5f}",
-        bound_ms=f"{bound_ms:.7f}",
+    floor_ms = floor_device_ms()
+    say("gae", ms=f"{ms:.5f}", device_ms=f"{dev_ms:.6f}", floor_device_ms=f"{floor_ms:.6f}",
+        wrapper_ms=f"{wrapper_ms:.5f}", plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.7f}",
         bytes=nbytes, library="none: no single PyTorch call computes this function",
-        note="launch-latency bound")
+        note="latency-bound: 128 dependent steps of two operations on one thread a row")
     return {
         "name": "gae_scan", "route": "cuda",
         "source": "ray_tpu_torch/csrc/gae_scan.cu",
         "replaces": "ray_tpu/ops/gae.py:130",
-        "max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "wrapper_ms": wrapper_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "floor_device_ms": floor_ms,
+        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": None,
         "library_device_ms": None,
         "passed": True,
     }
@@ -1464,8 +1511,11 @@ def _run_ring_ranks(n, backend):
 
 
 def ring_rank_main(backend):
-    """One rank of the ring phase: ``ring_attention`` on the same seeded
-    full arrays as every other rank, in three cases, each called twice."""
+    """One rank of the ring phase: the same seeded whole arrays on every
+    rank, in three cases; each rank keeps its own block of T on the card
+    and calls ``ring_attention`` on it twice, timed, with the card's peak
+    memory over each call; the rows wait in host memory and are gathered
+    for the golden check only after every timed call."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -1473,7 +1523,9 @@ def ring_rank_main(backend):
     from ray_tpu_torch.parallel.collectives import send_recv_shift
     from ray_tpu_torch.parallel.distributed import initialize, shutdown, sync_global
     from ray_tpu_torch.parallel.mesh import make_mesh
-    from ray_tpu_torch.parallel.ring_attention import full_attention_reference, ring_attention
+    from ray_tpu_torch.parallel.ring_attention import (
+        full_attention_reference, gather_sequence, ring_attention, shard_sequence,
+    )
 
     dev = initialize(backend=backend)
     mesh = make_mesh([("sp", torch.distributed.get_world_size())])
@@ -1481,37 +1533,56 @@ def ring_rank_main(backend):
     shape = (RING_B, RING_T, RING_H, RING_D)
     gen = torch.Generator().manual_seed(7)  # the same arrays on every rank
     report = {"rank": rank, "backend": backend, "device": str(dev), "calls": {}}
-    for name, dtype, causal in (("f32_causal", torch.float32, True), ("f32_full", torch.float32, False),
-                                ("bf16_causal", torch.bfloat16, True)):
-        q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(3))
+    cases = (("f32_causal", torch.float32, True), ("f32_full", torch.float32, False),
+             ("bf16_causal", torch.bfloat16, True))
+    held = {}  # each case's whole arrays and this rank's rows, in host memory
+    for name, dtype, causal in cases:
+        whole = [torch.randn(shape, generator=gen).to(dtype) for _ in range(3)]
+        q, k, v = (shard_sequence(x, mesh, "sp").to(dev) for x in whole)
         calls = []
+        rows = None
         for _ in range(2):
+            rows = None
             flash_block_attention_stats.launches = 0
             send_recv_shift.staged = 0
             torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
             sync_global()
             t0 = time.perf_counter()
-            out = ring_attention(q, k, v, mesh, axis_name="sp", causal=causal)
+            rows = ring_attention(q, k, v, mesh, axis_name="sp", causal=causal)
             torch.cuda.synchronize()
             calls.append({"wall_s": time.perf_counter() - t0,
                           "launches": flash_block_attention_stats.launches,
-                          "staged": send_recv_shift.staged})
+                          "staged": send_recv_shift.staged,
+                          "resident_mb": resident / 2 ** 20,
+                          "peak_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20})
         require(all(c["launches"] == n for c in calls), f"rank {rank}: launches per call {calls}")
-        require(out.shape == shape and out.dtype == dtype and bool(torch.isfinite(out).all()),
-                f"rank {rank}: ring output of {name}")
-        entry = {"calls": calls}
-        if rank == 0:  # the golden on the card, 1024 query rows at a time
-            want = full_attention_reference(q.float(), k.float(), v.float(), causal, query_chunk=1024)
+        require(rows.shape == (RING_B, RING_T // n, RING_H, RING_D) and rows.dtype == dtype
+                and bool(torch.isfinite(rows).all()), f"rank {rank}: ring rows of {name}")
+        held[name] = (whole, rows.cpu())
+        report["calls"][name] = {"calls": calls}
+        del rows, q, k, v
+    # after every timed call (the golden's matrix products keep a cuBLAS
+    # workspace on the card): the rows gathered, and rank 0's against the
+    # golden on the card, 1024 query rows at a time
+    for name, dtype, causal in cases:
+        whole, rows = held.pop(name)
+        out = gather_sequence(rows.to(dev), mesh, "sp")  # NCCL gathers CUDA tensors only
+        if rank == 0:
+            require(out.shape == shape, f"gathered rows of {name}: {tuple(out.shape)}")
+            want = full_attention_reference(*(x.to(dev).float() for x in whole), causal, query_chunk=1024)
+            out = out.float()
             # f32: the reference test's 2e-4. bf16: the golden runs in f32
             # on the same bf16 values, so the two differ by the output's
             # rounding to bf16 (at most half a bf16 ulp, 2**-8 relative)
             # and float32 drift: one ulp (2**-7) relative, 1e-5 absolute
             atol, rtol = (1e-5, 2 ** -7) if dtype == torch.bfloat16 else (2e-4, 2e-4)
-            entry["max_abs_err"] = float((out.float() - want).abs().max())
-            entry["tol_used"] = float(((out.float() - want).abs() / (atol + rtol * want.abs())).max())
-            require(torch.allclose(out.float(), want, atol=atol, rtol=rtol),
+            entry = report["calls"][name]
+            entry["max_abs_err"] = float((out - want).abs().max())
+            entry["tol_used"] = float(((out - want).abs() / (atol + rtol * want.abs())).max())
+            require(torch.allclose(out, want, atol=atol, rtol=rtol),
                     f"ring {name} differs from full attention by {entry['max_abs_err']}")
-        report["calls"][name] = entry
     # the kernel's time at this rank's busiest causal hop, ranks in turn
     busiest = RING_HOP if rank > 0 else 0
     qf, kf, vf = (torch.randn(RING_B * RING_H, RING_HOP, RING_D, generator=gen).to(dev) for _ in range(3))
@@ -1538,7 +1609,8 @@ def ring_rank_main(backend):
     sync_global()
     shutdown()
     print(f"[ring] rank={rank} backend={backend} device={dev} " + " ".join(
-        f"{name}_s={json.dumps([round(c['wall_s'], 5) for c in e['calls']])}"
+        f"{name}_s={json.dumps([round(c['wall_s'], 5) for c in e['calls']])} "
+        f"{name}_peak_mb={json.dumps([round(c['peak_mb'], 3) for c in e['calls']])}"
         for name, e in report["calls"].items()), flush=True)
     print(json.dumps(report), flush=True)
     return 0
@@ -1557,6 +1629,8 @@ def ring_nccl(n):
     say("ring", backend="nccl", ranks=n, cards=n, staged_per_call=0, max_abs_err=json.dumps(errs),
         second_call_s_by_rank=json.dumps({k: [round(r["calls"][k]["calls"][1]["wall_s"], 5) for r in ranks]
                                           for k in errs}),
+        peak_mb_by_rank=json.dumps({k: [round(r["calls"][k]["calls"][1]["peak_mb"], 3) for r in ranks]
+                                    for k in errs}),
         busiest_hop_kernel_ms=json.dumps({r["rank"]: round(r["busiest_hop"]["kernel_ms"], 5) for r in ranks}))
     return sum(c["launches"] for r in ranks for e in r["calls"].values() for c in e["calls"])
 
@@ -1571,7 +1645,7 @@ def phase_ring():
     from ray_tpu_torch.ops.flash_attention import flash_block_attention_stats
     from ray_tpu_torch.parallel.distributed import initialize, shutdown
     from ray_tpu_torch.parallel.mesh import make_mesh
-    from ray_tpu_torch.parallel.ring_attention import ring_attention
+    from ray_tpu_torch.parallel.ring_attention import ring_attention, shard_sequence
 
     t0 = time.perf_counter()
     ranks = _run_ring_ranks(RING_RANKS, "gloo")
@@ -1583,11 +1657,18 @@ def phase_ring():
                     f"rank {r['rank']}: staged exchanges {e['calls']}")
     errs = {name: e["max_abs_err"] for name, e in ranks[0]["calls"].items()}
     second = {name: [round(r["calls"][name]["calls"][1]["wall_s"], 5) for r in ranks] for name in errs}
+    # one f32 (B, T, H, D) array, and one rank's block of it
+    array_mb = RING_B * RING_T * RING_H * RING_D * 4 / 2 ** 20
     say("ring", backend="gloo", ranks=RING_RANKS, device="one card",
         shape=f"B={RING_B} T={RING_T} H={RING_H} D={RING_D}", launches_per_call=RING_RANKS,
-        staged_per_call=RING_RANKS - 1, max_abs_err=json.dumps(errs),
+        staged_per_call=RING_RANKS - 1, gathers_in_call=0, max_abs_err=json.dumps(errs),
         tol_used=json.dumps({name: e["tol_used"] for name, e in ranks[0]["calls"].items()}),
         second_call_s_by_rank=json.dumps(second),
+        peak_mb_by_rank=json.dumps({name: [round(r["calls"][name]["calls"][1]["peak_mb"], 3)
+                                           for r in ranks] for name in errs}),
+        resident_mb_by_rank=json.dumps({name: [round(r["calls"][name]["calls"][1]["resident_mb"], 3)
+                                               for r in ranks] for name in errs}),
+        f32_array_mb=array_mb, f32_block_mb=array_mb / RING_RANKS,
         busiest_hop_kernel_ms=json.dumps({r["rank"]: round(r["busiest_hop"]["kernel_ms"], 5) for r in ranks}),
         busiest_hop_device_ms=json.dumps({r["rank"]: round(r["busiest_hop"]["device_ms"], 5) for r in ranks}),
         hop_exchange_ms=json.dumps({r["rank"]: round(r["hop_exchange_ms"], 4) for r in ranks}),
@@ -1604,7 +1685,8 @@ def phase_ring():
     try:
         mesh = make_mesh([("sp", 1)])
         gen = torch.Generator().manual_seed(8)
-        q, k, v = (torch.randn(1, 512, RING_H, RING_D, generator=gen).to(dev) for _ in range(3))
+        q, k, v = (shard_sequence(torch.randn(1, 512, RING_H, RING_D, generator=gen), mesh, "sp").to(dev)
+                   for _ in range(3))
         flash_block_attention_stats.launches = 0
         out = ring_attention(q, k, v, mesh, axis_name="sp", causal=True)
         launches["nccl_world_1"] = flash_block_attention_stats.launches

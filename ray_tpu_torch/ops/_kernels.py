@@ -10,8 +10,9 @@ named by a digest of the source and the flags, so an edited source is
 rebuilt and a stale library is never loaded.
 
 Every pointer and the stream pass as ``c_void_p`` (a bare Python int
-would be cut to 32 bits). Each launch returns ``cudaGetLastError()``;
-:func:`check` raises when it is not 0.
+would be cut to 32 bits). :func:`launch` hands a C launch function the
+current stream of the tensors' card. Each launch returns
+``cudaGetLastError()``; :func:`check` raises when it is not 0.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -191,6 +194,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -202,6 +208,17 @@ def library(name: str) -> ctypes.CDLL:
                 f.restype = restype
             _libs[name] = lib
         return lib
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` with the raw current stream of ``device``, a
+    CUDA device: the current device is switched (``torch.cuda.device``)
+    only when it is another. Returns ``fn``'s code."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(rc: int, lib: ctypes.CDLL, error_fn: str, what: str) -> None:

@@ -122,12 +122,7 @@ def _launch(q, k, v, causal_offset: Optional[int]) -> torch.Tensor:
         0 if causal_offset is None else causal_offset,
     )
     lib = _kernels.library("flash_fwd")
-    index = q.device.index
-    if index == torch.cuda.current_device():
-        rc = lib.flash_fwd_launch(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            rc = lib.flash_fwd_launch(*args, torch._C._cuda_getCurrentRawStream(index))
+    rc = _kernels.launch(lib.flash_fwd_launch, q.device, *args)
     if rc:
         _kernels.check(rc, lib, "flash_fwd_error_string", "flash_fwd")
     flash_attention.launches += 1

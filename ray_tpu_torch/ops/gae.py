@@ -101,28 +101,32 @@ def compute_gae_fragment(
         return compute_gae_fragment_plain(
             rewards, values, next_values, terminateds, dones, gamma, lambda_
         )
-    if rewards.device.type != "cuda":
-        raise ValueError(f"compute_gae_fragment: unsupported device {rewards.device}")
+    dev = rewards.device
+    if dev.type != "cuda":
+        raise ValueError(f"compute_gae_fragment: unsupported device {dev}")
     n, t = rewards.shape
-    floats = [x.float().contiguous() for x in (rewards, values, next_values)]
-    flags = [x.to(torch.bool).contiguous() for x in (terminateds, dones)]
+    # copied or converted only where the kernel needs it: contiguous
+    # float32 values and contiguous bool flags
+    floats = [x if x.dtype == torch.float32 and x.is_contiguous() else x.float().contiguous()
+              for x in (rewards, values, next_values)]
+    flags = [x if x.dtype == torch.bool and x.is_contiguous() else x.to(torch.bool).contiguous()
+             for x in (terminateds, dones)]
     for x in floats + flags:
-        if x.shape != (n, t) or x.device != rewards.device:
+        if x.shape != (n, t) or x.device != dev:
             raise ValueError(
                 "compute_gae_fragment: all inputs must be (N, T) on "
-                f"{rewards.device}; got {tuple(x.shape)} on {x.device}"
+                f"{dev}; got {tuple(x.shape)} on {x.device}"
             )
-    adv = torch.empty((n, t), dtype=torch.float32, device=rewards.device)
-    vt = torch.empty_like(adv)
+    adv = torch.empty((n, t), dtype=torch.float32, device=dev)
+    vt = torch.empty((n, t), dtype=torch.float32, device=dev)
     lib = _kernels.library("gae_scan")
-    with torch.cuda.device(rewards.device):
-        rc = lib.gae_fragment_launch(
-            *(x.data_ptr() for x in floats + flags),
-            adv.data_ptr(), vt.data_ptr(), n, t,
-            float(gamma), float(gamma * lambda_),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _kernels.check(rc, lib, "gae_fragment_error_string", "gae_scan")
+    rc = _kernels.launch(
+        lib.gae_fragment_launch, dev,
+        *(x.data_ptr() for x in floats + flags), adv.data_ptr(), vt.data_ptr(), n, t,
+        float(gamma), float(gamma * lambda_),
+    )
+    if rc:
+        _kernels.check(rc, lib, "gae_fragment_error_string", "gae_scan")
     compute_gae_fragment.launches += 1
     return adv, vt
 

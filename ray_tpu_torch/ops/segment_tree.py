@@ -220,19 +220,20 @@ def find_prefixsum(
         raise ValueError(
             f"find_prefixsum: masses on {prefixsum.device}, tree on {value.device}"
         )
-    tree = value.contiguous()
-    mass = prefixsum.reshape(-1).contiguous()
-    out = torch.empty(mass.shape, dtype=torch.int64, device=value.device)
+    tree = value if value.is_contiguous() else value.contiguous()
+    flat = prefixsum.dim() == 1 and prefixsum.is_contiguous()
+    mass = prefixsum if flat else prefixsum.reshape(-1).contiguous()
+    n = mass.shape[0]
+    out = torch.empty(n, dtype=torch.int64, device=value.device)
     lib = _kernels.library("prefix_descent")
-    with torch.cuda.device(value.device):
-        rc = lib.prefix_descent_launch(
-            tree.data_ptr(), mass.data_ptr(), out.data_ptr(), mass.numel(),
-            capacity.bit_length() - 1, capacity,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _kernels.check(rc, lib, "prefix_descent_error_string", "prefix_descent")
+    rc = _kernels.launch(
+        lib.prefix_descent_launch, value.device,
+        tree.data_ptr(), mass.data_ptr(), out.data_ptr(), n, capacity.bit_length() - 1, capacity,
+    )
+    if rc:
+        _kernels.check(rc, lib, "prefix_descent_error_string", "prefix_descent")
     find_prefixsum.launches += 1
-    return out.reshape(prefixsum.shape)
+    return out if flat else out.reshape(prefixsum.shape)
 
 
 find_prefixsum.launches = 0

@@ -24,9 +24,10 @@ group's backend and is fixed by it, never chosen after a failure:
 - A group of one: no exchange (torch refuses a transfer to its own
   rank), the input comes back.
 
-On gloo, ``allgather`` has run with CUDA tensors (the one-card ring
-gathers its output with it); the other verbs have run on gloo with CPU
-tensors only. The reference's ``HostGroup`` (``:92``), a group of actor
+On gloo, ``allgather`` has run with CUDA tensors (the one-card ring's
+check gathers the output's rows with it, ``ring_attention.
+gather_sequence``); the other verbs have run on gloo with CPU tensors
+only. The reference's ``HostGroup`` (``:92``), a group of actor
 handles reduced in the calling process, waits for the actor runtime.
 """
 

@@ -6,7 +6,9 @@ Counterpart of ``ray_tpu/parallel/ring_attention.py`` (``_merge`` :68,
 Blockwise Transformers", 2023). The sequence is split along time over a
 mesh axis; each rank holds a Q/K/V block, the K/V blocks go once round
 the ring, and each hop's block statistics are merged with the
-flash-attention merge, so the result is exact.
+flash-attention merge, so the result is exact. As in the reference,
+the sequence stays sharded: :func:`ring_attention` takes each rank's
+block and returns each rank's rows of the output.
 
 Each hop is :func:`ray_tpu_torch.ops.flash_attention.
 flash_block_attention_stats`: one launch of ``csrc/flash_block.cu`` on
@@ -97,21 +99,35 @@ def ring_attention(
     axis_name: str = "sp",
     causal: bool = False,
 ) -> torch.Tensor:
-    """Full-array entry point. Every rank along ``axis_name`` passes the
-    same (B, T, H, D) arrays; each takes its T / n rows in rank order,
-    runs the ring, and the rows are gathered back along T, so every rank
-    returns the whole (B, T, H, D) output. T must divide by the axis
-    size."""
-    _refuse_grad(q, k, v)
-    group = mesh.group(axis_name)
-    n = mesh.size(axis_name)
-    t = q.shape[1]
+    """The entry point on shards, as the reference's ``shard_map`` with
+    ``P(None, axis_name)`` in and out (``:183-188``): every rank along
+    ``axis_name`` passes its own (B, T / n, H, D) blocks, the rank's
+    index along the axis being the block's place in the sequence, and
+    gets its (B, T / n, H, D) rows of the exact output back. No rank
+    holds the whole sequence and nothing is gathered: memory per rank is
+    O(T / n). :func:`shard_sequence` and :func:`gather_sequence` cut a
+    whole array into this rank's rows and join the rows again, for
+    callers that hold whole arrays."""
+    return ring_attention_local(q, k, v, group=mesh.group(axis_name), causal=causal)
+
+
+def shard_sequence(x: torch.Tensor, mesh: Mesh, axis_name: str = "sp") -> torch.Tensor:
+    """This rank's block of a whole (B, T, ...) array: rows ``r·T/n`` to
+    ``(r+1)·T/n`` of T for the rank's index r along ``axis_name``, as a
+    tensor of its own (the whole array can then be freed). T must
+    divide by the axis size."""
+    n, t = mesh.size(axis_name), x.shape[1]
     if t % n:
-        raise ValueError(f"ring_attention: T = {t} does not divide by the {n} ranks of {axis_name!r}")
-    tl, me = t // n, mesh.index(axis_name)
-    rows = slice(me * tl, (me + 1) * tl)
-    local = ring_attention_local(q[:, rows], k[:, rows], v[:, rows], group=group, causal=causal)
-    return collectives.allgather(local, group, axis=1)
+        raise ValueError(f"shard_sequence: T = {t} does not divide by the {n} ranks of {axis_name!r}")
+    rows = t // n
+    start = mesh.index(axis_name) * rows
+    return x[:, start:start + rows].clone(memory_format=torch.contiguous_format)
+
+
+def gather_sequence(x: torch.Tensor, mesh: Mesh, axis_name: str = "sp") -> torch.Tensor:
+    """The whole (B, T, ...) array from every rank's block along
+    ``axis_name``, on every rank: the allgather along T."""
+    return collectives.allgather(x, mesh.group(axis_name), axis=1)
 
 
 def full_attention_reference(

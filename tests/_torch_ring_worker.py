@@ -7,12 +7,16 @@ and, on a card, ``tests/test_torch_cuda.py``).
 Imports numpy, torch and ``ray_tpu_torch`` only; :func:`run_ranks` starts
 the ranks. Joins a gloo group of N ranks (on the CPU, or with CUDA
 tensors: the ring of several ranks on one card), runs every case in one
-process and writes ``OUT_DIR/rankR.npz``. On the CPU that is the
+process and writes ``OUT_DIR/rankR.npz``. Every rank makes each case's
+whole seeded arrays, keeps its own block of them (``shard_sequence``),
+runs ``ring_attention`` on the blocks, and records its rows of the
+output, the hops and the gathers of that call, and the rows gathered
+back afterwards (``gather_sequence``). On the CPU the cases are the
 reference test's ring cases, the dryrun's ring, a ring on each axis of
-two 2-D meshes (a ring of one among them), a T that does not divide, the
-mesh helpers, the collectives with the reference test's inputs and the
-weight broadcast; on a card, the ring cases with the kernel launches and
-staged exchanges of each call.
+two 2-D meshes (a ring of one among them) and a T that does not divide,
+then the mesh helpers, the collectives with the reference test's inputs
+and the weight broadcast; on a card, the ring cases with the kernel
+launches and staged exchanges of each call.
 """
 
 from __future__ import annotations
@@ -94,6 +98,20 @@ def _count_exchanges():
     return calls
 
 
+def _count_gathers():
+    """Wrap ``dist.all_gather`` and ``dist.all_gather_into_tensor`` (what
+    ``collectives.allgather`` and any other gather reach) to count the
+    gathers that ran."""
+    calls = []
+    for name in ("all_gather", "all_gather_into_tensor"):
+        def counted(*args, _launch=getattr(dist, name), **kwargs):
+            calls.append(name)
+            return _launch(*args, **kwargs)
+
+        setattr(dist, name, counted)
+    return calls
+
+
 def _cpu_cases(rank, n, out):
     from ray_tpu_torch.ops.flash_attention import flash_block_attention_stats
     from ray_tpu_torch.parallel import collectives as coll
@@ -102,15 +120,22 @@ def _cpu_cases(rank, n, out):
         broadcast_weights, global_mesh, process_count, process_index, sync_global,
     )
     from ray_tpu_torch.parallel.mesh import make_mesh
-    from ray_tpu_torch.parallel.ring_attention import ring_attention
+    from ray_tpu_torch.parallel.ring_attention import gather_sequence, ring_attention, shard_sequence
 
-    exchanges = _count_exchanges()
+    exchanges, gathers = _count_exchanges(), _count_gathers()
 
     def ring(name, shape, seed, mesh, axis, causal):
-        q, k, v = map(torch.as_tensor, ring_inputs(shape, seed))
+        """This rank's rows of one case (``ring/``), the hops and gathers of
+        the ring call alone, and the rows gathered back (``gathered/``)."""
+        q, k, v = (shard_sequence(torch.as_tensor(a), mesh, axis) for a in ring_inputs(shape, seed))
         exchanges.clear()
-        out[f"ring/{name}"] = ring_attention(q, k, v, mesh, axis_name=axis, causal=causal).numpy()
+        gathers.clear()
+        rows = ring_attention(q, k, v, mesh, axis_name=axis, causal=causal)
         out[f"exchanges/{name}"] = np.array(len(exchanges))
+        out[f"gathers/{name}"] = np.array(len(gathers))
+        out[f"ring/{name}"] = rows.numpy()
+        out[f"index/{name}"] = np.array(mesh.index(axis))
+        out[f"gathered/{name}"] = gather_sequence(rows, mesh, axis).numpy()
 
     sp = make_mesh([("sp", n)], device="cpu")
     for seed, (name, shape, causal) in enumerate(RING_CASES):
@@ -161,18 +186,22 @@ def _cuda_cases(dev, out):
     from ray_tpu_torch.ops.flash_attention import flash_block_attention_stats
     from ray_tpu_torch.parallel import collectives as coll
     from ray_tpu_torch.parallel.mesh import make_mesh
-    from ray_tpu_torch.parallel.ring_attention import ring_attention
+    from ray_tpu_torch.parallel.ring_attention import gather_sequence, ring_attention, shard_sequence
 
+    gathers = _count_gathers()
     mesh = make_mesh([("sp", dist.get_world_size())])
     for seed, (name, shape, causal) in enumerate(RING_CASES):
-        q, k, v = (torch.as_tensor(a, device=dev) for a in ring_inputs(shape, seed))
+        q, k, v = (shard_sequence(torch.as_tensor(a), mesh, "sp").to(dev) for a in ring_inputs(shape, seed))
         flash_block_attention_stats.launches = 0
         coll.send_recv_shift.staged = 0
-        got = ring_attention(q, k, v, mesh, axis_name="sp", causal=causal)
+        gathers.clear()
+        rows = ring_attention(q, k, v, mesh, axis_name="sp", causal=causal)
         torch.cuda.synchronize()
-        out[f"ring/{name}"] = got.cpu().numpy()
         out[f"launches/{name}"] = np.array(flash_block_attention_stats.launches)
         out[f"staged/{name}"] = np.array(coll.send_recv_shift.staged)
+        out[f"gathers/{name}"] = np.array(len(gathers))
+        out[f"ring/{name}"] = rows.cpu().numpy()
+        out[f"gathered/{name}"] = gather_sequence(rows, mesh, "sp").cpu().numpy()
 
 
 def main() -> int:

@@ -7,7 +7,10 @@ without a CUDA device. Run them on the card with
 
 Contracts: bitwise for the data-movement and scan kernels (the row
 gather and the row scatter are data movement; the GAE kernel and the f64
-prefix descent round every operation in the plain version's order). The
+prefix descent round every operation in the plain version's order: the
+GAE kernel at several tiles, T = 1, ragged rows, rows done at every step
+and unaligned inputs; the descent at 0-17 levels, a NaN mass and one
+query). The
 device sum tree's whole draw agrees with the host trees bitwise in its
 indices; its IS weights within 1 float32 ulp (host and card round the
 f64 ``pow`` apart). The flash-attention kernel sums in another order
@@ -197,15 +200,18 @@ def _host_tree(cap, size, seed):
     return host, rng
 
 
-@pytest.mark.parametrize("cap,size,n", [(1, 1, 8), (2, 2, 8), (1024, 700, 32), (65536, 50000, 32),
-                                        (65536, 50000, 4096)])
+# capacities 1-131072: 0-17 levels, several not a multiple of the kernel's
+# 8-level chunk (1, 5, 6, 10, 11, 17)
+@pytest.mark.parametrize("cap,size,n", [(1, 1, 8), (2, 2, 8), (32, 20, 32), (64, 64, 32), (1024, 700, 32),
+                                        (2048, 1500, 32), (65536, 50000, 1), (65536, 50000, 32),
+                                        (65536, 50000, 4096), (131072, 100000, 32)])
 def test_find_prefixsum_kernel_bitwise(cuda, cap, size, n):
     host, rng = _host_tree(cap, size, cap + n)
     total = host.sum(0, size)
     mass = np.concatenate([
         (rng.random(n) + np.arange(n)) / n * total,
         [host.value[1 << k] for k in range(cap.bit_length())],
-        [0.0, total, np.nextafter(total, np.inf), 2 * total],
+        [0.0, total, np.nextafter(total, np.inf), 2 * total, np.nan],
     ])
     tree = torch.as_tensor(host.value, device=cuda)
     m = torch.as_tensor(mass, device=cuda)
@@ -214,6 +220,9 @@ def test_find_prefixsum_kernel_bitwise(cuda, cap, size, n):
     assert segment_tree.find_prefixsum.launches == before + 1
     assert torch.equal(got, segment_tree.find_prefixsum_plain(tree, m, cap))
     np.testing.assert_array_equal(got.cpu().numpy(), host.find_prefixsum_idx(mass))
+    assert got[-1] == 0  # a NaN mass lands on leaf 0
+    one = segment_tree.find_prefixsum(tree, m[:1], cap)  # a single query
+    assert one.shape == (1,) and one[0] == got[0]
 
 
 def test_device_sum_tree_on_card_matches_host(cuda):
@@ -246,16 +255,38 @@ def test_device_sum_tree_on_card_matches_host(cuda):
         assert ulps.max() <= 1
 
 
-@pytest.mark.parametrize("n,t", [(16, 128), (1, 1), (3, 1), (5, 7), (33, 300), (257, 64)])
-def test_gae_kernel_bitwise(cuda, n, t):
-    gen = torch.Generator(device=cuda).manual_seed(n * t)
-    r, v, nv = (torch.randn(n, t, device=cuda, generator=gen) for _ in range(3))
-    term = torch.rand(n, t, device=cuda, generator=gen) < 0.05
-    done = term | (torch.rand(n, t, device=cuda, generator=gen) < 0.05)
+def _gae_args(n, t, device):
+    gen = torch.Generator(device=device).manual_seed(n * t)
+    r, v, nv = (torch.randn(n, t, device=device, generator=gen) for _ in range(3))
+    term = torch.rand(n, t, device=device, generator=gen) < 0.05
+    done = term | (torch.rand(n, t, device=device, generator=gen) < 0.05)
+    done[0] = True  # a row that is done at every step
+    return r, v, nv, term, done
+
+
+@pytest.mark.parametrize("gamma,lam", [(0.99, 0.95), (0.9, 1.0)])
+@pytest.mark.parametrize("n,t", [(16, 128), (1, 1), (3, 1), (5, 7), (33, 300), (257, 64), (1, 129),
+                                 (16, 256)])
+def test_gae_kernel_bitwise(cuda, n, t, gamma, lam):
+    args = _gae_args(n, t, cuda)
     before = gae.compute_gae_fragment.launches
-    adv, vt = gae.compute_gae_fragment(r, v, nv, term, done, 0.99, 0.95)
+    adv, vt = gae.compute_gae_fragment(*args, gamma, lam)
     assert gae.compute_gae_fragment.launches == before + 1
-    p_adv, p_vt = gae.compute_gae_fragment_plain(r, v, nv, term, done, 0.99, 0.95)
+    p_adv, p_vt = gae.compute_gae_fragment_plain(*args, gamma, lam)
+    assert torch.equal(adv, p_adv) and torch.equal(vt, p_vt)
+
+
+@pytest.mark.parametrize("n,t", [(16, 128), (5, 8)])
+def test_gae_kernel_bitwise_on_unaligned_inputs(cuda, n, t):
+    """Contiguous inputs 4 bytes off a 16-byte boundary (and flags 1 byte
+    off 4) take the kernel's element-wise staging even where T % 4 == 0."""
+    args = []
+    for x in _gae_args(n, t, cuda):
+        base = torch.zeros(n * t + 1, dtype=x.dtype, device=cuda)
+        base[1:] = x.reshape(-1)
+        args.append(base[1:].view(n, t))
+    adv, vt = gae.compute_gae_fragment(*args, 0.99, 0.95)
+    p_adv, p_vt = gae.compute_gae_fragment_plain(*args, 0.99, 0.95)
     assert torch.equal(adv, p_adv) and torch.equal(vt, p_vt)
 
 
@@ -465,8 +496,11 @@ def test_flash_block_refusals(cuda):
 
 
 def test_ring_of_two_gloo_ranks_on_one_card(cuda, tmp_path):
-    """Two ranks on the card over gloo: each hop launches the kernel, and
-    the one exchange of each call is staged through host memory."""
+    """Two ranks on the card over gloo, each on its own block of T: each
+    returns its (B, T / 2, H, D) rows with no gather in the call, each
+    hop launches the kernel, and the one exchange of each call is staged
+    through host memory; the rows joined along T match the full
+    attention."""
     from _torch_ring_worker import RING_CASES, ring_inputs, run_ranks
 
     from ray_tpu_torch.parallel.ring_attention import full_attention_reference
@@ -475,6 +509,10 @@ def test_ring_of_two_gloo_ranks_on_one_card(cuda, tmp_path):
     for seed, (name, shape, causal) in enumerate(RING_CASES):
         want = full_attention_reference(*map(torch.as_tensor, ring_inputs(shape, seed)), causal=causal)
         tol = 5e-4 if name == "long_sequence_causal" else 2e-4
+        b, t, h, d = shape
+        got = np.concatenate([r[f"ring/{name}"] for r in ranks], axis=1)
+        np.testing.assert_allclose(got, want.numpy(), atol=tol, rtol=tol)
         for r in ranks:
-            np.testing.assert_allclose(r[f"ring/{name}"], want.numpy(), atol=tol, rtol=tol)
+            assert r[f"ring/{name}"].shape == (b, t // 2, h, d) and int(r[f"gathers/{name}"]) == 0
+            assert np.array_equal(r[f"gathered/{name}"], got)
             assert int(r[f"launches/{name}"]) == 2 and int(r[f"staged/{name}"]) == 1

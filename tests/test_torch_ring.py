@@ -9,14 +9,17 @@ package's, on the CPU.
   exactly (acc, m, l) = (0, -1e30, 0) in both.
 - The ring: 8 gloo ranks, one process each (``tests/_torch_ring_worker.py``,
   importing only ``ray_tpu_torch``), started once for the module, each
-  with its own timeout. Their outputs against the reference's
+  with its own timeout. Each rank passes its own block of T and gets
+  its own (B, T / n, H, D) rows back, with no allgather in the call, as
+  the reference's ``shard_map`` with ``P(None, axis)``. Their rows,
+  joined along T, against the reference's
   ``ring_attention`` on the conftest's 8 virtual CPU devices (the Pallas
   blocks in interpret mode for the reference test's two Pallas cases,
   the XLA blocks for the rest) within 2e-5, and against
   ``full_attention_reference`` at the reference test's tolerances; the
   collectives against the reference's ``shard_map`` results, exactly.
-- Refusals: gradients, a T that does not divide, no CUDA device without
-  ``device="cpu"``, a CPU tensor on a NCCL group.
+- Refusals: gradients, a T that does not divide (``shard_sequence``),
+  no CUDA device without ``device="cpu"``, a CPU tensor on a NCCL group.
 """
 
 from __future__ import annotations
@@ -47,8 +50,10 @@ from ray_tpu_torch.ops.flash_attention import (
 from ray_tpu_torch.parallel import collectives, distributed, mesh as port_mesh
 from ray_tpu_torch.parallel.ring_attention import (
     full_attention_reference,
+    gather_sequence,
     ring_attention,
     ring_attention_local,
+    shard_sequence,
 )
 
 RANKS = 8
@@ -117,12 +122,45 @@ def _jax_ring(shape, seed, mesh, axis, causal, pallas):
     return np.asarray(ring), np.asarray(jax_full_attention(q, k, v, causal=causal))
 
 
+def _joined(ring_ranks, name, shape):
+    """The rows of one ring's ranks, joined along T in their order on the
+    ring's axis: after checking that each rank holds its (B, T / n, H, D)
+    rows only, that the ``ring_attention`` call gathered nothing, and
+    that ``gather_sequence`` joins the same rows on every rank."""
+    n = len(ring_ranks)
+    b, t, h, d = shape
+    ordered = sorted(ring_ranks, key=lambda r: int(r[f"index/{name}"]))
+    assert [int(r[f"index/{name}"]) for r in ordered] == list(range(n))
+    for r in ordered:
+        assert r[f"ring/{name}"].shape == (b, t // n, h, d)
+        assert int(r[f"gathers/{name}"]) == 0
+    whole = np.concatenate([r[f"ring/{name}"] for r in ordered], axis=1)
+    for r in ordered:
+        assert np.array_equal(r[f"gathered/{name}"], whole)
+    return whole
+
+
+# (case name, shape, the rings as lists of ranks)
+RINGS = [(name, shape, [list(range(RANKS))]) for name, shape, _ in RING_CASES] + [
+    ("dryrun", DRYRUN_SHAPE, [list(range(RANKS))]),
+    ("mesh_4x2_causal", MESH_2D_SHAPE, [list(range(4)), list(range(4, 8))]),
+    ("mesh_1_causal", MESH_2D_SHAPE, [[r] for r in range(RANKS)]),
+]
+
+
+@pytest.mark.parametrize("name,shape,rings", RINGS, ids=[c[0] for c in RINGS])
+def test_each_rank_holds_only_its_rows(ranks, name, shape, rings):
+    """The entry point works on shards, as the reference's ``shard_map``
+    with ``P(None, axis)``: each rank's output is its (B, T / n, H, D)
+    rows, and the call makes no allgather."""
+    for ring in rings:
+        _joined([ranks[r] for r in ring], name, shape)
+
+
 @pytest.mark.parametrize("seed,case", list(enumerate(RING_CASES)), ids=[c[0] for c in RING_CASES])
 def test_ring_matches_reference_ring(ranks, mesh8, seed, case):
     name, shape, causal = case
-    got = ranks[0][f"ring/{name}"]
-    for r in ranks[1:]:  # every rank gathers the same output
-        assert np.array_equal(r[f"ring/{name}"], got)
+    got = _joined(ranks, name, shape)
     want_ring, want_full = _jax_ring(shape, seed, mesh8, "sp", causal, name.startswith("pallas"))
     assert got.shape == shape and got.dtype == np.float32
     np.testing.assert_allclose(got, want_ring, atol=2e-5, rtol=2e-5)  # measured max 6.0e-7
@@ -135,9 +173,9 @@ def test_ring_matches_reference_ring(ranks, mesh8, seed, case):
 
 def test_ring_dryrun_case(ranks):
     """The dryrun's ring (``__graft_entry__.py:253-261``): axis "data" of
-    the default mesh, non-causal."""
+    the default mesh, non-causal, 2 of the 16 rows on each rank."""
     want_ring, want_full = _jax_ring(DRYRUN_SHAPE, 10, jax_make_mesh(), "data", False, False)
-    got = ranks[3]["ring/dryrun"]
+    got = _joined(ranks, "dryrun", DRYRUN_SHAPE)
     np.testing.assert_allclose(got, want_ring, atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(got, want_full, atol=1e-4)
 
@@ -146,8 +184,10 @@ def test_ring_on_a_2d_mesh_axis(ranks):
     """``[("data", 2), ("sp", 4)]``: two rings of 4 ranks, 3 exchanges each."""
     q, k, v = map(torch.as_tensor, ring_inputs(MESH_2D_SHAPE, 11))
     want = full_attention_reference(q, k, v, causal=True).numpy()
+    for ring in (range(4), range(4, 8)):
+        got = _joined([ranks[r] for r in ring], "mesh_4x2_causal", MESH_2D_SHAPE)
+        np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
     for r in ranks:
-        np.testing.assert_allclose(r["ring/mesh_4x2_causal"], want, atol=2e-4, rtol=2e-4)
         assert int(r["exchanges/mesh_4x2_causal"]) == 3
 
 
@@ -156,10 +196,11 @@ def test_ring_of_one_is_one_block(ranks):
     one block's acc / l, bitwise (computed in the same rank)."""
     for r in ranks:
         assert int(r["exchanges/mesh_1_causal"]) == 0
-        assert np.array_equal(r["ring/mesh_1_causal"], r["block/mesh_1_causal"])
+        assert np.array_equal(_joined([r], "mesh_1_causal", MESH_2D_SHAPE), r["block/mesh_1_causal"])
 
 
 def test_ring_refuses_t_that_does_not_divide(ranks):
+    """``shard_sequence`` refuses T = 12 over 8 ranks."""
     for r in ranks:
         assert "does not divide by the 8 ranks" in str(r["t12_refused"])
 
@@ -252,6 +293,15 @@ def test_ring_refuses_gradients(world_of_one):
     with torch.no_grad():
         out = ring_attention(q, k, v, world_of_one, causal=True)
     assert out.shape == q.shape and distributed.process_count() == 1
+
+
+def test_shard_and_gather_sequence_on_a_world_of_one(world_of_one):
+    """A ring of one keeps every row: the shard is the whole array, in a
+    tensor of its own, and the gather gives it back."""
+    x = torch.randn(2, 12, 3, 4)
+    shard = shard_sequence(x, world_of_one, "sp")
+    assert torch.equal(shard, x) and shard.data_ptr() != x.data_ptr()
+    assert torch.equal(gather_sequence(shard, world_of_one, "sp"), x)
 
 
 def test_initialize_and_mesh_refuse_without_cuda(monkeypatch):
