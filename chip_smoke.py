@@ -73,20 +73,25 @@ and ``nvcc``. Phases, each printing its own lines:
                stats, and the row-gather launches of that run;
 8. lane     -- ``PPO`` from tuned_examples/ppo/ponglitejax-ppo.yaml for 2
                training iterations on the device lane (N=16, T=128,
-               minibatch 512, 6 epochs): reward, env-steps/s, the GAE
-               launches of that run, and that params, env state and batch
-               live on the card;
+               minibatch 512, 6 epochs) at K = auto (8 slots a call, one
+               CUDA graph of the slot replayed): reward, env-steps/s, the
+               GAE launches of that run (one a slot, replays counted),
+               and that params, env state and batch live on the card;
+               then the lane at K = 1 and K = auto, each for 3 calls:
+               env-steps/s and the device's busy share (median, min,
+               max) and the card's peak memory;
 9. dqn      -- ``DQN`` on the PongLite device lane at full width
-               (:func:`dqn_config`) for 16 + 24 iterations, past learning
-               starts and a target update: env-steps/s and updates/s over
-               the last 23 (the first update's set-up is timed apart), the
-               gather, scatter and descent launches of that run, replay
-               occupancy, that rings, trees and params live on the card,
-               one synchronised split (fill, insert, sample, learn,
-               priority update), then the same update with the ring
-               filled to 50000 rows;
-               (phases 8 and 9 also print the device's busy share over
-               a few more iterations, from ``torch.profiler``);
+               (:func:`dqn_config`: ``training_intensity`` 4, so a round
+               owes 8 replay updates, one superstep at K = 8) for 16 fill
+               rounds, the first update round (the capture) apart, then 6
+               rounds: env-steps/s and updates/s, the gather, scatter and
+               descent launches of that run, replay occupancy, that
+               rings, trees and params live on the card, one
+               synchronised eager split (fill, insert, sample, learn,
+               priority update), the same update with the ring filled to
+               50000 rows, then K = 1 (one eager update a round) and
+               K = auto, 3 calls each: updates/s, busy share, peak
+               memory;
 10. transformer_learner -- the decoder-transformer torso at the width of
                bench.py's model-parallel A/B (d_model 256, 4 layers, 8
                heads of 32, ff 1024, 8 tokens): ``PPOTorchPolicy.
@@ -97,11 +102,27 @@ and ``nvcc``. Phases, each printing its own lines:
                forward at the minibatch (one short-head flash kernel a
                layer, and its copies);
 11. transformer_lane -- ponglitejax-ppo.yaml with that torso for 2
-               training iterations: env-steps/s, flash and GAE launches,
-               on-card checks and the device's busy share;
-12. transformer_dqn -- :func:`dqn_config` with that torso, 16 fill and 8
-               update iterations: updates/s and the flash, gather,
-               scatter and descent launches;
+               training iterations at K = auto: env-steps/s, flash and
+               GAE launches, on-card checks; then K = 1 and K = auto as
+               in the lane phase;
+12. transformer_dqn -- :func:`dqn_config` with that torso, 16 fill and 2
+               update rounds (8 at K = 1): updates/s and the flash,
+               gather, scatter and descent launches; then K = 1 and K =
+               auto as in the dqn phase;
+    cartpole -- tuned_examples/ppo/cartpolejax-ppo.yaml as written (N=32,
+               T=64, FCNet 256x256, 8 epochs x minibatch 256) at K = auto
+               until episode_reward_mean >= 150 or 200000 env steps:
+               the bar is required; reward against env steps, wall time;
+    gridrooms -- 2 iterations of GridRoomsJax-v0 with that yaml's
+               settings on the lane, launching the GAE kernel;
+    graph_parity -- graphed slots against eager slots, bitwise in
+               params, Adam state, env carry, generator states, stats
+               and metrics: 2 PPO lane slots of ponglitejax-ppo.yaml
+               (twice), 2 DQN prioritized replay slots of dqn_config()
+               (twice, with the sum tree), 1 torso lane slot (twice);
+    ponglite_learn -- ponglitejax-ppo.yaml at K = auto for its 2M env
+               steps, or PONG_LEARN_S seconds if that comes first: reward
+               against env steps and where it first reached the bar, 18;
 13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
@@ -137,7 +158,9 @@ the least a kernel launch shows by that timer.
 
 Launch counts are set to 0 just before each of phases 7-13 and read
 just after (the ring's in each rank, before each call); the comparison
-launches of phases 2-6 do not count. Any failed check raises, and the
+launches of phases 2-6 and of graph_parity do not count. Under a
+superstep's graph a counter counts the card's launches: the runner adds
+the captured slot's launches on each replay. Any failed check raises, and the
 script exits non-zero without printing a result; a ring rank that fails
 or outlives its timeout fails the script. Without a CUDA device it exits
 1 at once.
@@ -221,14 +244,20 @@ def device_busy(fn, n):
         fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
     with profiled() as prof:
         for _ in range(n):
             fn()
-    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    profiled_s = time.perf_counter() - t0 - 2 * PROFILE_PAD_S
+    # the raw records, not prof.events(): a graphed lane call launches
+    # about 10^5 kernels, whose function-event tree takes the host tens of
+    # seconds to build
+    device_us = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation()) / 1e3
     require(device_us > 0, "the profiler recorded no device time")
     return {"calls": n, "wall_s": round(wall, 6), "device_s": round(device_us / 1e6, 6),
-            "busy_share": round(device_us / 1e6 / wall, 4)}
+            "busy_share": round(device_us / 1e6 / wall, 4), "profiled_s": round(profiled_s, 3)}
 
 
 # idle host time at both ends of a profiler session, in seconds: the
@@ -778,17 +807,71 @@ def phase_learner(rng):
     return launches
 
 
+def ppo_from_yaml(path, **over):
+    """``PPO`` built from a tuned-example yaml as written, with the named
+    overrides (``superstep``, ``model``, ``env``)."""
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+    from ray_tpu_torch.utils.tuned_example import load_tuned_example
+
+    (exp,) = load_tuned_example(path).values()
+    env = over.pop("env", exp["env"])
+    cfg = PPOConfig().update_from_dict({**exp["config"], **over})
+    cfg.env = env
+    return cfg.build()
+
+
+def spread(values):
+    """{"median", "min", "max"} of a list of readings."""
+    import numpy as np
+
+    return {"median": float(np.median(values)), "min": float(min(values)), "max": float(max(values))}
+
+
+def lane_rates(algo, units_per_call, calls=3):
+    """The rate and the device's busy share of ``calls`` calls of
+    ``algo.train`` (one unprofiled and one profiled call each,
+    ``device_busy``): ``{"rate": spread, "busy_share": spread, "wall_s":
+    [...]}``, the rate in ``units_per_call`` a second of host clock."""
+    reads = [device_busy(algo.train, 1) for _ in range(calls)]
+    return {"rate": spread([units_per_call / r["wall_s"] for r in reads]),
+            "busy_share": spread([r["busy_share"] for r in reads]),
+            "wall_s": [r["wall_s"] for r in reads],
+            "profiled_s": [r["profiled_s"] for r in reads]}
+
+
+def superstep_rates(phase, make, units_per_call, warm=1):
+    """The lane ``make(superstep=K)`` builds, at K = 1 and K = auto in
+    one call: after ``warm`` train calls (the first captures the slot's
+    graph), the rate and busy share of 3 calls (``lane_rates``) and the
+    card's peak memory over the run; printed per K."""
+    import torch
+
+    out = {}
+    for k in (1, "auto"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        algo = make(superstep=k)
+        kk = algo._resolve_superstep_k()
+        for _ in range(warm):
+            algo.train()
+        rates = lane_rates(algo, units_per_call * kk)
+        rates["peak_mem_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+        rates["k"] = kk
+        say(phase, superstep=k, k=kk, rate=json.dumps(rates["rate"]),
+            busy_share=json.dumps(rates["busy_share"]), wall_s=json.dumps(rates["wall_s"]),
+            profiled_s=json.dumps(rates["profiled_s"]), peak_mem_gb=rates["peak_mem_gb"])
+        out[str(k)] = rates
+        del algo
+    return out
+
+
 def phase_lane():
     import torch
 
-    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
     from ray_tpu_torch.ops.gae import compute_gae_fragment
-    from ray_tpu_torch.utils.tuned_example import load_tuned_example
 
-    (exp,) = load_tuned_example(TUNED).values()
-    cfg = PPOConfig().update_from_dict(exp["config"])
-    cfg.env = exp["env"]
-    algo = cfg.build()
+    algo = ppo_from_yaml(TUNED)
+    k = algo._resolve_superstep_k()
     compute_gae_fragment.launches = 0
     results, times = [], []
     for _ in range(2):
@@ -797,7 +880,8 @@ def phase_lane():
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = compute_gae_fragment.launches
-    require(launches >= 1, "the device lane did not launch the GAE kernel")
+    require(launches == 2 * k, f"the device lane launched the GAE kernel {launches} times in "
+            f"2 iterations of {k} slots (replays count)")
     policy = algo.get_policy()
     eng = algo._rollout_engine
     # one more update, split into its two halves (host clock, synchronised)
@@ -815,35 +899,43 @@ def phase_lane():
     )
     require(on_card, "params, env state or batch left the card")
     require(batch["obs"].shape == (bsize, 84, 84, 1), f"obs {tuple(batch['obs'].shape)}")
-    for k in ("advantages", "value_targets", "vf_preds", "action_logp"):
-        require(bool(torch.isfinite(batch[k]).all()), f"non-finite {k}")
+    for key in ("advantages", "value_targets", "vf_preds", "action_logp"):
+        require(bool(torch.isfinite(batch[key]).all()), f"non-finite {key}")
     adv = batch["advantages"]
     require(abs(float(adv.mean())) < 1e-4 and abs(float(adv.std(unbiased=False)) - 1) < 1e-3,
             "advantages are not standardised")
     last = results[-1]
     learner = last["info"]["learner"]["default_policy"]
     require(all(math.isfinite(v) for v in learner.values()), f"non-finite learner stats {learner}")
-    say("lane", episode_reward_mean=last["episode_reward_mean"],
+    say("lane", superstep_k=k, episode_reward_mean=last["episode_reward_mean"],
         episodes=sum(r["episodes_this_iter"] for r in results),
         num_env_steps_sampled=last["num_env_steps_sampled"],
-        env_steps_per_s=f"{bsize / times[1]:.1f}", iter_s=json.dumps([round(t, 4) for t in times]),
+        env_steps_per_s=f"{k * bsize / times[1]:.1f}", iter_s=json.dumps([round(t, 4) for t in times]),
         gae_launches=launches, on_card=on_card, batch_size=bsize, split=json.dumps(split))
-    say("lane", learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
-    say("lane", device_busy=json.dumps(device_busy(algo.train, 1)))
-    return launches
+    say("lane", learner=json.dumps({key: round(v, 6) for key, v in learner.items()}))
+    del algo
+    rates = superstep_rates("lane", lambda **kw: ppo_from_yaml(TUNED, **kw), bsize)
+    return compute_gae_fragment.launches, rates
 
 
-def dqn_config():
+# DQN's replay intensity on the lane: 64 sampled steps a round owe 8
+# updates of 32 rows, one superstep of K = 8 (at K = 1 prioritized replay
+# takes no debt and makes one update a round, as in the reference)
+DQN_TRAINING_INTENSITY = 4
+
+
+def dqn_config(superstep="auto"):
     """DQN on the PongLite device lane at full width: DQNConfig's own
     defaults (lr 5e-4, batch 32, grad clip 40, double-Q, dueling,
     n_step 1, learning starts 1000, target update 500, epsilon 1.0 ->
     0.02 over 10000 steps, Nature CNN with a 512 hidden layer), with
     these overrides named: the device lane with 16 envs (as the PPO
     lane), prioritized replay of 50000 rows with its rows and its sum
-    tree on the card, seed 0."""
+    tree on the card, ``training_intensity`` 4 (``DQN_TRAINING_INTENSITY``)
+    and ``superstep``, seed 0."""
     from ray_tpu_torch.algorithms.dqn.dqn import DQNConfig
 
-    return (
+    cfg = (
         DQNConfig()
         .environment("PongLiteJax-v0", env_backend="jax")
         .rollouts(num_envs_per_worker=16, rollout_fragment_length=4)
@@ -853,9 +945,24 @@ def dqn_config():
                 "prioritized_replay_alpha": 0.6, "prioritized_replay_beta": 0.4,
             },
             replay_device_resident=True, replay_device_tree=True,
+            training_intensity=DQN_TRAINING_INTENSITY,
         )
         .debugging(seed=0)
     )
+    cfg.superstep = superstep
+    return cfg
+
+
+def dqn_filled(superstep="auto", model=None, fill=16):
+    """``dqn_config(superstep)`` (with ``model``) after ``fill`` rounds,
+    up to learning starts (16 x 64 = 1024 steps)."""
+    cfg = dqn_config(superstep)
+    if model is not None:
+        cfg.training(model=dict(model))
+    algo = cfg.build()
+    for _ in range(fill):
+        algo.train()
+    return algo
 
 
 def phase_dqn():
@@ -874,6 +981,7 @@ def phase_dqn():
 
     algo = dqn_config().build()
     policy = algo.get_policy()
+    kk = algo._resolve_superstep_k()
     kernels = (gather_rows, scatter_rows, find_prefixsum)
     for k in kernels:
         k.launches = 0
@@ -883,10 +991,11 @@ def phase_dqn():
         r, dt = sync_time(algo.train)
         results.append(r)
         warm_s += dt
-    # the first update pays the backward's cuDNN set-up: timed apart
+    # the first update pays the backward's cuDNN set-up and the capture
+    # of the replay slot's graph: timed apart
     r, first_s = sync_time(algo.train)
     results.append(r)
-    learn_iters = 23
+    learn_iters = 23 if kk == 1 else 6
     r0 = results[-1]["info"]
     _, learn_s = sync_time(lambda: [results.append(algo.train()) for _ in range(learn_iters)])
     launches = {k.__name__: k.launches for k in kernels}
@@ -906,7 +1015,11 @@ def phase_dqn():
         and all(t.is_cuda for t in policy.aux_state["target_params"])
     )
     require(on_card, "ring columns, trees or params left the card")
-    say("dqn", iters=len(results), env_steps_per_s=f"{learn_iters * INSERT_ROWS / learn_s:.1f}",
+    runners = list(policy._superstep_runners.values())
+    require(kk == 1 or (len(runners) == 1 and runners[0].graph is not None),
+            f"DQN at K = {kk} ran no captured replay slot")
+    say("dqn", superstep_k=kk, iters=len(results),
+        env_steps_per_s=f"{learn_iters * INSERT_ROWS / learn_s:.1f}",
         updates_per_s=f"{updates / learn_s:.2f}", fill_env_steps_per_s=f"{warm * INSERT_ROWS / warm_s:.1f}",
         first_update_iter_s=f"{first_s:.4f}",
         launches=json.dumps(launches), replay_size=len(buf), storage_bytes=buf.storage_bytes,
@@ -916,7 +1029,9 @@ def phase_dqn():
         epsilon=f"{policy.coeff_values['epsilon']:.4f}", on_card=on_card,
         episode_reward_mean=last["episode_reward_mean"])
     say("dqn", learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
-    say("dqn", device_busy=json.dumps(device_busy(algo.train, 8)))
+    # K = 1 against K = auto: each call of train() is one round, 1 or K
+    # replay updates; the rate is updates a second
+    superstep_rates("dqn", lambda superstep: dqn_filled(superstep), 1)
 
     eng = algo._jax_rollout_engine_get()
 
@@ -1376,15 +1491,11 @@ def phase_transformer_learner():
 def phase_transformer_lane():
     import torch
 
-    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
     from ray_tpu_torch.ops.flash_attention import flash_attention
     from ray_tpu_torch.ops.gae import compute_gae_fragment
-    from ray_tpu_torch.utils.tuned_example import load_tuned_example
 
-    (exp,) = load_tuned_example(TUNED).values()
-    cfg = PPOConfig().update_from_dict({**exp["config"], "model": dict(TORSO)})
-    cfg.env = exp["env"]
-    algo = cfg.build()
+    algo = ppo_from_yaml(TUNED, model=dict(TORSO))
+    k = algo._resolve_superstep_k()
     flash_attention.launches = 0
     compute_gae_fragment.launches = 0
     results, times = [], []
@@ -1394,7 +1505,8 @@ def phase_transformer_lane():
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {"flash": flash_attention.launches, "gae": compute_gae_fragment.launches}
-    require(min(launches.values()) >= 1, f"the transformer lane missed a kernel: {launches}")
+    require(launches["gae"] == 2 * k and launches["flash"] >= 1,
+            f"the transformer lane missed a kernel: {launches} in 2 iterations of {k} slots")
     policy, eng = algo.get_policy(), algo._rollout_engine
     batch, bsize = eng.rollout()
     on_card = (
@@ -1403,16 +1515,18 @@ def phase_transformer_lane():
         and all(v.is_cuda for v in batch.values())
     )
     require(on_card, "params, env state or batch left the card")
-    for k in ("advantages", "value_targets", "vf_preds", "action_logp"):
-        require(bool(torch.isfinite(batch[k]).all()), f"non-finite {k}")
+    for key in ("advantages", "value_targets", "vf_preds", "action_logp"):
+        require(bool(torch.isfinite(batch[key]).all()), f"non-finite {key}")
     learner = results[-1]["info"]["learner"]["default_policy"]
     require(all(math.isfinite(v) for v in learner.values()), f"non-finite learner stats {learner}")
-    say("transformer_lane", episode_reward_mean=results[-1]["episode_reward_mean"],
-        env_steps_per_s=f"{bsize / times[1]:.1f}", iter_s=json.dumps([round(t, 4) for t in times]),
+    say("transformer_lane", superstep_k=k, episode_reward_mean=results[-1]["episode_reward_mean"],
+        env_steps_per_s=f"{k * bsize / times[1]:.1f}", iter_s=json.dumps([round(t, 4) for t in times]),
         launches=json.dumps(launches), on_card=on_card, batch_size=bsize)
-    say("transformer_lane", learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
-    say("transformer_lane", device_busy=json.dumps(device_busy(algo.train, 1)))
-    return launches
+    say("transformer_lane", learner=json.dumps({key: round(v, 6) for key, v in learner.items()}))
+    del algo
+    superstep_rates("transformer_lane", lambda **kw: ppo_from_yaml(TUNED, model=dict(TORSO), **kw),
+                    bsize)
+    return {"flash": flash_attention.launches, "gae": compute_gae_fragment.launches}
 
 
 def phase_transformer_dqn():
@@ -1424,10 +1538,11 @@ def phase_transformer_dqn():
 
     algo = dqn_config().training(model=dict(TORSO)).build()
     policy = algo.get_policy()
+    kk = algo._resolve_superstep_k()
     kernels = (flash_attention, gather_rows, scatter_rows, find_prefixsum)
     for k in kernels:
         k.launches = 0
-    fill, learn_iters = 16, 8
+    fill, learn_iters = 16, 8 if kk == 1 else 2
     for _ in range(fill):  # up to learning starts (16 x 64 = 1024 steps)
         algo.train()
     torch.cuda.synchronize()
@@ -1447,13 +1562,219 @@ def phase_transformer_dqn():
     on_card = (all(p.is_cuda for p in policy.params)
                and all(t.is_cuda for t in policy.aux_state["target_params"]))
     require(on_card, "torso or target params left the card")
-    say("transformer_dqn", iters=fill + learn_iters, updates=updates,
+    say("transformer_dqn", superstep_k=kk, iters=fill + learn_iters, updates=updates,
         updates_per_s=f"{updates / learn_s:.2f}",
         env_steps_per_s=f"{learn_iters * INSERT_ROWS / learn_s:.1f}",
         launches=json.dumps(launches), on_card=on_card,
         num_env_steps_trained=info["num_env_steps_trained"])
     say("transformer_dqn", learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
+    superstep_rates("transformer_dqn", lambda superstep: dqn_filled(superstep, model=TORSO), 1)
     return launches
+
+
+CARTPOLE = os.path.join(REPO, "tuned_examples", "ppo", "cartpolejax-ppo.yaml")
+# the bars the two yamls state (their ``stop`` blocks), and the wall-clock
+# budget of the PongLite learning run (the whole script must end within
+# its time limit)
+CARTPOLE_BAR, CARTPOLE_STEPS = 150.0, 200000
+PONG_BAR, PONG_STEPS, PONG_LEARN_S = 18.0, 2000000, 120.0
+
+
+def learn_curve(phase, algo, bar, max_steps, budget_s=None):
+    """Train until ``episode_reward_mean`` >= ``bar`` (when ``bar`` is not
+    None), ``max_steps`` env steps or ``budget_s`` seconds: the (steps,
+    reward, seconds) curve and the seconds."""
+    import torch
+
+    curve = []
+    t0 = time.perf_counter()
+    while True:
+        r = algo.train()
+        curve.append((r["timesteps_total"], round(float(r["episode_reward_mean"]), 3),
+                      round(time.perf_counter() - t0, 2)))
+        if (bar is not None and r["episode_reward_mean"] >= bar) or r["timesteps_total"] >= max_steps:
+            break
+        if budget_s is not None and time.perf_counter() - t0 >= budget_s:
+            break
+    torch.cuda.synchronize()
+    learner = r["info"]["learner"]["default_policy"]
+    require(all(math.isfinite(v) for v in learner.values()), f"non-finite {phase} stats {learner}")
+    return curve, time.perf_counter() - t0
+
+
+def phase_cartpole():
+    """tuned_examples/ppo/cartpolejax-ppo.yaml as written, on the graphed
+    lane at K = auto, until its own bar."""
+    from ray_tpu_torch.ops.gae import compute_gae_fragment
+
+    compute_gae_fragment.launches = 0
+    algo = ppo_from_yaml(CARTPOLE)
+    k = algo._resolve_superstep_k()
+    curve, wall = learn_curve("cartpole", algo, CARTPOLE_BAR, CARTPOLE_STEPS)
+    steps, reward, _ = curve[-1]
+    launches = compute_gae_fragment.launches
+    say("cartpole", superstep_k=k, reached=reward >= CARTPOLE_BAR, episode_reward_mean=reward,
+        env_steps=steps, wall_s=f"{wall:.2f}", env_steps_per_s=f"{steps / wall:.1f}",
+        gae_launches=launches, curve=json.dumps(curve))
+    require(reward >= CARTPOLE_BAR and steps <= CARTPOLE_STEPS,
+            f"cartpolejax-ppo reached {reward} by {steps} steps, not {CARTPOLE_BAR} by "
+            f"{CARTPOLE_STEPS}")
+    require(launches == len(curve) * k, f"{launches} GAE launches in {len(curve)} x {k} slots")
+    return launches
+
+
+def phase_gridrooms():
+    """Two PPO iterations of GridRoomsJax-v0 on the lane, with
+    cartpolejax-ppo.yaml's settings (N = 32, T = 64, FCNet 256x256)."""
+    from ray_tpu_torch.ops.gae import compute_gae_fragment
+
+    compute_gae_fragment.launches = 0
+    algo = ppo_from_yaml(CARTPOLE, env="GridRoomsJax-v0")
+    k = algo._resolve_superstep_k()
+    results = [algo.train() for _ in range(2)]
+    launches = compute_gae_fragment.launches
+    learner = results[-1]["info"]["learner"]["default_policy"]
+    require(all(math.isfinite(v) for v in learner.values()), f"non-finite stats {learner}")
+    require(launches == 2 * k, f"{launches} GAE launches in 2 x {k} slots")
+    obs = algo._rollout_engine.carry["obs"]
+    require(tuple(obs.shape) == (32, 2) and bool(((obs >= 0) & (obs <= 1)).all()),
+            f"gridrooms obs {tuple(obs.shape)}")
+    say("gridrooms", superstep_k=k, episode_reward_mean=results[-1]["episode_reward_mean"],
+        episodes=sum(r["episodes_this_iter"] for r in results),
+        num_env_steps_sampled=results[-1]["num_env_steps_sampled"], gae_launches=launches)
+    return launches
+
+
+def phase_ponglite_learn():
+    """ponglitejax-ppo.yaml as written at K = auto for its 2M env steps,
+    or ``PONG_LEARN_S`` seconds of wall clock if that comes first: reward
+    against env steps, and where it first reached the yaml's bar (18 by
+    2M steps)."""
+    from ray_tpu_torch.ops.gae import compute_gae_fragment
+
+    compute_gae_fragment.launches = 0
+    algo = ppo_from_yaml(TUNED)
+    k = algo._resolve_superstep_k()
+    curve, wall = learn_curve("ponglite_learn", algo, None, PONG_STEPS, PONG_LEARN_S)
+    steps, reward, _ = curve[-1]
+    first = next((c for c in curve if c[1] >= PONG_BAR), None)
+    launches = compute_gae_fragment.launches
+    every = max(1, len(curve) // 40)
+    say("ponglite_learn", superstep_k=k, budget_s=PONG_LEARN_S, wall_s=f"{wall:.2f}",
+        env_steps=steps, fit_2m_steps=steps >= PONG_STEPS, env_steps_per_s=f"{steps / wall:.1f}",
+        episode_reward_mean=reward, first_at_bar=json.dumps(first),
+        gae_launches=launches, curve=json.dumps(curve[::every] + curve[-1:]))
+    require(launches == len(curve) * k, f"{launches} GAE launches in {len(curve)} x {k} slots")
+    return launches
+
+
+def _graph_equal(what, pairs):
+    """Every (graphed, eager) tensor pair bitwise equal, or raise."""
+    import torch
+
+    bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+    require(not bad, f"graph_parity {what}: graphed != eager in {bad}")
+    return len(pairs)
+
+
+def _lane_pairs(p1, e1, p2, e2):
+    st1, st2 = p1.opt_state, p2.opt_state
+    pairs = [(f"param {n}", a, b) for n, a, b in zip(p1.param_names, p1.params, p2.params)]
+    pairs += [("mu", a, b) for a, b in zip(st1.mu, st2.mu)] + [("nu", a, b) for a, b in zip(st1.nu, st2.nu)]
+    if e1 is not None:
+        pairs += [(f"carry {k}", e1.carry["env"][k], e2.carry["env"][k]) for k in e1.carry["env"]]
+        pairs += [(f"carry {k}", e1.carry[k], e2.carry[k]) for k in ("obs", "ep_ret", "ep_len")]
+        pairs.append(("env generator", e1.env_generator.get_state(), e2.env_generator.get_state()))
+    pairs.append(("action generator", p1.action_generator.get_state(), p2.action_generator.get_state()))
+    pairs.append(("perm generator", p1.perm_generator.get_state(), p2.perm_generator.get_state()))
+    require(st1.count == st2.count, f"Adam counts {st1.count} != {st2.count}")
+    return pairs
+
+
+def _lane_parity(what, make, k, calls):
+    """``calls`` supersteps of ``k`` graphed slots (the first slot of the
+    first call eager, the rest replays) against as many eager rollout-
+    then-learn rounds, with the coefficients held per superstep."""
+    a, b = make(), make()
+    p1, e1, p2, e2 = a.get_policy(), a._engine(), b.get_policy(), b._engine()
+    for _ in range(calls):
+        kl = p1.coeff_values["kl_coeff"]
+        seq = []
+        for _ in range(k):
+            p1.coeff_values["kl_coeff"] = kl
+            batch, bsize = e1.rollout()
+            out = p1.learn_on_device_batch(e1.learn_batch(batch), bsize)
+            out.pop("cur_kl_coeff")
+            seq.append(out)
+        p1.coeff_values["kl_coeff"] = kl
+        for out in seq:
+            out.update(p1.after_learn_on_batch(out))
+        infos, carry, metrics, _ = p2.learn_rollout_superstep(k, e2.batch_size, e2.superstep_feed())
+        e2.advance(carry, metrics)
+        for info in infos:
+            info.update(p2.after_learn_on_batch(info))
+        require(infos == seq, f"graph_parity {what}: stats {infos} != {seq}")
+        m1 = [(m.episode_length, m.episode_reward) for m in e1.get_metrics()]
+        m2 = [(m.episode_length, m.episode_reward) for m in e2.get_metrics()]
+        require(m1 == m2, f"graph_parity {what}: episode metrics differ")
+    n = _graph_equal(what, _lane_pairs(p1, e1, p2, e2))
+    (runner,) = p2._superstep_runners.values()
+    return {"slots": k * calls, "replays": runner.replays, "tensors": n}
+
+
+def _dqn_parity(k, calls):
+    """``calls`` prioritized replay supersteps of ``k`` graphed slots at
+    ``dqn_config()`` against the eager updates on the same pre-drawn
+    sets, with the per-update refresh in update order."""
+    import torch
+
+    from ray_tpu_torch.execution.train_ops import superstep_train_replay
+
+    a, b = dqn_filled(superstep=k), dqn_filled(superstep=k)
+    pa, ba = a.get_policy(), a.local_replay_buffer.buffers["default_policy"]
+    pb, bb = b.get_policy(), b.local_replay_buffer.buffers["default_policy"]
+    for _ in range(calls):
+        idx, weights = ba.draw_prioritized_sets_device(k, k, TRAIN_BATCH, 0.4)
+        seq = []
+        for i in range(k):
+            tree = ba._gather_columns(idx[i])
+            tree["weights"] = weights[i]
+            seq.append(pa.learn_on_device_batch(tree, TRAIN_BATCH))
+            with torch.no_grad():
+                td = torch.abs(pa._td_error(tree, pa.aux_state)[0]).cpu().numpy()
+            ba.update_priorities(idx[i], td + 1e-6)
+        info = superstep_train_replay(b, pb, bb, k, k, TRAIN_BATCH, prioritized=True, beta=0.4)
+        require(info == seq[-1], f"graph_parity dqn: stats {info} != {seq[-1]}")
+    pairs = _lane_pairs(pa, None, pb, None)
+    pairs += [("sum tree", ba._dtree.sum_value, bb._dtree.sum_value),
+              ("min tree", ba._dtree.min_value, bb._dtree.min_value)]
+    pairs += [("target", x, y) for x, y in zip(pa.aux_state["target_params"], pb.aux_state["target_params"])]
+    n = _graph_equal("dqn", pairs)
+    require(ba._max_priority == bb._max_priority, "graph_parity dqn: max priority differs")
+    (runner,) = pb._superstep_runners.values()
+    return {"slots": k * calls, "replays": runner.replays, "tensors": n}
+
+
+def phase_graph_parity():
+    """Graphed slots against eager slots on the card, bitwise: 2 PPO lane
+    slots at ponglitejax-ppo.yaml (twice), 2 DQN prioritized replay
+    slots at dqn_config() (twice), 1 torso lane slot (twice: the second
+    call is a replay)."""
+    import torch
+
+    out = {}
+    for name, fn in (
+        ("ppo_lane", lambda: _lane_parity("ppo_lane", lambda: ppo_from_yaml(TUNED, superstep=2), 2, 2)),
+        ("dqn", lambda: _dqn_parity(2, 2)),
+        ("torso_lane", lambda: _lane_parity(
+            "torso_lane", lambda: ppo_from_yaml(TUNED, superstep=1, model=dict(TORSO)), 1, 2)),
+    ):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = fn()
+        out[name]["peak_mem_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+        say("graph_parity", case=name, bitwise=True, **{k: v for k, v in out[name].items()})
+    return out
 
 
 def _free_port():
@@ -1702,6 +2023,14 @@ def phase_ring():
     return launches
 
 
+def timed(phase, *args):
+    """``phase(*args)``, with a line of its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    say("timing", name=phase.__name__[len("phase_"):], seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -1730,24 +2059,30 @@ def main() -> int:
     say("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0))
     rng = np.random.default_rng(0)
-    phase_build()
-    gather = phase_gather(rng)
-    gae = phase_gae()
-    scatter = phase_scatter()
-    descent = phase_descent(rng)
-    flash = phase_flash()
-    flash_block = phase_flash_block()
+    timed(phase_build)
+    gather = timed(phase_gather, rng)
+    gae = timed(phase_gae)
+    scatter = timed(phase_scatter)
+    descent = timed(phase_descent, rng)
+    flash = timed(phase_flash)
+    flash_block = timed(phase_flash_block)
     # the main paths, each with its launch counts set to 0 just before
-    learner_gathers = phase_learner(rng)
-    lane_gaes = phase_lane()
-    dqn = phase_dqn()
-    tf_learner = phase_transformer_learner()
-    tf_lane = phase_transformer_lane()
-    tf_dqn = phase_transformer_dqn()
-    ring = phase_ring()
+    learner_gathers = timed(phase_learner, rng)
+    lane_gaes, _ = timed(phase_lane)
+    dqn = timed(phase_dqn)
+    tf_learner = timed(phase_transformer_learner)
+    tf_lane = timed(phase_transformer_lane)
+    tf_dqn = timed(phase_transformer_dqn)
+    cartpole = timed(phase_cartpole)
+    gridrooms = timed(phase_gridrooms)
+    timed(phase_graph_parity)
+    pong_learn = timed(phase_ponglite_learn)
+    ring = timed(phase_ring)
     gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"],
                                   "transformer_dqn": tf_dqn["gather_rows"]}
-    gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"]}
+    gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"],
+                               "cartpole": cartpole, "gridrooms": gridrooms,
+                               "ponglite_learn": pong_learn}
     scatter["launches_by_path"] = {"dqn": dqn["scatter_rows"],
                                    "transformer_dqn": tf_dqn["scatter_rows"]}
     descent["launches_by_path"] = {"dqn": dqn["find_prefixsum"],

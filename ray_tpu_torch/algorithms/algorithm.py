@@ -20,6 +20,7 @@ from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.env.registry import get_env_creator
 from ray_tpu_torch.evaluation.metrics import summarize_episodes
+from ray_tpu_torch.sharding.superstep import resolve_superstep
 
 NUM_ENV_STEPS_SAMPLED = "num_env_steps_sampled"
 NUM_AGENT_STEPS_SAMPLED = "num_agent_steps_sampled"
@@ -63,6 +64,13 @@ class Algorithm:
 
     def get_policy(self, policy_id: str = DEFAULT_POLICY_ID):
         return self.policy
+
+    def _resolve_superstep_k(self) -> int:
+        """K of the superstep for this run (``resolve_superstep``, cached)."""
+        k = self.__dict__.get("_superstep_k")
+        if k is None:
+            k = self._superstep_k = resolve_superstep(self.config, self.device)
+        return k
 
     def training_step(self) -> Dict:
         raise NotImplementedError

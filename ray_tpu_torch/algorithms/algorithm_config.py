@@ -5,7 +5,10 @@ what the ported path reads. It takes the same config dicts and the keys
 of the tuned-example yamls (``update_from_dict`` sets any key, as the
 reference does). ``env_backend: "jax"`` selects the device rollout lane.
 The one new key is ``device``: None runs on CUDA (and raises without
-it), ``"cpu"`` runs on the CPU.
+it), ``"cpu"`` runs on the CPU. ``superstep`` (``"auto"``: 8 updates
+per host call on CUDA, 1 on the CPU; an int forces K), ``nan_guard``
+and ``jax_fused_rollout`` keep the reference's names and defaults (see
+``sharding/superstep.py``).
 
 The replay keys of the off-policy family keep the reference's names and
 defaults: ``replay_buffer_config``, ``replay_device_resident`` and
@@ -53,6 +56,12 @@ class AlgorithmConfig:
         self.num_steps_sampled_before_learning_starts = 0
         self.target_network_update_freq = 0
         self.training_intensity = None
+
+        # learner plane: K updates per host call, the in-slot non-finite
+        # batch guard, and rollout + learn fused into one superstep slot
+        self.superstep = "auto"
+        self.nan_guard = False
+        self.jax_fused_rollout = True
 
         # resources
         self.device = None

@@ -14,9 +14,15 @@ With ``model: {"use_transformer": True}`` the policy takes the catalog's
 transformer torso instead of ``DQNModel`` and reads its logits as Q
 values, as the reference's fallback does.
 
+With ``training_intensity`` a round makes several replay updates; under
+the superstep (``config.superstep``: 8 per host call on CUDA) every
+full window of K of them runs as one ``superstep_train_replay`` call,
+one CUDA graph replayed K times, and prioritized replay joins the chain
+with its priorities refreshed once per window, as in the reference.
+
 Not ported yet (ROADMAP queue 1): the actor lane, ``n_step > 1`` on the
-lane (n-step folding is a host postprocess), C51 and noisy heads, the
-chained/superstep update (K > 1) and ``learn_while_rollout``.
+lane (n-step folding is a host postprocess), C51 and noisy heads and
+``learn_while_rollout``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from ray_tpu_torch.execution.replay_buffer import (
     resolve_device_resident,
     resolve_device_tree,
 )
+from ray_tpu_torch.execution.train_ops import superstep_train_replay
 from ray_tpu_torch.models.catalog import MODEL_DEFAULTS
 from ray_tpu_torch.models.cnn import get_filter_config
 from ray_tpu_torch.policy.torch_policy import TorchPolicy
@@ -186,9 +193,11 @@ class DQNTorchPolicy(TorchPolicy):
     def _init_aux_state(self) -> Dict[str, Any]:
         return {"target_params": [p.detach().clone() for p in self.params]}
 
+    @torch.no_grad()
     def update_target(self) -> None:
-        """Copy the online params into the target network."""
-        self.aux_state = self._init_aux_state()
+        """Copy the online params into the target network, in place (a
+        captured superstep slot reads the target tensors it saw)."""
+        torch._foreach_copy_(self.aux_state["target_params"], [p.detach() for p in self.params])
 
     def extra_action_out(self, dist_inputs, value, dist) -> Dict[str, torch.Tensor]:
         # the Q values already ride ACTION_DIST_INPUTS
@@ -356,10 +365,33 @@ class DQN(Algorithm):
             self._counters[NUM_ENV_STEPS_TRAINED] += b.count
         return train_info
 
+    def _chained_updates(self, updates: int, prioritized: bool, beta: float) -> Dict:
+        """``updates`` replay updates back to back: every full window of
+        K runs as one superstep per policy, the rest one at a time."""
+        bs = int(self.config["train_batch_size"])
+        K = self._resolve_superstep_k()
+        train_info: Dict = {}
+        left = updates
+        while K > 1 and left >= K:
+            for pid, buf in self.local_replay_buffer.buffers.items():
+                if len(buf) < bs:
+                    continue
+                train_info[pid] = superstep_train_replay(
+                    self, self.get_policy(pid), buf, K, K, bs,
+                    prioritized=prioritized, beta=beta,
+                )
+                self._counters[NUM_ENV_STEPS_TRAINED] += K * bs
+            left -= K
+        kwargs = {"beta": beta} if prioritized else {}
+        for _ in range(left):
+            train_info.update(self._single_update(prioritized, kwargs))
+        return train_info
+
     def _replay_update_phase(self, sampled_steps: int) -> Dict:
         """Once learning has started: ``training_intensity`` debt → the
-        number of updates this round (one by default, and always one
-        under prioritized replay, whose priorities refresh between
+        number of updates this round (one by default; prioritized replay
+        takes the debt only under a superstep, whose stacked refresh
+        keeps the update order, and otherwise refreshes between
         samples), then the target-network sync."""
         cfg = self.config
         train_info: Dict = {}
@@ -371,15 +403,17 @@ class DQN(Algorithm):
             return train_info
         rb_cfg = cfg.get("replay_buffer_config") or {}
         prioritized = rb_cfg.get("prioritized_replay", False)
-        kwargs = {"beta": rb_cfg.get("prioritized_replay_beta", 0.4)} if prioritized else {}
+        beta = rb_cfg.get("prioritized_replay_beta", 0.4)
         updates = 1
         ti = cfg.get("training_intensity")
-        if ti and not prioritized:
+        if ti and (not prioritized or self._resolve_superstep_k() > 1):
             self._training_debt += sampled_steps * float(ti)
             updates = int(self._training_debt // cfg["train_batch_size"])
             self._training_debt -= updates * cfg["train_batch_size"]
-        for _ in range(updates):
-            train_info.update(self._single_update(prioritized, kwargs))
+        if updates > 1:
+            train_info = self._chained_updates(updates, prioritized, beta)
+        elif updates == 1:
+            train_info = self._single_update(prioritized, {"beta": beta} if prioritized else {})
         if (
             self._counters[NUM_ENV_STEPS_TRAINED] - self._last_target_update
             >= cfg.get("target_network_update_freq", 500)
@@ -391,7 +425,7 @@ class DQN(Algorithm):
 
     def training_step(self) -> Dict:
         """One round on the device lane: rollout fill, then the replay
-        update phase (K = 1)."""
+        update phase."""
         cfg = self.config
         if cfg.get("env_backend") != "jax":
             raise NotImplementedError(

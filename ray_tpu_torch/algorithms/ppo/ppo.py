@@ -4,9 +4,10 @@ Counterpart of ``ray_tpu/algorithms/ppo/ppo.py``. The learner runs the
 clipped-surrogate / clipped-value / entropy loss in the ``num_sgd_iter``
 x minibatches nest of :class:`TorchPolicy`. ``PPO.training_step`` runs
 on the device lane (``env_backend: jax`` in the reference's configs,
-which here means "on the device"): roll out N x T steps on the card,
-GAE there, then one learn call on the device-resident batch. The actor
-lane (CPU rollout workers) is not ported yet.
+which here means "on the device"): K superstep slots of [roll out N x T
+steps on the card, GAE there, the SGD nest on the device-resident
+batch], one CUDA graph replayed K times (``config.superstep``). The
+actor lane (CPU rollout workers) is not ported yet.
 """
 
 from __future__ import annotations
@@ -187,7 +188,10 @@ class PPO(Algorithm):
 
     def training_step(self) -> Dict:
         """K x [rollout(T) + GAE + the num_sgd_iter-epoch nest] on the
-        device lane, K = 1 (the superstep is not ported yet)."""
+        device lane (the reference's ``_training_step_jax_rollout``): one
+        ``learn_rollout_superstep`` call with ``jax_fused_rollout`` (the
+        default), else K eager rollout-then-learn rounds. The KL
+        coefficient adapts on the drained per-update stats, in order."""
         if self.config.get("env_backend") != "jax":
             raise NotImplementedError(
                 "the actor lane is not ported yet; set env_backend='jax' "
@@ -195,13 +199,27 @@ class PPO(Algorithm):
             )
         eng = self._engine()
         policy = self.get_policy()
-        batch, bsize = eng.rollout()
-        info = policy.learn_on_device_batch(eng.learn_batch(batch), bsize)
+        bsize = eng.batch_size
+        K = self._resolve_superstep_k()
+        if self.config.get("jax_fused_rollout", True):
+            infos, carry, metrics, skipped = policy.learn_rollout_superstep(
+                K, bsize, eng.superstep_feed(), k_max=K
+            )
+            eng.advance(carry, metrics)
+            for info_i in infos:
+                info_i.update(policy.after_learn_on_batch(info_i))
+            info = infos[-1]
+            if any(skipped):
+                self._counters["num_nan_batches_skipped"] += sum(skipped)
+        else:
+            for _ in range(K):
+                batch, bsize = eng.rollout()
+                info = policy.learn_on_device_batch(eng.learn_batch(batch), bsize)
         info["cur_lr"] = policy.coeff_values.get("lr")
         for key in (
             NUM_ENV_STEPS_SAMPLED, NUM_AGENT_STEPS_SAMPLED,
             NUM_ENV_STEPS_TRAINED, NUM_AGENT_STEPS_TRAINED,
         ):
-            self._counters[key] += bsize
+            self._counters[key] += K * bsize
         policy.global_timestep = self._counters[NUM_ENV_STEPS_SAMPLED]
         return {DEFAULT_POLICY_ID: info}

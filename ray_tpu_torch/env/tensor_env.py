@@ -81,11 +81,12 @@ class TensorVectorEnv:
         return Box(-1.0, 1.0, spec.shape, spec.dtype)
 
 
+def where_rows(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``where(mask, a, b)`` with the (N,) mask broadcast over the
+    trailing dims of (N, ...) tensors of any rank."""
+    return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
 def tree_where(mask: torch.Tensor, a: Dict, b: Dict) -> Dict:
-    """Per-key ``where(mask, a, b)`` with the (N,) mask broadcast over
-    each tensor's trailing dims — the auto-reset selector."""
-    out = {}
-    for k, x in a.items():
-        m = mask.reshape((-1,) + (1,) * (x.dim() - 1))
-        out[k] = torch.where(m, x, b[k])
-    return out
+    """Per-key :func:`where_rows` — the auto-reset selector."""
+    return {k: where_rows(mask, x, b[k]) for k, x in a.items()}

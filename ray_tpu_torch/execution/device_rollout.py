@@ -11,7 +11,11 @@ tail), :func:`compute_gae_fragment` (the GAE kernel on CUDA),
 standardisation of the advantages with the population variance and
 ``max(1e-4, std)``, and env-major (N·T, ...) rows, the host lane's
 concat order. The rollout never leaves the device; only the (T, N)
-episode metrics are read back, once per rollout.
+episode metrics are read back, once per rollout, or once per superstep
+of K rollouts (:meth:`DeviceRolloutEngine.superstep_feed`, the feed of
+``TorchPolicy.learn_rollout_superstep``). The carry (env state, obs,
+episode return and length) is written in place, so a CUDA graph of the
+slot advances it on every replay.
 
 ``postprocess="none"`` (the replay fill of the off-policy family) emits
 the raw transition rows instead: no ``V(next_obs)`` forward and no GAE.
@@ -22,17 +26,30 @@ env generator; :class:`RolloutDraws` injects both instead (tests).
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ray_tpu_torch.data.sample_batch import SampleBatch
-from ray_tpu_torch.env.tensor_env import TensorVectorEnv, tree_where
+from ray_tpu_torch.env.tensor_env import TensorVectorEnv, tree_where, where_rows
 from ray_tpu_torch.evaluation.metrics import RolloutMetrics
 from ray_tpu_torch.ops.gae import compute_gae_fragment
 
 # columns the PPO-family learn call drops (its loss never reads them)
 _LEARN_DROP = (SampleBatch.NEXT_OBS, SampleBatch.AGENT_INDEX, SampleBatch.T)
+
+
+class RolloutSuperstepFeed(NamedTuple):
+    """What ``TorchPolicy.learn_rollout_superstep`` runs in each slot:
+    ``body(coeffs) -> (learn batch, (T, 3, N) metrics)``, the carry it
+    advances in place, a cache key for the slot's graph and the
+    engine's generators (which a graph must advance on each replay)."""
+
+    carry: Dict
+    body: Callable
+    key: Tuple
+    generators: Tuple[torch.Generator, ...]
 
 
 class RolloutDraws(NamedTuple):
@@ -83,9 +100,10 @@ class DeviceRolloutEngine:
         if initial_draws is None:
             initial_draws = self._draw()
         state, obs = env.reset(state, initial_draws.to(self.device))
+        # the carry owns its memory: rollouts write it in place
         self.carry = {
-            "env": state,
-            "obs": obs,
+            "env": {k: v.clone() for k, v in state.items()},
+            "obs": obs.clone(),
             "ep_ret": torch.zeros(self.N, device=self.device),
             "ep_len": torch.zeros(self.N, dtype=torch.int32, device=self.device),
         }
@@ -97,9 +115,22 @@ class DeviceRolloutEngine:
     def rollout(self, draws: Optional[RolloutDraws] = None) -> Tuple[Dict[str, torch.Tensor], int]:
         """T steps on the device: ``(batch of (N·T, ...) columns,
         batch_size)``, with the carry advanced and episode metrics
-        absorbed."""
-        policy, env = self.policy, self.env
+        absorbed (one readback)."""
+        policy = self.policy
         policy.exploration.update_coeffs(policy.coeff_values, policy.global_timestep)
+        batch, met = self._rollout_slot(policy.coeff_values, draws)
+        self._record_metrics(met.cpu())
+        return batch, self.batch_size
+
+    @torch.no_grad()
+    def _rollout_slot(
+        self, coeffs: Dict, draws: Optional[RolloutDraws] = None
+    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The rollout with no host work: ``(batch, (T, 3, N) metrics of
+        (return, length, done))``. The carry's tensors are written in
+        place, so a CUDA graph of a superstep slot (``superstep_feed``)
+        reads and advances the same memory on every replay."""
+        policy, env = self.policy, self.env
         c = self.carry
         state, obs, ep_ret, ep_len = c["env"], c["obs"], c["ep_ret"], c["ep_len"]
         steps: List[Dict[str, torch.Tensor]] = []
@@ -107,7 +138,7 @@ class DeviceRolloutEngine:
         for t in range(self.T):
             given = None if draws is None or draws.actions is None else draws.actions[t]
             actions, _, extra = policy._action_step_body(
-                obs, policy.action_generator, explore=True, actions=given
+                obs, policy.action_generator, explore=True, actions=given, coeffs=coeffs
             )
             step_draws = self._draw() if draws is None else draws.step[t]
             state2, obs2, rew, term, trunc = env.step(state, actions, step_draws)
@@ -136,10 +167,9 @@ class DeviceRolloutEngine:
                 done.float(),
             ))
             state = tree_where(done, state3, state2)
-            obs = torch.where(done[:, None, None, None], obs3, obs2)
+            obs = where_rows(done, obs3, obs2)
             ep_ret = torch.where(done, 0.0, ep_ret2)
             ep_len = torch.where(done, 0, ep_len2)
-        self.carry = {"env": state, "obs": obs, "ep_ret": ep_ret, "ep_len": ep_len}
 
         rows = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}  # (T, N, ...)
         rows[SampleBatch.AGENT_INDEX] = torch.arange(
@@ -151,8 +181,39 @@ class DeviceRolloutEngine:
             k: v.transpose(0, 1).reshape((self.batch_size,) + v.shape[2:])
             for k, v in rows.items()
         }
-        self._record_metrics(torch.stack([torch.stack(m) for m in met]).cpu())
-        return batch, self.batch_size
+        # the carry advances in place, after every read of its old rows
+        for k, v in state.items():
+            c["env"][k].copy_(v)
+        for k, v in (("obs", obs), ("ep_ret", ep_ret), ("ep_len", ep_len)):
+            c[k].copy_(v)
+        return batch, torch.stack([torch.stack(m) for m in met])
+
+    def superstep_feed(self) -> RolloutSuperstepFeed:
+        """The feed of ``TorchPolicy.learn_rollout_superstep``: the slot
+        body (rollout, then the learn columns) and the carry it advances
+        in place. The exploration coefficients advance once here, for
+        the whole superstep."""
+        policy = self.policy
+        policy.exploration.update_coeffs(policy.coeff_values, policy.global_timestep)
+
+        def body(coeffs):
+            batch, met = self._rollout_slot(coeffs)
+            return self.learn_batch(batch), met
+
+        return RolloutSuperstepFeed(
+            carry=self.carry,
+            body=body,
+            key=("device_rollout", id(self), self.N, self.T, self.postprocess),
+            generators=(self.env_generator,),
+        )
+
+    def advance(self, carry: Dict, metrics: np.ndarray) -> None:
+        """Absorb a superstep's drained (k, T, 3, N) host metrics; the
+        carry was advanced in place by the slots and is this engine's."""
+        if carry is not self.carry:
+            raise ValueError("advance: the carry is not this engine's")
+        for met in metrics:
+            self._record_metrics(torch.from_numpy(np.ascontiguousarray(met)))
 
     def _gae(self, rows: Dict[str, torch.Tensor]) -> None:
         """Advantages and value targets of (T, N) rows, in place."""

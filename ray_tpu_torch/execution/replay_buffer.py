@@ -28,15 +28,25 @@ Counterpart of ``ray_tpu/execution/replay_buffer.py``.
 unpacked, priorities as ``{"leaf_values", "max_priority"}``), so a
 checkpoint moves between the two packages.
 
+The superstep's feed (``superstep_feed`` → :class:`SuperstepRingFeed`):
+the k updates' draws are made up front on the host in the sequential
+order (``draw_index_sets``; k uniform streams for a prioritized buffer,
+whose tree is frozen for the superstep, the reference's documented
+within-chain staleness), shipped once into the feed's static device
+buffers, and each slot of the superstep draws (the prefix-descent
+kernel) and gathers (the row-gather kernel) its rows in place, inside
+the slot's CUDA graph. The (k, B) |TD| errors come back in one copy;
+``refresh_priorities_stacked`` powers them on the host and writes them
+as one stacked tree update, in update order.
+
 Not ported yet (ROADMAP): the reference's memory-cap spill to a host
-ring, ``SuperstepRingFeed``/``superstep_feed``/``draw_index_sets`` and
-``draw_prioritized_sets_device``. Where a ring would not fit its memory
-cap, the port raises with the numbers; it never moves rows to the host.
+ring. Where a ring would not fit its memory cap, the port raises with
+the numbers; it never moves rows to the host.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,10 +54,13 @@ import torch
 from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, SampleBatch
 from ray_tpu_torch.ops.framestack import gather_rows, scatter_rows
 from ray_tpu_torch.ops.segment_tree import (
+    F64,
     DeviceSumTree,
     MinSegmentTree,
     SumSegmentTree,
     draw_body,
+    draw_scalars,
+    draw_with,
     next_pow2,
 )
 
@@ -247,6 +260,49 @@ class DeviceTrainBatch:
         self.indices = indices
 
 
+class SuperstepRingFeed:
+    """A device buffer's rings as the feed of a superstep
+    (``TorchPolicy.learn_superstep(rings=...)``): static device buffers
+    of the (k_max, B) pre-drawn schedule, which :meth:`batch` turns into
+    a slot's rows inside the slot. Uniform: the (k_max, B) ring
+    positions. Prioritized: the (k_max, B) f64 uniforms and the frozen
+    tree's total, largest IS weight and size; the slot runs the draw's
+    descent and writes its positions into ``idx`` for the refresh."""
+
+    def __init__(self, buf, k_max: int, num_items: int, beta: Optional[float]):
+        dev = buf.device
+        self.buf = buf
+        self.beta = beta
+        self.idx = torch.zeros((k_max, num_items), dtype=torch.int64, device=dev)
+        if beta is not None:
+            self.rand = torch.zeros((k_max, num_items), dtype=F64, device=dev)
+            self.total = torch.zeros((), dtype=F64, device=dev)
+            self.max_weight = torch.zeros((), dtype=F64, device=dev)
+            self.size = (torch.zeros((), dtype=torch.int64, device=dev),
+                         torch.zeros((), dtype=F64, device=dev))
+        # the slot graph's cache key: these buffers and the rings they read
+        self.key = ("rings", id(self), id(buf._store), tuple(sorted(buf._store)))
+
+    def draw(self, rand: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One prioritized draw on the frozen tree: (idx, weights)."""
+        tree = self.buf._dtree
+        idx, weights, _ = draw_with(
+            tree.sum_value, rand, self.total, self.max_weight, self.size, self.beta,
+            tree.capacity,
+        )
+        return idx, weights
+
+    def batch(self, slot: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The rows of slot ``slot`` (a (1,) device index)."""
+        if self.beta is None:
+            return self.buf._gather_columns(self.idx.index_select(0, slot)[0])
+        idx, weights = self.draw(self.rand.index_select(0, slot)[0])
+        self.idx.index_copy_(0, slot, idx[None])
+        cols = self.buf._gather_columns(idx)
+        cols["weights"] = weights
+        return cols
+
+
 # host dtypes the rings store instead (the reference's x64-off canonicalization)
 _CANONICAL_NP = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
                  np.dtype(np.uint64): np.uint32}
@@ -415,6 +471,30 @@ class DeviceReplayBuffer:
         idx_t = torch.as_tensor(idx.astype(np.int64), device=self.device)
         return DeviceTrainBatch(self._gather_columns(idx_t), len(idx), indices=idx)
 
+    # -- the superstep's feed ---------------------------------------------
+
+    def draw_index_sets(self, k: int, num_items: int) -> np.ndarray:
+        """(k, num_items) uniform draws: k sequential generator calls, as
+        k ``sample`` calls make them (never one k·n call)."""
+        return np.stack([self._rng.integers(0, self._size, num_items) for _ in range(k)])
+
+    def _feed(self, k_max: int, num_items: int, beta: Optional[float]) -> SuperstepRingFeed:
+        """The feed's static buffers, one set per (k_max, B, beta), so a
+        captured slot reads the same memory on every superstep."""
+        feeds = self.__dict__.setdefault("_feeds", {})
+        key = (k_max, num_items, beta, id(self._store))
+        feed = feeds.get(key)
+        if feed is None:
+            feed = feeds[key] = SuperstepRingFeed(self, k_max, num_items, beta)
+        return feed
+
+    def superstep_feed(self, k: int, k_max: int, num_items: int) -> SuperstepRingFeed:
+        """The superstep's schedule: ``draw_index_sets(k, num_items)``,
+        shipped in one copy into the feed's (k_max, B) buffer."""
+        feed = self._feed(k_max, num_items, None)
+        feed.idx[:k].copy_(torch.from_numpy(self.draw_index_sets(k, num_items)))
+        return feed
+
     # -- checkpoint state (the reference's layout) --------------------------
 
     def get_state(self) -> Dict:
@@ -446,6 +526,7 @@ class DeviceReplayBuffer:
             ring[:size] = v
             full[k] = self._to_device(ring)
         self._store, self._meta, self.storage_bytes = {}, {}, 0
+        self.__dict__.pop("_feeds", None)
         if full:
             self._ensure_storage(full)
             self._scatter(full, torch.arange(self.capacity, device=self.device))
@@ -513,6 +594,53 @@ class DevicePrioritizedReplayBuffer(DeviceReplayBuffer):
         cols = self._gather_columns(idx)
         cols["weights"] = weights
         return DeviceTrainBatch(cols, num_items, indices=idx)
+
+    def superstep_feed(
+        self, k: int, k_max: int, num_items: int, beta: float = 0.4
+    ) -> SuperstepRingFeed:
+        """The superstep's schedule against the tree as it stands: k
+        sequential ``random(num_items)`` calls (the per-update stream
+        order) in one copy, and the frozen tree's total, largest IS
+        weight and size; each slot's descent runs in the slot."""
+        feed = self._feed(k_max, num_items, float(beta))
+        rand = np.stack([self._rng.random(num_items) for _ in range(k)])
+        feed.rand[:k].copy_(torch.from_numpy(rand))
+        tree = self._dtree
+        total, max_weight = draw_scalars(
+            tree.sum_value, tree.min_value, self._size, float(beta), tree.capacity
+        )
+        feed.total.copy_(total)
+        feed.max_weight.copy_(max_weight)
+        for t in feed.size:
+            t.fill_(self._size)
+        return feed
+
+    def draw_prioritized_sets_device(
+        self, k: int, k_max: int, num_items: int, beta: float
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The superstep's pre-drawn schedule, drawn eagerly: (k_max, B)
+        device positions and IS weights (rows past k: 0 and 1), each row
+        drawn as a superstep slot draws it."""
+        feed = self.superstep_feed(k, k_max, num_items, beta)
+        idx = torch.zeros((k_max, num_items), dtype=torch.int64, device=self.device)
+        weights = torch.ones((k_max, num_items), dtype=torch.float32, device=self.device)
+        for i in range(k):
+            idx[i], weights[i] = feed.draw(feed.rand[i])
+        return idx, weights
+
+    def refresh_priorities_stacked(self, idx: torch.Tensor, abs_td: np.ndarray, active) -> None:
+        """A superstep's priority refresh: the (k, B) |TD| errors
+        ``+ 1e-6`` (in their float32, as the per-update call site adds
+        it) powered on the host, then one tree write of the active
+        updates' rows in update order — the per-update
+        ``update_priorities(idx[i], td[i] + 1e-6)`` loop, whose repeated
+        positions keep the last write."""
+        rows = np.flatnonzero(np.asarray(active, bool))
+        if not len(rows):
+            return
+        powered, clamped = powered_priorities(np.asarray(abs_td)[rows] + 1e-6, self._alpha)
+        self._dtree.set_powered(idx[torch.as_tensor(rows, device=idx.device)], powered)
+        self._max_priority = max(self._max_priority, float(clamped.max()))
 
     def get_state(self) -> Dict:
         state = super().get_state()

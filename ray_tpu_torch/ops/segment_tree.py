@@ -239,6 +239,48 @@ def find_prefixsum(
 find_prefixsum.launches = 0
 
 
+def draw_scalars(
+    sum_value: torch.Tensor,
+    min_value: torch.Tensor,
+    size: int,
+    beta: float,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The parts of :func:`draw_body` that depend on the tree alone: the
+    total mass and the largest IS weight, as 0-d f64 tensors."""
+    total = reduce_range_body(sum_value, size, torch.add, 0.0, capacity)
+    p_min = (
+        reduce_range_body(min_value, size, torch.minimum, float("inf"), capacity)
+        / total
+    )
+    return total, (p_min * size) ** (-beta)
+
+
+def draw_with(
+    sum_value: torch.Tensor,
+    rand: torch.Tensor,
+    total: torch.Tensor,
+    max_weight: torch.Tensor,
+    size,
+    beta: float,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rest of :func:`draw_body`, given :func:`draw_scalars`:
+    ``(idx int64, weights float32, p_sample float64)``. ``size`` is a
+    host int, or a pair of 0-d device tensors (int64, f64) holding it,
+    which a CUDA graph reads afresh on each replay."""
+    num_items = rand.shape[-1]
+    size_i, size_f = (size, size) if isinstance(size, int) else size
+    strata = torch.arange(num_items, dtype=F64, device=rand.device)
+    mass = (rand + strata) / _scalar(num_items, rand) * total
+    idx = find_prefixsum(sum_value, mass, capacity)
+    idx = torch.clamp_min(idx, 0)
+    idx = idx.clamp_max(size_i - 1) if isinstance(size_i, int) else torch.minimum(idx, size_i - 1)
+    p_sample = sum_value[capacity + idx] / total
+    weights = ((p_sample * size_f) ** (-beta) / max_weight).to(torch.float32)
+    return idx, weights, p_sample
+
+
 def draw_body(
     sum_value: torch.Tensor,
     min_value: torch.Tensor,
@@ -253,20 +295,8 @@ def draw_body(
     device), ``size`` the stored row count, ``beta`` the IS exponent.
     Returns ``(idx int64, weights float32, p_sample float64)``, with the
     host's order of operations throughout."""
-    num_items = rand.shape[-1]
-    total = reduce_range_body(sum_value, size, torch.add, 0.0, capacity)
-    strata = torch.arange(num_items, dtype=F64, device=rand.device)
-    mass = (rand + strata) / _scalar(num_items, rand) * total
-    idx = find_prefixsum(sum_value, mass, capacity)
-    idx = torch.clamp(idx, 0, size - 1)
-    p_min = (
-        reduce_range_body(min_value, size, torch.minimum, float("inf"), capacity)
-        / total
-    )
-    max_weight = (p_min * size) ** (-beta)
-    p_sample = sum_value[capacity + idx] / total
-    weights = ((p_sample * size) ** (-beta) / max_weight).to(torch.float32)
-    return idx, weights, p_sample
+    total, max_weight = draw_scalars(sum_value, min_value, size, beta, capacity)
+    return draw_with(sum_value, rand, total, max_weight, int(size), beta, capacity)
 
 
 def _rebuild_body(arr: torch.Tensor, op, capacity: int) -> torch.Tensor:

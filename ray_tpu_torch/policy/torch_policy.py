@@ -17,9 +17,19 @@ the tests hand the port the reference's draws.
 
 The optimizer is the reference's optax chain, written out: an optional
 ``clip_by_global_norm(grad_clip)``, then ``scale_by_adam(eps)``
-(b1=0.9, b2=0.999), then ``params += -lr * u`` with ``lr`` read on every
-minibatch. ``grad_gnorm`` is taken on the last minibatch only; in the
-stats reduction it is summed and every other entry averaged.
+(b1=0.9, b2=0.999), then ``params += -lr * u``. ``grad_gnorm`` is taken
+on the last minibatch only; in the stats reduction it is summed and
+every other entry averaged. Nothing in an update reads the host: ``lr``
+and the loss coefficients are device scalars written once per learn
+call (:meth:`TorchPolicy._load_coeffs`), and Adam's bias corrections
+come from a device table indexed by a device step counter
+(:class:`AdamState`).
+
+:meth:`TorchPolicy.learn_superstep` and
+:meth:`TorchPolicy.learn_rollout_superstep` run K updates (or K
+rollout + update slots) in one host call through
+``sharding/superstep.SuperstepRunner``: one CUDA graph replayed K times
+on the card, the same body run K times on the CPU.
 """
 
 from __future__ import annotations
@@ -34,20 +44,57 @@ from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models.catalog import ModelCatalog
 from ray_tpu_torch.ops.framestack import FRAME_IDX, FRAMES, build_stacks
 from ray_tpu_torch.policy.policy import Policy
+from ray_tpu_torch.sharding.superstep import SuperstepRunner, batch_finite
 from ray_tpu_torch.utils.exploration import exploration_from_config
 from ray_tpu_torch.utils.schedules import make_schedule
 
 
 class AdamState:
-    """optax ``scale_by_adam`` moments and step count, per parameter."""
+    """optax ``scale_by_adam`` moments and step count, per parameter.
+
+    ``count`` is the host's count of applied steps. The bias corrections
+    of the next steps sit on the device in ``table`` (row 0: ``1 -
+    b1**c``, row 1: ``1 - b2**c``, computed on the host in numpy float32
+    as optax computes ``decay**count``), and ``step`` (a device int64)
+    indexes it, advancing by one per step, so a CUDA graph of many steps
+    reads a new correction on each. :meth:`load_corrections` fills the
+    table before a learn call or a superstep."""
 
     b1 = 0.9
     b2 = 0.999
+    # steps the table holds before it must grow (a grown table is a new
+    # tensor, which invalidates the graphs that read the old one)
+    TABLE_STEPS = 1024
 
     def __init__(self, params: List[torch.Tensor]):
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
+        device = params[0].device if params else torch.device("cpu")
+        self.table = torch.ones((2, self.TABLE_STEPS), dtype=torch.float32, device=device)
+        self.step = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def load_corrections(self, n: int) -> bool:
+        """The corrections of steps ``count + 1 .. count + n`` into the
+        table, and ``step`` to 0. True when the table had to grow."""
+        grew = n > self.table.shape[1]
+        if grew:
+            self.table = torch.ones((2, n), dtype=torch.float32, device=self.table.device)
+        one = np.float32(1.0)
+        host = np.empty((2, n), np.float32)
+        for i in range(n):
+            c = np.float32(self.count + 1 + i)
+            host[0, i] = one - np.float32(self.b1) ** c
+            host[1, i] = one - np.float32(self.b2) ** c
+        self.table[:, :n].copy_(torch.from_numpy(host))
+        self.step.zero_()
+        return grew
+
+    def corrections(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This step's (bc1, bc2) as 0-d device tensors; advances ``step``."""
+        bc = self.table.index_select(1, self.step)
+        self.step.add_(1)
+        return bc[0, 0], bc[1, 0]
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -60,28 +107,26 @@ def adam_update(
     params: List[torch.Tensor],
     grads: List[torch.Tensor],
     state: AdamState,
-    lr: float,
+    lr: torch.Tensor,
     eps: float,
     grad_clip: Optional[float],
 ) -> None:
     """One step of [clip_by_global_norm] → scale_by_adam(eps) → -lr·u,
-    in place, in optax's operation order."""
+    in place, in optax's operation order. ``lr`` is a 0-d device
+    tensor and the corrections come from ``state``'s device table, so
+    the step makes no host read (``state.count`` is the caller's)."""
     if grad_clip:
         g_norm = global_norm(grads)
         keep = g_norm < grad_clip
         grads = [torch.where(keep, g, (g / g_norm) * grad_clip) for g in grads]
     b1, b2 = state.b1, state.b2
-    state.count += 1
+    bc1, bc2 = state.corrections()
     torch._foreach_mul_(state.mu, b1)
     torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - b1))
     sq = torch._foreach_mul(grads, grads)
     torch._foreach_mul_(sq, 1 - b2)
     torch._foreach_mul_(state.nu, b2)
     torch._foreach_add_(state.nu, sq)
-    # bias corrections in float32, as optax computes decay**count
-    one = np.float32(1.0)
-    bc1 = float(one - np.float32(b1) ** np.float32(state.count))
-    bc2 = float(one - np.float32(b2) ** np.float32(state.count))
     mu_hat = torch._foreach_div(state.mu, bc1)
     den = torch._foreach_sqrt(torch._foreach_div(state.nu, bc2))
     torch._foreach_add_(den, eps)
@@ -119,6 +164,12 @@ class TorchPolicy(Policy):
         self.grad_clip = config.get("grad_clip")
         self.adam_eps = float(config.get("adam_epsilon", 1e-8))
         self.opt_state = AdamState(self.params)
+
+        # device scalars of coeff_values, the nest's stat masks and the
+        # superstep runners (one captured graph each on CUDA)
+        self._coeff_tensors: Dict[str, torch.Tensor] = {}
+        self._gnorm_masks: Dict[Tuple[str, ...], torch.Tensor] = {}
+        self._superstep_runners: Dict[Tuple, SuperstepRunner] = {}
 
         self.action_generator = torch.Generator(device=self.device)
         self.action_generator.manual_seed(seed)
@@ -205,17 +256,21 @@ class TorchPolicy(Policy):
         generator: Optional[torch.Generator],
         explore: bool = True,
         actions: Optional[torch.Tensor] = None,
+        coeffs: Optional[Dict] = None,
     ):
         """Model forward, distribution, sampling and extra fetches for
         one step: ``(actions, state_out, extra)``. Shared by
         :meth:`compute_actions` and the device rollout lane. Given
         ``actions`` (injected draws), only their log-probabilities are
-        computed."""
+        computed. ``coeffs``: the exploration's coefficients
+        (default :attr:`coeff_values`; a graphed slot passes the device
+        scalars)."""
         dist_inputs, value, state_out = self.model_forward(obs)
         dist = self.dist_class(dist_inputs)
         if actions is None:
             actions, logp, _ = self.exploration.sample_fn(
-                dist, generator, explore, self.coeff_values, ()
+                dist, generator, explore,
+                self.coeff_values if coeffs is None else coeffs, (),
             )
         else:
             logp = dist.logp(actions)
@@ -273,14 +328,49 @@ class TorchPolicy(Policy):
         bsize = next(len(v) for k, v in batch.items() if k != FRAMES)
         return batch, bsize
 
-    def draw_permutations(self, batch_size: int) -> torch.Tensor:
+    def _host_permutations(self, batch_size: int) -> torch.Tensor:
         """(num_sgd_iter, batch_size) per-epoch row permutations from the
-        policy's host generator, on the device."""
-        perms = torch.stack([
+        policy's host generator, on the host."""
+        return torch.stack([
             torch.randperm(batch_size, generator=self.perm_generator)
             for _ in range(self.num_sgd_iter)
         ])
-        return perms.to(self.device)
+
+    def draw_permutations(self, batch_size: int) -> torch.Tensor:
+        """:meth:`_host_permutations` on the device."""
+        return self._host_permutations(batch_size).to(self.device)
+
+    def _nest_shape(self, batch_size: int) -> Tuple[int, int]:
+        """(minibatch rows, minibatches per epoch) of the nest."""
+        mb = min(batch_size, max(1, self.minibatch_size))
+        return mb, max(1, batch_size // mb)
+
+    def _steps_per_update(self, batch_size: int) -> int:
+        """Optimizer steps of one learn call: epochs x minibatches."""
+        return self.num_sgd_iter * self._nest_shape(batch_size)[1]
+
+    def _load_coeffs(self) -> Dict[str, torch.Tensor]:
+        """``coeff_values`` written into 0-d float32 device tensors, which
+        the nest, the loss and a graphed slot read (a graph would freeze
+        a host float). Read once per learn call or superstep, as the
+        reference's ``_learn_coeffs()``. The dict and its tensors are
+        the same objects on every call."""
+        for name, value in self.coeff_values.items():
+            t = self._coeff_tensors.get(name)
+            if t is None:
+                t = self._coeff_tensors[name] = torch.zeros(
+                    (), dtype=torch.float32, device=self.device
+                )
+            t.fill_(float(value))
+        return self._coeff_tensors
+
+    def _load_corrections(self, steps: int) -> None:
+        """Adam's corrections for the next ``steps`` steps; a grown
+        table drops the captured graphs, which read the old one (each
+        runner captures again at its next call)."""
+        if self.opt_state.load_corrections(steps):
+            for runner in self._superstep_runners.values():
+                runner.graph = None
 
     def learn_on_batch(self, samples, perms: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """One full multi-epoch SGD update on a host batch."""
@@ -290,6 +380,16 @@ class TorchPolicy(Policy):
             for k, v in batch.items()
         }
         return self.learn_on_device_batch(dev, bsize, perms=perms)
+
+    def _with_stacks(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Frame-pool batches (``obs_frames`` + ``obs_frame_idx``)
+        rebuild their observations with the row-gather kernel."""
+        if FRAMES not in batch:
+            return batch
+        batch = dict(batch)
+        stack_k = int(self.observation_space.shape[-1])
+        batch[SampleBatch.OBS] = build_stacks(batch.pop(FRAMES), batch.pop(FRAME_IDX), stack_k)
+        return batch
 
     def learn_on_device_batch(
         self,
@@ -302,30 +402,42 @@ class TorchPolicy(Policy):
         first with the row-gather kernel. ``perms``: (num_sgd_iter,
         batch_size) row permutations; drawn from the policy's generator
         when None."""
-        batch = dict(dev_batch)
-        if FRAMES in batch:
-            stack_k = int(self.observation_space.shape[-1])
-            batch[SampleBatch.OBS] = build_stacks(
-                batch.pop(FRAMES), batch.pop(FRAME_IDX), stack_k
-            )
+        batch = self._with_stacks(dict(dev_batch))
         self._update_scheduled_coeffs()
         if perms is None:
             perms = self.draw_permutations(batch_size)
-        stats = self._sgd_nest(batch, batch_size, perms.to(self.device))
-        self.num_grad_updates += self.num_sgd_iter * max(
-            1, batch_size // max(1, self.minibatch_size)
+        steps = self._steps_per_update(batch_size)
+        self._load_corrections(steps)
+        names, reduced = self._sgd_nest_device(
+            batch, batch_size, perms.to(self.device), self._load_coeffs()
         )
-        out = dict(stats)
+        self.opt_state.count += steps
+        self.num_grad_updates += steps
+        out = dict(zip(names, reduced.tolist()))
         out.update(self.after_learn_on_batch(out))
         out["cur_lr"] = self.coeff_values["lr"]
         return out
 
-    def _sgd_nest(
-        self, batch: Dict[str, torch.Tensor], batch_size: int, perms: torch.Tensor
-    ) -> Dict[str, float]:
-        mb = min(batch_size, max(1, self.minibatch_size))
-        num_mb = max(1, batch_size // mb)
-        coeffs = dict(self.coeff_values)
+    def _gnorm_mask(self, names: Tuple[str, ...]) -> torch.Tensor:
+        """(len(names),) device bool: which stats are summed (``grad_gnorm``)
+        and which averaged; made once per name list, outside any graph."""
+        mask = self._gnorm_masks.get(names)
+        if mask is None:
+            mask = self._gnorm_masks[names] = torch.tensor(
+                [n == "grad_gnorm" for n in names], device=self.device
+            )
+        return mask
+
+    def _sgd_nest_device(
+        self,
+        batch: Dict[str, torch.Tensor],
+        batch_size: int,
+        perms: torch.Tensor,
+        coeffs: Dict[str, torch.Tensor],
+    ) -> Tuple[Tuple[str, ...], torch.Tensor]:
+        """The epochs x minibatches nest with no host read: the stat
+        names and their (len(names),) reduction on the device."""
+        mb, num_mb = self._nest_shape(batch_size)
         lr = coeffs["lr"]
         per_step: List[Dict[str, torch.Tensor]] = []
         for epoch in range(self.num_sgd_iter):
@@ -350,16 +462,172 @@ class TorchPolicy(Policy):
                 per_step.append(
                     {**stats, "total_loss": loss.detach(), "grad_gnorm": gnorm}
                 )
-        names = list(per_step[0])
+        names = tuple(per_step[0])
         table = torch.stack(
             [torch.stack([s[n].float() for s in per_step]) for n in names]
         )
-        reduced = torch.where(
-            torch.tensor([n == "grad_gnorm" for n in names], device=table.device),
-            table.sum(dim=1),
-            table.mean(dim=1),
-        ).tolist()
-        return dict(zip(names, reduced))
+        return names, torch.where(self._gnorm_mask(names), table.sum(dim=1), table.mean(dim=1))
+
+    # -- the K-update superstep ---------------------------------------------
+
+    def _learner_tensors(self) -> List[torch.Tensor]:
+        """What an update writes: params, Adam moments and step index."""
+        st = self.opt_state
+        return [*self.params, *st.mu, *st.nu, st.step]
+
+    def _update_slot(self, runner, batch: Dict[str, torch.Tensor], batch_size: int,
+                     priorities: bool = False) -> None:
+        """One update of a superstep slot, with no host read: the nest on
+        ``batch`` with the slot's permutations, the nan guard's masked
+        no-op, the stats row and (``priorities``) the post-update |TD|
+        errors, into the runner's (K_max, ...) outputs."""
+        batch = self._with_stacks(batch)
+        perms = runner.perms.index_select(0, runner.slot)[0]
+        guard = bool(self.config.get("nan_guard"))
+        if guard:
+            ok = batch_finite(batch)
+            saved = [t.detach().clone() for t in self._learner_tensors()]
+        names, reduced = self._sgd_nest_device(batch, batch_size, perms, self._coeff_tensors)
+        if guard:
+            keep = ok > 0.5
+            with torch.no_grad():
+                for t, old in zip(self._learner_tensors(), saved):
+                    t.copy_(torch.where(keep, t, old))
+            skip = 1.0 - ok
+        else:
+            skip = torch.zeros((), device=self.device)
+        runner.stat_names = names
+        runner.write("stats", torch.cat([reduced, skip.reshape(1)]))
+        if priorities:
+            with torch.no_grad():
+                td = self._td_error(batch, self.aux_state)[0]
+            runner.write("priorities", torch.abs(td))
+
+    def _superstep_runner(self, key, k_max: int, batch_size: int, slot_fn, generators=()):
+        runner = self._superstep_runners.get(key)
+        if runner is None:
+            runner = SuperstepRunner(
+                self.device, k_max, slot_fn,
+                generators=(self.action_generator, *generators),
+            )
+            runner.perms = torch.zeros(
+                (k_max, self.num_sgd_iter, batch_size), dtype=torch.int64, device=self.device
+            )
+            self._superstep_runners[key] = runner
+        return runner
+
+    def _run_superstep(self, runner, k: int, k_max: int, batch_size: int):
+        """Host work of a superstep, then the k slots and the one drain:
+        the scheduled and exploration coefficients read once, the k
+        updates' permutations drawn in sequential order and shipped in
+        one copy, Adam's corrections for k_max updates. Returns
+        ``(infos, skipped, drained outputs)``."""
+        if not 1 <= k <= k_max:
+            raise ValueError(f"k={k} outside [1, k_max={k_max}]")
+        self._update_scheduled_coeffs()
+        self._load_coeffs()
+        perms = torch.stack([self._host_permutations(batch_size) for _ in range(k)])
+        runner.perms[:k].copy_(perms)
+        steps = self._steps_per_update(batch_size)
+        self._load_corrections(k_max * steps)
+        out = runner.run(k)
+        skipped = [bool(s > 0.5) for s in out["stats"][:, -1]]
+        self.opt_state.count += steps * (k - sum(skipped))
+        self.num_grad_updates += k * steps
+        lr = self.coeff_values["lr"]
+        infos = [
+            {**dict(zip(runner.stat_names, map(float, row[:-1]))), "cur_lr": lr}
+            for row in out["stats"]
+        ]
+        return infos, skipped, out
+
+    def learn_superstep(
+        self,
+        k: int,
+        batch_size: int,
+        *,
+        stacked: Optional[Dict[str, torch.Tensor]] = None,
+        rings=None,
+        k_max: Optional[int] = None,
+        refresh_priorities: bool = False,
+    ):
+        """``k`` updates in one host call (the reference's
+        ``JaxPolicy.learn_superstep``): bitwise ``k`` sequential
+        ``learn_on_device_batch`` calls on the same batches and
+        permutations, with the coefficients read once and
+        :meth:`after_learn_on_batch` left to the caller, applied to the
+        drained stats in order. On CUDA the slot is one CUDA graph,
+        captured once per (batch size, k_max, feed) and replayed.
+
+        Feed (exactly one): ``stacked``, a (k_max, B, ...) column tree
+        (device or host), copied into the slot's static buffers; or
+        ``rings``, a ``SuperstepRingFeed`` of the device replay buffer
+        (``buf.superstep_feed(...)``), whose slots gather their rows in
+        place. ``refresh_priorities`` adds each update's post-update
+        |TD| errors. Returns ``(infos, priorities, skipped)``: per-update
+        stat dicts, the (k, B) host |TD| matrix (or None) and the
+        nan guard's per-update skip flags."""
+        if (stacked is None) == (rings is None):
+            raise ValueError("learn_superstep needs exactly one of stacked/rings")
+        k = int(k)
+        k_max = int(k_max or k)
+        if refresh_priorities and not hasattr(self, "_td_error"):
+            raise ValueError(
+                f"{type(self).__name__} has no per-sample TD error to refresh priorities with"
+            )
+        if rings is not None:
+            feed_key = rings.key
+
+            def slot(runner):
+                self._update_slot(runner, rings.batch(runner.slot), batch_size,
+                                  refresh_priorities)
+        else:
+            feed_key = ("stacked",) + tuple(
+                (c, tuple(v.shape[1:]), v.dtype) for c, v in sorted(stacked.items())
+            )
+
+            def slot(runner):
+                batch = {c: v.index_select(0, runner.slot)[0] for c, v in runner.stacked.items()}
+                self._update_slot(runner, batch, batch_size, refresh_priorities)
+
+        key = ("replay", batch_size, k_max, feed_key, refresh_priorities)
+        runner = self._superstep_runner(key, k_max, batch_size, slot)
+        if stacked is not None:
+            if runner.stacked is None:
+                runner.stacked = {
+                    c: torch.zeros((k_max,) + tuple(v.shape[1:]), dtype=v.dtype,
+                                   device=self.device)
+                    for c, v in stacked.items()
+                }
+            for c, v in stacked.items():
+                runner.stacked[c][:k].copy_(torch.as_tensor(v)[:k])
+        infos, skipped, out = self._run_superstep(runner, k, k_max, batch_size)
+        pri = out["priorities"] if refresh_priorities else None
+        return infos, pri, skipped
+
+    def learn_rollout_superstep(self, k: int, batch_size: int, feed, *, k_max: Optional[int] = None):
+        """``k`` slots of [rollout of T steps + GAE + the SGD nest] in one
+        host call (the reference's ``JaxPolicy.learn_rollout_superstep``).
+        ``feed`` is ``DeviceRolloutEngine.superstep_feed()``; slot j rolls
+        out with the parameters slot j - 1 left, the on-policy contract.
+        On CUDA the whole slot is one CUDA graph, replayed k times; the
+        policy's and the engine's generators advance on each replay, so
+        the draws are the eager slots' draws. Returns ``(infos, carry,
+        metrics, skipped)``: per-update stat dicts, the carry (advanced
+        in place), the (k, T, 3, N) host episode metrics and the
+        per-update skip flags."""
+        k = int(k)
+        k_max = int(k_max or k)
+
+        def slot(runner):
+            batch, met = feed.body(self._coeff_tensors)
+            runner.write("metrics", met)
+            self._update_slot(runner, batch, batch_size)
+
+        key = ("rollout", batch_size, k_max, feed.key)
+        runner = self._superstep_runner(key, k_max, batch_size, slot, feed.generators)
+        infos, skipped, out = self._run_superstep(runner, k, k_max, batch_size)
+        return infos, feed.carry, out["metrics"], skipped
 
     # -- weights and state -------------------------------------------------
 

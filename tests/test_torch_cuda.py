@@ -516,3 +516,194 @@ def test_ring_of_two_gloo_ranks_on_one_card(cuda, tmp_path):
             assert r[f"ring/{name}"].shape == (b, t // 2, h, d) and int(r[f"gathers/{name}"]) == 0
             assert np.array_equal(r[f"gathered/{name}"], got)
             assert int(r[f"launches/{name}"]) == 2 and int(r[f"staged/{name}"]) == 1
+
+
+# -- the superstep as CUDA graphs ---------------------------------------------
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _ppo_lane(device, seed=0):
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+    from ray_tpu_torch.env.pong_lite_tensor import PongLiteTensor
+    from ray_tpu_torch.execution.device_rollout import DeviceRolloutEngine
+
+    env = PongLiteTensor({"max_steps": 40, "rallies": 3})
+    cfg = {"seed": seed, "gamma": 0.99, "lambda": 0.95, "lr": 1e-3, "train_batch_size": 256,
+           "sgd_minibatch_size": 64, "num_sgd_iter": 2, "entropy_coeff": 0.01,
+           "kl_coeff": 0.2, "grad_clip": 0.5}
+    policy = PPOTorchPolicy(env.observation_space, env.action_space, cfg, device=device)
+    return policy, DeviceRolloutEngine(policy, env, 8, 32, seed=seed + 1)
+
+
+def test_graphed_ppo_lane_slots_equal_eager_slots(cuda):
+    """3 slots (the first eager, 2 replays) of one captured rollout +
+    GAE + nest slot, then 3 more replays, against 6 eager rollout-then-
+    learn rounds with the coefficients held per superstep: bitwise in
+    params, Adam state, env carry, generator states, stats and episode
+    metrics."""
+    (p1, e1), (p2, e2) = _ppo_lane(cuda), _ppo_lane(cuda)
+    for _ in range(2):
+        kl = p1.coeff_values["kl_coeff"]
+        seq = []
+        for _ in range(3):
+            p1.coeff_values["kl_coeff"] = kl
+            batch, bsize = e1.rollout()
+            out = p1.learn_on_device_batch(e1.learn_batch(batch), bsize)
+            out.pop("cur_kl_coeff")
+            seq.append(out)
+        p1.coeff_values["kl_coeff"] = kl
+        for out in seq:
+            out.update(p1.after_learn_on_batch(out))
+        infos, carry, metrics, skipped = p2.learn_rollout_superstep(3, 256, e2.superstep_feed())
+        e2.advance(carry, metrics)
+        for info in infos:
+            info.update(p2.after_learn_on_batch(info))
+        assert infos == seq and skipped == [False] * 3
+        assert _same(p1.params, p2.params)
+        assert _same(p1.opt_state.mu, p2.opt_state.mu) and _same(p1.opt_state.nu, p2.opt_state.nu)
+        assert p1.opt_state.count == p2.opt_state.count
+        for k in e1.carry["env"]:
+            assert torch.equal(e1.carry["env"][k], e2.carry["env"][k]), k
+        for k in ("obs", "ep_ret", "ep_len"):
+            assert torch.equal(e1.carry[k], e2.carry[k]), k
+        for g1, g2 in ((p1.action_generator, p2.action_generator),
+                       (e1.env_generator, e2.env_generator),
+                       (p1.perm_generator, p2.perm_generator)):
+            assert torch.equal(g1.get_state(), g2.get_state())
+        assert ([(m.episode_length, m.episode_reward) for m in e1.get_metrics()]
+                == [(m.episode_length, m.episode_reward) for m in e2.get_metrics()])
+    (runner,) = p2._superstep_runners.values()
+    assert runner.graph is not None and runner.replays == 5 and runner.drains == 2
+
+
+def _dqn_pair(device):
+    from ray_tpu_torch.algorithms.dqn.dqn import DQNConfig
+
+    def make():
+        cfg = (
+            DQNConfig()
+            .environment("PongLiteJax-v0", env_config={"max_steps": 30, "rallies": 2},
+                         env_backend="jax")
+            .rollouts(num_envs_per_worker=8, rollout_fragment_length=4)
+            .training(replay_buffer_config={"capacity": 512, "prioritized_replay": True},
+                      train_batch_size=32)
+            .debugging(seed=4).resources(device=device)
+        )
+        algo = cfg.build()
+        for _ in range(8):
+            algo._jax_rollout_fill()
+        return algo
+
+    return make(), make()
+
+
+def test_graphed_dqn_replay_slots_equal_eager_updates(cuda):
+    """3 prioritized replay slots (draw, gather, update, |TD|) as one
+    captured graph against the eager updates on the same pre-drawn
+    sets: bitwise in params, Adam state, the sum tree and the stats;
+    the descent and gather launches count the replays."""
+    from ray_tpu_torch.execution.train_ops import superstep_train_replay
+
+    a, b = _dqn_pair(cuda)
+    for _ in range(2):
+        pa, ba = a.get_policy(), a.local_replay_buffer.buffers["default_policy"]
+        idx, weights = ba.draw_prioritized_sets_device(3, 3, 32, 0.4)
+        seq = []
+        for i in range(3):
+            tree = ba._gather_columns(idx[i])
+            tree["weights"] = weights[i]
+            seq.append(pa.learn_on_device_batch(tree, 32))
+            with torch.no_grad():
+                td = torch.abs(pa._td_error(tree, pa.aux_state)[0]).cpu().numpy()
+            ba.update_priorities(idx[i], td + 1e-6)
+        pb, bb = b.get_policy(), b.local_replay_buffer.buffers["default_policy"]
+        before = (segment_tree.find_prefixsum.launches, framestack.gather_rows.launches)
+        info = superstep_train_replay(b, pb, bb, 3, 3, 32, prioritized=True, beta=0.4)
+        launched = (segment_tree.find_prefixsum.launches - before[0],
+                    framestack.gather_rows.launches - before[1])
+        assert launched == (3, 3 * len(bb._store)), launched
+        assert info == seq[-1]
+        assert _same(pa.params, pb.params)
+        assert _same(pa.opt_state.mu, pb.opt_state.mu) and _same(pa.opt_state.nu, pb.opt_state.nu)
+        assert torch.equal(ba._dtree.sum_value, bb._dtree.sum_value)
+        assert ba._max_priority == bb._max_priority
+
+
+def test_replayed_generator_draws_equal_eager_draws(cuda):
+    from ray_tpu_torch.sharding.superstep import SuperstepRunner
+
+    g1 = torch.Generator(device=cuda).manual_seed(5)
+    g2 = torch.Generator(device=cuda).manual_seed(5)
+
+    def slot(runner):
+        runner.write("u", torch.rand(7, generator=g1, device=cuda))
+        runner.write("n", torch.randn(5, generator=g1, device=cuda))
+        runner.write("i", torch.randint(0, 9, (3,), generator=g1, device=cuda))
+
+    runner = SuperstepRunner(cuda, 4, slot, generators=(g1,))
+    got = [runner.run(4), runner.run(3)]
+    for out, k in zip(got, (4, 3)):
+        for j in range(k):
+            want = (torch.rand(7, generator=g2, device=cuda), torch.randn(5, generator=g2, device=cuda),
+                    torch.randint(0, 9, (3,), generator=g2, device=cuda))
+            for name, w in zip("uni", want):
+                assert torch.equal(torch.as_tensor(out[name][j], device=cuda), w.float()), (name, j)
+    assert torch.equal(g1.get_state(), g2.get_state())
+
+
+def test_launch_counters_count_replays(cuda):
+    from ray_tpu_torch.sharding.superstep import SuperstepRunner
+
+    args = _gae_args(4, 16, cuda)
+    src = torch.arange(40, dtype=torch.float32, device=cuda).reshape(10, 4)
+    idx = torch.tensor([3, 1, 4], device=cuda)
+
+    def slot(runner):
+        adv, _ = gae.compute_gae_fragment(*args, 0.99, 0.95)
+        runner.write("adv", adv.sum().reshape(1))
+        for _ in range(2):
+            runner.write("rows", framestack.gather_rows(src, idx).sum().reshape(1))
+
+    runner = SuperstepRunner(cuda, 3, slot)
+    for k in (3, 2, 1):
+        before = (gae.compute_gae_fragment.launches, framestack.gather_rows.launches)
+        out = runner.run(k)
+        assert (gae.compute_gae_fragment.launches - before[0],
+                framestack.gather_rows.launches - before[1]) == (k, 2 * k)
+        assert out["adv"].shape == (k, 1)
+
+
+def test_capture_survives_a_graph_collected_during_it(cuda):
+    """A captured graph that becomes cyclic garbage while another slot
+    is being captured is not collected during the capture (its
+    destructor would invalidate the capture)."""
+    import gc
+
+    from ray_tpu_torch.sharding.superstep import SuperstepRunner
+
+    x = torch.zeros(4, device=cuda)
+    old = SuperstepRunner(cuda, 2, lambda r: r.write("y", x * 2))
+    old.run(2)
+    old.cycle = old  # reachable from here on only through the holder
+    holder = {"old": old}
+    del old
+
+    def slot(runner):
+        if torch.cuda.is_current_stream_capturing():
+            holder.pop("old", None)
+        acc = x
+        for _ in range(64):
+            acc = acc + 1
+        runner.write("x", acc)
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        out = SuperstepRunner(cuda, 3, slot).run(3)
+    finally:
+        gc.set_threshold(*threshold)
+    assert not holder
+    assert np.array_equal(out["x"], np.full((3, 4), 64.0, np.float32))
