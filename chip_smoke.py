@@ -123,6 +123,25 @@ and ``nvcc``. Phases, each printing its own lines:
     ponglite_learn -- ponglitejax-ppo.yaml at K = auto for its 2M env
                steps, or PONG_LEARN_S seconds if that comes first: reward
                against env steps and where it first reached the bar, 18;
+    actor_lane -- tuned_examples/ppo/ponglite-ppo.yaml as written on the
+               actor lane: 2 rollout worker processes of the port's
+               runtime (CPU policies, the card hidden, one torch thread
+               each) x 8 PongLite-v0 envs x T = 128, frame-pool
+               fragments, the learner on the card rebuilding the stacks
+               with the row-gather kernel; one warm, 3 timed and 2 busy-
+               share calls: env-steps/s (median, range), the split
+               (sample round, concat, transfer with bytes, learn,
+               sync_weights), the busy share, pooled and stacked batch
+               counts, the workers' act time per step and os.cpu_count();
+               one row-gather launch per pooled learn call is required,
+               and workers that report the CPU and CUDA uninitialized;
+               then one more round's batch learned pooled and stacked by
+               two fresh learners, bitwise equal, with each copy's bytes
+               and seconds;
+    actor_lane_local -- that yaml at num_workers 0 for one iteration: the
+               local worker acts on the card;
+    actor_learn -- that yaml for ACTOR_LEARN_S seconds: reward against
+               env steps (its 2M steps do not fit; no bar is required);
 13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
@@ -156,9 +175,12 @@ time of a library call's own kernels; every kernel phase prints both.
 ``floor_device_ms`` is the ``device_ms`` of a one-element ``zero_()``,
 the least a kernel launch shows by that timer.
 
-Launch counts are set to 0 just before each of phases 7-13 and read
-just after (the ring's in each rank, before each call); the comparison
-launches of phases 2-6 and of graph_parity do not count. Under a
+Launch counts are set to 0 just before each of phases 7-13 and the
+actor phases and read just after (the ring's in each rank, before each
+call); the comparison launches of phases 2-6, of graph_parity and of
+the actor_lane's pooled-against-stacked learns do not count. The actor
+phases stop their worker processes, and the runtime is shut down before
+the ring. Under a
 superstep's graph a counter counts the card's launches: the runner adds
 the captured slot's launches on each replay. Any failed check raises, and the
 script exits non-zero without printing a result; a ring rank that fails
@@ -1668,6 +1690,210 @@ def phase_ponglite_learn():
     return launches
 
 
+# the actor lane: ponglite-ppo.yaml as written (2 rollout workers x 8
+# envs on the host's CPUs, T = 128, the learner on the card), and its
+# learning run's wall budget
+ACTOR_TUNED = os.path.join(REPO, "tuned_examples", "ppo", "ponglite-ppo.yaml")
+ACTOR_LEARN_S = 120.0
+ACTOR_TIMED_CALLS = 3
+
+
+def _actor_report(worker):
+    """What a rollout worker says of itself (run in its process through
+    ``WorkerSet.foreach_worker``): its policy's device, whether CUDA is
+    initialized there, its torch threads and its sampler's timers."""
+    import torch
+
+    return {
+        "worker_index": worker.worker_index,
+        "policy_device": str(worker.policy().device),
+        "cuda_initialized": torch.cuda.is_initialized(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "torch_threads": torch.get_num_threads(),
+        "num_envs": worker.vector_env.num_envs,
+        "timers": dict(worker.sampler.timers),
+    }
+
+
+def _act_ms_per_step(reports):
+    """Each remote worker's mean ``compute_actions`` time per step of
+    its vector env, in ms, from its sampler's timers."""
+    return [round(1e3 * r["timers"]["act_s"] / max(1, r["timers"]["steps"] / r["num_envs"]), 3)
+            for r in reports]
+
+
+def _pooled_against_stacked(algo, batch):
+    """Two fresh learners of ``algo``'s config learn the same pooled
+    train batch, one as shipped and one rebuilt into stacks on the host
+    (its dedup off): bitwise the same stats and parameters on the same
+    permutations; each one's copy to the card (seconds, bytes)."""
+    import numpy as np
+
+    from ray_tpu_torch.ops.framestack import materialize_fragment
+    from ray_tpu_torch.data.sample_batch import SampleBatch
+
+    cls = type(algo.get_policy())
+    space, act = algo.get_policy().observation_space, algo.get_policy().action_space
+    pooled_p = cls(space, act, dict(algo.config), device=algo.device)
+    stacked_p = cls(space, act, {**algo.config, "dedup_framestack": False}, device=algo.device)
+    stacked = SampleBatch(materialize_fragment(dict(batch), int(space.shape[-1])))
+    perms = pooled_p.draw_permutations(batch.count)
+    s_pooled = pooled_p.learn_on_batch(batch, perms=perms)
+    s_stacked = stacked_p.learn_on_batch(stacked, perms=perms)
+    require(s_pooled == s_stacked, f"pooled and stacked learns differ: {s_pooled} {s_stacked}")
+    for (name, a), b in zip(pooled_p.get_weights().items(), stacked_p.get_weights().values()):
+        require(np.array_equal(a, b), f"pooled and stacked learns differ in {name}")
+    t_p, t_s = pooled_p.last_learn_timers, stacked_p.last_learn_timers
+    require(t_p["learn_frame_pool"] == 1.0 and t_s["learn_frame_pool"] == 0.0,
+            "the comparison did not learn one pooled and one stacked batch")
+    return {"pooled_transfer_s": round(t_p["learn_transfer_s"], 5),
+            "pooled_bytes": int(t_p["learn_transfer_bytes"]),
+            "stacked_transfer_s": round(t_s["learn_transfer_s"], 5),
+            "stacked_bytes": int(t_s["learn_transfer_bytes"])}
+
+
+def phase_actor_lane():
+    """ponglite-ppo.yaml as written on the actor lane: 2 remote rollout
+    workers (CPU policies, the card hidden) x 8 PongLite-v0 envs, T =
+    128, frame-pool fragments, the learner on the card rebuilding the
+    stacks with the row-gather kernel. One warm ``train()``, then 3
+    timed and 2 for the busy share (``device_busy``), with the launch
+    count set to 0 before them: env-steps/s, the split, pooled and
+    stacked batch counts, the workers' act time per step; then one more
+    round's batch learned pooled and stacked by two fresh learners,
+    bitwise."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.algorithms.ppo.ppo import _standardize_advantages
+    from ray_tpu_torch.execution.rollout_ops import synchronous_parallel_sample
+    from ray_tpu_torch.ops.framestack import gather_rows
+
+    algo = ppo_from_yaml(ACTOR_TUNED)
+    try:
+        policy = algo.get_policy()
+        require(policy.device.type == "cuda" and all(p.is_cuda for p in policy.params),
+                "the actor lane's learner is not on the card")
+        nw = algo.workers.num_remote_workers()
+        t0 = time.perf_counter()
+        algo.train()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        results = []
+
+        def train():
+            results.append(algo.train())
+
+        gather_rows.launches = 0
+        walls = []
+        for _ in range(ACTOR_TIMED_CALLS):
+            t0 = time.perf_counter()
+            train()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        busy = device_busy(train, 1)  # one unprofiled call and one profiled
+        launches = gather_rows.launches
+        calls = len(results)
+        pooled = sum(int(r["info"]["timers"]["default_policy"]["learn_frame_pool"]) for r in results)
+        splits = []
+        for r in results[:ACTOR_TIMED_CALLS]:
+            lt = r["info"]["timers"]["default_policy"]
+            t = r["timers"]
+            splits.append({"sample_s": round(t["sample_s"], 4), "concat_s": round(t["concat_s"], 4),
+                           "transfer_s": round(lt["learn_transfer_s"], 4),
+                           "transfer_bytes": int(lt["learn_transfer_bytes"]),
+                           "learn_s": round(t["learn_on_batch_s"] - lt["learn_transfer_s"], 4),
+                           "sync_weights_s": round(t["sync_weights_s"], 4)})
+        require(launches == pooled and launches >= 1,
+                f"{launches} row-gather launches for {pooled} pooled learn calls of {calls}")
+        last = results[-1]
+        learner = last["info"]["learner"]["default_policy"]
+        require(all(math.isfinite(v) for v in learner.values()), f"non-finite learner stats {learner}")
+        reports = algo.workers.foreach_worker(_actor_report)
+        for rep in reports[1:]:
+            require(rep["policy_device"] == "cpu" and rep["cuda_initialized"] is False
+                    and rep["cuda_visible_devices"] == "",
+                    f"rollout worker {rep['worker_index']} touched the card: {rep}")
+        bsize = int(algo.config["train_batch_size"])
+        say("actor_lane", workers=nw, envs_per_worker=algo.config["num_envs_per_worker"],
+            fragment=algo.config["rollout_fragment_length"], cpu_count=os.cpu_count(),
+            env_steps_per_s=json.dumps(spread([bsize / w for w in walls])),
+            iter_s=json.dumps([round(w, 4) for w in walls]), warm_s=f"{warm_s:.2f}",
+            busy_share=busy["busy_share"], busy_wall_s=busy["wall_s"],
+            pooled_batches=pooled, stacked_batches=calls - pooled, row_gather_launches=launches,
+            episode_reward_mean=last["episode_reward_mean"],
+            num_env_steps_sampled=last["num_env_steps_sampled"])
+        say("actor_lane", split=json.dumps(splits))
+        say("actor_lane", act_ms_per_step=json.dumps(_act_ms_per_step(reports[1:])),
+            worker_threads=json.dumps([rep["torch_threads"] for rep in reports[1:]]),
+            worker_timers=json.dumps([{k: round(v, 3) for k, v in rep["timers"].items()}
+                                      for rep in reports[1:]]))
+        say("actor_lane", learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
+        batch = synchronous_parallel_sample(worker_set=algo.workers, max_env_steps=bsize)
+        _standardize_advantages(batch)
+        cmp = _pooled_against_stacked(algo, batch)
+        say("actor_lane", pooled_equals_stacked=True, **cmp)
+        require(np.isfinite(batch["advantages"]).all(), "non-finite advantages")
+        return launches
+    finally:
+        algo.stop()
+
+
+def phase_actor_lane_local():
+    """ponglite-ppo.yaml at ``num_workers: 0`` for one iteration: the
+    local worker samples with the learner's policy on the card (two
+    sample calls of 8 envs x 128 steps), then learns."""
+    import torch
+
+    from ray_tpu_torch.ops.framestack import gather_rows
+
+    algo = ppo_from_yaml(ACTOR_TUNED, num_workers=0)
+    try:
+        gather_rows.launches = 0
+        t0 = time.perf_counter()
+        r = algo.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gather_rows.launches
+        lt = r["info"]["timers"]["default_policy"]
+        require(algo.workers.num_remote_workers() == 0, "num_workers 0 started rollout workers")
+        require(algo.get_policy().device.type == "cuda", "the local worker does not act on the card")
+        require(launches == int(lt["learn_frame_pool"]) and launches == 1,
+                f"{launches} row-gather launches in one pooled learn call")
+        learner = r["info"]["learner"]["default_policy"]
+        require(all(math.isfinite(v) for v in learner.values()), f"non-finite learner stats {learner}")
+        rep = _actor_report(algo.workers.local_worker())
+        say("actor_lane_local", env_steps=r["timesteps_total"], iter_s=f"{wall:.3f}",
+            env_steps_per_s=f"{r['timesteps_total'] / wall:.1f}",
+            act_ms_per_step=json.dumps(_act_ms_per_step([rep])), row_gather_launches=launches,
+            split=json.dumps({k: round(v, 4) for k, v in r["timers"].items()}))
+        return launches
+    finally:
+        algo.stop()
+
+
+def phase_actor_learn():
+    """ponglite-ppo.yaml as written on the actor lane for
+    ``ACTOR_LEARN_S`` seconds of wall clock (its 2M steps do not fit):
+    reward against env steps; no bar is required."""
+    from ray_tpu_torch.ops.framestack import gather_rows
+
+    algo = ppo_from_yaml(ACTOR_TUNED)
+    try:
+        gather_rows.launches = 0
+        curve, wall = learn_curve("actor_learn", algo, None, PONG_STEPS, ACTOR_LEARN_S)
+        launches = gather_rows.launches
+        steps, reward, _ = curve[-1]
+        every = max(1, len(curve) // 40)
+        say("actor_learn", budget_s=ACTOR_LEARN_S, wall_s=f"{wall:.2f}", env_steps=steps,
+            iterations=len(curve), env_steps_per_s=f"{steps / wall:.1f}", episode_reward_mean=reward,
+            row_gather_launches=launches, curve=json.dumps(curve[::every] + curve[-1:]))
+        require(1 <= launches <= len(curve), f"{launches} row-gather launches in {len(curve)} learns")
+        return launches
+    finally:
+        algo.stop()
+
+
 def _graph_equal(what, pairs):
     """Every (graphed, eager) tensor pair bitwise equal, or raise."""
     import torch
@@ -2053,6 +2279,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
 
+    from ray_tpu_torch import core as ray_core
     from ray_tpu_torch.device import resolve_device
 
     resolve_device()
@@ -2077,9 +2304,14 @@ def main() -> int:
     gridrooms = timed(phase_gridrooms)
     timed(phase_graph_parity)
     pong_learn = timed(phase_ponglite_learn)
+    actor = timed(phase_actor_lane)
+    actor_local = timed(phase_actor_lane_local)
+    actor_learn = timed(phase_actor_learn)
+    ray_core.shutdown()
     ring = timed(phase_ring)
     gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"],
-                                  "transformer_dqn": tf_dqn["gather_rows"]}
+                                  "transformer_dqn": tf_dqn["gather_rows"], "actor_lane": actor,
+                                  "actor_lane_local": actor_local, "actor_learn": actor_learn}
     gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"],
                                "cartpole": cartpole, "gridrooms": gridrooms,
                                "ponglite_learn": pong_learn}

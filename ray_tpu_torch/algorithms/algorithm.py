@@ -1,8 +1,14 @@
 """Algorithm: owns the env, the policy and the training loop.
 
-Counterpart of ``ray_tpu/algorithms/algorithm.py``, slimmed to one local
-policy and no worker fleet: ``train()`` runs one ``training_step`` and
-returns a result dict with the reference's keys (``episode_reward_mean``,
+Counterpart of ``ray_tpu/algorithms/algorithm.py``. On the device lane
+(``env_backend: "jax"``) it holds one env and one policy. On the actor
+lane (any other ``env_backend``, for an algorithm whose training step
+has one: ``_actor_lane``) it builds a ``WorkerSet``: a local worker whose
+policy is the learner (``self.policy``, on the algorithm's device) and
+``num_workers`` remote rollout workers on the CPU; episode metrics come
+from every worker's ``get_metrics`` and ``stop()`` ends the workers'
+processes. ``train()`` runs one ``training_step`` and returns a result
+dict with the reference's keys (``episode_reward_mean``,
 ``episodes_this_iter``, ``num_env_steps_sampled``, ``timesteps_total``,
 ``training_iteration``, ``info/learner/default_policy``, ...).
 ``__getstate__``/``__setstate__`` carry the policy state and counters
@@ -15,11 +21,13 @@ import collections
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from ray_tpu_torch import core as ray_core
 from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
 from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.env.registry import get_env_creator
 from ray_tpu_torch.evaluation.metrics import summarize_episodes
+from ray_tpu_torch.evaluation.worker_set import WorkerSet
 from ray_tpu_torch.sharding.superstep import resolve_superstep
 
 NUM_ENV_STEPS_SAMPLED = "num_env_steps_sampled"
@@ -30,6 +38,9 @@ NUM_AGENT_STEPS_TRAINED = "num_agent_steps_trained"
 
 class Algorithm:
     _default_policy_class = None
+    # whether training_step has an actor-lane path (PPO); the others
+    # keep the device lane's construction and raise in training_step
+    _actor_lane = False
 
     @classmethod
     def get_default_config(cls) -> AlgorithmConfig:
@@ -50,13 +61,25 @@ class Algorithm:
         self._episode_history: List = []
         self._episodes_total = 0
         self._extra_metric_sources: List[Callable[[], List]] = []
+        self._timers: Dict[str, float] = collections.defaultdict(float)
         self._rollout_engine = None
+        self.workers = None
 
         env_spec = self.config.get("env")
         if env_spec is None:
             raise ValueError("config has no 'env'")
-        self.env = get_env_creator(env_spec)(dict(self.config.get("env_config") or {}))
         policy_cls = self._default_policy_class
+        if self._actor_lane and self.config.get("env_backend") != "jax":
+            self.workers = WorkerSet(
+                env_creator=get_env_creator(env_spec), policy_cls=policy_cls,
+                config=self.config, num_workers=int(self.config.get("num_workers", 0)),
+                device=self.device,
+            )
+            local = self.workers.local_worker()
+            self.env = local.env
+            self.policy = local.policy()
+            return
+        self.env = get_env_creator(env_spec)(dict(self.config.get("env_config") or {}))
         self.policy = policy_cls(
             self.env.observation_space, self.env.action_space,
             self.config, device=self.device,
@@ -83,6 +106,11 @@ class Algorithm:
             "info": {"learner": train_info, **self._counters},
         }
         results.update(self._collect_rollout_metrics())
+        learn_timers = getattr(self.policy, "last_learn_timers", None)
+        if learn_timers:
+            results["info"]["timers"] = {DEFAULT_POLICY_ID: dict(learn_timers)}
+        if self._timers:
+            results["timers"] = dict(self._timers)
         results[NUM_ENV_STEPS_TRAINED] = self._counters[NUM_ENV_STEPS_TRAINED]
         results[NUM_ENV_STEPS_SAMPLED] = self._counters[NUM_ENV_STEPS_SAMPLED]
         results["timesteps_total"] = self._counters[NUM_ENV_STEPS_SAMPLED]
@@ -92,6 +120,12 @@ class Algorithm:
 
     def _collect_rollout_metrics(self) -> Dict:
         episodes = []
+        if self.workers is not None:
+            remote = self.workers.remote_workers()
+            if remote:
+                for eps in ray_core.get([w.get_metrics.remote() for w in remote]):
+                    episodes.extend(eps)
+            episodes.extend(self.workers.local_worker().get_metrics())
         for src in self._extra_metric_sources:
             episodes.extend(src())
         self._episode_history.extend(episodes)
@@ -121,4 +155,6 @@ class Algorithm:
         self._iteration = state.get("iteration", 0)
 
     def stop(self) -> None:
-        """Nothing to release: no worker processes in this slice."""
+        """Stop the workers and end the remote workers' processes."""
+        if self.workers is not None:
+            self.workers.stop()

@@ -3,7 +3,11 @@
 Counterpart of ``ray_tpu/algorithms/algorithm_config.py``, slimmed to
 what the ported path reads. It takes the same config dicts and the keys
 of the tuned-example yamls (``update_from_dict`` sets any key, as the
-reference does). ``env_backend: "jax"`` selects the device rollout lane.
+reference does). ``env_backend: "jax"`` selects the device rollout lane;
+any other value (the default, ``"actor"``) the actor lane, whose keys
+keep the reference's names and defaults and are read where they are
+used (``observation_filter``, ``batch_mode``, ``num_cpus_per_worker``,
+...; ``sample_async`` and ``sample_prefetch`` raise for now).
 The one new key is ``device``: None runs on CUDA (and raises without
 it), ``"cpu"`` runs on the CPU. ``superstep`` (``"auto"``: 8 updates
 per host call on CUDA, 1 on the CPU; an int forces K), ``nan_guard``

@@ -258,10 +258,11 @@ class DQNTorchPolicy(TorchPolicy):
     def _td_input_tree(self, samples) -> Dict[str, torch.Tensor]:
         if getattr(samples, "is_device_resident", False):
             return samples.tree
-        return {
+        # a stacked batch whose rows slide comes back as a frame pool
+        return self._with_stacks({
             k: torch.as_tensor(np.asarray(v)).to(self.device)
             for k, v in self._batch_to_train_tree(samples).items()
-        }
+        })
 
     @torch.no_grad()
     def compute_td_error(self, samples) -> np.ndarray:

@@ -6,14 +6,20 @@ x minibatches nest of :class:`TorchPolicy`. ``PPO.training_step`` runs
 on the device lane (``env_backend: jax`` in the reference's configs,
 which here means "on the device"): K superstep slots of [roll out N x T
 steps on the card, GAE there, the SGD nest on the device-resident
-batch], one CUDA graph replayed K times (``config.superstep``). The
-actor lane (CPU rollout workers) is not ported yet.
+batch], one CUDA graph replayed K times (``config.superstep``). Any
+other ``env_backend`` runs the actor lane, the reference's default
+(``ray_tpu/algorithms/ppo/ppo.py:214-250``): rollout workers sample on
+the CPU (GAE on the host, in each worker's postprocessing) and ship
+pixel fragments as frame pools, and the learner on the card rebuilds
+the stacks with the row-gather kernel in its ``learn_on_batch``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ray_tpu_torch.algorithms.algorithm import (
@@ -24,7 +30,10 @@ from ray_tpu_torch.algorithms.algorithm import (
     Algorithm,
 )
 from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
-from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, SampleBatch
+from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, SampleBatch, concat_samples
+from ray_tpu_torch.evaluation.postprocessing import compute_gae_for_sample_batch
+from ray_tpu_torch.execution.rollout_ops import synchronous_parallel_sample
+from ray_tpu_torch.execution.train_ops import train_one_step
 from ray_tpu_torch.policy.torch_policy import TorchPolicy
 
 
@@ -152,9 +161,21 @@ class PPOTorchPolicy(TorchPolicy):
                 self.coeff_values["kl_coeff"] *= 0.5
         return {"cur_kl_coeff": self.coeff_values["kl_coeff"]}
 
+    def postprocess_trajectory(self, sample_batch, other_agent_batches=None, episode=None):
+        """GAE on the host (the actor lane), bootstrapped with
+        :meth:`value_batch`."""
+        return compute_gae_for_sample_batch(self, sample_batch, other_agent_batches, episode)
+
+
+def _standardize_advantages(b) -> None:
+    """Advantages standardized over the whole train batch."""
+    adv = np.asarray(b[SampleBatch.ADVANTAGES], np.float32)
+    b[SampleBatch.ADVANTAGES] = ((adv - adv.mean()) / max(1e-4, adv.std())).astype(np.float32)
+
 
 class PPO(Algorithm):
     _default_policy_class = PPOTorchPolicy
+    _actor_lane = True
 
     @classmethod
     def get_default_config(cls) -> PPOConfig:
@@ -193,10 +214,7 @@ class PPO(Algorithm):
         default), else K eager rollout-then-learn rounds. The KL
         coefficient adapts on the drained per-update stats, in order."""
         if self.config.get("env_backend") != "jax":
-            raise NotImplementedError(
-                "the actor lane is not ported yet; set env_backend='jax' "
-                "to run PPO on the device lane"
-            )
+            return self._training_step_actor_lane()
         eng = self._engine()
         policy = self.get_policy()
         bsize = eng.batch_size
@@ -223,3 +241,35 @@ class PPO(Algorithm):
             self._counters[key] += K * bsize
         policy.global_timestep = self._counters[NUM_ENV_STEPS_SAMPLED]
         return {DEFAULT_POLICY_ID: info}
+
+    def _training_step_actor_lane(self) -> Dict:
+        """The reference's ``training_step`` off the device lane: a
+        synchronous sample round to ``train_batch_size`` env steps, the
+        advantages standardized over the batch, one ``learn_on_batch`` on
+        the local worker, then the new weights and the timestep to every
+        worker (and the filters, when one is set). The parts' seconds go
+        to ``self._timers`` (``sample_s``, ``concat_s``,
+        ``learn_on_batch_s``, ``sync_weights_s``)."""
+        if int(self.config.get("sample_prefetch") or 0) > 0:
+            raise NotImplementedError(
+                "sample_prefetch > 0 (the prefetch path with device_feed.py) is "
+                "not ported yet: ROADMAP.md queue 1 item 3"
+            )
+        t0 = time.perf_counter()
+        batches = synchronous_parallel_sample(
+            worker_set=self.workers, max_env_steps=self.config["train_batch_size"], concat=False,
+        )
+        t1 = time.perf_counter()
+        train_batch = concat_samples(batches)
+        self._timers["sample_s"] = t1 - t0
+        self._timers["concat_s"] = time.perf_counter() - t1
+        self._counters[NUM_ENV_STEPS_SAMPLED] += train_batch.env_steps()
+        self._counters[NUM_AGENT_STEPS_SAMPLED] += train_batch.env_steps()
+        _standardize_advantages(train_batch)
+        train_info = train_one_step(self, train_batch)
+        t2 = time.perf_counter()
+        self.workers.sync_weights(global_vars={"timestep": self._counters[NUM_ENV_STEPS_SAMPLED]})
+        if self.config.get("observation_filter") not in (None, "NoFilter"):
+            self.workers.sync_filters()
+        self._timers["sync_weights_s"] = time.perf_counter() - t2
+        return train_info

@@ -14,7 +14,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ray_tpu_torch.ops.framestack import FRAME_IDX, FRAMES
+from ray_tpu_torch.ops.framestack import FRAME_IDX, FRAMES, materialize_fragment
 
 # Column name constants (same strings as the JAX package).
 OBS = "obs"
@@ -121,14 +121,25 @@ class SampleBatch(dict):
 
 def concat_samples(batches: Sequence[SampleBatch]) -> SampleBatch:
     """Concatenate row-wise. Frame-pool batches merge their pools and
-    offset each batch's first-frame indices."""
+    offset each batch's first-frame indices; a mix of pooled and stacked
+    batches rebuilds the pooled ones' stacks first."""
     if not batches:
         return SampleBatch()
     pooled = [FRAMES in b for b in batches]
     if any(pooled) and not all(pooled):
-        raise ValueError(
-            "cannot concatenate frame-pool batches with stacked ones"
+        # compression is per fragment and depends on the data (one
+        # worker's fragment can pool while a sibling's cannot), so a mix
+        # goes back to stacks, with the depth of a stacked sibling
+        stack_k = next(
+            int(np.asarray(b[OBS]).shape[-1])
+            for b in batches
+            if FRAMES not in b and OBS in b
         )
+        batches = [
+            SampleBatch(materialize_fragment(dict(b), stack_k)) if p else b
+            for b, p in zip(batches, pooled)
+        ]
+        pooled = [False] * len(batches)
     out = {}
     keys = list(batches[0].keys())
     if all(pooled):
@@ -141,5 +152,5 @@ def concat_samples(batches: Sequence[SampleBatch]) -> SampleBatch:
         keys = [k for k in keys if k not in (FRAMES, FRAME_IDX)]
     for k in keys:
         if _is_row_col(k):
-            out[k] = _cat([b[k] for b in batches])
+            out[k] = _cat([b[k] for b in batches if k in b])
     return SampleBatch(out)

@@ -21,6 +21,7 @@ from ray_tpu_torch.models import distributions as dists
 from ray_tpu_torch.models.base import TorchModel
 from ray_tpu_torch.models.cnn import VisionNet, get_filter_config
 from ray_tpu_torch.models.fcnet import FCNet
+from ray_tpu_torch.models.preprocessors import get_preprocessor_for_space
 from ray_tpu_torch.models.transformer import TransformerPolicyNet
 
 MODEL_DEFAULTS: Dict[str, Any] = {
@@ -51,6 +52,11 @@ def _pair(v) -> Tuple[int, int]:
 
 
 class ModelCatalog:
+    @staticmethod
+    def get_preprocessor_for_space(obs_space):
+        """The observation preprocessor of ``models/preprocessors.py``."""
+        return get_preprocessor_for_space(obs_space)
+
     @staticmethod
     def get_action_dist(action_space, config: Optional[Dict] = None) -> Tuple[type, int]:
         """→ (dist_class, required model output size)."""

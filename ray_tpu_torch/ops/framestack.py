@@ -13,11 +13,17 @@ does the same with the row-scatter kernel (``csrc/row_scatter.cu``) and
 :func:`scatter_rows_plain`: the replay ring's insert. There is no other
 choice between a kernel and its plain version: a CUDA tensor launches
 the kernel or raises.
+
+The host side of the format is numpy, bitwise the reference's: a worker
+compresses a fragment's stacks into a pool (:func:`compress_fragment_obs`,
+:func:`compress_replay_obs`), a learner pools a stacked batch
+(:func:`decompose_segmented_obs`), and :func:`materialize_fragment`
+rebuilds the stacks on the host.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +33,9 @@ from ray_tpu_torch.ops import _kernels
 # Batch columns of the deduplicated format.
 FRAMES = "obs_frames"
 FRAME_IDX = "obs_frame_idx"
+# the stacked columns a pool stands for (the names of ``data/sample_batch.py``)
+OBS = "obs"
+NEXT_OBS = "new_obs"
 
 
 def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -206,6 +215,124 @@ def frame_stream_columns(
     }
 
 
+def decompose_stacked_obs(obs: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Recover (frame_stream, idx) from a stacked (N, H, W, k) obs
+    column if its rows really are a sliding window (consecutive rows
+    share k-1 frames); None when they are not."""
+    n, h, w, k = obs.shape
+    if k <= 1 or n < 2:
+        return None
+    if not np.array_equal(obs[1:, :, :, : k - 1], obs[:-1, :, :, 1:]):
+        return None
+    stream = np.concatenate(
+        [
+            np.moveaxis(obs[0], -1, 0)[..., None],  # (k, H, W, 1)
+            obs[1:, :, :, -1][..., None],  # (N-1, H, W, 1)
+        ],
+        axis=0,
+    )
+    return stream, np.arange(n, dtype=np.int32)
+
+
+def decompose_segmented_obs(
+    obs: np.ndarray, new_segment: np.ndarray
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """:func:`decompose_stacked_obs` for a batch of several sliding
+    windows back to back (fragments of different envs or episodes).
+
+    ``new_segment``: (N,) bool, True where row i does not slide from row
+    i-1 (row 0 always starts one). Rows inside a segment are verified to
+    slide; any mismatch returns None, so the caller ships the stacks
+    unchanged. Returns ``(stream, idx)``; each segment contributes
+    k + (len - 1) frames to the stream."""
+    n, h, w, k = obs.shape
+    if k <= 1 or n == 0:
+        return None
+    new_segment = np.asarray(new_segment, bool).copy()
+    new_segment[0] = True
+    slide_rows = np.flatnonzero(~new_segment)
+    # verify in row chunks: indexing the whole batch at once would make
+    # two more copies of a pixel batch on the host
+    for c in range(0, slide_rows.size, 64):
+        rows = slide_rows[c : c + 64]
+        if not np.array_equal(obs[rows, :, :, : k - 1], obs[rows - 1, :, :, 1:]):
+            return None
+    starts = np.flatnonzero(new_segment)
+    bounds = np.append(starts, n)
+    idx = np.empty(n, np.int32)
+    pieces = []
+    off = 0
+    for s, e in zip(bounds[:-1], bounds[1:]):
+        seg_len = int(e - s)
+        # a segment's first row gives its k frames, later rows 1 new one
+        pieces.append(np.moveaxis(obs[s], -1, 0)[..., None])
+        if seg_len > 1:
+            pieces.append(obs[s + 1 : e, :, :, -1][..., None])
+        idx[s:e] = off + np.arange(seg_len, dtype=np.int32)
+        off += seg_len + k - 1
+    return np.concatenate(pieces, axis=0), idx
+
+
+def compress_fragment_obs(
+    obs: np.ndarray, next_obs: np.ndarray, dones: np.ndarray
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """A rollout fragment's stacked obs columns as a frame pool, on the
+    worker, before the fragment ships.
+
+    The pool covers NEXT_OBS by sliding: ``next_obs[t]`` is the stack at
+    ``idx[t] + 1``, so only the fragment's last bootstrap frame is
+    appended (a pseudo-row). ``dones`` marks episode resets inside the
+    fragment: the row after a done starts a new window. Returns ``(pool,
+    idx)`` with T indices, or None when the rows are not sliding windows
+    (the caller ships the stacks)."""
+    T = obs.shape[0]
+    if T == 0:
+        return None
+    ext = np.concatenate([obs, next_obs[-1:]], axis=0)
+    seg = np.zeros(T + 1, bool)
+    seg[0] = True
+    if T > 1:
+        seg[1:T] = np.asarray(dones[: T - 1], bool)
+    dec = decompose_segmented_obs(ext, seg)
+    if dec is None:
+        return None
+    pool, idx = dec
+    return pool, idx[:T]
+
+
+def compress_replay_obs(
+    obs: np.ndarray, next_obs: np.ndarray, dones: np.ndarray
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """The replay family's :func:`compress_fragment_obs`: the pool covers
+    OBS and NEXT_OBS exactly, each episode's terminal stack included
+    (each episode segment adds its final ``next_obs`` as a pseudo-row),
+    so ``obs[t] == stack(idx[t])`` and ``next_obs[t] == stack(idx[t] +
+    1)`` for every t. None when the rows are not sliding windows."""
+    T = obs.shape[0]
+    if T == 0:
+        return None
+    dones = np.asarray(dones[:T], bool)
+    # every done row ends a segment; the last row always does
+    seg_end = dones.copy()
+    seg_end[T - 1] = True
+    end_rows = np.flatnonzero(seg_end)
+    # each segment's terminal next_obs goes right after its end row
+    # (np.insert's indices are positions before the insert)
+    ext = np.insert(obs, end_rows + 1, next_obs[end_rows], axis=0)
+    n_seg = len(end_rows)
+    starts = np.concatenate(([0], end_rows[:-1] + 1))
+    new_segment = np.zeros(T + n_seg, bool)
+    new_segment[starts + np.arange(n_seg)] = True
+    dec = decompose_segmented_obs(ext, new_segment)
+    if dec is None:
+        return None
+    pool, ext_idx = dec
+    # obs row t sits at ext position t + (pseudo-rows before its segment)
+    seg_id = np.zeros(T, np.int64)
+    seg_id[1:] = np.cumsum(dones[:-1])
+    return pool, ext_idx[np.arange(T) + seg_id]
+
+
 def materialize_stacks_np(
     pool: np.ndarray, idx: np.ndarray, k: int
 ) -> np.ndarray:
@@ -213,3 +340,19 @@ def materialize_stacks_np(
     frame indices → (N, H, W, k) stacked observations."""
     gathered = pool[idx[:, None] + np.arange(k)[None, :]]
     return np.moveaxis(gathered[..., 0], 1, -1)
+
+
+def materialize_fragment(batch_cols: Dict, k: int) -> Dict:
+    """Undo :func:`compress_fragment_obs` on a batch's columns: OBS
+    exactly, NEXT_OBS as the ``idx + 1`` stacks. Those are exact within
+    segments and at the final bootstrap row; at an episode-reset row
+    inside the fragment the terminal next_obs was not pooled, so that
+    row gets the following row's reset obs (the on-policy family drops
+    the column, and nothing else reads it there)."""
+    cols = dict(batch_cols)
+    pool = np.asarray(cols.pop(FRAMES))
+    idx = np.asarray(cols.pop(FRAME_IDX), np.int64)
+    cols[OBS] = materialize_stacks_np(pool, idx, k)
+    next_idx = np.minimum(idx + 1, len(pool) - k)
+    cols[NEXT_OBS] = materialize_stacks_np(pool, next_idx, k)
+    return cols

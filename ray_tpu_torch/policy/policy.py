@@ -44,6 +44,17 @@ class Policy:
     def get_initial_state(self) -> List[np.ndarray]:
         return []
 
+    @property
+    def is_recurrent(self) -> bool:
+        return bool(self.get_initial_state())
+
+    def postprocess_trajectory(self, sample_batch, other_agent_batches=None, episode=None):
+        """A fragment's host postprocessing on the actor lane (PPO: GAE)."""
+        return sample_batch
+
+    def on_global_var_update(self, global_vars: Dict[str, Any]) -> None:
+        self.global_timestep = global_vars.get("timestep", self.global_timestep)
+
     def learn_on_batch(self, samples) -> Dict[str, Any]:
         raise NotImplementedError
 

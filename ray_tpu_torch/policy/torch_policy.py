@@ -2,7 +2,9 @@
 
 Counterpart of ``ray_tpu/policy/jax_policy.py``'s ``JaxPolicy``: model
 and optimizer construction, the act path (``_action_step_body``,
-``compute_actions``, ``value_batch``), the frame-pool rebuild, the
+``compute_actions``, ``value_batch``), the frame-pool format (a stacked
+batch pooled on the host, a fragment compressed for shipping, the stacks
+rebuilt on the device by the row-gather kernel), the
 ``num_sgd_iter`` epochs x minibatches SGD nest, ``learn_on_batch`` /
 ``learn_on_device_batch``, and weights and state. PyTorch runs eagerly,
 so the nest is a Python loop over minibatches where the reference
@@ -34,6 +36,7 @@ on the card, the same body run K times on the CPU.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -42,7 +45,14 @@ import torch
 from ray_tpu_torch.data.sample_batch import SampleBatch
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models.catalog import ModelCatalog
-from ray_tpu_torch.ops.framestack import FRAME_IDX, FRAMES, build_stacks
+from ray_tpu_torch.ops.framestack import (
+    FRAME_IDX,
+    FRAMES,
+    build_stacks,
+    compress_fragment_obs,
+    compress_replay_obs,
+    decompose_segmented_obs,
+)
 from ray_tpu_torch.policy.policy import Policy
 from ray_tpu_torch.sharding.superstep import SuperstepRunner, batch_finite
 from ray_tpu_torch.utils.exploration import exploration_from_config
@@ -195,6 +205,7 @@ class TorchPolicy(Policy):
         )
         self.num_sgd_iter = int(config.get("num_sgd_iter", 1))
         self.num_grad_updates = 0
+        self.last_learn_timers: Dict[str, float] = {}
 
         self.exploration = exploration_from_config(
             config, action_space, self.model_config,
@@ -308,11 +319,13 @@ class TorchPolicy(Policy):
         self.coeff_values["entropy_coeff"] = float(self._entropy_schedule(t))
 
     def _batch_to_train_tree(self, samples) -> Dict[str, np.ndarray]:
-        """Training columns as a flat dict of host arrays."""
+        """Training columns as a flat dict of host arrays; a stacked
+        pixel OBS column whose rows slide becomes a frame pool
+        (:meth:`_maybe_dedup_framestack`)."""
         drop = {SampleBatch.INFOS, SampleBatch.SEQ_LENS}
         if not self._ship_next_obs:
             drop.add(SampleBatch.NEXT_OBS)
-        return {
+        tree = {
             k: np.asarray(v)
             for k, v in samples.items()
             if k not in drop
@@ -320,6 +333,89 @@ class TorchPolicy(Policy):
             and isinstance(v, np.ndarray)
             and v.dtype != object
         }
+        return self._maybe_dedup_framestack(tree)
+
+    # -- the frame-pool format on the host ---------------------------------
+
+    def _pixel_obs(self, obs) -> bool:
+        """A stacked (N, H, W, k) pixel column of a feed-forward model."""
+        return (
+            isinstance(obs, np.ndarray)
+            and obs.ndim == 4
+            and 2 <= obs.shape[-1] <= 8
+            and not self.model.is_recurrent
+        )
+
+    def _maybe_dedup_framestack(self, tree: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """A stacked (N, H, W, k) OBS column as the frame pool + index
+        columns, when its rows really are sliding windows (about k times
+        fewer obs bytes to the device). Segment boundaries (fragment
+        starts, episode resets) come from the batch's UNROLL_ID, EPS_ID,
+        AGENT_INDEX and T columns; the decomposition checks every slide
+        and keeps the stacks when one fails. Config keys as in the
+        reference: ``dedup_framestack`` (default on) and
+        ``dedup_framestack_min_bytes`` (1 MiB)."""
+        obs = tree.get(SampleBatch.OBS)
+        if (
+            not self._pixel_obs(obs)
+            or not self.config.get("dedup_framestack", True)
+            or obs.nbytes < self.config.get("dedup_framestack_min_bytes", 1 << 20)
+        ):
+            return tree
+        n = obs.shape[0]
+        seg = np.zeros(n, bool)
+        seg[0] = True
+        for col in (SampleBatch.UNROLL_ID, SampleBatch.EPS_ID, SampleBatch.AGENT_INDEX):
+            v = tree.get(col)
+            if v is not None and len(v) == n:
+                seg[1:] |= v[1:] != v[:-1]
+        tcol = tree.get(SampleBatch.T)
+        if tcol is not None and len(tcol) == n:
+            seg[1:] |= tcol[1:] != tcol[:-1] + 1
+        out = decompose_segmented_obs(obs, seg)
+        if out is None:
+            return tree
+        tree = dict(tree)
+        del tree[SampleBatch.OBS]
+        tree[FRAMES], tree[FRAME_IDX] = out
+        return tree
+
+    def compress_for_shipping(self, batch: SampleBatch) -> SampleBatch:
+        """On the worker, after postprocessing, before a fragment ships:
+        stacked pixel observations become the frame pool + index columns
+        (``compress_fragment_obs``), about 2k single frames' bytes per
+        step less through pickle, the object plane, the main process's concat
+        and the copy to the card. On-policy losses (no NEXT_OBS) train
+        from the pool; a loss that reads NEXT_OBS pools both columns
+        (:meth:`_compress_replay_shipping`).
+        ``compress_obs_shipping: False`` or an ``output`` writer keeps
+        the stacks."""
+        if not self.config.get("compress_obs_shipping", True) or self.config.get("output"):
+            return batch
+        if self._ship_next_obs:
+            return self._compress_replay_shipping(batch)
+        return self._compress_with(batch, compress_fragment_obs)
+
+    def _compress_replay_shipping(self, batch: SampleBatch) -> SampleBatch:
+        """The replay family's compression: OBS and NEXT_OBS pool
+        together, each episode's terminal stack as a pseudo-row, so
+        ``materialize_fragment`` rebuilds both columns byte for byte
+        (``compress_replay_obs``)."""
+        return self._compress_with(batch, compress_replay_obs)
+
+    def _compress_with(self, batch: SampleBatch, compress) -> SampleBatch:
+        obs = batch.get(SampleBatch.OBS)
+        if not self._pixel_obs(obs) or SampleBatch.NEXT_OBS not in batch:
+            return batch
+        dones = np.asarray(batch[SampleBatch.TERMINATEDS], bool) | np.asarray(
+            batch.get(SampleBatch.TRUNCATEDS, np.zeros(batch.count, bool)), bool
+        )
+        dec = compress(obs, np.asarray(batch[SampleBatch.NEXT_OBS]), dones)
+        if dec is None:
+            return batch
+        cols = {k: v for k, v in batch.items() if k not in (SampleBatch.OBS, SampleBatch.NEXT_OBS)}
+        cols[FRAMES], cols[FRAME_IDX] = dec
+        return SampleBatch(cols)
 
     def prepare_batch(self, samples) -> Tuple[Dict[str, np.ndarray], int]:
         """Host tree for the learn call and its row count (the frame
@@ -373,11 +469,23 @@ class TorchPolicy(Policy):
                 runner.graph = None
 
     def learn_on_batch(self, samples, perms: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-        """One full multi-epoch SGD update on a host batch."""
+        """One full multi-epoch SGD update on a host batch. The copy to
+        the device is timed to its end (``last_learn_timers``:
+        ``learn_transfer_s`` and ``learn_transfer_bytes``; the nest
+        would wait for it anyway); ``learn_frame_pool`` is 1 for a
+        frame-pool batch, whose stacks the row-gather kernel rebuilds."""
         batch, bsize = self.prepare_batch(samples)
+        t0 = time.perf_counter()
         dev = {
             k: torch.as_tensor(v).to(self.device, non_blocking=True)
             for k, v in batch.items()
+        }
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.last_learn_timers = {
+            "learn_transfer_s": time.perf_counter() - t0,
+            "learn_transfer_bytes": float(sum(v.nbytes for v in batch.values())),
+            "learn_frame_pool": float(FRAMES in batch),
         }
         return self.learn_on_device_batch(dev, bsize, perms=perms)
 

@@ -47,6 +47,12 @@ class Exploration:
     def update_coeffs(self, coeff_values: Dict, timestep: int) -> None:
         """Advance schedules (host side)."""
 
+    def postprocess_trajectory(self, policy, sample_batch):
+        """A fragment's host postprocessing before the policy's own (the
+        actor lane's sampler calls it); the ported strategies add
+        nothing."""
+        return sample_batch
+
 
 class StochasticSampling(Exploration):
     """Sample from the action distribution when exploring, its mode

@@ -707,3 +707,56 @@ def test_capture_survives_a_graph_collected_during_it(cuda):
         gc.set_threshold(*threshold)
     assert not holder
     assert np.array_equal(out["x"], np.full((3, 4), 64.0, np.float32))
+
+
+def _actor_lane_batches(rng, frags=4, n=128):
+    """A pooled train batch as the actor lane's workers ship it (one
+    ``compress_for_shipping`` per fragment, then the main process's concat) at
+    the 84x84x4 geometry, and its stacked original."""
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+    from ray_tpu_torch.data.sample_batch import SampleBatch, concat_samples
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    shipper = PPOTorchPolicy(Box(0, 255, (84, 84, 4), np.uint8), Discrete(3), {}, device="cpu")
+    shipped = []
+    for i in range(frags):
+        stream = rng.integers(0, 256, (n + 4, 84, 84, 1), dtype=np.uint8)
+        obs = framestack.materialize_stacks_np(stream, np.arange(n + 1), 4)
+        shipped.append(shipper.compress_for_shipping(SampleBatch({
+            "obs": obs[:n], "new_obs": obs[1:], "dones": np.zeros(n, bool),
+            "truncateds": np.zeros(n, bool), "actions": rng.integers(0, 3, n),
+            "action_logp": np.full(n, -1.1, np.float32),
+            "action_dist_inputs": rng.standard_normal((n, 3)).astype(np.float32),
+            "advantages": rng.standard_normal(n).astype(np.float32),
+            "value_targets": rng.standard_normal(n).astype(np.float32),
+            "eps_id": np.full(n, i, np.int64), "unroll_id": np.full(n, i, np.int64),
+        })))
+    pooled = concat_samples(shipped)
+    assert framestack.FRAMES in pooled
+    return pooled, SampleBatch(framestack.materialize_fragment(dict(pooled), 4))
+
+
+def test_pooled_learn_equals_stacked_learn_on_card(cuda):
+    """The actor lane's pooled batch (stacks rebuilt by the row-gather
+    kernel) and its stacked original learn bitwise the same parameters
+    and stats on the same permutations, with the default bf16 VisionNet;
+    one gather launch per pooled learn call, none for the stacked one."""
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    pooled, stacked = _actor_lane_batches(np.random.default_rng(0))
+    cfg = {"seed": 0, "train_batch_size": 512, "sgd_minibatch_size": 128, "num_sgd_iter": 2,
+           "lr": 2.5e-4, "dedup_framestack": False}
+    a, b = (PPOTorchPolicy(Box(0, 255, (84, 84, 4), np.uint8), Discrete(3), cfg, device=cuda)
+            for _ in range(2))
+    for _ in range(2):
+        perms = a.draw_permutations(512)
+        before = framestack.gather_rows.launches
+        sa = a.learn_on_batch(pooled, perms=perms)
+        assert framestack.gather_rows.launches == before + 1
+        sb = b.learn_on_batch(stacked, perms=perms)
+        assert framestack.gather_rows.launches == before + 1
+        assert sa == sb
+    for (name, wa), wb in zip(a.get_weights().items(), b.get_weights().values()):
+        assert np.array_equal(wa, wb), name
+    assert a.last_learn_timers["learn_transfer_bytes"] * 3 < b.last_learn_timers["learn_transfer_bytes"]
