@@ -142,6 +142,34 @@ and ``nvcc``. Phases, each printing its own lines:
                local worker acts on the card;
     actor_learn -- that yaml for ACTOR_LEARN_S seconds: reward against
                env steps (its 2M steps do not fit; no bar is required);
+    impala   -- IMPALA at bench_e2e.py's ``_impala_pong`` geometry
+               (:func:`impala_config`: PongLite-v0, 2 worker processes x
+               8 envs, fixed unrolls of T = 64, train batch 1024, the
+               default bf16 Nature CNN) for IMPALA_WINDOW_S seconds after
+               one warm iteration: env-steps/s sampled and trained, the
+               learner thread's steps, queue wait, grad and publish time,
+               the main thread's harvest, concat and broadcast time, the
+               feeder's bytes and copy times per batch, the busy share of
+               one more call, the workers' act time per step and V-trace's
+               device time at (16, 64); one row-gather launch per learner
+               step and a live learner thread are required;
+    impala_parity -- one round's pooled batch from that run learned twice
+               through the learner thread (the feeder's pinned side-stream
+               copy, deferred stats) and twice through ``learn_on_batch``
+               by two fresh policies of one seed: bitwise equal; its
+               (16, 65) unroll index rebuilt by the row gather on the card
+               bitwise equal to the host's stacks, and the round learned
+               pooled and stacked on the host by two fresh learners:
+               bitwise equal;
+    appo     -- APPO at the same geometry for APPO_WINDOW_S seconds: the
+               impala phase's readings and the target refreshes (> 0
+               required);
+    ppo_prefetch -- ponglite-ppo.yaml with ``sample_prefetch: 1``: the
+               first iteration's learner stats bitwise equal to a fresh
+               synchronous run's, then PREFETCH_WINDOW_S seconds of calls:
+               env-steps/s harvested and trained over the window, each
+               call's split, the feeder's copies, one row-gather launch
+               per learn;
 13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
@@ -176,7 +204,8 @@ time of a library call's own kernels; every kernel phase prints both.
 the least a kernel launch shows by that timer.
 
 Launch counts are set to 0 just before each of phases 7-13 and the
-actor phases and read just after (the ring's in each rank, before each
+actor phases and read just after (on the learner-thread paths, between
+two learner steps) (the ring's in each rank, before each
 call); the comparison launches of phases 2-6, of graph_parity and of
 the actor_lane's pooled-against-stacked learns do not count. The actor
 phases stop their worker processes, and the runtime is shut down before
@@ -1894,6 +1923,324 @@ def phase_actor_learn():
         algo.stop()
 
 
+IMPALA_WINDOW_S = 60.0
+APPO_WINDOW_S = 30.0
+PREFETCH_WINDOW_S = 20.0
+
+
+def impala_config(config_cls, **over):
+    """bench_e2e.py:93-111's ``_impala_pong`` as written: PongLite-v0, 2
+    rollout worker processes x 8 envs, fixed unrolls of T = 64, train
+    batch 1024, lr 4e-4, entropy 0.01, vf 0.5, grad clip 40, seed 0, the
+    default bf16 Nature CNN on 84x84x4."""
+    cfg = config_cls().update_from_dict({
+        "num_workers": 2, "num_envs_per_worker": 8, "rollout_fragment_length": 64,
+        "train_batch_size": 1024, "lr": 4e-4, "entropy_coeff": 0.01, "vf_loss_coeff": 0.5,
+        "grad_clip": 40.0, "seed": 0, **over,
+    })
+    cfg.env = "PongLite-v0"
+    return cfg
+
+
+def _learner_snapshot(algo):
+    """The learner thread's counters and the row-gather count, read
+    between two of its steps (under its step lock)."""
+    from ray_tpu_torch.ops.framestack import gather_rows
+
+    lt = algo._learner_thread
+    with lt.lock:
+        return {"steps": lt.num_steps, "gathers": gather_rows.launches,
+                "sampled": algo._counters["num_env_steps_sampled"],
+                "trained": algo._counters["num_env_steps_trained"],
+                "t": time.perf_counter(), **lt.stats(), **dict(algo._timers)}
+
+
+def span_overlap(spans, others):
+    """The share of the summed length of ``spans`` that some span of
+    ``others`` covers ((start, end) pairs; ``others`` do not overlap
+    each other)."""
+    total = sum(b - a for a, b in spans)
+    covered = sum(max(0.0, min(b, d) - max(a, c)) for a, b in spans for c, d in others
+                  if c < b and d > a)
+    return covered / total if total else 0.0
+
+
+def actor_learner_window(phase, algo, window_s):
+    """``algo.train()`` for ``window_s`` seconds after one warm call, the
+    row-gather count set to 0 at the window's start (between two learner
+    steps): rates, the learner's and the main thread's splits, the feeder's
+    copies, the row-gather launches against learner steps (one each:
+    every learn rebuilt a pooled batch) and the last learner stats."""
+    import torch
+
+    from ray_tpu_torch.ops.framestack import gather_rows
+
+    lt = algo._learner_thread
+    require(algo.get_policy().device.type == "cuda", f"the {phase} learner is not on the card")
+    t0 = time.perf_counter()
+    algo.train()
+    warm_s = time.perf_counter() - t0
+    with lt.lock:
+        gather_rows.launches = 0
+    a = _learner_snapshot(algo)
+    iters = 0
+    while time.perf_counter() - a["t"] < window_s:
+        r = algo.train()
+        iters += 1
+    torch.cuda.synchronize()
+    b = _learner_snapshot(algo)
+    wall = b["t"] - a["t"]
+    d = {k: b.get(k, 0) - a.get(k, 0)
+         for k in ("steps", "sampled", "trained", "queue_wait_time_s", "grad_time_s",
+                   "weight_publish_time_s", "harvest_s", "concat_s", "broadcast_s")}
+    d["gathers"] = b["gathers"]
+    require(d["steps"] > 0, f"the {phase} learner took no step in {wall:.1f} s")
+    require(d["gathers"] == d["steps"],
+            f"{d['gathers']} row-gather launches for {d['steps']} {phase} learner steps")
+    require(lt.healthy(), f"the {phase} learner thread is not alive: {lt.error!r}")
+    copies = list(lt.feeder.copies)[-d["steps"]:]
+    # how much of the learner's host time per step the main thread's own host
+    # work (outside the harvest's wait) ran beside it, in the one
+    # interpreter: the shared-lock exposure of the learner
+    steps = [sp for sp in lt.step_spans if sp[0] >= a["t"]]
+    main = [sp for sp in algo.main_spans if sp[0] >= a["t"]]
+    d["overlap"] = span_overlap(steps, main)
+    d["main_busy_share"] = sum(e - s_ for s_, e in main) / wall
+    learner = lt.learner_info
+    require(learner and all(math.isfinite(v) for v in learner.values()),
+            f"non-finite {phase} learner stats {learner}")
+    say(phase, window_s=f"{wall:.2f}", warm_s=f"{warm_s:.2f}", iterations=iters,
+        env_steps_per_s_sampled=f"{d['sampled'] / wall:.1f}",
+        env_steps_per_s_trained=f"{d['trained'] / wall:.1f}",
+        learner_steps=d["steps"], row_gather_launches=d["gathers"],
+        queue_wait_time_s=f"{d['queue_wait_time_s']:.4f}", grad_time_s=f"{d['grad_time_s']:.4f}",
+        grad_s_per_step=f"{d['grad_time_s'] / d['steps']:.5f}",
+        learner_time_beside_main_work=f"{d['overlap']:.4f}",
+        main_busy_share=f"{d['main_busy_share']:.4f}",
+        weight_publish_time_s=f"{d['weight_publish_time_s']:.4f}",
+        main_thread=json.dumps({k: round(d[k], 4) for k in ("harvest_s", "concat_s", "broadcast_s")}),
+        episode_reward_mean=r["episode_reward_mean"], timesteps_total=r["timesteps_total"])
+    say(phase, feeder_bytes=json.dumps(sorted({c["bytes"] for c in copies})),
+        feeder_copy_s=json.dumps(spread([c["copy_s"] for c in copies])),
+        feeder_h2d_ms=json.dumps(spread([c["h2d_ms"] for c in copies])))
+    say(phase, learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
+    return d
+
+
+def _vtrace_times():
+    """V-trace (``ops/vtrace.py``, plain PyTorch) at the IMPALA learn's
+    shape, 16 unrolls x 64 steps: events and the summed device time of
+    its kernels a call."""
+    import torch
+
+    from ray_tpu_torch.ops.vtrace import vtrace_from_logits
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, t = 16, 64
+    x = [torch.randn(b, t, device="cuda", generator=gen) for _ in range(4)]
+    disc = 0.99 * (torch.rand(b, t, device="cuda", generator=gen) > 0.05)
+    boot = torch.randn(b, device="cuda", generator=gen)
+
+    def call():
+        return vtrace_from_logits(x[0], x[1], disc, x[2], x[3], boot)
+
+    return {"shape": [b, t], "ms": round(cuda_ms(call), 6), "device_ms": round(device_ms(call), 6),
+            "kernels_per_call": sum(device_kernels(call).values())}
+
+
+def phase_impala():
+    """IMPALA at ``impala_config``'s geometry for IMPALA_WINDOW_S seconds
+    of wall clock after one warm iteration (``actor_learner_window``),
+    the busy share of one more call, the workers' act time per step and
+    V-trace's device time; then one more round's batch (real PongLite
+    unrolls, frame pools) for the impala_parity phase."""
+    from ray_tpu_torch.algorithms.impala.impala import IMPALAConfig
+    from ray_tpu_torch.execution.rollout_ops import synchronous_parallel_sample
+    from ray_tpu_torch.ops.framestack import FRAMES
+
+    algo = impala_config(IMPALAConfig).build()
+    try:
+        d = actor_learner_window("impala", algo, IMPALA_WINDOW_S)
+        busy = device_busy(algo.train, 1)
+        reports = algo.workers.foreach_worker(_actor_report)
+        for rep in reports[1:]:
+            require(rep["policy_device"] == "cpu" and rep["cuda_initialized"] is False,
+                    f"rollout worker {rep['worker_index']} touched the card: {rep}")
+        say("impala", busy_share=busy["busy_share"], busy_wall_s=busy["wall_s"],
+            act_ms_per_step=json.dumps(_act_ms_per_step(reports[1:])),
+            worker_timers=json.dumps([{k: round(v, 3) for k, v in rep["timers"].items()}
+                                      for rep in reports[1:]]))
+        say("impala", vtrace=json.dumps(_vtrace_times()))
+        batch = synchronous_parallel_sample(worker_set=algo.workers, max_env_steps=1024)
+        require(FRAMES in batch and batch.count == 1024, "the IMPALA round is not a pooled batch")
+        return d["gathers"], batch, dict(algo.config)
+    finally:
+        algo.stop()
+
+
+def _impala_pooled_against_stacked(batch, config, space, act_space):
+    """The row-gather kernel at IMPALA's index layout: (B, T + 1)
+    unrolls over the round's pool, each bootstrap stack at idx[-1] + 1.
+    The card's rebuild of the pooled train tree (``_with_stacks``, one
+    launch) bitwise equal to the host's (``materialize_stacks_np``); then
+    two fresh learners learn the round, one as shipped and one rebuilt
+    into stacks on the host (``materialize_fragment``, the dedup off), on
+    the same permutations: bitwise the same stats and parameters."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.algorithms.impala.impala import ImpalaTorchPolicy
+    from ray_tpu_torch.data.sample_batch import SampleBatch
+    from ray_tpu_torch.ops.framestack import (
+        FRAME_IDX, FRAMES, gather_rows, materialize_fragment, materialize_stacks_np)
+
+    k = int(space.shape[-1])
+    pooled_p = ImpalaTorchPolicy(space, act_space, dict(config))
+    stacked_p = ImpalaTorchPolicy(space, act_space, {**config, "dedup_framestack": False})
+    tree, bsize = pooled_p.prepare_batch(batch)
+    idx, frames = tree[FRAME_IDX], tree[FRAMES]
+    want = materialize_stacks_np(frames, idx.reshape(-1), k).reshape(idx.shape + tuple(space.shape))
+    n0 = gather_rows.launches
+    got = pooled_p._with_stacks({FRAMES: torch.as_tensor(frames).cuda(),
+                                 FRAME_IDX: torch.as_tensor(idx).cuda()})
+    torch.cuda.synchronize()
+    require(gather_rows.launches == n0 + 1, "the IMPALA rebuild did not launch the row gather once")
+    require(np.array_equal(got["obs"].cpu().numpy(), want[:, :-1])
+            and np.array_equal(got["bootstrap_obs"].cpu().numpy(), want[:, -1]),
+            f"the card's rebuild of the {idx.shape} unroll index differs from the host's")
+    stacked = SampleBatch(materialize_fragment(dict(batch), k))
+    perms = pooled_p.draw_permutations(bsize)
+    s_pooled = pooled_p.learn_on_batch(batch, perms=perms)
+    s_stacked = stacked_p.learn_on_batch(stacked, perms=perms)
+    require(s_pooled == s_stacked, f"pooled and stacked IMPALA learns differ: {s_pooled} {s_stacked}")
+    for (name, a), b in zip(pooled_p.get_weights().items(), stacked_p.get_weights().values()):
+        require(np.array_equal(a, b), f"pooled and stacked IMPALA learns differ in {name}")
+    t_p, t_s = pooled_p.last_learn_timers, stacked_p.last_learn_timers
+    require(t_p["learn_frame_pool"] == 1.0 and t_s["learn_frame_pool"] == 0.0,
+            "the comparison did not learn one pooled and one stacked batch")
+    return {"frame_idx_shape": list(idx.shape), "pool_frames": int(frames.shape[0]),
+            "pooled_bytes": int(t_p["learn_transfer_bytes"]),
+            "stacked_bytes": int(t_s["learn_transfer_bytes"])}
+
+
+def phase_impala_parity(batch, config):
+    """One pooled IMPALA train batch learned twice through the learner
+    thread (prepare on the thread, the feeder's pinned side-stream copy,
+    deferred stats) and twice through the synchronous ``learn_on_batch``
+    by two fresh policies of the same seed and so the same permutations:
+    bitwise the same stats and parameters; the thread's grad time per
+    step with no sampling beside it. Then the round's rebuild on the card
+    against the host's, and its pooled learn against its stacked learn
+    (``_impala_pooled_against_stacked``)."""
+    import numpy as np
+
+    from ray_tpu_torch.algorithms.impala.impala import ImpalaTorchPolicy
+    from ray_tpu_torch.env.registry import get_env_creator
+    from ray_tpu_torch.execution.learner_thread import LearnerThread
+    from ray_tpu_torch.models.catalog import ModelCatalog
+
+    env = get_env_creator("PongLite-v0")({})
+    space = ModelCatalog.get_preprocessor_for_space(env.observation_space).observation_space
+    threaded, sync = (ImpalaTorchPolicy(space, env.action_space, dict(config)) for _ in range(2))
+    lt = LearnerThread(threaded, publish_weights_every=1)
+    lt.start()
+    for _ in range(2):
+        require(lt.add_batch(batch), "the learner thread refused the batch")
+    deadline = time.perf_counter() + 120
+    while lt.num_steps < 2 and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    lt.stop()
+    require(lt.error is None and lt.num_steps == 2, f"the learner thread failed: {lt.error!r}")
+    infos = [lt.outqueue.get_nowait()[1] for _ in range(2)]
+    want = [sync.learn_on_batch(batch) for _ in range(2)]
+    require(infos == want, f"thread and sync learns differ: {infos} {want}")
+    for (name, a), b in zip(threaded.get_weights().items(), sync.get_weights().values()):
+        require(np.array_equal(a, b), f"thread and sync learns differ in {name}")
+    stats = lt.stats()
+    say("impala_parity", bitwise=True, learns=2, deferred=lt._defer,
+        grad_s_per_step_alone=f"{stats['grad_time_s'] / 2:.5f}",
+        feeder_copy_s=json.dumps([round(c["copy_s"], 6) for c in lt.feeder.copies]),
+        feeder_h2d_ms=json.dumps([round(c["h2d_ms"], 6) for c in lt.feeder.copies]),
+        sync_transfer_s=round(sync.last_learn_timers["learn_transfer_s"], 6),
+        bytes=int(sync.last_learn_timers["learn_transfer_bytes"]))
+    cmp = _impala_pooled_against_stacked(batch, config, space, env.action_space)
+    say("impala_parity", rebuild_equals_host=True, pooled_equals_stacked=True, **cmp)
+
+
+def phase_appo():
+    """APPO at ``impala_config``'s geometry for APPO_WINDOW_S seconds:
+    rates, target refreshes (required), finite losses."""
+    from ray_tpu_torch.algorithms.appo.appo import APPOConfig
+
+    algo = impala_config(APPOConfig).build()
+    try:
+        d = actor_learner_window("appo", algo, APPO_WINDOW_S)
+        refreshes = algo._counters["num_target_updates"]
+        require(refreshes > 0, "APPO refreshed no target")
+        say("appo", target_refreshes=refreshes,
+            kl_coeff=algo.get_policy().coeff_values["kl_coeff"])
+        return d["gathers"]
+    finally:
+        algo.stop()
+
+
+def phase_ppo_prefetch():
+    """ponglite-ppo.yaml as written with ``sample_prefetch: 1``: its
+    first iteration's learner stats bitwise equal to a fresh synchronous
+    run's; then PREFETCH_WINDOW_S seconds of calls with the row-gather
+    count set to 0 before them: env-steps/s harvested by the pipeline and
+    trained over the window (a call's own rate overstates the pipeline's
+    while it learns batches sampled ahead), each call's seconds and
+    split (the wait for the prefetched batch, the learn, sync_weights),
+    the feeder's copies; one row-gather launch per learn."""
+    import torch
+
+    from ray_tpu_torch.ops.framestack import gather_rows
+
+    sync = ppo_from_yaml(ACTOR_TUNED)
+    try:
+        r_sync = sync.train()
+    finally:
+        sync.stop()
+    algo = ppo_from_yaml(ACTOR_TUNED, sample_prefetch=1)
+    try:
+        require(algo._use_sample_prefetch(), "sample_prefetch: 1 did not take the prefetch path")
+        r = algo.train()
+        first, want = (x["info"]["learner"]["default_policy"] for x in (r, r_sync))
+        require(first == want, f"the prefetched first step differs from the sync path: {first} {want}")
+        pipe = algo._sample_pipeline
+        gather_rows.launches = 0
+        harvested0, trained0 = pipe.num_env_steps, algo._counters["num_env_steps_trained"]
+        t_start = time.perf_counter()
+        walls, splits = [], []
+        while time.perf_counter() - t_start < PREFETCH_WINDOW_S:
+            t0 = time.perf_counter()
+            r = algo.train()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            splits.append({k: round(v, 4) for k, v in r["timers"].items()})
+        wall = time.perf_counter() - t_start
+        launches = gather_rows.launches
+        require(launches == len(walls), f"{launches} row-gather launches in {len(walls)} prefetched learns")
+        learner = r["info"]["learner"]["default_policy"]
+        require(all(math.isfinite(v) for v in learner.values()), f"non-finite stats {learner}")
+        copies = list(algo._prefetch_feeder.copies)
+        bsize = int(algo.config["train_batch_size"])
+        say("ppo_prefetch", first_step_equals_sync=True, window_s=f"{wall:.2f}", calls=len(walls),
+            env_steps_per_s_harvested=f"{(pipe.num_env_steps - harvested0) / wall:.1f}",
+            env_steps_per_s_trained=f"{(algo._counters['num_env_steps_trained'] - trained0) / wall:.1f}",
+            call_env_steps_per_s=json.dumps(spread([bsize / w for w in walls])),
+            iter_s=json.dumps([round(w, 4) for w in walls]), row_gather_launches=launches)
+        say("ppo_prefetch", split=json.dumps(splits[:3] + splits[-3:]),
+            pipeline=json.dumps(r["info"]["learner"]["sample_pipeline"]),
+            feeder_bytes=json.dumps(sorted({c["bytes"] for c in copies})),
+            feeder_copy_s=json.dumps(spread([c["copy_s"] for c in copies])),
+            feeder_h2d_ms=json.dumps(spread([c["h2d_ms"] for c in copies])))
+        return launches
+    finally:
+        algo.stop()
+
+
 def _graph_equal(what, pairs):
     """Every (graphed, eager) tensor pair bitwise equal, or raise."""
     import torch
@@ -2307,11 +2654,16 @@ def main() -> int:
     actor = timed(phase_actor_lane)
     actor_local = timed(phase_actor_lane_local)
     actor_learn = timed(phase_actor_learn)
+    impala, impala_batch, impala_cfg = timed(phase_impala)
+    timed(phase_impala_parity, impala_batch, impala_cfg)
+    appo = timed(phase_appo)
+    prefetch = timed(phase_ppo_prefetch)
     ray_core.shutdown()
     ring = timed(phase_ring)
     gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"],
                                   "transformer_dqn": tf_dqn["gather_rows"], "actor_lane": actor,
-                                  "actor_lane_local": actor_local, "actor_learn": actor_learn}
+                                  "actor_lane_local": actor_local, "actor_learn": actor_learn,
+                                  "impala": impala, "appo": appo, "ppo_prefetch": prefetch}
     gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"],
                                "cartpole": cartpole, "gridrooms": gridrooms,
                                "ponglite_learn": pong_learn}

@@ -7,10 +7,14 @@ has one: ``_actor_lane``) it builds a ``WorkerSet``: a local worker whose
 policy is the learner (``self.policy``, on the algorithm's device) and
 ``num_workers`` remote rollout workers on the CPU; episode metrics come
 from every worker's ``get_metrics`` and ``stop()`` ends the workers'
-processes. ``train()`` runs one ``training_step`` and returns a result
-dict with the reference's keys (``episode_reward_mean``,
-``episodes_this_iter``, ``num_env_steps_sampled``, ``timesteps_total``,
-``training_iteration``, ``info/learner/default_policy``, ...).
+processes. ``train()`` runs ``training_step`` until the iteration has
+lasted ``min_time_s_per_iteration`` seconds and sampled
+``min_sample_timesteps_per_iteration`` env steps (by default one step;
+IMPALA's asynchronous step returns whatever is ready, and its config
+asks for 1 s) and returns a result dict with the reference's keys
+(``episode_reward_mean``, ``episodes_this_iter``,
+``num_env_steps_sampled``, ``timesteps_total``, ``training_iteration``,
+``info/learner/default_policy``, ...).
 ``__getstate__``/``__setstate__`` carry the policy state and counters
 (the off-policy family adds its replay buffer).
 """
@@ -64,6 +68,8 @@ class Algorithm:
         self._timers: Dict[str, float] = collections.defaultdict(float)
         self._rollout_engine = None
         self.workers = None
+        # id(remote worker) -> its pending get_metrics ref (_remote_episodes)
+        self._metrics_refs: Dict[int, Any] = {}
 
         env_spec = self.config.get("env")
         if env_spec is None:
@@ -100,7 +106,17 @@ class Algorithm:
 
     def train(self) -> Dict[str, Any]:
         t0 = time.perf_counter()
-        train_info = self.training_step()
+        min_t = self.config.get("min_time_s_per_iteration")
+        min_ts = self.config.get("min_sample_timesteps_per_iteration") or 0
+        ts_before = self._counters[NUM_ENV_STEPS_SAMPLED]
+        train_info: Dict = {}
+        while True:
+            info = self.training_step()
+            if info:
+                train_info = info
+            done_t = min_t is None or time.perf_counter() - t0 >= min_t
+            if done_t and self._counters[NUM_ENV_STEPS_SAMPLED] - ts_before >= min_ts:
+                break
         self._iteration += 1
         results: Dict[str, Any] = {
             "info": {"learner": train_info, **self._counters},
@@ -118,13 +134,50 @@ class Algorithm:
         results["time_this_iter_s"] = time.perf_counter() - t0
         return results
 
+    def _metrics_may_lag(self) -> bool:
+        """Whether the workers' episode metrics are taken without waiting
+        (the asynchronous paths, whose workers always have sample
+        requests queued)."""
+        return False
+
+    def _remote_episodes(self) -> List:
+        """The remote workers' finished episodes. A worker runs its calls
+        in order, so a ``get_metrics`` call waits behind the sample
+        requests queued before it: the synchronous round has none left
+        and waits for the answers; an asynchronous path
+        (:meth:`_metrics_may_lag`) takes the answers that are in and
+        leaves the others for the next iteration, instead of stopping
+        the main thread behind the workers' queues. On the synchronous
+        round a dead worker's metrics raise, as its samples did; an
+        asynchronous path skips them, since its sampling drops and
+        reports a dead worker (IMPALA's ``_handle_dead_workers``)."""
+        pending = self._metrics_refs
+        live = {id(w): w for w in self.workers.remote_workers()}
+        for wid in [k for k in pending if k not in live]:
+            del pending[wid]
+        for wid, w in live.items():
+            if wid not in pending:
+                pending[wid] = w.get_metrics.remote()
+        refs = list(pending.values())
+        if refs:
+            ray_core.wait(refs, num_returns=len(refs), timeout=0 if self._metrics_may_lag() else None)
+        episodes = []
+        for wid, ref in list(pending.items()):
+            done, _ = ray_core.wait([ref], timeout=0)
+            if not done:
+                continue
+            del pending[wid]
+            try:
+                episodes.extend(ray_core.get(ref))
+            except (ray_core.RayActorError, ray_core.WorkerCrashedError):
+                if not self._metrics_may_lag():
+                    raise
+        return episodes
+
     def _collect_rollout_metrics(self) -> Dict:
         episodes = []
         if self.workers is not None:
-            remote = self.workers.remote_workers()
-            if remote:
-                for eps in ray_core.get([w.get_metrics.remote() for w in remote]):
-                    episodes.extend(eps)
+            episodes.extend(self._remote_episodes())
             episodes.extend(self.workers.local_worker().get_metrics())
         for src in self._extra_metric_sources:
             episodes.extend(src())

@@ -7,7 +7,16 @@ reference does). ``env_backend: "jax"`` selects the device rollout lane;
 any other value (the default, ``"actor"``) the actor lane, whose keys
 keep the reference's names and defaults and are read where they are
 used (``observation_filter``, ``batch_mode``, ``num_cpus_per_worker``,
-...; ``sample_async`` and ``sample_prefetch`` raise for now).
+...; ``sample_async`` raises for now). ``sample_prefetch`` (0: off)
+samples the next train batch and copies it to the card while the
+learner works on this one (PPO with remote workers);
+``max_requests_in_flight_per_rollout_worker`` caps its requests a
+worker. ``min_time_s_per_iteration`` and
+``min_sample_timesteps_per_iteration`` bound an iteration from below
+(``Algorithm.train``). ``ignore_worker_failures`` and
+``recreate_failed_workers`` say what a dead worker does to the
+asynchronous paths (recreating raises: the elastic worker set is not
+ported).
 The one new key is ``device``: None runs on CUDA (and raises without
 it), ``"cpu"`` runs on the CPU. ``superstep`` (``"auto"``: 8 updates
 per host call on CUDA, 1 on the CPU; an int forces K), ``nan_guard``
@@ -41,6 +50,10 @@ class AlgorithmConfig:
         self.num_workers = 0
         self.num_envs_per_worker = 1
         self.rollout_fragment_length = 200
+        self.sample_prefetch = 0
+        self.max_requests_in_flight_per_rollout_worker = 2
+        self.ignore_worker_failures = False
+        self.recreate_failed_workers = False
 
         # training
         self.gamma = 0.99
@@ -72,6 +85,8 @@ class AlgorithmConfig:
 
         # reporting
         self.metrics_num_episodes_for_smoothing = 100
+        self.min_time_s_per_iteration = None
+        self.min_sample_timesteps_per_iteration = 0
 
     def environment(
         self,
@@ -95,14 +110,24 @@ class AlgorithmConfig:
         num_rollout_workers: Optional[int] = None,
         num_envs_per_worker: Optional[int] = None,
         rollout_fragment_length: Optional[int] = None,
+        sample_prefetch: Optional[int] = None,
+        max_requests_in_flight_per_rollout_worker: Optional[int] = None,
+        ignore_worker_failures: Optional[bool] = None,
+        recreate_failed_workers: Optional[bool] = None,
         **kwargs,
     ) -> "AlgorithmConfig":
         if num_rollout_workers is not None:
             self.num_workers = num_rollout_workers
-        if num_envs_per_worker is not None:
-            self.num_envs_per_worker = num_envs_per_worker
-        if rollout_fragment_length is not None:
-            self.rollout_fragment_length = rollout_fragment_length
+        for name, value in (
+            ("num_envs_per_worker", num_envs_per_worker),
+            ("rollout_fragment_length", rollout_fragment_length),
+            ("sample_prefetch", sample_prefetch),
+            ("max_requests_in_flight_per_rollout_worker", max_requests_in_flight_per_rollout_worker),
+            ("ignore_worker_failures", ignore_worker_failures),
+            ("recreate_failed_workers", recreate_failed_workers),
+        ):
+            if value is not None:
+                setattr(self, name, value)
         return self
 
     def training(
@@ -149,6 +174,23 @@ class AlgorithmConfig:
     def resources(self, *, device=None, **kwargs) -> "AlgorithmConfig":
         if device is not None:
             self.device = device
+        return self
+
+    def reporting(
+        self,
+        *,
+        min_time_s_per_iteration: Optional[float] = None,
+        min_sample_timesteps_per_iteration: Optional[int] = None,
+        metrics_num_episodes_for_smoothing: Optional[int] = None,
+        **kwargs,
+    ) -> "AlgorithmConfig":
+        for name, value in (
+            ("min_time_s_per_iteration", min_time_s_per_iteration),
+            ("min_sample_timesteps_per_iteration", min_sample_timesteps_per_iteration),
+            ("metrics_num_episodes_for_smoothing", metrics_num_episodes_for_smoothing),
+        ):
+            if value is not None:
+                setattr(self, name, value)
         return self
 
     def debugging(self, *, seed: Optional[int] = None, **kwargs) -> "AlgorithmConfig":

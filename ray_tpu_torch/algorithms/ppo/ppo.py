@@ -12,10 +12,14 @@ other ``env_backend`` runs the actor lane, the reference's default
 the CPU (GAE on the host, in each worker's postprocessing) and ship
 pixel fragments as frame pools, and the learner on the card rebuilds
 the stacks with the row-gather kernel in its ``learn_on_batch``.
+With ``sample_prefetch > 0`` and remote workers, the actor lane samples
+the next train batch and copies it to the card while the learner works
+on this one (``_training_step_prefetch``).
 """
 
 from __future__ import annotations
 
+import queue
 import time
 from typing import Dict, Optional
 
@@ -31,9 +35,12 @@ from ray_tpu_torch.algorithms.algorithm import (
 )
 from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
 from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, SampleBatch, concat_samples
+from ray_tpu_torch.core.object_store import RayActorError
 from ray_tpu_torch.evaluation.postprocessing import compute_gae_for_sample_batch
-from ray_tpu_torch.execution.rollout_ops import synchronous_parallel_sample
-from ray_tpu_torch.execution.train_ops import train_one_step
+from ray_tpu_torch.execution.device_feed import DeviceFeeder
+from ray_tpu_torch.execution.learner_thread import refuse_fused_superstep
+from ray_tpu_torch.execution.rollout_ops import SamplePrefetcher, synchronous_parallel_sample
+from ray_tpu_torch.execution.train_ops import batch_is_finite, train_one_step
 from ray_tpu_torch.policy.torch_policy import TorchPolicy
 
 
@@ -250,11 +257,8 @@ class PPO(Algorithm):
         worker (and the filters, when one is set). The parts' seconds go
         to ``self._timers`` (``sample_s``, ``concat_s``,
         ``learn_on_batch_s``, ``sync_weights_s``)."""
-        if int(self.config.get("sample_prefetch") or 0) > 0:
-            raise NotImplementedError(
-                "sample_prefetch > 0 (the prefetch path with device_feed.py) is "
-                "not ported yet: ROADMAP.md queue 1 item 3"
-            )
+        if self._use_sample_prefetch():
+            return self._training_step_prefetch()
         t0 = time.perf_counter()
         batches = synchronous_parallel_sample(
             worker_set=self.workers, max_env_steps=self.config["train_batch_size"], concat=False,
@@ -273,3 +277,114 @@ class PPO(Algorithm):
             self.workers.sync_filters()
         self._timers["sync_weights_s"] = time.perf_counter() - t2
         return train_info
+
+    # -- the prefetch path (config.sample_prefetch) ------------------------
+
+    def _use_sample_prefetch(self) -> bool:
+        """Prefetch needs remote workers; with none the local worker
+        samples synchronously, as in the reference."""
+        return int(self.config.get("sample_prefetch") or 0) > 0 and self.workers.num_remote_workers() > 0
+
+    def _metrics_may_lag(self) -> bool:
+        return self._use_sample_prefetch()
+
+    def _build_sample_pipeline(self) -> None:
+        """A :class:`SamplePrefetcher` whose ``deliver`` (on its thread)
+        standardizes the advantages, skips a non-finite batch under
+        ``nan_guard``, prepares the host tree and puts it on a
+        :class:`DeviceFeeder` of ``sample_prefetch`` batches, which copies
+        it to the card on its own stream."""
+        refuse_fused_superstep(self.config, "over prefetched batches", "ROADMAP.md queue 1 item 3")
+        policy = self.get_policy()
+        feeder = DeviceFeeder(policy.device, capacity=max(1, int(self.config["sample_prefetch"])))
+
+        def deliver(batch):
+            _standardize_advantages(batch)
+            if self.config.get("nan_guard") and not batch_is_finite(batch):
+                self._counters["num_nan_batches_skipped"] += 1
+                return
+            tree, bsize = policy.prepare_batch(batch)
+            feeder.put(tree, (bsize, batch.env_steps(), batch.count))
+
+        self._prefetch_feeder = feeder
+        self._sample_pipeline = SamplePrefetcher(
+            self.workers,
+            target_steps=int(self.config["train_batch_size"]),
+            deliver=deliver,
+            max_in_flight=int(self.config.get("max_requests_in_flight_per_rollout_worker", 2)),
+        )
+
+    def _next_prefetched(self):
+        """The next prefetched device batch, handling dead workers while
+        it waits."""
+        pipe = self._sample_pipeline
+        while True:
+            if not pipe.healthy():
+                raise pipe.error or RuntimeError("the sample pipeline thread died")
+            self._recover_pipeline_workers(pipe)
+            try:
+                return self._prefetch_feeder.get(timeout=1.0)
+            except queue.Empty:
+                continue
+
+    def _training_step_prefetch(self) -> Dict:
+        """One learn on the next prefetched batch (the reference's
+        ``_training_step_prefetch`` at K = 1): wait for it
+        (``prefetch_wait_s``: ~0 when the pipeline keeps up), the nest
+        on the card (``learn_s``), then the weights and the timestep to
+        every worker (``sync_weights_s``). Its first batch is the
+        synchronous path's first batch, learned on the same
+        permutations: the same stats, bitwise."""
+        if getattr(self, "_sample_pipeline", None) is None:
+            self._build_sample_pipeline()
+        pipe = self._sample_pipeline
+        t0 = time.perf_counter()
+        dev, (bsize, env_steps, rows) = self._next_prefetched()
+        t1 = time.perf_counter()
+        self._counters[NUM_ENV_STEPS_SAMPLED] += env_steps
+        self._counters[NUM_AGENT_STEPS_SAMPLED] += env_steps
+        policy = self.get_policy()
+        info = policy.learn_on_device_batch(dev, bsize)
+        t2 = time.perf_counter()
+        self._counters[NUM_ENV_STEPS_TRAINED] += env_steps
+        self._counters[NUM_AGENT_STEPS_TRAINED] += rows
+        self.workers.sync_weights(global_vars={"timestep": self._counters[NUM_ENV_STEPS_SAMPLED]})
+        if self.config.get("observation_filter") not in (None, "NoFilter"):
+            self.workers.sync_filters()
+        self._timers.update(prefetch_wait_s=t1 - t0, learn_s=t2 - t1,
+                            sync_weights_s=time.perf_counter() - t2)
+        self._recover_pipeline_workers(pipe)
+        return {DEFAULT_POLICY_ID: info, "sample_pipeline": pipe.stats()}
+
+    def _recover_pipeline_workers(self, pipe) -> None:
+        """Workers the pipeline saw die: raise, unless
+        ``ignore_worker_failures`` (they leave the worker set);
+        ``recreate_failed_workers`` raises (the elastic set is not
+        ported)."""
+        dead = pipe.take_dead_workers()
+        if not dead:
+            return
+        self._counters["num_dead_rollout_workers"] += len(dead)
+        if self.config.get("recreate_failed_workers"):
+            self.workers.replace_failed_workers(dead)
+        if not self.config.get("ignore_worker_failures"):
+            raise RayActorError(f"{len(dead)} rollout worker(s) died in the sample pipeline")
+        self.workers.remove_workers(dead)
+
+    def _teardown_pipeline(self) -> None:
+        # the flag first: a deliver blocked on the feeder's back-pressure
+        # wakes when the feeder stops, and must find the flag set
+        pipe = getattr(self, "_sample_pipeline", None)
+        feeder = getattr(self, "_prefetch_feeder", None)
+        if pipe is not None:
+            pipe.request_stop()
+        if feeder is not None:
+            feeder.stop()
+            self._prefetch_feeder = None
+        if pipe is not None:
+            pipe.stop()
+            self._sample_pipeline = None
+
+    def stop(self) -> None:
+        self._teardown_pipeline()
+        super().stop()

@@ -119,6 +119,7 @@ class RolloutWorker:
             obs_filter=self.filters[DEFAULT_POLICY_ID],
             rollout_fragment_length=int(self.config.get("rollout_fragment_length", 200)),
             batch_mode=self.config.get("batch_mode", "truncate_episodes"),
+            flush_on_episode_end=not self.config.get("_fixed_unrolls", False),
         )
 
     # -- sampling --------------------------------------------------------

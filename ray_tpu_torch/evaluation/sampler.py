@@ -15,12 +15,16 @@ The terminal observation follows the vector env's contract
 (``env/vector_env.py``): a done row keeps the final observation as its
 NEXT_OBS, and the reset observation becomes the slot's next OBS.
 
+``flush_on_episode_end=False`` gives the fixed unrolls of the IMPALA
+family (the rollout worker sets it from the config's ``_fixed_unrolls``):
+a slot's fragment is exactly ``rollout_fragment_length`` steps and may
+span an episode reset, whose done row marks it inside the fragment.
+
 Not ported (``ROADMAP.md`` queue 1 item 3): ``AsyncSampler``, the
 ``ViewCollector`` of extra view requirements (shifted columns such as
-``prev_actions``), recurrent state, callbacks, ``horizon``, the fixed
-unrolls of the IMPALA family (queue 1 item 5) and the action squashing
-of continuous spaces (item 4; the catalog takes Discrete only). A policy
-that asks for the first three raises here.
+``prev_actions``), recurrent state, callbacks, ``horizon`` and the
+action squashing of continuous spaces (item 4; the catalog takes
+Discrete only). A policy that asks for the first three raises here.
 
 ``timers`` adds up the seconds of the loop's parts (``act_s``: the
 policy's ``compute_actions``; ``env_s``: the vector env's step;
@@ -112,14 +116,19 @@ class SyncSampler:
         obs_filter=None,
         rollout_fragment_length: int = 200,
         batch_mode: str = "truncate_episodes",
+        flush_on_episode_end: bool = True,
     ):
         check_ported_views(policy)
+        if not flush_on_episode_end and batch_mode != "truncate_episodes":
+            raise ValueError("fixed unrolls (flush_on_episode_end=False) need "
+                             "batch_mode='truncate_episodes'")
         self.env = vector_env
         self.policy = policy
         self.preprocessor = preprocessor
         self.obs_filter = obs_filter
         self.frag_len = rollout_fragment_length
         self.batch_mode = batch_mode
+        self.flush_on_episode_end = flush_on_episode_end
 
         n = self.env.num_envs
         self.collectors = [_EnvSlotCollector() for _ in range(n)]
@@ -183,7 +192,8 @@ class SyncSampler:
             self.episodes[i].add(float(rewards[i]))
 
             if terms[i] or truncs[i]:
-                self._flush_slot(i, out)
+                if self.flush_on_episode_end:
+                    self._flush_slot(i, out)
                 self.metrics_queue.append(
                     RolloutMetrics(self.episodes[i].length, self.episodes[i].total_reward)
                 )

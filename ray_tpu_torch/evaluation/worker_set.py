@@ -8,8 +8,10 @@ segment above 256 KB) and sends every worker that ref; a worker's calls
 run in submission order, so the new weights are in place before its
 next ``sample``.
 
-Not ported (``ROADMAP.md`` queue 1 item 3): adding, removing and
-recreating workers (the elastic set), ``RetryPolicy`` and
+``remove_workers`` drops workers that an ``AsyncRequestsManager`` saw
+die and ends their processes. Not ported (``ROADMAP.md`` queue 1 item
+3): adding and recreating workers (the elastic set;
+``replace_failed_workers`` raises), ``RetryPolicy`` and
 ``probe_unhealthy_workers``.
 """
 
@@ -22,6 +24,7 @@ from ray_tpu_torch.evaluation.rollout_worker import RolloutWorker
 from ray_tpu_torch.utils.filter import MeanStdFilter
 
 STOP_TIMEOUT_S = 10.0
+_ITEM = "ROADMAP.md queue 1 item 3"
 
 
 class WorkerSet:
@@ -59,6 +62,18 @@ class WorkerSet:
 
     def num_remote_workers(self) -> int:
         return len(self._remote_workers)
+
+    def remove_workers(self, workers: List) -> None:
+        """Drop these worker handles (seen dead by the caller) and end
+        their processes."""
+        drop = {id(w) for w in workers}
+        for w in self._remote_workers:
+            if id(w) in drop:
+                api.kill(w)
+        self._remote_workers = [w for w in self._remote_workers if id(w) not in drop]
+
+    def replace_failed_workers(self, dead: List) -> List:
+        raise NotImplementedError(f"recreating workers (the elastic worker set) is not ported yet: {_ITEM}")
 
     # -- sync ------------------------------------------------------------
 

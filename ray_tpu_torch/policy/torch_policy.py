@@ -107,6 +107,35 @@ class AdamState:
         return bc[0, 0], bc[1, 0]
 
 
+class DeferredStats:
+    """A learn call's reduced stats on their way to the host. On CUDA a
+    copy into pinned host memory is queued behind the nest with an
+    event after it, so :meth:`result` waits for that learn call only,
+    not for later work queued on the same stream; on the CPU the stats
+    are there already."""
+
+    def __init__(self, names: Tuple[str, ...], reduced: torch.Tensor, lr: float):
+        self.names = names
+        self.lr = lr
+        self._event = None
+        if reduced.is_cuda:
+            self._host = torch.empty(reduced.shape, dtype=reduced.dtype, pin_memory=True)
+            self._host.copy_(reduced, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = reduced
+
+    def result(self) -> Dict[str, float]:
+        """The stats as floats (the synchronous learn's dict), with the
+        learn call's ``cur_lr``."""
+        if self._event is not None:
+            self._event.synchronize()
+        out = dict(zip(self.names, self._host.tolist()))
+        out["cur_lr"] = self.lr
+        return out
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over every element (optax.global_norm)."""
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
@@ -385,14 +414,16 @@ class TorchPolicy(Policy):
         stacked pixel observations become the frame pool + index columns
         (``compress_fragment_obs``), about 2k single frames' bytes per
         step less through pickle, the object plane, the main process's concat
-        and the copy to the card. On-policy losses (no NEXT_OBS) train
-        from the pool; a loss that reads NEXT_OBS pools both columns
-        (:meth:`_compress_replay_shipping`).
+        and the copy to the card. On-policy losses (no NEXT_OBS) and the
+        fixed unrolls of the IMPALA family (``_fixed_unrolls``: the loss
+        reads only the bootstrap stack, which is the stack at
+        ``idx[-1] + 1``) train from the pool; a loss that reads NEXT_OBS
+        pools both columns (:meth:`_compress_replay_shipping`).
         ``compress_obs_shipping: False`` or an ``output`` writer keeps
         the stacks."""
         if not self.config.get("compress_obs_shipping", True) or self.config.get("output"):
             return batch
-        if self._ship_next_obs:
+        if self._ship_next_obs and not self.config.get("_fixed_unrolls"):
             return self._compress_replay_shipping(batch)
         return self._compress_with(batch, compress_fragment_obs)
 
@@ -491,12 +522,21 @@ class TorchPolicy(Policy):
 
     def _with_stacks(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Frame-pool batches (``obs_frames`` + ``obs_frame_idx``)
-        rebuild their observations with the row-gather kernel."""
+        rebuild their observations (:meth:`_rebuild_obs_from_frames`)."""
         if FRAMES not in batch:
             return batch
         batch = dict(batch)
         stack_k = int(self.observation_space.shape[-1])
-        batch[SampleBatch.OBS] = build_stacks(batch.pop(FRAMES), batch.pop(FRAME_IDX), stack_k)
+        return self._rebuild_obs_from_frames(batch.pop(FRAMES), batch, stack_k)
+
+    def _rebuild_obs_from_frames(
+        self, frames: torch.Tensor, batch: Dict[str, torch.Tensor], stack_k: int
+    ) -> Dict[str, torch.Tensor]:
+        """The OBS column from the frame pool and the per-row first-frame
+        indices, by the row-gather kernel (``build_stacks``). Policies
+        whose rows are not flat (IMPALA's (B, T + 1) unrolls) override
+        this."""
+        batch[SampleBatch.OBS] = build_stacks(frames, batch.pop(FRAME_IDX), stack_k)
         return batch
 
     def learn_on_device_batch(
@@ -504,12 +544,20 @@ class TorchPolicy(Policy):
         dev_batch: Dict[str, torch.Tensor],
         batch_size: int,
         perms: Optional[torch.Tensor] = None,
-    ) -> Dict[str, Any]:
+        defer_stats: bool = False,
+    ):
         """The SGD nest on a device-resident batch. Frame-pool batches
         (``obs_frames`` + ``obs_frame_idx``) rebuild their observations
         first with the row-gather kernel. ``perms``: (num_sgd_iter,
         batch_size) row permutations; drawn from the policy's generator
-        when None."""
+        when None.
+
+        ``defer_stats=True`` returns the reduced stats still on the
+        device, as :class:`DeferredStats`, instead of waiting for them
+        (the learner thread materializes them some steps later), and
+        skips :meth:`after_learn_on_batch`, whose host coefficient
+        updates need host stats (the reference's rule: defer only for
+        policies that do not override it)."""
         batch = self._with_stacks(dict(dev_batch))
         self._update_scheduled_coeffs()
         if perms is None:
@@ -521,6 +569,8 @@ class TorchPolicy(Policy):
         )
         self.opt_state.count += steps
         self.num_grad_updates += steps
+        if defer_stats:
+            return DeferredStats(names, reduced, self.coeff_values["lr"])
         out = dict(zip(names, reduced.tolist()))
         out.update(self.after_learn_on_batch(out))
         out["cur_lr"] = self.coeff_values["lr"]

@@ -74,3 +74,17 @@ def load_tuned_example(path) -> Dict[str, Any]:
     """The yaml as nested dicts: ``{experiment: {"env", "run", "stop",
     "config"}}``."""
     return parse(Path(path).read_text())
+
+
+def build_tuned_example(path, **overrides):
+    """``(algorithm, stop)`` for a one-experiment yaml: the class its
+    ``run`` names (``algorithms/registry.py``), built from its config
+    and env with ``overrides`` on top (``device``, ``env``, ...)."""
+    from ray_tpu_torch.algorithms.registry import get_algorithm_class
+
+    (exp,) = load_tuned_example(path).values()
+    cls = get_algorithm_class(exp["run"])
+    env = overrides.pop("env", exp["env"])
+    cfg = cls.get_default_config().update_from_dict({**exp.get("config", {}), **overrides})
+    cfg.env = env
+    return cfg.build(), dict(exp.get("stop") or {})

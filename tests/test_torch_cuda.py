@@ -25,7 +25,11 @@ within 2e-5, and 1e-4 over the ring hop's 4096 keys, where a float32
 running sum drifts further (the plain version in float32 needs up to
 4.1e-5 there); rows that see no key exactly (0, -1e30, 0); and a ring
 of two gloo ranks on the one card against the full attention within the
-reference test's tolerances.
+reference test's tolerances. The actor-learner's plane: the feeder's
+pinned side-stream copy bitwise, intact after the host arrays are
+overwritten and while a delayed read on the consumer's stream races a
+same-sized copy; learner-thread learns bitwise equal to synchronous ones
+(PPO and IMPALA, one row-gather launch a learn).
 """
 
 from __future__ import annotations
@@ -760,3 +764,104 @@ def test_pooled_learn_equals_stacked_learn_on_card(cuda):
     for (name, wa), wb in zip(a.get_weights().items(), b.get_weights().values()):
         assert np.array_equal(wa, wb), name
     assert a.last_learn_timers["learn_transfer_bytes"] * 3 < b.last_learn_timers["learn_transfer_bytes"]
+
+
+def test_device_feeder_copy_survives_host_and_allocator_reuse(cuda):
+    """The feeder's pinned side-stream copy is bitwise the host tree; the
+    tensors stay intact after the host arrays are overwritten, and a
+    batch the consumer's stream still reads (queued behind a delay) is
+    not handed to the next copy by the caching allocator once dropped
+    (``record_stream``)."""
+    from ray_tpu_torch.execution.device_feed import DeviceFeeder
+
+    rng = np.random.default_rng(0)
+    host = {"frames": rng.integers(0, 256, (1088, 84, 84, 1), dtype=np.uint8),
+            "idx": rng.integers(0, 1024, (16, 65)).astype(np.int32),
+            "rewards": rng.standard_normal((16, 64)).astype(np.float32)}
+    want = {k: v.copy() for k, v in host.items()}
+    want_sum = float(want["frames"].astype(np.float64).sum())
+    feeder = DeviceFeeder(cuda, capacity=2)
+    try:
+        feeder.put(host, 0)
+        dev, meta = feeder.get(timeout=60)
+        assert meta == 0 and all(t.is_cuda for t in dev.values())
+        for v in host.values():
+            v[...] = 0
+        torch.cuda._sleep(200_000_000)  # hold the consumer stream
+        total = dev["frames"].to(torch.float64).sum()
+        got = {k: t.cpu() for k, t in dev.items()}  # queued behind the delay too
+        del dev
+        for i in range(3):  # same-sized copies that could reuse the freed blocks
+            feeder.put({k: np.zeros_like(v) for k, v in want.items()}, i + 1)
+            feeder.get(timeout=60)
+        torch.cuda.synchronize()
+        assert total.item() == want_sum
+        for k, v in want.items():
+            assert np.array_equal(got[k].numpy(), v), k
+        assert feeder.num_batches == 4 and all(c["h2d_ms"] > 0 for c in feeder.copies)
+    finally:
+        feeder.stop()
+
+
+def _impala_pooled_unrolls(rng, frags=4, T=64):
+    """Fixed unrolls at the 84x84x4 geometry as IMPALA's workers ship
+    them (frame pools with the bootstrap frame), concatenated."""
+    from ray_tpu_torch.algorithms.impala.impala import ImpalaTorchPolicy
+    from ray_tpu_torch.data.sample_batch import SampleBatch, concat_samples
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    shipper = ImpalaTorchPolicy(Box(0, 255, (84, 84, 4), np.uint8), Discrete(3),
+                                {"_fixed_unrolls": True, "rollout_fragment_length": T}, device="cpu")
+    shipped = []
+    for i in range(frags):
+        stream = rng.integers(0, 256, (T + 4, 84, 84, 1), dtype=np.uint8)
+        obs = framestack.materialize_stacks_np(stream, np.arange(T + 1), 4)
+        shipped.append(shipper.compress_for_shipping(SampleBatch({
+            "obs": obs[:T], "new_obs": obs[1:], "dones": np.arange(T) == T // 3,
+            "truncateds": np.zeros(T, bool), "actions": rng.integers(0, 3, T),
+            "rewards": rng.standard_normal(T).astype(np.float32),
+            "action_logp": np.full(T, -1.1, np.float32),
+        })))
+    return concat_samples(shipped)
+
+
+@pytest.mark.parametrize("kind", ["ppo", "impala"])
+def test_learner_thread_equals_sync_learn_on_card(cuda, kind):
+    """Batches learned through the learner thread (prepare on the thread,
+    the feeder's pinned side-stream copy, deferred stats for IMPALA)
+    give bitwise the stats and parameters of the synchronous
+    ``learn_on_batch`` of a second policy of the same seed, with the
+    default bf16 VisionNet; one row-gather launch per learn call."""
+    from ray_tpu_torch.algorithms.impala.impala import ImpalaTorchPolicy
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+    from ray_tpu_torch.env.spaces import Box, Discrete
+    from ray_tpu_torch.execution.learner_thread import LearnerThread
+
+    rng = np.random.default_rng(1)
+    if kind == "ppo":
+        cls, cfg = PPOTorchPolicy, {"train_batch_size": 512, "sgd_minibatch_size": 128,
+                                    "num_sgd_iter": 2}
+        batches = [_actor_lane_batches(rng)[0] for _ in range(3)]
+    else:
+        cls, cfg = ImpalaTorchPolicy, {"train_batch_size": 256, "rollout_fragment_length": 64,
+                                       "_fixed_unrolls": True}
+        batches = [_impala_pooled_unrolls(rng) for _ in range(3)]
+    threaded, sync = (cls(Box(0, 255, (84, 84, 4), np.uint8), Discrete(3),
+                          {"seed": 0, "lr": 2.5e-4, **cfg}, device=cuda) for _ in range(2))
+    lt = LearnerThread(threaded, publish_weights_every=1)
+    before = framestack.gather_rows.launches
+    lt.start()
+    for b in batches:
+        assert lt.add_batch(b)
+    deadline = time.time() + 120
+    while lt.num_steps < len(batches) and time.time() < deadline:
+        time.sleep(0.01)
+    lt.stop()
+    assert lt.error is None and lt.num_steps == 3
+    assert framestack.gather_rows.launches == before + 3
+    infos = [lt.outqueue.get_nowait()[1] for _ in range(3)]
+    assert infos == [sync.learn_on_batch(b) for b in batches]
+    for (name, a), b in zip(threaded.get_weights().items(), sync.get_weights().values()):
+        assert np.array_equal(a, b), name
+    assert lt.published_weights()[0] == 3
+    assert all(c["h2d_ms"] > 0 for c in lt.feeder.copies)
