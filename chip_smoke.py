@@ -170,6 +170,39 @@ and ``nvcc``. Phases, each printing its own lines:
                env-steps/s harvested and trained over the window, each
                call's split, the feeder's copies, one row-gather launch
                per learn;
+    sac_learner -- SAC's learner at HalfCheetah's published widths
+               (bench_e2e.py's ``_sac_halfcheetah``: obs 17, act 6,
+               256x256 towers, batch 256) on a 400000-row device ring of
+               seeded rows: SAC_WINDOWS + 1 windows of K = 8 updates as
+               one captured slot replayed (the first window captures),
+               uniform and then prioritized replay: updates/s (median and
+               range of the timed windows), busy share, capture and fill
+               time; the row-gather, row-scatter and prefix-descent
+               launches of each run must equal what the schedule implies
+               (graph replays counted), the stats be finite, alpha > 0
+               and the refreshed priorities finite; then 2 graphed
+               windows against 16 eager updates on the same rows and
+               draws, bitwise in every parameter, Adam moment, the target
+               critic, the generator, the stats and the sum tree;
+    sac_columns -- every SAC replay column (obs, new_obs, actions,
+               rewards, dones) at Pendulum's (obs 3, act 1) and
+               HalfCheetah's widths through the row gather (256 drawn
+               rows) and the row scatter (one row, 1000 wrapping rows)
+               bitwise against ``index_select`` and ``index_copy_``, and
+               with repeated positions against the plain version; the
+               HalfCheetah obs column's gather time and bound;
+    sac      -- tuned_examples/sac/pendulum-sac.yaml as written on the
+               port's own Pendulum-v1 (num_workers 0: the local worker
+               acts on the card) for SAC_BUDGET_S seconds: env steps,
+               updates, the reward's course and where it first reached
+               the yaml's bar (recorded, not required), the last 10
+               episodes' mean, the split (sample with act and env,
+               insert, update, sync); one row gather per column an update
+               and one row scatter per column an insert are required;
+    pendulum_ppo -- tuned_examples/ppo/pendulum-ppo.yaml as written for 2
+               iterations (8 envs x 256 on the local worker, acting on
+               the card; a DiagGaussian under PPO): env-steps/s, finite
+               stats;
 13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
@@ -203,11 +236,13 @@ time of a library call's own kernels; every kernel phase prints both.
 ``floor_device_ms`` is the ``device_ms`` of a one-element ``zero_()``,
 the least a kernel launch shows by that timer.
 
-Launch counts are set to 0 just before each of phases 7-13 and the
-actor phases and read just after (on the learner-thread paths, between
-two learner steps) (the ring's in each rank, before each
-call); the comparison launches of phases 2-6, of graph_parity and of
-the actor_lane's pooled-against-stacked learns do not count. The actor
+Launch counts are set to 0 just before each of phases 7-13, the
+actor phases, sac, and each of sac_learner's two runs, and read just
+after (on the learner-thread paths, between two learner steps) (the
+ring's in each rank, before each call); the comparison launches of
+phases 2-6, of graph_parity, of sac_learner's parity windows, of
+sac_columns and of the actor_lane's pooled-against-stacked learns do
+not count. The actor
 phases stop their worker processes, and the runtime is shut down before
 the ring. Under a
 superstep's graph a counter counts the card's launches: the runner adds
@@ -2350,6 +2385,334 @@ def phase_graph_parity():
     return out
 
 
+# SAC at HalfCheetah's published widths (bench_e2e.py's _sac_halfcheetah:
+# obs 17, act 6 in [-1, 1], 256x256 towers, batch 256, replay capacity
+# 400000), K = 8 updates a graphed window, seeded rows put on the card
+# in chunks; pendulum-sac.yaml's wall budget; the Pendulum PPO yaml
+SAC_OBS, SAC_ACT, SAC_BATCH, SAC_CAPACITY, SAC_K = 17, 6, 256, 400_000, 8
+SAC_FILL_CHUNK, SAC_WINDOWS = 50_000, 3
+SAC_COLUMNS = 5  # obs, new_obs, actions, rewards, dones
+SAC_TUNED = os.path.join(REPO, "tuned_examples", "sac", "pendulum-sac.yaml")
+SAC_BUDGET_S = 60.0
+PENDULUM_PPO = os.path.join(REPO, "tuned_examples", "ppo", "pendulum-ppo.yaml")
+# the replay columns' row widths: Pendulum (obs 3, act 1) and HalfCheetah
+SAC_WIDTHS = {"pendulum": (3, 1, 100_000), "halfcheetah": (SAC_OBS, SAC_ACT, SAC_CAPACITY)}
+
+
+def sac_policy(seed=0):
+    """``SACTorchPolicy`` at HalfCheetah's widths with SACConfig's own
+    defaults (256x256 relu towers, lr 3e-4 x 3, tau 5e-3, auto entropy)."""
+    import numpy as np
+
+    from ray_tpu_torch.algorithms.sac.sac import SACConfig, SACTorchPolicy
+    from ray_tpu_torch.env.spaces import Box
+
+    cfg = SACConfig().debugging(seed=seed).to_dict()
+    return SACTorchPolicy(Box(-np.inf, np.inf, (SAC_OBS,), np.float64),
+                          Box(-1.0, 1.0, (SAC_ACT,), np.float32), cfg)
+
+
+def sac_rows(gen, n, obs=SAC_OBS, act=SAC_ACT):
+    """``n`` seeded replay rows in SAC's columns and the ring's types
+    (float64 observations stored as float32), made on the card."""
+    import torch
+
+    return {
+        "obs": torch.randn((n, obs), device="cuda", generator=gen),
+        "new_obs": torch.randn((n, obs), device="cuda", generator=gen),
+        "actions": torch.rand((n, act), device="cuda", generator=gen) * 2 - 1,
+        "rewards": torch.randn((n,), device="cuda", generator=gen),
+        "dones": torch.rand((n,), device="cuda", generator=gen) < 0.001,
+    }
+
+
+def sac_ring(prioritized, seed=0, capacity=SAC_CAPACITY):
+    """A device ring of ``capacity`` seeded rows, put in chunks of
+    ``SAC_FILL_CHUNK`` (one scatter per column a chunk; the prioritized
+    ring also writes each chunk's priorities into its sum tree)."""
+    import torch
+
+    from ray_tpu_torch.execution.replay_buffer import (
+        DevicePrioritizedReplayBuffer,
+        DeviceReplayBuffer,
+    )
+
+    buf = (DevicePrioritizedReplayBuffer(capacity, 0.6, seed) if prioritized
+           else DeviceReplayBuffer(capacity, seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for start in range(0, capacity, SAC_FILL_CHUNK):
+        buf.add_device_tree(sac_rows(gen, min(SAC_FILL_CHUNK, capacity - start)))
+    return buf
+
+
+def _sac_state_pairs(pa, pb):
+    pairs = [(f"param {n}", a, b) for n, a, b in zip(pa.param_names, pa.params, pb.params)]
+    for g in pa.opt_states:
+        sa, sb = pa.opt_states[g], pb.opt_states[g]
+        require(sa.count == sb.count, f"{g} Adam counts {sa.count} != {sb.count}")
+        pairs += [(f"{g} mu", a, b) for a, b in zip(sa.mu, sb.mu)]
+        pairs += [(f"{g} nu", a, b) for a, b in zip(sa.nu, sb.nu)]
+    pairs += [("target", a, b) for a, b in zip(pa.aux_state["target_critic"], pb.aux_state["target_critic"])]
+    pairs.append(("action generator", pa.action_generator.get_state(), pb.action_generator.get_state()))
+    return pairs
+
+
+def _sac_parity(prioritized, windows=2):
+    """``windows`` graphed windows of SAC_K slots against as many eager
+    updates on the same pre-drawn rows and draws, at HalfCheetah's
+    widths: every parameter, Adam moment, the target critic, the
+    generator, the stats (and the sum tree) bitwise."""
+    import torch
+
+    from ray_tpu_torch.execution.train_ops import superstep_train_replay
+
+    pa, pb = sac_policy(1), sac_policy(1)
+    ba, bb = sac_ring(prioritized, 1), sac_ring(prioritized, 1)
+    for _ in range(windows):
+        if prioritized:
+            idx, weights = ba.draw_prioritized_sets_device(SAC_K, SAC_K, SAC_BATCH, 0.4)
+        else:
+            idx = torch.as_tensor(ba.draw_index_sets(SAC_K, SAC_BATCH), device="cuda")
+        seq = []
+        for i in range(SAC_K):
+            tree = ba._gather_columns(idx[i])
+            if prioritized:
+                tree["weights"] = weights[i]
+            seq.append(pa.learn_on_device_batch(tree, SAC_BATCH))
+            if prioritized:
+                with torch.no_grad():
+                    td = torch.abs(pa._td_error(tree, pa.aux_state)[0]).cpu().numpy()
+                ba.update_priorities(idx[i], td + 1e-6)
+        info = superstep_train_replay(None, pb, bb, SAC_K, SAC_K, SAC_BATCH,
+                                      prioritized=prioritized, beta=0.4)
+        require(info == seq[-1], f"sac graph parity: stats {info} != {seq[-1]}")
+    pairs = _sac_state_pairs(pa, pb)
+    if prioritized:
+        pairs += [("sum tree", ba._dtree.sum_value, bb._dtree.sum_value),
+                  ("min tree", ba._dtree.min_value, bb._dtree.min_value)]
+        require(ba._max_priority == bb._max_priority, "sac graph parity: max priority differs")
+    n = _graph_equal("sac", pairs)
+    (runner,) = pb._superstep_runners.values()
+    return {"slots": SAC_K * windows, "replays": runner.replays, "tensors": n}
+
+
+def _sac_learner_run(prioritized):
+    """The main path at HalfCheetah's widths, its launch counts set to 0
+    just before: the ring filled, then SAC_WINDOWS + 1 graphed windows
+    of SAC_K updates (the first captures). Returns the readings."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.execution.train_ops import superstep_train_replay
+    from ray_tpu_torch.ops.framestack import gather_rows, scatter_rows
+    from ray_tpu_torch.ops.segment_tree import find_prefixsum
+
+    kernels = (gather_rows, scatter_rows, find_prefixsum)
+    for k in kernels:
+        k.launches = 0
+    policy = sac_policy(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf = sac_ring(prioritized, 0)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+
+    def window():
+        return superstep_train_replay(None, policy, buf, SAC_K, SAC_K, SAC_BATCH,
+                                      prioritized=prioritized, beta=0.4)
+
+    times, infos = [], []
+    for _ in range(SAC_WINDOWS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infos.append(window())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k.__name__: k.launches for k in kernels}
+    chunks = -(-SAC_CAPACITY // SAC_FILL_CHUNK)
+    windows = SAC_WINDOWS + 1
+    want = {
+        "gather_rows": windows * SAC_K * SAC_COLUMNS,
+        # a scatter per column a chunk; prioritized: the sum and min trees'
+        # leaf writes at each chunk and at each window's refresh
+        "scatter_rows": chunks * SAC_COLUMNS + (2 * chunks + 2 * windows if prioritized else 0),
+        "find_prefixsum": windows * SAC_K if prioritized else 0,
+    }
+    require(launches == want, f"sac_learner launches {launches}, the schedule implies {want}")
+    for info in infos:
+        require(all(math.isfinite(v) for v in info.values()), f"non-finite SAC stats {info}")
+    require(infos[-1]["alpha_value"] > 0, f"alpha {infos[-1]['alpha_value']}")
+    (runner,) = policy._superstep_runners.values()
+    require(runner.graph is not None, "no captured SAC slot")
+    out = {"launches": launches, "fill_s": fill_s, "capture_window_s": times[0],
+           "updates_per_s": spread([SAC_K / t for t in times[1:]]), "stats": infos[-1],
+           "busy": device_busy(window, 2), "replays": runner.replays}
+    if prioritized:
+        leaves = buf._dtree.leaf_values(len(buf))
+        require(np.isfinite(leaves).all() and (leaves > 0).all(), "non-finite refreshed priorities")
+        out["max_priority"] = buf._max_priority
+    out["peak_mem_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+    return out
+
+
+def phase_sac_learner():
+    """SAC's learner at HalfCheetah's widths (obs 17, act 6, 256x256
+    towers, batch 256) on a 400000-row device ring: uniform, then
+    prioritized replay; each run's launches against the schedule, rates,
+    busy share and capture time; then graphed windows against eager
+    updates, bitwise."""
+    out = {}
+    for prioritized in (False, True):
+        name = "prioritized" if prioritized else "uniform"
+        r = _sac_learner_run(prioritized)
+        out[name] = r["launches"]
+        say("sac_learner", replay=name, superstep_k=SAC_K, windows=SAC_WINDOWS,
+            updates_per_s=json.dumps({k: round(v, 1) for k, v in r["updates_per_s"].items()}),
+            capture_window_s=f"{r['capture_window_s']:.4f}", fill_s=f"{r['fill_s']:.4f}",
+            busy=json.dumps(r["busy"]), launches=json.dumps(r["launches"]), replays=r["replays"],
+            ring_rows=SAC_CAPACITY, peak_mem_gb=r["peak_mem_gb"],
+            **({"max_priority": f"{r['max_priority']:.6f}"} if prioritized else {}))
+        say("sac_learner", replay=name, stats=json.dumps({k: round(v, 6) for k, v in r["stats"].items()}))
+    for prioritized in (False, True):
+        p = _sac_parity(prioritized)
+        say("sac_learner", parity="prioritized" if prioritized else "uniform", bitwise=True,
+            **{k: v for k, v in p.items()})
+    return out
+
+
+def phase_sac_columns():
+    """Every SAC replay column at Pendulum's and HalfCheetah's widths
+    through the row gather (256 drawn rows) and the row scatter (one row,
+    the per-step insert, and 1000 rows, wrapping, duplicates included)
+    bitwise against ``index_select`` and ``index_copy_``; times and the
+    bound of the HalfCheetah obs column's gather."""
+    import torch
+
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.framestack import gather_rows, scatter_rows, scatter_rows_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    checked = []
+    for env, (obs, act, cap) in SAC_WIDTHS.items():
+        ring = sac_rows(gen, cap, obs, act)
+        idx = torch.randint(0, cap, (SAC_BATCH,), device="cuda", generator=gen)
+        new = sac_rows(gen, 1000, obs, act)
+        pos_one = torch.tensor([cap - 1], device="cuda")
+        pos = (cap - 300 + torch.arange(1000, device="cuda")) % cap
+        dup = pos.clone()
+        dup[1::5] = dup[0]
+        for col, r in ring.items():
+            require(torch.equal(gather_rows(r, idx), r.index_select(0, idx)),
+                    f"row gather differs on {env} {col} ({tuple(r.shape[1:])} {r.dtype})")
+            for p, v in ((pos_one, new[col][:1]), (pos, new[col])):
+                a, b = r.clone(), r.clone()
+                scatter_rows(a, p, v)
+                b.index_copy_(0, p, v)
+                require(torch.equal(a, b), f"row scatter differs on {env} {col} x {len(p)}")
+            # repeated positions: index_copy_ leaves their order undefined;
+            # the plain version's last write wins
+            a, b = r.clone(), r.clone()
+            scatter_rows(a, dup, new[col])
+            scatter_rows_plain(b, dup, new[col])
+            require(torch.equal(a, b), f"row scatter differs on {env} {col}, duplicates")
+            checked.append((env, col, tuple(r.shape[1:]), str(r.dtype).replace("torch.", ""),
+                            r.element_size() * max(1, r[0].numel())))
+    say("sac_columns", bitwise=True, checked=json.dumps(checked))
+    obs_ring = ring["obs"]  # HalfCheetah's, the last one built
+    out = torch.empty((SAC_BATCH, SAC_OBS), device="cuda")
+    lib = _kernels.library("row_gather")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        return lib.row_gather_launch(obs_ring.data_ptr(), idx.data_ptr(), out.data_ptr(), SAC_BATCH,
+                                     obs_ring.shape[0], SAC_OBS * 4, stream)
+
+    ms = cuda_ms(raw, iters=200)
+    dev_ms = device_ms(raw, "word_kernel", iters=200)
+    lib_dev_ms = device_ms(lambda: torch.index_select(obs_ring, 0, idx), iters=200)
+    rows_read = int(torch.unique(idx).numel())
+    nbytes = rows_read * SAC_OBS * 4 + SAC_BATCH * 8 + SAC_BATCH * SAC_OBS * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    say("sac_columns", column="halfcheetah obs", rows=SAC_BATCH, row_bytes=SAC_OBS * 4,
+        ring_rows=SAC_CAPACITY, ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}",
+        index_select_device_ms=f"{lib_dev_ms:.5f}", floor_device_ms=f"{floor_device_ms():.5f}",
+        bound_ms=f"{bound_ms:.7f}", bytes=nbytes,
+        note="launch-bound: the bound is under a launch's floor")
+    return len(checked)
+
+
+def phase_sac():
+    """pendulum-sac.yaml as written (num_workers 0: the local worker acts
+    on the card) on the port's own Pendulum-v1 for SAC_BUDGET_S seconds:
+    env steps, the reward's course, updates, the split, launches (one
+    gather per column an update)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ops.framestack import gather_rows, scatter_rows
+    from ray_tpu_torch.utils.tuned_example import build_tuned_example
+
+    algo, stop = build_tuned_example(SAC_TUNED)
+    try:
+        require(algo.workers.num_remote_workers() == 0 and algo.get_policy().device.type == "cuda",
+                "pendulum-sac does not act on the card")
+        for k in (gather_rows, scatter_rows):
+            k.launches = 0
+        curve, wall = learn_curve("sac", algo, None, stop["timesteps_total"] * 10, SAC_BUDGET_S)
+        launches = {k.__name__: k.launches for k in (gather_rows, scatter_rows)}
+        counters = algo._counters
+        steps, updates = counters["num_env_steps_sampled"], counters["num_env_steps_trained"] // 256
+        learner = algo.get_policy()
+        require(launches["gather_rows"] == SAC_COLUMNS * updates,
+                f"{launches['gather_rows']} row gathers in {updates} updates of {SAC_COLUMNS} columns")
+        require(launches["scatter_rows"] == SAC_COLUMNS * steps,
+                f"{launches['scatter_rows']} row scatters in {steps} one-row inserts")
+        alpha = float(torch.exp(learner.model.log_alpha.detach()))
+        require(alpha > 0 and math.isfinite(alpha), f"alpha {alpha}")
+        sampler = algo.workers.local_worker().sampler
+        first = next((c for c in curve if c[1] >= stop["episode_reward_mean"]), None)
+        every = max(1, len(curve) // 30)
+        last10 = float(np.mean([m.episode_reward for m in algo._episode_history[-10:]]))
+        split = {k: round(v, 3) for k, v in algo._timers.items()}
+        split.update(act_s=round(sampler.timers["act_s"], 3), env_s=round(sampler.timers["env_s"], 3))
+        say("sac", budget_s=SAC_BUDGET_S, wall_s=f"{wall:.2f}", env_steps=steps, updates=updates,
+            env_steps_per_s=f"{steps / wall:.1f}", updates_per_s=f"{updates / wall:.1f}",
+            episode_reward_mean=curve[-1][1], last_10_episodes_mean=f"{last10:.3f}",
+            first_at_bar=json.dumps(first),
+            bar=stop["episode_reward_mean"], alpha=f"{alpha:.5f}", launches=json.dumps(launches),
+            split=json.dumps(split), curve=json.dumps(curve[::every] + curve[-1:]))
+        return launches
+    finally:
+        algo.stop()
+
+
+def phase_pendulum_ppo():
+    """pendulum-ppo.yaml as written (8 envs x 256 on the local worker,
+    which acts on the card; minibatch 256, 10 epochs, MeanStdFilter) for
+    2 iterations: DiagGaussian under PPO on the actor lane."""
+    import torch
+
+    algo = ppo_from_yaml(PENDULUM_PPO)
+    try:
+        times, results = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        learner = results[-1]["info"]["learner"]["default_policy"]
+        require(all(math.isfinite(v) for v in learner.values()), f"non-finite stats {learner}")
+        steps = results[-1]["timesteps_total"]
+        require(steps == 2 * 2048, f"{steps} env steps in 2 iterations")
+        say("pendulum_ppo", env_steps=steps, iter_s=json.dumps([round(t, 3) for t in times]),
+            env_steps_per_s=f"{2048 / times[-1]:.1f}",
+            episode_reward_mean=results[-1]["episode_reward_mean"],
+            split=json.dumps({k: round(v, 4) for k, v in results[-1]["timers"].items()}),
+            stats=json.dumps({k: round(v, 5) for k, v in learner.items()}))
+    finally:
+        algo.stop()
+
+
 def _free_port():
     import socket
 
@@ -2658,19 +3021,30 @@ def main() -> int:
     timed(phase_impala_parity, impala_batch, impala_cfg)
     appo = timed(phase_appo)
     prefetch = timed(phase_ppo_prefetch)
+    sac_learner = timed(phase_sac_learner)
+    timed(phase_sac_columns)
+    sac = timed(phase_sac)
+    timed(phase_pendulum_ppo)
     ray_core.shutdown()
     ring = timed(phase_ring)
     gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"],
                                   "transformer_dqn": tf_dqn["gather_rows"], "actor_lane": actor,
                                   "actor_lane_local": actor_local, "actor_learn": actor_learn,
-                                  "impala": impala, "appo": appo, "ppo_prefetch": prefetch}
+                                  "impala": impala, "appo": appo, "ppo_prefetch": prefetch,
+                                  "sac_learner": sac_learner["uniform"]["gather_rows"],
+                                  "sac_learner_prioritized": sac_learner["prioritized"]["gather_rows"],
+                                  "sac": sac["gather_rows"]}
     gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"],
                                "cartpole": cartpole, "gridrooms": gridrooms,
                                "ponglite_learn": pong_learn}
     scatter["launches_by_path"] = {"dqn": dqn["scatter_rows"],
-                                   "transformer_dqn": tf_dqn["scatter_rows"]}
+                                   "transformer_dqn": tf_dqn["scatter_rows"],
+                                   "sac_learner": sac_learner["uniform"]["scatter_rows"],
+                                   "sac_learner_prioritized": sac_learner["prioritized"]["scatter_rows"],
+                                   "sac": sac["scatter_rows"]}
     descent["launches_by_path"] = {"dqn": dqn["find_prefixsum"],
-                                   "transformer_dqn": tf_dqn["find_prefixsum"]}
+                                   "transformer_dqn": tf_dqn["find_prefixsum"],
+                                   "sac_learner_prioritized": sac_learner["prioritized"]["find_prefixsum"]}
     flash["launches_by_path"] = {"transformer_learner": tf_learner,
                                  "transformer_lane": tf_lane["flash"],
                                  "transformer_dqn": tf_dqn["flash_attention"]}

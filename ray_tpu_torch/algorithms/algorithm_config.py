@@ -7,7 +7,9 @@ reference does). ``env_backend: "jax"`` selects the device rollout lane;
 any other value (the default, ``"actor"``) the actor lane, whose keys
 keep the reference's names and defaults and are read where they are
 used (``observation_filter``, ``batch_mode``, ``num_cpus_per_worker``,
-...; ``sample_async`` raises for now). ``sample_prefetch`` (0: off)
+``horizon``, ``normalize_actions``, ``clip_actions``, ...;
+``sample_async`` raises for now). ``callbacks_class`` and a non-null
+``evaluation_interval`` raise in ``Algorithm`` (ROADMAP item 3c). ``sample_prefetch`` (0: off)
 samples the next train batch and copies it to the card while the
 learner works on this one (PPO with remote workers);
 ``max_requests_in_flight_per_rollout_worker`` caps its requests a
@@ -45,6 +47,10 @@ class AlgorithmConfig:
         self.env = None
         self.env_config: Dict = {}
         self.env_backend = "actor"
+        # the actor lane's action squashing and episode horizon
+        self.clip_actions = False
+        self.normalize_actions = True
+        self.horizon = None
 
         # rollouts
         self.num_workers = 0
@@ -88,20 +94,32 @@ class AlgorithmConfig:
         self.min_time_s_per_iteration = None
         self.min_sample_timesteps_per_iteration = 0
 
+        # not ported (``Algorithm`` raises when set): ROADMAP item 3c
+        self.callbacks_class = None
+        self.evaluation_interval = None
+
     def environment(
         self,
         env=None,
         *,
         env_config: Optional[Dict] = None,
         env_backend: Optional[str] = None,
+        clip_actions: Optional[bool] = None,
+        normalize_actions: Optional[bool] = None,
+        horizon: Optional[int] = None,
         **kwargs,
     ) -> "AlgorithmConfig":
         if env is not None:
             self.env = env
-        if env_config is not None:
-            self.env_config = env_config
-        if env_backend is not None:
-            self.env_backend = env_backend
+        for name, value in (
+            ("env_config", env_config),
+            ("env_backend", env_backend),
+            ("clip_actions", clip_actions),
+            ("normalize_actions", normalize_actions),
+            ("horizon", horizon),
+        ):
+            if value is not None:
+                setattr(self, name, value)
         return self
 
     def rollouts(

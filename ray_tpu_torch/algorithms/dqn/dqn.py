@@ -20,13 +20,23 @@ full window of K of them runs as one ``superstep_train_replay`` call,
 one CUDA graph replayed K times, and prioritized replay joins the chain
 with its priorities refreshed once per window, as in the reference.
 
-Not ported yet (ROADMAP queue 1): the actor lane, ``n_step > 1`` on the
-lane (n-step folding is a host postprocess), C51 and noisy heads and
-``learn_while_rollout``.
+Off the device lane (any other ``env_backend``) a round is the
+reference's actor-lane ``training_step``: the workers (or the local
+worker, when there are none) sample ``rollout_fragment_length x
+num_envs_per_worker`` env steps, the fragment's replay columns cross to
+the device rings once (``MultiAgentReplayBuffer.add``: one row-scatter
+launch per column), the replay update phase runs as on the lane, and
+the workers get the acting weights (``sync_weights(inference_only=
+True)``). SAC inherits this round.
+
+Not ported yet (ROADMAP queue 1): ``n_step > 1`` (n-step folding is a
+host postprocess), frame-pool fragments in replay and ``sample_async``
+on the actor lane, C51 and noisy heads and ``learn_while_rollout``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -40,6 +50,7 @@ from ray_tpu_torch.algorithms.algorithm import (
 from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
 from ray_tpu_torch.algorithms.dqn.dqn_model import DQNModel
 from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, SampleBatch
+from ray_tpu_torch.execution.rollout_ops import synchronous_parallel_sample
 from ray_tpu_torch.execution.replay_buffer import (
     MultiAgentReplayBuffer,
     resolve_device_resident,
@@ -48,6 +59,7 @@ from ray_tpu_torch.execution.replay_buffer import (
 from ray_tpu_torch.execution.train_ops import superstep_train_replay
 from ray_tpu_torch.models.catalog import MODEL_DEFAULTS
 from ray_tpu_torch.models.cnn import get_filter_config
+from ray_tpu_torch.ops.framestack import FRAMES
 from ray_tpu_torch.policy.torch_policy import TorchPolicy
 
 
@@ -291,6 +303,7 @@ class DQNTorchPolicy(TorchPolicy):
 
 class DQN(Algorithm):
     _default_policy_class = DQNTorchPolicy
+    _actor_lane = True
 
     @classmethod
     def get_default_config(cls) -> DQNConfig:
@@ -311,6 +324,8 @@ class DQN(Algorithm):
             seed=cfg.get("seed"),
             device=self.device,
             memory_cap_bytes=cfg.get("replay_memory_cap_bytes"),
+            # host fragments convert to the policy's columns once, at insert
+            replay_columns_fn=lambda pid, sb: self.get_policy(pid).replay_columns(sb),
         )
         self._last_target_update = 0
         self._training_debt = 0.0
@@ -353,7 +368,14 @@ class DQN(Algorithm):
     def _single_update(self, prioritized: bool, kwargs: Dict) -> Dict:
         """One replay sample + learn call, then the per-row priority
         refresh ``|td| + 1e-6`` (added in float32, as the reference's
-        host call site rounds it)."""
+        host call site rounds it). Under a superstep (K > 1: on CUDA by
+        default) the update is one replay of the superstep's captured
+        slot, as the reference's is one compiled program: the same draws,
+        the same update bitwise, one host call instead of the eager
+        update's few hundred launches."""
+        K = self._resolve_superstep_k()
+        if K > 1:
+            return self._superstep_round(1, K, prioritized, kwargs.get("beta", 0.4))
         train_info: Dict = {}
         train_batch = self.local_replay_buffer.sample(self.config["train_batch_size"], **kwargs)
         for pid, b in train_batch.items():
@@ -369,23 +391,30 @@ class DQN(Algorithm):
     def _chained_updates(self, updates: int, prioritized: bool, beta: float) -> Dict:
         """``updates`` replay updates back to back: every full window of
         K runs as one superstep per policy, the rest one at a time."""
-        bs = int(self.config["train_batch_size"])
         K = self._resolve_superstep_k()
         train_info: Dict = {}
         left = updates
         while K > 1 and left >= K:
-            for pid, buf in self.local_replay_buffer.buffers.items():
-                if len(buf) < bs:
-                    continue
-                train_info[pid] = superstep_train_replay(
-                    self, self.get_policy(pid), buf, K, K, bs,
-                    prioritized=prioritized, beta=beta,
-                )
-                self._counters[NUM_ENV_STEPS_TRAINED] += K * bs
+            train_info.update(self._superstep_round(K, K, prioritized, beta))
             left -= K
         kwargs = {"beta": beta} if prioritized else {}
         for _ in range(left):
             train_info.update(self._single_update(prioritized, kwargs))
+        return train_info
+
+    def _superstep_round(self, k: int, K: int, prioritized: bool, beta: float) -> Dict:
+        """``k`` <= ``K`` replay updates of every policy whose buffer
+        holds a batch, as one ``superstep_train_replay`` call each (one
+        captured slot per (batch size, K), shared by every k)."""
+        bs = int(self.config["train_batch_size"])
+        train_info: Dict = {}
+        for pid, buf in self.local_replay_buffer.buffers.items():
+            if len(buf) < bs:
+                continue
+            train_info[pid] = superstep_train_replay(
+                self, self.get_policy(pid), buf, k, K, bs, prioritized=prioritized, beta=beta,
+            )
+            self._counters[NUM_ENV_STEPS_TRAINED] += k * bs
         return train_info
 
     def _replay_update_phase(self, sampled_steps: int) -> Dict:
@@ -426,19 +455,58 @@ class DQN(Algorithm):
 
     def training_step(self) -> Dict:
         """One round on the device lane: rollout fill, then the replay
-        update phase."""
+        update phase (the actor lane: :meth:`_training_step_actor_lane`)."""
         cfg = self.config
         if cfg.get("env_backend") != "jax":
-            raise NotImplementedError(
-                "the actor lane is not ported yet; set env_backend='jax' "
-                "to run DQN on the device lane"
-            )
+            return self._training_step_actor_lane()
         if cfg.get("learn_while_rollout"):
             raise NotImplementedError("learn_while_rollout is not ported yet")
         sampled = self._jax_rollout_fill()
         self._counters[NUM_ENV_STEPS_SAMPLED] += sampled
         train_info = self._replay_update_phase(sampled)
         self.get_policy().global_timestep = self._counters[NUM_ENV_STEPS_SAMPLED]
+        return train_info
+
+    def _training_step_actor_lane(self) -> Dict:
+        """The reference's off-policy round off the device lane: sample
+        ``rollout_fragment_length x num_envs_per_worker`` env steps,
+        insert them into the device rings, the replay update phase, then
+        the acting weights and the timestep to every worker. The parts'
+        seconds add up in ``self._timers`` (``sample_s``, ``insert_s``,
+        ``update_s``, ``sync_weights_s``) over the run."""
+        cfg = self.config
+        if int(cfg.get("n_step", 1)) > 1:
+            raise NotImplementedError(
+                "n_step > 1 (adjust_nstep, a host postprocess) is not ported yet: "
+                "ROADMAP.md queue 1 item 4b"
+            )
+        t0 = time.perf_counter()
+        batch = synchronous_parallel_sample(
+            worker_set=self.workers,
+            max_env_steps=int(cfg.get("rollout_fragment_length", 4))
+            * max(1, int(cfg.get("num_envs_per_worker", 1))),
+        )
+        if FRAMES in batch:
+            raise NotImplementedError(
+                "frame-pool fragments in replay (the reference's _materialize_compressed) "
+                "are not ported yet: ROADMAP.md queue 1 item 4b; set compress_obs_shipping=False"
+            )
+        t1 = time.perf_counter()
+        sampled = batch.env_steps()
+        self._counters[NUM_ENV_STEPS_SAMPLED] += sampled
+        self.local_replay_buffer.add(batch)
+        t2 = time.perf_counter()
+        train_info = self._replay_update_phase(sampled)
+        t3 = time.perf_counter()
+        self.workers.sync_weights(
+            global_vars={"timestep": self._counters[NUM_ENV_STEPS_SAMPLED]},
+            inference_only=True,
+        )
+        timers = self._timers
+        timers["sample_s"] += t1 - t0
+        timers["insert_s"] += t2 - t1
+        timers["update_s"] += t3 - t2
+        timers["sync_weights_s"] += time.perf_counter() - t3
         return train_info
 
     # -- checkpoint state ----------------------------------------------------

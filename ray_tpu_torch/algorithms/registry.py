@@ -13,6 +13,7 @@ ALGORITHMS = {
     "DQN": "ray_tpu_torch.algorithms.dqn.dqn:DQN",
     "IMPALA": "ray_tpu_torch.algorithms.impala.impala:IMPALA",
     "APPO": "ray_tpu_torch.algorithms.appo.appo:APPO",
+    "SAC": "ray_tpu_torch.algorithms.sac.sac:SAC",
 }
 
 

@@ -3,9 +3,12 @@
 Counterpart of ``ray_tpu/env/registry.py``. The port's envs register
 under the reference's names, so the reference's tuned-example configs
 run unchanged: the host envs ``PongLite-v0`` and ``PongLiteFlat-v0``
-(``env/pong_lite.py``, the actor lane's), and the tensor envs
-``PongLiteJax-v0``, ``CartPoleJax-v0`` and ``GridRoomsJax-v0`` (the
-device lane's; ``-Jax`` in a name means "runs on the device" here).
+(``env/pong_lite.py``, the actor lane's) and ``Pendulum-v1``
+(``env/pendulum.py``: gymnasium's dynamics written out, so the card's
+machine, which has no gymnasium, runs the Pendulum yamls), and the
+tensor envs ``PongLiteJax-v0``, ``CartPoleJax-v0`` and
+``GridRoomsJax-v0`` (the device lane's; ``-Jax`` in a name means "runs
+on the device" here).
 
 A name nobody registered is taken for a gymnasium id, as in the
 reference: the creator imports gymnasium when it makes the env, and
@@ -25,6 +28,7 @@ _env_registry: Dict[str, Callable[[Dict], Any]] = {}
 _IN_REPO = {
     "PongLite-v0": "ray_tpu_torch.env.pong_lite",
     "PongLiteFlat-v0": "ray_tpu_torch.env.pong_lite",
+    "Pendulum-v1": "ray_tpu_torch.env.pendulum",
     "PongLiteJax-v0": "ray_tpu_torch.env.pong_lite_tensor",
     "CartPoleJax-v0": "ray_tpu_torch.env.control_tensor",
     "GridRoomsJax-v0": "ray_tpu_torch.env.control_tensor",

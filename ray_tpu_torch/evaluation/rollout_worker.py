@@ -36,15 +36,15 @@ _ITEM = "ROADMAP.md queue 1 item 3"
 
 
 def _refuse_unported(config: Dict) -> None:
-    for key, what in (
-        ("policies", "multi-agent policies"),
-        ("input", "input readers"),
-        ("output", "output writers"),
-        ("fault_injection", "the fault injector"),
-        ("sample_async", "AsyncSampler (sample_async)"),
+    for key, what, item in (
+        ("policies", "multi-agent policies", _ITEM),
+        ("input", "input readers", _ITEM),
+        ("output", "output writers", _ITEM),
+        ("fault_injection", "the fault injector", _ITEM),
+        ("sample_async", "AsyncSampler (sample_async)", "ROADMAP.md queue 1 item 5"),
     ):
         if config.get(key):
-            raise NotImplementedError(f"{what} on the actor lane are not ported yet: {_ITEM}")
+            raise NotImplementedError(f"{what} on the actor lane are not ported yet: {item}")
 
 
 class RolloutWorker:
@@ -119,6 +119,9 @@ class RolloutWorker:
             obs_filter=self.filters[DEFAULT_POLICY_ID],
             rollout_fragment_length=int(self.config.get("rollout_fragment_length", 200)),
             batch_mode=self.config.get("batch_mode", "truncate_episodes"),
+            episode_horizon=self.config.get("horizon"),
+            clip_actions=self.config.get("clip_actions", False),
+            normalize_actions=self.config.get("normalize_actions", True),
             flush_on_episode_end=not self.config.get("_fixed_unrolls", False),
         )
 
@@ -144,8 +147,13 @@ class RolloutWorker:
 
     # -- weights and filters ---------------------------------------------
 
-    def get_weights(self) -> Dict:
-        return {pid: p.get_weights() for pid, p in self.policy_map.items()}
+    def get_weights(self, inference_only: bool = False) -> Dict:
+        """Every policy's weights; ``inference_only``: only what acting
+        reads (``get_inference_weights``: SAC's actor)."""
+        return {
+            pid: p.get_inference_weights() if inference_only else p.get_weights()
+            for pid, p in self.policy_map.items()
+        }
 
     def set_weights(self, weights: Dict, global_vars: Optional[Dict] = None) -> None:
         for pid, w in weights.items():

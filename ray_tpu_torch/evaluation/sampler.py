@@ -20,11 +20,19 @@ family (the rollout worker sets it from the config's ``_fixed_unrolls``):
 a slot's fragment is exactly ``rollout_fragment_length`` steps and may
 span an episode reset, whose done row marks it inside the fragment.
 
+Continuous actions: with ``normalize_actions`` (the default) the env
+gets ``unsquash_action`` of the policy's action (clipped to [-1, 1],
+then mapped onto the Box's bounds); with ``clip_actions`` instead, the
+action clipped to the bounds. The batch keeps the policy's own actions.
+``episode_horizon`` ends an episode at that many steps, in the
+reference's order: the row is recorded first, as the env returned it,
+so the cut row keeps its ``TRUNCATEDS`` (False unless the env truncated
+too) and only the slot ends its episode and resets.
+
 Not ported (``ROADMAP.md`` queue 1 item 3): ``AsyncSampler``, the
 ``ViewCollector`` of extra view requirements (shifted columns such as
-``prev_actions``), recurrent state, callbacks, ``horizon`` and the
-action squashing of continuous spaces (item 4; the catalog takes
-Discrete only). A policy that asks for the first three raises here.
+``prev_actions``), recurrent state and callbacks. A policy that asks for
+the first three raises here; callbacks raise in ``Algorithm``.
 
 ``timers`` adds up the seconds of the loop's parts (``act_s``: the
 policy's ``compute_actions``; ``env_s``: the vector env's step;
@@ -35,7 +43,7 @@ env steps they cover.
 from __future__ import annotations
 
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -70,6 +78,28 @@ class _EnvSlotCollector:
         self.columns = {}
         self.count = 0
         return batch
+
+
+def _bounded_box(space) -> bool:
+    """A Box (duck-typed: bounds, no ``n``) with finite lower bounds."""
+    low = getattr(space, "low", None)
+    return getattr(space, "n", None) is None and low is not None and bool(np.all(np.isfinite(low)))
+
+
+def unsquash_action(action, space):
+    """A [-1, 1]-normalised action mapped onto a Box's bounds (the
+    reference's ``unsquash_action``); any other space passes it as is."""
+    if _bounded_box(space):
+        a = np.clip(action, -1.0, 1.0)
+        return space.low + (a + 1.0) * (space.high - space.low) / 2.0
+    return action
+
+
+def clip_action(action, space):
+    """An action clipped to a Box's bounds (the reference's ``clip_action``)."""
+    if getattr(space, "n", None) is None and getattr(space, "low", None) is not None:
+        return np.clip(action, space.low, space.high)
+    return action
 
 
 def transform_obs(preprocessor, obs_filter, obs):
@@ -116,6 +146,9 @@ class SyncSampler:
         obs_filter=None,
         rollout_fragment_length: int = 200,
         batch_mode: str = "truncate_episodes",
+        episode_horizon: Optional[int] = None,
+        clip_actions: bool = False,
+        normalize_actions: bool = True,
         flush_on_episode_end: bool = True,
     ):
         check_ported_views(policy)
@@ -128,6 +161,9 @@ class SyncSampler:
         self.obs_filter = obs_filter
         self.frag_len = rollout_fragment_length
         self.batch_mode = batch_mode
+        self.horizon = episode_horizon
+        self.clip_actions = clip_actions
+        self.normalize_actions = normalize_actions
         self.flush_on_episode_end = flush_on_episode_end
 
         n = self.env.num_envs
@@ -169,7 +205,14 @@ class SyncSampler:
         t0 = time.perf_counter()
         actions, _, extras = self.policy.compute_actions(np.stack(self.cur_obs), None, explore=True)
         t1 = time.perf_counter()
-        next_obs, rewards, terms, truncs, _ = self.env.vector_step(list(actions))
+        space = self.env.action_space
+        if self.normalize_actions:
+            env_actions = [unsquash_action(a, space) for a in actions]
+        elif self.clip_actions:
+            env_actions = [clip_action(a, space) for a in actions]
+        else:
+            env_actions = list(actions)
+        next_obs, rewards, terms, truncs, _ = self.env.vector_step(env_actions)
         self.timers["act_s"] += t1 - t0
         self.timers["env_s"] += time.perf_counter() - t1
         self.timers["steps"] += n
@@ -191,7 +234,11 @@ class SyncSampler:
             self.collectors[i].add(row)
             self.episodes[i].add(float(rewards[i]))
 
-            if terms[i] or truncs[i]:
+            ep_done = terms[i] or truncs[i]
+            if self.horizon and self.episodes[i].length >= self.horizon:
+                # after the row: the row keeps the env's TRUNCATEDS
+                ep_done = True
+            if ep_done:
                 if self.flush_on_episode_end:
                     self._flush_slot(i, out)
                 self.metrics_queue.append(

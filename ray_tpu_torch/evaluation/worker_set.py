@@ -77,9 +77,13 @@ class WorkerSet:
 
     # -- sync ------------------------------------------------------------
 
-    def sync_weights(self, global_vars: Optional[Dict] = None) -> None:
+    def sync_weights(self, global_vars: Optional[Dict] = None, inference_only: bool = False) -> None:
+        """The learner's weights to every remote worker (``inference_only``:
+        the acting subset, ``get_inference_weights``, as the reference
+        ships SAC's actor without its critic and target), and
+        ``global_vars`` to every worker."""
         if self._remote_workers:
-            ref = api.put(self._local_worker.get_weights())
+            ref = api.put(self._local_worker.get_weights(inference_only=inference_only))
             for w in self._remote_workers:
                 w.set_weights.remote(ref, global_vars)
         if global_vars:

@@ -46,7 +46,7 @@ the numbers; it never moves rows to the host.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -660,7 +660,10 @@ class DevicePrioritizedReplayBuffer(DeviceReplayBuffer):
 class MultiAgentReplayBuffer:
     """Per-policy device buffers, as the reference's; the port's
     algorithms use one policy. ``sample`` returns ``{policy_id: batch}``
-    for every buffer holding at least ``num_items`` rows."""
+    for every buffer holding at least ``num_items`` rows.
+    ``replay_columns_fn(policy_id, SampleBatch) -> {column: array}``
+    turns a host fragment into the columns the policy's learn call reads
+    (``TorchPolicy.replay_columns``), once, at insert."""
 
     def __init__(
         self,
@@ -671,6 +674,7 @@ class MultiAgentReplayBuffer:
         *,
         device=None,
         memory_cap_bytes: Optional[int] = None,
+        replay_columns_fn: Optional[Callable[[str, SampleBatch], Dict[str, np.ndarray]]] = None,
     ):
         self.capacity = capacity
         self.prioritized = prioritized
@@ -678,6 +682,7 @@ class MultiAgentReplayBuffer:
         self.seed = seed
         self.device = device
         self.memory_cap_bytes = memory_cap_bytes
+        self.replay_columns_fn = replay_columns_fn
         self.buffers: Dict[str, DeviceReplayBuffer] = {}
 
     def _buffer(self, pid: str) -> DeviceReplayBuffer:
@@ -691,6 +696,19 @@ class MultiAgentReplayBuffer:
         return self.buffers[pid]
 
     def add_device_tree(self, tree: Dict[str, Any], policy_id: str = DEFAULT_POLICY_ID) -> None:
+        self._buffer(policy_id).add_device_tree(tree)
+
+    def add(self, batch: SampleBatch, policy_id: str = DEFAULT_POLICY_ID) -> None:
+        """A host fragment (the actor lane's): its replay columns (the
+        policy's, or every numeric column) cross to the device once each
+        and land with one scatter per column (``add_device_tree``)."""
+        if self.replay_columns_fn is not None:
+            tree = self.replay_columns_fn(policy_id, batch)
+        else:
+            tree = {
+                k: np.asarray(v) for k, v in batch.items()
+                if isinstance(v, np.ndarray) and v.dtype != object
+            }
         self._buffer(policy_id).add_device_tree(tree)
 
     def sample(self, num_items: int, **kwargs) -> Dict[str, Any]:

@@ -3,11 +3,11 @@
 Counterpart of ``ray_tpu/models/catalog.py`` for the models this slice
 ports: ``use_transformer`` gets :class:`TransformerPolicyNet` (checked
 first, as in the reference), image observations (H, W, C)
-:class:`VisionNet`, flat ones :class:`FCNet`, and Discrete action spaces
-:class:`Categorical`. The ``dtype`` key picks the compute dtype (None:
+:class:`VisionNet`, flat ones :class:`FCNet`; Discrete action spaces
+:class:`Categorical` and Box ones :class:`DiagGaussian`. The ``dtype`` key picks the compute dtype (None:
 bfloat16 for the vision net, float32 for the MLP and the transformer),
 as in the reference. Spaces are duck-typed (``shape``; ``n`` for a
-discrete space).
+discrete space, ``low``/``high`` for a box).
 """
 
 from __future__ import annotations
@@ -47,6 +47,15 @@ MODEL_DEFAULTS: Dict[str, Any] = {
 _UNPORTED = ("use_lstm", "use_attention", "custom_model")
 
 
+def _is_box(space) -> bool:
+    """A Box by its attributes: bounds and a shape, no ``n``."""
+    return (
+        getattr(space, "n", None) is None
+        and hasattr(space, "low") and hasattr(space, "high")
+        and getattr(space, "shape", None) is not None
+    )
+
+
 def _pair(v) -> Tuple[int, int]:
     return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
 
@@ -59,14 +68,17 @@ class ModelCatalog:
 
     @staticmethod
     def get_action_dist(action_space, config: Optional[Dict] = None) -> Tuple[type, int]:
-        """→ (dist_class, required model output size)."""
-        if getattr(action_space, "n", None) is not None and tuple(
-            getattr(action_space, "shape", ())
-        ) == ():
+        """→ (dist_class, required model output size): Discrete →
+        :class:`Categorical`, Box → :class:`DiagGaussian` (mean and
+        log-std per dimension, the reference's default for Box)."""
+        shape = tuple(getattr(action_space, "shape", None) or ())
+        if getattr(action_space, "n", None) is not None and shape == ():
             return dists.Categorical, int(action_space.n)
+        if _is_box(action_space):
+            return dists.DiagGaussian, dists.DiagGaussian.required_model_output_shape(action_space)
         raise NotImplementedError(
-            f"action space {action_space} is not ported yet "
-            "(this slice ports Discrete)"
+            f"action space {action_space} is not ported yet (the port takes Discrete and "
+            "Box): ROADMAP.md queue 1 item 9"
         )
 
     @staticmethod

@@ -61,6 +61,10 @@ class Policy:
     def get_weights(self) -> Dict[str, np.ndarray]:
         raise NotImplementedError
 
+    def get_inference_weights(self) -> Dict[str, np.ndarray]:
+        """The weights acting reads (all, unless a subclass keeps fewer)."""
+        return self.get_weights()
+
     def set_weights(self, weights) -> None:
         raise NotImplementedError
 

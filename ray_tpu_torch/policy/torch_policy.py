@@ -182,6 +182,10 @@ class TorchPolicy(Policy):
     # Losses that never read NEXT_OBS set this False so the train tree
     # does not carry a second obs column to the device.
     _ship_next_obs: bool = True
+    # Top-level parameter names (before the first ".") that acting
+    # needs: ``get_inference_weights`` ships only these to sampling-only
+    # workers (the reference's ``inference_weight_keys``); None: all.
+    inference_weight_keys: Optional[Tuple[str, ...]] = None
 
     def __init__(self, observation_space, action_space, config: Dict, device=None):
         super().__init__(observation_space, action_space, config)
@@ -202,7 +206,7 @@ class TorchPolicy(Policy):
 
         self.grad_clip = config.get("grad_clip")
         self.adam_eps = float(config.get("adam_epsilon", 1e-8))
-        self.opt_state = AdamState(self.params)
+        self._init_optimizer()
 
         # device scalars of coeff_values, the nest's stat masks and the
         # superstep runners (one captured graph each on CUDA)
@@ -253,6 +257,10 @@ class TorchPolicy(Policy):
 
     def _init_coeffs(self) -> None:
         """Subclasses add extra coefficients to self.coeff_values."""
+
+    def _init_optimizer(self) -> None:
+        """One Adam state over every parameter (SAC keeps three)."""
+        self.opt_state = AdamState(self.params)
 
     def _init_aux_state(self) -> Dict[str, Any]:
         """Initial non-gradient state, e.g. target-network params."""
@@ -347,14 +355,12 @@ class TorchPolicy(Policy):
         self.coeff_values["lr"] = float(self._lr_schedule(t))
         self.coeff_values["entropy_coeff"] = float(self._entropy_schedule(t))
 
-    def _batch_to_train_tree(self, samples) -> Dict[str, np.ndarray]:
-        """Training columns as a flat dict of host arrays; a stacked
-        pixel OBS column whose rows slide becomes a frame pool
-        (:meth:`_maybe_dedup_framestack`)."""
+    def _train_columns(self, samples) -> Dict[str, np.ndarray]:
+        """Training columns as a flat dict of host arrays."""
         drop = {SampleBatch.INFOS, SampleBatch.SEQ_LENS}
         if not self._ship_next_obs:
             drop.add(SampleBatch.NEXT_OBS)
-        tree = {
+        return {
             k: np.asarray(v)
             for k, v in samples.items()
             if k not in drop
@@ -362,7 +368,18 @@ class TorchPolicy(Policy):
             and isinstance(v, np.ndarray)
             and v.dtype != object
         }
-        return self._maybe_dedup_framestack(tree)
+
+    def _batch_to_train_tree(self, samples) -> Dict[str, np.ndarray]:
+        """:meth:`_train_columns`; a stacked pixel OBS column whose rows
+        slide becomes a frame pool (:meth:`_maybe_dedup_framestack`)."""
+        return self._maybe_dedup_framestack(self._train_columns(samples))
+
+    def replay_columns(self, samples) -> Dict[str, np.ndarray]:
+        """The host column tree a replay buffer stores for this policy
+        (the reference's ``JaxPolicy.replay_columns``): the learn call's
+        columns without the frame-pool format, since randomly sampled
+        rows are not sliding windows."""
+        return self._train_columns(samples)
 
     # -- the frame-pool format on the host ---------------------------------
 
@@ -491,11 +508,16 @@ class TorchPolicy(Policy):
             t.fill_(float(value))
         return self._coeff_tensors
 
+    def _adam_states(self) -> List[AdamState]:
+        """Every Adam state an update advances (SAC has three)."""
+        return [self.opt_state]
+
     def _load_corrections(self, steps: int) -> None:
-        """Adam's corrections for the next ``steps`` steps; a grown
-        table drops the captured graphs, which read the old one (each
-        runner captures again at its next call)."""
-        if self.opt_state.load_corrections(steps):
+        """Adam's corrections for the next ``steps`` steps of every
+        state; a grown table drops the captured graphs, which read the
+        old one (each runner captures again at its next call)."""
+        grew = [st.load_corrections(steps) for st in self._adam_states()]
+        if any(grew):
             for runner in self._superstep_runners.values():
                 runner.graph = None
 
@@ -629,23 +651,35 @@ class TorchPolicy(Policy):
     # -- the K-update superstep ---------------------------------------------
 
     def _learner_tensors(self) -> List[torch.Tensor]:
-        """What an update writes: params, Adam moments and step index."""
-        st = self.opt_state
-        return [*self.params, *st.mu, *st.nu, st.step]
+        """What an update writes: params, Adam moments and step indices."""
+        out = list(self.params)
+        for st in self._adam_states():
+            out += [*st.mu, *st.nu, st.step]
+        return out
+
+    def _slot_update(self, runner, batch: Dict[str, torch.Tensor], batch_size: int):
+        """A slot's update: the nest with the slot's permutations;
+        ``(stat names, (len(names),) device stats)``."""
+        perms = runner.perms.index_select(0, runner.slot)[0]
+        return self._sgd_nest_device(batch, batch_size, perms, self._coeff_tensors)
+
+    def _slot_priorities(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """A slot's post-update per-row |TD| errors."""
+        with torch.no_grad():
+            return torch.abs(self._td_error(batch, self.aux_state)[0])
 
     def _update_slot(self, runner, batch: Dict[str, torch.Tensor], batch_size: int,
                      priorities: bool = False) -> None:
-        """One update of a superstep slot, with no host read: the nest on
-        ``batch`` with the slot's permutations, the nan guard's masked
+        """One update of a superstep slot, with no host read: the update
+        on ``batch`` (:meth:`_slot_update`), the nan guard's masked
         no-op, the stats row and (``priorities``) the post-update |TD|
         errors, into the runner's (K_max, ...) outputs."""
         batch = self._with_stacks(batch)
-        perms = runner.perms.index_select(0, runner.slot)[0]
         guard = bool(self.config.get("nan_guard"))
         if guard:
             ok = batch_finite(batch)
             saved = [t.detach().clone() for t in self._learner_tensors()]
-        names, reduced = self._sgd_nest_device(batch, batch_size, perms, self._coeff_tensors)
+        names, reduced = self._slot_update(runner, batch, batch_size)
         if guard:
             keep = ok > 0.5
             with torch.no_grad():
@@ -657,9 +691,7 @@ class TorchPolicy(Policy):
         runner.stat_names = names
         runner.write("stats", torch.cat([reduced, skip.reshape(1)]))
         if priorities:
-            with torch.no_grad():
-                td = self._td_error(batch, self.aux_state)[0]
-            runner.write("priorities", torch.abs(td))
+            runner.write("priorities", self._slot_priorities(batch))
 
     def _superstep_runner(self, key, k_max: int, batch_size: int, slot_fn, generators=()):
         runner = self._superstep_runners.get(key)
@@ -690,14 +722,19 @@ class TorchPolicy(Policy):
         self._load_corrections(k_max * steps)
         out = runner.run(k)
         skipped = [bool(s > 0.5) for s in out["stats"][:, -1]]
-        self.opt_state.count += steps * (k - sum(skipped))
+        for st in self._adam_states():
+            st.count += steps * (k - sum(skipped))
         self.num_grad_updates += k * steps
-        lr = self.coeff_values["lr"]
+        extras = self._info_extras()
         infos = [
-            {**dict(zip(runner.stat_names, map(float, row[:-1]))), "cur_lr": lr}
+            {**dict(zip(runner.stat_names, map(float, row[:-1]))), **extras}
             for row in out["stats"]
         ]
         return infos, skipped, out
+
+    def _info_extras(self) -> Dict[str, float]:
+        """What a learn call's stats carry beside the update's own."""
+        return {"cur_lr": self.coeff_values["lr"]}
 
     def learn_superstep(
         self,
@@ -793,6 +830,18 @@ class TorchPolicy(Policy):
         return {
             n: p.detach().cpu().numpy()
             for n, p in zip(self.param_names, self.params)
+        }
+
+    def get_inference_weights(self) -> Dict[str, np.ndarray]:
+        """The weights that acting reads: those under
+        :attr:`inference_weight_keys`, or all of them."""
+        keys = self.inference_weight_keys
+        if keys is None:
+            return self.get_weights()
+        return {
+            n: p.detach().cpu().numpy()
+            for n, p in zip(self.param_names, self.params)
+            if n.split(".")[0] in keys
         }
 
     @torch.no_grad()

@@ -115,8 +115,10 @@ def exploration_from_config(
         return typ(action_space, ec, model_config)
     cls = _REGISTRY.get(typ)
     if cls is None:
+        # the noise strategies' only users are DDPG and TD3
+        item = "item 4b" if typ in ("GaussianNoise", "OrnsteinUhlenbeckNoise") else "item 9"
         raise NotImplementedError(
-            f"exploration type {typ!r} is not ported yet; "
+            f"exploration type {typ!r} is not ported yet (ROADMAP.md queue 1 {item}); "
             f"ported: {sorted(_REGISTRY)}"
         )
     return cls(action_space, ec, model_config)

@@ -21,6 +21,10 @@ Models that are not flax modules (the transformer torso) keep a plain
 nested dict with no ``"params"`` collection; the port's module keeps
 their names and layouts, so such a tree maps leaf for leaf, its path
 joined with dots (:func:`plain_to_state_dict`).
+
+SAC's trees (``{"actor", "critic", "log_alpha"}`` params, the target
+critic as aux state and three optax Adam states) go into a
+``SACTorchPolicy`` whole through :func:`from_jax_sac_state`.
 """
 
 from __future__ import annotations
@@ -131,3 +135,38 @@ def from_jax_adam_state(opt_state) -> Tuple[int, Dict[str, np.ndarray], Dict[str
         to_state_dict(adam.mu),
         to_state_dict(adam.nu),
     )
+
+
+def from_jax_sac_state(policy, params, aux_state, opt_state):
+    """Carry a reference SAC policy's state into ``policy`` (a
+    ``SACTorchPolicy``) in place: the actor, both Q towers and
+    ``log_alpha`` (``params``), the target critic (``aux_state``) and the
+    critic's, actor's and ``log_alpha``'s Adam states (``opt_state``:
+    count, mu, nu). Returns ``policy``."""
+    weights = {}
+    for group in ("actor", "critic"):
+        weights.update({f"{group}.{k}": v for k, v in to_state_dict(params[group]).items()})
+    weights["log_alpha"] = np.asarray(params["log_alpha"])
+    if set(weights) != set(policy.param_names):
+        raise ValueError(
+            f"SAC trees and policy disagree: {sorted(set(weights) ^ set(policy.param_names))}"
+        )
+    policy.set_weights(weights)
+    target = to_state_dict(aux_state["target_critic"])
+    with torch.no_grad():
+        for name, t in zip(policy.critic_names, policy.aux_state["target_critic"]):
+            t.copy_(torch.as_tensor(np.asarray(target[name])))
+        for group, st in policy.opt_states.items():
+            adam = _find_adam(opt_state[group])
+            if adam is None:
+                raise ValueError(f"no scale_by_adam state for {group!r}")
+            st.count = int(np.asarray(adam.count))
+            if group == "log_alpha":
+                mu, nu = {"log_alpha": adam.mu}, {"log_alpha": adam.nu}
+            else:
+                mu = {f"{group}.{k}": v for k, v in to_state_dict(adam.mu).items()}
+                nu = {f"{group}.{k}": v for k, v in to_state_dict(adam.nu).items()}
+            for i, name in enumerate(policy.group_param_names(group)):
+                st.mu[i].copy_(torch.as_tensor(np.asarray(mu[name])))
+                st.nu[i].copy_(torch.as_tensor(np.asarray(nu[name])))
+    return policy

@@ -865,3 +865,122 @@ def test_learner_thread_equals_sync_learn_on_card(cuda, kind):
         assert np.array_equal(a, b), name
     assert lt.published_weights()[0] == 3
     assert all(c["h2d_ms"] > 0 for c in lt.feeder.copies)
+
+
+# -- SAC: the graphed replay slot and the replay columns at SAC's widths ----
+
+
+def _sac_pair(cuda, prioritized):
+    """Two SAC policies and two identical device rings (obs 17, act 6,
+    64x64 towers) on the card."""
+    from ray_tpu_torch.algorithms.sac.sac import SACConfig, SACTorchPolicy
+    from ray_tpu_torch.env.spaces import Box
+    from ray_tpu_torch.execution.replay_buffer import (
+        DevicePrioritizedReplayBuffer,
+        DeviceReplayBuffer,
+    )
+
+    cfg = SACConfig().training(policy_model_config={"fcnet_hiddens": [64, 64]},
+                               q_model_config={"fcnet_hiddens": [64, 64]}).debugging(seed=2)
+
+    def make():
+        policy = SACTorchPolicy(Box(-np.inf, np.inf, (17,), np.float64), Box(-1, 1, (6,)),
+                                cfg.to_dict(), device=cuda)
+        buf = (DevicePrioritizedReplayBuffer(2048, 0.6, 3, device=cuda) if prioritized
+               else DeviceReplayBuffer(2048, 3, device=cuda))
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        buf.add_device_tree({
+            "obs": torch.randn((2048, 17), device=cuda, generator=gen),
+            "new_obs": torch.randn((2048, 17), device=cuda, generator=gen),
+            "actions": torch.rand((2048, 6), device=cuda, generator=gen) * 2 - 1,
+            "rewards": torch.randn((2048,), device=cuda, generator=gen),
+            "dones": torch.rand((2048,), device=cuda, generator=gen) < 0.01,
+        })
+        return policy, buf
+
+    return make(), make()
+
+
+@pytest.mark.parametrize("prioritized", [False, True])
+def test_graphed_sac_replay_slots_equal_eager_updates(cuda, prioritized):
+    """4 SAC replay slots (draw, gather, the three Adam steps and the
+    blend, |TD| at a third draw) as one captured graph, twice, against
+    the eager updates on the same pre-drawn rows: bitwise in every
+    parameter, Adam moment, the target critic, the registered
+    generator, the stats (and the sum tree); the gather and descent
+    launches count the replays."""
+    from ray_tpu_torch.execution.train_ops import superstep_train_replay
+
+    (pa, ba), (pb, bb) = _sac_pair(cuda, prioritized)
+    for _ in range(2):
+        if prioritized:
+            idx, weights = ba.draw_prioritized_sets_device(4, 4, 64, 0.4)
+        else:
+            idx = torch.as_tensor(ba.draw_index_sets(4, 64), device=cuda)
+        seq = []
+        for i in range(4):
+            tree = ba._gather_columns(idx[i])
+            if prioritized:
+                tree["weights"] = weights[i]
+            seq.append(pa.learn_on_device_batch(tree, 64))
+            if prioritized:
+                td = torch.abs(pa._td_error(tree, pa.aux_state)[0]).cpu().numpy()
+                ba.update_priorities(idx[i], td + 1e-6)
+        before = (segment_tree.find_prefixsum.launches, framestack.gather_rows.launches)
+        info = superstep_train_replay(None, pb, bb, 4, 4, 64, prioritized=prioritized, beta=0.4)
+        launched = (segment_tree.find_prefixsum.launches - before[0],
+                    framestack.gather_rows.launches - before[1])
+        assert launched == (4 if prioritized else 0, 4 * 5), launched
+        assert info == seq[-1]
+    assert _same(pa.params, pb.params)
+    for g in pa.opt_states:
+        assert pa.opt_states[g].count == pb.opt_states[g].count == 8
+        assert _same(pa.opt_states[g].mu, pb.opt_states[g].mu)
+        assert _same(pa.opt_states[g].nu, pb.opt_states[g].nu)
+    assert _same(pa.aux_state["target_critic"], pb.aux_state["target_critic"])
+    assert torch.equal(pa.action_generator.get_state(), pb.action_generator.get_state())
+    (runner,) = pb._superstep_runners.values()
+    assert runner.graph is not None and runner.replays == 7
+    if prioritized:
+        assert torch.equal(ba._dtree.sum_value, bb._dtree.sum_value)
+        assert ba._max_priority == bb._max_priority
+
+
+@pytest.mark.parametrize("obs,act", [(3, 1), (17, 6)])
+def test_sac_columns_gather_and_scatter_bitwise(cuda, obs, act):
+    """SAC's replay columns at Pendulum's (obs 3, act 1) and
+    HalfCheetah's (obs 17, act 6) widths: 12-, 4-, 68- and 24-byte float
+    rows, float rewards and bool dones, through both kernels against
+    ``index_select`` and ``index_copy_``."""
+    gen = torch.Generator(device=cuda).manual_seed(obs)
+    cap = 5000
+    cols = {
+        "obs": torch.randn((cap, obs), device=cuda, generator=gen),
+        "actions": torch.randn((cap, act), device=cuda, generator=gen),
+        "rewards": torch.randn((cap,), device=cuda, generator=gen),
+        "dones": torch.rand((cap,), device=cuda, generator=gen) < 0.5,
+    }
+    idx = torch.randint(0, cap, (256,), device=cuda, generator=gen)
+    pos = (cap - 100 + torch.arange(700, device=cuda)) % cap
+    for name, ring in cols.items():
+        before = (framestack.gather_rows.launches, framestack.scatter_rows.launches)
+        assert torch.equal(framestack.gather_rows(ring, idx), ring.index_select(0, idx)), name
+        vals = ring[torch.randint(0, cap, (700,), device=cuda, generator=gen)]
+        a, b = ring.clone(), ring.clone()
+        framestack.scatter_rows(a, pos, vals)
+        b.index_copy_(0, pos, vals)
+        assert torch.equal(a, b), name
+        assert (framestack.gather_rows.launches - before[0],
+                framestack.scatter_rows.launches - before[1]) == (1, 1)
+
+
+def test_sac_acts_on_the_card(cuda):
+    from ray_tpu_torch.algorithms.sac.sac import SACConfig, SACTorchPolicy
+    from ray_tpu_torch.env.spaces import Box
+
+    policy = SACTorchPolicy(Box(-1, 1, (3,)), Box(-2, 2, (1,)), SACConfig().to_dict(), device=cuda)
+    obs = np.random.default_rng(0).standard_normal((8, 3)).astype(np.float32)
+    actions, state, extra = policy.compute_actions(obs)
+    assert actions.dtype == np.float32 and actions.shape == (8, 1) and np.abs(actions).max() <= 2
+    assert state == [] and extra["action_logp"].shape == (8,)
+    assert all(p.is_cuda for p in policy.params)

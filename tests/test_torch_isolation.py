@@ -131,3 +131,18 @@ def test_kernel_wrappers_refuse_other_devices():
         flash_attention(qkv, qkv, qkv, causal_offset=0)
     with pytest.raises(ValueError, match="unsupported device"):
         flash_block_attention_stats(qkv[0], qkv[0], qkv[0], 0)
+
+
+def test_sac_without_device_raises_without_cuda(monkeypatch):
+    from ray_tpu_torch.algorithms.sac.sac import SACConfig, SACTorchPolicy
+    from ray_tpu_torch.env.spaces import Box
+
+    _no_cuda(monkeypatch)
+    obs, act = Box(-1, 1, (3,), np.float32), Box(-2, 2, (1,), np.float32)
+    with pytest.raises(RuntimeError, match="none is available"):
+        SACTorchPolicy(obs, act, {})
+    with pytest.raises(RuntimeError, match="none is available"):
+        SACConfig().environment("Pendulum-v1").build()
+    algo = SACConfig().environment("Pendulum-v1").resources(device="cpu").build()
+    assert algo.get_policy().device.type == "cpu"
+    assert algo.local_replay_buffer.device.type == "cpu"

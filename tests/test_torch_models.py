@@ -126,8 +126,13 @@ def test_catalog_models_and_dists():
     flat = ModelCatalog.get_model(Box(-1, 1, (5,)), Discrete(2), 2, {"fcnet_hiddens": [8]}, gen)
     assert isinstance(flat, FCNet) and flat.fc_0.weight.shape == (8, 5)
     assert ModelCatalog.get_action_dist(Discrete(6)) == (tdists.Categorical, 6)
-    with pytest.raises(NotImplementedError):
-        ModelCatalog.get_action_dist(Box(-1, 1, (2,)))
+    assert ModelCatalog.get_action_dist(Box(-1, 1, (2,))) == (tdists.DiagGaussian, 4)
+
+    class MultiDiscrete:  # neither Discrete nor Box
+        shape, nvec = (2,), (3, 4)
+
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ModelCatalog.get_action_dist(MultiDiscrete())
     with pytest.raises(NotImplementedError):
         ModelCatalog.get_model(Box(-1, 1, (5,)), Discrete(2), 2, {"use_lstm": True})
 
