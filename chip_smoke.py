@@ -203,6 +203,26 @@ and ``nvcc``. Phases, each printing its own lines:
                iterations (8 envs x 256 on the local worker, acting on
                the card; a DiagGaussian under PPO): env-steps/s, finite
                stats;
+    ma_ppo   -- multi-agent PPO at bench_e2e.py's ``_ma_cartpole`` width
+               (:func:`ma_cartpole_config`: 4 CartPole-v1 agents of the
+               port's own env on one shared policy, FCNet 128x128, 1
+               remote worker, fragment 256, batch 2048, minibatch 256, 8
+               epochs), built through ``config.build()`` with its
+               lambdas: one warm and MA_TIMED_CALLS timed iterations
+               (env- and agent-steps/s, the split, the busy share of one
+               more learn; finite stats under ``info/learner/shared``
+               and the worker's weights bitwise equal to the learner's
+               are required), then MA_LEARN_S seconds of training: the
+               course of ``policy_reward_mean["shared"]``;
+    ma_ppo_independent -- that geometry with ``p0`` and ``p1`` (lr 1e-4)
+               and num_workers 0 (the local worker acts on the card):
+               one iteration with ``policies_to_train=["p0"]`` (p1
+               bitwise unchanged), one with both (both move): act ms per
+               env step;
+    views    -- single-agent PPO on CartPole-v1 with ``use_prev_action``
+               and ``use_prev_reward``: one sample of the local worker
+               on the card, its ``prev_actions`` / ``prev_rewards`` the
+               actions / rewards shifted by one within each episode;
 13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
@@ -237,7 +257,9 @@ time of a library call's own kernels; every kernel phase prints both.
 the least a kernel launch shows by that timer.
 
 Launch counts are set to 0 just before each of phases 7-13, the
-actor phases, sac, and each of sac_learner's two runs, and read just
+actor phases, sac, each of sac_learner's two runs and the multi-agent
+and views phases (whose paths run no kernel: host GAE, no frame pool,
+as the reference's; they print their counts), and read just
 after (on the learner-thread paths, between two learner steps) (the
 ring's in each rank, before each call); the comparison launches of
 phases 2-6, of graph_parity, of sac_learner's parity windows, of
@@ -2713,6 +2735,260 @@ def phase_pendulum_ppo():
         algo.stop()
 
 
+MA_TIMED_CALLS = 3
+MA_LEARN_S = 40.0
+
+
+def kernel_counters():
+    """The launch counter of every kernel wrapper."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention, flash_block_attention_stats
+    from ray_tpu_torch.ops.framestack import gather_rows, scatter_rows
+    from ray_tpu_torch.ops.gae import compute_gae_fragment
+    from ray_tpu_torch.ops.segment_tree import find_prefixsum
+
+    return (gather_rows, compute_gae_fragment, scatter_rows, find_prefixsum, flash_attention,
+            flash_block_attention_stats)
+
+
+def zero_kernel_counts():
+    for k in kernel_counters():
+        k.launches = 0
+
+
+def read_kernel_counts():
+    return {k.__name__: k.launches for k in kernel_counters()}
+
+
+def ma_cartpole_config(**over):
+    """bench_e2e.py's ``_ma_cartpole`` as written, lambdas included, on
+    the port's CartPole-v1: 4 agents on one shared policy, FCNet
+    128x128, 1 remote worker, fragment 256, batch 2048, minibatch 256, 8
+    epochs, lr 3e-4, entropy 0.01, seed 0. ``over``: rollout keys."""
+    import numpy as np
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+    from ray_tpu_torch.env.multi_agent_env import make_multi_agent
+    from ray_tpu_torch.env.registry import register_env
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    register_env("ma_cartpole4", lambda cfg: make_multi_agent("CartPole-v1")({"num_agents": 4}))
+    obs_sp = Box(-np.inf, np.inf, (4,), np.float64)
+    act_sp = Discrete(2)
+    return (
+        PPOConfig()
+        .environment("ma_cartpole4")
+        .rollouts(**{"num_rollout_workers": 1, "rollout_fragment_length": 256, **over})
+        .training(
+            train_batch_size=2048, sgd_minibatch_size=256,
+            num_sgd_iter=8, lr=3e-4, entropy_coeff=0.01,
+            model={"fcnet_hiddens": [128, 128]},
+        )
+        .multi_agent(
+            policies={"shared": (None, obs_sp, act_sp, {})},
+            policy_mapping_fn=lambda aid, **kw: "shared",
+        )
+        .debugging(seed=0)
+    )
+
+
+def _finite_learner(phase, result, pids):
+    learner = result["info"]["learner"]
+    require(set(learner) == set(pids), f"{phase}: info/learner holds {sorted(learner)}, not {pids}")
+    for pid in pids:
+        require(all(math.isfinite(v) for v in learner[pid].values()),
+                f"{phase}: non-finite {pid} stats {learner[pid]}")
+    return learner
+
+
+def phase_ma_ppo():
+    """Multi-agent PPO at ``_ma_cartpole``'s full width
+    (:func:`ma_cartpole_config`): the remote worker samples 4 agents on
+    the CPU, the shared policy learns on the card. One warm iteration,
+    then MA_TIMED_CALLS timed: env-steps/s and agent-steps/s (median,
+    range), the split, the busy share of one more learn; finite stats
+    under ``info/learner/shared`` and the worker's ``shared`` weights
+    bitwise equal to the learner's after the sync are required; then
+    MA_LEARN_S seconds of training: the course of
+    ``policy_reward_mean["shared"]`` (recorded, not required). The
+    kernel launch counts of the run are printed (the path runs host GAE
+    and no frame pool, as the reference's does)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import core as ray_core
+    from ray_tpu_torch.algorithms.ppo.ppo import _standardize_advantages
+    from ray_tpu_torch.execution.rollout_ops import synchronous_parallel_sample
+
+    algo = ma_cartpole_config().build()
+    try:
+        policy = algo.get_policy("shared")
+        require(policy.device.type == "cuda" and all(p.is_cuda for p in policy.params),
+                "the multi-agent learner is not on the card")
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        algo.train()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        walls, results, agent_steps = [], [], []
+        for _ in range(MA_TIMED_CALLS):
+            before = algo._counters["num_agent_steps_trained"]
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            agent_steps.append(algo._counters["num_agent_steps_trained"] - before)
+        last = results[-1]
+        learner = _finite_learner("ma_ppo", last, ["shared"])
+        bsize = int(algo.config["train_batch_size"])
+        require(all(r["timesteps_total"] == bsize * (i + 2) for i, r in enumerate(results)),
+                f"env steps {[r['timesteps_total'] for r in results]}")
+        learned = algo.workers.local_worker().get_weights()
+        (remote,) = ray_core.get([w.get_weights.remote() for w in algo.workers.remote_workers()])
+        for name, w in learned["shared"].items():
+            require(np.array_equal(remote["shared"][name], w),
+                    f"the remote worker's shared {name} differs from the learner's")
+        splits = [{k: round(v, 4) for k, v in r["timers"].items()} for r in results]
+        batch = synchronous_parallel_sample(worker_set=algo.workers, max_env_steps=bsize)
+        _standardize_advantages(batch)
+        local = algo.workers.local_worker()
+        busy = device_busy(lambda: local.learn_on_batch(batch), 1)
+        say("ma_ppo", agents=4, policies=1, workers=algo.workers.num_remote_workers(),
+            fragment=algo.config["rollout_fragment_length"], warm_s=f"{warm_s:.2f}",
+            env_steps_per_s=json.dumps(spread([bsize / w for w in walls])),
+            agent_steps_per_s=json.dumps(spread([a / w for a, w in zip(agent_steps, walls)])),
+            agent_steps_per_iter=json.dumps(agent_steps), iter_s=json.dumps([round(w, 4) for w in walls]),
+            learn_busy_share=busy["busy_share"], learn_wall_s=busy["wall_s"],
+            learn_agent_steps=batch.agent_steps(), weights_synced_bitwise=True)
+        say("ma_ppo", split=json.dumps(splits))
+        say("ma_ppo", learner=json.dumps({k: round(v, 6) for k, v in learner["shared"].items()}),
+            counters=json.dumps({k: algo._counters[k] for k in (
+                "num_env_steps_sampled", "num_agent_steps_sampled",
+                "num_env_steps_trained", "num_agent_steps_trained")}))
+        curve, t0 = [], time.perf_counter()
+        while time.perf_counter() - t0 < MA_LEARN_S:
+            r = algo.train()
+            curve.append((r["timesteps_total"], round(float(r["policy_reward_mean"].get("shared", math.nan)), 3),
+                          round(time.perf_counter() - t0, 2)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _finite_learner("ma_ppo", r, ["shared"])
+        counts = read_kernel_counts()
+        every = max(1, len(curve) // 30)
+        say("ma_ppo", learn_budget_s=MA_LEARN_S, learn_wall_s=f"{wall:.2f}", iterations=len(curve),
+            env_steps=curve[-1][0], env_steps_per_s=f"{(curve[-1][0] - curve[0][0] + bsize) / wall:.1f}",
+            policy_reward_mean_shared=curve[-1][1], episode_len_mean=r["episode_len_mean"],
+            curve=json.dumps(curve[::every] + curve[-1:]), launches=json.dumps(counts))
+        return counts
+    finally:
+        algo.stop()
+
+
+def phase_ma_ppo_independent():
+    """The ma_ppo geometry with two policies, ``p0`` and ``p1`` (lr 1e-4),
+    agents mapped by ``aid % 2``, and ``num_workers: 0``: the local
+    worker acts on the card, one batched forward per policy per env
+    step. One iteration with ``policies_to_train=["p0"]`` (p1 bitwise
+    unchanged, info/learner holds p0 alone), then one with both (both
+    move, info/learner holds both): act ms per env step, the split."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    space, act = Box(-np.inf, np.inf, (4,), np.float64), Discrete(2)
+    cfg = ma_cartpole_config(num_rollout_workers=0).multi_agent(
+        policies={"p0": (None, space, act, {}), "p1": (None, space, act, {"lr": 1e-4})},
+        policy_mapping_fn=lambda aid, **kw: f"p{aid % 2}", policies_to_train=["p0"])
+    algo = cfg.build()
+    try:
+        worker = algo.workers.local_worker()
+        require(algo.workers.num_remote_workers() == 0
+                and all(p.device.type == "cuda" for p in worker.policy_map.values()),
+                "the local worker does not act on the card")
+
+        def weights():
+            return {pid: {n: w.copy() for n, w in p.get_weights().items()}
+                    for pid, p in worker.policy_map.items()}
+
+        zero_kernel_counts()
+        w0 = weights()
+        walls = []
+        t0 = time.perf_counter()
+        r1 = algo.train()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        _finite_learner("ma_ppo_independent", r1, ["p0"])
+        w1 = weights()
+        require(all(np.array_equal(w1["p1"][n], w) for n, w in w0["p1"].items()),
+                "p1 moved outside policies_to_train")
+        require(any(not np.array_equal(w1["p0"][n], w) for n, w in w0["p0"].items()), "p0 did not move")
+        worker.config["policies_to_train"] = None
+        t0 = time.perf_counter()
+        r2 = algo.train()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        learner = _finite_learner("ma_ppo_independent", r2, ["p0", "p1"])
+        w2 = weights()
+        for pid in ("p0", "p1"):
+            require(any(not np.array_equal(w2[pid][n], w) for n, w in w1[pid].items()), f"{pid} did not move")
+        counts = read_kernel_counts()
+        t = worker.sampler.timers
+        say("ma_ppo_independent", policies=2, iter_s=json.dumps([round(w, 3) for w in walls]),
+            env_steps_per_s=f"{2 * int(algo.config['train_batch_size']) / sum(walls):.1f}",
+            act_ms_per_env_step=f"{1e3 * t['act_s'] / max(1, t['steps']):.3f}",
+            env_ms_per_env_step=f"{1e3 * t['env_s'] / max(1, t['steps']):.3f}",
+            split=json.dumps({k: round(v, 4) for k, v in r2["timers"].items()}),
+            cur_lr=json.dumps({pid: learner[pid]["cur_lr"] for pid in learner}),
+            policy_reward_mean=json.dumps(r2["policy_reward_mean"]), launches=json.dumps(counts))
+        return counts
+    finally:
+        algo.stop()
+
+
+def phase_views():
+    """Single-agent PPO on the port's CartPole-v1 with ``use_prev_action``
+    and ``use_prev_reward``, the local worker acting on the card: one
+    sample of 4 envs x 128 steps, whose ``prev_actions`` and
+    ``prev_rewards`` must be the actions and rewards shifted by one
+    within each episode, zero at each episode's start; then one
+    iteration with finite stats."""
+    import numpy as np
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+    from ray_tpu_torch.data.sample_batch import SampleBatch
+
+    algo = (PPOConfig().environment("CartPole-v1")
+            .rollouts(num_rollout_workers=0, num_envs_per_worker=4, rollout_fragment_length=128)
+            .training(train_batch_size=512, sgd_minibatch_size=128, num_sgd_iter=2,
+                      model={"fcnet_hiddens": [128, 128], "use_prev_action": True,
+                             "use_prev_reward": True})
+            .debugging(seed=0).build())
+    try:
+        require(algo.get_policy().device.type == "cuda", "the views phase does not act on the card")
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        batch = algo.workers.local_worker().sample()
+        sample_s = time.perf_counter() - t0
+        t, eps = batch[SampleBatch.T], batch[SampleBatch.EPS_ID]
+        acts, rews = batch[SampleBatch.ACTIONS], batch[SampleBatch.REWARDS]
+        pa, pr = batch[SampleBatch.PREV_ACTIONS], batch[SampleBatch.PREV_REWARDS]
+        start = t == 0
+        require(batch.count == 512 and start.sum() >= 4, f"{batch.count} rows, {start.sum()} starts")
+        require(np.all(pa[start] == 0) and np.all(pr[start] == 0), "a view reached across an episode start")
+        inner = np.flatnonzero(~start)
+        require(np.all(inner > 0) and np.all(eps[inner] == eps[inner - 1])
+                and np.all(t[inner] == t[inner - 1] + 1), "rows of an episode are not in order")
+        require(np.array_equal(pa[inner], acts[inner - 1]) and np.array_equal(pr[inner], rews[inner - 1]),
+                "prev_actions / prev_rewards are not the actions / rewards shifted by one")
+        r = algo.train()
+        _finite_learner("views", r, ["default_policy"])
+        say("views", rows=batch.count, episode_starts=int(start.sum()), sample_s=f"{sample_s:.3f}",
+            prev_dtypes=json.dumps([str(pa.dtype), str(pr.dtype)]), shifted_bitwise=True,
+            launches=json.dumps(read_kernel_counts()))
+    finally:
+        algo.stop()
+
+
 def _free_port():
     import socket
 
@@ -3025,6 +3301,9 @@ def main() -> int:
     timed(phase_sac_columns)
     sac = timed(phase_sac)
     timed(phase_pendulum_ppo)
+    timed(phase_ma_ppo)
+    timed(phase_ma_ppo_independent)
+    timed(phase_views)
     ray_core.shutdown()
     ring = timed(phase_ring)
     gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"],

@@ -15,8 +15,16 @@ asks for 1 s) and returns a result dict with the reference's keys
 (``episode_reward_mean``, ``episodes_this_iter``,
 ``num_env_steps_sampled``, ``timesteps_total``, ``training_iteration``,
 ``info/learner/default_policy``, ...).
-``__getstate__``/``__setstate__`` carry the policy state and counters
-(the off-policy family adds its replay buffer).
+``__getstate__``/``__setstate__`` carry every policy's state and the
+counters (the off-policy family adds its replay buffer).
+
+Multi-agent (``config["policies"]``, an algorithm whose actor lane
+learns a policy map: ``_multi_agent``, PPO): the worker set's policy map
+holds one policy per id, built from the reference's specs
+(:func:`build_policy_specs`); ``get_policy(pid)`` returns it,
+``info/learner/<pid>`` holds its stats and ``policy_reward_mean`` each
+policy's mean episode reward. Other algorithms, and the device lane,
+refuse ``policies`` (``ROADMAP.md`` queue 1 item 3b.2).
 """
 
 from __future__ import annotations
@@ -54,11 +62,31 @@ def _refuse_unported_surface(config: Dict) -> None:
             )
 
 
+def build_policy_specs(config: Dict, policy_cls, env_creator) -> Optional[Dict]:
+    """``{pid: (cls, obs_space, act_space, overrides)}`` from
+    ``config["policies"]`` (None when it is empty), as the reference
+    builds them: a tuple's ``cls`` None is ``policy_cls``; any other
+    spec takes its spaces from a probe env."""
+    if not config.get("policies"):
+        return None
+    specs = {}
+    for pid, spec in config["policies"].items():
+        if isinstance(spec, (tuple, list)):
+            cls, obs_space, act_space, overrides = spec
+            specs[pid] = (cls or policy_cls, obs_space, act_space, overrides or {})
+        else:
+            probe = env_creator(config.get("env_config") or {})
+            specs[pid] = (policy_cls, probe.observation_space, probe.action_space, {})
+    return specs
+
+
 class Algorithm:
     _default_policy_class = None
     # whether training_step has an actor-lane path (PPO); the others
     # keep the device lane's construction and raise in training_step
     _actor_lane = False
+    # whether the actor lane learns a policy map (config["policies"])
+    _multi_agent = False
 
     @classmethod
     def get_default_config(cls) -> AlgorithmConfig:
@@ -90,15 +118,26 @@ class Algorithm:
         if env_spec is None:
             raise ValueError("config has no 'env'")
         policy_cls = self._default_policy_class
-        if self._actor_lane and self.config.get("env_backend") != "jax":
+        actor_lane = self._actor_lane and self.config.get("env_backend") != "jax"
+        if self.config.get("policies") and not (actor_lane and self._multi_agent):
+            where = "on the device lane" if self._actor_lane and not actor_lane else f"in {type(self).__name__}"
+            raise NotImplementedError(
+                f"multi-agent policies {where} are not ported yet: ROADMAP.md queue 1 item 3b.2"
+            )
+        if actor_lane:
+            env_creator = get_env_creator(env_spec)
             self.workers = WorkerSet(
-                env_creator=get_env_creator(env_spec), policy_cls=policy_cls,
+                env_creator=env_creator, policy_cls=policy_cls,
                 config=self.config, num_workers=int(self.config.get("num_workers", 0)),
                 device=self.device,
+                policy_specs=build_policy_specs(self.config, policy_cls, env_creator),
+                policy_mapping_fn=self.config.get("policy_mapping_fn"),
             )
             local = self.workers.local_worker()
             self.env = local.env
-            self.policy = local.policy()
+            # the learner of a single-policy run (None in a multi-agent
+            # run without a default policy: get_policy(pid) names one)
+            self.policy = local.policy_map.get(DEFAULT_POLICY_ID)
             return
         self.env = get_env_creator(env_spec)(dict(self.config.get("env_config") or {}))
         self.policy = policy_cls(
@@ -107,7 +146,16 @@ class Algorithm:
         )
 
     def get_policy(self, policy_id: str = DEFAULT_POLICY_ID):
-        return self.policy
+        """The policy of that id; ``KeyError`` when there is none."""
+        policies = self._policy_map()
+        if policy_id not in policies:
+            raise KeyError(f"no policy {policy_id!r}; policies: {sorted(policies)}")
+        return policies[policy_id]
+
+    def _policy_map(self) -> Dict:
+        if self.workers is not None:
+            return self.workers.local_worker().policy_map
+        return {DEFAULT_POLICY_ID: self.policy}
 
     def _resolve_superstep_k(self) -> int:
         """K of the superstep for this run (``resolve_superstep``, cached)."""
@@ -137,9 +185,10 @@ class Algorithm:
             "info": {"learner": train_info, **self._counters},
         }
         results.update(self._collect_rollout_metrics())
-        learn_timers = getattr(self.policy, "last_learn_timers", None)
+        learn_timers = {pid: dict(p.last_learn_timers) for pid, p in self._policy_map().items()
+                        if getattr(p, "last_learn_timers", None)}
         if learn_timers:
-            results["info"]["timers"] = {DEFAULT_POLICY_ID: dict(learn_timers)}
+            results["info"]["timers"] = learn_timers
         if self._timers:
             results["timers"] = dict(self._timers)
         results[NUM_ENV_STEPS_TRAINED] = self._counters[NUM_ENV_STEPS_TRAINED]
@@ -208,16 +257,18 @@ class Algorithm:
     # -- checkpoint state ----------------------------------------------------
 
     def __getstate__(self) -> Dict:
-        """Policy state, counters and episode total (host numpy only)."""
+        """Every policy's state, counters and episode total (host numpy
+        only)."""
         return {
-            "policy": self.get_policy().get_state(),
+            "policies": {pid: p.get_state() for pid, p in self._policy_map().items()},
             "counters": dict(self._counters),
             "episodes_total": self._episodes_total,
             "iteration": self._iteration,
         }
 
     def __setstate__(self, state: Dict) -> None:
-        self.get_policy().set_state(state["policy"])
+        for pid, policy_state in state["policies"].items():
+            self.get_policy(pid).set_state(policy_state)
         self._counters = collections.defaultdict(int, state.get("counters", {}))
         self._episodes_total = state.get("episodes_total", 0)
         self._iteration = state.get("iteration", 0)

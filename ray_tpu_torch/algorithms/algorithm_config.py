@@ -19,6 +19,12 @@ worker. ``min_time_s_per_iteration`` and
 ``recreate_failed_workers`` say what a dead worker does to the
 asynchronous paths (recreating raises: the elastic worker set is not
 ported).
+``multi_agent(policies, policy_mapping_fn, policies_to_train)`` keeps
+the reference's keys: ``policies`` maps a policy id to a ``(cls,
+obs_space, act_space, config_overrides)`` tuple (``cls`` None: the
+algorithm's policy class) or to anything else (the env's spaces, no
+overrides); ``policy_mapping_fn(agent_id, **kwargs)`` names an agent's
+policy; ``policies_to_train`` (None: all) lists the policies that learn.
 The one new key is ``device``: None runs on CUDA (and raises without
 it), ``"cpu"`` runs on the CPU. ``superstep`` (``"auto"``: 8 updates
 per host call on CUDA, 1 on the CPU; an int forces K), ``nan_guard``
@@ -36,7 +42,7 @@ defaults: ``replay_buffer_config``, ``replay_device_resident`` and
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 
 class AlgorithmConfig:
@@ -85,6 +91,11 @@ class AlgorithmConfig:
         self.superstep = "auto"
         self.nan_guard = False
         self.jax_fused_rollout = True
+
+        # multi-agent
+        self.policies: Dict = {}
+        self.policy_mapping_fn = None
+        self.policies_to_train = None
 
         # resources
         self.device = None
@@ -187,6 +198,22 @@ class AlgorithmConfig:
         ):
             if value is not None:
                 setattr(self, name, value)
+        return self
+
+    def multi_agent(
+        self,
+        *,
+        policies: Optional[Dict] = None,
+        policy_mapping_fn: Optional[Callable] = None,
+        policies_to_train=None,
+        **kwargs,
+    ) -> "AlgorithmConfig":
+        if policies is not None:
+            self.policies = policies
+        if policy_mapping_fn is not None:
+            self.policy_mapping_fn = policy_mapping_fn
+        if policies_to_train is not None:
+            self.policies_to_train = policies_to_train
         return self
 
     def resources(self, *, device=None, **kwargs) -> "AlgorithmConfig":

@@ -15,6 +15,15 @@ the stacks with the row-gather kernel in its ``learn_on_batch``.
 With ``sample_prefetch > 0`` and remote workers, the actor lane samples
 the next train batch and copies it to the card while the learner works
 on this one (``_training_step_prefetch``).
+
+Multi-agent PPO (``config.multi_agent(...)``) runs the actor lane's
+synchronous step on a ``MultiAgentBatch``: the advantages standardized
+per policy batch, one learn call per policy of the local worker's map
+(each adapting its own KL coefficient on its own stats), and every
+policy's weights to the workers in one ``put``. ``sample_prefetch``
+stays on the synchronous path there, as the reference demotes it. The
+counters are the reference's: both sampled counters add the train
+batch's env steps.
 """
 
 from __future__ import annotations
@@ -34,7 +43,12 @@ from ray_tpu_torch.algorithms.algorithm import (
     Algorithm,
 )
 from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
-from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, SampleBatch, concat_samples
+from ray_tpu_torch.data.sample_batch import (
+    DEFAULT_POLICY_ID,
+    MultiAgentBatch,
+    SampleBatch,
+    concat_samples,
+)
 from ray_tpu_torch.core.object_store import RayActorError
 from ray_tpu_torch.evaluation.postprocessing import compute_gae_for_sample_batch
 from ray_tpu_torch.execution.device_feed import DeviceFeeder
@@ -175,14 +189,17 @@ class PPOTorchPolicy(TorchPolicy):
 
 
 def _standardize_advantages(b) -> None:
-    """Advantages standardized over the whole train batch."""
-    adv = np.asarray(b[SampleBatch.ADVANTAGES], np.float32)
-    b[SampleBatch.ADVANTAGES] = ((adv - adv.mean()) / max(1e-4, adv.std())).astype(np.float32)
+    """Advantages standardized over the whole train batch (over each
+    policy batch of a ``MultiAgentBatch``)."""
+    for pb in b.policy_batches.values() if isinstance(b, MultiAgentBatch) else [b]:
+        adv = np.asarray(pb[SampleBatch.ADVANTAGES], np.float32)
+        pb[SampleBatch.ADVANTAGES] = ((adv - adv.mean()) / max(1e-4, adv.std())).astype(np.float32)
 
 
 class PPO(Algorithm):
     _default_policy_class = PPOTorchPolicy
     _actor_lane = True
+    _multi_agent = True
 
     @classmethod
     def get_default_config(cls) -> PPOConfig:
@@ -281,9 +298,11 @@ class PPO(Algorithm):
     # -- the prefetch path (config.sample_prefetch) ------------------------
 
     def _use_sample_prefetch(self) -> bool:
-        """Prefetch needs remote workers; with none the local worker
-        samples synchronously, as in the reference."""
-        return int(self.config.get("sample_prefetch") or 0) > 0 and self.workers.num_remote_workers() > 0
+        """Prefetch needs remote workers and one policy; otherwise the
+        round is synchronous, as in the reference."""
+        return (int(self.config.get("sample_prefetch") or 0) > 0
+                and self.workers.num_remote_workers() > 0
+                and not self.config.get("policies"))
 
     def _metrics_may_lag(self) -> bool:
         return self._use_sample_prefetch()

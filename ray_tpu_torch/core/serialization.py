@@ -4,9 +4,13 @@ Counterpart of ``ray_tpu/core/serialization.py``: pickle protocol 5
 with out-of-band buffers, so numpy arrays (batch columns, weights)
 serialize as a small metadata pickle plus raw buffers laid out one after
 the other, and come back as views of the memory they were written to.
-Plain ``pickle`` (the reference uses cloudpickle): functions and classes
-travel by module and name (:class:`CodeRef`), so a remote function or
-actor class is defined at a module's top level.
+Plain ``pickle`` first: module-level functions and classes travel by
+module and name, and a remote function or actor class is sent as a
+:class:`CodeRef`, so it is defined at a module's top level. An object
+that plain pickle refuses (a lambda or a local function in a config:
+an env creator, a ``policy_mapping_fn``) goes through cloudpickle, by
+value, as the reference sends every object; plain ``pickle.loads``
+reads both.
 
 Layout: [u64 meta_len][meta][u64 nbuf]([u64 len_i][buf_i, padded to 8])...
 """
@@ -24,7 +28,13 @@ _HDR = struct.Struct("<Q")
 def serialize(obj: Any) -> Tuple[bytes, List[pickle.PickleBuffer]]:
     """→ (meta, out-of-band buffers)."""
     buffers: List[pickle.PickleBuffer] = []
-    meta = pickle.dumps(obj, protocol=5, buffer_callback=buffers.append)
+    try:
+        meta = pickle.dumps(obj, protocol=5, buffer_callback=buffers.append)
+    except (pickle.PicklingError, AttributeError, TypeError):
+        import cloudpickle
+
+        buffers = []
+        meta = cloudpickle.dumps(obj, protocol=5, buffer_callback=buffers.append)
     return meta, buffers
 
 

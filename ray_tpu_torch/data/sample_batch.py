@@ -5,11 +5,15 @@ of equal-length columns. Columns may be numpy arrays (host batches) or
 torch tensors (device batches of the rollout lane); row transforms keep
 each column's kind. The frame pool of the deduplicated framestack format
 (``obs_frames``) is not a row column: its length is rows + k - 1.
+
+A :class:`MultiAgentBatch` maps policy ids to SampleBatches; its
+``count`` is env steps, as in the reference, and ``agent_steps()`` the
+rows of all its policy batches.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -99,6 +103,22 @@ class SampleBatch(dict):
     def env_steps(self) -> int:
         return self.count
 
+    def size_bytes(self) -> int:
+        return sum(v.nbytes for v in self.values() if isinstance(v, np.ndarray))
+
+    def copy(self, shallow: bool = False) -> "SampleBatch":
+        if shallow:
+            return SampleBatch(dict(self))
+        return SampleBatch({k: v.copy() if isinstance(v, np.ndarray) else v
+                            for k, v in self.items()})
+
+    def timeslices(self, size: int) -> List["SampleBatch"]:
+        """Slices of ``size`` rows; a final partial slice is dropped."""
+        return [self.slice(i, i + size) for i in range(0, self.count - size + 1, size)]
+
+    def as_multi_agent(self) -> "MultiAgentBatch":
+        return MultiAgentBatch({DEFAULT_POLICY_ID: self}, self.count)
+
     def slice(self, start: int, end: int) -> "SampleBatch":
         """Row-slice [start, end) of every column."""
         if FRAMES in self:
@@ -119,12 +139,18 @@ class SampleBatch(dict):
         return super().__getitem__(key)
 
 
-def concat_samples(batches: Sequence[SampleBatch]) -> SampleBatch:
+def concat_samples(
+    batches: Sequence[Union[SampleBatch, "MultiAgentBatch"]]
+) -> Union[SampleBatch, "MultiAgentBatch"]:
     """Concatenate row-wise. Frame-pool batches merge their pools and
     offset each batch's first-frame indices; a mix of pooled and stacked
-    batches rebuilds the pooled ones' stacks first."""
+    batches rebuilds the pooled ones' stacks first. A list that starts
+    with a MultiAgentBatch concatenates per policy
+    (:meth:`MultiAgentBatch.concat_samples`)."""
     if not batches:
         return SampleBatch()
+    if isinstance(batches[0], MultiAgentBatch):
+        return MultiAgentBatch.concat_samples(list(batches))
     pooled = [FRAMES in b for b in batches]
     if any(pooled) and not all(pooled):
         # compression is per fragment and depends on the data (one
@@ -154,3 +180,58 @@ def concat_samples(batches: Sequence[SampleBatch]) -> SampleBatch:
         if _is_row_col(k):
             out[k] = _cat([b[k] for b in batches if k in b])
     return SampleBatch(out)
+
+
+class MultiAgentBatch:
+    """Policy id -> SampleBatch, with the env steps they cover."""
+
+    def __init__(self, policy_batches: Dict[str, SampleBatch], env_steps: int):
+        self.policy_batches = policy_batches
+        self.count = env_steps
+
+    def env_steps(self) -> int:
+        return self.count
+
+    def agent_steps(self) -> int:
+        return sum(b.count for b in self.policy_batches.values())
+
+    def size_bytes(self) -> int:
+        return sum(b.size_bytes() for b in self.policy_batches.values())
+
+    def timeslices(self, size: int) -> List["MultiAgentBatch"]:
+        """Every policy batch cut into ``size``-row slices, as many
+        batches as the shortest policy batch gives."""
+        slices = {pid: b.timeslices(size) for pid, b in self.policy_batches.items()}
+        n = min(len(s) for s in slices.values()) if slices else 0
+        return [MultiAgentBatch({pid: s[i] for pid, s in slices.items()}, size) for i in range(n)]
+
+    @staticmethod
+    def concat_samples(batches: List[Union[SampleBatch, "MultiAgentBatch"]]) -> "MultiAgentBatch":
+        """Per policy; a SampleBatch in the list counts as the default
+        policy's."""
+        policy_batches: Dict[str, List[SampleBatch]] = {}
+        env_steps = 0
+        for b in batches:
+            if isinstance(b, SampleBatch):
+                b = b.as_multi_agent()
+            env_steps += b.env_steps()
+            for pid, sb in b.policy_batches.items():
+                policy_batches.setdefault(pid, []).append(sb)
+        return MultiAgentBatch(
+            {pid: concat_samples(sbs) for pid, sbs in policy_batches.items()}, env_steps
+        )
+
+    @staticmethod
+    def wrap_as_needed(
+        policy_batches: Dict[str, SampleBatch], env_steps: int
+    ) -> Union[SampleBatch, "MultiAgentBatch"]:
+        """The default policy's batch alone stays a SampleBatch."""
+        if len(policy_batches) == 1 and DEFAULT_POLICY_ID in policy_batches:
+            return policy_batches[DEFAULT_POLICY_ID]
+        return MultiAgentBatch(policy_batches, env_steps)
+
+    def copy(self) -> "MultiAgentBatch":
+        return MultiAgentBatch({pid: b.copy() for pid, b in self.policy_batches.items()}, self.count)
+
+    def __repr__(self):
+        return f"MultiAgentBatch({self.count}: {list(self.policy_batches)})"

@@ -3,9 +3,10 @@
 Counterpart of ``ray_tpu/env/registry.py``. The port's envs register
 under the reference's names, so the reference's tuned-example configs
 run unchanged: the host envs ``PongLite-v0`` and ``PongLiteFlat-v0``
-(``env/pong_lite.py``, the actor lane's) and ``Pendulum-v1``
-(``env/pendulum.py``: gymnasium's dynamics written out, so the card's
-machine, which has no gymnasium, runs the Pendulum yamls), and the
+(``env/pong_lite.py``, the actor lane's), ``Pendulum-v1`` and
+``CartPole-v1`` (``env/pendulum.py``, ``env/cartpole.py``: gymnasium's
+dynamics written out, so the card's machine, which has no gymnasium,
+runs the Pendulum and CartPole configs), and the
 tensor envs ``PongLiteJax-v0``, ``CartPoleJax-v0`` and
 ``GridRoomsJax-v0`` (the device lane's; ``-Jax`` in a name means "runs
 on the device" here).
@@ -29,6 +30,7 @@ _IN_REPO = {
     "PongLite-v0": "ray_tpu_torch.env.pong_lite",
     "PongLiteFlat-v0": "ray_tpu_torch.env.pong_lite",
     "Pendulum-v1": "ray_tpu_torch.env.pendulum",
+    "CartPole-v1": "ray_tpu_torch.env.cartpole",
     "PongLiteJax-v0": "ray_tpu_torch.env.pong_lite_tensor",
     "CartPoleJax-v0": "ray_tpu_torch.env.control_tensor",
     "GridRoomsJax-v0": "ray_tpu_torch.env.control_tensor",

@@ -1,29 +1,40 @@
 """Rollout metrics aggregation.
 
 Copy of ``ray_tpu/evaluation/metrics.py`` (episode records and the
-summary behind ``episode_reward_mean``), without custom metrics.
+summary behind ``episode_reward_mean`` and ``policy_reward_mean``),
+without custom metrics.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
 
 class RolloutMetrics:
-    def __init__(self, episode_length: int, episode_reward: float):
+    """One finished episode; ``agent_rewards`` maps (agent id, policy
+    id) to that agent's reward in a multi-agent episode."""
+
+    def __init__(self, episode_length: int, episode_reward: float,
+                 agent_rewards: Optional[Dict] = None):
         self.episode_length = episode_length
         self.episode_reward = episode_reward
+        self.agent_rewards = agent_rewards or {}
 
 
 def summarize_episodes(episodes: List[RolloutMetrics]) -> Dict:
     rewards = [e.episode_reward for e in episodes]
     lengths = [e.episode_length for e in episodes]
+    policy_rewards: Dict[str, List[float]] = {}
+    for e in episodes:
+        for (_, pid), r in e.agent_rewards.items():
+            policy_rewards.setdefault(pid, []).append(r)
     return {
         "episode_reward_max": float(np.max(rewards)) if rewards else np.nan,
         "episode_reward_min": float(np.min(rewards)) if rewards else np.nan,
         "episode_reward_mean": float(np.mean(rewards)) if rewards else np.nan,
         "episode_len_mean": float(np.mean(lengths)) if lengths else np.nan,
         "episodes_this_iter": len(episodes),
+        "policy_reward_mean": {pid: float(np.mean(rs)) for pid, rs in policy_rewards.items()},
     }

@@ -1,21 +1,31 @@
-"""RolloutWorker: env + policy + sampler, local or as an actor.
+"""RolloutWorker: env + policies + sampler, local or as an actor.
 
-Counterpart of ``ray_tpu/evaluation/rollout_worker.py``, single-agent.
-The same class is the main process's local worker, whose policy is the
-learner (on the algorithm's device: the card unless the config says
-``device: "cpu"``), and each remote rollout actor (``worker_index >
-0``), whose policy is built with ``device="cpu"`` in a process that
-cannot see the card (``core/worker_proc.py``), as the reference pins its
-actors to the CPU. A remote worker bounds its torch threads to
+Counterpart of ``ray_tpu/evaluation/rollout_worker.py``. The same class
+is the main process's local worker, whose policies are the learners (on
+the algorithm's device: the card unless the config says ``device:
+"cpu"``), and each remote rollout actor (``worker_index > 0``), whose
+policies are built with ``device="cpu"`` in a process that cannot see
+the card (``core/worker_proc.py``), as the reference pins its actors to
+the CPU. A remote worker bounds its torch threads to
 ``num_cpus_per_worker`` (the reference's key and default, 1), so
 several workers and the learner share the host's cores.
 
+The worker holds a policy map. Without ``policy_specs`` it is one
+policy of ``policy_cls`` under ``DEFAULT_POLICY_ID`` on the env's spaces
+(the config's ``observation_space``/``action_space`` win), sampled by a
+``SyncSampler`` over a vector env. ``policy_specs`` (``{pid: (cls,
+obs_space, act_space, config_overrides)}``, built by ``Algorithm``)
+gives one policy, preprocessor and filter per id; with a
+``MultiAgentEnv`` the ``MultiAgentSyncSampler`` drives them through
+``policy_mapping_fn``. ``learn_on_batch`` of a ``MultiAgentBatch``
+learns the policies of ``policies_to_train`` (all, when unset), each on
+its own batch.
+
 Not ported (``ROADMAP.md`` queue 1 item 3), each raising where a config
-asks for it: multi-agent (``policies``), ``input``/``output`` readers
-and writers, the fault injector (``fault_injection``), ``sample_async``
-and tensor envs on the actor lane (the reference's
-``JaxVectorEnvAdapter``; the port's tensor envs run on the device lane,
-``env_backend: jax``).
+asks for it: ``input``/``output`` readers and writers, the fault
+injector (``fault_injection``), ``sample_async`` and tensor envs on the
+actor lane (the reference's ``JaxVectorEnvAdapter``; the port's tensor
+envs run on the device lane, ``env_backend: jax``).
 """
 
 from __future__ import annotations
@@ -24,10 +34,12 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID
+from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, MultiAgentBatch
 from ray_tpu_torch.env.env_context import EnvContext
+from ray_tpu_torch.env.multi_agent_env import MultiAgentEnv
 from ray_tpu_torch.env.tensor_env import TensorVectorEnv
 from ray_tpu_torch.env.vector_env import VectorEnv
+from ray_tpu_torch.evaluation.multi_agent_sampler import MultiAgentSyncSampler
 from ray_tpu_torch.evaluation.sampler import SyncSampler
 from ray_tpu_torch.models.catalog import ModelCatalog
 from ray_tpu_torch.utils.filter import get_filter
@@ -37,7 +49,6 @@ _ITEM = "ROADMAP.md queue 1 item 3"
 
 def _refuse_unported(config: Dict) -> None:
     for key, what, item in (
-        ("policies", "multi-agent policies", _ITEM),
         ("input", "input readers", _ITEM),
         ("output", "output writers", _ITEM),
         ("fault_injection", "the fault injector", _ITEM),
@@ -47,12 +58,18 @@ def _refuse_unported(config: Dict) -> None:
             raise NotImplementedError(f"{what} on the actor lane are not ported yet: {item}")
 
 
+def _default_mapping_fn(agent_id, **kwargs):
+    return DEFAULT_POLICY_ID
+
+
 class RolloutWorker:
     def __init__(
         self,
         *,
-        env_creator: Callable,
-        policy_cls,
+        env_creator: Optional[Callable] = None,
+        policy_cls=None,
+        policy_specs: Optional[Dict] = None,
+        policy_mapping_fn: Optional[Callable] = None,
         config: Optional[Dict] = None,
         worker_index: int = 0,
         num_workers: int = 0,
@@ -68,6 +85,7 @@ class RolloutWorker:
 
             torch.set_num_threads(int(self.config.get("num_cpus_per_worker", 1)))
             device = "cpu"
+        self.device = device
 
         env_config = EnvContext(
             self.config.get("env_config") or {},
@@ -82,48 +100,116 @@ class RolloutWorker:
             np.random.seed(seed)
 
         # ---- env ----
-        num_envs = int(self.config.get("num_envs_per_worker", 1))
+        self.env = None
+        self.vector_env = None
+        self._multiagent_env = False
+        if env_creator is not None:
+            num_envs = int(self.config.get("num_envs_per_worker", 1))
 
-        def make_sub_env(vector_index):
-            return env_creator(env_config.copy_with_overrides(vector_index=vector_index))
+            def make_sub_env(vector_index):
+                return env_creator(env_config.copy_with_overrides(vector_index=vector_index))
 
-        self.env = make_sub_env(0)
-        if isinstance(self.env, TensorVectorEnv):
-            raise NotImplementedError(
-                f"tensor env {type(self.env).__name__} on the actor lane (the reference's "
-                f"JaxVectorEnvAdapter) is not ported yet: {_ITEM}; set env_backend='jax' "
-                "to run it on the device lane"
-            )
-        envs = [self.env] + [make_sub_env(i) for i in range(1, num_envs)]
-        self.vector_env = VectorEnv.vectorize_gym_envs(lambda i: envs[i], num_envs, seed=seed)
+            self.env = make_sub_env(0)
+            if isinstance(self.env, TensorVectorEnv):
+                raise NotImplementedError(
+                    f"tensor env {type(self.env).__name__} on the actor lane (the reference's "
+                    f"JaxVectorEnvAdapter) is not ported yet: {_ITEM}; set env_backend='jax' "
+                    "to run it on the device lane"
+                )
+            self._multiagent_env = isinstance(self.env, MultiAgentEnv)
+            if not self._multiagent_env:
+                envs = [self.env] + [make_sub_env(i) for i in range(1, num_envs)]
+                self.vector_env = VectorEnv.vectorize_gym_envs(
+                    lambda i: envs[i], num_envs, seed=seed
+                )
 
-        # ---- policy ----
-        pol_config = {**self.config, "worker_index": worker_index, "num_workers": num_workers}
-        self.preprocessor = ModelCatalog.get_preprocessor_for_space(self.env.observation_space)
-        eff_obs_space = self.preprocessor.observation_space
-        self.policy_map: Dict[str, Any] = {
-            DEFAULT_POLICY_ID: policy_cls(eff_obs_space, self.env.action_space, pol_config,
-                                          device=device)
-        }
-        self.filters: Dict[str, Any] = {
-            DEFAULT_POLICY_ID: get_filter(
-                self.config.get("observation_filter", "NoFilter"), eff_obs_space.shape
-            )
-        }
+        # ---- policies ----
+        self.policy_map: Dict[str, Any] = {}
+        self.filters: Dict[str, Any] = {}
+        self.preprocessor = None  # the default policy's
+        self.policy_mapping_fn = policy_mapping_fn or _default_mapping_fn
+        if policy_specs is None and policy_cls is not None:
+            obs_space = self.config.get("observation_space") or self.env.observation_space
+            act_space = self.config.get("action_space") or self.env.action_space
+            policy_specs = {DEFAULT_POLICY_ID: (policy_cls, obs_space, act_space, {})}
+        for pid, (cls, obs_space, act_space, overrides) in (policy_specs or {}).items():
+            self.add_policy(pid, cls, obs_space, act_space, overrides)
 
         # ---- sampler ----
-        self.sampler = SyncSampler(
-            vector_env=self.vector_env,
-            policy=self.policy_map[DEFAULT_POLICY_ID],
-            preprocessor=self.preprocessor,
-            obs_filter=self.filters[DEFAULT_POLICY_ID],
-            rollout_fragment_length=int(self.config.get("rollout_fragment_length", 200)),
-            batch_mode=self.config.get("batch_mode", "truncate_episodes"),
-            episode_horizon=self.config.get("horizon"),
-            clip_actions=self.config.get("clip_actions", False),
-            normalize_actions=self.config.get("normalize_actions", True),
-            flush_on_episode_end=not self.config.get("_fixed_unrolls", False),
+        self.sampler = None
+        if self.vector_env is not None and self.policy_map:
+            if DEFAULT_POLICY_ID not in self.policy_map:
+                raise ValueError(
+                    f"policies {sorted(self.policy_map)} need a MultiAgentEnv; "
+                    f"{type(self.env).__name__} is a single-agent env"
+                )
+            self.sampler = SyncSampler(
+                vector_env=self.vector_env,
+                policy=self.policy_map[DEFAULT_POLICY_ID],
+                preprocessor=self.preprocessor,
+                obs_filter=self.filters[DEFAULT_POLICY_ID],
+                rollout_fragment_length=int(self.config.get("rollout_fragment_length", 200)),
+                batch_mode=self.config.get("batch_mode", "truncate_episodes"),
+                episode_horizon=self.config.get("horizon"),
+                clip_actions=self.config.get("clip_actions", False),
+                normalize_actions=self.config.get("normalize_actions", True),
+                flush_on_episode_end=not self.config.get("_fixed_unrolls", False),
+            )
+        elif self._multiagent_env:
+            # as the reference's: the preprocessors of the policies'
+            # (already preprocessed) spaces, the rest of the actor
+            # lane's keys unread
+            self.sampler = MultiAgentSyncSampler(
+                env=self.env,
+                policy_map=self.policy_map,
+                policy_mapping_fn=self.policy_mapping_fn,
+                preprocessors={
+                    pid: ModelCatalog.get_preprocessor_for_space(p.observation_space)
+                    for pid, p in self.policy_map.items()
+                },
+                obs_filters=self.filters,
+                rollout_fragment_length=int(self.config.get("rollout_fragment_length", 200)),
+                batch_mode=self.config.get("batch_mode", "truncate_episodes"),
+            )
+
+    def add_policy(
+        self,
+        policy_id: str,
+        policy_cls,
+        observation_space,
+        action_space,
+        config_overrides: Optional[Dict] = None,
+        weights=None,
+    ) -> None:
+        """A policy into the map (its preprocessor and filter with it),
+        built from the worker's config and ``config_overrides``; the
+        mapping fn can route agents to it from their next episode."""
+        pol_config = {
+            **self.config,
+            **(config_overrides or {}),
+            "worker_index": self.worker_index,
+            "num_workers": self.num_workers,
+        }
+        prep = ModelCatalog.get_preprocessor_for_space(observation_space)
+        eff_obs_space = prep.observation_space
+        if policy_id == DEFAULT_POLICY_ID:
+            self.preprocessor = prep
+        self.policy_map[policy_id] = policy_cls(
+            eff_obs_space, action_space, pol_config, device=self.device
         )
+        self.filters[policy_id] = get_filter(
+            self.config.get("observation_filter", "NoFilter"), eff_obs_space.shape
+        )
+        if weights is not None:
+            self.policy_map[policy_id].set_weights(weights)
+
+    def set_policy_mapping_fn(self, fn: Callable) -> None:
+        """A new mapping fn; it takes effect at the next episode (the
+        sampler asks it once per agent and episode), so no trajectory
+        is split between two policies."""
+        self.policy_mapping_fn = fn
+        if isinstance(self.sampler, MultiAgentSyncSampler):
+            self.sampler.policy_mapping_fn = fn
 
     # -- sampling --------------------------------------------------------
 
@@ -143,16 +229,28 @@ class RolloutWorker:
         return self.policy_map[pid]
 
     def learn_on_batch(self, samples) -> Dict:
+        """One learn call per policy batch of a ``MultiAgentBatch``, for
+        the policies of ``policies_to_train`` (all when unset); a
+        SampleBatch is the default policy's."""
+        if isinstance(samples, MultiAgentBatch):
+            to_train = self.config.get("policies_to_train")
+            return {
+                pid: self.policy_map[pid].learn_on_batch(batch)
+                for pid, batch in samples.policy_batches.items()
+                if pid in self.policy_map and (to_train is None or pid in to_train)
+            }
         return {DEFAULT_POLICY_ID: self.policy_map[DEFAULT_POLICY_ID].learn_on_batch(samples)}
 
     # -- weights and filters ---------------------------------------------
 
-    def get_weights(self, inference_only: bool = False) -> Dict:
-        """Every policy's weights; ``inference_only``: only what acting
-        reads (``get_inference_weights``: SAC's actor)."""
+    def get_weights(self, policies: Optional[List[str]] = None, inference_only: bool = False) -> Dict:
+        """The weights of ``policies`` (every policy when None);
+        ``inference_only``: only what acting reads
+        (``get_inference_weights``: SAC's actor)."""
         return {
             pid: p.get_inference_weights() if inference_only else p.get_weights()
             for pid, p in self.policy_map.items()
+            if policies is None or pid in policies
         }
 
     def set_weights(self, weights: Dict, global_vars: Optional[Dict] = None) -> None:
@@ -185,13 +283,18 @@ class RolloutWorker:
         return fn(self, *args, **kwargs)
 
     def foreach_env(self, fn: Callable) -> List:
-        return [fn(e) for e in self.vector_env.get_sub_environments()]
+        return [fn(e) for e in self._sub_envs()]
+
+    def _sub_envs(self) -> List:
+        if self.vector_env is not None:
+            return self.vector_env.get_sub_environments()
+        return [self.env] if self.env is not None else []
 
     def foreach_policy(self, fn: Callable) -> List:
         return [fn(p, pid) for pid, p in self.policy_map.items()]
 
     def stop(self) -> None:
-        for e in self.vector_env.get_sub_environments():
+        for e in self._sub_envs():
             close = getattr(e, "close", None)
             if close is not None:
                 close()

@@ -29,10 +29,18 @@ reference's order: the row is recorded first, as the env returned it,
 so the cut row keeps its ``TRUNCATEDS`` (False unless the env truncated
 too) and only the slot ends its episode and resets.
 
-Not ported (``ROADMAP.md`` queue 1 item 3): ``AsyncSampler``, the
-``ViewCollector`` of extra view requirements (shifted columns such as
-``prev_actions``), recurrent state and callbacks. A policy that asks for
-the first three raises here; callbacks raise in ``Algorithm``.
+Views: a policy that declares ``PREV_ACTIONS`` or ``PREV_REWARDS``
+(``use_prev_action`` / ``use_prev_reward`` in its model config) gets
+them as the sampler's prev-1 shortcuts, in the row and as
+``prev_action_batch`` / ``prev_reward_batch`` of ``compute_actions``,
+zero at an episode's start; every other view it declares with a
+``data_col`` comes from the ``ViewCollector``
+(``evaluation/view_collector.py``), for compute time as keyword
+arguments and for training as row columns.
+
+Not ported (``ROADMAP.md`` queue 1 item 3): ``AsyncSampler``, recurrent
+state (item 8.7: a recurrent policy raises here) and callbacks (they
+raise in ``Algorithm``).
 
 ``timers`` adds up the seconds of the loop's parts (``act_s``: the
 policy's ``compute_actions``; ``env_s``: the vector env's step;
@@ -50,15 +58,7 @@ import numpy as np
 from ray_tpu_torch.data.sample_batch import SampleBatch, concat_samples
 from ray_tpu_torch.evaluation.episode import EpisodeRecord
 from ray_tpu_torch.evaluation.metrics import RolloutMetrics
-
-# the columns every policy's sampler collects (the reference's default
-# view requirements); anything more needs the ViewCollector
-DEFAULT_VIEWS = frozenset((
-    SampleBatch.OBS, SampleBatch.ACTIONS, SampleBatch.REWARDS,
-    SampleBatch.TERMINATEDS, SampleBatch.TRUNCATEDS, SampleBatch.EPS_ID,
-))
-_SHIFTED_VIEW_KEYS = ("use_prev_action", "use_prev_reward",
-                      "lstm_use_prev_action", "lstm_use_prev_reward")
+from ray_tpu_torch.evaluation.view_collector import ViewCollector
 
 
 class _EnvSlotCollector:
@@ -120,15 +120,8 @@ def postprocess_batch(policy, batch):
 
 
 def check_ported_views(policy) -> None:
-    """Raise for a policy whose sampling needs what is not ported."""
-    extra = set(getattr(policy, "view_requirements", None) or ()) - DEFAULT_VIEWS
-    mc = getattr(policy, "model_config", None) or {}
-    extra |= {k for k in _SHIFTED_VIEW_KEYS if mc.get(k)}
-    if extra:
-        raise NotImplementedError(
-            f"view requirements beyond the defaults ({sorted(extra)}) need the "
-            "ViewCollector, which is not ported yet: ROADMAP.md queue 1 item 3"
-        )
+    """Raise for a policy whose sampling needs what is not ported: a
+    recurrent one (its state columns)."""
     if policy.get_initial_state():
         raise NotImplementedError(
             "recurrent policies on the actor lane are not ported yet: ROADMAP.md "
@@ -175,6 +168,13 @@ class SyncSampler:
 
         raw_obs, _ = self.env.vector_reset()
         self.cur_obs = [self._transform(o) for o in raw_obs]
+        # the prev-1 shortcut columns, when the policy declares them
+        vr = getattr(self.policy, "view_requirements", None) or {}
+        self._want_prev_actions = SampleBatch.PREV_ACTIONS in vr
+        self._want_prev_rewards = SampleBatch.PREV_REWARDS in vr
+        self._prev_actions = [None] * n
+        self._prev_rewards = [np.float32(0.0)] * n
+        self._views = ViewCollector(vr, n)
 
     def _transform(self, obs):
         return transform_obs(self.preprocessor, self.obs_filter, obs)
@@ -203,7 +203,9 @@ class SyncSampler:
     def _step_once(self, out: List[SampleBatch]) -> None:
         n = self.env.num_envs
         t0 = time.perf_counter()
-        actions, _, extras = self.policy.compute_actions(np.stack(self.cur_obs), None, explore=True)
+        actions, _, extras = self.policy.compute_actions(
+            np.stack(self.cur_obs), None, explore=True, **self._compute_views()
+        )
         t1 = time.perf_counter()
         space = self.env.action_space
         if self.normalize_actions:
@@ -231,6 +233,18 @@ class SyncSampler:
             }
             for k, v in extras.items():
                 row[k] = np.asarray(v[i])
+            if self._want_prev_actions:
+                row[SampleBatch.PREV_ACTIONS] = (
+                    np.zeros_like(np.asarray(actions[i]))
+                    if self._prev_actions[i] is None
+                    else self._prev_actions[i]
+                )
+                self._prev_actions[i] = np.asarray(actions[i])
+            if self._want_prev_rewards:
+                row[SampleBatch.PREV_REWARDS] = self._prev_rewards[i]
+                self._prev_rewards[i] = np.float32(rewards[i])
+            if self._views.active:
+                self._views.annotate_row(i, row)
             self.collectors[i].add(row)
             self.episodes[i].add(float(rewards[i]))
 
@@ -239,6 +253,10 @@ class SyncSampler:
                 # after the row: the row keeps the env's TRUNCATEDS
                 ep_done = True
             if ep_done:
+                self._prev_actions[i] = None
+                self._prev_rewards[i] = np.float32(0.0)
+                if self._views.active:
+                    self._views.reset_env(i)
                 if self.flush_on_episode_end:
                     self._flush_slot(i, out)
                 self.metrics_queue.append(
@@ -249,6 +267,28 @@ class SyncSampler:
                 self.cur_obs[i] = self._transform(raw)
             else:
                 self.cur_obs[i] = t_obs
+
+    def _compute_views(self) -> Dict[str, np.ndarray]:
+        """This step's view arguments of ``compute_actions``: the prev-1
+        shortcuts (zeros at an episode's start) and the collector's
+        compute-time views, stacked over the env slots."""
+        out = {}
+        if self._want_prev_actions:
+            shape = self.env.action_space.shape
+            zero = np.zeros(shape or (), np.float32 if shape else np.int64)
+            out["prev_action_batch"] = np.stack(
+                [zero if a is None else a for a in self._prev_actions]
+            )
+        if self._want_prev_rewards:
+            out["prev_reward_batch"] = np.asarray(self._prev_rewards, np.float32)
+        if self._views.active:
+            per_env = [
+                self._views.compute_action_views(i, {SampleBatch.OBS: self.cur_obs[i]})
+                for i in range(self.env.num_envs)
+            ]
+            for k in per_env[0]:
+                out[k] = np.stack([pe[k] for pe in per_env])
+        return out
 
     def _flush_slot(self, i: int, out: List[SampleBatch]) -> None:
         if self.collectors[i].count == 0:

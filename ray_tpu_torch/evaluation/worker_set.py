@@ -2,11 +2,13 @@
 
 Counterpart of ``ray_tpu/evaluation/worker_set.py``. The remote workers
 are ``RolloutWorker`` actors of the port's runtime (``core/``), each in
-a process of its own with its policy on the CPU. ``sync_weights`` takes
-the learner's weights once as numpy, makes one ``put`` (a shared-memory
-segment above 256 KB) and sends every worker that ref; a worker's calls
-run in submission order, so the new weights are in place before its
-next ``sample``.
+a process of its own with its policies on the CPU; every worker gets the
+same ``policy_specs`` and ``policy_mapping_fn`` (a lambda travels by
+value: ``core/serialization.py``). ``sync_weights`` takes the learner's
+weights of every policy (or of ``policies``) once as numpy, makes one
+``put`` (a shared-memory segment above 256 KB) and sends every worker
+that ref; a worker's calls run in submission order, so the new weights
+are in place before its next ``sample``.
 
 ``remove_workers`` drops workers that an ``AsyncRequestsManager`` saw
 die and ends their processes. Not ported (``ROADMAP.md`` queue 1 item
@@ -36,11 +38,14 @@ class WorkerSet:
         config: Dict,
         num_workers: int = 0,
         device=None,
+        policy_specs: Optional[Dict] = None,
+        policy_mapping_fn: Optional[Callable] = None,
     ):
         self._remote_workers: List = []
+        specs = dict(policy_specs=policy_specs, policy_mapping_fn=policy_mapping_fn)
         self._local_worker = RolloutWorker(
             env_creator=env_creator, policy_cls=policy_cls, config=config,
-            worker_index=0, num_workers=num_workers, device=device,
+            worker_index=0, num_workers=num_workers, device=device, **specs,
         )
         if num_workers > 0:
             if not api.is_initialized():
@@ -50,7 +55,7 @@ class WorkerSet:
                 self._remote_workers.append(
                     remote_worker.remote(
                         env_creator=env_creator, policy_cls=policy_cls, config=config,
-                        worker_index=i + 1, num_workers=num_workers,
+                        worker_index=i + 1, num_workers=num_workers, **specs,
                     )
                 )
 
@@ -77,13 +82,19 @@ class WorkerSet:
 
     # -- sync ------------------------------------------------------------
 
-    def sync_weights(self, global_vars: Optional[Dict] = None, inference_only: bool = False) -> None:
-        """The learner's weights to every remote worker (``inference_only``:
-        the acting subset, ``get_inference_weights``, as the reference
-        ships SAC's actor without its critic and target), and
-        ``global_vars`` to every worker."""
+    def sync_weights(
+        self,
+        policies: Optional[List[str]] = None,
+        global_vars: Optional[Dict] = None,
+        inference_only: bool = False,
+    ) -> None:
+        """The learner's weights of ``policies`` (all when None) to every
+        remote worker in one ``put`` (``inference_only``: the acting
+        subset, ``get_inference_weights``, as the reference ships SAC's
+        actor without its critic and target), and ``global_vars`` to
+        every worker."""
         if self._remote_workers:
-            ref = api.put(self._local_worker.get_weights(inference_only=inference_only))
+            ref = api.put(self._local_worker.get_weights(policies, inference_only=inference_only))
             for w in self._remote_workers:
                 w.set_weights.remote(ref, global_vars)
         if global_vars:

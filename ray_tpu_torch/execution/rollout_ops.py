@@ -4,7 +4,9 @@
 Counterpart of ``ray_tpu/execution/rollout_ops.py``.
 ``synchronous_parallel_sample`` keeps the reference's round semantics:
 one ``sample`` request per worker per round, the round's batches
-ordered by worker index, rounds until the step target is met; a dead
+ordered by worker index, rounds until the step target is met (env
+steps; agent steps of a ``MultiAgentBatch`` under ``max_agent_steps``),
+concatenated per policy when the batches are multi-agent; a dead
 worker raises ``RayActorError`` after the healthy workers' results are
 in. The round waits with ``wait``/``get`` directly instead of the
 reference's ``AsyncRequestsManager``, whose docstring states that both
@@ -34,7 +36,7 @@ from typing import Callable, Dict, List, Optional
 
 from ray_tpu_torch.core import api
 from ray_tpu_torch.core.object_store import RayActorError, WorkerCrashedError
-from ray_tpu_torch.data.sample_batch import SampleBatch, concat_samples
+from ray_tpu_torch.data.sample_batch import MultiAgentBatch, SampleBatch, concat_samples
 from ray_tpu_torch.execution.parallel_requests import (
     AsyncRequestsManager,
     asynchronous_parallel_requests,
@@ -68,11 +70,17 @@ def synchronous_parallel_sample(
                     dead = True
             if dead:
                 raise RayActorError("rollout worker died during synchronous_parallel_sample")
-        steps += sum(b.count for b in batches)
+        steps += _count_steps(batches, max_agent_steps)
         all_batches.extend(batches)
         if max_steps is None or steps >= max_steps:
             break
     return concat_samples(all_batches) if concat else all_batches
+
+
+def _count_steps(batches, by_agent_steps) -> int:
+    if by_agent_steps:
+        return sum(b.agent_steps() if isinstance(b, MultiAgentBatch) else b.count for b in batches)
+    return sum(b.env_steps() for b in batches)
 
 
 class SamplePrefetcher:

@@ -13,6 +13,7 @@ from typing import Dict
 
 import numpy as np
 
+from ray_tpu_torch.data.sample_batch import MultiAgentBatch
 from ray_tpu_torch.execution.replay_buffer import DevicePrioritizedReplayBuffer
 
 NUM_ENV_STEPS_TRAINED = "num_env_steps_trained"
@@ -20,16 +21,20 @@ NUM_AGENT_STEPS_TRAINED = "num_agent_steps_trained"
 
 
 def batch_is_finite(batch) -> bool:
-    """True when no float column of a host batch holds a NaN or an Inf
-    (the nan guard's test, ``ray_tpu/resilience/recovery.py``)."""
-    for v in batch.values():
-        if isinstance(v, np.ndarray) and np.issubdtype(v.dtype, np.floating) and not np.isfinite(v).all():
-            return False
+    """True when no float column of a host batch (every policy batch of
+    a ``MultiAgentBatch``) holds a NaN or an Inf (the nan guard's test,
+    ``ray_tpu/resilience/recovery.py``)."""
+    policy_batches = getattr(batch, "policy_batches", None)
+    for b in policy_batches.values() if policy_batches is not None else [batch]:
+        for v in b.values():
+            if isinstance(v, np.ndarray) and np.issubdtype(v.dtype, np.floating) and not np.isfinite(v).all():
+                return False
     return True
 
 
 def train_one_step(algorithm, train_batch) -> Dict:
-    """One ``learn_on_batch`` of the local worker on a host batch. With
+    """One ``learn_on_batch`` of the local worker on a host batch (a
+    ``MultiAgentBatch`` counts its env steps and its agent steps). With
     ``config["nan_guard"]`` a batch with a non-finite float is skipped
     and counted (``num_nan_batches_skipped``), not learned from. The
     call's seconds go to ``algorithm._timers["learn_on_batch_s"]``."""
@@ -40,7 +45,9 @@ def train_one_step(algorithm, train_batch) -> Dict:
     info = algorithm.workers.local_worker().learn_on_batch(train_batch)
     algorithm._timers["learn_on_batch_s"] = time.perf_counter() - t0
     algorithm._counters[NUM_ENV_STEPS_TRAINED] += train_batch.env_steps()
-    algorithm._counters[NUM_AGENT_STEPS_TRAINED] += train_batch.count
+    algorithm._counters[NUM_AGENT_STEPS_TRAINED] += (
+        train_batch.agent_steps() if isinstance(train_batch, MultiAgentBatch) else train_batch.count
+    )
     return info
 
 

@@ -1,8 +1,9 @@
-"""Policy base class.
+"""Policy base class and view requirements.
 
-Counterpart of ``ray_tpu/policy/policy.py``: the per-policy inference and
-learning contract, without view requirements (no recurrent or shifted
-columns are ported yet).
+Counterpart of ``ray_tpu/policy/policy.py``: the per-policy inference
+and learning contract, and :class:`ViewRequirement`, the declaration of
+a column the sampler collects for the policy (a shifted or windowed
+view of another column is built by ``evaluation/view_collector.py``).
 """
 
 from __future__ import annotations
@@ -10,6 +11,49 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ray_tpu_torch.data.sample_batch import SampleBatch
+
+
+class ViewRequirement:
+    """A column the policy needs at compute or train time.
+
+    ``shift`` is an int (0: this step, -1: the step before, ...) or a
+    window ``"a:b"`` with ``a <= b <= 0`` (``"-3:0"``: the last four
+    values, this step's included, stacked on a new leading axis and
+    zero-filled before the episode's start). A view with a ``data_col``
+    is built from that column by the sampler's ``ViewCollector``;
+    positive shifts are the NEXT_OBS column."""
+
+    def __init__(
+        self,
+        data_col: Optional[str] = None,
+        shift=0,
+        used_for_compute_actions: bool = True,
+        used_for_training: bool = True,
+        space=None,
+    ):
+        self.data_col = data_col
+        self.shift = shift
+        self.used_for_compute_actions = used_for_compute_actions
+        self.used_for_training = used_for_training
+        self.space = space
+        if isinstance(shift, str):
+            lo, hi = (int(s) for s in shift.split(":"))
+            if lo > hi or hi > 0:
+                raise ValueError(f"window shift {shift!r} must satisfy a <= b <= 0")
+            self.shift_from, self.shift_to = lo, hi
+        else:
+            self.shift_from = self.shift_to = int(shift)
+
+    @property
+    def is_window(self) -> bool:
+        return isinstance(self.shift, str)
+
+    @property
+    def lookback(self) -> int:
+        """How many past steps the view reaches into."""
+        return max(0, -self.shift_from)
 
 
 class Policy:
@@ -20,15 +64,26 @@ class Policy:
         self.action_space = action_space
         self.config = config or {}
         self.global_timestep = 0
+        self.view_requirements: Dict[str, ViewRequirement] = {
+            SampleBatch.OBS: ViewRequirement(space=observation_space),
+            SampleBatch.ACTIONS: ViewRequirement(space=action_space, used_for_compute_actions=False),
+            SampleBatch.REWARDS: ViewRequirement(used_for_compute_actions=False),
+            SampleBatch.TERMINATEDS: ViewRequirement(used_for_compute_actions=False),
+            SampleBatch.TRUNCATEDS: ViewRequirement(used_for_compute_actions=False),
+            SampleBatch.EPS_ID: ViewRequirement(used_for_compute_actions=False),
+        }
 
     def compute_actions(
         self,
         obs_batch: np.ndarray,
         state_batches: Optional[List[np.ndarray]] = None,
+        prev_action_batch: Optional[np.ndarray] = None,
+        prev_reward_batch: Optional[np.ndarray] = None,
         explore: bool = True,
         **kwargs,
     ) -> Tuple[np.ndarray, List[np.ndarray], Dict[str, np.ndarray]]:
-        """→ (actions, state_outs, extra_fetches)."""
+        """→ (actions, state_outs, extra_fetches). ``kwargs`` carries
+        the views the policy declared for compute time."""
         raise NotImplementedError
 
     def compute_single_action(self, obs, explore: bool = True, **kwargs):

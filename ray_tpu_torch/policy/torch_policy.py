@@ -53,7 +53,7 @@ from ray_tpu_torch.ops.framestack import (
     compress_replay_obs,
     decompose_segmented_obs,
 )
-from ray_tpu_torch.policy.policy import Policy
+from ray_tpu_torch.policy.policy import Policy, ViewRequirement
 from ray_tpu_torch.sharding.superstep import SuperstepRunner, batch_finite
 from ray_tpu_torch.utils.exploration import exploration_from_config
 from ray_tpu_torch.utils.schedules import make_schedule
@@ -246,6 +246,17 @@ class TorchPolicy(Policy):
         )
         self.coeff_values.update(self.exploration.init_coeffs())
 
+        # the shifted columns the sampler collects for this policy
+        mc = self.model_config
+        if mc.get("lstm_use_prev_action") or mc.get("use_prev_action"):
+            self.view_requirements[SampleBatch.PREV_ACTIONS] = ViewRequirement(
+                data_col=SampleBatch.ACTIONS, shift=-1, space=action_space
+            )
+        if mc.get("lstm_use_prev_reward") or mc.get("use_prev_reward"):
+            self.view_requirements[SampleBatch.PREV_REWARDS] = ViewRequirement(
+                data_col=SampleBatch.REWARDS, shift=-1
+            )
+
     # -- subclass hooks --------------------------------------------------
 
     def _make_model(self, observation_space, action_space, num_outputs, generator):
@@ -330,7 +341,12 @@ class TorchPolicy(Policy):
         return actions, state_out, extra
 
     @torch.no_grad()
-    def compute_actions(self, obs_batch, state_batches=None, explore: bool = True, **kwargs):
+    def compute_actions(self, obs_batch, state_batches=None, prev_action_batch=None,
+                        prev_reward_batch=None, explore: bool = True, **kwargs):
+        """Actions for a batch of observations. The port's models are
+        feed-forward and read neither the previous actions and rewards
+        nor other views (``kwargs``), as the reference's FCNet reads
+        none of them."""
         self.exploration.update_coeffs(self.coeff_values, self.global_timestep)
         obs = torch.as_tensor(np.asarray(obs_batch), device=self.device)
         actions, state_out, extra = self._action_step_body(

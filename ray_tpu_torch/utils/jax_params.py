@@ -24,7 +24,9 @@ joined with dots (:func:`plain_to_state_dict`).
 
 SAC's trees (``{"actor", "critic", "log_alpha"}`` params, the target
 critic as aux state and three optax Adam states) go into a
-``SACTorchPolicy`` whole through :func:`from_jax_sac_state`.
+``SACTorchPolicy`` whole through :func:`from_jax_sac_state`. A reference
+worker's multi-policy weights (``{pid: params}``) go into the port's
+policy map through :func:`from_jax_policy_weights`.
 """
 
 from __future__ import annotations
@@ -111,6 +113,19 @@ def from_jax_params(tree, module: nn.Module) -> nn.Module:
                 raise ValueError(f"{name}: {tuple(src.shape)} != {tuple(p.shape)}")
             p.copy_(src)
     return module
+
+
+def from_jax_policy_weights(weights: Mapping, policy_map: Mapping) -> None:
+    """Copy a reference worker's ``get_weights()`` (``{pid: param
+    tree}`` of numpy arrays) into the models of the port's policy map
+    (``{pid: TorchPolicy}``), policy by policy; both must name the same
+    policies."""
+    if set(weights) != set(policy_map):
+        raise ValueError(
+            f"reference policies {sorted(weights)} != port policies {sorted(policy_map)}"
+        )
+    for pid, tree in weights.items():
+        from_jax_params(tree, policy_map[pid].model)
 
 
 def _find_adam(opt_state):

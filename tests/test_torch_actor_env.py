@@ -12,8 +12,10 @@ Every contract here is bitwise: host numpy code on the same inputs.
 - the preprocessors on the port's spaces and gymnasium's, and
   ``MeanStdFilter`` through pushes, ``apply_changes`` and ``sync``;
 - the registry: the host and tensor PongLite names resolve to their own
-  modules, CartPole-v1 comes from gymnasium through the fallback, and
-  the port imports and builds its host envs with gymnasium blocked.
+  modules, CartPole-v1 resolves to the port's own (``env/cartpole.py``,
+  held bitwise against gymnasium's in ``tests/test_torch_multi_agent.py``)
+  and resets as gymnasium's does, and the port imports and builds its
+  host envs with gymnasium blocked.
 """
 
 from __future__ import annotations

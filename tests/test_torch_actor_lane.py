@@ -24,7 +24,8 @@ PongLite-v0 (device "cpu", fragment 16, 2 envs each) for 2 iterations:
 the workers' policies are on the CPU with CUDA hidden and uninitialized,
 their weights equal the learner's bitwise after ``sync_weights``, and
 ``stop()`` leaves no worker process. Configs that need a later slice
-raise. The slow test runs ``tuned_examples/ppo/cartpole-ppo.yaml`` as
+raise (a recurrent policy, item 8.7; multi-agent policies on a
+single-agent env raise for want of a MultiAgentEnv). The slow test runs ``tuned_examples/ppo/cartpole-ppo.yaml`` as
 written to its bar (150 within 100,000 env steps).
 """
 
@@ -420,17 +421,23 @@ def test_ppo_local_worker_and_later_slices():
     # prefetch needs remote workers; without them the round is synchronous
     algo.config["sample_prefetch"] = 2
     assert algo.train()["timesteps_total"] == 128
-    for over in ({"sample_async": True}, {"policies": {"a": None}}, {"output": "/nonexistent"},
+    for over in ({"sample_async": True}, {"output": "/nonexistent"},
                  {"fault_injection": {"kill_worker": 1}}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _ppo(num_workers=0, **over)
+    # multi-agent policies need a MultiAgentEnv; PongLite is not one
+    with pytest.raises(ValueError, match="need a MultiAgentEnv"):
+        _ppo(num_workers=0, policies={"a": None})
     cfg = PPOConfig().update_from_dict({"device": "cpu", "num_workers": 0})
     cfg.env = "PongLiteJax-v0"  # a tensor env runs on the device lane only
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cfg.build()
+    # shifted views run through the ViewCollector; recurrent state does not
     shifted = PPOTorchPolicy(Box(0, 255, (24, 24, 4), np.uint8), Discrete(3),
                              {"model": {**SMALL_CNN, "use_prev_action": True}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert SampleBatch.PREV_ACTIONS in shifted.view_requirements
+    shifted.get_initial_state = lambda: [np.zeros(4, np.float32)]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8.7"):
         SyncSampler(vector_env=None, policy=shifted)
 
 

@@ -984,3 +984,32 @@ def test_sac_acts_on_the_card(cuda):
     assert actions.dtype == np.float32 and actions.shape == (8, 1) and np.abs(actions).max() <= 2
     assert state == [] and extra["action_logp"].shape == (8,)
     assert all(p.is_cuda for p in policy.params)
+
+
+def test_multi_agent_ppo_iteration_on_the_card(cuda):
+    """One multi-agent PPO iteration (2 CartPole-v1 agents, p0 and p1,
+    num_workers 0: the local worker acts with both policies on the
+    card): finite stats for each policy, every parameter on the card."""
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+    from ray_tpu_torch.env.multi_agent_env import make_multi_agent
+    from ray_tpu_torch.env.registry import register_env
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    register_env("cuda_multi_cartpole",
+                 lambda cfg: make_multi_agent("CartPole-v1")({"num_agents": 2}))
+    space, act = Box(-np.inf, np.inf, (4,), np.float64), Discrete(2)
+    algo = (PPOConfig().environment("cuda_multi_cartpole")
+            .rollouts(num_rollout_workers=0, rollout_fragment_length=64)
+            .training(train_batch_size=128, sgd_minibatch_size=64, num_sgd_iter=2,
+                      model={"fcnet_hiddens": [32]})
+            .multi_agent(policies={"p0": (None, space, act, {}), "p1": (None, space, act, {})},
+                         policy_mapping_fn=lambda aid, **kw: f"p{aid % 2}")
+            .debugging(seed=0).resources(device=cuda).build())
+    try:
+        learner = algo.train()["info"]["learner"]
+        assert set(learner) == {"p0", "p1"}
+        for pid in ("p0", "p1"):
+            assert all(np.isfinite(v) for v in learner[pid].values()), learner[pid]
+            assert all(p.is_cuda for p in algo.get_policy(pid).params)
+    finally:
+        algo.stop()

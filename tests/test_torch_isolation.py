@@ -146,3 +146,59 @@ def test_sac_without_device_raises_without_cuda(monkeypatch):
     algo = SACConfig().environment("Pendulum-v1").resources(device="cpu").build()
     assert algo.get_policy().device.type == "cpu"
     assert algo.local_replay_buffer.device.type == "cpu"
+
+
+def test_multi_agent_ppo_runs_with_reference_and_gymnasium_blocked():
+    """The slice's modules import, and a multi-agent PPO iteration on the
+    port's CartPole-v1 runs, with the reference and gymnasium blocked."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+
+        BLOCKED = {BLOCKED + ("gymnasium",)!r}
+
+        class _Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(name + " blocked by test")
+                return None
+
+        sys.meta_path.insert(0, _Block())
+        import numpy as np
+        from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+        from ray_tpu_torch.env.multi_agent_env import make_multi_agent
+        from ray_tpu_torch.env.registry import register_env
+        from ray_tpu_torch.env.spaces import Box, Discrete
+        from ray_tpu_torch.evaluation import multi_agent_sampler, view_collector
+
+        register_env("ma", lambda cfg: make_multi_agent("CartPole-v1")({{"num_agents": 2}}))
+        space = Box(-np.inf, np.inf, (4,), np.float64)
+        algo = (PPOConfig().environment("ma")
+                .rollouts(num_rollout_workers=0, rollout_fragment_length=32)
+                .training(train_batch_size=64, sgd_minibatch_size=32, num_sgd_iter=1,
+                          model={{"fcnet_hiddens": [8]}})
+                .multi_agent(policies={{"shared": (None, space, Discrete(2), {{}})}},
+                             policy_mapping_fn=lambda aid, **kw: "shared")
+                .resources(device="cpu").build())
+        r = algo.train()
+        assert np.isfinite(r["info"]["learner"]["shared"]["total_loss"])
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
+def test_multi_agent_ppo_without_device_raises_without_cuda(monkeypatch):
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    _no_cuda(monkeypatch)
+    cfg = PPOConfig().environment("CartPole-v1").multi_agent(
+        policies={"p0": (None, Box(-1, 1, (4,), np.float32), Discrete(2), {})},
+        policy_mapping_fn=lambda aid, **kw: "p0")
+    with pytest.raises(RuntimeError, match="none is available"):
+        cfg.build()
