@@ -223,6 +223,31 @@ and ``nvcc``. Phases, each printing its own lines:
                and ``use_prev_reward``: one sample of the local worker
                on the card, its ``prev_actions`` / ``prev_rewards`` the
                actions / rewards shifted by one within each episode;
+    ckpt_ppo -- ponglite-ppo.yaml as written: one ``train()``, ``save()``,
+               ``Algorithm.from_checkpoint``: the whole state bitwise (every
+               parameter, Adam moment, count, coefficient, counter), each
+               remote worker's weights bitwise the learner's right after
+               the restore, greedy ``compute_single_action`` on 8 seeded
+               frames equal on both; one ``train()`` of the restored
+               algorithm must launch the row gather; save and load
+               seconds, bytes;
+    ckpt_dqn -- :func:`dqn_config` filled and trained until its superstep
+               slot is captured, ``save()``, then ``restore()`` into that
+               same algorithm (rings and tree rewritten in place, the
+               captured graph kept) and ``from_checkpoint`` into a fresh
+               one: rings, leaves and ``max_priority`` bitwise; the first
+               graphed update after the restore against an eager update
+               of the fresh one on the same draws, bitwise; one
+               ``train()`` of each; the scatter, descent and gather
+               launches, save and load seconds, bytes;
+    evaluate -- cartpole-ppo.yaml's model with ``evaluation_interval: 1``,
+               ``evaluation_num_workers: 1``, ``evaluation_duration: 5``
+               and a callbacks class: two ``train()`` calls with at least 5
+               evaluation episodes each, ``custom_metrics`` and the
+               ``on_train_result`` mark required; the evaluation's seconds;
+    evaluate_cli -- ``python -m ray_tpu_torch.evaluate`` on the evaluate
+               phase's checkpoint, 3 episodes on the card: exit 0 and the
+               JSON line;
 13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
@@ -257,14 +282,15 @@ time of a library call's own kernels; every kernel phase prints both.
 the least a kernel launch shows by that timer.
 
 Launch counts are set to 0 just before each of phases 7-13, the
-actor phases, sac, each of sac_learner's two runs and the multi-agent
+actor phases, sac, each of sac_learner's two runs, the multi-agent
 and views phases (whose paths run no kernel: host GAE, no frame pool,
-as the reference's; they print their counts), and read just
+as the reference's; they print their counts), the resumed train of
+ckpt_ppo, and ckpt_dqn's restores and its resumed rounds, and read just
 after (on the learner-thread paths, between two learner steps) (the
 ring's in each rank, before each call); the comparison launches of
 phases 2-6, of graph_parity, of sac_learner's parity windows, of
-sac_columns and of the actor_lane's pooled-against-stacked learns do
-not count. The actor
+sac_columns, of the actor_lane's pooled-against-stacked learns and
+ckpt_dqn's graphed-against-eager update do not count. The actor
 phases stop their worker processes, and the runtime is shut down before
 the ring. Under a
 superstep's graph a counter counts the card's launches: the runner adds
@@ -280,8 +306,10 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1780,7 +1808,7 @@ def phase_ponglite_learn():
 # envs on the host's CPUs, T = 128, the learner on the card), and its
 # learning run's wall budget
 ACTOR_TUNED = os.path.join(REPO, "tuned_examples", "ppo", "ponglite-ppo.yaml")
-ACTOR_LEARN_S = 120.0
+ACTOR_LEARN_S = 60.0
 ACTOR_TIMED_CALLS = 3
 
 
@@ -2989,6 +3017,268 @@ def phase_views():
         algo.stop()
 
 
+# the Algorithm's own surface: checkpoints of the actor lane and of DQN's
+# device replay, evaluation workers with callbacks, the evaluate CLI
+CARTPOLE_ACTOR = os.path.join(REPO, "tuned_examples", "ppo", "cartpole-ppo.yaml")
+EVAL_DURATION, CLI_EPISODES, CLI_TIMEOUT_S = 5, 3, 300
+
+
+def _tree_mismatches(a, b, path="state"):
+    """The paths where two checkpoint state trees differ (arrays by
+    their bytes, filters by their statistics, everything else by ==)."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [path]
+        return [m for k in a for m in _tree_mismatches(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return [] if (a.dtype, a.shape, a.tobytes()) == (b.dtype, b.shape, b.tobytes()) else [path]
+    if hasattr(a, "rs"):
+        same = all(getattr(a.rs, f).tobytes() == getattr(b.rs, f).tobytes() for f in ("mean_", "s"))
+        return [] if same and a.rs.num == b.rs.num else [path]
+    if type(a).__name__.endswith("Filter"):
+        return [] if type(a) is type(b) else [path]
+    return [] if a == b else [path]
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def phase_ckpt_ppo():
+    """ponglite-ppo.yaml as written (2 worker processes x 8 PongLite-v0
+    envs, the bf16 Nature CNN, frame-pool fragments): one ``train()``,
+    ``save()``, ``Algorithm.from_checkpoint(path)``; every parameter, Adam
+    moment, count, coefficient and counter bitwise equal to the
+    original's; each remote worker's weights bitwise the learner's right
+    after the restore; ``compute_single_action(explore=False)`` on 8
+    seeded frames the same on both (and the first frame's logits,
+    bitwise); then one ``train()`` of the restored
+    algorithm, counted: it must launch the row gather (its frame pool)
+    and give finite stats. Save and load seconds, checkpoint bytes."""
+    import numpy as np
+
+    from ray_tpu_torch import core as ray_core
+    from ray_tpu_torch.algorithms.algorithm import Algorithm
+
+    algo, back = ppo_from_yaml(ACTOR_TUNED), None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        algo.train()
+        t0 = time.perf_counter()
+        path = algo.save(os.path.join(tmp, "checkpoint_000001"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = Algorithm.from_checkpoint(path)
+        load_s = time.perf_counter() - t0
+        bad = _tree_mismatches(algo.__getstate__(), back.__getstate__())
+        require(not bad, f"ckpt_ppo: restored state differs at {bad[:5]}")
+        require(back.iteration == algo.iteration == 1, "ckpt_ppo: iteration not restored")
+        policy = back.get_policy()
+        require(policy.device.type == "cuda" and all(p.is_cuda for p in policy.params),
+                "ckpt_ppo: the restored learner is not on the card")
+        learner = back.workers.local_worker().get_weights()
+        remote = ray_core.get([w.get_weights.remote() for w in back.workers.remote_workers()])
+        require(len(remote) == 2 and all(not _tree_mismatches(learner, r) for r in remote),
+                "ckpt_ppo: a remote worker's weights differ from the learner's after the restore")
+        frames = np.random.default_rng(7).integers(0, 256, (8, H, W, C), dtype=np.uint8)
+        acts = [(int(algo.compute_single_action(f, explore=False)),
+                 int(back.compute_single_action(f, explore=False))) for f in frames]
+        require(all(a == b for a, b in acts), f"ckpt_ppo: greedy actions differ {acts}")
+        logits = [p.compute_single_action(frames[0], explore=False)[2]["action_dist_inputs"]
+                  for p in (algo.get_policy(), policy)]
+        require(logits[0].tobytes() == logits[1].tobytes(), "ckpt_ppo: greedy logits differ")
+        zero_kernel_counts()
+        r = back.train()
+        counts = read_kernel_counts()
+        _finite_learner("ckpt_ppo", r, ["default_policy"])
+        require(counts["gather_rows"] >= 1, f"ckpt_ppo: the resumed learn launched no row gather {counts}")
+        say("ckpt_ppo", save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}", bytes=_dir_bytes(path),
+            state_bitwise=True, remote_weights_bitwise=len(remote),
+            greedy_actions=json.dumps([a for a, _ in acts]),
+            resumed_loss=f"{r['info']['learner']['default_policy']['total_loss']:.6f}",
+            launches=json.dumps(counts))
+        return counts["gather_rows"]
+    finally:
+        algo.stop()
+        if back is not None:
+            back.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_ckpt_dqn():
+    """:func:`dqn_config` on the device lane, filled as :func:`dqn_filled`
+    fills it, trained until its superstep slot is captured, then
+    ``save()``; ``restore()`` into that same algorithm (its graph
+    captured before: the rings and the tree are written in place) and
+    ``from_checkpoint`` into a fresh one, counted: ring rows, sum-tree
+    leaves and ``max_priority`` bitwise the saved ones; then the first
+    graphed update of the restored algorithm (one replay of its captured
+    slot) against an eager update of the fresh one on the same draws,
+    bitwise in stats, parameters, Adam moments, target, trees and
+    generators (``graph_parity``'s method; not counted); then one
+    ``train()`` of each, counted. Save and load seconds, bytes,
+    launches."""
+    import torch
+
+    from ray_tpu_torch.algorithms.algorithm import Algorithm
+    from ray_tpu_torch.execution.train_ops import superstep_train_replay
+
+    algo, back = dqn_filled(), None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        pa = algo.get_policy()
+        for _ in range(4):
+            algo.train()
+            if any(r.graph is not None for r in pa._superstep_runners.values()):
+                break
+        (runner,) = pa._superstep_runners.values()
+        require(runner.graph is not None, "ckpt_dqn: the superstep slot was not captured")
+        K = runner.k_max
+        ba = algo.local_replay_buffer.buffers["default_policy"]
+        rings = {k: v.data_ptr() for k, v in ba._store.items()}
+        trees = (ba._dtree.sum_value.data_ptr(), ba._dtree.min_value.data_ptr())
+        t0 = time.perf_counter()
+        path = algo.save(os.path.join(tmp, "checkpoint_000001"))
+        save_s = time.perf_counter() - t0
+        saved = algo.__getstate__()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        algo.restore(path)
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = Algorithm.from_checkpoint(path)
+        load_s = time.perf_counter() - t0
+        restore_counts = read_kernel_counts()
+        for what, other in (("same", algo), ("fresh", back)):
+            bad = _tree_mismatches(saved, other.__getstate__())
+            require(not bad, f"ckpt_dqn: {what} restore differs at {bad[:5]}")
+        require({k: v.data_ptr() for k, v in ba._store.items()} == rings
+                and (ba._dtree.sum_value.data_ptr(), ba._dtree.min_value.data_ptr()) == trees,
+                "ckpt_dqn: the restore replaced the rings the captured graph reads")
+        rb = saved["replay_buffer"]["default_policy"]
+        # the first update after the restore: graphed on algo, eager on back
+        pb = back.get_policy()
+        bb = back.local_replay_buffer.buffers["default_policy"]
+        bb._rng.bit_generator.state = ba._rng.bit_generator.state
+        pb.perm_generator.set_state(pa.perm_generator.get_state())
+        pb.action_generator.set_state(pa.action_generator.get_state())
+        idx, weights = bb.draw_prioritized_sets_device(1, K, TRAIN_BATCH, 0.4)
+        tree = bb._gather_columns(idx[0])
+        tree["weights"] = weights[0]
+        eager = pb.learn_on_device_batch(tree, TRAIN_BATCH)
+        with torch.no_grad():
+            td = torch.abs(pb._td_error(tree, pb.aux_state)[0]).cpu().numpy()
+        bb.update_priorities(idx[0], td + 1e-6)
+        replays = runner.replays
+        graphed = superstep_train_replay(algo, pa, ba, 1, K, TRAIN_BATCH, prioritized=True, beta=0.4)
+        require(runner.replays == replays + 1, "ckpt_dqn: the first update after the restore was not a replay")
+        require(graphed == eager, f"ckpt_dqn: graphed {graphed} != eager {eager}")
+        pairs = _lane_pairs(pa, None, pb, None)
+        pairs += [("sum tree", ba._dtree.sum_value, bb._dtree.sum_value),
+                  ("min tree", ba._dtree.min_value, bb._dtree.min_value)]
+        pairs += [("target", x, y) for x, y in zip(pa.aux_state["target_params"], pb.aux_state["target_params"])]
+        n = _graph_equal("ckpt_dqn", pairs)
+        require(ba._max_priority == bb._max_priority, "ckpt_dqn: max priority differs")
+        zero_kernel_counts()
+        infos = [a.train()["info"]["learner"] for a in (algo, back)]
+        counts = read_kernel_counts()
+        for info in infos:
+            stats = info.get("default_policy", {})
+            require(all(math.isfinite(v) for v in stats.values()), f"ckpt_dqn: non-finite {stats}")
+        require(all(counts[k] >= 1 for k in ("gather_rows", "scatter_rows", "find_prefixsum")),
+                f"ckpt_dqn: the resumed rounds missed a kernel {counts}")
+        require(restore_counts["scatter_rows"] >= 1, f"ckpt_dqn: the restore scattered nothing {restore_counts}")
+        say("ckpt_dqn", superstep_k=K, ring_rows=rb["size"], save_s=f"{save_s:.3f}",
+            restore_same_s=f"{restore_s:.3f}", load_fresh_s=f"{load_s:.3f}", bytes=_dir_bytes(path),
+            rings_in_place=True, graphed_equals_eager=True, tensors=n,
+            restore_launches=json.dumps(restore_counts), train_on_launches=json.dumps(counts))
+        return {k: restore_counts[k] + counts[k] for k in counts}
+    finally:
+        algo.stop()
+        if back is not None:
+            back.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_evaluate(ckpt_dir):
+    """cartpole-ppo.yaml (its model: FCNet 256x256; the local worker acts
+    on the card) with ``evaluation_interval: 1``, ``evaluation_num_workers:
+    1`` and ``evaluation_duration: 5`` and a callbacks class that records
+    ``custom_metrics`` and marks the result: two ``train()`` calls, each
+    with at least 5 evaluation episodes, ``custom_metrics/<k>_mean|min|max``
+    and the callbacks' mark in the result; the evaluation's seconds; then
+    a checkpoint into ``ckpt_dir`` for the evaluate CLI."""
+    from ray_tpu_torch.algorithms.callbacks import DefaultCallbacks
+
+    class SmokeCallbacks(DefaultCallbacks):
+        # defined here: plain pickle refuses a local class, so it reaches
+        # the evaluation worker by value (core/serialization.py)
+        def on_episode_step(self, *, episode=None, **kwargs):
+            episode.user_data["steps"] = episode.user_data.get("steps", 0) + 1
+
+        def on_episode_end(self, *, episode=None, **kwargs):
+            episode.custom_metrics["steps"] = float(episode.user_data["steps"])
+
+        def on_train_result(self, *, result=None, **kwargs):
+            result["smoke_callbacks"] = result["training_iteration"]
+
+    algo = ppo_from_yaml(CARTPOLE_ACTOR, evaluation_interval=1, evaluation_num_workers=1,
+                         evaluation_duration=EVAL_DURATION, callbacks_class=SmokeCallbacks)
+    try:
+        require(algo.get_policy().device.type == "cuda", "the evaluate phase does not learn on the card")
+        require(algo.evaluation_workers.num_remote_workers() == 1, "no evaluation worker")
+        eval_s, real = [], algo.evaluate
+
+        def timed_evaluate():
+            t0 = time.perf_counter()
+            out = real()
+            eval_s.append(round(time.perf_counter() - t0, 3))
+            return out
+
+        algo.evaluate = timed_evaluate
+        results = [algo.train() for _ in range(2)]
+        for i, r in enumerate(results, 1):
+            ev = r.get("evaluation", {})
+            require(ev.get("episodes_this_iter", 0) >= EVAL_DURATION,
+                    f"evaluate: iteration {i} has {ev.get('episodes_this_iter')} evaluation episodes")
+            cm = r.get("custom_metrics", {})
+            require({"steps_mean", "steps_min", "steps_max"} <= set(cm), f"evaluate: custom metrics {cm}")
+            require(cm["steps_mean"] == r["episode_len_mean"], "evaluate: custom metric != episode length")
+            require(r.get("smoke_callbacks") == i, "evaluate: on_train_result's mark is missing")
+        path = algo.save(ckpt_dir)
+        last = results[-1]
+        say("evaluate", evaluation_s=json.dumps(eval_s),
+            evaluation_episodes=json.dumps([r["evaluation"]["episodes_this_iter"] for r in results]),
+            evaluation_reward_mean=json.dumps([r["evaluation"]["episode_reward_mean"] for r in results]),
+            custom_metrics=json.dumps(last["custom_metrics"]),
+            episode_reward_mean=last["episode_reward_mean"], iter_s=json.dumps(
+                [round(r["time_this_iter_s"], 3) for r in results]))
+        return path
+    finally:
+        algo.stop()
+
+
+def phase_evaluate_cli(ckpt_dir):
+    """``python -m ray_tpu_torch.evaluate <the evaluate phase's checkpoint>
+    --run PPO --env CartPole-v1 --episodes 3`` as a subprocess on the
+    card: exit 0 and its JSON line last."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.evaluate", ckpt_dir, "--run", "PPO", "--env",
+         "CartPole-v1", "--episodes", str(CLI_EPISODES)],
+        cwd=REPO, capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+    )
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"evaluate CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(out.get("episodes") == CLI_EPISODES and math.isfinite(out.get("mean_reward", math.nan)),
+            f"evaluate CLI printed {out}")
+    say("evaluate_cli", wall_s=f"{wall:.2f}", result=json.dumps(out))
+
+
 def _free_port():
     import socket
 
@@ -3304,6 +3594,14 @@ def main() -> int:
     timed(phase_ma_ppo)
     timed(phase_ma_ppo_independent)
     timed(phase_views)
+    ckpt_ppo = timed(phase_ckpt_ppo)
+    ckpt_dqn = timed(phase_ckpt_dqn)
+    cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        cli_ckpt = timed(phase_evaluate, os.path.join(cli_tmp, "checkpoint_000002"))
+        timed(phase_evaluate_cli, cli_ckpt)
+    finally:
+        shutil.rmtree(cli_tmp, ignore_errors=True)
     ray_core.shutdown()
     ring = timed(phase_ring)
     gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"],
@@ -3312,7 +3610,8 @@ def main() -> int:
                                   "impala": impala, "appo": appo, "ppo_prefetch": prefetch,
                                   "sac_learner": sac_learner["uniform"]["gather_rows"],
                                   "sac_learner_prioritized": sac_learner["prioritized"]["gather_rows"],
-                                  "sac": sac["gather_rows"]}
+                                  "sac": sac["gather_rows"], "ckpt_ppo": ckpt_ppo,
+                                  "ckpt_dqn": ckpt_dqn["gather_rows"]}
     gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"],
                                "cartpole": cartpole, "gridrooms": gridrooms,
                                "ponglite_learn": pong_learn}
@@ -3320,10 +3619,11 @@ def main() -> int:
                                    "transformer_dqn": tf_dqn["scatter_rows"],
                                    "sac_learner": sac_learner["uniform"]["scatter_rows"],
                                    "sac_learner_prioritized": sac_learner["prioritized"]["scatter_rows"],
-                                   "sac": sac["scatter_rows"]}
+                                   "sac": sac["scatter_rows"], "ckpt_dqn": ckpt_dqn["scatter_rows"]}
     descent["launches_by_path"] = {"dqn": dqn["find_prefixsum"],
                                    "transformer_dqn": tf_dqn["find_prefixsum"],
-                                   "sac_learner_prioritized": sac_learner["prioritized"]["find_prefixsum"]}
+                                   "sac_learner_prioritized": sac_learner["prioritized"]["find_prefixsum"],
+                                   "ckpt_dqn": ckpt_dqn["find_prefixsum"]}
     flash["launches_by_path"] = {"transformer_learner": tf_learner,
                                  "transformer_lane": tf_lane["flash"],
                                  "transformer_dqn": tf_dqn["flash_attention"]}

@@ -15,8 +15,42 @@ asks for 1 s) and returns a result dict with the reference's keys
 (``episode_reward_mean``, ``episodes_this_iter``,
 ``num_env_steps_sampled``, ``timesteps_total``, ``training_iteration``,
 ``info/learner/default_policy``, ...).
-``__getstate__``/``__setstate__`` carry every policy's state and the
-counters (the off-policy family adds its replay buffer).
+
+The ``Algorithm``'s own surface, as the reference's
+(``ray_tpu/algorithms/algorithm.py``):
+
+- **Callbacks.** ``callbacks_class`` is built here, and its
+  ``on_train_result(algorithm=, result=)`` runs at the end of every
+  ``train()`` on both lanes; each rollout worker builds its own for the
+  episode hooks (the device lane has none, as the reference's).
+- **Evaluation.** With ``evaluation_interval`` set, an evaluation
+  ``WorkerSet`` (``evaluation_worker_config``; ``evaluation_num_workers``
+  remote workers) is built beside the training one; ``evaluate()`` sends
+  it the learner's weights and filters and samples until it has
+  ``evaluation_duration`` episodes; ``train()`` puts the summary under
+  ``results["evaluation"]`` on every ``evaluation_interval``-th
+  iteration. On the device lane it raises (tensor envs on the actor
+  lane: ``ROADMAP.md`` queue 1 item 3d).
+- **Acting.** ``compute_single_action`` applies the local worker's
+  preprocessor and filter (``update=False``) and takes ``explore`` from
+  the config when not given.
+- **State.** ``__getstate__`` is the reference's layout, ``{"worker":
+  {"policy_states", "filters"}, "counters", "episodes_total"}`` (host
+  objects only; the off-policy family adds its replay buffer);
+  ``__setstate__`` loads it and sends the restored weights to the remote
+  workers. Both hold :meth:`_state_lock` (IMPALA's learner thread's
+  step lock).
+- **Checkpoints** (``tune/trainable.Trainable``: ``save``, ``restore``,
+  ``logdir``). ``save_checkpoint`` writes ``algorithm_state.pkl``, then
+  ``algorithm_config.pkl`` (the config without ``device`` and the
+  ``_``-keys, through ``core/serialization.dumps``), then
+  ``rllib_checkpoint.json`` last, each atomically, one directory fsync,
+  then prunes the ``checkpoint_*`` siblings to ``keep_checkpoints_num``.
+  ``from_checkpoint(path, device=None)`` rebuilds the algorithm from
+  the directory alone (the class from the metadata through
+  ``algorithms/registry.py``) and restores it, ``.tune_metadata``'s
+  iteration included. ``export_policy_model`` writes a policy's
+  ``policy_state.pkl``.
 
 Multi-agent (``config["policies"]``, an algorithm whose actor lane
 learns a policy map: ``_multi_agent``, PPO): the worker set's policy map
@@ -30,17 +64,25 @@ refuse ``policies`` (``ROADMAP.md`` queue 1 item 3b.2).
 from __future__ import annotations
 
 import collections
+import contextlib
+import json
+import os
+import pickle
+import shutil
 import time
 from typing import Any, Callable, Dict, List, Optional
 
 from ray_tpu_torch import core as ray_core
 from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
+from ray_tpu_torch.core import serialization
 from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.env.registry import get_env_creator
 from ray_tpu_torch.evaluation.metrics import summarize_episodes
-from ray_tpu_torch.evaluation.worker_set import WorkerSet
+from ray_tpu_torch.evaluation.worker_set import WorkerSet, evaluation_worker_config
 from ray_tpu_torch.sharding.superstep import resolve_superstep
+from ray_tpu_torch.tune.trainable import Trainable
+from ray_tpu_torch.util.atomic_io import atomic_write, fsync_dir
 
 NUM_ENV_STEPS_SAMPLED = "num_env_steps_sampled"
 NUM_AGENT_STEPS_SAMPLED = "num_agent_steps_sampled"
@@ -48,18 +90,9 @@ NUM_ENV_STEPS_TRAINED = "num_env_steps_trained"
 NUM_AGENT_STEPS_TRAINED = "num_agent_steps_trained"
 
 
-def _refuse_unported_surface(config: Dict) -> None:
-    """The reference acts on these keys (callbacks on every lane, the
-    evaluation workers every ``evaluation_interval`` iterations); the
-    port refuses them until they are ported, on both lanes."""
-    for key, what in (
-        ("callbacks_class", "callbacks"),
-        ("evaluation_interval", "evaluation (evaluation_interval)"),
-    ):
-        if config.get(key) is not None:
-            raise NotImplementedError(
-                f"{what} are not ported yet: ROADMAP.md queue 1 item 3c"
-            )
+STATE_FILE = "algorithm_state.pkl"
+CONFIG_FILE = "algorithm_config.pkl"
+META_FILE = "rllib_checkpoint.json"
 
 
 def build_policy_specs(config: Dict, policy_cls, env_creator) -> Optional[Dict]:
@@ -80,7 +113,7 @@ def build_policy_specs(config: Dict, policy_cls, env_creator) -> Optional[Dict]:
     return specs
 
 
-class Algorithm:
+class Algorithm(Trainable):
     _default_policy_class = None
     # whether training_step has an actor-lane path (PPO); the others
     # keep the device lane's construction and raise in training_step
@@ -93,6 +126,7 @@ class Algorithm:
         return AlgorithmConfig(cls)
 
     def __init__(self, config=None, env=None):
+        super().__init__()
         if isinstance(config, AlgorithmConfig):
             config = config.to_dict()
         config = dict(config or {})
@@ -101,9 +135,7 @@ class Algorithm:
         if "lambda_" in config:  # the config object's spelling
             config["lambda"] = config.pop("lambda_")
         self.config = {**self.get_default_config().to_dict(), **config}
-        _refuse_unported_surface(self.config)
         self.device = resolve_device(self.config.get("device"))
-        self._iteration = 0
         self._counters: Dict[str, int] = collections.defaultdict(int)
         self._episode_history: List = []
         self._episodes_total = 0
@@ -111,6 +143,9 @@ class Algorithm:
         self._timers: Dict[str, float] = collections.defaultdict(float)
         self._rollout_engine = None
         self.workers = None
+        self.evaluation_workers = None
+        cb_cls = self.config.get("callbacks_class")
+        self.callbacks = cb_cls() if cb_cls else None
         # id(remote worker) -> its pending get_metrics ref (_remote_episodes)
         self._metrics_refs: Dict[int, Any] = {}
 
@@ -126,19 +161,30 @@ class Algorithm:
             )
         if actor_lane:
             env_creator = get_env_creator(env_spec)
-            self.workers = WorkerSet(
-                env_creator=env_creator, policy_cls=policy_cls,
-                config=self.config, num_workers=int(self.config.get("num_workers", 0)),
-                device=self.device,
+            specs = dict(
+                env_creator=env_creator, policy_cls=policy_cls, device=self.device,
                 policy_specs=build_policy_specs(self.config, policy_cls, env_creator),
                 policy_mapping_fn=self.config.get("policy_mapping_fn"),
+            )
+            self.workers = WorkerSet(
+                config=self.config, num_workers=int(self.config.get("num_workers", 0)), **specs,
             )
             local = self.workers.local_worker()
             self.env = local.env
             # the learner of a single-policy run (None in a multi-agent
             # run without a default policy: get_policy(pid) names one)
             self.policy = local.policy_map.get(DEFAULT_POLICY_ID)
+            if self.config.get("evaluation_interval"):
+                self.evaluation_workers = WorkerSet(
+                    config=evaluation_worker_config(self.config),
+                    num_workers=int(self.config.get("evaluation_num_workers", 0)), **specs,
+                )
             return
+        if self.config.get("evaluation_interval"):
+            raise NotImplementedError(
+                "evaluation on the device lane (evaluation workers over a tensor env, the "
+                "reference's JaxVectorEnvAdapter) is not ported yet: ROADMAP.md queue 1 item 3d"
+            )
         self.env = get_env_creator(env_spec)(dict(self.config.get("env_config") or {}))
         self.policy = policy_cls(
             self.env.observation_space, self.env.action_space,
@@ -193,9 +239,18 @@ class Algorithm:
             results["timers"] = dict(self._timers)
         results[NUM_ENV_STEPS_TRAINED] = self._counters[NUM_ENV_STEPS_TRAINED]
         results[NUM_ENV_STEPS_SAMPLED] = self._counters[NUM_ENV_STEPS_SAMPLED]
-        results["timesteps_total"] = self._counters[NUM_ENV_STEPS_SAMPLED]
+        results["timesteps_total"] = self._timesteps_total = self._counters[NUM_ENV_STEPS_SAMPLED]
         results["training_iteration"] = self._iteration
-        results["time_this_iter_s"] = time.perf_counter() - t0
+        if self.evaluation_workers is not None and self._iteration % int(
+            self.config["evaluation_interval"]
+        ) == 0:
+            results["evaluation"] = self.evaluate()
+        if self.callbacks is not None:
+            self.callbacks.on_train_result(algorithm=self, result=results)
+        dur = time.perf_counter() - t0
+        self._time_total += dur
+        results["time_this_iter_s"] = dur
+        results["time_total_s"] = self._time_total
         return results
 
     def _metrics_may_lag(self) -> bool:
@@ -254,26 +309,183 @@ class Algorithm:
         summary["episodes_total"] = self._episodes_total
         return summary
 
+    # -- evaluation and acting ------------------------------------------------
+
+    def evaluate(self) -> Dict:
+        """The learner's weights and filters to every evaluation worker,
+        then sample rounds (on the remote evaluation workers, or the
+        evaluation set's local worker without them) until
+        ``evaluation_duration`` episodes have finished; their summary."""
+        if self.evaluation_workers is None:
+            raise ValueError("evaluate() needs evaluation workers: set evaluation_interval")
+        local = self.workers.local_worker()
+        with self._state_lock():
+            weights = local.get_weights()
+        filters = local.get_filters()
+        lw = self.evaluation_workers.local_worker()
+        lw.set_weights(weights)
+        lw.sync_filters(filters)
+        remote = self.evaluation_workers.remote_workers()
+        if remote:
+            ref = ray_core.put(weights)
+            ray_core.get([w.set_weights.remote(ref) for w in remote]
+                         + [w.sync_filters.remote(filters) for w in remote])
+        duration = self.config.get("evaluation_duration", 10)
+        episodes: List = []
+        while len(episodes) < duration:
+            if remote:
+                ray_core.get([w.sample.remote() for w in remote])
+                for eps in ray_core.get([w.get_metrics.remote() for w in remote]):
+                    episodes.extend(eps)
+            else:
+                lw.sample()
+                episodes.extend(lw.get_metrics())
+        return summarize_episodes(episodes)
+
+    def compute_single_action(self, observation, state=None, policy_id: str = DEFAULT_POLICY_ID,
+                              explore: Optional[bool] = None, **kwargs):
+        """One observation's action (``(action, state_out, {})`` when a
+        ``state`` is given), through the local worker's preprocessor and
+        filter (not updating its statistics); ``explore`` defaults to the
+        config's."""
+        policy = self.get_policy(policy_id)
+        if self.workers is not None:
+            worker = self.workers.local_worker()
+            if worker.preprocessor is not None:
+                observation = worker.preprocessor.transform(observation)
+            filt = worker.filters.get(policy_id)
+            if filt is not None:
+                observation = filt(observation, update=False)
+        explore = self.config.get("explore", True) if explore is None else explore
+        action, state_out, _ = policy.compute_single_action(observation, state, explore=explore)
+        if state:
+            return action, state_out, {}
+        return action
+
     # -- checkpoint state ----------------------------------------------------
 
+    def _state_lock(self):
+        """What a read or write of the policies' state holds: nothing
+        here; IMPALA's learner thread's step lock."""
+        return contextlib.nullcontext()
+
     def __getstate__(self) -> Dict:
-        """Every policy's state, counters and episode total (host numpy
-        only)."""
+        """The reference's layout: the local worker's ``save()`` (every
+        policy's state and filter; the device lane's one policy and no
+        filter), the counters and the episode total. Host objects only."""
+        with self._state_lock():
+            if self.workers is not None:
+                worker = self.workers.local_worker().save()
+            else:
+                worker = {"policy_states": {DEFAULT_POLICY_ID: self.policy.get_state()},
+                          "filters": {}}
         return {
-            "policies": {pid: p.get_state() for pid, p in self._policy_map().items()},
+            "worker": worker,
             "counters": dict(self._counters),
             "episodes_total": self._episodes_total,
-            "iteration": self._iteration,
         }
 
     def __setstate__(self, state: Dict) -> None:
-        for pid, policy_state in state["policies"].items():
-            self.get_policy(pid).set_state(policy_state)
-        self._counters = collections.defaultdict(int, state.get("counters", {}))
-        self._episodes_total = state.get("episodes_total", 0)
-        self._iteration = state.get("iteration", 0)
+        """Load a state of that layout, then send the restored weights to
+        the remote workers (their filters follow at the next
+        ``sync_filters``, as in the reference)."""
+        with self._state_lock():
+            if self.workers is not None:
+                self.workers.local_worker().restore(state["worker"])
+            else:
+                for pid, s in state["worker"].get("policy_states", {}).items():
+                    self.get_policy(pid).set_state(s)
+            self._counters = collections.defaultdict(int, state.get("counters", {}))
+            self._episodes_total = state.get("episodes_total", 0)
+            if self.workers is not None:
+                self.workers.sync_weights()
+
+    # -- checkpoints -----------------------------------------------------------
+
+    def save_checkpoint(self, checkpoint_dir: str) -> str:
+        """The state, the config, then the metadata that marks the
+        checkpoint complete, each written atomically; one directory
+        fsync; then the pruning of older ``checkpoint_*`` siblings."""
+        state = self.__getstate__()
+        atomic_write(os.path.join(checkpoint_dir, STATE_FILE),
+                     lambda f: pickle.dump(state, f), sync_dir=False)
+        blob = serialization.dumps({k: v for k, v in self.config.items()
+                                    if not k.startswith("_") and k != "device"})
+        atomic_write(os.path.join(checkpoint_dir, CONFIG_FILE), lambda f: f.write(blob),
+                     sync_dir=False)
+        meta = {
+            "type": "Algorithm",
+            "algorithm_class": type(self).__name__,
+            # the class's own registry name: a subclass (APPO, SAC) does
+            # not take its base's
+            "algorithm_name": type(self).__dict__.get("_registry_name") or type(self).__name__,
+        }
+        atomic_write(os.path.join(checkpoint_dir, META_FILE),
+                     lambda f: f.write(json.dumps(meta).encode()), sync_dir=False)
+        fsync_dir(checkpoint_dir)
+        self._prune_old_checkpoints(checkpoint_dir)
+        return checkpoint_dir
+
+    def _prune_old_checkpoints(self, checkpoint_dir: str) -> None:
+        """The ``checkpoint_*`` directories beside this one, down to the
+        newest ``keep_checkpoints_num`` (zero-padded names sort by age);
+        the one just written always stays; None or 0 keeps all."""
+        keep = self.config.get("keep_checkpoints_num")
+        if not keep or keep < 1:
+            return
+        current = os.path.abspath(checkpoint_dir)
+        parent = os.path.dirname(current)
+        try:
+            siblings = sorted(
+                os.path.join(parent, d) for d in os.listdir(parent)
+                if d.startswith("checkpoint_") and os.path.isdir(os.path.join(parent, d))
+            )
+        except OSError:
+            return
+        victims = [d for d in siblings if d != current][: max(0, len(siblings) - int(keep))]
+        for d in victims:
+            shutil.rmtree(d, ignore_errors=True)
+        if victims:
+            fsync_dir(parent)
+
+    def load_checkpoint(self, checkpoint_path: str) -> None:
+        if os.path.isdir(checkpoint_path):
+            checkpoint_path = os.path.join(checkpoint_path, STATE_FILE)
+        with open(checkpoint_path, "rb") as f:
+            state = pickle.load(f)
+        self.__setstate__(state)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_path: str, *, device=None) -> "Algorithm":
+        """An algorithm rebuilt from a checkpoint directory alone: the
+        class from its metadata (when called on ``Algorithm`` itself),
+        the stored config, on ``device`` (None: CUDA), then ``restore``."""
+        algo_cls = cls
+        if cls is Algorithm:
+            meta_path = os.path.join(checkpoint_path, META_FILE)
+            if not os.path.exists(meta_path):
+                raise ValueError(
+                    f"{checkpoint_path!r} has no {META_FILE}; call from_checkpoint on the "
+                    "concrete class or save the checkpoint again"
+                )
+            with open(meta_path) as f:
+                meta = json.load(f)
+            from ray_tpu_torch.algorithms.registry import get_algorithm_class
+
+            algo_cls = get_algorithm_class(meta["algorithm_name"])
+        with open(os.path.join(checkpoint_path, CONFIG_FILE), "rb") as f:
+            config = serialization.loads(f.read())
+        algo = algo_cls(config={**config, "device": device})
+        algo.restore(checkpoint_path)
+        return algo
+
+    def export_policy_model(self, export_dir: str, policy_id: str = DEFAULT_POLICY_ID) -> None:
+        self.get_policy(policy_id).export_checkpoint(export_dir)
 
     def stop(self) -> None:
-        """Stop the workers and end the remote workers' processes."""
+        """Stop the workers (the evaluation workers too) and end the
+        remote workers' processes."""
         if self.workers is not None:
             self.workers.stop()
+        if self.evaluation_workers is not None:
+            self.evaluation_workers.stop()

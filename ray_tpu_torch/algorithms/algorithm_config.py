@@ -8,8 +8,18 @@ any other value (the default, ``"actor"``) the actor lane, whose keys
 keep the reference's names and defaults and are read where they are
 used (``observation_filter``, ``batch_mode``, ``num_cpus_per_worker``,
 ``horizon``, ``normalize_actions``, ``clip_actions``, ...;
-``sample_async`` raises for now). ``callbacks_class`` and a non-null
-``evaluation_interval`` raise in ``Algorithm`` (ROADMAP item 3c). ``sample_prefetch`` (0: off)
+``sample_async`` raises for now). ``callbacks(cls)`` sets
+``callbacks_class``; ``evaluation(...)`` sets ``evaluation_interval``
+(None: no evaluation workers), ``evaluation_duration`` (episodes),
+``evaluation_duration_unit`` (stored and never read, as in the
+reference), ``evaluation_num_workers`` and ``evaluation_config``;
+``fault_tolerance(keep_checkpoints_num=N)`` keeps the newest N
+``checkpoint_*`` directories beside a saved one (its other knobs raise
+and name ROADMAP item 3d, except the three the port already reads:
+``ignore_worker_failures``, ``recreate_failed_workers`` and
+``nan_guard``). ``explore`` (True) is read by
+``Algorithm.compute_single_action`` only; the sampler always explores,
+as the reference's. ``sample_prefetch`` (0: off)
 samples the next train batch and copies it to the card while the
 learner works on this one (PPO with remote workers);
 ``max_requests_in_flight_per_rollout_worker`` caps its requests a
@@ -75,6 +85,7 @@ class AlgorithmConfig:
         self.model: Dict = {}
         self.grad_clip = None
         self.seed = None
+        self.explore = True
         self.exploration_config: Dict = {}
 
         # off-policy replay
@@ -105,9 +116,14 @@ class AlgorithmConfig:
         self.min_time_s_per_iteration = None
         self.min_sample_timesteps_per_iteration = 0
 
-        # not ported (``Algorithm`` raises when set): ROADMAP item 3c
+        # callbacks, evaluation and checkpoints
         self.callbacks_class = None
         self.evaluation_interval = None
+        self.evaluation_duration = 10
+        self.evaluation_duration_unit = "episodes"
+        self.evaluation_num_workers = 0
+        self.evaluation_config: Dict = {}
+        self.keep_checkpoints_num = None
 
     def environment(
         self,
@@ -241,6 +257,60 @@ class AlgorithmConfig:
     def debugging(self, *, seed: Optional[int] = None, **kwargs) -> "AlgorithmConfig":
         if seed is not None:
             self.seed = seed
+        return self
+
+    def evaluation(
+        self,
+        *,
+        evaluation_interval: Optional[int] = None,
+        evaluation_duration: Optional[int] = None,
+        evaluation_duration_unit: Optional[str] = None,
+        evaluation_num_workers: Optional[int] = None,
+        evaluation_config: Optional[Dict] = None,
+        **kwargs,
+    ) -> "AlgorithmConfig":
+        for name, value in (
+            ("evaluation_interval", evaluation_interval),
+            ("evaluation_duration", evaluation_duration),
+            ("evaluation_duration_unit", evaluation_duration_unit),
+            ("evaluation_num_workers", evaluation_num_workers),
+            ("evaluation_config", evaluation_config),
+        ):
+            if value is not None:
+                setattr(self, name, value)
+        return self
+
+    def callbacks(self, callbacks_class) -> "AlgorithmConfig":
+        self.callbacks_class = callbacks_class
+        return self
+
+    def fault_tolerance(
+        self,
+        *,
+        keep_checkpoints_num: Optional[int] = None,
+        ignore_worker_failures: Optional[bool] = None,
+        recreate_failed_workers: Optional[bool] = None,
+        nan_guard: Optional[bool] = None,
+        **kwargs,
+    ) -> "AlgorithmConfig":
+        """``keep_checkpoints_num`` and the knobs the port reads; the
+        reference's other knobs (periodic checkpoints and restore on
+        failure, retries, the fault injector, the elastic fleet,
+        checkpoint streaming) raise."""
+        unported = sorted(k for k, v in kwargs.items() if v is not None)
+        if unported:
+            raise NotImplementedError(
+                f"fault_tolerance({', '.join(unported)}) is not ported yet: "
+                "ROADMAP.md queue 1 item 3d"
+            )
+        for name, value in (
+            ("keep_checkpoints_num", keep_checkpoints_num),
+            ("ignore_worker_failures", ignore_worker_failures),
+            ("recreate_failed_workers", recreate_failed_workers),
+            ("nan_guard", nan_guard),
+        ):
+            if value is not None:
+                setattr(self, name, value)
         return self
 
     def to_dict(self) -> Dict[str, Any]:

@@ -315,6 +315,24 @@ class IMPALA(Algorithm):
     def _metrics_may_lag(self) -> bool:
         return True
 
+    def _state_lock(self):
+        """The learner thread's step lock: the port's Adam writes the
+        parameters in place, so a state read or write between two of its
+        steps cannot see one half-applied (a deliberate difference: the
+        reference's arrays are immutable and it takes no lock)."""
+        return self._learner_thread.lock
+
+    def __setstate__(self, state):
+        """The reference's restore, then the restored weights published
+        as the learner thread's newest version, which the remote workers
+        already have (``sync_weights``): a later broadcast never sends
+        them the weights of before the restore."""
+        super().__setstate__(state)
+        with self._learner_thread.lock:
+            ver = self._learner_thread.publish()
+        for w in self.workers.remote_workers():
+            self._worker_weight_ver[id(w)] = ver
+
     def on_fleet_change(self, added, removed) -> None:
         raise NotImplementedError(f"the elastic fleet under IMPALA is not ported yet: {_ITEM}")
 

@@ -1,7 +1,9 @@
 """The algorithm registry: a tuned example's ``run`` name → its class.
 
 Counterpart of ``ray_tpu/algorithms/registry.py``, cut to the
-algorithms the port has. Each class is imported when it is asked for.
+algorithms the port has. Each class is imported when it is asked for,
+and records the name (``_registry_name``), which a checkpoint's
+metadata keeps for ``Algorithm.from_checkpoint``.
 """
 
 from __future__ import annotations
@@ -26,4 +28,6 @@ def get_algorithm_class(name: str):
             f"algorithm {name!r} is not ported yet (ported: {sorted(ALGORITHMS)}): "
             "ROADMAP.md queue 1"
         ) from None
-    return getattr(importlib.import_module(module), cls)
+    algo_cls = getattr(importlib.import_module(module), cls)
+    algo_cls._registry_name = name
+    return algo_cls

@@ -422,6 +422,7 @@ class SACTorchPolicy(TorchPolicy):
             "coeff_values": dict(self.coeff_values),
             "global_timestep": self.global_timestep,
             "num_grad_updates": self.num_grad_updates,
+            "exploration_state": self.exploration.get_state(),
         }
 
     @torch.no_grad()
@@ -440,6 +441,7 @@ class SACTorchPolicy(TorchPolicy):
         self.coeff_values.update(state.get("coeff_values", {}))
         self.global_timestep = state.get("global_timestep", 0)
         self.num_grad_updates = state.get("num_grad_updates", 0)
+        self.exploration.set_state(state.get("exploration_state", {}))
 
 
 class SAC(DQN):

@@ -10,7 +10,8 @@ module and name, and a remote function or actor class is sent as a
 that plain pickle refuses (a lambda or a local function in a config:
 an env creator, a ``policy_mapping_fn``) goes through cloudpickle, by
 value, as the reference sends every object; plain ``pickle.loads``
-reads both.
+reads both. :func:`dumps` and :func:`loads` do the same for one
+object in one buffer (a checkpoint's config blob).
 
 Layout: [u64 meta_len][meta][u64 nbuf]([u64 len_i][buf_i, padded to 8])...
 """
@@ -36,6 +37,23 @@ def serialize(obj: Any) -> Tuple[bytes, List[pickle.PickleBuffer]]:
         buffers = []
         meta = cloudpickle.dumps(obj, protocol=5, buffer_callback=buffers.append)
     return meta, buffers
+
+
+def dumps(obj: Any) -> bytes:
+    """One object as bytes: plain pickle, cloudpickle for what plain
+    pickle refuses (a lambda ``policy_mapping_fn``, a local env creator
+    or callbacks class)."""
+    try:
+        return pickle.dumps(obj, protocol=5)
+    except (pickle.PicklingError, AttributeError, TypeError):
+        import cloudpickle
+
+        return cloudpickle.dumps(obj, protocol=5)
+
+
+def loads(data: bytes) -> Any:
+    """The object :func:`dumps` wrote (plain pickle reads both)."""
+    return pickle.loads(data)
 
 
 def serialized_size(meta: bytes, buffers: List[pickle.PickleBuffer]) -> int:

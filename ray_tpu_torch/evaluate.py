@@ -1,0 +1,69 @@
+"""``python -m ray_tpu_torch.evaluate``: roll out a trained checkpoint.
+
+Counterpart of ``ray_tpu/evaluate.py``::
+
+    python -m ray_tpu_torch.evaluate <checkpoint> --run PPO --env CartPole-v1 \\
+        --episodes N [--config JSON] [--explore]
+
+Builds ``--run``'s algorithm from ``--config`` with ``env`` and
+``num_workers: 0``, restores the checkpoint into it (``algo.restore``),
+makes the env from the port's registry and plays ``--episodes``
+episodes (episode ``i`` reset with seed ``i``) through
+``compute_single_action``, greedily unless ``--explore``. Prints a line
+per episode, then one JSON line ``{"episodes", "mean_reward",
+"max_reward"}``. It runs on the card unless the config says
+``"device": "cpu"``, and raises without a CUDA device otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="ray_tpu_torch evaluate CLI")
+    parser.add_argument("checkpoint", type=str)
+    parser.add_argument("--run", type=str, required=True)
+    parser.add_argument("--env", type=str, required=True)
+    parser.add_argument("--episodes", type=int, default=10)
+    parser.add_argument("--config", type=str, default="{}")
+    parser.add_argument("--explore", action="store_true")
+    args = parser.parse_args(argv)
+
+    from ray_tpu_torch.algorithms.registry import get_algorithm_class
+    from ray_tpu_torch.env.registry import get_env_creator
+
+    cls = get_algorithm_class(args.run)
+    config = json.loads(args.config)
+    config.update({"env": args.env, "num_workers": 0})
+    algo = cls(config=config)
+    try:
+        algo.restore(args.checkpoint)
+        env = get_env_creator(args.env)({})
+        rewards = []
+        for ep in range(args.episodes):
+            obs, _ = env.reset(seed=ep)
+            done = trunc = False
+            total = 0.0
+            while not (done or trunc):
+                action = algo.compute_single_action(obs, explore=args.explore)
+                obs, r, done, trunc, _ = env.step(action)
+                total += float(r)
+            rewards.append(total)
+            print(f"episode {ep}: reward={total}")
+    finally:
+        algo.stop()
+    print(json.dumps({
+        "episodes": args.episodes,
+        "mean_reward": float(np.mean(rewards)),
+        "max_reward": float(np.max(rewards)),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

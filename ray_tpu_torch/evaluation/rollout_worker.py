@@ -21,6 +21,12 @@ gives one policy, preprocessor and filter per id; with a
 learns the policies of ``policies_to_train`` (all, when unset), each on
 its own batch.
 
+``callbacks_class`` (the config's) is built once per worker and handed
+to the ``SyncSampler``, whose episode hooks run on this worker; the
+``MultiAgentSyncSampler`` takes none, as the reference's. ``save()``
+returns ``{"policy_states", "filters"}`` (the reference's layout) and
+``restore(state)`` loads it back.
+
 Not ported (``ROADMAP.md`` queue 1 item 3), each raising where a config
 asks for it: ``input``/``output`` readers and writers, the fault
 injector (``fault_injection``), ``sample_async`` and tensor envs on the
@@ -137,14 +143,18 @@ class RolloutWorker:
 
         # ---- sampler ----
         self.sampler = None
+        self.callbacks = None
         if self.vector_env is not None and self.policy_map:
             if DEFAULT_POLICY_ID not in self.policy_map:
                 raise ValueError(
                     f"policies {sorted(self.policy_map)} need a MultiAgentEnv; "
                     f"{type(self.env).__name__} is a single-agent env"
                 )
+            cb_cls = self.config.get("callbacks_class")
+            self.callbacks = cb_cls() if cb_cls else None
             self.sampler = SyncSampler(
                 vector_env=self.vector_env,
+                callbacks=self.callbacks,
                 policy=self.policy_map[DEFAULT_POLICY_ID],
                 preprocessor=self.preprocessor,
                 obs_filter=self.filters[DEFAULT_POLICY_ID],
@@ -276,6 +286,21 @@ class RolloutWorker:
         self.global_vars.update(global_vars)
         for p in self.policy_map.values():
             p.on_global_var_update(global_vars)
+
+    # -- checkpoint state --------------------------------------------------
+
+    def save(self) -> Dict:
+        """Every policy's state and every filter (host objects only)."""
+        return {
+            "policy_states": {pid: p.get_state() for pid, p in self.policy_map.items()},
+            "filters": self.get_filters(),
+        }
+
+    def restore(self, state: Dict) -> None:
+        for pid, s in state.get("policy_states", {}).items():
+            if pid in self.policy_map:
+                self.policy_map[pid].set_state(s)
+        self.sync_filters(state.get("filters", {}))
 
     # -- the rest --------------------------------------------------------
 

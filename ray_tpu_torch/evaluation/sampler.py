@@ -38,9 +38,17 @@ zero at an episode's start; every other view it declares with a
 (``evaluation/view_collector.py``), for compute time as keyword
 arguments and for training as row columns.
 
-Not ported (``ROADMAP.md`` queue 1 item 3): ``AsyncSampler``, recurrent
-state (item 8.7: a recurrent policy raises here) and callbacks (they
-raise in ``Algorithm``).
+Callbacks (``algorithms/callbacks.py``), at the reference's sites:
+``on_episode_start`` for every slot at construction (before the first
+reset) and for a slot's new episode before its reset;
+``on_episode_step`` after each row, with the episode's ``last_info``
+set to the env's info; ``on_episode_end`` before the slot's flush; and
+``on_sample_end`` on the concatenated batch. An episode's
+``custom_metrics`` go into its ``RolloutMetrics``. A raising callback
+fails the sample, as in the reference.
+
+Not ported (``ROADMAP.md`` queue 1 item 3): ``AsyncSampler`` and
+recurrent state (item 8.7: a recurrent policy raises here).
 
 ``timers`` adds up the seconds of the loop's parts (``act_s``: the
 policy's ``compute_actions``; ``env_s``: the vector env's step;
@@ -142,6 +150,7 @@ class SyncSampler:
         episode_horizon: Optional[int] = None,
         clip_actions: bool = False,
         normalize_actions: bool = True,
+        callbacks=None,
         flush_on_episode_end: bool = True,
     ):
         check_ported_views(policy)
@@ -157,11 +166,15 @@ class SyncSampler:
         self.horizon = episode_horizon
         self.clip_actions = clip_actions
         self.normalize_actions = normalize_actions
+        self.callbacks = callbacks
         self.flush_on_episode_end = flush_on_episode_end
 
         n = self.env.num_envs
         self.collectors = [_EnvSlotCollector() for _ in range(n)]
         self.episodes = [EpisodeRecord() for _ in range(n)]
+        if self.callbacks is not None:
+            for i in range(n):
+                self._cb("on_episode_start", i)
         self.metrics_queue: List[RolloutMetrics] = []
         self.unroll_id = 0
         self.timers = {"act_s": 0.0, "env_s": 0.0, "postprocess_s": 0.0, "steps": 0}
@@ -178,6 +191,13 @@ class SyncSampler:
 
     def _transform(self, obs):
         return transform_obs(self.preprocessor, self.obs_filter, obs)
+
+    def _cb(self, hook: str, env_index: int) -> None:
+        """One episode hook of the user's callbacks for slot ``env_index``."""
+        getattr(self.callbacks, hook)(
+            worker=None, base_env=self.env, policies={"default_policy": self.policy},
+            episode=self.episodes[env_index], env_index=env_index,
+        )
 
     # -- main loop -------------------------------------------------------
 
@@ -198,7 +218,10 @@ class SyncSampler:
                 if steps >= target and not any(c.count > 0 for c in self.collectors):
                     break
         batches = [b for b in out if b.count > 0]
-        return concat_samples(batches) if batches else SampleBatch()
+        result = concat_samples(batches) if batches else SampleBatch()
+        if self.callbacks is not None:
+            self.callbacks.on_sample_end(worker=None, samples=result)
+        return result
 
     def _step_once(self, out: List[SampleBatch]) -> None:
         n = self.env.num_envs
@@ -214,7 +237,7 @@ class SyncSampler:
             env_actions = [clip_action(a, space) for a in actions]
         else:
             env_actions = list(actions)
-        next_obs, rewards, terms, truncs, _ = self.env.vector_step(env_actions)
+        next_obs, rewards, terms, truncs, infos = self.env.vector_step(env_actions)
         self.timers["act_s"] += t1 - t0
         self.timers["env_s"] += time.perf_counter() - t1
         self.timers["steps"] += n
@@ -247,6 +270,9 @@ class SyncSampler:
                 self._views.annotate_row(i, row)
             self.collectors[i].add(row)
             self.episodes[i].add(float(rewards[i]))
+            if self.callbacks is not None:
+                self.episodes[i].last_info = infos[i] or {}
+                self._cb("on_episode_step", i)
 
             ep_done = terms[i] or truncs[i]
             if self.horizon and self.episodes[i].length >= self.horizon:
@@ -257,12 +283,17 @@ class SyncSampler:
                 self._prev_rewards[i] = np.float32(0.0)
                 if self._views.active:
                     self._views.reset_env(i)
+                if self.callbacks is not None:
+                    self._cb("on_episode_end", i)
                 if self.flush_on_episode_end:
                     self._flush_slot(i, out)
-                self.metrics_queue.append(
-                    RolloutMetrics(self.episodes[i].length, self.episodes[i].total_reward)
-                )
+                ep = self.episodes[i]
+                self.metrics_queue.append(RolloutMetrics(
+                    ep.length, ep.total_reward, custom_metrics=dict(ep.custom_metrics)
+                ))
                 self.episodes[i] = EpisodeRecord()
+                if self.callbacks is not None:
+                    self._cb("on_episode_start", i)
                 raw, _ = self.env.reset_at(i)
                 self.cur_obs[i] = self._transform(raw)
             else:

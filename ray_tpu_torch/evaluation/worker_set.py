@@ -10,6 +10,9 @@ weights of every policy (or of ``policies``) once as numpy, makes one
 that ref; a worker's calls run in submission order, so the new weights
 are in place before its next ``sample``.
 
+:func:`evaluation_worker_config` is the config of an algorithm's
+evaluation worker set (``Algorithm.evaluation_workers``).
+
 ``remove_workers`` drops workers that an ``AsyncRequestsManager`` saw
 die and ends their processes. Not ported (``ROADMAP.md`` queue 1 item
 3): adding and recreating workers (the elastic set;
@@ -27,6 +30,17 @@ from ray_tpu_torch.utils.filter import MeanStdFilter
 
 STOP_TIMEOUT_S = 10.0
 _ITEM = "ROADMAP.md queue 1 item 3"
+
+
+def evaluation_worker_config(config: Dict) -> Dict:
+    """The evaluation workers' config, as the reference builds it
+    (``ray_tpu/algorithms/algorithm.py:222-249``): ``evaluation_config``
+    merged over ``config``, ``num_workers`` 0 (the evaluation set's own
+    count is ``evaluation_num_workers``), and ``input``/``output`` only
+    where ``evaluation_config`` names them."""
+    over = config.get("evaluation_config") or {}
+    return {**config, **over, "num_workers": 0,
+            "output": over.get("output"), "input": over.get("input")}
 
 
 class WorkerSet:

@@ -163,6 +163,12 @@ class LearnerThread(threading.Thread):
         self._steps_since_publish += 1
         if self._steps_since_publish < self._publish_every:
             return
+        self.publish()
+
+    def publish(self) -> int:
+        """Publish the policy's weights now, as a new version; returns
+        it. Called with :attr:`lock` held (by this thread between steps,
+        or by a thread that just wrote the weights: a restore)."""
         t0 = time.perf_counter()
         host_w = self.policy.get_weights()
         with self._weights_lock:
@@ -170,6 +176,7 @@ class LearnerThread(threading.Thread):
             self._published = (ver, host_w)
         self._steps_since_publish = 0
         self.publish_timer += time.perf_counter() - t0
+        return ver
 
     def published_weights(self) -> Optional[Tuple[int, Dict]]:
         """The latest ``(version, host weights)`` this thread published,

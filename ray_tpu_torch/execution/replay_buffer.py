@@ -516,7 +516,10 @@ class DeviceReplayBuffer:
     def set_state(self, state: Dict) -> None:
         """Restore a state of either package (a reference state saved
         from a spilled host ring has the same layout). The whole ring is
-        one scatter of ``capacity`` rows per column."""
+        one scatter of ``capacity`` rows per column, into the ring
+        tensors the buffer has when the columns match (so a superstep
+        slot captured before the restore reads the restored rows), into
+        new ones otherwise (which drops the feeds and their graphs)."""
         size = int(state["size"])
         full = {}
         for k, v in state["cols"].items():
@@ -525,10 +528,14 @@ class DeviceReplayBuffer:
             ring = np.zeros((self.capacity,) + v.shape[1:], v.dtype)
             ring[:size] = v
             full[k] = self._to_device(ring)
-        self._store, self._meta, self.storage_bytes = {}, {}, 0
-        self.__dict__.pop("_feeds", None)
-        if full:
+        same = set(full) == set(self._store) and all(
+            self._meta[k][:2] == (tuple(v.shape[1:]), v.dtype) for k, v in full.items()
+        )
+        if not same:
+            self._store, self._meta, self.storage_bytes = {}, {}, 0
+            self.__dict__.pop("_feeds", None)
             self._ensure_storage(full)
+        if full:
             self._scatter(full, torch.arange(self.capacity, device=self.device))
         self._idx = int(state["idx"])
         self._size = size

@@ -355,6 +355,12 @@ class DeviceSumTree:
         return self.sum_value[cap: cap + int(size)].cpu().numpy().copy()
 
     def set_leaf_values(self, vals) -> None:
+        """A checkpoint's leaves: the first ``len(vals)``, every other
+        leaf empty. Both trees are reset in place first, so a graph
+        captured before reads the restored tree, and a restore into a
+        used tree leaves no stale leaf past the restored rows."""
+        self.sum_value.zero_()
+        self.min_value.fill_(float("inf"))
         vals = np.asarray(vals, np.float64)
         if len(vals):
             self.set_powered(np.arange(len(vals)), vals)

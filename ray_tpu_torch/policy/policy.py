@@ -86,7 +86,15 @@ class Policy:
         the views the policy declared for compute time."""
         raise NotImplementedError
 
-    def compute_single_action(self, obs, explore: bool = True, **kwargs):
+    def compute_single_action(self, obs, state=None, explore: bool = True, **kwargs):
+        """One observation's ``(action, state_out, extra)``; the
+        reference's signature. A recurrent ``state`` raises: recurrent
+        models are not ported yet (``ROADMAP.md`` queue 1 item 8.7)."""
+        if state:
+            raise NotImplementedError(
+                "recurrent state in compute_single_action is not ported yet: "
+                "ROADMAP.md queue 1 item 8.7"
+            )
         actions, state_out, extra = self.compute_actions(
             np.asarray(obs)[None], explore=explore, **kwargs
         )
@@ -132,3 +140,12 @@ class Policy:
     def set_state(self, state: Dict[str, Any]) -> None:
         self.set_weights(state["weights"])
         self.global_timestep = state.get("global_timestep", 0)
+
+    def export_checkpoint(self, export_dir: str) -> None:
+        """``get_state()`` pickled into ``<export_dir>/policy_state.pkl``."""
+        import os
+        import pickle
+
+        os.makedirs(export_dir, exist_ok=True)
+        with open(os.path.join(export_dir, "policy_state.pkl"), "wb") as f:
+            pickle.dump(self.get_state(), f)

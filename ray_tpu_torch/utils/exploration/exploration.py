@@ -53,6 +53,15 @@ class Exploration:
         nothing."""
         return sample_batch
 
+    def get_state(self) -> Dict:
+        """The strategy's own state for a checkpoint (the policy's
+        ``exploration_state``); the ported strategies keep theirs in
+        ``coeff_values`` and have none."""
+        return {}
+
+    def set_state(self, state: Dict) -> None:
+        pass
+
 
 class StochasticSampling(Exploration):
     """Sample from the action distribution when exploring, its mode

@@ -26,7 +26,9 @@ SAC's trees (``{"actor", "critic", "log_alpha"}`` params, the target
 critic as aux state and three optax Adam states) go into a
 ``SACTorchPolicy`` whole through :func:`from_jax_sac_state`. A reference
 worker's multi-policy weights (``{pid: params}``) go into the port's
-policy map through :func:`from_jax_policy_weights`.
+policy map through :func:`from_jax_policy_weights`. A reference
+checkpoint's unpickled ``algorithm_state.pkl`` goes into a port
+``Algorithm`` through :func:`from_jax_algorithm_state`.
 """
 
 from __future__ import annotations
@@ -155,9 +157,11 @@ def from_jax_adam_state(opt_state) -> Tuple[int, Dict[str, np.ndarray], Dict[str
 def from_jax_sac_state(policy, params, aux_state, opt_state):
     """Carry a reference SAC policy's state into ``policy`` (a
     ``SACTorchPolicy``) in place: the actor, both Q towers and
-    ``log_alpha`` (``params``), the target critic (``aux_state``) and the
-    critic's, actor's and ``log_alpha``'s Adam states (``opt_state``:
-    count, mu, nu). Returns ``policy``."""
+    ``log_alpha`` (``params``), the target critic (``aux_state``; None
+    leaves the policy's target as it is, as the reference's restore
+    does, whose checkpoint has no aux state) and the critic's, actor's
+    and ``log_alpha``'s Adam states (``opt_state``: count, mu, nu).
+    Returns ``policy``."""
     weights = {}
     for group in ("actor", "critic"):
         weights.update({f"{group}.{k}": v for k, v in to_state_dict(params[group]).items()})
@@ -167,10 +171,11 @@ def from_jax_sac_state(policy, params, aux_state, opt_state):
             f"SAC trees and policy disagree: {sorted(set(weights) ^ set(policy.param_names))}"
         )
     policy.set_weights(weights)
-    target = to_state_dict(aux_state["target_critic"])
     with torch.no_grad():
-        for name, t in zip(policy.critic_names, policy.aux_state["target_critic"]):
-            t.copy_(torch.as_tensor(np.asarray(target[name])))
+        if aux_state is not None:
+            target = to_state_dict(aux_state["target_critic"])
+            for name, t in zip(policy.critic_names, policy.aux_state["target_critic"]):
+                t.copy_(torch.as_tensor(np.asarray(target[name])))
         for group, st in policy.opt_states.items():
             adam = _find_adam(opt_state[group])
             if adam is None:
@@ -185,3 +190,60 @@ def from_jax_sac_state(policy, params, aux_state, opt_state):
                 st.mu[i].copy_(torch.as_tensor(np.asarray(mu[name])))
                 st.nu[i].copy_(torch.as_tensor(np.asarray(nu[name])))
     return policy
+
+
+def _port_filter(ref_filter):
+    """A reference observation filter (``NoFilter`` or ``MeanStdFilter``,
+    duck-typed) as the port's, with the same statistics."""
+    from ray_tpu_torch.utils.filter import MeanStdFilter, NoFilter, RunningStat
+
+    if not hasattr(ref_filter, "rs"):
+        return NoFilter()
+    out = MeanStdFilter(ref_filter.shape, ref_filter.demean, ref_filter.destd, ref_filter.clip)
+    for name in ("rs", "buffer"):
+        src, dst = getattr(ref_filter, name), RunningStat()
+        dst.num = int(src.num)
+        dst.mean_ = np.array(src.mean_, np.float64)
+        dst.s = np.array(src.s, np.float64)
+        setattr(out, name, dst)
+    return out
+
+
+def from_jax_algorithm_state(algo, state: Mapping):
+    """Load the unpickled ``algorithm_state.pkl`` of a reference
+    checkpoint (numpy trees) into the port ``Algorithm`` ``algo`` built
+    for the same config, in place, and send the weights to its remote
+    workers. Each policy of ``state["worker"]["policy_states"]``: the
+    params (``from_jax_params``; SAC's through ``from_jax_sac_state``),
+    the optax Adam state (``from_jax_adam_state``), ``coeff_values``,
+    ``global_timestep``, ``num_grad_updates`` and ``exploration_state``.
+    The reference's state has no aux state: DQN's and SAC's targets stay
+    as they are, as the reference's restore leaves them. Then the filters
+    (:func:`_port_filter`), the counters and the episode total. Returns
+    ``algo``."""
+    worker = state["worker"]
+    for pid, ps in worker["policy_states"].items():
+        policy = algo.get_policy(pid)
+        if hasattr(policy, "opt_states"):  # SAC's three optimizers
+            from_jax_sac_state(policy, ps["weights"], None, ps["opt_state"])
+        else:
+            from_jax_params(ps["weights"], policy.model)
+            count, mu, nu = from_jax_adam_state(ps["opt_state"])
+            st = policy.opt_state
+            with torch.no_grad():
+                st.count = count
+                for i, name in enumerate(policy.param_names):
+                    st.mu[i].copy_(torch.as_tensor(np.asarray(mu[name])))
+                    st.nu[i].copy_(torch.as_tensor(np.asarray(nu[name])))
+        policy.coeff_values.update({k: float(v) for k, v in ps.get("coeff_values", {}).items()})
+        policy.global_timestep = int(ps.get("global_timestep", 0))
+        policy.num_grad_updates = int(ps.get("num_grad_updates", 0))
+        policy.exploration.set_state(ps.get("exploration_state", {}))
+    if algo.workers is not None:
+        local = algo.workers.local_worker()
+        local.sync_filters({pid: _port_filter(f) for pid, f in worker.get("filters", {}).items()})
+        algo.workers.sync_weights()
+    algo._counters.clear()
+    algo._counters.update({k: int(v) for k, v in state.get("counters", {}).items()})
+    algo._episodes_total = int(state.get("episodes_total", 0))
+    return algo

@@ -4,7 +4,12 @@
   subprocess where importing jax, jaxlib, flax, optax or ray_tpu raises;
 - an AST scan finds no import of those packages in the port's files;
 - every entry point resolves to CUDA unless the caller passes
-  ``device="cpu"``, and raises when there is no CUDA device.
+  ``device="cpu"``, and raises when there is no CUDA device (the
+  evaluate CLI too);
+- the ``Algorithm``'s surface (callbacks, ``tune/trainable.py``,
+  ``util/atomic_io.py``, the evaluate CLI) imports with the reference
+  blocked, and a port checkpoint saves and comes back through
+  ``Algorithm.from_checkpoint`` in that state.
 """
 
 from __future__ import annotations
@@ -58,6 +63,52 @@ def test_port_imports_with_reference_blocked():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.strip()) >= 20
+
+
+def test_checkpoint_round_trip_with_reference_blocked(tmp_path):
+    code = textwrap.dedent(
+        f"""
+        import sys
+
+        class _Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError(name + " blocked by test")
+                return None
+
+        sys.meta_path.insert(0, _Block())
+        import numpy as np
+        import ray_tpu_torch.evaluate, ray_tpu_torch.algorithms.callbacks
+        import ray_tpu_torch.tune.trainable, ray_tpu_torch.util.atomic_io
+        from ray_tpu_torch.algorithms.algorithm import Algorithm
+        from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+
+        algo = (PPOConfig().environment("CartPoleJax-v0", env_backend="jax")
+                .rollouts(num_envs_per_worker=4, rollout_fragment_length=8)
+                .training(train_batch_size=32, sgd_minibatch_size=16, num_sgd_iter=1,
+                          model={{"fcnet_hiddens": [8]}})
+                .debugging(seed=0).resources(device="cpu").build())
+        algo.train()
+        path = algo.save({str(tmp_path / "ckpt")!r})
+        back = Algorithm.from_checkpoint(path, device="cpu")
+        want, got = algo.get_policy().get_weights(), back.get_policy().get_weights()
+        assert all(np.array_equal(want[k], got[k]) for k in want) and back.iteration == 1
+        bad = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
+def test_evaluate_cli_raises_without_cuda(monkeypatch, tmp_path):
+    from ray_tpu_torch import evaluate
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="none is available"):
+        evaluate.main([str(tmp_path), "--run", "PPO", "--env", "CartPole-v1", "--episodes", "1"])
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))

@@ -418,7 +418,7 @@ def test_independent_policies_multi_agent():
         assert learner["p0"]["cur_lr"] == pytest.approx(3e-4)
         assert set(result["policy_reward_mean"]) == {"p0", "p1"}
         state = algo.__getstate__()
-        assert set(state["policies"]) == {"p0", "p1"}
+        assert set(state["worker"]["policy_states"]) == {"p0", "p1"}
         other = _independent(_base_cfg()).debugging(seed=5).build()
         other.__setstate__(state)
         for pid in ("p0", "p1"):

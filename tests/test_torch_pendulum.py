@@ -15,8 +15,11 @@ Contracts:
   ``TRUNCATEDS``, as the reference leaves it) and each of the action
   settings (``normalize_actions``, ``clip_actions``, neither): every
   column and the episodes;
-- ``callbacks_class`` and a non-null ``evaluation_interval`` raise on
-  both lanes and name ROADMAP item 3c;
+- ``callbacks_class`` and ``evaluation_interval``, refused until the
+  ``Algorithm``'s surface was ported, act on the actor lane (the
+  callbacks' ``on_train_result`` mutates the result; the result carries
+  ``evaluation``); on the device lane the callbacks run and
+  ``evaluation_interval`` raises, naming ROADMAP item 3d;
 - one PPO ``learn_on_batch`` with Box actions (DiagGaussian logp, KL and
   entropy in the loss) against the reference's from the same weights
   and permutations: stats 1e-5 relative, parameters 1.5e-5 absolute plus
@@ -41,6 +44,7 @@ from ray_tpu.env import registry as ref_registry
 from ray_tpu.env.vector_env import VectorEnv as RefVectorEnv
 from ray_tpu.evaluation import sampler as ref_sampler
 from ray_tpu.sharding import get_mesh
+from ray_tpu_torch.algorithms.callbacks import DefaultCallbacks
 from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig, PPOTorchPolicy
 from ray_tpu_torch.env import registry
 from ray_tpu_torch.env.pendulum import PendulumEnv
@@ -182,22 +186,45 @@ def test_rollout_worker_passes_horizon():
     assert [m.episode_length for m in w.get_metrics()] == [5, 5]
 
 
-# -- the refused surface ------------------------------------------------------------
+# -- the once refused surface -------------------------------------------------------
 
 
-@pytest.mark.parametrize("key,value", [("callbacks_class", object), ("evaluation_interval", 1)])
+class _TrainResults(DefaultCallbacks):
+    def on_train_result(self, *, result=None, **kwargs):
+        result["seen_by_callbacks"] = result["training_iteration"]
+
+
+@pytest.mark.parametrize("key,value", [("callbacks_class", _TrainResults), ("evaluation_interval", 1)])
 @pytest.mark.parametrize("lane", ["actor", "jax"])
 def test_callbacks_and_evaluation_interval_raise(key, value, lane):
     env = "Pendulum-v1" if lane == "actor" else "CartPoleJax-v0"
-    cfg = PPOConfig().environment(env, env_backend=lane).resources(device="cpu")
+    cfg = (PPOConfig().environment(env, env_backend=lane)
+           .rollouts(num_rollout_workers=0, rollout_fragment_length=16)
+           .training(train_batch_size=16, sgd_minibatch_size=8, num_sgd_iter=1,
+                     model={"fcnet_hiddens": [8]})
+           .evaluation(evaluation_duration=1).resources(device="cpu"))
     setattr(cfg, key, value)
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        cfg.build()
+    if (key, lane) == ("evaluation_interval", "jax"):
+        with pytest.raises(NotImplementedError, match="item 3d"):
+            cfg.build()
+        return
+    algo = cfg.build()
+    try:
+        result = algo.train()
+    finally:
+        algo.stop()
+    if key == "callbacks_class":
+        assert result["seen_by_callbacks"] == 1
+    else:
+        assert result["evaluation"]["episodes_this_iter"] >= 1
+        assert result["evaluation"]["episode_len_mean"] == 200  # Pendulum's truncation
 
 
 def test_refused_surface_defaults_pass():
     cfg = PPOConfig()
     assert cfg.callbacks_class is None and cfg.evaluation_interval is None
+    assert (cfg.evaluation_duration, cfg.evaluation_duration_unit, cfg.evaluation_num_workers) == (
+        10, "episodes", 0)
     d = cfg.to_dict()
     assert (d["horizon"], d["normalize_actions"], d["clip_actions"]) == (None, True, False)
 
