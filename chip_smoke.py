@@ -40,8 +40,9 @@ and ``nvcc``. Phases, each printing its own lines:
 6. flash    -- the flash-attention kernel against its plain version
                (within 2e-5 abs/rel in f32, 3e-2 in bf16, rows that see
                no key exactly 0, the output in q's layout): the torso's
-               four path shapes (B·H = 2048, 4096, 128, 256 at T = S =
-               8, D = 32) in the torso's (B, T, H, D) memory and
+               path shapes (B·H = 2048, 4096, 128, 256, and the
+               server's 8, 16, 32 and 64, at T = S = 8, D = 32) in the
+               torso's (B, T, H, D) memory and
                contiguous, the reference test's shapes and offsets, D in
                {16, 32, 64, 128}, the query row per thread's edges (T of
                1, 3, 17, 32; D of 1, 33, 64; ragged heads; the chunk
@@ -248,6 +249,38 @@ and ``nvcc``. Phases, each printing its own lines:
     evaluate_cli -- ``python -m ray_tpu_torch.evaluate`` on the evaluate
                phase's checkpoint, 3 episodes on the card: exit 0 and the
                JSON line;
+    serve    -- ckpt_ppo's checkpoint (ponglite-ppo.yaml's bf16 Nature CNN)
+               behind an in-process ``PolicyDeployment`` on the card, max
+               batch 32: one CUDA graph a bucket (6) captured at warmup and
+               none after; 32 frames as one bucket bitwise against 32
+               sequential ``compute_actions``; SERVE_CLIENTS client threads
+               for SERVE_WINDOW_S seconds with a newer checkpoint landing
+               in the watched root half-way (nothing dropped, versions
+               monotone, one reload): requests/s, latency and queue-wait
+               p50/p99, mean batch rows, batch fill;
+    serve_torso -- a torso policy at the transformer phases' width in a
+               ``BatchedPolicyServer`` (exploring, max batch 32), exact mode
+               then vectorized, each for SERVE_TORSO_WINDOW_S seconds from
+               32 client threads: 16 requests bitwise against sequential
+               exploring calls, the flash launches equal to each policy's
+               signature forward and the warmups' eager runs plus layers x
+               bucket (exact) or layers (vectorized) a replay, vectorized
+               within 1e-5 of exact;
+    serve_replicas -- ``serve.run(policy_deployment(..., 2 replicas))``
+               with replica actors that keep the card
+               (``worker_env``) and the per-request HTTP proxy: both
+               restore and capture on the card; one is killed, at most 2
+               calls fail, the controller replaces it;
+    ingress  -- ``PolicyIngress`` over real sockets in front of those
+               replicas: INGRESS_CLIENTS keep-alive HTTP clients posting
+               frames (requests/s, p50, p99, merged rows); the same
+               clients and frames through the per-request proxy (one
+               replica call a request): the A/B against the reference's
+               4x bar, printed, with equal greedy actions required and
+               one frame's JSON decode timed; then an overload
+               burst of INGRESS_BURST requests against an in-flight budget
+               of INGRESS_TIGHT_INFLIGHT: every request 200 or shed with
+               Retry-After, the shed count;
 13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
@@ -287,12 +320,15 @@ and views phases (whose paths run no kernel: host GAE, no frame pool,
 as the reference's; they print their counts), the resumed train of
 ckpt_ppo, and ckpt_dqn's restores and its resumed rounds, and read just
 after (on the learner-thread paths, between two learner steps) (the
-ring's in each rank, before each call); the comparison launches of
+ring's in each rank, before each call), the serve phase and
+serve_torso (before its exact server is built; its exact-against-
+vectorized comparison is read after the count); the comparison launches of
 phases 2-6, of graph_parity, of sac_learner's parity windows, of
 sac_columns, of the actor_lane's pooled-against-stacked learns and
 ckpt_dqn's graphed-against-eager update do not count. The actor
-phases stop their worker processes, and the runtime is shut down before
-the ring. Under a
+phases stop their worker processes; serve_replicas starts the runtime
+again with the card visible to its workers, and the ingress phase
+shuts it down before the ring. Under a
 superstep's graph a counter counts the card's launches: the runner adds
 the captured slot's launches on each replay. Any failed check raises, and the
 script exits non-zero without printing a result; a ring rank that fails
@@ -1252,14 +1288,18 @@ def phase_flash():
     gen = torch.Generator(device="cuda").manual_seed(5)
     # (name, B, H, T, S, D, offset, dtype, layout): the torso's path shapes
     # (B·H = 2048 learner minibatch, 4096 lane minibatch, 128 lane act
-    # step, 256 DQN forward) in the layout the torso gives them (bthd) and
-    # contiguous; the reference test's shapes and offsets; head widths
+    # step, 256 DQN forward; the server's exact mode, a batch-1 body a row,
+    # B·H = 8, and its vectorized buckets of 2, 4 and 8 rows, whose 16 and
+    # 32 are the lane act and DQN shapes) in the layout the torso gives
+    # them (bthd) and contiguous; the reference test's shapes and offsets; head widths
     # (D > 64 takes the warp-per-row stream); the short-head path's edges:
     # heads not a multiple of a warp's, T of 1, 3, 17 and 32, D of 1 and
     # 33, S past an 8-key chunk (the chunk merge), rows that see no key;
     # bf16 contiguous and in the torso's layout
     path = [("learner", TF_B // 2, heads, 8, 8, dh, 0), ("lane_learn", 512, heads, 8, 8, dh, 0),
-            ("lane_act", 16, heads, 8, 8, dh, 0), ("dqn", TRAIN_BATCH, heads, 8, 8, dh, 0)]
+            ("lane_act", 16, heads, 8, 8, dh, 0), ("dqn", TRAIN_BATCH, heads, 8, 8, dh, 0),
+            ("serve_exact", 1, heads, 8, 8, dh, 0)] + [
+        (f"serve_vec_{b}", b, heads, 8, 8, dh, 0) for b in (2, 4, 8)]
     cases = [c + (f32, "bthd") for c in path] + [(f"{c[0]}_contiguous",) + c[1:] + (f32, "bhtd")
                                                  for c in path] + [
         ("full_24x40", 2, 2, 24, 40, 16, None, f32, "bhtd"),
@@ -1297,7 +1337,7 @@ def phase_flash():
     say("flash", checked=json.dumps(errs), max_abs_err_f32=worst, max_abs_err_bf16=worst_bf16,
         zero_rows_exact=True, output_layout_is_q=True)
 
-    # times at the four path shapes, on inputs in the torso's layout:
+    # times at the path shapes, on inputs in the torso's layout:
     # the kernel by CUDA events over raw launches (ms) and by its own
     # device duration (device_ms); SDPA with the same band mask, both ways
     lib = _kernels.library("flash_fwd")
@@ -3047,28 +3087,32 @@ def _dir_bytes(path):
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
-def phase_ckpt_ppo():
+def phase_ckpt_ppo(tmp):
     """ponglite-ppo.yaml as written (2 worker processes x 8 PongLite-v0
     envs, the bf16 Nature CNN, frame-pool fragments): one ``train()``,
-    ``save()``, ``Algorithm.from_checkpoint(path)``; every parameter, Adam
+    ``save()`` into ``tmp/ckpts/checkpoint_000001``,
+    ``Algorithm.from_checkpoint(path)``; every parameter, Adam
     moment, count, coefficient and counter bitwise equal to the
     original's; each remote worker's weights bitwise the learner's right
     after the restore; ``compute_single_action(explore=False)`` on 8
     seeded frames the same on both (and the first frame's logits,
     bitwise); then one ``train()`` of the restored
     algorithm, counted: it must launch the row gather (its frame pool)
-    and give finite stats. Save and load seconds, checkpoint bytes."""
+    and give finite stats; that algorithm saved as
+    ``tmp/newer/checkpoint_000002``. Save and load seconds, checkpoint
+    bytes. Returns the gather launches, the root and the newer
+    checkpoint (the serve phase's)."""
     import numpy as np
 
     from ray_tpu_torch import core as ray_core
     from ray_tpu_torch.algorithms.algorithm import Algorithm
 
     algo, back = ppo_from_yaml(ACTOR_TUNED), None
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    root = os.path.join(tmp, "ckpts")
     try:
         algo.train()
         t0 = time.perf_counter()
-        path = algo.save(os.path.join(tmp, "checkpoint_000001"))
+        path = algo.save(os.path.join(root, "checkpoint_000001"))
         save_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         back = Algorithm.from_checkpoint(path)
@@ -3095,17 +3139,17 @@ def phase_ckpt_ppo():
         counts = read_kernel_counts()
         _finite_learner("ckpt_ppo", r, ["default_policy"])
         require(counts["gather_rows"] >= 1, f"ckpt_ppo: the resumed learn launched no row gather {counts}")
+        newer = back.save(os.path.join(tmp, "newer", "checkpoint_000002"))
         say("ckpt_ppo", save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}", bytes=_dir_bytes(path),
             state_bitwise=True, remote_weights_bitwise=len(remote),
             greedy_actions=json.dumps([a for a, _ in acts]),
             resumed_loss=f"{r['info']['learner']['default_policy']['total_loss']:.6f}",
             launches=json.dumps(counts))
-        return counts["gather_rows"]
+        return counts["gather_rows"], root, newer
     finally:
         algo.stop()
         if back is not None:
             back.stop()
-        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_ckpt_dqn():
@@ -3277,6 +3321,411 @@ def phase_evaluate_cli(ckpt_dir):
     require(out.get("episodes") == CLI_EPISODES and math.isfinite(out.get("mean_reward", math.nan)),
             f"evaluate CLI printed {out}")
     say("evaluate_cli", wall_s=f"{wall:.2f}", result=json.dumps(out))
+
+
+# serving: the ponglite-ppo.yaml checkpoint behind the batched
+# server, a torso server, replica actors on the card and the front door
+SERVE_MAX_BATCH = 32
+SERVE_CLIENTS = 64
+SERVE_WINDOW_S = 8.0
+SERVE_TORSO_WINDOW_S = 4.0
+INGRESS_CLIENTS = 16
+INGRESS_WINDOW_S = 6.0
+INGRESS_BURST = 64
+INGRESS_TIGHT_INFLIGHT = 8
+REPLICA_TIMEOUT_S = 180
+# vectorized (one batched body) against exact (batch-1 bodies) extras
+SERVE_VEC_RTOL, SERVE_VEC_ATOL = 1e-5, 1e-6
+
+
+def _pct(values, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values), q)) if values else None
+
+
+def _closed_loop(call, make_input, clients, window_s, on_half=None):
+    """``clients`` threads calling ``call(make_input(client, i))`` for
+    ``window_s`` seconds; ``on_half()`` once, half-way. Returns
+    ``(requests/s, [latency s], [(client, i, result)], [errors])``."""
+    import threading
+
+    stop = threading.Event()
+    lock = threading.Lock()
+    lat, results, errors = [], [], []
+
+    def client(c):
+        i = 0
+        while not stop.is_set():
+            x = make_input(c, i)
+            t0 = time.perf_counter()
+            try:
+                out = call(x)
+            except Exception as e:  # every failure is a dropped request
+                with lock:
+                    errors.append(repr(e))
+                return
+            dt = time.perf_counter() - t0
+            with lock:
+                lat.append(dt)
+                results.append((c, i, out))
+            i += 1
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if on_half is not None:
+        time.sleep(window_s / 2)
+        on_half()
+        time.sleep(window_s / 2)
+    else:
+        time.sleep(window_s)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    wall = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads), "a serving client did not finish")
+    return len(lat) / wall, lat, results, errors
+
+
+def _server_line(st):
+    keys = ("requests_total", "batches_total", "mean_batch_rows", "batch_fill_fraction",
+            "latency_p50_s", "latency_p99_s", "queue_wait_p50_s", "queue_wait_p99_s",
+            "captures", "captures_after_warmup", "params_version")
+    return {k: st.get(k) for k in keys}
+
+
+def phase_serve(root, newer):
+    """The ckpt_ppo phase's checkpoint (ponglite-ppo.yaml's bf16 Nature
+    CNN on 84x84x4 uint8 frames, 6 actions) behind an in-process
+    ``PolicyDeployment`` on the card: max batch 32 (buckets 1-32, one
+    CUDA graph each, captured at warmup), greedy. 32 seeded frames as one
+    bucket against 32 sequential ``compute_actions`` of the same
+    checkpoint restored again: actions and every extra bitwise. Then
+    SERVE_CLIENTS client threads for SERVE_WINDOW_S seconds; half-way, the
+    newer checkpoint lands in the watched root (one rename): every
+    request answered, each client's versions non-decreasing, the last
+    version 2, one reload. Requests/s, client latency p50/p99, the
+    server's latency and queue-wait p50/p99, mean batch rows, fill,
+    captures at and after warmup."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.serve.policy_server import PolicyDeployment, restore_policy
+
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    dep = PolicyDeployment(root, name="ponglite", max_batch_size=SERVE_MAX_BATCH,
+                           poll_interval_s=0.2)
+    start_s = time.perf_counter() - t0
+    try:
+        server = dep.server
+        require(server.policy.device.type == "cuda", "serve: the policy is not on the card")
+        require(server.captures == len(server.buckets) == 6
+                and all(p.graph is not None for p in server._programs.values()),
+                f"serve: {server.captures} captures at warmup for buckets {server.buckets}")
+        frames = np.random.default_rng(14).integers(0, 256, (64, H, W, C), dtype=np.uint8)
+        ref = restore_policy(root)[0]
+        futs = server.submit_many(list(frames[:32]), explore=False)
+        got = [f.result(60.0) for f in futs]
+        for j, (a, ex) in enumerate(got):
+            a_ref, _, ex_ref = ref.compute_actions(frames[j][None], explore=False)
+            require(a.tobytes() == a_ref[0].tobytes()
+                    and all(ex[k].tobytes() == v[0].tobytes() for k, v in ex_ref.items()),
+                    f"serve: request {j} of a 32-row bucket differs from a batch-1 call")
+        del ref
+        torch.cuda.empty_cache()
+
+        def land():
+            staged = os.path.join(os.path.dirname(root), "landing")
+            shutil.copytree(newer, staged)
+            os.rename(staged, os.path.join(root, "checkpoint_000002"))
+
+        rate, lat, results, errors = _closed_loop(
+            lambda x: dep(x), lambda c, i: {"obs": frames[(c + i) % len(frames)]},
+            SERVE_CLIENTS, SERVE_WINDOW_S, on_half=land)
+        st = dep.stats()
+        require(not errors, f"serve: {len(errors)} requests failed: {errors[:3]}")
+        versions = {}
+        for c, i, out in sorted(results):
+            require(out["params_version"] >= versions.get(c, 1),
+                    f"serve: client {c}'s versions went back")
+            versions[c] = out["params_version"]
+        require(st["reload"]["num_reloads"] == 1 and st["params_version"] == 2
+                and max(versions.values()) == 2,
+                f"serve: the hot reload did not land ({st['reload']}, {st['params_version']})")
+        require(st["captures_after_warmup"] == 0, f"serve: captured after warmup {st['captures']}")
+        say("serve", start_s=f"{start_s:.2f}", requests=len(lat), requests_per_s=f"{rate:.1f}",
+            client_p50_ms=f"{_pct(lat, 50) * 1e3:.3f}", client_p99_ms=f"{_pct(lat, 99) * 1e3:.3f}",
+            parity_rows=32, parity_bitwise=True, reloads=st["reload"]["num_reloads"],
+            dropped=len(errors), server=json.dumps(_server_line(st)),
+            hbm_headroom=f"{st['device']['hbm_headroom']:.4f}",
+            launches=json.dumps(read_kernel_counts()))
+    finally:
+        dep.stop()
+
+
+def phase_serve_torso():
+    """A torso policy at the transformer phases' width (d_model 256, 4
+    layers, 8 heads of 32, ff 1024, 8 tokens; Box(64), Discrete(8)) in a
+    ``BatchedPolicyServer`` on the card, exploring, max batch 32: exact
+    mode (a graph of batch-1 bodies a bucket) driven by 32 client threads
+    for SERVE_TORSO_WINDOW_S seconds; its flash launches must equal the
+    policy's signature forward (one) and the warmup's eager runs (one a
+    bucket), plus layers x bucket a replay. 16 requests bitwise
+    against sequential exploring ``compute_actions`` of a policy of the
+    same seed. Then the vectorized server: the same window, and its
+    extras within 1e-5 relative of the exact server's on 32 rows. The
+    launches are counted from zero before the exact server is built."""
+    import numpy as np
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+    from ray_tpu_torch.env.spaces import Box, Discrete
+    from ray_tpu_torch.serve.policy_server import BatchedPolicyServer
+
+    def policy():
+        return PPOTorchPolicy(Box(-1, 1, (TF_OBS,), np.float32), Discrete(TF_ACTIONS),
+                              {"seed": 0, "model": dict(TORSO)})
+
+    layers = TORSO["transformer_num_layers"]
+    obs = np.random.default_rng(15).standard_normal((64, TF_OBS)).astype(np.float32)
+    ref = policy()
+    want = [ref.compute_actions(o[None], explore=True) for o in obs[:16]]
+    out = {}
+    zero_kernel_counts()
+    expected = 0
+    for vectorized in (False, True):
+        server = BatchedPolicyServer(policy(), max_batch_size=SERVE_MAX_BATCH, explore=True,
+                                     vectorized=vectorized, start=False)
+        server.warmup()
+        server.start()
+        try:
+            if not vectorized:
+                futs = [server.submit(o) for o in obs[:16]]
+                for j, f in enumerate(futs):
+                    a, ex = f.result(60.0)
+                    a_ref, _, ex_ref = want[j]
+                    require(a.tobytes() == a_ref[0].tobytes()
+                            and all(ex[k].tobytes() == v[0].tobytes() for k, v in ex_ref.items()),
+                            f"serve_torso: request {j} differs from a sequential call")
+            rate, lat, _, errors = _closed_loop(
+                lambda x: server.submit(x).result(60.0), lambda c, i: obs[(c * 7 + i) % 64],
+                32, SERVE_TORSO_WINDOW_S)
+        finally:
+            server.stop()
+        require(not errors, f"serve_torso: {errors[:3]}")
+        st = server.stats()
+        require(st["captures_after_warmup"] == 0, "serve_torso: captured after warmup")
+        per_replay = {b: layers * (1 if vectorized else b) for b in server.buckets}
+        replayed = sum(per_replay[b] * p.replays for (b, _), p in server._programs.items())
+        # the eager run before each capture, and the one forward of a zero
+        # observation that gives the policy's act signature (its draws' shapes)
+        warm = sum(per_replay.values()) + layers
+        expected += warm + replayed
+        launches = read_kernel_counts()["flash_attention"]
+        require(launches == expected,
+                f"serve_torso: {launches} flash launches, not {expected} ({warm} eager + "
+                f"{replayed} replayed in the {'vectorized' if vectorized else 'exact'} server)")
+        name = "vectorized" if vectorized else "exact"
+        say("serve_torso", mode=name, requests_per_s=f"{rate:.1f}",
+            client_p50_ms=f"{_pct(lat, 50) * 1e3:.3f}", client_p99_ms=f"{_pct(lat, 99) * 1e3:.3f}",
+            flash_per_replay=json.dumps(per_replay), server=json.dumps(_server_line(st)))
+        out[name] = server
+    # exact against vectorized on one bucket of 32 rows, greedy (no draw)
+    a_e, ex_e = out["exact"].forward_padded(obs[:32], explore=False)
+    a_v, ex_v = out["vectorized"].forward_padded(obs[:32], explore=False)
+    for k in ex_e:
+        require(np.allclose(ex_v[k], ex_e[k], rtol=SERVE_VEC_RTOL, atol=SERVE_VEC_ATOL),
+                f"serve_torso: vectorized {k} beyond {SERVE_VEC_RTOL} relative of exact")
+    logits = np.sort(ex_e["action_dist_inputs"], axis=-1)
+    clear = logits[:, -1] - logits[:, -2] > SERVE_VEC_RTOL * np.abs(logits[:, -1]) + SERVE_VEC_ATOL
+    require((a_e[clear] == a_v[clear]).all(), "serve_torso: vectorized actions differ")
+    worst = max(float(np.max(np.abs(ex_v[k] - ex_e[k]))) for k in ex_e)
+    say("serve_torso", sequential_bitwise=16, flash_launches=launches,
+        vectorized_max_abs_err=f"{worst:.3g}", vectorized_actions_equal=int((a_e == a_v).sum()))
+    return launches
+
+
+def phase_serve_replicas(root):
+    """``serve.run(policy_deployment(root, num_replicas=2))``: two
+    replica actors of the port's runtime, which keeps the card visible
+    in them (``init(worker_env={"RAY_TPU_WORKER_PLATFORM": "cuda"})``),
+    each restoring the checkpoint on the card and capturing its graphs.
+    32 requests through the handle; one replica killed: at most 2 calls
+    fail, the controller's health pass replaces it, and the replacement
+    answers. Start and replacement seconds. Returns the deployment's
+    name for the ingress phase (left running, with the serve core's
+    per-request HTTP proxy)."""
+    import numpy as np
+
+    from ray_tpu_torch import core as ray_core
+    from ray_tpu_torch.serve import serve
+    from ray_tpu_torch.serve.policy_server import policy_deployment
+
+    ray_core.shutdown()
+    ray_core.init(num_cpus=2, worker_env={"RAY_TPU_WORKER_PLATFORM": "cuda"})
+    t0 = time.perf_counter()
+    handle = serve.run(policy_deployment(
+        root, name="pong", max_batch_size=SERVE_MAX_BATCH, watch=False,
+        autoscaling_config={"min_replicas": 2, "max_replicas": 2, "interval_s": 0.25,
+                            "health_check_interval_s": 0.5, "stats_timeout_s": 60.0}),
+        http_host="127.0.0.1")
+    running = serve.get_running("pong")
+    stats = ray_core.get([r.stats.remote() for r in running.replicas], timeout=REPLICA_TIMEOUT_S)
+    start_s = time.perf_counter() - t0
+    for st in stats:
+        require(st["captures"] == 6 and st["captures_after_warmup"] == 0
+                and st["device"] is not None, f"serve_replicas: a replica reported {st}")
+    frames = np.random.default_rng(16).integers(0, 256, (32, H, W, C), dtype=np.uint8)
+    outs = ray_core.get([handle.remote({"obs": f}) for f in frames], timeout=REPLICA_TIMEOUT_S)
+    require(all(0 <= o["action"] < NUM_ACTIONS and o["params_version"] == 1 for o in outs),
+            f"serve_replicas: answers {outs[:3]}")
+    victim = running.replicas[0]
+    t0 = time.perf_counter()
+    ray_core.kill(victim)
+    failures = 0
+    for f in frames[:8]:
+        try:
+            ray_core.get(handle.remote({"obs": f}), timeout=REPLICA_TIMEOUT_S)
+        except ray_core.RayActorError:
+            failures += 1
+    require(failures <= 2, f"serve_replicas: {failures} calls failed after the kill")
+    deadline = time.time() + REPLICA_TIMEOUT_S
+    while time.time() < deadline and running.num_replaced < 1:
+        time.sleep(0.1)
+    require(running.num_replaced >= 1, "serve_replicas: the killed replica was not replaced")
+    fresh = [r for r in running.replicas if r is not victim]
+    stats = ray_core.get([r.stats.remote() for r in fresh], timeout=REPLICA_TIMEOUT_S)
+    replace_s = time.perf_counter() - t0
+    require(len(fresh) == 2 and all(s["captures_after_warmup"] == 0 for s in stats),
+            "serve_replicas: the membership after the replacement is wrong")
+    outs = ray_core.get([handle.remote({"obs": f}) for f in frames[:8]], timeout=REPLICA_TIMEOUT_S)
+    say("serve_replicas", replicas=2, start_s=f"{start_s:.2f}", failed_after_kill=failures,
+        replaced=running.num_replaced, replace_s=f"{replace_s:.2f}",
+        answers_after=len(outs), hbm_headroom=json.dumps(
+            [round(s["device"]["hbm_headroom"], 4) for s in stats]))
+    return "pong"
+
+
+def phase_ingress(name):
+    """``PolicyIngress`` over real sockets in front of the serve_replicas
+    phase's two replica actors (``serve_deployment``: one coalescing
+    router over the controller's membership feed): INGRESS_CLIENTS
+    keep-alive HTTP clients posting 84x84x4 frames for INGRESS_WINDOW_S
+    seconds (requests/s, latency p50/p99, mean merged rows). The same
+    clients and frames through the serve core's per-request HTTP proxy
+    (one replica-actor call a request) for the same window: the A/B that
+    the reference holds to a 4x bar (printed, not required; the same
+    greedy actions are required), and the host's cost to decode one
+    frame's JSON body, which bounds both paths' rate. Then an
+    overload burst of INGRESS_BURST concurrent requests at the same
+    router mounted behind an in-flight budget of INGRESS_TIGHT_INFLIGHT:
+    the shed count (429/503 with Retry-After), and every request
+    answered 200 or shed. Stops the ingress, the deployment and the
+    runtime."""
+    import http.client
+    import threading
+
+    import numpy as np
+
+    from ray_tpu_torch import core as ray_core
+    from ray_tpu_torch.ingress import AdmissionController, PolicyIngress
+    from ray_tpu_torch.serve import serve
+
+    frames = np.random.default_rng(17).integers(0, 256, (16, H, W, C), dtype=np.uint8)
+    bodies = [json.dumps({"obs": f.tolist()}).encode() for f in frames]
+    ingress = PolicyIngress(max_inflight=256).start()
+    try:
+        ingress.serve_deployment(name, max_batch_size=SERVE_MAX_BATCH, batch_wait_timeout_s=0.002)
+        router, _ = ingress._policies[name]
+        ingress.add_policy("tight", router, AdmissionController(max_inflight=INGRESS_TIGHT_INFLIGHT))
+        local = threading.local()
+        proxy_port = serve.http_port()
+
+        def post(port, path, body):
+            # one keep-alive connection a thread and port (the proxy
+            # answers HTTP/1.0 and closes; http.client opens anew)
+            conns = local.__dict__.setdefault("conns", {})
+            if port not in conns:
+                conns[port] = http.client.HTTPConnection(ingress.host, port,
+                                                         timeout=REPLICA_TIMEOUT_S)
+            conn = conns[port]
+            conn.request("POST", path, body=body, headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            return resp.status, resp.getheader("Retry-After"), data
+
+        def call(body):
+            status, _, data = post(ingress.port, f"/v1/policy/{name}/actions", body)
+            require(status == 200, f"ingress: status {status} {data[:200]}")
+            return json.loads(data)
+
+        def call_proxy(body):
+            status, _, data = post(proxy_port, f"/{name}", body)
+            require(status == 200, f"ingress: the proxy answered {status} {data[:200]}")
+            return json.loads(data)["result"]
+
+        rate, lat, results, errors = _closed_loop(
+            call, lambda c, i: bodies[(c + i) % len(bodies)], INGRESS_CLIENTS, INGRESS_WINDOW_S)
+        require(not errors, f"ingress: {len(errors)} requests failed: {errors[:3]}")
+        require(all(0 <= out["action"] < NUM_ACTIONS for _, _, out in results),
+                "ingress: an action out of range")
+        rst = router.stats()
+        proxy_rate, proxy_lat, _, errors = _closed_loop(
+            call_proxy, lambda c, i: bodies[(c + i) % len(bodies)], INGRESS_CLIENTS,
+            INGRESS_WINDOW_S)
+        require(not errors, f"ingress: {len(errors)} proxy requests failed: {errors[:3]}")
+        same = [call(b)["action"] == call_proxy(b)["action"] for b in bodies]
+        require(all(same), f"ingress: the front door and the proxy disagree on {same.count(False)} "
+                "greedy actions")
+        decode_s = []
+        for b in bodies:
+            t0 = time.perf_counter()
+            np.asarray(json.loads(b)["obs"], np.uint8)
+            decode_s.append(time.perf_counter() - t0)
+        say("ingress", ab_clients=INGRESS_CLIENTS, batched_requests_per_s=f"{rate:.1f}",
+            per_request_proxy_requests_per_s=f"{proxy_rate:.1f}",
+            ratio=f"{rate / proxy_rate:.3f}", reference_bar=4.0,
+            meets_bar=rate >= 4.0 * proxy_rate,
+            proxy_p50_ms=f"{_pct(proxy_lat, 50) * 1e3:.3f}",
+            proxy_p99_ms=f"{_pct(proxy_lat, 99) * 1e3:.3f}", greedy_actions_equal=len(same),
+            body_bytes=len(bodies[0]), decode_ms_p50=f"{_pct(decode_s, 50) * 1e3:.3f}")
+        statuses, retry = [], []
+        lock = threading.Lock()
+        gate = threading.Barrier(INGRESS_BURST)
+
+        def burst(i):
+            gate.wait()
+            conn = http.client.HTTPConnection(ingress.host, ingress.port, timeout=REPLICA_TIMEOUT_S)
+            conn.request("POST", "/v1/policy/tight/actions", body=bodies[i % len(bodies)],
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            resp.read()
+            with lock:
+                statuses.append(resp.status)
+                if resp.status in (429, 503):
+                    retry.append(resp.getheader("Retry-After"))
+            conn.close()
+
+        threads = [threading.Thread(target=burst, args=(i,)) for i in range(INGRESS_BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=REPLICA_TIMEOUT_S)
+        shed = [s for s in statuses if s in (429, 503)]
+        require(len(statuses) == INGRESS_BURST and statuses.count(200) + len(shed) == INGRESS_BURST
+                and shed and all(r for r in retry),
+                f"ingress: the overload burst answered {sorted(set(statuses))}")
+        say("ingress", clients=INGRESS_CLIENTS, requests=len(lat), requests_per_s=f"{rate:.1f}",
+            p50_ms=f"{_pct(lat, 50) * 1e3:.3f}", p99_ms=f"{_pct(lat, 99) * 1e3:.3f}",
+            mean_merged_rows=f"{rst['mean_merged_rows']:.2f}", replicas=rst["replicas"],
+            burst=INGRESS_BURST, served=statuses.count(200), shed=len(shed),
+            shed_by_status=json.dumps({s: statuses.count(s) for s in sorted(set(shed))}))
+    finally:
+        ingress.stop()
+        serve.shutdown()
+        ray_core.shutdown()
 
 
 def _free_port():
@@ -3594,14 +4043,23 @@ def main() -> int:
     timed(phase_ma_ppo)
     timed(phase_ma_ppo_independent)
     timed(phase_views)
-    ckpt_ppo = timed(phase_ckpt_ppo)
-    ckpt_dqn = timed(phase_ckpt_dqn)
-    cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    serve_tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     try:
-        cli_ckpt = timed(phase_evaluate, os.path.join(cli_tmp, "checkpoint_000002"))
-        timed(phase_evaluate_cli, cli_ckpt)
+        ckpt_ppo, serve_root, serve_newer = timed(phase_ckpt_ppo, serve_tmp)
+        ckpt_dqn = timed(phase_ckpt_dqn)
+        cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+        try:
+            cli_ckpt = timed(phase_evaluate, os.path.join(cli_tmp, "checkpoint_000002"))
+            timed(phase_evaluate_cli, cli_ckpt)
+        finally:
+            shutil.rmtree(cli_tmp, ignore_errors=True)
+        # the serving paths, each with its launch counts set to 0 just before
+        timed(phase_serve, serve_root, serve_newer)
+        serve_torso = timed(phase_serve_torso)
+        served = timed(phase_serve_replicas, serve_root)
+        timed(phase_ingress, served)
     finally:
-        shutil.rmtree(cli_tmp, ignore_errors=True)
+        shutil.rmtree(serve_tmp, ignore_errors=True)
     ray_core.shutdown()
     ring = timed(phase_ring)
     gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"],
@@ -3626,7 +4084,8 @@ def main() -> int:
                                    "ckpt_dqn": ckpt_dqn["find_prefixsum"]}
     flash["launches_by_path"] = {"transformer_learner": tf_learner,
                                  "transformer_lane": tf_lane["flash"],
-                                 "transformer_dqn": tf_dqn["flash_attention"]}
+                                 "transformer_dqn": tf_dqn["flash_attention"],
+                                 "serve_torso": serve_torso}
     flash_block["launches_by_path"] = {"ring": ring["gloo"], "ring_nccl_world_1": ring["nccl_world_1"],
                                        **({"ring_nccl": ring["nccl"]} if "nccl" in ring else {})}
     kernels = [gather, gae, scatter, descent, flash, flash_block]

@@ -253,13 +253,21 @@ class SACTorchPolicy(TorchPolicy):
     def _dist(self, obs: torch.Tensor) -> SquashedGaussian:
         return SquashedGaussian(self.actor(obs), low=self.low, high=self.high)
 
-    def _action_step_body(self, obs, generator, explore=True, actions=None, coeffs=None):
+    @torch.no_grad()
+    def act_dist_signature(self):
+        obs = torch.zeros((1,) + tuple(self.observation_space.shape), device=self.device)
+        dist_inputs = self.actor(obs)
+        return SquashedGaussian, tuple(dist_inputs.shape[1:]), dist_inputs.dtype
+
+    def _action_step_body(self, obs, generator, explore=True, actions=None, coeffs=None,
+                          draws=()):
         """The squashed sample and its log-probability (the mode when not
         exploring); SAC fetches ``ACTION_LOGP`` only."""
         dist = self._dist(obs)
         if actions is None:
             actions, logp, _ = self.exploration.sample_fn(
                 dist, generator, explore, self.coeff_values if coeffs is None else coeffs, (),
+                draws,
             )
         else:
             logp = dist.logp(actions)

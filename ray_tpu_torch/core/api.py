@@ -21,15 +21,22 @@ object's payload (a ``put`` object's owned segment as it is, anything
 else packed again). A call holds its argument refs until its reply is
 in, so an owned segment outlives every read of it.
 
+Worker processes hide the card (``worker_proc.worker_main``) unless
+``init(worker_env={"RAY_TPU_WORKER_PLATFORM": "cuda"})`` asks otherwise;
+``worker_env`` reaches every worker's environment, and an actor class's
+``options(runtime_env={"env_vars": {...}})`` adds variables for the
+actors it makes (the serve core's replicas, ``serve/serve.py``).
+
 Left for later (``ROADMAP.md`` queue 1 item 3): the native SPSC ring,
 placement groups, named actors, task retries and actor restarts, the
-client server, jobs, ``runtime_env``, the memory and log monitors and
-``cluster.py``.
+client server, jobs, the rest of ``runtime_env``, the memory and log
+monitors and ``cluster.py``.
 """
 
 from __future__ import annotations
 
 import atexit
+import logging
 import multiprocessing as mp
 import multiprocessing.connection
 import os
@@ -51,6 +58,7 @@ from ray_tpu_torch.core.worker_proc import RefArg, worker_main
 
 _runtime: Optional["_Runtime"] = None
 _init_lock = threading.Lock()
+logger = logging.getLogger(__name__)
 
 
 def _fresh(err: BaseException) -> BaseException:
@@ -63,9 +71,10 @@ def _fresh(err: BaseException) -> BaseException:
 class _Entry:
     """One object: a put payload, or a call's reply once it is in."""
 
-    __slots__ = ("done", "value", "error", "payload", "count", "dropped")
+    __slots__ = ("done", "value", "error", "payload", "count", "dropped", "callbacks")
 
     def __init__(self):
+        self.callbacks: list = []
         self.done = False
         self.value = None
         self.error: Optional[BaseException] = None
@@ -77,11 +86,11 @@ class _Entry:
 class _Worker:
     """A worker process and the calls it owes."""
 
-    def __init__(self, rt: "_Runtime", actor: bool):
+    def __init__(self, rt: "_Runtime", actor: bool, env_vars: Optional[Dict[str, str]] = None):
         self.id = uuid.uuid4().hex[:12]
         self.actor = actor
         self.conn, child = rt.ctx.Pipe(duplex=True)
-        env = {store.SESSION_ENV: rt.session}
+        env = {**rt.worker_env, **(env_vars or {}), store.SESSION_ENV: rt.session}
         self.process = rt.ctx.Process(
             target=worker_main, args=(child, env), daemon=True,
             name=f"ray_tpu_torch_worker_{self.id}",
@@ -101,8 +110,9 @@ class _Worker:
 
 
 class _Runtime:
-    def __init__(self, num_cpus: Optional[int]):
+    def __init__(self, num_cpus: Optional[int], worker_env: Optional[Dict[str, str]] = None):
         self.session = uuid.uuid4().hex[:12]
+        self.worker_env: Dict[str, str] = dict(worker_env or {})
         self.ctx = mp.get_context("spawn")
         self.num_cpus = int(num_cpus or os.cpu_count() or 1)
         self.cond = threading.Condition(threading.RLock())
@@ -207,8 +217,19 @@ class _Runtime:
 
     # -- calls -------------------------------------------------------------
 
-    def start_worker(self, actor: bool) -> _Worker:
-        w = _Worker(self, actor)
+    def on_ready(self, obj_id: str, callback) -> None:
+        """Run ``callback(error)`` once the object is done (now, if it
+        is): ``error`` is the call's stored error, None on success."""
+        with self.cond:
+            e = self.entries.get(obj_id)
+            if e is not None and not e.done:
+                e.callbacks.append(callback)
+                return
+            error = e.error if e is not None else None
+        _run_callbacks((callback,), error)
+
+    def start_worker(self, actor: bool, env_vars: Optional[Dict[str, str]] = None) -> _Worker:
+        w = _Worker(self, actor, env_vars)
         with self.cond:
             self.workers.append(w)
         return w
@@ -249,13 +270,16 @@ class _Runtime:
         return ref
 
     def _complete(self, obj_id: str, value=None, error=None) -> None:
+        callbacks = ()
         with self.cond:
             e = self.entries.get(obj_id)
             if e is not None:
                 e.value, e.error, e.done = value, error, True
+                callbacks, e.callbacks = e.callbacks, []
                 if e.dropped:
                     self._free(obj_id, e)
             self.cond.notify_all()
+        _run_callbacks(callbacks, error)
 
     # -- the reader thread ---------------------------------------------------
 
@@ -352,17 +376,29 @@ class _Runtime:
             store.unlink_segment(os.path.basename(path))
 
 
+def _run_callbacks(callbacks, error: Optional[BaseException]) -> None:
+    # on the reader thread, which must outlive a callback that raises
+    for fn in callbacks:
+        try:
+            fn(error)
+        except Exception:
+            logger.exception("an on_ready callback raised")
+
+
 # -- public API ---------------------------------------------------------------
 
 
-def init(num_cpus: Optional[int] = None) -> None:
+def init(num_cpus: Optional[int] = None, worker_env: Optional[Dict[str, str]] = None) -> None:
     """Start the runtime in this (the main) process. ``num_cpus``
-    caps the task pool (default: the host's cores)."""
+    caps the task pool (default: the host's cores). ``worker_env``
+    goes into every worker's environment; its
+    ``RAY_TPU_WORKER_PLATFORM: "cuda"`` keeps the card visible there
+    (the default hides it)."""
     global _runtime
     with _init_lock:
         if _runtime is not None:
             raise RuntimeError("the runtime is already initialized; call shutdown() first")
-        _runtime = _Runtime(num_cpus)
+        _runtime = _Runtime(num_cpus, worker_env)
 
 
 def is_initialized() -> bool:
@@ -407,6 +443,13 @@ def wait(refs: Sequence[ObjectRef], num_returns: int = 1, timeout: Optional[floa
     if num_returns > len(refs):
         raise ValueError(f"num_returns={num_returns} > {len(refs)} refs")
     return _require_runtime().wait(refs, num_returns, timeout)
+
+
+def on_ready(ref: ObjectRef, callback) -> None:
+    """Run ``callback(error)`` once ``ref``'s call has completed:
+    ``error`` is the error it stored, None if it succeeded. A callback
+    that raises is logged and does not stop the others."""
+    _require_runtime().on_ready(ref.id, callback)
 
 
 def kill(actor: "ActorHandle") -> None:
@@ -458,18 +501,32 @@ class ActorHandle:
 
 
 class ActorClass:
-    def __init__(self, cls):
+    def __init__(self, cls, env_vars: Optional[Dict[str, str]] = None):
         self._remote_target = cls
         self._code = CodeRef(cls)
         self.__name__ = cls.__name__
+        self._env_vars = dict(env_vars or {})
 
     def __call__(self, *args, **kwargs):
         raise TypeError(f"call {self.__name__}.remote(...), not {self.__name__}(...)")
 
+    def options(self, runtime_env: Optional[Dict] = None) -> "ActorClass":
+        """This class with ``runtime_env["env_vars"]`` added to the
+        environment of the actors it makes (the one key of the
+        reference's ``runtime_env`` that is ported)."""
+        runtime_env = dict(runtime_env or {})
+        env_vars = runtime_env.pop("env_vars", None) or {}
+        if runtime_env:
+            raise NotImplementedError(
+                f"runtime_env keys {sorted(runtime_env)} are not ported (ROADMAP.md queue 1 "
+                "item 3); only env_vars is"
+            )
+        return ActorClass(self._remote_target, {**self._env_vars, **env_vars})
+
     def remote(self, *args, **kwargs) -> ActorHandle:
         """A new process holding one instance, built from these args."""
         rt = _require_runtime()
-        w = rt.start_worker(actor=True)
+        w = rt.start_worker(actor=True, env_vars=self._env_vars)
         rt.submit(w, "create", f"{self.__name__}.__init__", args, kwargs, target=self._code)
         return ActorHandle(w, self.__name__)
 

@@ -11,7 +11,10 @@ set ``CUDA_VISIBLE_DEVICES=""`` (the reference sets
 ``JAX_PLATFORMS=cpu``); a policy built here must be asked for the CPU
 (``device="cpu"``), and the process never creates a CUDA context. The
 package's ``__init__`` imports no torch, so nothing before this line
-has.
+has. A worker whose environment names another platform
+(``RAY_TPU_WORKER_PLATFORM``, the reference's key, set through
+``init(worker_env=...)`` or an actor's ``runtime_env``) keeps the
+card visible: a serving replica on the card.
 
 A reader thread queues the main process's messages, so its sends do not
 wait for the call that is running. Calls run one at a time in
@@ -22,6 +25,9 @@ they were submitted.
 from __future__ import annotations
 
 import os
+
+# the reference's worker-platform key: "cpu" (the default) hides the card
+PLATFORM_ENV = "RAY_TPU_WORKER_PLATFORM"
 
 
 class RefArg:
@@ -44,8 +50,10 @@ def _load_args(payload):
 
 
 def worker_main(conn, env):
-    os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    os.environ.update(env or {})
+    env = dict(env or {})
+    if env.get(PLATFORM_ENV, "cpu") == "cpu":
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.environ.update(env)
 
     import queue
     import threading

@@ -7,8 +7,11 @@ and :class:`SquashedGaussian` (SAC: a tanh-squashed normal mapped onto
 Sampling draws from an explicit ``torch.Generator`` on the inputs'
 device (Gumbel-max for the categorical, the method of
 ``jax.random.categorical``); the two frameworks' random streams differ,
-so tests inject draws instead of comparing seeds: the Gaussians'
-``sampled_action_logp`` also takes the standard normals themselves.
+so tests inject draws instead of comparing seeds: ``sampled_action_logp``
+also takes its draw itself (the categorical's uniforms, the Gaussians'
+standard normals), which :meth:`ActionDistribution.draw` takes from a
+generator ahead of the sample (the serving plane's graphs read their
+draws from static buffers).
 Not ported (``ROADMAP.md`` queue 1 item 4b): ``Deterministic``, whose
 only users are DDPG and TD3.
 """
@@ -34,19 +37,32 @@ class ActionDistribution:
     def __init__(self, inputs: torch.Tensor):
         self.inputs = inputs
 
-    def sampled_action_logp(self, generator: Optional[torch.Generator]):
-        a = self.sample(generator)
+    @classmethod
+    def draw(cls, shape, dtype, device, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The random tensor one sample over inputs of ``shape`` and
+        ``dtype`` takes from ``generator``."""
+        raise NotImplementedError
+
+    def sampled_action_logp(self, generator: Optional[torch.Generator], draw=None):
+        a = self.sample(generator, draw)
         return a, self.logp(a)
 
 
 class Categorical(ActionDistribution):
     """Discrete actions from logits."""
 
-    def sample(self, generator: Optional[torch.Generator]) -> torch.Tensor:
-        u = torch.rand(
-            self.inputs.shape, generator=generator,
-            device=self.inputs.device, dtype=self.inputs.dtype,
-        ).clamp_(min=torch.finfo(self.inputs.dtype).tiny)
+    @classmethod
+    def draw(cls, shape, dtype, device, generator):
+        return torch.rand(shape, generator=generator, device=device, dtype=dtype).clamp_(
+            min=torch.finfo(dtype).tiny
+        )
+
+    def sample(self, generator: Optional[torch.Generator], uniform=None) -> torch.Tensor:
+        """Gumbel-max over the logits; ``uniform``: the draw, or taken
+        from ``generator``."""
+        u = uniform
+        if u is None:
+            u = self.draw(self.inputs.shape, self.inputs.dtype, self.inputs.device, generator)
         return torch.argmax(self.inputs - torch.log(-torch.log(u)), dim=-1)
 
     def deterministic_sample(self) -> torch.Tensor:
@@ -74,6 +90,14 @@ def _normal(like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.T
     return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
 
 
+def _normal_draw(shape, dtype, device, generator) -> torch.Tensor:
+    """A Gaussian's draw over inputs of ``shape`` (mean and log-std
+    concatenated): standard normals of the mean's shape."""
+    shape = tuple(shape)
+    return torch.randn(shape[:-1] + (shape[-1] // 2,), generator=generator, device=device,
+                       dtype=dtype)
+
+
 def _gaussian_logp(raw, mean, std, log_std) -> torch.Tensor:
     return (
         -0.5 * torch.sum(torch.square((raw - mean) / (std + SMALL_NUMBER)), -1)
@@ -89,6 +113,10 @@ class DiagGaussian(ActionDistribution):
         super().__init__(inputs)
         self.mean, self.log_std = torch.chunk(inputs, 2, dim=-1)
         self.std = torch.exp(self.log_std)
+
+    @classmethod
+    def draw(cls, shape, dtype, device, generator):
+        return _normal_draw(shape, dtype, device, generator)
 
     def sample(self, generator: Optional[torch.Generator], normal: Optional[torch.Tensor] = None):
         eps = _normal(self.mean, generator) if normal is None else normal
@@ -135,6 +163,10 @@ class SquashedGaussian(ActionDistribution):
         self.std = torch.exp(self.log_std)
         self.low = low
         self.high = high
+
+    @classmethod
+    def draw(cls, shape, dtype, device, generator):
+        return _normal_draw(shape, dtype, device, generator)
 
     def _squash(self, raw: torch.Tensor) -> torch.Tensor:
         return (torch.tanh(raw) + 1.0) / 2.0 * (self.high - self.low) + self.low

@@ -59,6 +59,10 @@ from ray_tpu_torch.utils.exploration import exploration_from_config
 from ray_tpu_torch.utils.schedules import make_schedule
 
 
+def _torch_dtype(np_dtype) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, np.dtype(np_dtype))).dtype
+
+
 class AdamState:
     """optax ``scale_by_adam`` moments and step count, per parameter.
 
@@ -316,20 +320,23 @@ class TorchPolicy(Policy):
         explore: bool = True,
         actions: Optional[torch.Tensor] = None,
         coeffs: Optional[Dict] = None,
+        draws: Tuple = (),
     ):
         """Model forward, distribution, sampling and extra fetches for
         one step: ``(actions, state_out, extra)``. Shared by
-        :meth:`compute_actions` and the device rollout lane. Given
-        ``actions`` (injected draws), only their log-probabilities are
-        computed. ``coeffs``: the exploration's coefficients
-        (default :attr:`coeff_values`; a graphed slot passes the device
-        scalars)."""
+        :meth:`compute_actions`, the device rollout lane and the serving
+        plane. Given ``actions`` (injected draws), only their
+        log-probabilities are computed; given ``draws``
+        (:meth:`action_draws`, taken ahead), the sample reads them
+        instead of ``generator``. ``coeffs``: the exploration's
+        coefficients (default :attr:`coeff_values`; a graphed slot
+        passes the device scalars)."""
         dist_inputs, value, state_out = self.model_forward(obs)
         dist = self.dist_class(dist_inputs)
         if actions is None:
             actions, logp, _ = self.exploration.sample_fn(
                 dist, generator, explore,
-                self.coeff_values if coeffs is None else coeffs, (),
+                self.coeff_values if coeffs is None else coeffs, (), draws,
             )
         else:
             logp = dist.logp(actions)
@@ -339,6 +346,39 @@ class TorchPolicy(Policy):
         }
         extra.update(self.extra_action_out(dist_inputs, value, dist))
         return actions, state_out, extra
+
+    @property
+    def supports_batched_serve(self) -> bool:
+        """Whether concurrent single-observation requests may coalesce
+        into the serving plane's batched programs
+        (``serve/policy_server.py``): a feed-forward model and stateless
+        exploration, as the reference's
+        ``JaxPolicy.supports_batched_serve`` (the port has no
+        model-sharded policies)."""
+        return not self.model.is_recurrent and self.exploration.initial_state(1) == ()
+
+    @torch.no_grad()
+    def act_dist_signature(self) -> Tuple[type, Tuple[int, ...], torch.dtype]:
+        """(distribution class, one row's distribution-input shape,
+        dtype) of the act path, from one forward of a zero observation
+        (no draw)."""
+        space = self.observation_space
+        obs = torch.zeros((1,) + tuple(space.shape), dtype=_torch_dtype(space.dtype),
+                          device=self.device)
+        dist_inputs = self.model_forward(obs)[0]
+        return self.dist_class, tuple(dist_inputs.shape[1:]), dist_inputs.dtype
+
+    def action_draws(self, generator: Optional[torch.Generator], explore: bool) -> Tuple:
+        """The random tensors one observation's :meth:`compute_actions`
+        draws from ``generator``, taken now, in its order (each with a
+        leading dim of 1); ``_action_step_body(..., draws=)`` uses
+        them."""
+        sig = self.__dict__.get("_act_sig")
+        if sig is None:
+            sig = self._act_sig = self.act_dist_signature()
+        dist_class, shape, dtype = sig
+        return self.exploration.draws(dist_class, (1,) + shape, dtype, self.device, generator,
+                                      explore)
 
     @torch.no_grad()
     def compute_actions(self, obs_batch, state_batches=None, prev_action_batch=None,

@@ -94,6 +94,41 @@ def launch_counters() -> tuple:
     )
 
 
+def capture_graph(fn: Callable[[], object], stream, generators: Iterable[torch.Generator] = ()):
+    """``fn()`` captured on ``stream`` as one CUDA graph, with
+    ``generators`` registered (advanced by each replay) and garbage
+    collection off: ``(graph, counts, fn's output)``. ``counts`` holds
+    ``(wrapper, launches)`` for each kernel wrapper the capture
+    launched; the wrappers' counters are set back, and whoever replays
+    the graph adds ``counts`` on each replay. The capture's error mode
+    is ``"thread_local"``: other threads (a learner beside a server's
+    warmup, the main thread beside a learner thread's superstep) may
+    issue CUDA work meanwhile."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    counters = launch_counters()
+    before = [f.launches for f in counters]
+    # no garbage collection during the capture: a collected graph (an
+    # old runner in a reference cycle) destroys its executable, which is
+    # not permitted while a stream captures and invalidates this
+    # capture; torch.cuda.graph collects once before it begins
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
+    counts = tuple(
+        (f, f.launches - n) for f, n in zip(counters, before) if f.launches != n
+    )
+    for f, n in zip(counters, before):
+        f.launches = n
+    return graph, counts, out
+
+
 class SuperstepRunner:
     """Runs ``slot_fn(runner)`` k <= ``k_max`` times per :meth:`run`.
 
@@ -171,30 +206,8 @@ class SuperstepRunner:
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
             self._slot()
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
-        counters = launch_counters()
-        before = [fn.launches for fn in counters]
-        # no garbage collection during the capture: a collected graph
-        # (an old runner in a reference cycle) destroys its executable,
-        # which is not permitted while a stream captures and invalidates
-        # this capture; torch.cuda.graph collects once before it begins
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, stream=stream):
-                self._slot()
-        finally:
-            if collecting:
-                gc.enable()
-        self._counts = tuple(
-            (fn, fn.launches - n) for fn, n in zip(counters, before) if fn.launches != n
-        )
-        for fn, n in zip(counters, before):
-            fn.launches = n
+        self.graph, self._counts, _ = capture_graph(self._slot, stream, self.generators)
         current.wait_stream(stream)
-        self.graph = graph
 
     def drain(self, k: int) -> Dict[str, np.ndarray]:
         """Every output's first k rows to the host in one copy."""

@@ -5,7 +5,12 @@ Counterpart of ``ray_tpu/utils/exploration/exploration.py``; ported:
 :class:`EpsilonGreedy`, the DQN family's. A strategy's ``sample_fn``
 turns an action distribution into actions and their log-probabilities,
 drawing from the caller's generator; scheduled knobs (epsilon) live in
-the policy's ``coeff_values`` and advance on the host.
+the policy's ``coeff_values`` and advance on the host. :meth:`Exploration.draws`
+takes ahead, from the same generator and in the same order, the random
+tensors that one ``sample_fn`` call would draw, and ``sample_fn`` takes
+them back as ``draws``: the serving plane's CUDA graphs read their draws
+from static buffers this way, and a batch of requests draws exactly what
+the same requests would draw one at a time.
 """
 
 from __future__ import annotations
@@ -32,14 +37,29 @@ class Exploration:
         explore: bool,
         coeffs: Dict[str, float],
         state: Tuple,
+        draws: Tuple = (),
     ):
-        """→ (actions, logp, new_state)."""
+        """→ (actions, logp, new_state). ``draws``: what :meth:`draws`
+        took ahead, used in place of drawing from ``generator``."""
         if explore:
-            actions, logp = dist.sampled_action_logp(generator)
+            actions, logp = dist.sampled_action_logp(generator, *draws)
         else:
             actions = dist.deterministic_sample()
             logp = dist.logp(actions)
         return actions, logp, state
+
+    def draws(self, dist_class, shape, dtype, device, generator, explore: bool) -> Tuple:
+        """The random tensors one :meth:`sample_fn` call over
+        distribution inputs of ``shape`` and ``dtype`` draws from
+        ``generator``, in its order (none when not exploring)."""
+        if not explore:
+            return ()
+        return (dist_class.draw(shape, dtype, device, generator),)
+
+    def initial_state(self, batch_size: int = 1) -> Tuple:
+        """Per-stream exploration state: none for the ported strategies
+        (the serving plane coalesces only stateless strategies)."""
+        return ()
 
     def init_coeffs(self) -> Dict[str, float]:
         return {}
@@ -91,20 +111,25 @@ class EpsilonGreedy(Exploration):
     def update_coeffs(self, coeff_values: Dict, timestep: int) -> None:
         coeff_values["epsilon"] = float(self.schedule(timestep))
 
-    def sample_fn(self, dist, generator, explore, coeffs, state):
+    def draws(self, dist_class, shape, dtype, device, generator, explore):
+        """A uniform action, then a uniform [0, 1) decision, per row."""
+        if not explore:
+            return ()
+        rows = tuple(shape[:-1])
+        return (
+            torch.randint(0, shape[-1], rows, generator=generator, device=device),
+            torch.rand(rows, generator=generator, device=device),
+        )
+
+    def sample_fn(self, dist, generator, explore, coeffs, state, draws=()):
         greedy = dist.deterministic_sample()
         if not explore:
             return greedy, dist.logp(greedy), state
-        num_actions = dist.inputs.shape[-1]
-        device = dist.inputs.device
-        random_actions = torch.randint(
-            0, num_actions, greedy.shape, generator=generator, device=device
-        )
-        use_random = (
-            torch.rand(greedy.shape, generator=generator, device=device)
-            < coeffs["epsilon"]
-        )
-        actions = torch.where(use_random, random_actions, greedy)
+        if not draws:
+            draws = self.draws(None, dist.inputs.shape, dist.inputs.dtype, dist.inputs.device,
+                               generator, True)
+        random_actions, u = draws
+        actions = torch.where(u < coeffs["epsilon"], random_actions, greedy)
         return actions, dist.logp(actions), state
 
 

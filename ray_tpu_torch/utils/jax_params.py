@@ -28,7 +28,11 @@ critic as aux state and three optax Adam states) go into a
 worker's multi-policy weights (``{pid: params}``) go into the port's
 policy map through :func:`from_jax_policy_weights`. A reference
 checkpoint's unpickled ``algorithm_state.pkl`` goes into a port
-``Algorithm`` through :func:`from_jax_algorithm_state`.
+``Algorithm`` through :func:`from_jax_algorithm_state`, one of its policy
+states into a port policy through :func:`from_jax_policy_state` (the
+serving plane's restore and hot reload, which tell the two layouts
+apart with :func:`is_jax_policy_state`), and one of its observation
+filters through :func:`from_jax_filter`.
 """
 
 from __future__ import annotations
@@ -192,7 +196,7 @@ def from_jax_sac_state(policy, params, aux_state, opt_state):
     return policy
 
 
-def _port_filter(ref_filter):
+def from_jax_filter(ref_filter):
     """A reference observation filter (``NoFilter`` or ``MeanStdFilter``,
     duck-typed) as the port's, with the same statistics."""
     from ray_tpu_torch.utils.filter import MeanStdFilter, NoFilter, RunningStat
@@ -209,39 +213,54 @@ def _port_filter(ref_filter):
     return out
 
 
+def is_jax_policy_state(state: Mapping) -> bool:
+    """Whether a policy state holds the reference's nested param trees
+    (the port's weights are a flat ``{"layer.weight": array}``)."""
+    weights = state.get("weights") if isinstance(state, Mapping) else None
+    return isinstance(weights, Mapping) and any(
+        isinstance(v, Mapping) for v in weights.values()
+    )
+
+
+def from_jax_policy_state(policy, ps: Mapping):
+    """One reference policy state (a ``get_state()`` of numpy trees)
+    into the port ``policy`` in place: the params (``from_jax_params``;
+    SAC's through ``from_jax_sac_state``), the optax Adam state
+    (``from_jax_adam_state``), ``coeff_values``, ``global_timestep``,
+    ``num_grad_updates`` and ``exploration_state``. Returns ``policy``."""
+    if hasattr(policy, "opt_states"):  # SAC's three optimizers
+        from_jax_sac_state(policy, ps["weights"], None, ps["opt_state"])
+    else:
+        from_jax_params(ps["weights"], policy.model)
+        count, mu, nu = from_jax_adam_state(ps["opt_state"])
+        st = policy.opt_state
+        with torch.no_grad():
+            st.count = count
+            for i, name in enumerate(policy.param_names):
+                st.mu[i].copy_(torch.as_tensor(np.asarray(mu[name])))
+                st.nu[i].copy_(torch.as_tensor(np.asarray(nu[name])))
+    policy.coeff_values.update({k: float(v) for k, v in ps.get("coeff_values", {}).items()})
+    policy.global_timestep = int(ps.get("global_timestep", 0))
+    policy.num_grad_updates = int(ps.get("num_grad_updates", 0))
+    policy.exploration.set_state(ps.get("exploration_state", {}))
+    return policy
+
+
 def from_jax_algorithm_state(algo, state: Mapping):
     """Load the unpickled ``algorithm_state.pkl`` of a reference
     checkpoint (numpy trees) into the port ``Algorithm`` ``algo`` built
     for the same config, in place, and send the weights to its remote
-    workers. Each policy of ``state["worker"]["policy_states"]``: the
-    params (``from_jax_params``; SAC's through ``from_jax_sac_state``),
-    the optax Adam state (``from_jax_adam_state``), ``coeff_values``,
-    ``global_timestep``, ``num_grad_updates`` and ``exploration_state``.
-    The reference's state has no aux state: DQN's and SAC's targets stay
-    as they are, as the reference's restore leaves them. Then the filters
-    (:func:`_port_filter`), the counters and the episode total. Returns
-    ``algo``."""
+    workers: each policy of ``state["worker"]["policy_states"]`` through
+    :func:`from_jax_policy_state`. The reference's state has no aux
+    state: DQN's and SAC's targets stay as they are, as the reference's
+    restore leaves them. Then the filters (:func:`from_jax_filter`), the
+    counters and the episode total. Returns ``algo``."""
     worker = state["worker"]
     for pid, ps in worker["policy_states"].items():
-        policy = algo.get_policy(pid)
-        if hasattr(policy, "opt_states"):  # SAC's three optimizers
-            from_jax_sac_state(policy, ps["weights"], None, ps["opt_state"])
-        else:
-            from_jax_params(ps["weights"], policy.model)
-            count, mu, nu = from_jax_adam_state(ps["opt_state"])
-            st = policy.opt_state
-            with torch.no_grad():
-                st.count = count
-                for i, name in enumerate(policy.param_names):
-                    st.mu[i].copy_(torch.as_tensor(np.asarray(mu[name])))
-                    st.nu[i].copy_(torch.as_tensor(np.asarray(nu[name])))
-        policy.coeff_values.update({k: float(v) for k, v in ps.get("coeff_values", {}).items()})
-        policy.global_timestep = int(ps.get("global_timestep", 0))
-        policy.num_grad_updates = int(ps.get("num_grad_updates", 0))
-        policy.exploration.set_state(ps.get("exploration_state", {}))
+        from_jax_policy_state(algo.get_policy(pid), ps)
     if algo.workers is not None:
         local = algo.workers.local_worker()
-        local.sync_filters({pid: _port_filter(f) for pid, f in worker.get("filters", {}).items()})
+        local.sync_filters({pid: from_jax_filter(f) for pid, f in worker.get("filters", {}).items()})
         algo.workers.sync_weights()
     algo._counters.clear()
     algo._counters.update({k: int(v) for k, v in state.get("counters", {}).items()})

@@ -29,7 +29,13 @@ reference test's tolerances. The actor-learner's plane: the feeder's
 pinned side-stream copy bitwise, intact after the host arrays are
 overwritten and while a delayed read on the consumer's stream races a
 same-sized copy; learner-thread learns bitwise equal to synchronous ones
-(PPO and IMPALA, one row-gather launch a learn).
+(PPO and IMPALA, one row-gather launch a learn). The serving plane: one
+CUDA graph per (bucket, explore) at warmup and none after traffic at
+every occupancy from 1 to 32; exact mode bitwise against sequential
+batch-1 calls (PPO, DQN's epsilon-greedy and the torso, exploring and
+greedy); a replay after a hot reload reads the new weights; the torso
+server's flash launches, layers x bucket a replay (exact) or layers
+(vectorized).
 """
 
 from __future__ import annotations
@@ -1080,3 +1086,133 @@ def test_dqn_device_replay_round_trip_on_the_card(cuda, tmp_path):
     for a in (algo, back):
         info = a.train()["info"]["learner"]
         assert all(np.isfinite(v) for v in info["default_policy"].values())
+
+
+# -- the serving plane: one CUDA graph a bucket ----------------------------------------
+
+SERVE_TORSO = {"use_transformer": True, "transformer_dim": 64, "transformer_num_layers": 2,
+               "transformer_num_heads": 2, "transformer_ff_dim": 128, "transformer_seq_len": 8}
+
+
+def _serve_policy(cuda, kind="ppo", seed=7):
+    from ray_tpu_torch.algorithms.dqn.dqn import DQNConfig, DQNTorchPolicy
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig, PPOTorchPolicy
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    if kind == "dqn":
+        cfg = DQNConfig().to_dict()
+        cfg.update(seed=seed, model={"fcnet_hiddens": [64, 64]},
+                   exploration_config={"type": "EpsilonGreedy", "initial_epsilon": 0.5,
+                                       "final_epsilon": 0.5})
+        return DQNTorchPolicy(Box(-1, 1, (16,), np.float32), Discrete(5), cfg, device=cuda)
+    cfg = PPOConfig().to_dict()
+    model = SERVE_TORSO if kind == "torso" else {"fcnet_hiddens": [64, 64]}
+    cfg.update(seed=seed, model=model)
+    return PPOTorchPolicy(Box(-1, 1, (16,), np.float32), Discrete(5), cfg, device=cuda)
+
+
+def _serve_obs(n, seed=0):
+    return np.random.default_rng(seed).uniform(-1, 1, (n, 16)).astype(np.float32)
+
+
+def test_serve_one_graph_a_bucket_and_none_after_warmup(cuda):
+    """Warmup captures one graph per (bucket, explore); traffic at every
+    occupancy from 1 to 32 captures none; results come from replays."""
+    from ray_tpu_torch.serve.policy_server import BatchedPolicyServer
+
+    server = BatchedPolicyServer(_serve_policy(cuda), max_batch_size=32, start=False)
+    assert server.warmup(explore=False) == 6 and server.warmup(explore=True) == 6
+    assert server.captures == 12
+    assert all(p.graph is not None for p in server._programs.values())
+    for n in range(1, 33):
+        for explore in (False, True):
+            a, ex = server.forward_padded(_serve_obs(n, n), explore=explore)
+            assert a.shape == (n,) and ex["action_logp"].shape == (n,)
+            assert np.isfinite(ex["action_dist_inputs"]).all()
+    st = server.stats()
+    assert st["captures"] == 12 and st["captures_after_warmup"] == 0
+    assert 0.0 <= st["device"]["hbm_headroom"] <= 1.0 and st["device"]["mfu"] is None
+
+
+@pytest.mark.parametrize("kind", ["ppo", "dqn", "torso"])
+def test_serve_exact_mode_bitwise_against_sequential_calls_on_the_card(cuda, kind):
+    """Graph replays of batch-1 bodies against sequential batch-1
+    compute_actions on a policy of the same seed, exploring (draws taken
+    in arrival order) and greedy, under several splits."""
+    from ray_tpu_torch.serve.policy_server import BatchedPolicyServer
+
+    obs = _serve_obs(21, seed=4)
+    for explore in (True, False):
+        ref = _serve_policy(cuda, kind)
+        want = [ref.compute_actions(o[None], explore=explore) for o in obs]
+        policy = _serve_policy(cuda, kind)
+        gen = policy.action_generator.get_state().clone()
+        server = BatchedPolicyServer(policy, max_batch_size=8, start=False)
+        server.warmup(explore=explore)
+        assert torch.equal(policy.action_generator.get_state(), gen)
+        i = 0
+        for n in (1, 8, 5, 3, 4):
+            a, ex = server.forward_padded(obs[i:i + n], explore=explore)
+            for j in range(n):
+                a_ref, _, ex_ref = want[i + j]
+                assert a[j].tobytes() == a_ref[0].tobytes(), (explore, i + j)
+                for k, v in ex_ref.items():
+                    assert ex[k][j].tobytes() == v[0].tobytes(), (explore, i + j, k)
+            i += n
+        assert server.stats()["captures_after_warmup"] == 0
+
+
+def test_serve_replay_after_hot_reload_reads_the_new_weights(cuda):
+    from ray_tpu_torch.serve.policy_server import BatchedPolicyServer
+
+    policy = _serve_policy(cuda)
+    w2 = {k: -v for k, v in policy.get_weights().items()}
+    server = BatchedPolicyServer(policy, max_batch_size=8, batch_wait_timeout_s=0.001,
+                                 start=False)
+    server.warmup()
+    server.start()
+    obs = _serve_obs(4, seed=5)
+    try:
+        before = [server.submit(o).result(30.0) for o in obs]
+        server.update_params({"weights": w2})
+        deadline = time.time() + 10
+        while time.time() < deadline and server.params_version < 2:
+            server.submit(obs[0]).result(30.0)
+        futs = [server.submit(o) for o in obs]
+        after = [f.result(30.0) for f in futs]
+    finally:
+        server.stop()
+    assert [f.params_version for f in futs] == [2] * 4
+    ref = _serve_policy(cuda)
+    ref.set_weights(w2)
+    for o, (a, ex), (_, ex1) in zip(obs, after, before):
+        a_ref, _, ex_ref = ref.compute_actions(o[None], explore=False)
+        assert a.tobytes() == a_ref[0].tobytes()
+        assert ex["action_dist_inputs"].tobytes() == ex_ref["action_dist_inputs"][0].tobytes()
+        assert ex["action_dist_inputs"].tobytes() != ex1["action_dist_inputs"].tobytes()
+    assert server.stats()["captures_after_warmup"] == 0
+
+
+@pytest.mark.parametrize("vectorized", [False, True], ids=["exact", "vectorized"])
+def test_serve_torso_flash_launches_a_replay(cuda, vectorized):
+    """A torso policy's graphs launch the flash kernel layers x bucket
+    times a replay in exact mode (one batch-1 body a row) and layers
+    times in vectorized mode; the counter counts replays, not the
+    capture."""
+    from ray_tpu_torch.serve.policy_server import BatchedPolicyServer
+
+    layers = SERVE_TORSO["transformer_num_layers"]
+    server = BatchedPolicyServer(_serve_policy(cuda, "torso"), max_batch_size=8,
+                                 vectorized=vectorized, start=False)
+    before = fa.flash_attention.launches
+    server.warmup()
+    # the eager run before each capture, and one forward of a zero
+    # observation for the policy's act signature (the draws' shapes)
+    eager = sum(layers * (1 if vectorized else b) for b in server.buckets) + layers
+    assert fa.flash_attention.launches == before + eager
+    for n, bucket in ((3, 4), (8, 8), (1, 1)):
+        before = fa.flash_attention.launches
+        server.forward_padded(_serve_obs(n, n))
+        assert fa.flash_attention.launches == before + layers * (1 if vectorized else bucket)
+        assert dict(server._programs[(bucket, False)].counts)[fa.flash_attention] == (
+            layers * (1 if vectorized else bucket))

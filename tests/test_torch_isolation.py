@@ -253,3 +253,69 @@ def test_multi_agent_ppo_without_device_raises_without_cuda(monkeypatch):
         policy_mapping_fn=lambda aid, **kw: "p0")
     with pytest.raises(RuntimeError, match="none is available"):
         cfg.build()
+
+
+def test_serving_plane_runs_with_reference_blocked(tmp_path):
+    """``ray_tpu_torch.serve``, ``.ingress`` and ``.resilience`` import, and
+    a port checkpoint serves through ``PolicyDeployment`` behind the
+    router and the HTTP front door, with the reference and gymnasium
+    blocked."""
+    code = textwrap.dedent(
+        f"""
+        import json, sys, urllib.request
+
+        BLOCKED = {BLOCKED + ("gymnasium",)!r}
+
+        class _Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(name + " blocked by test")
+                return None
+
+        sys.meta_path.insert(0, _Block())
+        import ray_tpu_torch.resilience
+        from ray_tpu_torch import ingress, serve
+        from ray_tpu_torch.resilience import discovery, provider_notice
+        from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+
+        algo = (PPOConfig().environment("CartPole-v1").rollouts(num_rollout_workers=0)
+                .training(train_batch_size=64, model={{"fcnet_hiddens": [8]}})
+                .resources(device="cpu").build())
+        root = {str(tmp_path / "ckpts")!r}
+        algo.save(root + "/checkpoint_000001")
+        dep = serve.PolicyDeployment(root, max_batch_size=4, device="cpu", watch=False)
+        router = ingress.CoalescingRouter("cp", [ingress.LocalReplica(dep)], max_batch_size=4)
+        front = ingress.PolicyIngress().start()
+        front.add_policy("cp", router)
+        req = urllib.request.Request(front.url + "/v1/policy/cp/actions",
+                                     data=json.dumps({{"obs": [0.0, 0.1, 0.0, -0.1]}}).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            out = json.loads(resp.read())
+        assert out["action"] in (0, 1) and out["params_version"] == 1, out
+        front.stop(); router.stop(); dep.stop()
+        assert discovery.discover(root)[1].endswith("checkpoint_000001")
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
+def test_serving_without_device_raises_without_cuda(monkeypatch, tmp_path):
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+    from ray_tpu_torch.serve.policy_server import PolicyDeployment, restore_policy
+
+    algo = (PPOConfig().environment("CartPole-v1").rollouts(num_rollout_workers=0)
+            .training(train_batch_size=64, model={"fcnet_hiddens": [8]})
+            .resources(device="cpu").build())
+    path = algo.save(str(tmp_path / "checkpoint_000001"))
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="none is available"):
+        restore_policy(path)
+    with pytest.raises(RuntimeError, match="none is available"):
+        PolicyDeployment(path, watch=False)
+    assert restore_policy(path, device="cpu")[0].device.type == "cpu"
