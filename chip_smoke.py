@@ -41,8 +41,9 @@ and ``nvcc``. Phases, each printing its own lines:
                (within 2e-5 abs/rel in f32, 3e-2 in bf16, rows that see
                no key exactly 0, the output in q's layout): the torso's
                path shapes (B·H = 2048, 4096, 128, 256, and the
-               server's 8, 16, 32 and 64, at T = S = 8, D = 32) in the
-               torso's (B, T, H, D) memory and
+               server's 8, 16, 32 and 64, at T = S = 8, D = 32) and
+               GTrXL's act step (B·H = 8 and 2, T = 1, S = 51, D = 32,
+               offset 50) in the models' (B, T, H, D) memory and
                contiguous, the reference test's shapes and offsets, D in
                {16, 32, 64, 128}, the query row per thread's edges (T of
                1, 3, 17, 32; D of 1, 33, 64; ragged heads; the chunk
@@ -281,6 +282,34 @@ and ``nvcc``. Phases, each printing its own lines:
                burst of INGRESS_BURST requests against an in-flight budget
                of INGRESS_TIGHT_INFLIGHT: every request 200 or shed with
                Retry-After, the shed count;
+    lstm_ppo -- cartpole-ppo.yaml as written on the local worker on the
+               card (4 envs, fragment 256, batch 2048, minibatch 256, 8
+               epochs) with ``use_lstm`` at the catalog's defaults
+               (fcnet [256, 256], cell 256, max_seq_len 20): one warm and
+               RECURRENT_CALLS timed ``train()`` calls: env-steps/s, act
+               ms a step, the sampler's env and postprocess seconds, learn
+               seconds, unrolls, minibatch rows (240) and optimizer steps
+               a learn (required: epochs x minibatches); SINGLE_ACTIONS
+               ``compute_single_action`` calls threading the state, each
+               state out bitwise a batch-1 ``compute_actions``'s; no
+               kernel launched (required);
+    gtrxl_ppo -- the same with ``use_attention`` at the catalog's
+               defaults (dim 64, 1 unit, 2 heads of 32, memory 50, MLP
+               32): row 5's launches equal the units times the act
+               path's forwards (sampler steps, GAE bootstraps, single
+               actions and their checks; required); one act step on the
+               card against the same weights on the CPU, within 1e-5;
+    lstm_impala -- cartpole-impala.yaml with ``use_lstm`` for
+               LSTM_IMPALA_WINDOW_S seconds (the local worker on the card),
+               then cartpole-appo.yaml with ``use_lstm`` (one remote
+               worker on the CPU), one warm and one timed iteration:
+               sampled and trained env-steps/s, the learner's queue wait
+               against its grad time, finite stats;
+    recurrent_serve -- gtrxl_ppo's policy behind a ``BatchedPolicyServer``:
+               the sequential fallback (no program), RSERVE_REQUESTS
+               requests from RSERVE_THREADS threads, each answer bitwise
+               ``compute_actions`` from the initial state, one flash
+               launch a request and unit (required): requests/s;
 13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
@@ -318,7 +347,9 @@ Launch counts are set to 0 just before each of phases 7-13, the
 actor phases, sac, each of sac_learner's two runs, the multi-agent
 and views phases (whose paths run no kernel: host GAE, no frame pool,
 as the reference's; they print their counts), the resumed train of
-ckpt_ppo, and ckpt_dqn's restores and its resumed rounds, and read just
+ckpt_ppo, and ckpt_dqn's restores and its resumed rounds, the recurrent
+phases' timed calls (lstm_impala's at its window's start, between two
+learner steps) and recurrent_serve's requests, and read just
 after (on the learner-thread paths, between two learner steps) (the
 ring's in each rank, before each call), the serve phase and
 serve_torso (before its exact server is built; its exact-against-
@@ -979,17 +1010,23 @@ def phase_learner(rng):
     return launches
 
 
-def ppo_from_yaml(path, **over):
-    """``PPO`` built from a tuned-example yaml as written, with the named
-    overrides (``superstep``, ``model``, ``env``)."""
-    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+def algo_from_yaml(path, config_cls, **over):
+    """The algorithm of ``config_cls`` built from a tuned-example yaml as
+    written, with the named overrides (``superstep``, ``model``, ``env``)."""
     from ray_tpu_torch.utils.tuned_example import load_tuned_example
 
     (exp,) = load_tuned_example(path).values()
     env = over.pop("env", exp["env"])
-    cfg = PPOConfig().update_from_dict({**exp["config"], **over})
+    cfg = config_cls().update_from_dict({**exp["config"], **over})
     cfg.env = env
     return cfg.build()
+
+
+def ppo_from_yaml(path, **over):
+    """``PPO`` from a tuned-example yaml (:func:`algo_from_yaml`)."""
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+
+    return algo_from_yaml(path, PPOConfig, **over)
 
 
 def spread(values):
@@ -1290,8 +1327,10 @@ def phase_flash():
     # (B·H = 2048 learner minibatch, 4096 lane minibatch, 128 lane act
     # step, 256 DQN forward; the server's exact mode, a batch-1 body a row,
     # B·H = 8, and its vectorized buckets of 2, 4 and 8 rows, whose 16 and
-    # 32 are the lane act and DQN shapes) in the layout the torso gives
-    # them (bthd) and contiguous; the reference test's shapes and offsets; head widths
+    # 32 are the lane act and DQN shapes; GTrXL's act step, one query row
+    # against its 50-step memory and itself, for the sampler's 4 envs and
+    # a single action) in the layout the models give them (bthd) and
+    # contiguous; the reference test's shapes and offsets; head widths
     # (D > 64 takes the warp-per-row stream); the short-head path's edges:
     # heads not a multiple of a warp's, T of 1, 3, 17 and 32, D of 1 and
     # 33, S past an 8-key chunk (the chunk merge), rows that see no key;
@@ -1299,7 +1338,8 @@ def phase_flash():
     path = [("learner", TF_B // 2, heads, 8, 8, dh, 0), ("lane_learn", 512, heads, 8, 8, dh, 0),
             ("lane_act", 16, heads, 8, 8, dh, 0), ("dqn", TRAIN_BATCH, heads, 8, 8, dh, 0),
             ("serve_exact", 1, heads, 8, 8, dh, 0)] + [
-        (f"serve_vec_{b}", b, heads, 8, 8, dh, 0) for b in (2, 4, 8)]
+        (f"serve_vec_{b}", b, heads, 8, 8, dh, 0) for b in (2, 4, 8)] + [
+        ("gtrxl_act", 4, 2, 1, 51, 32, 50), ("gtrxl_single", 1, 2, 1, 51, 32, 50)]
     cases = [c + (f32, "bthd") for c in path] + [(f"{c[0]}_contiguous",) + c[1:] + (f32, "bhtd")
                                                  for c in path] + [
         ("full_24x40", 2, 2, 24, 40, 16, None, f32, "bhtd"),
@@ -1353,7 +1393,7 @@ def phase_flash():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
         n = b * h
-        nbytes = 4 * n * t * d * 4  # q, k, v read once, o written once
+        nbytes = 4 * n * 2 * (t + s) * d  # q, k, v read once, o written once
         flops = 4 * n * int(mask.sum()) * d  # two multiply-adds per visible pair
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
         by_path[name] = {
@@ -3057,6 +3097,303 @@ def phase_views():
         algo.stop()
 
 
+# recurrent models on the actor lane: cartpole-ppo.yaml with an
+# LSTM and with GTrXL, cartpole-impala.yaml and cartpole-appo.yaml with an
+# LSTM, and GTrXL's policy behind the server's sequential fallback
+CARTPOLE_IMPALA = os.path.join(REPO, "tuned_examples", "impala", "cartpole-impala.yaml")
+CARTPOLE_APPO = os.path.join(REPO, "tuned_examples", "appo", "cartpole-appo.yaml")
+RECURRENT_CALLS = 3
+SINGLE_ACTIONS = 8
+LSTM_IMPALA_WINDOW_S = 20.0
+RSERVE_REQUESTS, RSERVE_THREADS = 64, 8
+
+
+def _count_calls(policy, names):
+    """Count the calls of the policy's ``names`` methods (the act path's
+    entry points) from now on: {name: calls}, cleared by the caller."""
+    counts = {n: 0 for n in names}
+    for name in names:
+        method = getattr(policy, name)
+
+        def counted(*args, _name=name, _method=method, **kwargs):
+            counts[_name] += 1
+            return _method(*args, **kwargs)
+
+        setattr(policy, name, counted)
+    return counts
+
+
+def _single_action_round_trip(algo, policy, rng):
+    """SINGLE_ACTIONS ``Algorithm.compute_single_action`` calls threading
+    a recurrent state, each one's state out against a batch-1
+    ``compute_actions`` from the same state (greedy, on the card):
+    bitwise. Returns the call's mean ms."""
+    import numpy as np
+    import torch
+
+    state = policy.get_initial_state()
+    ms = []
+    for _ in range(SINGLE_ACTIONS):
+        obs = rng.uniform(-0.05, 0.05, 4).astype(np.float32)
+        t0 = time.perf_counter()
+        action, out, _ = algo.compute_single_action(obs, state, explore=False)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        want, want_state, _ = policy.compute_actions(obs[None], [s[None] for s in state],
+                                                     explore=False)
+        require(action == want[0] and len(out) == len(want_state)
+                and all(np.array_equal(a, b[0]) for a, b in zip(out, want_state)),
+                "compute_single_action's state out differs from a batch-1 compute_actions")
+        state = out
+    torch.cuda.synchronize()
+    return sum(ms) / len(ms)
+
+
+def _recurrent_ppo(phase, model):
+    """cartpole-ppo.yaml as written (the local worker on the card, 4
+    envs, fragment 256, batch 2048, minibatch 256, 8 epochs), its model
+    with ``model`` merged in: one warm ``train()``, then RECURRENT_CALLS
+    timed ones and the single-action round trip, with the launch counts
+    and the act path's calls counted from 0 just before. Prints the
+    rates and the split; returns (algo, counts, launches)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+    from ray_tpu_torch.utils.tuned_example import load_tuned_example
+
+    (exp,) = load_tuned_example(CARTPOLE_ACTOR).values()
+    algo = algo_from_yaml(CARTPOLE_ACTOR, PPOConfig, model={**exp["config"]["model"], **model})
+    policy = algo.get_policy()
+    require(policy.device.type == "cuda" and policy.model.is_recurrent
+            and all(p.is_cuda for p in policy.params), f"the {phase} policy is not on the card")
+    sampler = algo.workers.local_worker().sampler
+    n_envs = sampler.env.num_envs
+    t0 = time.perf_counter()
+    algo.train()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counts = _count_calls(policy, ("compute_actions", "value_batch"))
+    before, steps0 = dict(sampler.timers), policy.opt_state.count
+    zero_kernel_counts()
+    walls, results = [], []
+    for _ in range(RECURRENT_CALLS):
+        t0 = time.perf_counter()
+        results.append(algo.train())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    sampled = {k: sampler.timers[k] - before[k] for k in before}
+    act_steps = counts["compute_actions"]
+    single_ms = _single_action_round_trip(algo, policy, np.random.default_rng(1))
+    launches = read_kernel_counts()
+    learner = results[-1]["info"]["learner"]["default_policy"]
+    require(all(math.isfinite(v) for v in learner.values()), f"non-finite {phase} stats {learner}")
+    T = policy._unroll_T
+    rows = sampled["steps"] // RECURRENT_CALLS  # env steps an iteration
+    trimmed = (rows // T) * T
+    mb, num_mb = policy._nest_shape(trimmed)
+    opt_steps = (policy.opt_state.count - steps0) / RECURRENT_CALLS
+    require(opt_steps == policy.num_sgd_iter * num_mb,
+            f"{opt_steps} optimizer steps a learn, not {policy.num_sgd_iter} x {num_mb}")
+    require(act_steps == sampled["steps"] // n_envs,
+            f"{act_steps} act calls for {sampled['steps']} env steps of {n_envs} envs")
+    learn_s = [r["timers"]["learn_on_batch_s"] - r["info"]["timers"]["default_policy"]["learn_transfer_s"]
+               for r in results]
+    per_call = {k: round(v / RECURRENT_CALLS, 4) for k, v in sampled.items() if k != "steps"}
+    say(phase, env_steps_per_s=json.dumps(spread([rows / w for w in walls])),
+        iter_s=json.dumps([round(w, 4) for w in walls]), warm_s=f"{warm_s:.2f}",
+        act_ms_per_step=f"{1e3 * sampled['act_s'] / act_steps:.4f}",
+        sampler_s_per_iter=json.dumps(per_call), learn_s=json.dumps(spread(learn_s)),
+        sample_s=json.dumps(spread([r["timers"]["sample_s"] for r in results])),
+        rows_per_learn=trimmed, max_seq_len=T, unrolls_per_learn=trimmed // T,
+        minibatch_rows=mb, minibatches=num_mb, optimizer_steps_per_learn=opt_steps,
+        gae_bootstraps=counts["value_batch"], single_action_ms=f"{single_ms:.4f}",
+        single_action_state_out_bitwise=True, launches=json.dumps(launches),
+        episode_reward_mean=results[-1]["episode_reward_mean"])
+    say(phase, learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
+    return algo, counts, launches
+
+
+def phase_lstm_ppo():
+    """``_recurrent_ppo`` with ``use_lstm`` at the catalog's defaults
+    (fcnet [256, 256], cell 256, max_seq_len 20): no kernel on its path
+    (host GAE; the cell's step loop is plain torch, as the reference's is
+    XLA)."""
+    algo, _, launches = _recurrent_ppo("lstm_ppo", {"use_lstm": True})
+    algo.stop()
+    require(not any(launches.values()), f"the LSTM path launched kernels: {launches}")
+    return launches
+
+
+def phase_gtrxl_ppo():
+    """``_recurrent_ppo`` with ``use_attention`` at the catalog's
+    defaults (dim 64, 1 unit, 2 heads of 32, memory 50, MLP 32,
+    max_seq_len 20): every act-path forward (the sampler's steps, GAE's
+    bootstraps, the single actions and their batch-1 checks) launches row
+    5 once a unit, T = 1 against S = 51 keys; the learn path's masked
+    attention launches none. Then one act step on the card against the
+    same weights on the CPU (the plain version), within 1e-5. Returns
+    the flash launches and the policy (for the serve phase)."""
+    import torch
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+
+    algo, counts, launches = _recurrent_ppo("gtrxl_ppo", {"use_attention": True})
+    algo.stop()
+    policy = algo.get_policy()
+    units = policy.model.num_transformer_units
+    forwards = counts["compute_actions"] + counts["value_batch"]
+    flash = launches["flash_attention"]
+    require(flash == units * forwards,
+            f"{flash} flash launches for {forwards} act-path forwards of {units} unit(s)")
+    require(sum(launches.values()) == flash, f"GTrXL's path launched other kernels: {launches}")
+    host = PPOTorchPolicy(policy.observation_space, policy.action_space, dict(algo.config),
+                          device="cpu")
+    host.set_weights(policy.get_weights())
+    gen = torch.Generator().manual_seed(2)
+    obs = torch.randn(4, 4, generator=gen)
+    mem = torch.randn(4, policy.model.memory_len, policy.model.attention_dim, generator=gen)
+    with torch.no_grad():
+        got = policy._act_forward(obs.cuda(), [mem.cuda()])
+        want = host._act_forward(obs, [mem])
+    outs = list(zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])))
+    err = max(float((g.cpu() - w).abs().max()) for g, w in outs)
+    require(all(torch.allclose(g.cpu(), w, atol=1e-5, rtol=1e-5) for g, w in outs),
+            f"GTrXL's act step on the card differs from its CPU run by {err}")
+    say("gtrxl_ppo", flash_launches=flash, act_path_forwards=forwards, units=units,
+        single_action_calls=2 * SINGLE_ACTIONS, card_vs_cpu_max_abs_err=err)
+    return flash, policy
+
+
+def _impala_snapshot(algo):
+    lt = algo._learner_thread
+    with lt.lock:
+        return {"steps": lt.num_steps, "sampled": algo._counters["num_env_steps_sampled"],
+                "trained": algo._counters["num_env_steps_trained"], "t": time.perf_counter(),
+                **lt.stats()}
+
+
+VTRACE_WARM_S = 60.0
+
+
+def _vtrace_window(phase, algo, window_s):
+    """``train()`` for ``window_s`` seconds (at least one call) after
+    warm calls until the learner has reported stats (they arrive some
+    steps late; at most VTRACE_WARM_S): sampled and trained env-steps/s,
+    learner steps, the learner's queue wait against its grad time,
+    launch counts (from 0 at the window's start)."""
+    import torch
+
+    lt = algo._learner_thread
+    require(algo.get_policy().device.type == "cuda" and algo.get_policy().model.is_recurrent,
+            f"the {phase} learner is not a recurrent policy on the card")
+    t0 = time.perf_counter()
+    algo.train()
+    while not lt.learner_info and time.perf_counter() - t0 < VTRACE_WARM_S:
+        algo.train()
+    warm_s = time.perf_counter() - t0
+    with lt.lock:
+        zero_kernel_counts()
+    a = _impala_snapshot(algo)
+    iters = 0
+    while iters == 0 or time.perf_counter() - a["t"] < window_s:
+        algo.train()
+        iters += 1
+    torch.cuda.synchronize()
+    b = _impala_snapshot(algo)
+    launches = read_kernel_counts()
+    wall = b["t"] - a["t"]
+    d = {k: b[k] - a[k] for k in ("steps", "sampled", "trained", "queue_wait_time_s",
+                                   "grad_time_s")}
+    learner = lt.learner_info
+    require(lt.healthy() and learner and all(math.isfinite(v) for v in learner.values()),
+            f"the {phase} learner is unhealthy or its stats are not finite: {learner}")
+    say(phase, window_s=f"{wall:.2f}", warm_s=f"{warm_s:.2f}", iterations=iters,
+        env_steps_per_s_sampled=f"{d['sampled'] / wall:.1f}",
+        env_steps_per_s_trained=f"{d['trained'] / wall:.1f}", learner_steps=d["steps"],
+        queue_wait_time_s=f"{d['queue_wait_time_s']:.4f}", grad_time_s=f"{d['grad_time_s']:.4f}",
+        grad_s_per_step=f"{d['grad_time_s'] / max(1, d['steps']):.5f}",
+        launches=json.dumps(launches), learner=json.dumps({k: round(v, 6) for k, v in learner.items()}))
+    return d
+
+
+def phase_lstm_impala():
+    """cartpole-impala.yaml as written (the local worker on the card, 4
+    envs, T = 64, batch 512) with ``use_lstm`` at the catalog's defaults
+    for LSTM_IMPALA_WINDOW_S seconds; then cartpole-appo.yaml as written
+    (1 remote worker acting on the CPU, T = 50, batch 200) with
+    ``use_lstm``, one warm iteration and one timed: the same lines.
+    The T + 1 forward of each unroll runs the cell's step loop; no
+    kernel is on this path (host V-trace inputs, no frame pool)."""
+    from ray_tpu_torch.algorithms.appo.appo import APPOConfig
+    from ray_tpu_torch.algorithms.impala.impala import IMPALAConfig
+
+    algo = algo_from_yaml(CARTPOLE_IMPALA, IMPALAConfig, model={"use_lstm": True})
+    try:
+        d = _vtrace_window("lstm_impala", algo, LSTM_IMPALA_WINDOW_S)
+        require(d["steps"] > 0, "the LSTM IMPALA learner took no step")
+    finally:
+        algo.stop()
+    algo = algo_from_yaml(CARTPOLE_APPO, APPOConfig, model={"use_lstm": True})
+    try:
+        require(algo.workers.num_remote_workers() == 1, "cartpole-appo.yaml runs one worker")
+        d = _vtrace_window("lstm_appo", algo, 0.0)
+        say("lstm_appo", target_refreshes=algo._counters["num_target_updates"])
+    finally:
+        algo.stop()
+
+
+def phase_recurrent_serve(policy):
+    """gtrxl_ppo's policy in a ``BatchedPolicyServer`` (greedy): the
+    sequential fallback (no program, no capture), RSERVE_REQUESTS
+    requests from RSERVE_THREADS client threads, each answer bitwise
+    the policy's ``compute_actions`` from the initial state; requests/s,
+    latency, and one flash launch a request and unit."""
+    import threading
+
+    import numpy as np
+
+    from ray_tpu_torch.serve.policy_server import BatchedPolicyServer
+
+    server = BatchedPolicyServer(policy, name="gtrxl", max_batch_size=RSERVE_THREADS,
+                                 explore=False, start=False)
+    require(not server.fused and server.warmup() == 0, "a recurrent policy built a program")
+    rows = np.random.default_rng(3).uniform(-0.05, 0.05, (RSERVE_REQUESTS, 4)).astype(np.float32)
+    answers = [None] * RSERVE_REQUESTS
+    zero_kernel_counts()
+    server.start()
+
+    def client(k):
+        for i in range(k, RSERVE_REQUESTS, RSERVE_THREADS):
+            answers[i] = server.submit(rows[i]).result()
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(RSERVE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    st = server.stats()
+    server.stop()
+    launches = read_kernel_counts()["flash_attention"]
+    units = policy.model.num_transformer_units
+    require(launches == units * RSERVE_REQUESTS,
+            f"{launches} flash launches for {RSERVE_REQUESTS} sequential requests")
+    init = [s[None] for s in policy.get_initial_state()]
+    for row, (action, extra) in zip(rows, answers):
+        want, _, want_extra = policy.compute_actions(row[None], init, explore=False)
+        require(np.array_equal(action, want[0])
+                and all(np.array_equal(extra[k], v[0]) for k, v in want_extra.items()),
+                "a served answer differs from compute_actions from the initial state")
+    say("recurrent_serve", requests=RSERVE_REQUESTS, threads=RSERVE_THREADS,
+        requests_per_s=f"{RSERVE_REQUESTS / wall:.1f}", wall_s=f"{wall:.4f}",
+        latency_p50_ms=f"{1e3 * st['latency_p50_s']:.3f}",
+        latency_p99_ms=f"{1e3 * st['latency_p99_s']:.3f}",
+        mean_batch_rows=f"{st['mean_batch_rows']:.2f}", captures=st["captures"],
+        answers_bitwise=True, flash_launches=launches)
+    return launches
+
+
 # the Algorithm's own surface: checkpoints of the actor lane and of DQN's
 # device replay, evaluation workers with callbacks, the evaluate CLI
 CARTPOLE_ACTOR = os.path.join(REPO, "tuned_examples", "ppo", "cartpole-ppo.yaml")
@@ -4043,6 +4380,10 @@ def main() -> int:
     timed(phase_ma_ppo)
     timed(phase_ma_ppo_independent)
     timed(phase_views)
+    timed(phase_lstm_ppo)
+    gtrxl, gtrxl_policy = timed(phase_gtrxl_ppo)
+    timed(phase_lstm_impala)
+    recurrent_serve = timed(phase_recurrent_serve, gtrxl_policy)
     serve_tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     try:
         ckpt_ppo, serve_root, serve_newer = timed(phase_ckpt_ppo, serve_tmp)
@@ -4085,7 +4426,8 @@ def main() -> int:
     flash["launches_by_path"] = {"transformer_learner": tf_learner,
                                  "transformer_lane": tf_lane["flash"],
                                  "transformer_dqn": tf_dqn["flash_attention"],
-                                 "serve_torso": serve_torso}
+                                 "serve_torso": serve_torso, "gtrxl_ppo": gtrxl,
+                                 "recurrent_serve": recurrent_serve}
     flash_block["launches_by_path"] = {"ring": ring["gloo"], "ring_nccl_world_1": ring["nccl_world_1"],
                                        **({"ring_nccl": ring["nccl"]} if "nccl" in ring else {})}
     kernels = [gather, gae, scatter, descent, flash, flash_block]

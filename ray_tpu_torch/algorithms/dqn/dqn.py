@@ -144,11 +144,14 @@ class DQNTorchPolicy(TorchPolicy):
         config = dict(config)
         config["exploration_config"] = _epsilon_exploration_config(config)
         model_cfg = config.get("model") or {}
-        for key in ("use_lstm", "use_attention", "custom_model"):
-            if model_cfg.get(key):
-                raise NotImplementedError(
-                    f"DQN with model option {key!r} is not ported yet"
-                )
+        if model_cfg.get("use_lstm") or model_cfg.get("use_attention"):
+            raise ValueError(
+                "DQN with a recurrent model (use_lstm/use_attention) requires sequence "
+                "replay — use the R2D2 algorithm (reference r2d2.py; not ported yet: "
+                "ROADMAP.md queue 1 item 9) instead"
+            )
+        if model_cfg.get("custom_model"):
+            raise NotImplementedError("DQN with model option 'custom_model' is not ported yet")
         # the catalog's torso stands in for DQNModel and its logits are
         # read as Q values: no atoms, no weight noise
         self._uses_dqn_model = not model_cfg.get("use_transformer")

@@ -124,6 +124,10 @@ class ImpalaTorchPolicy(TorchPolicy):
         config["sgd_minibatch_size"] = max(1, int(config.get("train_batch_size", 500)) // T)
         super().__init__(observation_space, action_space, config, device=device)
         self.unroll_len = T
+        # train rows are whole T-step fragments (the train tree's), and
+        # _forward_unrolls runs a recurrent model over them: the base
+        # class's chopping of flat rows into unrolls does not apply
+        self._unroll_T = 1
 
     # -- the train tree on the host ------------------------------------
 
@@ -209,19 +213,24 @@ class ImpalaTorchPolicy(TorchPolicy):
         """One forward over the T + 1 steps of each unroll (the bootstrap
         obs last), with the policy's parameters or ``params`` (a list in
         :attr:`param_names` order): (dist inputs over the B·T real steps,
-        values (B, T), bootstrap values (B,))."""
-        if self.model.is_recurrent:
-            raise NotImplementedError(
-                "recurrent models under IMPALA are not ported yet: ROADMAP.md queue 1 item 8.7"
-            )
+        values (B, T), bootstrap values (B,)). A recurrent model runs the
+        T + 1 steps as one unroll from a zero state at the fragment's
+        start, with ``resets = [1, dones]``: an episode that ends inside
+        the fragment (terminated or truncated) restarts the state at the
+        next step, as the rollout did."""
         obs = batch[SampleBatch.OBS]
         B, T = obs.shape[0], obs.shape[1]
         obs_ext = torch.cat([obs, batch["bootstrap_obs"][:, None]], dim=1)
-        flat = obs_ext.reshape((B * (T + 1),) + tuple(obs.shape[2:]))
-        if params is None:
-            dist_all, val_all, _ = self.model_forward(flat)
+        if self.model.is_recurrent:
+            dones = batch["dones"].float()
+            args = (obs_ext, self.model.initial_state(B, obs.device))
+            kwargs = {"resets": torch.cat([torch.ones_like(dones[:, :1]), dones], dim=1)}
         else:
-            dist_all, val_all, _ = self.functional_forward(params, flat)
+            args, kwargs = (obs_ext.reshape((B * (T + 1),) + tuple(obs.shape[2:])),), {}
+        if params is None:
+            dist_all, val_all, _ = self.model_forward(*args, **kwargs)
+        else:
+            dist_all, val_all, _ = self.functional_forward(params, *args, **kwargs)
         dist_all = dist_all.reshape((B, T + 1) + tuple(dist_all.shape[1:]))
         val_all = val_all.reshape(B, T + 1)
         dist_inputs = dist_all[:, :T].reshape((B * T,) + tuple(dist_all.shape[2:]))

@@ -136,7 +136,7 @@ class PPOTorchPolicy(TorchPolicy):
         vf_clip = cfg.get("vf_clip_param", 10.0)
         vf_coeff = cfg.get("vf_loss_coeff", 1.0)
 
-        dist_inputs, value, _ = self.model_forward(batch[SampleBatch.OBS])
+        dist_inputs, value, _ = self.model_forward_train(batch)
         dist = self.dist_class(dist_inputs)
         prev_dist = self.dist_class(batch[SampleBatch.ACTION_DIST_INPUTS])
 

@@ -196,6 +196,15 @@ class SACTorchPolicy(TorchPolicy):
     inference_weight_keys = ("actor",)
 
     def __init__(self, observation_space, action_space, config: Dict, device=None):
+        for key in ("model", "policy_model_config", "q_model_config"):
+            cfg = config.get(key) or {}
+            if cfg.get("use_lstm") or cfg.get("use_attention"):
+                raise ValueError(
+                    f"SAC with a recurrent {key} (use_lstm/use_attention) requires sequence "
+                    "replay — use RNNSAC (reference rnnsac.py) or, for Q-learning, the R2D2 "
+                    "algorithm (reference r2d2.py); neither is ported yet: ROADMAP.md queue 1 "
+                    "item 9"
+                )
         self.action_dim = int(np.prod(action_space.shape))
         self.low = float(np.min(action_space.low))
         self.high = float(np.max(action_space.high))
@@ -275,9 +284,10 @@ class SACTorchPolicy(TorchPolicy):
 
     # -- the update --------------------------------------------------------
 
-    def _train_columns(self, samples) -> Dict[str, np.ndarray]:
+    def _train_columns(self, samples, keep_state_in: bool = False) -> Dict[str, np.ndarray]:
         """The five columns an update reads, float64 ones as float32 (the
-        update casts to float32 anyway; half the bytes to the device)."""
+        update casts to float32 anyway; half the bytes to the device).
+        SAC's nets are feed-forward: there is no state to keep."""
         out = {}
         for k in TRAIN_COLUMNS:
             if k in samples:

@@ -9,7 +9,9 @@ Builds ``--run``'s algorithm from ``--config`` with ``env`` and
 ``num_workers: 0``, restores the checkpoint into it (``algo.restore``),
 makes the env from the port's registry and plays ``--episodes``
 episodes (episode ``i`` reset with seed ``i``) through
-``compute_single_action``, greedily unless ``--explore``. Prints a line
+``compute_single_action``, greedily unless ``--explore``; a recurrent
+policy's state starts each episode from the initial state and is
+threaded through the calls. Prints a line
 per episode, then one JSON line ``{"episodes", "mean_reward",
 "max_reward"}``. It runs on the card unless the config says
 ``"device": "cpu"``, and raises without a CUDA device otherwise.
@@ -49,8 +51,12 @@ def main(argv=None) -> int:
             obs, _ = env.reset(seed=ep)
             done = trunc = False
             total = 0.0
+            state = algo.get_policy().get_initial_state() or None
             while not (done or trunc):
-                action = algo.compute_single_action(obs, explore=args.explore)
+                if state:
+                    action, state, _ = algo.compute_single_action(obs, state, explore=args.explore)
+                else:
+                    action = algo.compute_single_action(obs, explore=args.explore)
                 obs, r, done, trunc, _ = env.step(action)
                 total += float(r)
             rewards.append(total)

@@ -16,7 +16,8 @@ episode resets when ``__all__`` is done or no agent is left, and its
 length in env steps (``episode.length // num_agents``).
 
 What the reference's sampler does not do, this one does not either:
-views beyond the default columns, ``batch_mode``, ``horizon``,
+recurrent state (a recurrent policy raises, item 3b.2), views beyond
+the default columns, ``batch_mode``, ``horizon``,
 ``clip_actions`` and frame pools. ``normalize_actions`` keeps its default
 (True). ``AGENT_INDEX`` is ``hash(agent_id) % 2**31``: stable for
 integer ids, per process for string ids.
@@ -57,6 +58,12 @@ class MultiAgentSyncSampler:
         batch_mode: str = "truncate_episodes",
         normalize_actions: bool = True,
     ):
+        recurrent = sorted(pid for pid, p in policy_map.items() if p.is_recurrent)
+        if recurrent:
+            raise NotImplementedError(
+                f"recurrent policies {recurrent} under the multi-agent sampler: the reference's "
+                "carries no state; ROADMAP.md queue 1 item 3b.2"
+            )
         self.env = env
         self.policy_map = policy_map
         self.policy_mapping_fn = policy_mapping_fn

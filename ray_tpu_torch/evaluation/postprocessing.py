@@ -58,9 +58,10 @@ def compute_gae_for_sample_batch(
     policy, sample_batch: SampleBatch, other_agent_batches=None, episode=None
 ) -> SampleBatch:
     """Bootstrap the fragment's tail with V(s_T) when it was cut or
-    truncated, 0 when its episode terminated. The port's policies are
-    feed-forward (``Policy.is_recurrent`` is False), so no state goes
-    into the bootstrap."""
+    truncated, 0 when its episode terminated. A recurrent policy steps
+    from the state after the fragment's last step: the sampler's
+    ``last_state_out``, else a ``state_out_k`` column's last row, else
+    the initial state."""
     terminated = bool(sample_batch[SampleBatch.TERMINATEDS][-1])
     truncated = bool(
         sample_batch.get(SampleBatch.TRUNCATEDS, np.zeros(len(sample_batch), bool))[-1]
@@ -69,7 +70,17 @@ def compute_gae_for_sample_batch(
         last_r = 0.0
     else:
         last_obs = sample_batch[SampleBatch.NEXT_OBS][-1]
-        last_r = float(policy.value_batch(last_obs[None])[0])
+        state = None
+        if policy.is_recurrent:
+            last = getattr(sample_batch, "last_state_out", None)
+            if last is not None:
+                state = [np.asarray(s)[None] for s in last]
+            elif "state_out_0" in sample_batch:
+                state = [sample_batch[f"state_out_{i}"][-1][None]
+                         for i in range(len(policy.get_initial_state()))]
+            else:
+                state = [np.asarray(s)[None] for s in policy.get_initial_state()]
+        last_r = float(policy.value_batch(last_obs[None], state)[0])
     return compute_advantages(
         sample_batch,
         last_r,

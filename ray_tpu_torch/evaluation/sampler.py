@@ -47,8 +47,16 @@ set to the env's info; ``on_episode_end`` before the slot's flush; and
 ``custom_metrics`` go into its ``RolloutMetrics``. A raising callback
 fails the sample, as in the reference.
 
-Not ported (``ROADMAP.md`` queue 1 item 3): ``AsyncSampler`` and
-recurrent state (item 8.7: a recurrent policy raises here).
+Recurrent policies: each env slot carries its state. A step's
+``compute_actions`` gets the slots' states stacked, each row records the
+state it was acted from as ``state_in_k`` (a copy of its own, sharing no
+memory with the policy's output), the slot's state advances to the
+step's ``state_out`` and restarts from the initial state when the
+episode ends; a flushed fragment carries the state after its last step
+as ``batch.last_state_out``, which GAE's bootstrap reads
+(``postprocessing.py``).
+
+Not ported (``ROADMAP.md`` queue 1 item 3): ``AsyncSampler``.
 
 ``timers`` adds up the seconds of the loop's parts (``act_s``: the
 policy's ``compute_actions``; ``env_s``: the vector env's step;
@@ -127,16 +135,6 @@ def postprocess_batch(policy, batch):
     return policy.postprocess_trajectory(batch)
 
 
-def check_ported_views(policy) -> None:
-    """Raise for a policy whose sampling needs what is not ported: a
-    recurrent one (its state columns)."""
-    if policy.get_initial_state():
-        raise NotImplementedError(
-            "recurrent policies on the actor lane are not ported yet: ROADMAP.md "
-            "queue 1 item 8.7"
-        )
-
-
 class SyncSampler:
     def __init__(
         self,
@@ -153,7 +151,6 @@ class SyncSampler:
         callbacks=None,
         flush_on_episode_end: bool = True,
     ):
-        check_ported_views(policy)
         if not flush_on_episode_end and batch_mode != "truncate_episodes":
             raise ValueError("fixed unrolls (flush_on_episode_end=False) need "
                              "batch_mode='truncate_episodes'")
@@ -181,6 +178,9 @@ class SyncSampler:
 
         raw_obs, _ = self.env.vector_reset()
         self.cur_obs = [self._transform(o) for o in raw_obs]
+        init_state = self.policy.get_initial_state()
+        self._has_state = bool(init_state)
+        self.states = [[s.copy() for s in init_state] for _ in range(n)]
         # the prev-1 shortcut columns, when the policy declares them
         vr = getattr(self.policy, "view_requirements", None) or {}
         self._want_prev_actions = SampleBatch.PREV_ACTIONS in vr
@@ -226,8 +226,12 @@ class SyncSampler:
     def _step_once(self, out: List[SampleBatch]) -> None:
         n = self.env.num_envs
         t0 = time.perf_counter()
-        actions, _, extras = self.policy.compute_actions(
-            np.stack(self.cur_obs), None, explore=True, **self._compute_views()
+        state_batches = None
+        if self._has_state:
+            state_batches = [np.stack([st[k] for st in self.states])
+                             for k in range(len(self.states[0]))]
+        actions, state_out, extras = self.policy.compute_actions(
+            np.stack(self.cur_obs), state_batches, explore=True, **self._compute_views()
         )
         t1 = time.perf_counter()
         space = self.env.action_space
@@ -256,6 +260,10 @@ class SyncSampler:
             }
             for k, v in extras.items():
                 row[k] = np.asarray(v[i])
+            if self._has_state:
+                for k, st in enumerate(self.states[i]):
+                    row[f"state_in_{k}"] = st
+                self.states[i] = [np.array(s[i]) for s in state_out]
             if self._want_prev_actions:
                 row[SampleBatch.PREV_ACTIONS] = (
                     np.zeros_like(np.asarray(actions[i]))
@@ -296,6 +304,8 @@ class SyncSampler:
                     self._cb("on_episode_start", i)
                 raw, _ = self.env.reset_at(i)
                 self.cur_obs[i] = self._transform(raw)
+                if self._has_state:
+                    self.states[i] = [s.copy() for s in self.policy.get_initial_state()]
             else:
                 self.cur_obs[i] = t_obs
 
@@ -328,6 +338,10 @@ class SyncSampler:
         batch = self.collectors[i].flush()
         batch[SampleBatch.UNROLL_ID] = np.full(batch.count, self.unroll_id, np.int64)
         self.unroll_id += 1
+        if self._has_state:
+            # the state after the fragment's last step, for GAE's bootstrap
+            # (no per-row state_out column)
+            batch.last_state_out = [np.asarray(s) for s in self.states[i]]
         batch = postprocess_batch(self.policy, batch)
         # shrink the fragment before it leaves the worker (the frame
         # pool; policies opt in through compress_for_shipping)

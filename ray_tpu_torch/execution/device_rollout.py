@@ -80,7 +80,10 @@ class DeviceRolloutEngine:
         postprocess: str = "gae",
     ):
         if policy.model.is_recurrent:
-            raise ValueError("the device lane runs feedforward models only")
+            raise ValueError(
+                "config.env_backend='jax' but the device rollout lane is unavailable: policy "
+                f"{type(policy).__name__} cannot lower its act path (recurrent model)"
+            )
         if postprocess not in ("gae", "none"):
             raise ValueError(f"unknown postprocess {postprocess!r}")
         self.postprocess = postprocess

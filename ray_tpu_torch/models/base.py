@@ -68,16 +68,18 @@ class Dense(nn.Module):
         dtype: torch.dtype = torch.float32,
         kernel_scale: float = 1.0,
         generator: Optional[torch.Generator] = None,
+        use_bias: bool = True,
     ):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
         variance_scaling_(self.weight, kernel_scale, in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.dtype
-        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+        bias = None if self.bias is None else self.bias.to(d)
+        return F.linear(x.to(d), self.weight.to(d), bias)
 
 
 class Conv(nn.Module):
@@ -110,12 +112,48 @@ class Conv(nn.Module):
         )
 
 
-class TorchModel(nn.Module):
-    """Base class; see the module docstring for the contract."""
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` over the last axis: ``scale`` and
+    ``bias``, epsilon 1e-6 (torch's default is 1e-5), and the variance
+    as ``E[x²] - E[x]²`` clipped at 0, flax's fast variance."""
 
-    def initial_state(self, batch_size: int = 1) -> Sequence[torch.Tensor]:
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        mu2 = torch.mean(x * x, dim=-1, keepdim=True)
+        var = torch.clamp_min(mu2 - mu * mu, 0.0)
+        return (x - mu) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+
+
+class TorchModel(nn.Module):
+    """Base class; see the module docstring for the contract.
+
+    A recurrent model (``is_recurrent``) takes ``obs`` as (B, T, ...)
+    and a state tuple of (B, ...) tensors, with optional keyword
+    arguments ``resets`` ((B, T): 1 where the carried state restarts),
+    ``prev_actions`` and ``prev_rewards``; it returns outputs flattened
+    over (B·T,) and the state after the last step."""
+
+    def initial_state(self, batch_size: int = 1, device=None) -> Sequence[torch.Tensor]:
+        """Initial recurrent state tensors, leading dim ``batch_size``."""
         return ()
 
     @property
     def is_recurrent(self) -> bool:
+        return False
+
+    @property
+    def supports_stored_train_state(self) -> bool:
+        """Whether the learn path's (B, T) unroll may start from the
+        sampler's stored chunk-start states (the LSTM: its ``resets``
+        re-zero the carry at every episode boundary, so a stored state is
+        right wherever the chunk continues a trajectory). A model whose
+        state ``resets`` cannot re-zero per segment (GTrXL's memory)
+        trains from zero state, the reference's documented
+        approximation."""
         return False

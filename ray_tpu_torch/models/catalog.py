@@ -1,9 +1,10 @@
 """Model catalog: space + config → model and action distribution.
 
 Counterpart of ``ray_tpu/models/catalog.py`` for the models this slice
-ports: ``use_transformer`` gets :class:`TransformerPolicyNet` (checked
-first, as in the reference), image observations (H, W, C)
-:class:`VisionNet`, flat ones :class:`FCNet`; Discrete action spaces
+ports: ``use_transformer`` gets :class:`TransformerPolicyNet`, then
+``use_lstm`` :class:`LSTMWrapper` and ``use_attention`` :class:`GTrXLNet`
+(in the reference's order, before the image branch), image observations
+(H, W, C) :class:`VisionNet`, flat ones :class:`FCNet`; Discrete action spaces
 :class:`Categorical` and Box ones :class:`DiagGaussian`. The ``dtype`` key picks the compute dtype (None:
 bfloat16 for the vision net, float32 for the MLP and the transformer),
 as in the reference. Spaces are duck-typed (``shape``; ``n`` for a
@@ -18,10 +19,12 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models import distributions as dists
+from ray_tpu_torch.models.attention import GTrXLNet
 from ray_tpu_torch.models.base import TorchModel
 from ray_tpu_torch.models.cnn import VisionNet, get_filter_config
 from ray_tpu_torch.models.fcnet import FCNet
 from ray_tpu_torch.models.preprocessors import get_preprocessor_for_space
+from ray_tpu_torch.models.rnn import LSTMWrapper
 from ray_tpu_torch.models.transformer import TransformerPolicyNet
 
 MODEL_DEFAULTS: Dict[str, Any] = {
@@ -32,6 +35,22 @@ MODEL_DEFAULTS: Dict[str, Any] = {
     "post_fcnet_hiddens": [],
     "post_fcnet_activation": "relu",
     "vf_share_layers": False,
+    # recurrent models (models/rnn.py, models/attention.py); max_seq_len
+    # is the learn path's unroll length
+    "use_lstm": False,
+    "max_seq_len": 20,
+    "lstm_cell_size": 256,
+    "lstm_use_prev_action": False,
+    "lstm_use_prev_reward": False,
+    "use_attention": False,
+    "attention_num_transformer_units": 1,
+    "attention_dim": 64,
+    "attention_num_heads": 2,
+    "attention_head_dim": 32,
+    "attention_memory_inference": 50,
+    "attention_memory_training": 50,
+    "attention_position_wise_mlp_dim": 32,
+    "attention_init_gru_gate_bias": 2.0,
     "dtype": None,  # None → per-model default (bf16 convs, f32 mlps)
     # decoder-style transformer torso (models/transformer.py)
     "use_transformer": False,
@@ -44,7 +63,7 @@ MODEL_DEFAULTS: Dict[str, Any] = {
     "partition_rules": None,
 }
 
-_UNPORTED = ("use_lstm", "use_attention", "custom_model")
+_UNPORTED = ("custom_model",)
 
 
 def _is_box(space) -> bool:
@@ -115,6 +134,36 @@ class ModelCatalog:
                 dtype=cfg["dtype"] or "float32",
                 generator=generator,
             )
+        obs_size = int(np.prod(obs_shape))
+        if cfg["use_lstm"]:
+            in_size = obs_size
+            if cfg["lstm_use_prev_action"]:
+                in_size += int(np.prod(getattr(action_space, "shape", None) or ()))
+            if cfg["lstm_use_prev_reward"]:
+                in_size += 1
+            return LSTMWrapper(
+                in_size,
+                num_outputs,
+                cell_size=cfg["lstm_cell_size"],
+                hiddens=tuple(cfg["fcnet_hiddens"]),
+                activation=cfg["fcnet_activation"],
+                use_prev_action=cfg["lstm_use_prev_action"],
+                use_prev_reward=cfg["lstm_use_prev_reward"],
+                generator=generator,
+            )
+        if cfg["use_attention"]:
+            return GTrXLNet(
+                obs_size,
+                num_outputs,
+                attention_dim=cfg["attention_dim"],
+                num_transformer_units=cfg["attention_num_transformer_units"],
+                num_heads=cfg["attention_num_heads"],
+                head_dim=cfg["attention_head_dim"],
+                memory_len=cfg["attention_memory_training"],
+                position_wise_mlp_dim=cfg["attention_position_wise_mlp_dim"],
+                init_gru_gate_bias=cfg["attention_init_gru_gate_bias"],
+                generator=generator,
+            )
         if len(obs_shape) == 3:
             filters = cfg["conv_filters"] or get_filter_config(obs_shape)
             return VisionNet(
@@ -131,7 +180,7 @@ class ModelCatalog:
                 generator=generator,
             )
         return FCNet(
-            int(np.prod(obs_shape)),
+            obs_size,
             num_outputs,
             hiddens=tuple(cfg["fcnet_hiddens"]),
             activation=cfg["fcnet_activation"],

@@ -88,15 +88,12 @@ class Policy:
 
     def compute_single_action(self, obs, state=None, explore: bool = True, **kwargs):
         """One observation's ``(action, state_out, extra)``; the
-        reference's signature. A recurrent ``state`` raises: recurrent
-        models are not ported yet (``ROADMAP.md`` queue 1 item 8.7)."""
-        if state:
-            raise NotImplementedError(
-                "recurrent state in compute_single_action is not ported yet: "
-                "ROADMAP.md queue 1 item 8.7"
-            )
+        reference's signature. A recurrent policy steps from ``state``
+        (one array per state tensor, no batch dim) and returns the state
+        after the step the same way."""
+        state_batches = [np.asarray(s)[None] for s in state] if state else None
         actions, state_out, extra = self.compute_actions(
-            np.asarray(obs)[None], explore=explore, **kwargs
+            np.asarray(obs)[None], state_batches, explore=explore, **kwargs
         )
         return (
             actions[0],

@@ -32,6 +32,17 @@ come from a device table indexed by a device step counter
 rollout + update slots) in one host call through
 ``sharding/superstep.SuperstepRunner``: one CUDA graph replayed K times
 on the card, the same body run K times on the CPU.
+
+Recurrent models (``use_lstm``, ``use_attention``) act one step at a
+time with their state (``compute_actions``' ``state_batches``), and
+learn on fixed (B, T) unrolls of T = ``max_seq_len`` rows: the train
+tree gets a ``resets`` column where the trajectory is discontinuous
+(:meth:`TorchPolicy._batch_to_train_tree`), :meth:`TorchPolicy.prepare_batch`
+tiles or trims the batch to whole unrolls and keeps one stored state an
+unroll (``__chunk__state_in_k``, for a model that trains from stored
+states), and the nest shuffles whole unrolls: a recurrent policy's
+permutations are over unrolls (``batch_size // T`` of them), each
+expanded to its T rows.
 """
 
 from __future__ import annotations
@@ -57,6 +68,10 @@ from ray_tpu_torch.policy.policy import Policy, ViewRequirement
 from ray_tpu_torch.sharding.superstep import SuperstepRunner, batch_finite
 from ray_tpu_torch.utils.exploration import exploration_from_config
 from ray_tpu_torch.utils.schedules import make_schedule
+
+# columns with one row per T-row unroll (the stored chunk-start states)
+CHUNK = "__chunk__"
+RESETS = "resets"
 
 
 def _torch_dtype(np_dtype) -> torch.dtype:
@@ -140,6 +155,14 @@ class DeferredStats:
         return out
 
 
+def _state_columns(batch: Dict[str, torch.Tensor], prefix: str) -> List[torch.Tensor]:
+    """``batch[prefix + "0"], batch[prefix + "1"], ...`` while present."""
+    out = []
+    while f"{prefix}{len(out)}" in batch:
+        out.append(batch[f"{prefix}{len(out)}"])
+    return out
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over every element (optax.global_norm)."""
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
@@ -205,6 +228,11 @@ class TorchPolicy(Policy):
         ).to(self.device)
         self.param_names = [n for n, _ in self.model.named_parameters()]
         self.params = [p for _, p in self.model.named_parameters()]
+        # the learn path's unroll length (the reference's max_seq_len):
+        # flat train rows are chopped into fixed (B, T) unrolls
+        self._unroll_T = (
+            int(self.model_config.get("max_seq_len", 20)) if self.model.is_recurrent else 1
+        )
         # non-gradient state the loss reads (DQN's target network)
         self.aux_state: Dict[str, Any] = self._init_aux_state()
 
@@ -302,15 +330,87 @@ class TorchPolicy(Policy):
 
     # -- inference -------------------------------------------------------
 
-    def model_forward(self, obs: torch.Tensor):
-        """(dist_inputs, value, state_out) for a flat (N, ...) obs batch."""
+    def model_forward(self, obs: torch.Tensor, state=(), resets=None, prev_actions=None,
+                      prev_rewards=None):
+        """(dist_inputs, value, state_out): for a feed-forward model, of
+        a flat (N, ...) obs batch; for a recurrent one, of (B, T, ...)
+        obs from ``state``, with outputs flattened over (B·T,)."""
+        if self.model.is_recurrent:
+            return self.model(obs, tuple(state), resets=resets, prev_actions=prev_actions,
+                              prev_rewards=prev_rewards)
         return self.model(obs)
 
-    def functional_forward(self, params: List[torch.Tensor], obs: torch.Tensor):
+    def functional_forward(self, params: List[torch.Tensor], obs: torch.Tensor, state=(),
+                           **kwargs):
         """:meth:`model_forward` with another parameter list in the
         order of :attr:`param_names` (e.g. target-network params)."""
+        args = (obs, tuple(state)) if self.model.is_recurrent else (obs,)
         return torch.func.functional_call(
-            self.model, dict(zip(self.param_names, params)), (obs,)
+            self.model, dict(zip(self.param_names, params)), args, kwargs
+        )
+
+    def get_initial_state(self) -> List[np.ndarray]:
+        return [s[0].numpy() for s in self.model.initial_state(1)]
+
+    def _act_forward(self, obs: torch.Tensor, state=None, prev_actions=None, prev_rewards=None):
+        """One step's forward of a flat (N, ...) obs batch. A recurrent
+        model steps once from ``state`` (its initial state when empty),
+        the previous actions and rewards zero where not given, as the
+        reference's act function feeds them."""
+        if not self.model.is_recurrent:
+            return self.model_forward(obs)
+        n = obs.shape[0]
+        if not state:
+            state = self.model.initial_state(n, obs.device)
+        if getattr(self.model, "use_prev_action", False) and prev_actions is None:
+            prev_actions = torch.zeros((n,) + tuple(self.action_space.shape or ()), device=obs.device)
+        if getattr(self.model, "use_prev_reward", False) and prev_rewards is None:
+            prev_rewards = torch.zeros((n,), device=obs.device)
+        return self.model_forward(
+            obs[:, None], state,
+            prev_actions=None if prev_actions is None else prev_actions[:, None],
+            prev_rewards=None if prev_rewards is None else prev_rewards[:, None],
+        )
+
+    def model_forward_train(self, batch: Dict[str, torch.Tensor]):
+        """The learn path's forward over a flat training batch. A
+        feed-forward model passes through; a recurrent one runs the N
+        rows as (N / T, T) unrolls, each from the sampler's stored state
+        at its first row when the model trains from stored states
+        (``__chunk__state_in_k``, one row an unroll; or per-row
+        ``state_in_k`` columns, sliced at each unroll's first row), else
+        from zero state, with the ``resets`` column restarting the carry
+        at trajectory boundaries. Outputs are flat (N,), so losses over
+        flat rows work unchanged."""
+        obs = batch[SampleBatch.OBS]
+        if not self.model.is_recurrent:
+            return self.model_forward(obs)
+        T = self._unroll_T
+        N = obs.shape[0]
+        if N % T:
+            raise ValueError(
+                f"recurrent train batch of {N} rows is not a multiple of the unroll "
+                f"length max_seq_len={T}"
+            )
+        B = N // T
+        resets = batch.get(RESETS)
+        pa = batch.get(SampleBatch.PREV_ACTIONS) if getattr(
+            self.model, "use_prev_action", False) else None
+        pr = batch.get(SampleBatch.PREV_REWARDS) if getattr(
+            self.model, "use_prev_reward", False) else None
+        stored = self.model.supports_stored_train_state
+        if stored and f"{CHUNK}state_in_0" in batch:
+            state0 = _state_columns(batch, f"{CHUNK}state_in_")
+        elif stored and "state_in_0" in batch:
+            state0 = [s.reshape((B, T) + tuple(s.shape[1:]))[:, 0]
+                      for s in _state_columns(batch, "state_in_")]
+        else:
+            state0 = self.model.initial_state(B, obs.device)
+        return self.model_forward(
+            obs.reshape((B, T) + tuple(obs.shape[1:])), state0,
+            resets=None if resets is None else resets.reshape(B, T),
+            prev_actions=None if pa is None else pa.reshape((B, T) + tuple(pa.shape[1:])),
+            prev_rewards=None if pr is None else pr.reshape(B, T),
         )
 
     def _action_step_body(
@@ -321,6 +421,9 @@ class TorchPolicy(Policy):
         actions: Optional[torch.Tensor] = None,
         coeffs: Optional[Dict] = None,
         draws: Tuple = (),
+        state=None,
+        prev_actions: Optional[torch.Tensor] = None,
+        prev_rewards: Optional[torch.Tensor] = None,
     ):
         """Model forward, distribution, sampling and extra fetches for
         one step: ``(actions, state_out, extra)``. Shared by
@@ -330,8 +433,9 @@ class TorchPolicy(Policy):
         (:meth:`action_draws`, taken ahead), the sample reads them
         instead of ``generator``. ``coeffs``: the exploration's
         coefficients (default :attr:`coeff_values`; a graphed slot
-        passes the device scalars)."""
-        dist_inputs, value, state_out = self.model_forward(obs)
+        passes the device scalars). A recurrent model steps from
+        ``state`` (:meth:`_act_forward`)."""
+        dist_inputs, value, state_out = self._act_forward(obs, state, prev_actions, prev_rewards)
         dist = self.dist_class(dist_inputs)
         if actions is None:
             actions, logp, _ = self.exploration.sample_fn(
@@ -365,7 +469,7 @@ class TorchPolicy(Policy):
         space = self.observation_space
         obs = torch.zeros((1,) + tuple(space.shape), dtype=_torch_dtype(space.dtype),
                           device=self.device)
-        dist_inputs = self.model_forward(obs)[0]
+        dist_inputs = self._act_forward(obs)[0]
         return self.dist_class, tuple(dist_inputs.shape[1:]), dist_inputs.dtype
 
     def action_draws(self, generator: Optional[torch.Generator], explore: bool) -> Tuple:
@@ -383,14 +487,25 @@ class TorchPolicy(Policy):
     @torch.no_grad()
     def compute_actions(self, obs_batch, state_batches=None, prev_action_batch=None,
                         prev_reward_batch=None, explore: bool = True, **kwargs):
-        """Actions for a batch of observations. The port's models are
-        feed-forward and read neither the previous actions and rewards
-        nor other views (``kwargs``), as the reference's FCNet reads
-        none of them."""
+        """Actions for a batch of observations. A recurrent model steps
+        once from ``state_batches`` (its initial state when None), and
+        reads ``prev_action_batch`` / ``prev_reward_batch`` when built
+        to (zeros where not given); ``state_out`` is the state after the
+        step. No model reads other views (``kwargs``), as no model of
+        the reference does."""
         self.exploration.update_coeffs(self.coeff_values, self.global_timestep)
         obs = torch.as_tensor(np.asarray(obs_batch), device=self.device)
+        recurrent = {}
+        if self.model.is_recurrent:
+            recurrent["state"] = self._device_state(state_batches)
+            if prev_action_batch is not None:
+                recurrent["prev_actions"] = torch.as_tensor(
+                    np.asarray(prev_action_batch), device=self.device)
+            if prev_reward_batch is not None:
+                recurrent["prev_rewards"] = torch.as_tensor(
+                    np.asarray(prev_reward_batch, np.float32), device=self.device)
         actions, state_out, extra = self._action_step_body(
-            obs, self.action_generator, explore
+            obs, self.action_generator, explore, **recurrent
         )
         return (
             actions.cpu().numpy(),
@@ -398,11 +513,15 @@ class TorchPolicy(Policy):
             {k: v.cpu().numpy() for k, v in extra.items()},
         )
 
+    def _device_state(self, state_batches) -> List[torch.Tensor]:
+        return [torch.as_tensor(np.asarray(s), device=self.device) for s in state_batches or ()]
+
     @torch.no_grad()
     def value_batch(self, obs_batch, state_batches=None) -> np.ndarray:
-        """Bootstrap values for GAE."""
+        """Bootstrap values for GAE; a recurrent model steps once from
+        ``state_batches``."""
         obs = torch.as_tensor(np.asarray(obs_batch), device=self.device)
-        return self.model_forward(obs)[1].cpu().numpy()
+        return self._act_forward(obs, self._device_state(state_batches))[1].cpu().numpy()
 
     # -- learning --------------------------------------------------------
 
@@ -411,24 +530,50 @@ class TorchPolicy(Policy):
         self.coeff_values["lr"] = float(self._lr_schedule(t))
         self.coeff_values["entropy_coeff"] = float(self._entropy_schedule(t))
 
-    def _train_columns(self, samples) -> Dict[str, np.ndarray]:
-        """Training columns as a flat dict of host arrays."""
+    def _train_columns(self, samples, keep_state_in: bool = False) -> Dict[str, np.ndarray]:
+        """Training columns as a flat dict of host arrays (the
+        ``state_in_k`` columns only with ``keep_state_in``)."""
         drop = {SampleBatch.INFOS, SampleBatch.SEQ_LENS}
         if not self._ship_next_obs:
             drop.add(SampleBatch.NEXT_OBS)
+        skip = ("state_out_",) if keep_state_in else ("state_in_", "state_out_")
         return {
             k: np.asarray(v)
             for k, v in samples.items()
             if k not in drop
-            and not k.startswith(("state_in_", "state_out_"))
+            and not k.startswith(skip)
             and isinstance(v, np.ndarray)
             and v.dtype != object
         }
 
     def _batch_to_train_tree(self, samples) -> Dict[str, np.ndarray]:
         """:meth:`_train_columns`; a stacked pixel OBS column whose rows
-        slide becomes a frame pool (:meth:`_maybe_dedup_framestack`)."""
-        return self._maybe_dedup_framestack(self._train_columns(samples))
+        slide becomes a frame pool (:meth:`_maybe_dedup_framestack`).
+
+        A recurrent model gets the per-row ``resets`` column its unroll
+        forward reads: 1 wherever the trajectory is discontinuous (an
+        EPS_ID change, or a step counter T that does not count on, as at
+        a fragment boundary between env slots). Row 0 is always a reset,
+        except for a model that trains from the sampler's stored states
+        (the LSTM), whose ``state_in_k`` columns the tree keeps: there
+        row 0 is a reset only where its episode starts (T == 0). Other
+        models' states never ship (a GTrXL memory is 12.8 KB a row at
+        the catalog's defaults)."""
+        stored = self.model.is_recurrent and self.model.supports_stored_train_state
+        tree = self._maybe_dedup_framestack(self._train_columns(samples, keep_state_in=stored))
+        if self.model.is_recurrent and RESETS not in tree:
+            n = len(next(iter(tree.values())))
+            resets = np.zeros(n, np.float32)
+            eps = tree.get(SampleBatch.EPS_ID)
+            tcol = tree.get(SampleBatch.T)
+            if not stored or tcol is None or tcol[0] == 0:
+                resets[0] = 1.0
+            if eps is not None:
+                resets[1:] = np.maximum(resets[1:], (eps[1:] != eps[:-1]).astype(np.float32))
+            if tcol is not None:
+                resets[1:] = np.maximum(resets[1:], (tcol[1:] != tcol[:-1] + 1).astype(np.float32))
+            tree[RESETS] = resets
+        return tree
 
     def replay_columns(self, samples) -> Dict[str, np.ndarray]:
         """The host column tree a replay buffer stores for this policy
@@ -523,16 +668,48 @@ class TorchPolicy(Policy):
 
     def prepare_batch(self, samples) -> Tuple[Dict[str, np.ndarray], int]:
         """Host tree for the learn call and its row count (the frame
-        pool of a deduplicated batch is not a row column)."""
+        pool of a deduplicated batch is not a row column). A recurrent
+        policy's rows become whole unrolls: a batch shorter than one is
+        tiled up to T rows, with a reset at each wrap (the carry at the
+        end of one copy must not leak into the next; a stored state
+        covers an unroll's first row only), and a longer one is trimmed
+        to a multiple of T. Stored states then ship one an unroll, the
+        state of each unroll's first row (``__chunk__state_in_k``)."""
         batch = self._batch_to_train_tree(samples)
-        bsize = next(len(v) for k, v in batch.items() if k != FRAMES)
+        frames = batch.pop(FRAMES, None)
+        bsize = len(next(iter(batch.values())))
+        T = self._unroll_T
+        if bsize < T:
+            reps, orig = -(-T // bsize), bsize
+            batch = {k: np.tile(v, (reps,) + (1,) * (v.ndim - 1))[:T] for k, v in batch.items()}
+            if RESETS in batch:
+                resets = batch[RESETS].copy()
+                resets[orig::orig] = 1.0
+                batch[RESETS] = resets
+            bsize = T
+        elif bsize % T:
+            bsize = (bsize // T) * T
+            batch = {k: v[:bsize] for k, v in batch.items()}
+        if T > 1:
+            k = 0
+            while f"state_in_{k}" in batch:
+                batch[f"{CHUNK}state_in_{k}"] = batch.pop(f"state_in_{k}")[::T]
+                k += 1
+        if frames is not None:
+            batch[FRAMES] = frames
         return batch, bsize
+
+    def _perm_width(self, batch_size: int) -> int:
+        """What a permutation permutes: rows, or a recurrent policy's
+        unrolls."""
+        return batch_size // self._unroll_T
 
     def _host_permutations(self, batch_size: int) -> torch.Tensor:
         """(num_sgd_iter, batch_size) per-epoch row permutations from the
-        policy's host generator, on the host."""
+        policy's host generator, on the host; a recurrent policy's are
+        (num_sgd_iter, batch_size // T) permutations of its unrolls."""
         return torch.stack([
-            torch.randperm(batch_size, generator=self.perm_generator)
+            torch.randperm(self._perm_width(batch_size), generator=self.perm_generator)
             for _ in range(self.num_sgd_iter)
         ])
 
@@ -541,8 +718,17 @@ class TorchPolicy(Policy):
         return self._host_permutations(batch_size).to(self.device)
 
     def _nest_shape(self, batch_size: int) -> Tuple[int, int]:
-        """(minibatch rows, minibatches per epoch) of the nest."""
+        """(minibatch rows, minibatches per epoch) of the nest. A
+        recurrent policy's minibatch is whole unrolls, ``max(T, (mb //
+        T) * T)`` rows."""
         mb = min(batch_size, max(1, self.minibatch_size))
+        T = self._unroll_T
+        if T > 1:
+            if batch_size % T:
+                raise ValueError(
+                    f"batch {batch_size} not a multiple of max_seq_len={T}"
+                )
+            mb = max(T, (mb // T) * T)
         return mb, max(1, batch_size // mb)
 
     def _steps_per_update(self, batch_size: int) -> int:
@@ -627,7 +813,8 @@ class TorchPolicy(Policy):
         """The SGD nest on a device-resident batch. Frame-pool batches
         (``obs_frames`` + ``obs_frame_idx``) rebuild their observations
         first with the row-gather kernel. ``perms``: (num_sgd_iter,
-        batch_size) row permutations; drawn from the policy's generator
+        batch_size) row permutations (a recurrent policy's: of its
+        ``batch_size // T`` unrolls); drawn from the policy's generator
         when None.
 
         ``defer_stats=True`` returns the reduced stats still on the
@@ -654,6 +841,30 @@ class TorchPolicy(Policy):
         out["cur_lr"] = self.coeff_values["lr"]
         return out
 
+    def compute_gradients(self, samples) -> Tuple[Dict[str, np.ndarray], Dict[str, float]]:
+        """The loss's gradients on one host batch, without an update
+        (the reference's A3C-style API): ``({param name: gradient},
+        stats)``. The batch skips :meth:`prepare_batch`, so a recurrent
+        policy trims it to whole unrolls here, and its unrolls start from
+        the per-row stored states (:meth:`model_forward_train`)."""
+        batch = self._batch_to_train_tree(samples)
+        T = self._unroll_T
+        if T > 1:
+            n = len(next(iter(batch.values())))
+            trim = (n // T) * T
+            if trim == 0:
+                raise ValueError(
+                    f"compute_gradients batch of {n} rows is shorter than one "
+                    f"max_seq_len={T} unroll"
+                )
+            batch = {k: v[:trim] for k, v in batch.items()}
+        dev = self._with_stacks({k: torch.as_tensor(v).to(self.device) for k, v in batch.items()})
+        loss, stats = self.loss_with_aux(dev, self.aux_state, self._load_coeffs())
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True, materialize_grads=True)
+        out = {k: float(v) for k, v in stats.items()}
+        out["total_loss"] = float(loss.detach())
+        return {n: g.cpu().numpy() for n, g in zip(self.param_names, grads)}, out
+
     def _gnorm_mask(self, names: Tuple[str, ...]) -> torch.Tensor:
         """(len(names),) device bool: which stats are summed (``grad_gnorm``)
         and which averaged; made once per name list, outside any graph."""
@@ -674,12 +885,20 @@ class TorchPolicy(Policy):
         """The epochs x minibatches nest with no host read: the stat
         names and their (len(names),) reduction on the device."""
         mb, num_mb = self._nest_shape(batch_size)
+        T = self._unroll_T
         lr = coeffs["lr"]
         per_step: List[Dict[str, torch.Tensor]] = []
         for epoch in range(self.num_sgd_iter):
-            idx = perms[epoch, : num_mb * mb].reshape(num_mb, mb)
+            perm = perms[epoch]
+            if T > 1:  # whole unrolls, each expanded to its T rows
+                perm = (perm[:, None] * T + torch.arange(T, device=perm.device)[None, :]).reshape(-1)
+            idx = perm[: num_mb * mb].reshape(num_mb, mb)
             for j in range(num_mb):
-                minibatch = {k: v[idx[j]] for k, v in batch.items()}
+                rows = idx[j]
+                # a __chunk__ column has one row an unroll
+                units = rows.reshape(-1, T)[:, 0] // T if T > 1 else rows
+                minibatch = {k: v[units if k.startswith(CHUNK) else rows]
+                             for k, v in batch.items()}
                 loss, stats = self.loss_with_aux(minibatch, self.aux_state, coeffs)
                 # a parameter the loss does not read (the transformer's
                 # value head under DQN) gets a zero gradient, as jax.grad
@@ -757,7 +976,8 @@ class TorchPolicy(Policy):
                 generators=(self.action_generator, *generators),
             )
             runner.perms = torch.zeros(
-                (k_max, self.num_sgd_iter, batch_size), dtype=torch.int64, device=self.device
+                (k_max, self.num_sgd_iter, self._perm_width(batch_size)), dtype=torch.int64,
+                device=self.device,
             )
             self._superstep_runners[key] = runner
         return runner

@@ -38,6 +38,12 @@ replica's throughput scales with batch rows instead of dispatches.
   launches are taken back and added on each replay, as the superstep
   does.
 
+  A policy whose requests may not coalesce (``supports_batched_serve``
+  False: a recurrent model, or exploration with state) is served by the
+  reference's sequential fallback: one ``compute_actions`` a request,
+  from the model's initial state, with no program and no capture
+  (``fused`` False).
+
 - **Checkpoint hot-reload**: :class:`CheckpointWatcher` polls a training
   run's ``checkpoint_root`` through ``resilience.discovery`` and stages
   each new policy state on the server's long-poll host. The batcher
@@ -328,13 +334,8 @@ class BatchedPolicyServer:
         start: bool = True,
     ):
         _no_aot_cache(aot_cache)
-        if not policy.supports_batched_serve:
-            raise NotImplementedError(
-                "the policy has a recurrent model or stateful exploration, which the reference "
-                "serves one compute_actions per request; neither is ported yet (ROADMAP.md "
-                "queue 1 item 8.7)"
-            )
         self.policy = policy
+        self.fused = bool(policy.supports_batched_serve)
         self.name = name
         self.max_batch_size = int(max_batch_size)
         if self.max_batch_size < 1:
@@ -503,10 +504,16 @@ class BatchedPolicyServer:
         """ONE forward for ``len(obs_rows)`` already-transformed rows,
         padded to the smallest covering bucket: the rows' draws are
         taken now, in order, from the policy's generator. Batcher-thread
-        API; returns ``(actions, extras)`` of the real rows."""
+        API; returns ``(actions, extras)`` of the real rows. Without
+        ``fused``, one ``compute_actions`` a row from the initial state."""
         explore = self.explore if explore is None else bool(explore)
         n = int(obs_rows.shape[0])
         policy = self.policy
+        if not self.fused:
+            init = [s[None] for s in policy.get_initial_state()] or None
+            outs = [policy.compute_actions(row[None], init, explore=explore) for row in obs_rows]
+            extras = {k: np.concatenate([o[2][k] for o in outs]) for k in outs[0][2]}
+            return np.concatenate([o[0] for o in outs]), extras
         policy.exploration.update_coeffs(policy.coeff_values, policy.global_timestep)
         prog = self._program(self._bucket_for(n), explore)
         with torch.no_grad():
@@ -521,14 +528,15 @@ class BatchedPolicyServer:
         """Build every bucket's program for ``explore`` (default: the
         server's flag): on the card each is captured once, on the
         caller's thread. Nothing is drawn, so the request stream is
-        independent of warmup. Returns the bucket count."""
+        independent of warmup. Returns the number of programs built (0
+        for the sequential fallback, which has none)."""
         explore = self.explore if explore is None else bool(explore)
         if self._thread is not None and self._thread.is_alive():
             raise RuntimeError("warm the server before start(): the batcher owns the policy")
-        for b in self.buckets:
+        for b in self.buckets if self.fused else ():
             self._program(b, explore)
         self.captures_at_warmup = self.captures
-        return len(self.buckets)
+        return len(self.buckets) if self.fused else 0
 
     # -- batcher thread --------------------------------------------------
 
@@ -601,7 +609,8 @@ class BatchedPolicyServer:
                 raise
         results = [(actions[i], {k: v[i] for k, v in extra.items()}) for i in range(n)]
         t1 = time.perf_counter()
-        executed = self._bucket_for(n)
+        # the sequential fallback runs exactly its rows
+        executed = self._bucket_for(n) if self.fused else n
         self.batches_total += 1
         self.batch_rows_total += n
         self.padded_rows_total += executed - n
@@ -656,6 +665,7 @@ class BatchedPolicyServer:
             "queue_wait_p99_s": qw["p99_s"],
             "params_version": self.params_version,
             "vectorized": self.vectorized,
+            "fused": self.fused,
             "captures": self.captures,
             "captures_after_warmup": None if warm is None else self.captures - warm,
             "device": device_ledger_summary(self.policy.device),

@@ -6,7 +6,11 @@ imports JAX) and maps flax's layouts onto the port's:
 - ``{"params": {"conv_0": {"kernel", "bias"}, ...}}`` → the module's
   parameters of the same layer name (``conv_0.weight``, ...);
 - conv kernels HWIO → OIHW;
-- dense kernels (in, out) → (out, in).
+- dense kernels (in, out) → (out, in), with or without a bias;
+- a flax ``LayerNorm``'s ``scale`` and ``bias`` as they are;
+- a nested module (the LSTM's ``OptimizedLSTMCell_0/{ii,...,ho}``,
+  GTrXL's ``gate_attn_0/{wr,...,ug}``) by its path joined with dots, and
+  a bare parameter of one (the gate's ``bz``) under its own name.
 
 Flax flattens its last conv map in (H, W, C) order. The port's
 ``VisionNet`` flattens its NCHW map in that same (H, W, C) order, so
@@ -62,21 +66,32 @@ def port_layer_name(flax_name: str) -> str:
     return flax_name
 
 
-def flax_to_state_dict(tree) -> Dict[str, np.ndarray]:
-    """Flax param tree → ``{"layer.weight" | "layer.bias": array}`` in
-    PyTorch layouts and the port's layer names."""
-    params = tree.get("params", tree)
-    out = {}
-    for flax_layer, leaves in params.items():
-        layer = port_layer_name(flax_layer)
+def _flax_module(name: str, leaves, out: Dict[str, np.ndarray]) -> None:
+    if "kernel" in leaves:  # Dense or Conv
         kernel = np.asarray(leaves["kernel"])
         if kernel.ndim == 4:  # HWIO → OIHW
-            out[f"{layer}.weight"] = np.transpose(kernel, (3, 2, 0, 1))
+            out[f"{name}.weight"] = np.transpose(kernel, (3, 2, 0, 1))
         elif kernel.ndim == 2:  # (in, out) → (out, in)
-            out[f"{layer}.weight"] = kernel.T
+            out[f"{name}.weight"] = kernel.T
         else:
-            raise ValueError(f"{layer}: unexpected kernel rank {kernel.ndim}")
-        out[f"{layer}.bias"] = np.asarray(leaves["bias"])
+            raise ValueError(f"{name}: unexpected kernel rank {kernel.ndim}")
+        if "bias" in leaves:
+            out[f"{name}.bias"] = np.asarray(leaves["bias"])
+        return
+    for key, value in leaves.items():
+        if isinstance(value, Mapping):
+            _flax_module(f"{name}.{key}", value, out)
+        else:  # LayerNorm's scale and bias, a bare parameter
+            out[f"{name}.{key}"] = np.asarray(value)
+
+
+def flax_to_state_dict(tree) -> Dict[str, np.ndarray]:
+    """Flax param tree → ``{"layer.weight" | "layer.bias" | ...: array}``
+    in PyTorch layouts and the port's layer names."""
+    params = tree.get("params", tree)
+    out: Dict[str, np.ndarray] = {}
+    for flax_layer, leaves in params.items():
+        _flax_module(port_layer_name(flax_layer), leaves, out)
     return out
 
 

@@ -24,8 +24,9 @@ PongLite-v0 (device "cpu", fragment 16, 2 envs each) for 2 iterations:
 the workers' policies are on the CPU with CUDA hidden and uninitialized,
 their weights equal the learner's bitwise after ``sync_weights``, and
 ``stop()`` leaves no worker process. Configs that need a later slice
-raise (a recurrent policy, item 8.7; multi-agent policies on a
-single-agent env raise for want of a MultiAgentEnv). The slow test runs ``tuned_examples/ppo/cartpole-ppo.yaml`` as
+raise (a recurrent policy under the multi-agent sampler, item 3b.2;
+multi-agent policies on a single-agent env raise for want of a
+MultiAgentEnv). The slow test runs ``tuned_examples/ppo/cartpole-ppo.yaml`` as
 written to its bar (150 within 100,000 env steps).
 """
 
@@ -56,6 +57,7 @@ from ray_tpu_torch.env import registry
 from ray_tpu_torch.env.spaces import Box, Discrete
 from ray_tpu_torch.env.vector_env import VectorEnv
 from ray_tpu_torch.evaluation import postprocessing as post
+from ray_tpu_torch.evaluation.multi_agent_sampler import MultiAgentSyncSampler
 from ray_tpu_torch.evaluation.sampler import SyncSampler
 from ray_tpu_torch.execution.rollout_ops import synchronous_parallel_sample
 from ray_tpu_torch.execution.train_ops import train_one_step
@@ -432,13 +434,16 @@ def test_ppo_local_worker_and_later_slices():
     cfg.env = "PongLiteJax-v0"  # a tensor env runs on the device lane only
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cfg.build()
-    # shifted views run through the ViewCollector; recurrent state does not
+    # shifted views run through the ViewCollector; recurrent state does
+    # not run through the multi-agent sampler
     shifted = PPOTorchPolicy(Box(0, 255, (24, 24, 4), np.uint8), Discrete(3),
                              {"model": {**SMALL_CNN, "use_prev_action": True}}, device="cpu")
     assert SampleBatch.PREV_ACTIONS in shifted.view_requirements
     shifted.get_initial_state = lambda: [np.zeros(4, np.float32)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8.7"):
-        SyncSampler(vector_env=None, policy=shifted)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3b.2"):
+        MultiAgentSyncSampler(env=None, policy_map={"default_policy": shifted},
+                              policy_mapping_fn=lambda a: "default_policy", preprocessors={},
+                              obs_filters={})
 
 
 def test_train_one_step_skips_a_non_finite_batch():

@@ -35,7 +35,8 @@ every occupancy from 1 to 32; exact mode bitwise against sequential
 batch-1 calls (PPO, DQN's epsilon-greedy and the torso, exploring and
 greedy); a replay after a hot reload reads the new weights; the torso
 server's flash launches, layers x bucket a replay (exact) or layers
-(vectorized).
+(vectorized). GTrXL's act step (T = 1 against S = 51) through the
+kernel against the same policy's CPU run within 1e-5.
 """
 
 from __future__ import annotations
@@ -331,6 +332,10 @@ FLASH_CASES = [
     (2, 5, 17, 40, 16, 5, "bthd"), (1, 3, 17, 17, 33, 0, "bthd"), (2, 3, 32, 32, 64, -3, "bthd"),
     (1, 3, 32, 70, 64, 5, "bthd"), (1, 9, 8, 100, 32, None, "bthd"), (1, 5, 8, 8, 33, -3, "bhtd"),
     (1, 2, 1, 1, 1, 0, "bhtd"), (4, 3, 32, 33, 8, None, "bthd"),
+    # GTrXL's act step: one query row against its 50-step memory and
+    # itself, every key visible (4 envs of the sampler; a single action)
+    (4, 2, 1, 51, 32, 50, "bthd"), (1, 2, 1, 51, 32, 50, "bthd"),
+    (4, 2, 1, 51, 32, 50, "bhtd"), (1, 2, 1, 51, 32, 50, "bhtd"),
 ]
 
 
@@ -412,6 +417,32 @@ def test_torso_forward_launches_no_copy_for_qkv(cuda):
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert any("flash_rows_kernel" in n for n in names), names
     assert not [n for n in names if "flash_fwd_kernel" in n or "copy" in n.lower()], names
+
+
+@pytest.mark.parametrize("batch", [4, 1])
+def test_gtrxl_act_step_on_the_card_matches_its_cpu_run(cuda, batch):
+    """GTrXL's act step at the catalog's widths (dim 64, 2 heads of 32,
+    a 50-step memory): the card's forward, one short-head flash kernel a
+    unit, against the same weights on the CPU (the plain version) within
+    1e-5, the memory out included."""
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    cfg = {"model": {"use_attention": True}, "seed": 0}
+    space = Box(-1.0, 1.0, (4,), np.float32)
+    card = PPOTorchPolicy(space, Discrete(2), cfg, device=cuda)
+    host = PPOTorchPolicy(space, Discrete(2), cfg, device="cpu")
+    host.set_weights(card.get_weights())
+    gen = torch.Generator().manual_seed(batch)
+    obs = torch.randn(batch, 4, generator=gen)
+    mem = torch.randn(batch, 50, 64, generator=gen)
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        got = card._act_forward(obs.to(cuda), [mem.to(cuda)])
+        want = host._act_forward(obs, [mem])
+    assert fa.flash_attention.launches == before + 1
+    for g, w in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-5)
 
 
 def test_flash_attention_refusals(cuda):

@@ -217,7 +217,7 @@ def test_policy_state_roundtrip_carries_target():
         assert torch.equal(x, y)
     perms = a.draw_permutations(B)
     assert a.learn_on_batch(_learn_batch(2), perms=perms) == b.learn_on_batch(_learn_batch(2), perms=perms)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="R2D2"):
         DQNTorchPolicy(space, act, {"model": {"use_lstm": True}}, device="cpu")
 
 

@@ -9,7 +9,9 @@
 - the ``Algorithm``'s surface (callbacks, ``tune/trainable.py``,
   ``util/atomic_io.py``, the evaluate CLI) imports with the reference
   blocked, and a port checkpoint saves and comes back through
-  ``Algorithm.from_checkpoint`` in that state.
+  ``Algorithm.from_checkpoint`` in that state;
+- the recurrent models (``models/rnn.py``, ``models/attention.py``)
+  import with the reference blocked, and recurrent PPO trains on them.
 """
 
 from __future__ import annotations
@@ -93,6 +95,48 @@ def test_checkpoint_round_trip_with_reference_blocked(tmp_path):
         back = Algorithm.from_checkpoint(path, device="cpu")
         want, got = algo.get_policy().get_weights(), back.get_policy().get_weights()
         assert all(np.array_equal(want[k], got[k]) for k in want) and back.iteration == 1
+        bad = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
+def test_recurrent_models_run_with_reference_blocked():
+    """``models/rnn.py`` and ``models/attention.py`` import with the
+    reference blocked, and recurrent PPO trains through them."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+
+        class _Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError(name + " blocked by test")
+                return None
+
+        sys.meta_path.insert(0, _Block())
+        import numpy as np
+        import ray_tpu_torch.models.attention, ray_tpu_torch.models.rnn
+        from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+
+        for model in ({{"use_lstm": True, "lstm_cell_size": 8, "fcnet_hiddens": [8],
+                        "max_seq_len": 4}},
+                      {{"use_attention": True, "attention_dim": 8, "attention_num_heads": 2,
+                        "attention_head_dim": 4, "attention_memory_training": 3,
+                        "attention_position_wise_mlp_dim": 8, "max_seq_len": 4}}):
+            algo = (PPOConfig().environment("CartPole-v1")
+                    .rollouts(num_rollout_workers=0, rollout_fragment_length=16)
+                    .training(train_batch_size=16, sgd_minibatch_size=8, num_sgd_iter=1,
+                              model=model)
+                    .debugging(seed=0).resources(device="cpu").build())
+            algo.train()
+            state = algo.get_policy().get_initial_state()
+            algo.compute_single_action(np.zeros(4, np.float32), state)
+            algo.stop()
         bad = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}]
         assert not bad, bad
         print("ok")

@@ -133,8 +133,9 @@ def test_catalog_models_and_dists():
 
     with pytest.raises(NotImplementedError, match="item 9"):
         ModelCatalog.get_action_dist(MultiDiscrete())
+    assert ModelCatalog.get_model(Box(-1, 1, (5,)), Discrete(2), 2, {"use_lstm": True}).is_recurrent
     with pytest.raises(NotImplementedError):
-        ModelCatalog.get_model(Box(-1, 1, (5,)), Discrete(2), 2, {"use_lstm": True})
+        ModelCatalog.get_model(Box(-1, 1, (5,)), Discrete(2), 2, {"custom_model": "m"})
 
 
 def test_catalog_init_is_seeded():

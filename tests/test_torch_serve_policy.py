@@ -24,8 +24,9 @@ against the reference's and against its own contracts, on the CPU.
   blends, monotone versions; the parameters' storage kept), the closed
   train → save → serve → reload loop on the port's ``CartPole-v1``, the
   provider notice; vectorized mode within 1e-5 relative of the exact one;
-- refusals: ``aot_cache`` (item 6.3), a stream root (item 3d), a policy
-  without batched serving.
+- refusals: ``aot_cache`` (item 6.3), a stream root (item 3d); a policy
+  without batched serving (a recurrent model) is no longer refused: it
+  takes the reference's sequential fallback, with no program built.
 """
 
 from __future__ import annotations
@@ -418,11 +419,11 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     with pytest.raises(NotImplementedError, match="item 3d"):
         discovery.latest_stream_tail(str(tmp_path))
 
-    class Recurrent:
-        supports_batched_serve = False
-
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        BatchedPolicyServer(Recurrent(), start=False)
+    recurrent = PPOTorchPolicy(OBS, ACT, {**PPOConfig().to_dict(), "model": {
+        "use_lstm": True, "lstm_cell_size": 8, "fcnet_hiddens": [8]}}, device="cpu")
+    assert not recurrent.supports_batched_serve
+    server = BatchedPolicyServer(recurrent, start=False)
+    assert not server.fused and server.warmup() == 0 and server.captures == 0
 
 
 def test_restore_policy_raises_without_a_card(tmp_path):

@@ -18,7 +18,8 @@ Contracts, all bitwise (host numpy code on the same inputs):
 - ``PPOTorchPolicy`` with ``use_prev_action`` and ``use_prev_reward`` on
   the port's ``CartPole-v1``: ``prev_actions`` and ``prev_rewards`` are
   the actions and rewards shifted by one within each episode, zero at
-  each episode's start; a recurrent policy still raises (item 8.7).
+  each episode's start; a recurrent policy still raises under the
+  multi-agent sampler, whose reference carries no state (item 3b.2).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ray_tpu.policy.policy import ViewRequirement as RefViewRequirement
 from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
 from ray_tpu_torch.data.sample_batch import SampleBatch
 from ray_tpu_torch.env.vector_env import VectorEnv
+from ray_tpu_torch.evaluation.multi_agent_sampler import MultiAgentSyncSampler
 from ray_tpu_torch.evaluation.sampler import SyncSampler
 from ray_tpu_torch.evaluation.view_collector import ViewCollector, derived_requirements
 from ray_tpu_torch.policy.policy import Policy, ViewRequirement
@@ -285,5 +287,6 @@ class _Recurrent(Policy):
 
 def test_recurrent_policy_still_raises():
     policy = _Recurrent(_CountEnv.observation_space, _CountEnv.action_space, {})
-    with pytest.raises(NotImplementedError, match="item 8.7"):
-        SyncSampler(vector_env=None, policy=policy)
+    with pytest.raises(NotImplementedError, match="item 3b.2"):
+        MultiAgentSyncSampler(env=None, policy_map={"p": policy}, policy_mapping_fn=lambda a: "p",
+                              preprocessors={}, obs_filters={})
