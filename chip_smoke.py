@@ -79,9 +79,10 @@ and ``nvcc``. Phases, each printing its own lines:
                CUDA graph of the slot replayed): reward, env-steps/s, the
                GAE launches of that run (one a slot, replays counted),
                and that params, env state and batch live on the card;
-               then the lane at K = 1 and K = auto, each for 3 calls:
-               env-steps/s and the device's busy share (median, min,
-               max) and the card's peak memory;
+               then the lane at K = 1 and K = auto, each for LANE_CALLS
+               (2) calls, the first also profiled: env-steps/s (median,
+               min, max), the device's busy share and the card's peak
+               memory;
 9. dqn      -- ``DQN`` on the PongLite device lane at full width
                (:func:`dqn_config`: ``training_intensity`` 4, so a round
                owes 8 replay updates, one superstep at K = 8) for 16 fill
@@ -92,7 +93,7 @@ and ``nvcc``. Phases, each printing its own lines:
                synchronised eager split (fill, insert, sample, learn,
                priority update), the same update with the ring filled to
                50000 rows, then K = 1 (one eager update a round) and
-               K = auto, 3 calls each: updates/s, busy share, peak
+               K = auto, LANE_CALLS (2) calls each: updates/s, busy share, peak
                memory;
 10. transformer_learner -- the decoder-transformer torso at the width of
                bench.py's model-parallel A/B (d_model 256, 4 layers, 8
@@ -205,6 +206,23 @@ and ``nvcc``. Phases, each printing its own lines:
                iterations (8 envs x 256 on the local worker, acting on
                the card; a DiagGaussian under PPO): env-steps/s, finite
                stats;
+    rainbow, ddpg, td3, ma_dqn -- the rest of off-policy on the actor
+               lane, the local worker acting on the card, each for its
+               budget (OFFPOLICY_BUDGET_S): cartpole-rainbow.yaml as
+               written (C51, noisy dueling heads, double Q, n-step 3,
+               prioritized replay), pendulum-ddpg.yaml (OU noise),
+               pendulum-td3.yaml (Gaussian noise, the actor every 2nd
+               update) and two DQN policies over a two-agent CartPole-v1
+               (one ring each): env-steps/s, updates/s, the round's split
+               and its per-step times, the gather (a column an update),
+               descent (an update, prioritized) and scatter (a column an
+               insert) launches against that schedule, every policy's
+               captured replay slot, the reward's course, the busy share
+               of OFFPOLICY_BUSY_CALLS more calls; then
+               OFFPOLICY_WINDOWS graphed windows of OFFPOLICY_K slots on
+               copies of the trained policy and its ring against eager
+               updates, bitwise (parameters, Adam moments and counts,
+               targets, TD3's step, generators, stats, the sum tree);
     ma_ppo   -- multi-agent PPO at bench_e2e.py's ``_ma_cartpole`` width
                (:func:`ma_cartpole_config`: 4 CartPole-v1 agents of the
                port's own env on one shared policy, FCNet 128x128, 1
@@ -346,7 +364,9 @@ the least a kernel launch shows by that timer.
 Launch counts are set to 0 just before each of phases 7-13, the
 actor phases, sac, each of sac_learner's two runs, the multi-agent
 and views phases (whose paths run no kernel: host GAE, no frame pool,
-as the reference's; they print their counts), the resumed train of
+as the reference's; they print their counts), the off-policy phases
+(rainbow, ddpg, td3, ma_dqn: their budgets' runs, not the busy-share
+calls or the parity windows after them), the resumed train of
 ckpt_ppo, and ckpt_dqn's restores and its resumed rounds, the recurrent
 phases' timed calls (lstm_impala's at its window's start, between two
 learner steps) and recurrent_serve's requests, and read just
@@ -1036,22 +1056,36 @@ def spread(values):
     return {"median": float(np.median(values)), "min": float(min(values)), "max": float(max(values))}
 
 
-def lane_rates(algo, units_per_call, calls=3):
-    """The rate and the device's busy share of ``calls`` calls of
-    ``algo.train`` (one unprofiled and one profiled call each,
-    ``device_busy``): ``{"rate": spread, "busy_share": spread, "wall_s":
-    [...]}``, the rate in ``units_per_call`` a second of host clock."""
-    reads = [device_busy(algo.train, 1) for _ in range(calls)]
-    return {"rate": spread([units_per_call / r["wall_s"] for r in reads]),
-            "busy_share": spread([r["busy_share"] for r in reads]),
-            "wall_s": [r["wall_s"] for r in reads],
-            "profiled_s": [r["profiled_s"] for r in reads]}
+# timed calls of each K in the lane phases' K = 1 against K = auto
+LANE_CALLS = 2
+
+
+def lane_rates(algo, units_per_call, calls=LANE_CALLS):
+    """The rate of ``calls`` unprofiled calls of ``algo.train`` and the
+    device's busy share of the first (``device_busy``: that call, then one
+    profiled call): ``{"rate": spread, "busy_share": spread, "wall_s":
+    [...]}``, the rate in ``units_per_call`` a second of host clock. One
+    profiled call a K: a graphed lane call records about 10^5 kernels,
+    which the profiler takes seconds to gather."""
+    import torch
+
+    read = device_busy(algo.train, 1)
+    walls = [read["wall_s"]]
+    for _ in range(calls - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        algo.train()
+        torch.cuda.synchronize()
+        walls.append(round(time.perf_counter() - t0, 6))
+    return {"rate": spread([units_per_call / w for w in walls]),
+            "busy_share": spread([read["busy_share"]]),
+            "wall_s": walls, "profiled_s": [read["profiled_s"]]}
 
 
 def superstep_rates(phase, make, units_per_call, warm=1):
     """The lane ``make(superstep=K)`` builds, at K = 1 and K = auto in
     one call: after ``warm`` train calls (the first captures the slot's
-    graph), the rate and busy share of 3 calls (``lane_rates``) and the
+    graph), the rate and busy share of LANE_CALLS calls (``lane_rates``) and the
     card's peak memory over the run; printed per K."""
     import torch
 
@@ -1793,13 +1827,14 @@ CARTPOLE = os.path.join(REPO, "tuned_examples", "ppo", "cartpolejax-ppo.yaml")
 # budget of the PongLite learning run (the whole script must end within
 # its time limit)
 CARTPOLE_BAR, CARTPOLE_STEPS = 150.0, 200000
-PONG_BAR, PONG_STEPS, PONG_LEARN_S = 18.0, 2000000, 120.0
+PONG_BAR, PONG_STEPS, PONG_LEARN_S = 18.0, 2000000, 30.0
 
 
-def learn_curve(phase, algo, bar, max_steps, budget_s=None):
+def learn_curve(phase, algo, bar, max_steps, budget_s=None, pids=("default_policy",)):
     """Train until ``episode_reward_mean`` >= ``bar`` (when ``bar`` is not
     None), ``max_steps`` env steps or ``budget_s`` seconds: the (steps,
-    reward, seconds) curve and the seconds."""
+    reward, seconds) curve and the seconds; the last learner stats of
+    each of ``pids`` must be finite."""
     import torch
 
     curve = []
@@ -1813,8 +1848,10 @@ def learn_curve(phase, algo, bar, max_steps, budget_s=None):
         if budget_s is not None and time.perf_counter() - t0 >= budget_s:
             break
     torch.cuda.synchronize()
-    learner = r["info"]["learner"]["default_policy"]
-    require(all(math.isfinite(v) for v in learner.values()), f"non-finite {phase} stats {learner}")
+    for pid in pids:
+        learner = r["info"]["learner"].get(pid)
+        require(learner and all(math.isfinite(v) for v in learner.values()),
+                f"no or non-finite {phase} stats of {pid}: {learner}")
     return curve, time.perf_counter() - t0
 
 
@@ -1888,7 +1925,7 @@ def phase_ponglite_learn():
 # envs on the host's CPUs, T = 128, the learner on the card), and its
 # learning run's wall budget
 ACTOR_TUNED = os.path.join(REPO, "tuned_examples", "ppo", "ponglite-ppo.yaml")
-ACTOR_LEARN_S = 60.0
+ACTOR_LEARN_S = 25.0
 ACTOR_TIMED_CALLS = 3
 
 
@@ -2845,6 +2882,320 @@ def phase_pendulum_ppo():
 
 MA_TIMED_CALLS = 3
 MA_LEARN_S = 40.0
+
+
+# the rest of off-policy on the actor lane: the tuned examples as
+# written (num_workers 0: the local worker acts on the card), each for
+# its wall budget; two-policy DQN over the port's multi-agent CartPole-v1
+RAINBOW_TUNED = os.path.join(REPO, "tuned_examples", "dqn", "cartpole-rainbow.yaml")
+DDPG_TUNED = os.path.join(REPO, "tuned_examples", "ddpg", "pendulum-ddpg.yaml")
+TD3_TUNED = os.path.join(REPO, "tuned_examples", "td3", "pendulum-td3.yaml")
+OFFPOLICY_BUDGET_S = {"rainbow": 15.0, "ddpg": 12.0, "td3": 15.0, "ma_dqn": 12.0}
+# graphed windows of OFFPOLICY_K slots against as many eager updates
+OFFPOLICY_K, OFFPOLICY_WINDOWS = 4, 3
+# train() calls of the busy-share reading after each run
+OFFPOLICY_BUSY_CALLS = 16
+
+
+def _policy_state_pairs(pa, pb):
+    """(name, a, b) for every tensor an update writes: parameters, each
+    Adam state's moments (counts equal, required; not its index into the
+    correction table, which each learn call sets back), the aux state
+    (targets, TD3's step) and the generators."""
+    pairs = [(f"param {n}", a, b) for n, a, b in zip(pa.param_names, pa.params, pb.params)]
+    for i, (sa, sb) in enumerate(zip(pa._adam_states(), pb._adam_states())):
+        require(sa.count == sb.count, f"Adam state {i} counts {sa.count} != {sb.count}")
+        pairs += [(f"adam {i} mu", a, b) for a, b in zip(sa.mu, sb.mu)]
+        pairs += [(f"adam {i} nu", a, b) for a, b in zip(sa.nu, sb.nu)]
+    for key, va in pa.aux_state.items():
+        vb = pb.aux_state[key]
+        if isinstance(va, (list, tuple)):
+            pairs += [(f"aux {key}", a, b) for a, b in zip(va, vb)]
+        else:
+            pairs.append((f"aux {key}", va, vb))
+    pairs.append(("action generator", pa.action_generator.get_state(), pb.action_generator.get_state()))
+    pairs.append(("perm generator", pa.perm_generator.get_state(), pb.perm_generator.get_state()))
+    return pairs
+
+
+def _replay_parity(phase, policy, buf, prioritized, batch_size):
+    """Graphed replay slots against eager updates on the same rows and
+    draws: two copies of the phase's trained policy (weights, Adam,
+    targets, generators) and of its ring (contents, tree), then
+    OFFPOLICY_WINDOWS windows of OFFPOLICY_K slots as one captured graph
+    against as many eager ``learn_on_device_batch`` calls (and, with
+    prioritized replay, their |TD| refreshes): every tensor an update
+    writes, the stats (and the sum tree) bitwise."""
+    import torch
+
+    from ray_tpu_torch.execution.replay_buffer import (
+        DevicePrioritizedReplayBuffer,
+        DeviceReplayBuffer,
+    )
+    from ray_tpu_torch.execution.train_ops import superstep_train_replay
+
+    state, ring = policy.get_state(), buf.get_state()
+
+    def copy():
+        p = type(policy)(policy.observation_space, policy.action_space, policy.config)
+        p.set_state(state)
+        p.action_generator.set_state(policy.action_generator.get_state())
+        p.perm_generator.set_state(policy.perm_generator.get_state())
+        b = (DevicePrioritizedReplayBuffer(buf.capacity, 0.6, 7) if prioritized
+             else DeviceReplayBuffer(buf.capacity, 7))
+        b.set_state(ring)
+        return p, b
+
+    (pa, ba), (pb, bb) = copy(), copy()
+    k = OFFPOLICY_K
+    for _ in range(OFFPOLICY_WINDOWS):
+        if prioritized:
+            idx, weights = ba.draw_prioritized_sets_device(k, k, batch_size, 0.4)
+        else:
+            idx = torch.as_tensor(ba.draw_index_sets(k, batch_size), device="cuda")
+        seq = []
+        for i in range(k):
+            tree = ba._gather_columns(idx[i])
+            if prioritized:
+                tree["weights"] = weights[i]
+            seq.append(pa.learn_on_device_batch(tree, batch_size))
+            if prioritized:
+                with torch.no_grad():
+                    td = torch.abs(pa._td_error(tree, pa.aux_state)[0]).cpu().numpy()
+                ba.update_priorities(idx[i], td + 1e-6)
+        info = superstep_train_replay(None, pb, bb, k, k, batch_size, prioritized=prioritized,
+                                      beta=0.4)
+        require(info == seq[-1], f"{phase} graph parity: stats {info} != {seq[-1]}")
+    pairs = _policy_state_pairs(pa, pb)
+    if prioritized:
+        pairs += [("sum tree", ba._dtree.sum_value, bb._dtree.sum_value),
+                  ("min tree", ba._dtree.min_value, bb._dtree.min_value)]
+        require(ba._max_priority == bb._max_priority, f"{phase} graph parity: max priority differs")
+    n = _graph_equal(phase, pairs)
+    (runner,) = pb._superstep_runners.values()
+    return {"slots": k * OFFPOLICY_WINDOWS, "replays": runner.replays, "tensors": n,
+            "prioritized": prioritized}
+
+
+def _ring_kernels(phase, pid, buf, batch_size, insert_rows, prioritized):
+    """The three kernels against their plain versions on the phase's
+    trained ring, at its column layout: the row gather of every column at
+    a batch's draw (``index_select``), the row scatter at the next
+    insert's positions (``index_copy_``; with prioritized replay the
+    trees' leaf write too), and the prefix descent on the ring's own sum
+    tree with a batch's stratified masses (``find_prefixsum_plain``).
+    All bitwise; draws from a generator of their own, so the ring's
+    stream is left as it was."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ops.framestack import gather_rows, scatter_rows
+    from ray_tpu_torch.ops.segment_tree import draw_scalars, find_prefixsum, find_prefixsum_plain
+
+    rng, dev = np.random.default_rng(11), buf.device
+    size, cap = len(buf), buf.capacity
+    if prioritized:
+        tree = buf._dtree
+        total, _ = draw_scalars(tree.sum_value, tree.min_value, size, 0.4, tree.capacity)
+        rand = torch.as_tensor(rng.random(batch_size), device=dev)
+        strata = torch.arange(batch_size, dtype=torch.float64, device=dev)
+        mass = (rand + strata) / batch_size * total
+        leaves = find_prefixsum(tree.sum_value, mass, tree.capacity)
+        require(torch.equal(leaves, find_prefixsum_plain(tree.sum_value, mass, tree.capacity)),
+                f"{phase} {pid}: prefix descent differs on {batch_size} masses, tree {tree.capacity}")
+        idx = leaves.clamp(0, size - 1)
+    else:
+        idx = torch.as_tensor(rng.integers(0, size, batch_size), device=dev)
+    pos = torch.as_tensor((buf._idx + np.arange(insert_rows)) % cap, device=dev)
+    src = torch.as_tensor(rng.integers(0, size, insert_rows), device=dev)
+    checked = []
+    for col, ring in buf._store.items():
+        require(torch.equal(gather_rows(ring, idx), ring.index_select(0, idx)),
+                f"{phase} {pid}: row gather differs on {col} ({tuple(ring.shape[1:])} {ring.dtype})")
+        rows = ring.index_select(0, src)
+        a, b = ring.clone(), ring.clone()
+        scatter_rows(a, pos, rows)
+        b.index_copy_(0, pos, rows)
+        require(torch.equal(a, b), f"{phase} {pid}: row scatter differs on {col} x {insert_rows}")
+        checked.append((col, tuple(ring.shape[1:]), str(ring.dtype).replace("torch.", "")))
+    if prioritized:
+        vals = torch.as_tensor(rng.random((insert_rows, 1)), device=dev)
+        for t in (tree.sum_value, tree.min_value):
+            a, b = t.clone().view(-1, 1), t.clone().view(-1, 1)
+            scatter_rows(a, pos + tree.capacity, vals)
+            b.index_copy_(0, pos + tree.capacity, vals)
+            require(torch.equal(a, b), f"{phase} {pid}: tree leaf write differs x {insert_rows}")
+    say(phase, policy=pid, kernels_against_plain="equal", bitwise=True, gather_rows=batch_size,
+        scatter_rows=insert_rows, descent_masses=batch_size if prioritized else 0,
+        ring_rows=size, columns=json.dumps(checked))
+
+
+def _offpolicy_run(phase, algo, pids=("default_policy",)):
+    """The main path: the launch counts set to 0 just before, then
+    ``algo.train()`` for OFFPOLICY_BUDGET_S[phase] seconds; rates, the
+    round's split, the launches against the replay's schedule (a gather
+    per column an update, a descent an update under prioritized replay,
+    a scatter per column an insert at least: a prioritized ring also
+    writes its trees with it) and the learning course; after the counts
+    are read, each ring's kernels against their plain versions
+    (``_ring_kernels``). Returns the launches."""
+    import numpy as np
+
+    from ray_tpu_torch.ops.framestack import gather_rows, scatter_rows
+    from ray_tpu_torch.ops.segment_tree import find_prefixsum
+
+    cfg = algo.config
+    prioritized = bool((cfg.get("replay_buffer_config") or {}).get("prioritized_replay"))
+    for p in pids:
+        require(algo.get_policy(p).device.type == "cuda", f"{phase}: {p} is not on the card")
+    require(algo.workers.num_remote_workers() == 0, f"{phase}: the local worker must act")
+    # count the inserts: one a policy batch (the rings come at the first)
+    rb = algo.local_replay_buffer
+    inserts, insert_rows = [0], {}
+    add = rb.add
+
+    def counted_add(batch, policy_id="default_policy"):
+        if not hasattr(batch, "policy_batches"):
+            inserts[0] += 1
+            insert_rows[policy_id] = batch.count
+        return add(batch, policy_id)
+
+    rb.add = counted_add
+    kernels = (gather_rows, scatter_rows, find_prefixsum)
+    for k in kernels:
+        k.launches = 0
+    budget = OFFPOLICY_BUDGET_S[phase]
+    curve, wall = learn_curve(phase, algo, None, 10 ** 9, budget, pids)
+    launches = {k.__name__: k.launches for k in kernels}
+    counters = algo._counters
+    steps = counters["num_env_steps_sampled"]
+    updates = counters["num_env_steps_trained"] // int(cfg["train_batch_size"])
+    bufs = algo.local_replay_buffer.buffers
+    columns = {len(b._store) for b in bufs.values()}
+    require(len(columns) == 1 and set(bufs) == set(pids), f"{phase}: rings {sorted(bufs)}")
+    (cols,) = columns
+    require(updates >= 1, f"{phase}: no replay update in {budget} s")
+    require(launches["gather_rows"] == cols * updates,
+            f"{phase}: {launches['gather_rows']} row gathers in {updates} updates of {cols} columns")
+    require(launches["find_prefixsum"] == (updates if prioritized else 0),
+            f"{phase}: {launches['find_prefixsum']} descents in {updates} updates")
+    scatters = launches["scatter_rows"]
+    require(scatters > cols * inserts[0] if prioritized else scatters == cols * inserts[0],
+            f"{phase}: {scatters} row scatters in {inserts[0]} inserts of {cols} columns")
+    for p in pids:
+        runners = list(algo.get_policy(p)._superstep_runners.values())
+        require(len(runners) == 1 and runners[0].graph is not None,
+                f"{phase}: {p} ran no captured replay slot")
+    sampler = algo.workers.local_worker().sampler
+    split = {k: round(v, 3) for k, v in algo._timers.items()}
+    split.update(act_s=round(sampler.timers["act_s"], 3), env_s=round(sampler.timers["env_s"], 3))
+    per = {"act_ms_a_step": 1e3 * sampler.timers["act_s"] / max(1, sampler.timers["steps"]),
+           "insert_ms_a_round": 1e3 * algo._timers["insert_s"] / len(curve),
+           "update_ms_an_update": 1e3 * algo._timers["update_s"] / updates}
+    # after the counts are read: the main path's busy share (its launches
+    # are not counted)
+    busy = device_busy(algo.train, OFFPOLICY_BUSY_CALLS)
+    every = max(1, len(curve) // 30)
+    rewards = [m.episode_reward for m in algo._episode_history[-10:]]
+    say(phase, budget_s=budget, wall_s=f"{wall:.2f}", env_steps=steps, updates=updates,
+        env_steps_per_s=f"{steps / wall:.1f}", updates_per_s=f"{updates / wall:.1f}",
+        episode_reward_mean=curve[-1][1],
+        last_10_episodes_mean=f"{float(np.mean(rewards)):.3f}" if rewards else None,
+        launches=json.dumps(launches), inserts=inserts[0], replay_columns=cols,
+        replay_rows=json.dumps({p: len(b) for p, b in bufs.items()}),
+        split=json.dumps(split), per=json.dumps({k: round(v, 4) for k, v in per.items()}),
+        busy=json.dumps(busy), curve=json.dumps(curve[::every] + curve[-1:]))
+    for p, buf in bufs.items():
+        _ring_kernels(phase, p, buf, int(cfg["train_batch_size"]), insert_rows[p], prioritized)
+    return launches
+
+
+def phase_rainbow():
+    """cartpole-rainbow.yaml as written (C51 over 51 atoms in [0, 500],
+    noisy dueling heads, double Q, n-step 3, prioritized replay of 50000
+    rows; the local worker acts on the card): the main path for its
+    budget, then graphed slots against eager updates on its ring."""
+    from ray_tpu_torch.utils.tuned_example import build_tuned_example
+
+    algo, _ = build_tuned_example(RAINBOW_TUNED)
+    try:
+        policy = algo.get_policy()
+        require(policy.model.noisy and policy.model.num_atoms == 51, "not the Rainbow model")
+        launches = _offpolicy_run("rainbow", algo)
+        buf = algo.local_replay_buffer.buffers["default_policy"]
+        require("n_steps" in buf._store, "the n-step column is not in the ring")
+        p = _replay_parity("rainbow", policy, buf, True, int(algo.config["train_batch_size"]))
+        say("rainbow", parity="graphed = eager", bitwise=True, **p)
+        return launches
+    finally:
+        algo.stop()
+
+
+def _ddpg_phase(phase, path, explore):
+    from ray_tpu_torch.utils.tuned_example import build_tuned_example
+
+    algo, _ = build_tuned_example(path)
+    try:
+        policy = algo.get_policy()
+        require(type(policy.exploration).__name__ == explore, f"{phase} explores by {explore}")
+        launches = _offpolicy_run(phase, algo)
+        require(policy.opt_states["actor"].count == -(-policy.num_updates // policy.policy_delay),
+                f"{phase}: {policy.opt_states['actor'].count} actor steps in {policy.num_updates}")
+        if explore == "OrnsteinUhlenbeckNoise":
+            require(policy._expl_state[0].is_cuda, "the OU state is not on the card")
+        p = _replay_parity(phase, policy, algo.local_replay_buffer.buffers["default_policy"], False,
+                           int(algo.config["train_batch_size"]))
+        say(phase, parity="graphed = eager", bitwise=True, policy_delay=policy.policy_delay,
+            actor_steps=policy.opt_states["actor"].count, updates=policy.num_updates, **p)
+        return launches
+    finally:
+        algo.stop()
+
+
+def phase_ddpg():
+    """pendulum-ddpg.yaml as written (64x64 nets, OU noise, batch 64, one
+    update an env step) on the port's Pendulum-v1."""
+    return _ddpg_phase("ddpg", DDPG_TUNED, "OrnsteinUhlenbeckNoise")
+
+
+def phase_td3():
+    """pendulum-td3.yaml as written (twin critics, target smoothing, the
+    actor every 2nd update, Gaussian noise, batch 100, learning from
+    5000 steps) on the port's Pendulum-v1."""
+    return _ddpg_phase("td3", TD3_TUNED, "GaussianNoise")
+
+
+def phase_ma_dqn():
+    """Two DQN policies (p0, p1: DQNConfig's defaults, fcnet 256x256)
+    over the port's multi-agent CartPole-v1 (2 agents, agent i to
+    p{i % 2}), one device ring each; learning from 1000 steps, the
+    targets every 500 trained steps."""
+    import numpy as np
+
+    from ray_tpu_torch.algorithms.dqn.dqn import DQNConfig
+    from ray_tpu_torch.env.multi_agent_env import make_multi_agent
+    from ray_tpu_torch.env.registry import register_env
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    register_env("ma_cartpole_dqn", lambda cfg: make_multi_agent("CartPole-v1")({"num_agents": 2}))
+    space, act = Box(-np.inf, np.inf, (4,), np.float64), Discrete(2)
+    pids = ("p0", "p1")
+    algo = (DQNConfig().environment("ma_cartpole_dqn")
+            .rollouts(num_rollout_workers=0, rollout_fragment_length=8)
+            .multi_agent(policies={p: (None, space, act, {}) for p in pids},
+                         policy_mapping_fn=lambda aid, *a, **kw: f"p{aid % 2}")
+            .debugging(seed=0).build())
+    try:
+        launches = _offpolicy_run("ma_dqn", algo, pids)
+        require(algo._counters["num_target_updates"] >= 1, "ma_dqn: no target sync")
+        p = _replay_parity("ma_dqn", algo.get_policy("p1"),
+                           algo.local_replay_buffer.buffers["p1"], False,
+                           int(algo.config["train_batch_size"]))
+        say("ma_dqn", parity="graphed = eager (p1)", bitwise=True,
+            num_target_updates=algo._counters["num_target_updates"], **p)
+        return launches
+    finally:
+        algo.stop()
 
 
 def kernel_counters():
@@ -4377,6 +4728,10 @@ def main() -> int:
     timed(phase_sac_columns)
     sac = timed(phase_sac)
     timed(phase_pendulum_ppo)
+    rainbow = timed(phase_rainbow)
+    ddpg = timed(phase_ddpg)
+    td3 = timed(phase_td3)
+    ma_dqn = timed(phase_ma_dqn)
     timed(phase_ma_ppo)
     timed(phase_ma_ppo_independent)
     timed(phase_views)
@@ -4403,6 +4758,7 @@ def main() -> int:
         shutil.rmtree(serve_tmp, ignore_errors=True)
     ray_core.shutdown()
     ring = timed(phase_ring)
+    offpolicy = {"rainbow": rainbow, "ddpg": ddpg, "td3": td3, "ma_dqn": ma_dqn}
     gather["launches_by_path"] = {"learner": learner_gathers, "dqn": dqn["gather_rows"],
                                   "transformer_dqn": tf_dqn["gather_rows"], "actor_lane": actor,
                                   "actor_lane_local": actor_local, "actor_learn": actor_learn,
@@ -4410,7 +4766,8 @@ def main() -> int:
                                   "sac_learner": sac_learner["uniform"]["gather_rows"],
                                   "sac_learner_prioritized": sac_learner["prioritized"]["gather_rows"],
                                   "sac": sac["gather_rows"], "ckpt_ppo": ckpt_ppo,
-                                  "ckpt_dqn": ckpt_dqn["gather_rows"]}
+                                  "ckpt_dqn": ckpt_dqn["gather_rows"],
+                                  **{name: run["gather_rows"] for name, run in offpolicy.items()}}
     gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"],
                                "cartpole": cartpole, "gridrooms": gridrooms,
                                "ponglite_learn": pong_learn}
@@ -4418,11 +4775,13 @@ def main() -> int:
                                    "transformer_dqn": tf_dqn["scatter_rows"],
                                    "sac_learner": sac_learner["uniform"]["scatter_rows"],
                                    "sac_learner_prioritized": sac_learner["prioritized"]["scatter_rows"],
-                                   "sac": sac["scatter_rows"], "ckpt_dqn": ckpt_dqn["scatter_rows"]}
+                                   "sac": sac["scatter_rows"], "ckpt_dqn": ckpt_dqn["scatter_rows"],
+                                   **{name: run["scatter_rows"] for name, run in offpolicy.items()}}
     descent["launches_by_path"] = {"dqn": dqn["find_prefixsum"],
                                    "transformer_dqn": tf_dqn["find_prefixsum"],
                                    "sac_learner_prioritized": sac_learner["prioritized"]["find_prefixsum"],
-                                   "ckpt_dqn": ckpt_dqn["find_prefixsum"]}
+                                   "ckpt_dqn": ckpt_dqn["find_prefixsum"],
+                                   "rainbow": rainbow["find_prefixsum"]}
     flash["launches_by_path"] = {"transformer_learner": tf_learner,
                                  "transformer_lane": tf_lane["flash"],
                                  "transformer_dqn": tf_dqn["flash_attention"],

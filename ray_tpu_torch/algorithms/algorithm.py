@@ -53,12 +53,14 @@ The ``Algorithm``'s own surface, as the reference's
   ``policy_state.pkl``.
 
 Multi-agent (``config["policies"]``, an algorithm whose actor lane
-learns a policy map: ``_multi_agent``, PPO): the worker set's policy map
-holds one policy per id, built from the reference's specs
-(:func:`build_policy_specs`); ``get_policy(pid)`` returns it,
-``info/learner/<pid>`` holds its stats and ``policy_reward_mean`` each
-policy's mean episode reward. Other algorithms, and the device lane,
-refuse ``policies`` (``ROADMAP.md`` queue 1 item 3b.2).
+learns a policy map: ``_multi_agent``, PPO and the replay family): the
+worker set's policy map holds one policy per id, built from the
+reference's specs (:func:`build_policy_specs`); ``get_policy(pid)``
+returns it, ``info/learner/<pid>`` holds its stats and
+``policy_reward_mean`` each policy's mean episode reward. Where the
+reference has no multi-agent path, the port refuses ``policies`` as the
+reference does: the device lane is single-policy, and IMPALA and APPO
+learn the default policy alone (:func:`refuse_policy_map`).
 """
 
 from __future__ import annotations
@@ -113,6 +115,26 @@ def build_policy_specs(config: Dict, policy_cls, env_creator) -> Optional[Dict]:
     return specs
 
 
+def refuse_policy_map(name: str, policies: Dict, actor_lane: bool) -> None:
+    """``policies`` where the reference has no multi-agent path. The
+    device lane is single-policy, in the reference's words
+    (``ray_tpu/algorithms/dqn/dqn.py:820``). IMPALA and APPO look up the
+    default policy, so a map without one fails as the reference's build
+    does (``KeyError: 'default_policy'``). A map that holds it is the
+    port's own refusal: the reference's IMPALA builds and trains the
+    default policy alone, dropping the others' samples without a word,
+    and its APPO fails on the ``MultiAgentBatch``."""
+    if not actor_lane:
+        raise ValueError("env_backend='jax' is single-policy")
+    if DEFAULT_POLICY_ID not in policies:
+        raise KeyError(DEFAULT_POLICY_ID)
+    raise ValueError(
+        f"{name} learns {DEFAULT_POLICY_ID!r} alone: the port refuses a policy map "
+        f"{sorted(policies)} whose other policies would stay untrained (the reference "
+        "trains the default policy alone without saying so)"
+    )
+
+
 class Algorithm(Trainable):
     _default_policy_class = None
     # whether training_step has an actor-lane path (PPO); the others
@@ -155,10 +177,7 @@ class Algorithm(Trainable):
         policy_cls = self._default_policy_class
         actor_lane = self._actor_lane and self.config.get("env_backend") != "jax"
         if self.config.get("policies") and not (actor_lane and self._multi_agent):
-            where = "on the device lane" if self._actor_lane and not actor_lane else f"in {type(self).__name__}"
-            raise NotImplementedError(
-                f"multi-agent policies {where} are not ported yet: ROADMAP.md queue 1 item 3b.2"
-            )
+            refuse_policy_map(type(self).__name__, self.config["policies"], actor_lane)
         if actor_lane:
             env_creator = get_env_creator(env_spec)
             specs = dict(

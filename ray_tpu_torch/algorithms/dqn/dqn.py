@@ -29,9 +29,33 @@ launch per column), the replay update phase runs as on the lane, and
 the workers get the acting weights (``sync_weights(inference_only=
 True)``). SAC inherits this round.
 
-Not ported yet (ROADMAP queue 1): ``n_step > 1`` (n-step folding is a
-host postprocess), frame-pool fragments in replay and ``sample_async``
-on the actor lane, C51 and noisy heads and ``learn_while_rollout``.
+Rainbow's parts (``tuned_examples/dqn/cartpole-rainbow.yaml``):
+
+- **n-step returns** on the actor lane: :func:`adjust_nstep`, the
+  reference's host numpy fold, runs on each policy batch before the
+  insert and adds the ``n_steps`` column, whose ``gamma ** n_steps``
+  discounts the bootstrap (the device lane keeps ``n_step = 1``, as the
+  reference's);
+- **C51** (``num_atoms > 1``): the loss, and the "TD error" prioritized
+  replay receives, is the per-row cross-entropy to the projected target
+  distribution (``dqn_model.categorical_projection``), with double Q;
+- **NoisyNet** (``noisy``): the act step draws its heads' noise from
+  the policy's ``action_generator`` before the exploration's draws;
+  the learn step draws three sets (online, target, next-action
+  selection) and the priority pass one more, from the same generator,
+  which a graphed replay slot registers, so a graphed update equals an
+  eager one on the same generator state.
+
+The actor lane rebuilds worker-compressed frame pools (the reference's
+``compress_replay_obs`` format) into stacked OBS and NEXT_OBS before
+the n-step fold (:meth:`DQN._materialize_compressed`). With
+``policies`` the actor lane learns a policy map: one device ring per
+policy (``MultiAgentReplayBuffer``), one replay update (or superstep)
+per policy whose ring holds a batch, priorities refreshed per policy,
+and every policy's target synced.
+
+Not ported yet (ROADMAP queue 1 items 4b and 5): ``learn_while_rollout``,
+``sample_async``, Ape-X and a host-memory replay.
 """
 
 from __future__ import annotations
@@ -48,8 +72,8 @@ from ray_tpu_torch.algorithms.algorithm import (
     Algorithm,
 )
 from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
-from ray_tpu_torch.algorithms.dqn.dqn_model import DQNModel
-from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, SampleBatch
+from ray_tpu_torch.algorithms.dqn.dqn_model import DQNModel, categorical_projection
+from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, MultiAgentBatch, SampleBatch
 from ray_tpu_torch.execution.rollout_ops import synchronous_parallel_sample
 from ray_tpu_torch.execution.replay_buffer import (
     MultiAgentReplayBuffer,
@@ -59,7 +83,7 @@ from ray_tpu_torch.execution.replay_buffer import (
 from ray_tpu_torch.execution.train_ops import superstep_train_replay
 from ray_tpu_torch.models.catalog import MODEL_DEFAULTS
 from ray_tpu_torch.models.cnn import get_filter_config
-from ray_tpu_torch.ops.framestack import FRAMES
+from ray_tpu_torch.ops.framestack import FRAMES, materialize_fragment
 from ray_tpu_torch.policy.torch_policy import TorchPolicy
 
 
@@ -78,7 +102,10 @@ class DQNConfig(AlgorithmConfig):
         self.dueling = True
         self.n_step = 1
         self.num_atoms = 1
+        self.v_min = -10.0
+        self.v_max = 10.0
         self.noisy = False
+        self.sigma0 = 0.5
         self.replay_buffer_config = {
             "capacity": 50000,
             "prioritized_replay": False,
@@ -98,7 +125,10 @@ class DQNConfig(AlgorithmConfig):
         dueling: Optional[bool] = None,
         n_step: Optional[int] = None,
         num_atoms: Optional[int] = None,
+        v_min: Optional[float] = None,
+        v_max: Optional[float] = None,
         noisy: Optional[bool] = None,
+        sigma0: Optional[float] = None,
         epsilon_timesteps: Optional[int] = None,
         final_epsilon: Optional[float] = None,
         initial_epsilon: Optional[float] = None,
@@ -110,7 +140,10 @@ class DQNConfig(AlgorithmConfig):
             ("dueling", dueling),
             ("n_step", n_step),
             ("num_atoms", num_atoms),
+            ("v_min", v_min),
+            ("v_max", v_max),
             ("noisy", noisy),
+            ("sigma0", sigma0),
             ("epsilon_timesteps", epsilon_timesteps),
             ("final_epsilon", final_epsilon),
             ("initial_epsilon", initial_epsilon),
@@ -118,6 +151,39 @@ class DQNConfig(AlgorithmConfig):
             if value is not None:
                 setattr(self, name, value)
         return self
+
+
+def adjust_nstep(n_step: int, gamma: float, batch: SampleBatch) -> None:
+    """In-place n-step folding of a fragment (the reference's host numpy
+    code, bitwise): ``rewards[t] <- sum_{k<n} gamma^k r[t+k]`` and
+    ``new_obs[t] <- new_obs[t+k]`` up to the first terminal or the
+    fragment's end, with the fold's length in an ``n_steps`` column,
+    whose ``gamma ** n_steps`` discounts the row's bootstrap (a fragment
+    tail folds fewer than ``n_step`` rewards)."""
+    n = batch.count
+    rewards = np.asarray(batch[SampleBatch.REWARDS], np.float32)
+    dones = np.asarray(batch[SampleBatch.TERMINATEDS], bool)
+    next_obs = np.asarray(batch[SampleBatch.NEXT_OBS])
+    new_rewards = rewards.copy()
+    new_next = next_obs.copy()
+    new_dones = dones.copy()
+    n_steps = np.ones(n, np.float32)
+    for t in range(n):
+        acc = rewards[t]
+        last = t
+        for k in range(1, n_step):
+            if t + k >= n or dones[last]:
+                break
+            acc += (gamma**k) * rewards[t + k]
+            last = t + k
+        new_rewards[t] = acc
+        new_next[t] = next_obs[last]
+        new_dones[t] = dones[last]
+        n_steps[t] = last - t + 1
+    batch[SampleBatch.REWARDS] = new_rewards
+    batch[SampleBatch.NEXT_OBS] = new_next
+    batch[SampleBatch.TERMINATEDS] = new_dones
+    batch["n_steps"] = n_steps
 
 
 _EPSILON_KEYS = ("initial_epsilon", "final_epsilon", "epsilon_timesteps")
@@ -151,7 +217,9 @@ class DQNTorchPolicy(TorchPolicy):
                 "ROADMAP.md queue 1 item 9) instead"
             )
         if model_cfg.get("custom_model"):
-            raise NotImplementedError("DQN with model option 'custom_model' is not ported yet")
+            raise NotImplementedError(
+                "DQN with model option 'custom_model' is not ported yet: ROADMAP.md queue 1 item 9"
+            )
         # the catalog's torso stands in for DQNModel and its logits are
         # read as Q values: no atoms, no weight noise
         self._uses_dqn_model = not model_cfg.get("use_transformer")
@@ -166,6 +234,8 @@ class DQNTorchPolicy(TorchPolicy):
                     "noisy nets require the built-in DQNModel; unavailable "
                     "with use_transformer"
                 )
+        self._noisy = self._uses_dqn_model and bool(config.get("noisy"))
+        self._num_atoms = int(config.get("num_atoms", 1))
         super().__init__(observation_space, action_space, config, device=device)
 
     def _make_model(self, observation_space, action_space, num_outputs, generator):
@@ -200,8 +270,11 @@ class DQNTorchPolicy(TorchPolicy):
             conv_activation=cfg["conv_activation"],
             conv_dtype=cfg["dtype"] or "bfloat16",
             num_atoms=int(self.config.get("num_atoms", 1)),
+            v_min=float(self.config.get("v_min", -10.0)),
+            v_max=float(self.config.get("v_max", 10.0)),
             dueling=bool(self.config.get("dueling", True)),
             noisy=bool(self.config.get("noisy", False)),
+            sigma0=float(self.config.get("sigma0", 0.5)),
             generator=generator,
         )
 
@@ -218,25 +291,61 @@ class DQNTorchPolicy(TorchPolicy):
         # the Q values already ride ACTION_DIST_INPUTS
         return {}
 
+    # -- the act step's weight noise -----------------------------------------
+
+    def _act_noise(self, generator, explore: bool, draws=None):
+        """Exploring with noisy heads, a forward's noise comes first."""
+        if not (explore and self._noisy):
+            return (), draws
+        if draws:
+            n = len(self.model.noise_shapes())
+            return tuple(draws[:n]), tuple(draws[n:])
+        return tuple(self.model.draw_noise(generator, self.device)), draws
+
     # -- loss ----------------------------------------------------------------
 
-    def _q(self, params, obs: torch.Tensor) -> torch.Tensor:
+    def _q_dist(self, params, obs: torch.Tensor, noise=None):
+        """``(q (B, A), support logits (B, A, atoms), probs or None)``
+        of ``params``; the transformer torso's logits are its Q values."""
+        if not self._uses_dqn_model:
+            if params is self.params:
+                q = self.model_forward(obs)[0]
+            else:
+                q = self.functional_forward(params, obs)[0]
+            return q, q[..., None], None
         if params is self.params:
-            return self.model_forward(obs)[0]
-        return self.functional_forward(params, obs)[0]
+            return self.model(obs, noise, full=True)
+        return self.functional_forward(params, obs, noise=noise, full=True)
 
-    def _td_error(self, batch: Dict[str, torch.Tensor], aux: Dict[str, Any]):
+    def draw_learn_noise(self):
+        """The noise sets one TD error draws from ``action_generator``:
+        the online net's on OBS, the target net's on NEXT_OBS and (double
+        Q) the online net's on NEXT_OBS, each in the model's draw order;
+        None without noisy heads."""
+        if not self._noisy:
+            return None
+        sets = 3 if self.config.get("double_q", True) else 2
+        return tuple(self.model.draw_noise(self.action_generator, self.device)
+                     for _ in range(sets))
+
+    def _td_error(self, batch: Dict[str, torch.Tensor], aux: Dict[str, Any], noise=None):
         """Per-row TD error ``q(s, a) - (r + gamma^n (1 - done)
         q_target(s', a'))``, with ``a'`` the online argmax under
-        double-Q and the target argmax otherwise; ``(td_error, q_sel,
-        q_all)``."""
+        double-Q and the target argmax otherwise, or under C51 the
+        cross-entropy to the projected target distribution;
+        ``(td_error, q_sel, q_all)``. ``noise``: the noisy heads' three
+        sets (:meth:`draw_learn_noise`, drawn here when None)."""
         cfg = self.config
         gamma = cfg.get("gamma", 0.99)
-        q_all = self._q(self.params, batch[SampleBatch.OBS])
+        if noise is None:
+            noise = self.draw_learn_noise()
+        k1, k2, k3 = (*noise, None)[:3] if noise is not None else (None,) * 3
+        q_all, logits_all, _ = self._q_dist(self.params, batch[SampleBatch.OBS], k1)
         with torch.no_grad():
-            q_next_target = self._q(aux["target_params"], batch[SampleBatch.NEXT_OBS])
+            q_next_target, _, probs_next = self._q_dist(
+                aux["target_params"], batch[SampleBatch.NEXT_OBS], k2)
             if cfg.get("double_q", True):
-                next_q_online = self._q(self.params, batch[SampleBatch.NEXT_OBS])
+                next_q_online = self._q_dist(self.params, batch[SampleBatch.NEXT_OBS], k3)[0]
                 next_actions = torch.argmax(next_q_online, dim=-1)
             else:
                 next_actions = torch.argmax(q_next_target, dim=-1)
@@ -248,16 +357,33 @@ class DQNTorchPolicy(TorchPolicy):
             bootstrap = torch.pow(gamma, steps.float())
         else:
             bootstrap = torch.full_like(q_sel, gamma ** cfg.get("n_step", 1))
+        if self._num_atoms > 1:
+            with torch.no_grad():
+                p_next = probs_next.gather(
+                    1, next_actions[:, None, None].expand(-1, 1, probs_next.shape[-1])
+                ).squeeze(1)
+                m = categorical_projection(
+                    p_next, batch[SampleBatch.REWARDS], bootstrap, not_done,
+                    self.model.v_min, self.model.v_max, self.model.support, self.model.dz,
+                )
+            logits_sel = logits_all.gather(
+                1, actions[:, None, None].expand(-1, 1, logits_all.shape[-1])
+            ).squeeze(1)
+            td_error = -torch.sum(m * torch.log_softmax(logits_sel, dim=-1), dim=-1)
+            return td_error, q_sel, q_all
         q_next = q_next_target.gather(1, next_actions[:, None]).squeeze(1)
         td_target = batch[SampleBatch.REWARDS] + bootstrap * not_done * q_next
         return q_sel - td_target.detach(), q_sel, q_all
 
     def loss_with_aux(self, batch, aux, coeffs):
         td_error, q_sel, q_all = self._td_error(batch, aux)
-        abs_err = torch.abs(td_error)
-        per_sample = torch.where(
-            abs_err < 1.0, 0.5 * torch.square(td_error), abs_err - 0.5
-        )
+        if self._num_atoms > 1:  # the per-row cross-entropy is the loss
+            per_sample = td_error
+        else:
+            abs_err = torch.abs(td_error)
+            per_sample = torch.where(
+                abs_err < 1.0, 0.5 * torch.square(td_error), abs_err - 0.5
+            )
         weights = batch.get("weights")
         if weights is None:
             weights = torch.ones_like(per_sample)
@@ -280,10 +406,12 @@ class DQNTorchPolicy(TorchPolicy):
         })
 
     @torch.no_grad()
-    def compute_td_error(self, samples) -> np.ndarray:
+    def compute_td_error(self, samples, noise=None) -> np.ndarray:
         """Per-row |TD error| for the priority refresh (host numpy f32):
-        the one readback of a replay update."""
-        td, _, _ = self._td_error(self._td_input_tree(samples), self.aux_state)
+        the one readback of a replay update. With noisy heads it draws
+        its own noise, as the reference's priority pass does (``noise``:
+        inject it)."""
+        td, _, _ = self._td_error(self._td_input_tree(samples), self.aux_state, noise)
         return np.abs(td.cpu().numpy())
 
     def get_state(self) -> Dict[str, Any]:
@@ -307,6 +435,7 @@ class DQNTorchPolicy(TorchPolicy):
 class DQN(Algorithm):
     _default_policy_class = DQNTorchPolicy
     _actor_lane = True
+    _multi_agent = True
 
     @classmethod
     def get_default_config(cls) -> DQNConfig:
@@ -451,7 +580,8 @@ class DQN(Algorithm):
             self._counters[NUM_ENV_STEPS_TRAINED] - self._last_target_update
             >= cfg.get("target_network_update_freq", 500)
         ):
-            self.get_policy().update_target()
+            for policy in self._policy_map().values():
+                policy.update_target()
             self._last_target_update = self._counters[NUM_ENV_STEPS_TRAINED]
             self._counters["num_target_updates"] += 1
         return train_info
@@ -470,31 +600,53 @@ class DQN(Algorithm):
         self.get_policy().global_timestep = self._counters[NUM_ENV_STEPS_SAMPLED]
         return train_info
 
+    def _materialize_compressed(self, batch):
+        """Worker-compressed frame pools (``compress_replay_obs``: the
+        pool covers OBS and NEXT_OBS exactly, terminal stacks included)
+        back to stacked OBS and NEXT_OBS, byte for byte, per policy
+        batch (``materialize_fragment``)."""
+
+        def mat(pid, sb):
+            if FRAMES not in sb:
+                return sb
+            k = int(self.get_policy(pid).observation_space.shape[-1])
+            return SampleBatch(materialize_fragment(dict(sb), k))
+
+        if isinstance(batch, MultiAgentBatch):
+            batch.policy_batches = {pid: mat(pid, sb) for pid, sb in batch.policy_batches.items()}
+            return batch
+        return mat(DEFAULT_POLICY_ID, batch)
+
+    def _postprocess_fragment(self, batch):
+        """The actor lane's host work between sampling and the insert, as
+        the reference's: frame pools back to stacks, then the n-step fold
+        of every policy batch."""
+        batch = self._materialize_compressed(batch)
+        n_step = int(self.config.get("n_step", 1))
+        if n_step > 1:
+            parts = batch.policy_batches.values() if isinstance(batch, MultiAgentBatch) else [batch]
+            for b in parts:
+                adjust_nstep(n_step, self.config["gamma"], b)
+        return batch
+
     def _training_step_actor_lane(self) -> Dict:
         """The reference's off-policy round off the device lane: sample
         ``rollout_fragment_length x num_envs_per_worker`` env steps,
-        insert them into the device rings, the replay update phase, then
-        the acting weights and the timestep to every worker. The parts'
-        seconds add up in ``self._timers`` (``sample_s``, ``insert_s``,
-        ``update_s``, ``sync_weights_s``) over the run."""
+        rebuild frame pools and fold n-step returns
+        (:meth:`_postprocess_fragment`), insert them into the device rings
+        (one ring per policy), the replay update phase, then the acting
+        weights and the timestep to every worker. The parts' seconds add
+        up in ``self._timers`` (``sample_s``, ``insert_s`` with the host
+        postprocess, ``update_s``, ``sync_weights_s``) over the run."""
         cfg = self.config
-        if int(cfg.get("n_step", 1)) > 1:
-            raise NotImplementedError(
-                "n_step > 1 (adjust_nstep, a host postprocess) is not ported yet: "
-                "ROADMAP.md queue 1 item 4b"
-            )
         t0 = time.perf_counter()
         batch = synchronous_parallel_sample(
             worker_set=self.workers,
             max_env_steps=int(cfg.get("rollout_fragment_length", 4))
             * max(1, int(cfg.get("num_envs_per_worker", 1))),
         )
-        if FRAMES in batch:
-            raise NotImplementedError(
-                "frame-pool fragments in replay (the reference's _materialize_compressed) "
-                "are not ported yet: ROADMAP.md queue 1 item 4b; set compress_obs_shipping=False"
-            )
         t1 = time.perf_counter()
+        batch = self._postprocess_fragment(batch)
         sampled = batch.env_steps()
         self._counters[NUM_ENV_STEPS_SAMPLED] += sampled
         self.local_replay_buffer.add(batch)

@@ -19,7 +19,7 @@ asks for it: the aggregation actors (``num_aggregation_workers > 0``),
 the elastic fleet and recovery hooks (``on_fleet_change``,
 ``on_recovery``) and the device lane (``env_backend: "jax"``);
 recreating dead workers (``recreate_failed_workers``) raises in the
-worker set (item 3).
+worker set (item 3d).
 """
 
 from __future__ import annotations

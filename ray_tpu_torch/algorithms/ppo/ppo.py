@@ -313,7 +313,7 @@ class PPO(Algorithm):
         ``nan_guard``, prepares the host tree and puts it on a
         :class:`DeviceFeeder` of ``sample_prefetch`` batches, which copies
         it to the card on its own stream."""
-        refuse_fused_superstep(self.config, "over prefetched batches", "ROADMAP.md queue 1 item 3")
+        refuse_fused_superstep(self.config, "over prefetched batches", "ROADMAP.md queue 1 item 5")
         policy = self.get_policy()
         feeder = DeviceFeeder(policy.device, capacity=max(1, int(self.config["sample_prefetch"])))
 

@@ -16,6 +16,8 @@ ALGORITHMS = {
     "IMPALA": "ray_tpu_torch.algorithms.impala.impala:IMPALA",
     "APPO": "ray_tpu_torch.algorithms.appo.appo:APPO",
     "SAC": "ray_tpu_torch.algorithms.sac.sac:SAC",
+    "DDPG": "ray_tpu_torch.algorithms.ddpg.ddpg:DDPG",
+    "TD3": "ray_tpu_torch.algorithms.ddpg.ddpg:TD3",
 }
 
 

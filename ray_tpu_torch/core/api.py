@@ -27,7 +27,7 @@ Worker processes hide the card (``worker_proc.worker_main``) unless
 ``options(runtime_env={"env_vars": {...}})`` adds variables for the
 actors it makes (the serve core's replicas, ``serve/serve.py``).
 
-Left for later (``ROADMAP.md`` queue 1 item 3): the native SPSC ring,
+Left for later (``ROADMAP.md`` queue 1 item 9): the native SPSC ring,
 placement groups, named actors, task retries and actor restarts, the
 client server, jobs, the rest of ``runtime_env``, the memory and log
 monitors and ``cluster.py``.
@@ -519,7 +519,7 @@ class ActorClass:
         if runtime_env:
             raise NotImplementedError(
                 f"runtime_env keys {sorted(runtime_env)} are not ported (ROADMAP.md queue 1 "
-                "item 3); only env_vars is"
+                "item 9); only env_vars is"
             )
         return ActorClass(self._remote_target, {**self._env_vars, **env_vars})
 

@@ -2,7 +2,7 @@
 
 Counterpart of ``ray_tpu/env/wrappers.py``; this slice ports
 :class:`FrameStack` only (the other Atari wrappers wait, ``ROADMAP.md``
-queue 1 item 3). A wrapper forwards ``reset``/``step``/``close`` and any
+queue 1 item 3d). A wrapper forwards ``reset``/``step``/``close`` and any
 other attribute to the env it wraps.
 """
 

@@ -16,7 +16,7 @@ episode resets when ``__all__`` is done or no agent is left, and its
 length in env steps (``episode.length // num_agents``).
 
 What the reference's sampler does not do, this one does not either:
-recurrent state (a recurrent policy raises, item 3b.2), views beyond
+recurrent state (a recurrent policy raises), views beyond
 the default columns, ``batch_mode``, ``horizon``,
 ``clip_actions`` and frame pools. ``normalize_actions`` keeps its default
 (True). ``AGENT_INDEX`` is ``hash(agent_id) % 2**31``: stable for
@@ -61,8 +61,8 @@ class MultiAgentSyncSampler:
         recurrent = sorted(pid for pid, p in policy_map.items() if p.is_recurrent)
         if recurrent:
             raise NotImplementedError(
-                f"recurrent policies {recurrent} under the multi-agent sampler: the reference's "
-                "carries no state; ROADMAP.md queue 1 item 3b.2"
+                f"recurrent policies {recurrent} under the multi-agent sampler: it carries no "
+                "recurrent state, as the reference's carries none"
             )
         self.env = env
         self.policy_map = policy_map

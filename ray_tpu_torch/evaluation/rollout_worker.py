@@ -27,7 +27,7 @@ to the ``SyncSampler``, whose episode hooks run on this worker; the
 returns ``{"policy_states", "filters"}`` (the reference's layout) and
 ``restore(state)`` loads it back.
 
-Not ported (``ROADMAP.md`` queue 1 item 3), each raising where a config
+Not ported (``ROADMAP.md`` queue 1 items 3d and 5), each raising where a config
 asks for it: ``input``/``output`` readers and writers, the fault
 injector (``fault_injection``), ``sample_async`` and tensor envs on the
 actor lane (the reference's ``JaxVectorEnvAdapter``; the port's tensor
@@ -50,7 +50,7 @@ from ray_tpu_torch.evaluation.sampler import SyncSampler
 from ray_tpu_torch.models.catalog import ModelCatalog
 from ray_tpu_torch.utils.filter import get_filter
 
-_ITEM = "ROADMAP.md queue 1 item 3"
+_ITEM = "ROADMAP.md queue 1 item 3d"
 
 
 def _refuse_unported(config: Dict) -> None:

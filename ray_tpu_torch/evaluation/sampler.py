@@ -56,7 +56,7 @@ episode ends; a flushed fragment carries the state after its last step
 as ``batch.last_state_out``, which GAE's bootstrap reads
 (``postprocessing.py``).
 
-Not ported (``ROADMAP.md`` queue 1 item 3): ``AsyncSampler``.
+Not ported (``ROADMAP.md`` queue 1 item 5): ``AsyncSampler``.
 
 ``timers`` adds up the seconds of the loop's parts (``act_s``: the
 policy's ``compute_actions``; ``env_s``: the vector env's step;

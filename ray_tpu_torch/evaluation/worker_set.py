@@ -15,7 +15,7 @@ evaluation worker set (``Algorithm.evaluation_workers``).
 
 ``remove_workers`` drops workers that an ``AsyncRequestsManager`` saw
 die and ends their processes. Not ported (``ROADMAP.md`` queue 1 item
-3): adding and recreating workers (the elastic set;
+3d): adding and recreating workers (the elastic set;
 ``replace_failed_workers`` raises), ``RetryPolicy`` and
 ``probe_unhealthy_workers``.
 """
@@ -29,7 +29,7 @@ from ray_tpu_torch.evaluation.rollout_worker import RolloutWorker
 from ray_tpu_torch.utils.filter import MeanStdFilter
 
 STOP_TIMEOUT_S = 10.0
-_ITEM = "ROADMAP.md queue 1 item 3"
+_ITEM = "ROADMAP.md queue 1 item 3d"
 
 
 def evaluation_worker_config(config: Dict) -> Dict:

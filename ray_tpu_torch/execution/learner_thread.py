@@ -87,6 +87,8 @@ class LearnerThread(threading.Thread):
         self.queue_timer = 0.0
         self.grad_timer = 0.0
         self.publish_timer = 0.0
+        # seconds a step waited for :attr:`lock` (another thread held it)
+        self.lock_wait_timer = 0.0
         # (start, end) perf_counter seconds of the latest learn calls, to
         # set beside what other threads did meanwhile
         self.step_spans: "collections.deque" = collections.deque(maxlen=SPANS_KEPT)
@@ -207,8 +209,13 @@ class LearnerThread(threading.Thread):
             # a failed copy still used its slot
             self._in_flight -= 1
         self.queue_timer += time.perf_counter() - t0
-        t0 = time.perf_counter()
+        t_wait = time.perf_counter()
         with self.lock:
+            # the grad time starts once the lock is held, as the
+            # reference's covers the learn call alone; the wait for the
+            # lock is a stat of its own
+            t0 = time.perf_counter()
+            self.lock_wait_timer += t0 - t_wait
             if self._defer:
                 self._lazy.append((env_steps, self.policy.learn_on_device_batch(
                     dev, bsize, defer_stats=True)))
@@ -237,8 +244,10 @@ class LearnerThread(threading.Thread):
         if batch is None:
             self.stopped = True
             return
-        t0 = time.perf_counter()
+        t_wait = time.perf_counter()
         with self.lock:
+            t0 = time.perf_counter()
+            self.lock_wait_timer += t0 - t_wait
             info = self.policy.learn_on_batch(batch)
             self.grad_timer += time.perf_counter() - t0
             self.num_steps += 1
@@ -274,5 +283,6 @@ class LearnerThread(threading.Thread):
             "num_steps_trained_this_thread": self.num_steps,
             "queue_wait_time_s": self.queue_timer,
             "grad_time_s": self.grad_timer,
+            "lock_wait_time_s": self.lock_wait_timer,
             "weight_publish_time_s": self.publish_timer,
         }

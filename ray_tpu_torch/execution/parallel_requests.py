@@ -10,7 +10,7 @@ rotation and report them instead of raising.
 The reference frees a harvested ref with ``ray.free``; here dropping
 the ref is the free, because the port's object plane unlinks an
 object's segment when its last ref in the main process goes
-(``core/object_store.py``). Not ported (``ROADMAP.md`` queue 1 items 3
+(``core/object_store.py``). Not ported (``ROADMAP.md`` queue 1 items 3d
 and 5): the refs mode of the aggregation actors (``return_object_refs``,
 ``report_dead``), the elastic fleet's drains (``retire_worker``, dropping
 in-flight refs) and ``retry_policy`` (the resilience layer's backoff).

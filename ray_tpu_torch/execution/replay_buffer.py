@@ -51,7 +51,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, SampleBatch
+from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, MultiAgentBatch, SampleBatch
 from ray_tpu_torch.ops.framestack import gather_rows, scatter_rows
 from ray_tpu_torch.ops.segment_tree import (
     F64,
@@ -665,9 +665,10 @@ class DevicePrioritizedReplayBuffer(DeviceReplayBuffer):
 
 
 class MultiAgentReplayBuffer:
-    """Per-policy device buffers, as the reference's; the port's
-    algorithms use one policy. ``sample`` returns ``{policy_id: batch}``
-    for every buffer holding at least ``num_items`` rows.
+    """Per-policy device buffers, as the reference's: ``add`` of a
+    ``MultiAgentBatch`` fills one ring per policy, each with the same
+    ``seed``. ``sample`` returns ``{policy_id: batch}`` for every buffer
+    holding at least ``num_items`` rows.
     ``replay_columns_fn(policy_id, SampleBatch) -> {column: array}``
     turns a host fragment into the columns the policy's learn call reads
     (``TorchPolicy.replay_columns``), once, at insert."""
@@ -705,10 +706,16 @@ class MultiAgentReplayBuffer:
     def add_device_tree(self, tree: Dict[str, Any], policy_id: str = DEFAULT_POLICY_ID) -> None:
         self._buffer(policy_id).add_device_tree(tree)
 
-    def add(self, batch: SampleBatch, policy_id: str = DEFAULT_POLICY_ID) -> None:
+    def add(self, batch, policy_id: str = DEFAULT_POLICY_ID) -> None:
         """A host fragment (the actor lane's): its replay columns (the
         policy's, or every numeric column) cross to the device once each
-        and land with one scatter per column (``add_device_tree``)."""
+        and land with one scatter per column (``add_device_tree``). A
+        ``MultiAgentBatch`` goes policy batch by policy batch into each
+        policy's ring."""
+        if isinstance(batch, MultiAgentBatch):
+            for pid, sb in batch.policy_batches.items():
+                self.add(sb, pid)
+            return
         if self.replay_columns_fn is not None:
             tree = self.replay_columns_fn(policy_id, batch)
         else:

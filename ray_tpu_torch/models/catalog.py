@@ -113,7 +113,7 @@ class ModelCatalog:
         for key in _UNPORTED:
             if cfg.get(key):
                 raise NotImplementedError(
-                    f"model option {key!r} is not ported yet"
+                    f"model option {key!r} is not ported yet: ROADMAP.md queue 1 item 9"
                 )
         if cfg.get("partition_rules"):
             raise NotImplementedError(

@@ -12,8 +12,8 @@ also takes its draw itself (the categorical's uniforms, the Gaussians'
 standard normals), which :meth:`ActionDistribution.draw` takes from a
 generator ahead of the sample (the serving plane's graphs read their
 draws from static buffers).
-Not ported (``ROADMAP.md`` queue 1 item 4b): ``Deterministic``, whose
-only users are DDPG and TD3.
+:class:`Deterministic` passes DDPG's and TD3's actions through; their
+exploration adds its noise to its sample.
 """
 
 from __future__ import annotations
@@ -210,3 +210,31 @@ class SquashedGaussian(ActionDistribution):
     @staticmethod
     def required_model_output_shape(action_space) -> int:
         return int(np.prod(action_space.shape)) * 2
+
+
+class Deterministic(ActionDistribution):
+    """A deterministic policy's action itself (DDPG, TD3): every sample
+    is the input, with log-probability, entropy and KL zero."""
+
+    @classmethod
+    def draw(cls, shape, dtype, device, generator):
+        return torch.zeros((0,), dtype=dtype, device=device)
+
+    def sample(self, generator: Optional[torch.Generator] = None, draw=None) -> torch.Tensor:
+        return self.inputs
+
+    def deterministic_sample(self) -> torch.Tensor:
+        return self.inputs
+
+    def _zeros(self) -> torch.Tensor:
+        return torch.zeros(self.inputs.shape[:-1], dtype=self.inputs.dtype,
+                           device=self.inputs.device)
+
+    def logp(self, x: torch.Tensor) -> torch.Tensor:
+        return self._zeros()
+
+    def entropy(self) -> torch.Tensor:
+        return self._zeros()
+
+    def kl(self, other: "Deterministic") -> torch.Tensor:
+        return self._zeros()

@@ -6,7 +6,7 @@ fixed-shape float or uint8 arrays. Spaces are read by their attributes,
 not their class (the port's spaces and gymnasium's alike): a discrete
 space has ``n`` and shape (), a multi-discrete one ``nvec``, a
 composite one ``spaces``. ``DictFlatteningPreprocessor`` waits for a
-Dict or Tuple space in the port (``ROADMAP.md`` queue 1 item 3).
+Dict or Tuple space in the port (``ROADMAP.md`` queue 1 item 3d).
 """
 
 from __future__ import annotations
@@ -94,6 +94,6 @@ def get_preprocessor_for_space(obs_space) -> Preprocessor:
     if getattr(obs_space, "spaces", None) is not None:
         raise NotImplementedError(
             "Dict and Tuple observation spaces (DictFlatteningPreprocessor) "
-            "are not ported yet: ROADMAP.md queue 1 item 3"
+            "are not ported yet: ROADMAP.md queue 1 item 3d"
         )
     return NoPreprocessor(obs_space)

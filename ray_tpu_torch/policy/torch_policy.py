@@ -352,11 +352,15 @@ class TorchPolicy(Policy):
     def get_initial_state(self) -> List[np.ndarray]:
         return [s[0].numpy() for s in self.model.initial_state(1)]
 
-    def _act_forward(self, obs: torch.Tensor, state=None, prev_actions=None, prev_rewards=None):
+    def _act_forward(self, obs: torch.Tensor, state=None, prev_actions=None, prev_rewards=None,
+                     noise=()):
         """One step's forward of a flat (N, ...) obs batch. A recurrent
         model steps once from ``state`` (its initial state when empty),
         the previous actions and rewards zero where not given, as the
-        reference's act function feeds them."""
+        reference's act function feeds them. A forward that draws (noisy
+        heads) reads ``noise`` (:meth:`_act_noise`)."""
+        if noise:
+            return self.model(obs, noise=noise)
         if not self.model.is_recurrent:
             return self.model_forward(obs)
         n = obs.shape[0]
@@ -434,8 +438,11 @@ class TorchPolicy(Policy):
         instead of ``generator``. ``coeffs``: the exploration's
         coefficients (default :attr:`coeff_values`; a graphed slot
         passes the device scalars). A recurrent model steps from
-        ``state`` (:meth:`_act_forward`)."""
-        dist_inputs, value, state_out = self._act_forward(obs, state, prev_actions, prev_rewards)
+        ``state`` (:meth:`_act_forward`). A model whose forward draws
+        (noisy heads) takes its draws first (:meth:`_act_noise`)."""
+        noise, draws = self._act_noise(generator, explore, draws)
+        dist_inputs, value, state_out = self._act_forward(obs, state, prev_actions, prev_rewards,
+                                                          noise)
         dist = self.dist_class(dist_inputs)
         if actions is None:
             actions, logp, _ = self.exploration.sample_fn(
@@ -481,8 +488,17 @@ class TorchPolicy(Policy):
         if sig is None:
             sig = self._act_sig = self.act_dist_signature()
         dist_class, shape, dtype = sig
-        return self.exploration.draws(dist_class, (1,) + shape, dtype, self.device, generator,
-                                      explore)
+        noise, _ = self._act_noise(generator, explore)
+        return noise + self.exploration.draws(
+            dist_class, (1,) + shape, dtype, self.device, generator, explore)
+
+    def _act_noise(self, generator: Optional[torch.Generator], explore: bool,
+                   draws: Optional[Tuple] = None) -> Tuple[Tuple, Optional[Tuple]]:
+        """``(noise, draws)`` of one act step: the draws its forward takes
+        before the exploration's (a noisy head's weight noise; none by
+        default), from the front of ``draws`` when they were taken ahead,
+        else from ``generator``; and the rest of ``draws``."""
+        return (), draws
 
     @torch.no_grad()
     def compute_actions(self, obs_batch, state_batches=None, prev_action_batch=None,
@@ -998,8 +1014,7 @@ class TorchPolicy(Policy):
         self._load_corrections(k_max * steps)
         out = runner.run(k)
         skipped = [bool(s > 0.5) for s in out["stats"][:, -1]]
-        for st in self._adam_states():
-            st.count += steps * (k - sum(skipped))
+        self._advance_adam_counts(steps * (k - sum(skipped)))
         self.num_grad_updates += k * steps
         extras = self._info_extras()
         infos = [
@@ -1007,6 +1022,12 @@ class TorchPolicy(Policy):
             for row in out["stats"]
         ]
         return infos, skipped, out
+
+    def _advance_adam_counts(self, steps: int) -> None:
+        """The host's count of ``steps`` applied optimizer steps, in every
+        Adam state (TD3's delayed actor counts its own)."""
+        for st in self._adam_states():
+            st.count += steps
 
     def _info_extras(self) -> Dict[str, float]:
         """What a learn call's stats carry beside the update's own."""

@@ -1,8 +1,13 @@
-"""Exploration strategy API and stochastic sampling.
+"""Exploration strategy API and the distribution- and noise-based
+strategies.
 
 Counterpart of ``ray_tpu/utils/exploration/exploration.py``; ported:
-:class:`StochasticSampling`, the default of the PPO family, and
-:class:`EpsilonGreedy`, the DQN family's. A strategy's ``sample_fn``
+:class:`StochasticSampling`, the default of the PPO family,
+:class:`EpsilonGreedy`, the DQN family's, and :class:`GaussianNoise` and
+:class:`OrnsteinUhlenbeckNoise`, TD3's and DDPG's. The OU process is
+stateful: its per-slot ``x`` is carried state (:meth:`Exploration.initial_state`),
+which ``sample_fn`` takes and returns, so the serving plane sends such a
+policy to its sequential fallback. A strategy's ``sample_fn``
 turns an action distribution into actions and their log-probabilities,
 drawing from the caller's generator; scheduled knobs (epsilon) live in
 the policy's ``coeff_values`` and advance on the host. :meth:`Exploration.draws`
@@ -17,9 +22,10 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ray_tpu_torch.utils.schedules import PiecewiseSchedule
+from ray_tpu_torch.utils.schedules import PiecewiseSchedule, make_schedule
 
 
 class Exploration:
@@ -56,9 +62,9 @@ class Exploration:
             return ()
         return (dist_class.draw(shape, dtype, device, generator),)
 
-    def initial_state(self, batch_size: int = 1) -> Tuple:
-        """Per-stream exploration state: none for the ported strategies
-        (the serving plane coalesces only stateless strategies)."""
+    def initial_state(self, batch_size: int = 1, device=None) -> Tuple:
+        """Per-stream exploration state for ``batch_size`` slots: none for
+        a stateless strategy (the serving plane coalesces only those)."""
         return ()
 
     def init_coeffs(self) -> Dict[str, float]:
@@ -133,7 +139,97 @@ class EpsilonGreedy(Exploration):
         return actions, dist.logp(actions), state
 
 
-_REGISTRY = {"StochasticSampling": StochasticSampling, "EpsilonGreedy": EpsilonGreedy}
+class GaussianNoise(Exploration):
+    """The deterministic action plus ``noise_scale * stddev * N(0, 1)``,
+    clipped to the action space's bounds; ``noise_scale`` follows
+    ``scale_schedule``, or goes linearly from ``initial_scale`` to
+    ``final_scale`` over ``scale_timesteps`` (``coeffs["noise_scale"]``).
+    One standard normal per action dimension and row, from the caller's
+    generator (or ``draws``)."""
+
+    def __init__(self, action_space, config, model_config=None):
+        super().__init__(action_space, config, model_config)
+        cfg = self.config
+        self.stddev = float(cfg.get("stddev", 0.1))
+        self.scale_schedule = make_schedule(
+            cfg.get("scale_schedule"), float(cfg.get("initial_scale", 1.0))
+        )
+        if cfg.get("scale_schedule") is None and cfg.get("scale_timesteps"):
+            self.scale_schedule = PiecewiseSchedule([
+                (0, float(cfg.get("initial_scale", 1.0))),
+                (int(cfg["scale_timesteps"]), float(cfg.get("final_scale", 1.0))),
+            ])
+        self.low = np.asarray(action_space.low, np.float32)
+        self.high = np.asarray(action_space.high, np.float32)
+        # the bounds as tensors, per device, made outside any graph
+        self._bounds: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def init_coeffs(self) -> Dict[str, float]:
+        return {"noise_scale": float(self.scale_schedule(0))}
+
+    def update_coeffs(self, coeff_values: Dict, timestep: int) -> None:
+        coeff_values["noise_scale"] = float(self.scale_schedule(timestep))
+
+    def draws(self, dist_class, shape, dtype, device, generator, explore):
+        if not explore:
+            return ()
+        return (torch.randn(tuple(shape), generator=generator, device=device),)
+
+    def bounds(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        device = torch.device(device)
+        out = self._bounds.get(device)
+        if out is None:
+            out = self._bounds[device] = (torch.as_tensor(self.low, device=device),
+                                          torch.as_tensor(self.high, device=device))
+        return out
+
+    def _noise(self, normal: torch.Tensor, det: torch.Tensor, state: Tuple):
+        return self.stddev * normal, state
+
+    def sample_fn(self, dist, generator, explore, coeffs, state, draws=()):
+        det = dist.deterministic_sample()
+        logp = torch.zeros(det.shape[:1], dtype=det.dtype, device=det.device)
+        if not explore:
+            return det, logp, state
+        normal = draws[0] if draws else torch.randn(
+            det.shape, generator=generator, device=det.device)
+        noise, state = self._noise(normal, det, state)
+        low, high = self.bounds(det.device)
+        actions = torch.clamp(det + coeffs["noise_scale"] * noise, low, high)
+        return actions, logp, state
+
+
+class OrnsteinUhlenbeckNoise(GaussianNoise):
+    """Temporally correlated noise: per slot, ``x <- x + ou_theta * (0 -
+    x) + ou_sigma * N(0, 1)``, and the action's noise is ``ou_base_scale
+    * x`` (then scaled and clipped as :class:`GaussianNoise`). ``x`` is
+    carried state, (batch, action dim) float32 zeros at the start; the
+    policy starts it afresh whenever its batch size changes, as the
+    reference's does."""
+
+    def __init__(self, action_space, config, model_config=None):
+        super().__init__(action_space, config, model_config)
+        cfg = self.config
+        self.theta = float(cfg.get("ou_theta", 0.15))
+        self.sigma = float(cfg.get("ou_sigma", 0.2))
+        self.base_scale = float(cfg.get("ou_base_scale", 0.1))
+
+    def initial_state(self, batch_size: int = 1, device=None) -> Tuple:
+        dim = int(np.prod(self.action_space.shape))
+        return (torch.zeros((batch_size, dim), dtype=torch.float32, device=device),)
+
+    def _noise(self, normal, det, state):
+        (x,) = state
+        x = x + self.theta * (0.0 - x) + self.sigma * normal.reshape(x.shape)
+        return self.base_scale * x.reshape(det.shape), (x,)
+
+
+_REGISTRY = {
+    "StochasticSampling": StochasticSampling,
+    "EpsilonGreedy": EpsilonGreedy,
+    "GaussianNoise": GaussianNoise,
+    "OrnsteinUhlenbeckNoise": OrnsteinUhlenbeckNoise,
+}
 
 
 def exploration_from_config(
@@ -149,10 +245,8 @@ def exploration_from_config(
         return typ(action_space, ec, model_config)
     cls = _REGISTRY.get(typ)
     if cls is None:
-        # the noise strategies' only users are DDPG and TD3
-        item = "item 4b" if typ in ("GaussianNoise", "OrnsteinUhlenbeckNoise") else "item 9"
         raise NotImplementedError(
-            f"exploration type {typ!r} is not ported yet (ROADMAP.md queue 1 {item}); "
+            f"exploration type {typ!r} is not ported yet (ROADMAP.md queue 1 item 9); "
             f"ported: {sorted(_REGISTRY)}"
         )
     return cls(action_space, ec, model_config)

@@ -28,7 +28,13 @@ joined with dots (:func:`plain_to_state_dict`).
 
 SAC's trees (``{"actor", "critic", "log_alpha"}`` params, the target
 critic as aux state and three optax Adam states) go into a
-``SACTorchPolicy`` whole through :func:`from_jax_sac_state`. A reference
+``SACTorchPolicy`` whole through :func:`from_jax_sac_state`, DDPG's and
+TD3's (``{"actor", "critic"}`` params; the target actor, target critic
+and update ``step`` as aux state; two Adam states; the OU process's
+carried state) into a ``DDPGTorchPolicy`` through
+:func:`from_jax_ddpg_state`, and a DQN target network (the aux state's
+``target_params``; a Rainbow model's noisy heads keep flax's ``w_mu``,
+``w_sigma``, ``b_mu``, ``b_sigma``) through :func:`from_jax_dqn_target`. A reference
 worker's multi-policy weights (``{pid: params}``) go into the port's
 policy map through :func:`from_jax_policy_weights`. A reference
 checkpoint's unpickled ``algorithm_state.pkl`` goes into a port
@@ -211,6 +217,67 @@ def from_jax_sac_state(policy, params, aux_state, opt_state):
     return policy
 
 
+def _copy_group_adam(st, opt_state, names, prefix: str) -> None:
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError(f"no scale_by_adam state for {prefix!r}")
+    st.count = int(np.asarray(adam.count))
+    mu = {f"{prefix}.{k}": v for k, v in to_state_dict(adam.mu).items()}
+    nu = {f"{prefix}.{k}": v for k, v in to_state_dict(adam.nu).items()}
+    for i, name in enumerate(names):
+        st.mu[i].copy_(torch.as_tensor(np.asarray(mu[name])))
+        st.nu[i].copy_(torch.as_tensor(np.asarray(nu[name])))
+
+
+def from_jax_ddpg_state(policy, params, aux_state=None, opt_state=None, expl_state=None):
+    """Carry a reference DDPG or TD3 policy's state into ``policy`` (a
+    ``DDPGTorchPolicy``) in place: the actor and critic (``params``),
+    the target actor, target critic and update ``step`` (``aux_state``),
+    the critic's and actor's Adam states (``opt_state``; the actor's
+    count is its own, since TD3 skips actor steps) and the OU process's
+    carried ``x`` (``expl_state``, the reference policy's
+    ``_expl_state``). None leaves a part as it is. Returns ``policy``."""
+    weights = {}
+    for group in ("actor", "critic"):
+        weights.update({f"{group}.{k}": v for k, v in to_state_dict(params[group]).items()})
+    if set(weights) != set(policy.param_names):
+        raise ValueError(
+            f"DDPG trees and policy disagree: {sorted(set(weights) ^ set(policy.param_names))}"
+        )
+    policy.set_weights(weights)
+    with torch.no_grad():
+        if aux_state is not None:
+            for key, names in (("target_actor", policy.actor_names),
+                               ("target_critic", policy.critic_names)):
+                target = to_state_dict(aux_state[key])
+                for name, t in zip(names, policy.aux_state[key]):
+                    t.copy_(torch.as_tensor(np.asarray(target[name])))
+            step = int(np.asarray(aux_state["step"]))
+            policy.aux_state["step"].fill_(step)
+            policy.num_updates = step
+        if opt_state is not None:
+            for group, st in policy.opt_states.items():
+                _copy_group_adam(st, opt_state[group], policy.group_param_names(group), group)
+    if expl_state is not None:
+        policy._expl_state = tuple(torch.as_tensor(np.asarray(x), device=policy.device)
+                                   for x in expl_state)
+        policy._expl_state_batch = int(np.asarray(expl_state[0]).shape[0]) if expl_state else -1
+    return policy
+
+
+def from_jax_dqn_target(policy, aux_state):
+    """A reference DQN policy's target network (``aux_state
+    ["target_params"]``, a param tree like the online one) into the
+    port policy's target, in place. Returns ``policy``."""
+    sd = to_state_dict(aux_state["target_params"])
+    if set(sd) != set(policy.param_names):
+        raise ValueError(f"target tree and policy disagree: {sorted(set(sd) ^ set(policy.param_names))}")
+    with torch.no_grad():
+        for name, t in zip(policy.param_names, policy.aux_state["target_params"]):
+            t.copy_(torch.as_tensor(np.asarray(sd[name])))
+    return policy
+
+
 def from_jax_filter(ref_filter):
     """A reference observation filter (``NoFilter`` or ``MeanStdFilter``,
     duck-typed) as the port's, with the same statistics."""
@@ -243,7 +310,9 @@ def from_jax_policy_state(policy, ps: Mapping):
     SAC's through ``from_jax_sac_state``), the optax Adam state
     (``from_jax_adam_state``), ``coeff_values``, ``global_timestep``,
     ``num_grad_updates`` and ``exploration_state``. Returns ``policy``."""
-    if hasattr(policy, "opt_states"):  # SAC's three optimizers
+    if hasattr(policy, "actor_names"):  # DDPG's and TD3's two optimizers, targets, step
+        from_jax_ddpg_state(policy, ps["weights"], ps.get("aux_state"), ps["opt_state"])
+    elif hasattr(policy, "opt_states"):  # SAC's three optimizers
         from_jax_sac_state(policy, ps["weights"], None, ps["opt_state"])
     else:
         from_jax_params(ps["weights"], policy.model)
@@ -267,8 +336,9 @@ def from_jax_algorithm_state(algo, state: Mapping):
     for the same config, in place, and send the weights to its remote
     workers: each policy of ``state["worker"]["policy_states"]`` through
     :func:`from_jax_policy_state`. The reference's state has no aux
-    state: DQN's and SAC's targets stay as they are, as the reference's
-    restore leaves them. Then the filters (:func:`from_jax_filter`), the
+    state for DQN and SAC: their targets stay as they are, as the
+    reference's restore leaves them; DDPG's and TD3's carry theirs. A
+    replay buffer in the state is not loaded. Then the filters (:func:`from_jax_filter`), the
     counters and the episode total. Returns ``algo``."""
     worker = state["worker"]
     for pid, ps in worker["policy_states"].items():

@@ -24,7 +24,7 @@ PongLite-v0 (device "cpu", fragment 16, 2 envs each) for 2 iterations:
 the workers' policies are on the CPU with CUDA hidden and uninitialized,
 their weights equal the learner's bitwise after ``sync_weights``, and
 ``stop()`` leaves no worker process. Configs that need a later slice
-raise (a recurrent policy under the multi-agent sampler, item 3b.2;
+raise (a recurrent policy under the multi-agent sampler, which carries no state;
 multi-agent policies on a single-agent env raise for want of a
 MultiAgentEnv). The slow test runs ``tuned_examples/ppo/cartpole-ppo.yaml`` as
 written to its bar (150 within 100,000 env steps).
@@ -440,7 +440,7 @@ def test_ppo_local_worker_and_later_slices():
                              {"model": {**SMALL_CNN, "use_prev_action": True}}, device="cpu")
     assert SampleBatch.PREV_ACTIONS in shifted.view_requirements
     shifted.get_initial_state = lambda: [np.zeros(4, np.float32)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3b.2"):
+    with pytest.raises(NotImplementedError, match="carries no recurrent state"):
         MultiAgentSyncSampler(env=None, policy_map={"default_policy": shifted},
                               policy_mapping_fn=lambda a: "default_policy", preprocessors={},
                               obs_filters={})

@@ -286,9 +286,40 @@ def test_learner_thread_stats_keys():
     _run_thread(lt, [_pooled_batch(policy, 0)])
     stats = lt.stats()
     assert set(stats) == {"learner_queue_size", "num_steps_trained_this_thread",
-                          "queue_wait_time_s", "grad_time_s", "weight_publish_time_s"}
+                          "queue_wait_time_s", "grad_time_s", "lock_wait_time_s",
+                          "weight_publish_time_s"}
     assert stats["num_steps_trained_this_thread"] == 1 and stats["grad_time_s"] > 0
     assert stats["weight_publish_time_s"] == 0.0  # publishing off
+
+
+@pytest.mark.parametrize("kind", ["impala", "own_learn"])
+def test_learner_thread_grad_time_excludes_the_lock_wait(kind):
+    """Another thread holds ``LearnerThread.lock`` for HOLD_S seconds
+    while a batch is queued: the step waits for it, and ``grad_time_s``
+    (the learn call alone, as the reference's) stays below HOLD_S, the
+    wait going to ``lock_wait_time_s``. Both step paths: the pipelined
+    device-batch learn and the policy's own ``learn_on_batch``."""
+    hold_s = 2.0
+    if kind == "impala":
+        policy, _ = _pair("impala")
+        batch = _pooled_batch(policy, 0)
+    else:
+        policy = _OwnLearn(Box(-1, 1, (4,), np.float32), Discrete(2), {}, device="cpu")
+        batch = SampleBatch({"obs": np.zeros((5, 4), np.float32)})
+    lt = LearnerThread(policy)
+    assert lt._pipelined == (kind == "impala")
+    with lt.lock:
+        lt.start()
+        assert lt.add_batch(batch)
+        time.sleep(hold_s)
+    deadline = time.time() + 60
+    while lt.num_steps < 1 and time.time() < deadline:
+        time.sleep(0.02)
+    lt.stop()
+    assert not lt.is_alive() and lt.error is None and lt.num_steps == 1
+    stats = lt.stats()
+    assert stats["grad_time_s"] < hold_s, stats
+    assert stats["lock_wait_time_s"] > hold_s / 2, stats
 
 
 class _OwnLearn(PPOTorchPolicy):

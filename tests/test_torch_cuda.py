@@ -1247,3 +1247,210 @@ def test_serve_torso_flash_launches_a_replay(cuda, vectorized):
         assert fa.flash_attention.launches == before + layers * (1 if vectorized else bucket)
         assert dict(server._programs[(bucket, False)].counts)[fa.flash_attention] == (
             layers * (1 if vectorized else bucket))
+
+
+# -- the rest of off-policy: Rainbow, DDPG and TD3, per-policy rings ----------------
+
+
+def _rainbow_pair(cuda):
+    """Two Rainbow DQN policies (C51 over 51 atoms, noisy dueling heads,
+    double Q, n-step rows) and two identical prioritized rings."""
+    from ray_tpu_torch.algorithms.dqn.dqn import DQNConfig, DQNTorchPolicy
+    from ray_tpu_torch.env.spaces import Box, Discrete
+    from ray_tpu_torch.execution.replay_buffer import DevicePrioritizedReplayBuffer
+
+    cfg = DQNConfig().training(num_atoms=51, v_min=0.0, v_max=500.0, noisy=True, n_step=3,
+                               model={"fcnet_hiddens": [256, 256]}).debugging(seed=2).to_dict()
+
+    def make():
+        policy = DQNTorchPolicy(Box(-np.inf, np.inf, (4,), np.float64), Discrete(2), cfg,
+                                device=cuda)
+        buf = DevicePrioritizedReplayBuffer(2048, 0.6, 3, device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        buf.add_device_tree({
+            "obs": torch.randn((2048, 4), device=cuda, generator=gen),
+            "new_obs": torch.randn((2048, 4), device=cuda, generator=gen),
+            "actions": torch.randint(0, 2, (2048,), device=cuda, generator=gen),
+            "rewards": torch.rand((2048,), device=cuda, generator=gen) * 3,
+            "dones": torch.rand((2048,), device=cuda, generator=gen) < 0.05,
+            "n_steps": torch.randint(1, 4, (2048,), device=cuda, generator=gen).float(),
+        })
+        return policy, buf
+
+    return make(), make()
+
+
+def test_graphed_rainbow_replay_slots_equal_eager_updates(cuda):
+    """4 Rainbow slots (descent, gather, the noisy C51 update with its
+    three noise sets, the priorities at a fourth) as one captured graph,
+    twice, against the eager updates on the same pre-drawn rows: bitwise
+    in every parameter, Adam moment, the registered generator, the stats
+    and the sum tree."""
+    from ray_tpu_torch.execution.train_ops import superstep_train_replay
+
+    (pa, ba), (pb, bb) = _rainbow_pair(cuda)
+    for _ in range(2):
+        idx, weights = ba.draw_prioritized_sets_device(4, 4, 64, 0.4)
+        seq = []
+        for i in range(4):
+            tree = ba._gather_columns(idx[i])
+            tree["weights"] = weights[i]
+            seq.append(pa.learn_on_device_batch(tree, 64, perms=torch.arange(64, device=cuda)[None]))
+            with torch.no_grad():
+                td = torch.abs(pa._td_error(tree, pa.aux_state)[0]).cpu().numpy()
+            ba.update_priorities(idx[i], td + 1e-6)
+        pb.draw_permutations = lambda n: torch.arange(n, device=cuda)[None]
+        pb._host_permutations = lambda n: torch.arange(n)[None]
+        before = (segment_tree.find_prefixsum.launches, framestack.gather_rows.launches)
+        info = superstep_train_replay(None, pb, bb, 4, 4, 64, prioritized=True, beta=0.4)
+        launched = (segment_tree.find_prefixsum.launches - before[0],
+                    framestack.gather_rows.launches - before[1])
+        assert launched == (4, 4 * 6), launched
+        assert {k: v for k, v in info.items()} == seq[-1]
+    assert _same(pa.params, pb.params)
+    assert pa.opt_state.count == pb.opt_state.count == 8 * pa._steps_per_update(64)
+    assert _same(pa.opt_state.mu, pb.opt_state.mu) and _same(pa.opt_state.nu, pb.opt_state.nu)
+    assert torch.equal(pa.action_generator.get_state(), pb.action_generator.get_state())
+    assert torch.equal(ba._dtree.sum_value, bb._dtree.sum_value)
+
+
+def test_c51_projection_on_the_card_is_the_cpus(cuda):
+    """The projection's ordered sum: the card's result is the CPU's,
+    bitwise (no atomic scatter)."""
+    from ray_tpu_torch.algorithms.dqn.dqn_model import categorical_projection
+
+    rng = np.random.default_rng(0)
+    p = rng.random((512, 51)).astype(np.float32)
+    p /= p.sum(-1, keepdims=True)
+    args = (p, rng.uniform(-3, 3, 512).astype(np.float32),
+            (0.99 ** rng.integers(1, 4, 512)).astype(np.float32),
+            (rng.random(512) > 0.1).astype(np.float32))
+    cpu = categorical_projection(*map(torch.as_tensor, args), 0.0, 500.0)
+    card = categorical_projection(*(torch.as_tensor(a, device=cuda) for a in args), 0.0, 500.0)
+    assert torch.equal(card.cpu(), cpu)
+
+
+def _td3_pair(cuda, delay):
+    from ray_tpu_torch.algorithms.ddpg.ddpg import DDPGTorchPolicy, TD3Config
+    from ray_tpu_torch.env.spaces import Box
+    from ray_tpu_torch.execution.replay_buffer import DeviceReplayBuffer
+
+    cfg = TD3Config().training(actor_hiddens=[64, 64], critic_hiddens=[64, 64],
+                               policy_delay=delay).debugging(seed=2).to_dict()
+
+    def make():
+        policy = DDPGTorchPolicy(Box(-8, 8, (3,)), Box(-2, 2, (1,)), cfg, device=cuda)
+        buf = DeviceReplayBuffer(2048, 3, device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        buf.add_device_tree({
+            "obs": torch.randn((2048, 3), device=cuda, generator=gen),
+            "new_obs": torch.randn((2048, 3), device=cuda, generator=gen),
+            "actions": torch.rand((2048, 1), device=cuda, generator=gen) * 4 - 2,
+            "rewards": torch.randn((2048,), device=cuda, generator=gen),
+            "dones": torch.rand((2048,), device=cuda, generator=gen) < 0.01,
+        })
+        return policy, buf
+
+    return make(), make()
+
+
+@pytest.mark.parametrize("delay", [2, 3])
+def test_graphed_td3_replay_slots_equal_eager_updates(cuda, delay):
+    """TD3's update (the smoothing draw, the critic, the masked actor
+    step, the blends) as one captured graph: windows of 4 slots, three
+    times (both parities of the step inside a window), against eager
+    updates on the same rows: bitwise in every parameter, Adam moment,
+    target, the step, the Adam counts and the generator."""
+    from ray_tpu_torch.execution.train_ops import superstep_train_replay
+
+    (pa, ba), (pb, bb) = _td3_pair(cuda, delay)
+    for _ in range(3):
+        idx = torch.as_tensor(ba.draw_index_sets(4, 100), device=cuda)
+        seq = [pa.learn_on_device_batch(ba._gather_columns(idx[i]), 100) for i in range(4)]
+        info = superstep_train_replay(None, pb, bb, 4, 4, 100)
+        assert info == seq[-1]
+    assert _same(pa.params, pb.params)
+    for g in pa.opt_states:
+        assert pa.opt_states[g].count == pb.opt_states[g].count
+        assert _same(pa.opt_states[g].mu, pb.opt_states[g].mu)
+        assert _same(pa.opt_states[g].nu, pb.opt_states[g].nu)
+    assert pa.opt_states["actor"].count == -(-12 // delay)
+    for key in ("target_actor", "target_critic"):
+        assert _same(pa.aux_state[key], pb.aux_state[key])
+    assert int(pa.aux_state["step"]) == int(pb.aux_state["step"]) == 12
+    assert torch.equal(pa.action_generator.get_state(), pb.action_generator.get_state())
+
+
+def test_ddpg_acts_and_trains_on_the_card(cuda):
+    """pendulum-ddpg.yaml's DDPG with OU noise on the card: actions in
+    bounds, the OU state on the card, updates as graphed slots."""
+    from ray_tpu_torch.algorithms.ddpg.ddpg import DDPGConfig
+
+    algo = (DDPGConfig().environment("Pendulum-v1")
+            .training(actor_hiddens=[64, 64], critic_hiddens=[64, 64], train_batch_size=64,
+                      num_steps_sampled_before_learning_starts=64)
+            .debugging(seed=0).resources(device=cuda).build())
+    try:
+        for _ in range(80):
+            result = algo.train()
+        policy = algo.get_policy()
+        assert policy._expl_state[0].is_cuda and policy.num_updates == 17
+        assert all(p.is_cuda for p in policy.params)
+        assert np.isfinite(list(result["info"]["learner"]["default_policy"].values())).all()
+        (runner,) = policy._superstep_runners.values()
+        assert runner.graph is not None
+    finally:
+        algo.stop()
+
+
+def test_two_policy_dqn_iteration_on_the_card(cuda):
+    """Two DQN policies over two rings on the card, each ring filled by
+    the row-scatter kernel and drawn by the gather, both targets synced."""
+    from ray_tpu_torch.algorithms.dqn.dqn import DQNConfig
+    from ray_tpu_torch.env.multi_agent_env import make_multi_agent
+    from ray_tpu_torch.env.registry import register_env
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    register_env("cuda_ma_dqn", lambda cfg: make_multi_agent("CartPole-v1")({"num_agents": 2}))
+    space, act = Box(-np.inf, np.inf, (4,), np.float64), Discrete(2)
+    algo = (DQNConfig().environment("cuda_ma_dqn")
+            .rollouts(rollout_fragment_length=16)
+            .training(train_batch_size=32, num_steps_sampled_before_learning_starts=32,
+                      target_network_update_freq=64, model={"fcnet_hiddens": [64]})
+            .multi_agent(policies={"p0": (None, space, act, {}), "p1": (None, space, act, {})},
+                         policy_mapping_fn=lambda aid, *a, **kw: f"p{aid % 2}")
+            .debugging(seed=0).resources(device=cuda).build())
+    try:
+        before = (framestack.scatter_rows.launches, framestack.gather_rows.launches)
+        for _ in range(6):
+            learner = algo.train()["info"]["learner"]
+        assert set(learner) == {"p0", "p1"}
+        assert framestack.scatter_rows.launches > before[0]
+        assert framestack.gather_rows.launches > before[1]
+        assert algo._counters["num_target_updates"] >= 1
+        for buf in algo.local_replay_buffer.buffers.values():
+            assert all(t.is_cuda for t in buf._store.values())
+    finally:
+        algo.stop()
+
+
+def test_rainbow_served_exact_on_the_card(cuda):
+    """Rainbow's noisy act step in exact-mode graphs: bitwise the
+    sequential ``compute_actions`` stream (noise drawn per request
+    before the exploration's draws)."""
+    from ray_tpu_torch.algorithms.dqn.dqn import DQNConfig, DQNTorchPolicy
+    from ray_tpu_torch.env.spaces import Box, Discrete
+    from ray_tpu_torch.serve.policy_server import BatchedPolicyServer
+
+    cfg = DQNConfig().training(num_atoms=51, v_min=0.0, v_max=500.0, noisy=True,
+                               model={"fcnet_hiddens": [64, 64]}).debugging(seed=4).to_dict()
+    served, sequential = (DQNTorchPolicy(Box(-1, 1, (16,), np.float32), Discrete(5), cfg,
+                                         device=cuda) for _ in range(2))
+    server = BatchedPolicyServer(served, max_batch_size=8, explore=True, start=False)
+    assert server.fused
+    server.warmup()
+    obs = _serve_obs(12, 3)
+    got = [server.forward_padded(obs[a:b])[0] for a, b in ((0, 5), (5, 6), (6, 12))]
+    want = np.concatenate([sequential.compute_actions(obs[i:i + 1])[0] for i in range(12)])
+    assert np.concatenate(got).tobytes() == want.tobytes()
+    assert server.stats()["captures_after_warmup"] == 0

@@ -97,10 +97,17 @@ def test_dqn_model_mlp_names_and_unported_heads():
         q = tm(torch.as_tensor(obs))[0]
     np.testing.assert_allclose(q.numpy(), np.asarray(jm.apply(params, jnp.asarray(obs))[0]),
                                rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DQNModel((6,), 2, num_atoms=51)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DQNModel((6,), 2, noisy=True)
+    # the Rainbow heads build (held against the reference in
+    # tests/test_torch_rainbow.py): C51's (B, A, atoms) logits and the
+    # noisy heads' flax names
+    c51 = DQNModel((6,), 2, num_atoms=51)
+    assert c51.adv_head.weight.shape == (102, 256) and c51.value_head.weight.shape == (51, 256)
+    jn = JDQNModel(num_outputs=2, hiddens=(16, 8), noisy=True)
+    noisy_params = jax.device_get(jn.init(jax.random.PRNGKey(2), jnp.asarray(obs)))
+    noisy = from_jax_params(noisy_params, DQNModel((6,), 2, hiddens=(16, 8), noisy=True))
+    assert {n for n, _ in noisy.named_parameters() if "head" in n} == {
+        f"{h}.{p}" for h in ("adv_head", "value_head")
+        for p in ("w_mu", "w_sigma", "b_mu", "b_sigma")}
 
 
 # -- exploration -----------------------------------------------------------------

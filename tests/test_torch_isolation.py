@@ -11,7 +11,9 @@
   blocked, and a port checkpoint saves and comes back through
   ``Algorithm.from_checkpoint`` in that state;
 - the recurrent models (``models/rnn.py``, ``models/attention.py``)
-  import with the reference blocked, and recurrent PPO trains on them.
+  import with the reference blocked, and recurrent PPO trains on them;
+- the rest of off-policy (Rainbow DQN, DDPG, TD3, per-policy rings)
+  trains with the reference blocked.
 """
 
 from __future__ import annotations
@@ -241,6 +243,84 @@ def test_sac_without_device_raises_without_cuda(monkeypatch):
     algo = SACConfig().environment("Pendulum-v1").resources(device="cpu").build()
     assert algo.get_policy().device.type == "cpu"
     assert algo.local_replay_buffer.device.type == "cpu"
+
+
+def test_off_policy_slice_runs_with_reference_blocked():
+    """The slice's modules (``algorithms/ddpg/``, the Rainbow heads,
+    ``Deterministic``, the noise explorations, n-step, frame pools in
+    replay, per-policy rings) import with the reference blocked, and
+    Rainbow DQN, DDPG, TD3 and two-policy DQN train through them."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+
+        class _Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError(name + " blocked by test")
+                return None
+
+        sys.meta_path.insert(0, _Block())
+        from ray_tpu_torch.algorithms.ddpg.ddpg import DDPGConfig, TD3Config
+        from ray_tpu_torch.algorithms.dqn.dqn import DQNConfig
+        from ray_tpu_torch.env.multi_agent_env import make_multi_agent
+        from ray_tpu_torch.env import registry
+        from ray_tpu_torch.env.spaces import Box, Discrete
+
+        rainbow = dict(num_atoms=11, v_min=0.0, v_max=10.0, noisy=True, n_step=3,
+                       train_batch_size=8, num_steps_sampled_before_learning_starts=8,
+                       model={{"fcnet_hiddens": [8]}},
+                       replay_buffer_config={{"prioritized_replay": True}})
+        algo = (DQNConfig().environment("CartPole-v1").rollouts(rollout_fragment_length=8)
+                .training(**rainbow).resources(device="cpu").build())
+        for _ in range(3):
+            algo.train()
+        algo.stop()
+        for cls in (DDPGConfig, TD3Config):
+            algo = (cls().environment("Pendulum-v1")
+                    .training(train_batch_size=8, num_steps_sampled_before_learning_starts=8,
+                              actor_hiddens=[8], critic_hiddens=[8])
+                    .resources(device="cpu").build())
+            for _ in range(12):
+                algo.train()
+            assert algo.get_policy().num_updates > 0
+            algo.stop()
+        registry.register_env("mc", lambda c: make_multi_agent("CartPole-v1")({{"num_agents": 2}}))
+        cfg = (DQNConfig().environment("mc").rollouts(rollout_fragment_length=8)
+               .training(train_batch_size=8, num_steps_sampled_before_learning_starts=8,
+                         model={{"fcnet_hiddens": [8]}})
+               .resources(device="cpu"))
+        space = Box(-10.0, 10.0, (4,))
+        cfg.multi_agent(policies={{p: (None, space, Discrete(2), {{}}) for p in ("a", "b")}},
+                        policy_mapping_fn=lambda aid, *a, **k: "ab"[aid % 2])
+        algo = cfg.build()
+        for _ in range(3):
+            out = algo.train()
+        assert set(out["info"]["learner"]) == {{"a", "b"}}
+        algo.stop()
+        bad = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
+def test_ddpg_without_device_raises_without_cuda(monkeypatch):
+    from ray_tpu_torch.algorithms.ddpg.ddpg import DDPGTorchPolicy, TD3Config
+    from ray_tpu_torch.env.spaces import Box
+
+    _no_cuda(monkeypatch)
+    obs, act = Box(-1, 1, (3,), np.float32), Box(-2, 2, (1,), np.float32)
+    with pytest.raises(RuntimeError, match="none is available"):
+        DDPGTorchPolicy(obs, act, {})
+    with pytest.raises(RuntimeError, match="none is available"):
+        TD3Config().environment("Pendulum-v1").build()
+    algo = TD3Config().environment("Pendulum-v1").resources(device="cpu").build()
+    assert algo.get_policy().device.type == "cpu"
+    assert algo.get_policy().aux_state["step"].device.type == "cpu"
 
 
 def test_multi_agent_ppo_runs_with_reference_and_gymnasium_blocked():

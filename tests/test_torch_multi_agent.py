@@ -30,7 +30,7 @@ Contracts:
   synchronous, ``stop()`` leaves no process), ``policies_to_train``,
   ``set_policy_mapping_fn`` and ``add_policy`` at the next episode,
   ``get_policy`` by id,
-  and the refusals of the algorithms off the PPO path (item 3b.2).
+  and the refusals where the reference has no multi-agent path.
 """
 
 from __future__ import annotations
@@ -533,19 +533,58 @@ def test_remote_worker_weights_and_prefetch_stay_synchronous(runtime):
 
 @pytest.mark.parametrize("config_cls", [IMPALAConfig, APPOConfig, DQNConfig, SACConfig])
 def test_multi_agent_off_the_ppo_path_raises(config_cls):
+    """Where the reference has no multi-agent path, the port refuses
+    ``policies`` as the reference does. IMPALA and APPO look up the
+    default policy: a map without one fails to build in both packages
+    (``KeyError: 'default_policy'``). A map with one is the port's own
+    refusal: the reference's IMPALA builds and trains the default policy
+    alone, shown here. The replay family learns a policy map on the actor lane
+    (``tests/test_torch_multi_agent_replay.py``); its device lane is
+    single-policy, as the reference's."""
     _register()
+    if config_cls in (DQNConfig, SACConfig):
+        cfg = config_cls().environment("multi_cartpole", env_backend="jax").resources(device="cpu")
+        cfg.multi_agent(policies={"p0": (None, OBS_SP, ACT_SP, {})},
+                        policy_mapping_fn=lambda aid, **kw: "p0")
+        with pytest.raises(ValueError, match="env_backend='jax' is single-policy"):
+            cfg.build()
+        return
+    from ray_tpu.algorithms.appo.appo import APPOConfig as RefAPPOConfig
+    from ray_tpu.algorithms.impala.impala import IMPALAConfig as RefIMPALAConfig
+
+    ref_cls = RefIMPALAConfig if config_cls is IMPALAConfig else RefAPPOConfig
+    ref = ref_cls().environment("multi_cartpole").rollouts(num_rollout_workers=0)
+    ref.multi_agent(policies={"p0": (None, GYM_OBS_SP, GYM_ACT_SP, {})},
+                    policy_mapping_fn=lambda aid, *a, **kw: "p0")
+    with pytest.raises(KeyError, match=DEFAULT_POLICY_ID):
+        ref.build()
     cfg = config_cls().environment("multi_cartpole").resources(device="cpu")
     cfg.multi_agent(policies={"p0": (None, OBS_SP, ACT_SP, {})},
                     policy_mapping_fn=lambda aid, **kw: "p0")
-    with pytest.raises(NotImplementedError, match="item 3b.2"):
+    with pytest.raises(KeyError, match=DEFAULT_POLICY_ID):
         cfg.build()
+    cfg.multi_agent(policies={DEFAULT_POLICY_ID: (None, OBS_SP, ACT_SP, {}),
+                              "p1": (None, OBS_SP, ACT_SP, {})},
+                    policy_mapping_fn=lambda aid, **kw: "p1")
+    with pytest.raises(ValueError, match="the port refuses a policy map"):
+        cfg.build()
+    if config_cls is IMPALAConfig:
+        ref.multi_agent(policies={DEFAULT_POLICY_ID: (None, GYM_OBS_SP, GYM_ACT_SP, {}),
+                                  "p1": (None, GYM_OBS_SP, GYM_ACT_SP, {})},
+                        policy_mapping_fn=lambda aid, *a, **kw: "p1")
+        algo = ref.build()
+        try:
+            learner = algo.train()["info"]["learner"]
+        finally:
+            algo.stop()
+        assert DEFAULT_POLICY_ID in learner and "p1" not in learner
 
 
 def test_multi_agent_on_the_device_lane_raises():
     cfg = PPOConfig().environment("CartPoleJax-v0", env_backend="jax").resources(device="cpu")
     cfg.multi_agent(policies={"p0": (None, OBS_SP, ACT_SP, {})},
                     policy_mapping_fn=lambda aid, **kw: "p0")
-    with pytest.raises(NotImplementedError, match="item 3b.2"):
+    with pytest.raises(ValueError, match="env_backend='jax' is single-policy"):
         cfg.build()
 
 

@@ -28,7 +28,7 @@ and the port takes the reference's weights through
 
 And the catalog's recurrent defaults, and the paths the reference
 refuses for a recurrent policy, refused with its reasons: the device
-lane, DQN and SAC (R2D2 / RNNSAC), the multi-agent sampler (item 3b.2).
+lane, DQN and SAC (R2D2 / RNNSAC), the multi-agent sampler (no recurrent state, as the reference's).
 """
 
 from __future__ import annotations
@@ -462,7 +462,7 @@ def test_paths_the_reference_refuses_still_raise(path):
                 SACTorchPolicy(box, Box(-1.0, 1.0, (1,), np.float32), {key: {"use_lstm": True}},
                                device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="item 3b.2"):
+        with pytest.raises(NotImplementedError, match="carries no recurrent state"):
             MultiAgentSyncSampler(env=None, policy_map={"p": _port(LSTM)},
                                   policy_mapping_fn=lambda aid: "p", preprocessors={},
                                   obs_filters={})

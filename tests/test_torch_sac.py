@@ -444,8 +444,14 @@ def test_sac_fixed_seed_repeats_and_state_roundtrip():
 @pytest.mark.parametrize("typ,item", [("GaussianNoise", "item 4b"),
                                       ("OrnsteinUhlenbeckNoise", "item 4b"), ("Curiosity", "item 9")])
 def test_unported_explorations_name_their_item(typ, item):
+    """The noise strategies were item 4b's and are ported with DDPG and
+    TD3 (``tests/test_torch_ddpg.py``); the rest still name item 9."""
     from ray_tpu_torch.utils.exploration import exploration_from_config
 
+    if item == "item 4b":
+        assert type(exploration_from_config({"exploration_config": {"type": typ}},
+                                            Box(-1, 1, (1,)))).__name__ == typ
+        return
     with pytest.raises(NotImplementedError, match=item):
         exploration_from_config({"exploration_config": {"type": typ}}, Box(-1, 1, (1,)))
 
@@ -666,11 +672,16 @@ def test_dqn_actor_lane_round_matches_reference(monkeypatch):
 
 
 def test_dqn_actor_lane_refusals():
+    """What the actor lane still refuses (``sample_async``, item 5), and
+    what it no longer refuses: ``n_step > 1`` folds on the host (the
+    ring gets the ``n_steps`` column) and pixel fragments ship as frame
+    pools and land in the ring as stacks (held bitwise against the
+    reference in ``tests/test_torch_rainbow.py``)."""
     base = (DQNConfig().environment("CartPole-v1").resources(device="cpu")
             .training(**DQN_COMMON))
     algo = base.training(n_step=3).build()
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        algo.training_step()
+    algo.training_step()
+    assert "n_steps" in algo.local_replay_buffer.buffers["default_policy"]._store
     cfg = DQNConfig().environment("CartPole-v1").resources(device="cpu")
     cfg.sample_async = True
     with pytest.raises(NotImplementedError, match="item 5"):
@@ -680,8 +691,10 @@ def test_dqn_actor_lane_refusals():
              .training(model={"conv_filters": [[4, [8, 8], [4, 4]], [8, [4, 4], [2, 2]]],
                               "post_fcnet_hiddens": [16]})
              .resources(device="cpu").build())
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        pixel.training_step()
+    assert "obs_frames" in pixel.workers.local_worker().sample()  # shipped as a pool
+    pixel.training_step()
+    store = pixel.local_replay_buffer.buffers["default_policy"]._store
+    assert "obs" in store and "new_obs" in store and "obs_frames" not in store
 
 
 def test_replay_add_uses_policy_columns(monkeypatch):

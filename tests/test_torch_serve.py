@@ -246,7 +246,7 @@ def test_worker_env_keeps_the_card_variable_when_asked(monkeypatch):
     assert core.get(shown.env.remote("X_MARK"), timeout=60) == "1"
     core.kill(hidden)
     core.kill(shown)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         report.options(runtime_env={"pip": ["x"]})
 
 

@@ -19,7 +19,7 @@ Contracts, all bitwise (host numpy code on the same inputs):
   the port's ``CartPole-v1``: ``prev_actions`` and ``prev_rewards`` are
   the actions and rewards shifted by one within each episode, zero at
   each episode's start; a recurrent policy still raises under the
-  multi-agent sampler, whose reference carries no state (item 3b.2).
+  multi-agent sampler, whose reference carries no state.
 """
 
 from __future__ import annotations
@@ -287,6 +287,6 @@ class _Recurrent(Policy):
 
 def test_recurrent_policy_still_raises():
     policy = _Recurrent(_CountEnv.observation_space, _CountEnv.action_space, {})
-    with pytest.raises(NotImplementedError, match="item 3b.2"):
+    with pytest.raises(NotImplementedError, match="carries no recurrent state"):
         MultiAgentSyncSampler(env=None, policy_map={"p": policy}, policy_mapping_fn=lambda a: "p",
                               preprocessors={}, obs_filters={})

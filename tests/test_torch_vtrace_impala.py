@@ -529,10 +529,10 @@ def test_later_slices_raise():
 
 
 def test_registry_resolves_the_ported_algorithms():
-    for name in ("PPO", "DQN", "IMPALA", "APPO", "SAC"):
+    for name in ("PPO", "DQN", "IMPALA", "APPO", "SAC", "DDPG", "TD3"):
         assert get_algorithm_class(name).__name__ == name
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_algorithm_class("DDPG")
+        get_algorithm_class("APEX")
     algo, stop = build_tuned_example(REPO / "tuned_examples" / "impala" / "cartpole-impala.yaml",
                                      device="cpu")
     try:
