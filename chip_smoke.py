@@ -167,12 +167,23 @@ and ``nvcc``. Phases, each printing its own lines:
     appo     -- APPO at the same geometry for APPO_WINDOW_S seconds: the
                impala phase's readings and the target refreshes (> 0
                required);
+    impala_fused -- cartpole-impala.yaml's widths with 2 remote workers
+               at superstep "auto" (K = 8) for ASYNC_BUDGET_S seconds: the
+               learner thread's fused supersteps, rates, queue wait
+               against grad time; a backlog (BACKLOG_S with the step lock
+               held) that it must learn fused; the run's first fused
+               superstep bitwise against K eager learns of a copy of the
+               policy; then one aggregation actor for its budget: the
+               train batches that came through it;
     ppo_prefetch -- ponglite-ppo.yaml with ``sample_prefetch: 1``: the
                first iteration's learner stats bitwise equal to a fresh
                synchronous run's, then PREFETCH_WINDOW_S seconds of calls:
                env-steps/s harvested and trained over the window, each
                call's split, the feeder's copies, one row-gather launch
-               per learn;
+               per learn; then ``sample_prefetch: 2`` with ``superstep:
+               2`` (stacks shipped: frame pools demote the run to K = 1):
+               the first step's graphed superstep bitwise against two
+               eager learns, and PREFETCH_FUSED_S seconds of calls;
     sac_learner -- SAC's learner at HalfCheetah's published widths
                (bench_e2e.py's ``_sac_halfcheetah``: obs 17, act 6,
                256x256 towers, batch 256) on a 400000-row device ring of
@@ -223,6 +234,23 @@ and ``nvcc``. Phases, each printing its own lines:
                copies of the trained policy and its ring against eager
                updates, bitwise (parameters, Adam moments and counts,
                targets, TD3's step, generators, stats, the sum tree);
+    apex     -- tuned_examples/apex_dqn/cartpole-apex.yaml as written (3
+               CPU workers on the per-worker epsilon ladder, read back
+               and required; two prioritized device shards of 25,000 rows;
+               8 graphed updates a shard and learn pass) until learning
+               starts and ASYNC_BUDGET_S["apex"] seconds after: env-steps/s
+               sampled, updates/s, target updates, the busy share, one
+               descent and a gather per column an update and more than a
+               scatter per column an insert required; then each shard's
+               kernels against their plain versions (``_ring_kernels``);
+    sac_async -- bench_e2e.py's SAC geometry (:func:`sac_async_config`:
+               one remote worker sampling on its thread, fragment 32,
+               batch 256, ``training_intensity`` 256) on Pendulum-v1:
+               STALE_ROUNDS rounds that must each insert the fragment
+               requested in the round before, then ASYNC_BUDGET_S seconds:
+               rates, the split, the launches against the schedule; graphed
+               slots against eager updates and the ring's kernels against
+               their plain versions;
     ma_ppo   -- multi-agent PPO at bench_e2e.py's ``_ma_cartpole`` width
                (:func:`ma_cartpole_config`: 4 CartPole-v1 agents of the
                port's own env on one shared policy, FCNet 128x128, 1
@@ -390,6 +418,7 @@ or outlives its timeout fails the script. Without a CUDA device it exits
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -1827,7 +1856,7 @@ CARTPOLE = os.path.join(REPO, "tuned_examples", "ppo", "cartpolejax-ppo.yaml")
 # budget of the PongLite learning run (the whole script must end within
 # its time limit)
 CARTPOLE_BAR, CARTPOLE_STEPS = 150.0, 200000
-PONG_BAR, PONG_STEPS, PONG_LEARN_S = 18.0, 2000000, 30.0
+PONG_BAR, PONG_STEPS, PONG_LEARN_S = 18.0, 2000000, 10.0  # 30 s before PR 17
 
 
 def learn_curve(phase, algo, bar, max_steps, budget_s=None, pids=("default_policy",)):
@@ -1925,7 +1954,7 @@ def phase_ponglite_learn():
 # envs on the host's CPUs, T = 128, the learner on the card), and its
 # learning run's wall budget
 ACTOR_TUNED = os.path.join(REPO, "tuned_examples", "ppo", "ponglite-ppo.yaml")
-ACTOR_LEARN_S = 25.0
+ACTOR_LEARN_S = 8.0  # 25 s before PR 17
 ACTOR_TIMED_CALLS = 3
 
 
@@ -2125,9 +2154,11 @@ def phase_actor_learn():
         algo.stop()
 
 
-IMPALA_WINDOW_S = 60.0
-APPO_WINDOW_S = 30.0
-PREFETCH_WINDOW_S = 20.0
+# cut from 60, 30 and 20 s to pay for the asynchronous loop's phases
+IMPALA_WINDOW_S = 15.0
+APPO_WINDOW_S = 10.0
+PREFETCH_WINDOW_S = 6.0
+PREFETCH_FUSED_S = 3.0
 
 
 def impala_config(config_cls, **over):
@@ -2438,7 +2469,75 @@ def phase_ppo_prefetch():
             feeder_bytes=json.dumps(sorted({c["bytes"] for c in copies})),
             feeder_copy_s=json.dumps(spread([c["copy_s"] for c in copies])),
             feeder_h2d_ms=json.dumps(spread([c["h2d_ms"] for c in copies])))
-        return launches
+    finally:
+        algo.stop()
+    _ppo_prefetch_fused()
+    return launches
+
+
+def _ppo_prefetch_fused():
+    """ponglite-ppo.yaml with ``sample_prefetch: 2`` and ``superstep: 2``
+    (stacked batches, ``dedup_framestack`` off: frame pools demote the
+    run to one update a step): the first step's graphed superstep against
+    two eager learns of a copy of the policy on the same two prefetched
+    batches (the KL coefficient held for both, then adapted on each
+    update's stats in order), bitwise; then PREFETCH_FUSED_S seconds of
+    calls: env-steps/s trained, supersteps."""
+    import torch
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+
+    algo = ppo_from_yaml(ACTOR_TUNED, sample_prefetch=2, superstep=2, dedup_framestack=False,
+                        compress_obs_shipping=False)
+    try:
+        policy = algo.get_policy()
+        state, perm = copy.deepcopy(policy.get_state()), policy.perm_generator.get_state()
+        taken = []
+        real_next = algo._next_prefetched
+
+        def recorded():
+            dev, meta = real_next()
+            if len(taken) < 2:
+                taken.append(({k: v.clone() for k, v in dev.items()}, meta))
+            return dev, meta
+
+        algo._next_prefetched = recorded
+        r = algo.train()
+        require(algo._counters["num_prefetch_supersteps"] == 1 and algo._superstep_k == 2,
+                "ppo_prefetch: the first K = 2 step took no superstep")
+        got = r["info"]["learner"]["default_policy"]
+        after = [p.detach().clone() for p in policy.params]
+        eager = PPOTorchPolicy(policy.observation_space, policy.action_space, policy.config)
+        eager.set_state(state)
+        eager.perm_generator.set_state(perm)
+        kl = eager.coeff_values["kl_coeff"]
+        outs = []
+        for dev, (bsize, _, _) in taken:
+            eager.coeff_values["kl_coeff"] = kl
+            out = eager.learn_on_device_batch(dev, bsize)
+            out.pop("cur_kl_coeff")
+            outs.append(out)
+        eager.coeff_values["kl_coeff"] = kl
+        for out in outs:
+            out.update(eager.after_learn_on_batch(out))
+        require(got == outs[-1], f"ppo_prefetch: fused stats {got} != eager {outs[-1]}")
+        require(all(torch.equal(a, b) for a, b in zip(after, eager.params)),
+                "ppo_prefetch: fused and eager parameters differ")
+        trained0, s0 = algo._counters["num_env_steps_trained"], algo._counters["num_prefetch_supersteps"]
+        t0 = time.perf_counter()
+        walls = []
+        while time.perf_counter() - t0 < PREFETCH_FUSED_S:
+            t1 = time.perf_counter()
+            algo.train()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        wall = time.perf_counter() - t0
+        trained = algo._counters["num_env_steps_trained"] - trained0
+        say("ppo_prefetch", k=2, fused_equals_two_eager_learns=True, bitwise=True,
+            window_s=f"{wall:.2f}", calls=len(walls),
+            supersteps=algo._counters["num_prefetch_supersteps"] - s0,
+            env_steps_per_s_trained=f"{trained / wall:.1f}",
+            iter_s=json.dumps(spread(walls)), kl_coeff=policy.coeff_values["kl_coeff"])
     finally:
         algo.stop()
 
@@ -2560,7 +2659,7 @@ SAC_OBS, SAC_ACT, SAC_BATCH, SAC_CAPACITY, SAC_K = 17, 6, 256, 400_000, 8
 SAC_FILL_CHUNK, SAC_WINDOWS = 50_000, 3
 SAC_COLUMNS = 5  # obs, new_obs, actions, rewards, dones
 SAC_TUNED = os.path.join(REPO, "tuned_examples", "sac", "pendulum-sac.yaml")
-SAC_BUDGET_S = 60.0
+SAC_BUDGET_S = 12.0  # cut from 60 s to pay for the asynchronous loop's phases
 PENDULUM_PPO = os.path.join(REPO, "tuned_examples", "ppo", "pendulum-ppo.yaml")
 # the replay columns' row widths: Pendulum (obs 3, act 1) and HalfCheetah
 SAC_WIDTHS = {"pendulum": (3, 1, 100_000), "halfcheetah": (SAC_OBS, SAC_ACT, SAC_CAPACITY)}
@@ -2880,8 +2979,8 @@ def phase_pendulum_ppo():
         algo.stop()
 
 
-MA_TIMED_CALLS = 3
-MA_LEARN_S = 40.0
+MA_TIMED_CALLS = 2  # 3 before PR 17
+MA_LEARN_S = 8.0  # 40 s before PR 17
 
 
 # the rest of off-policy on the actor lane: the tuned examples as
@@ -2890,7 +2989,7 @@ MA_LEARN_S = 40.0
 RAINBOW_TUNED = os.path.join(REPO, "tuned_examples", "dqn", "cartpole-rainbow.yaml")
 DDPG_TUNED = os.path.join(REPO, "tuned_examples", "ddpg", "pendulum-ddpg.yaml")
 TD3_TUNED = os.path.join(REPO, "tuned_examples", "td3", "pendulum-td3.yaml")
-OFFPOLICY_BUDGET_S = {"rainbow": 15.0, "ddpg": 12.0, "td3": 15.0, "ma_dqn": 12.0}
+OFFPOLICY_BUDGET_S = {"rainbow": 10.0, "ddpg": 8.0, "td3": 10.0, "ma_dqn": 8.0}  # 15/12/15/12 before PR 17
 # graphed windows of OFFPOLICY_K slots against as many eager updates
 OFFPOLICY_K, OFFPOLICY_WINDOWS = 4, 3
 # train() calls of the busy-share reading after each run
@@ -3198,6 +3297,316 @@ def phase_ma_dqn():
         algo.stop()
 
 
+# the asynchronous actor-learner loop: Ape-X over device shards, SAC with
+# a sampling thread on its remote worker, IMPALA's fused learner
+# superstep and its aggregation actor
+APEX_TUNED = os.path.join(REPO, "tuned_examples", "apex_dqn", "cartpole-apex.yaml")
+ASYNC_BUDGET_S = {"apex": 15.0, "sac_async": 12.0, "impala_fused": 15.0, "impala_agg": 8.0}
+# train() calls of apex's busy-share reading (profiled, 16 graphed
+# updates each)
+APEX_BUSY_CALLS = 4
+# the stale-round check's rounds before sac_async's timed window
+STALE_ROUNDS = 4
+# seconds impala_fused's main thread holds the learner's lock while
+# batches queue
+BACKLOG_S = 4.0
+# the longest wait for the first batch through the aggregation actor
+AGG_WARM_TIMEOUT_S = 60.0
+
+
+def phase_apex():
+    """cartpole-apex.yaml as written (3 CPU workers on the epsilon ladder,
+    n-step 3, two prioritized device shards of 25,000 rows, batch 64,
+    the target every 500 trained steps; superstep "auto": 8 graphed
+    updates a shard and learn pass): the launch counts set to 0 just
+    before the main path, then train() until learning starts and
+    ASYNC_BUDGET_S["apex"] seconds after it; rates, target updates, the
+    workers' epsilons against the ladder, the launches against the
+    schedule (a descent and a gather per column an update, a scatter per
+    column an insert and the trees' writes), the busy share; then each
+    shard's kernels against their plain versions (``_ring_kernels``)."""
+    import numpy as np
+
+    from ray_tpu_torch.utils.tuned_example import build_tuned_example
+
+    algo, _ = build_tuned_example(APEX_TUNED)
+    try:
+        cfg = algo.config
+        policy = algo.get_policy()
+        n = algo.workers.num_remote_workers()
+        require(policy.device.type == "cuda" and n == 3, f"apex: {n} workers, {policy.device}")
+        eps = algo.workers.foreach_worker(
+            lambda w: w.policy().exploration.config.get("final_epsilon"))[1:]
+        ladder = [0.4 ** (1 + 7 * (i - 1) / (n - 1)) for i in range(1, n + 1)]
+        require(eps == ladder, f"apex: worker epsilons {eps} are not the ladder {ladder}")
+        bs = int(cfg["train_batch_size"])
+        shards = algo.replay_shards
+        inserts = [0]
+        route = algo._route_to_replay
+
+        def counted_route(batch):
+            inserts[0] += 1
+            return route(batch)
+
+        algo._route_to_replay = counted_route
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        while algo._counters["num_env_steps_sampled"] < cfg["num_steps_sampled_before_learning_starts"]:
+            algo.train()
+        fill_s = time.perf_counter() - t0
+        sampled0 = algo._counters["num_env_steps_sampled"]
+        curve, wall = learn_curve("apex", algo, None, 10 ** 9, ASYNC_BUDGET_S["apex"])
+        launches = read_kernel_counts()
+        counters = algo._counters
+        sampled = counters["num_env_steps_sampled"] - sampled0
+        updates = counters["num_env_steps_trained"] // bs
+        cols = {len(s._store) for s in shards}
+        require(len(cols) == 1, f"apex: shards hold other columns {cols}")
+        (cols,) = cols
+        require(updates >= 1, "apex: no update")
+        require(launches["find_prefixsum"] == updates,
+                f"apex: {launches['find_prefixsum']} descents in {updates} updates")
+        require(launches["gather_rows"] == cols * updates,
+                f"apex: {launches['gather_rows']} row gathers in {updates} updates of {cols} columns")
+        require(launches["scatter_rows"] > cols * inserts[0],
+                f"apex: {launches['scatter_rows']} row scatters in {inserts[0]} inserts")
+        runners = list(policy._superstep_runners.values())  # one a shard's feed
+        require(len(runners) == len(shards) and all(r.graph is not None for r in runners),
+                f"apex: {len(runners)} replay slots for {len(shards)} shards, not all captured")
+        require(counters["num_target_updates"] >= 1, "apex: no target update")
+        split = {k: round(v, 3) for k, v in algo._timers.items()}
+        busy = device_busy(algo.train, APEX_BUSY_CALLS)
+        rewards = [m.episode_reward for m in algo._episode_history[-10:]]
+        say("apex", budget_s=ASYNC_BUDGET_S["apex"], fill_s=f"{fill_s:.2f}", wall_s=f"{wall:.2f}",
+            env_steps_per_s_sampled=f"{sampled / wall:.1f}", updates=updates,
+            updates_per_s=f"{updates / wall:.1f}", target_updates=counters["num_target_updates"],
+            worker_epsilons=json.dumps(eps), inserts=inserts[0], replay_columns=cols,
+            shard_rows=json.dumps([len(s) for s in shards]),
+            shard_capacity=json.dumps([s.capacity for s in shards]),
+            tree_leaves=json.dumps([s._dtree.capacity for s in shards]),
+            launches=json.dumps(launches), split=json.dumps(split), busy=json.dumps(busy),
+            episode_reward_mean=curve[-1][1],
+            last_10_episodes_mean=f"{float(np.mean(rewards)):.3f}" if rewards else None)
+        for i, shard in enumerate(shards):
+            _ring_kernels("apex", f"shard_{i}", shard, bs, int(cfg["rollout_fragment_length"]), True)
+        return launches
+    finally:
+        algo.stop()
+
+
+def sac_async_config():
+    """bench_e2e.py:114-142's ``_sac_halfcheetah`` geometry on the
+    port's Pendulum-v1 (the card's machine has no MuJoCo): one remote
+    worker with a sampling thread (``sample_async``), fragment 32, batch
+    256, ``training_intensity`` 256 (one update an env step, K = 8
+    graphed windows), tau 0.005, lr 3e-4, a 400,000-row ring, the 256x256
+    nets; learning from 1,000 steps (cut from 10,000)."""
+    from ray_tpu_torch.algorithms.sac.sac import SACConfig
+
+    return (SACConfig().environment("Pendulum-v1")
+            .rollouts(num_rollout_workers=1, rollout_fragment_length=32)
+            .training(train_batch_size=256, gamma=0.99, tau=0.005, training_intensity=256,
+                      num_steps_sampled_before_learning_starts=1000, sample_async=True,
+                      optimization={"actor_learning_rate": 3e-4, "critic_learning_rate": 3e-4,
+                                    "entropy_learning_rate": 3e-4},
+                      replay_buffer_config={"capacity": 400000})
+            .debugging(seed=0))
+
+
+def phase_sac_async():
+    """``sac_async_config`` for ASYNC_BUDGET_S["sac_async"] seconds, the
+    launch counts set to 0 just before: STALE_ROUNDS rounds first, each
+    holding that round r inserts the fragment requested in round r - 1;
+    rates and the split, the launches against the schedule (a gather per
+    column an update, a scatter per column an insert), then graphed
+    slots against eager updates on its ring (``_replay_parity``) and the
+    ring's kernels against their plain versions."""
+    import numpy as np
+
+    from ray_tpu_torch import core
+
+    algo = sac_async_config().build()
+    try:
+        policy = algo.get_policy()
+        require(policy.device.type == "cuda" and algo.workers.num_remote_workers() == 1,
+                "sac_async: the learner is not on the card beside one worker")
+        worker = algo.workers.remote_workers()[0]
+        sampler = core.get(worker.apply.remote(lambda w: type(w.sampler).__name__))
+        require(sampler == "AsyncSampler", f"sac_async: the worker samples with {sampler}")
+        rb = algo.local_replay_buffer
+        inserted = []
+        add = rb.add
+
+        def counted_add(batch, policy_id="default_policy"):
+            inserted.append(np.asarray(batch["obs"]).copy())
+            return add(batch, policy_id)
+
+        rb.add = counted_add
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        requested = []
+        for _ in range(STALE_ROUNDS):
+            algo.train()
+            (ref,) = algo._pending_sample_refs
+            requested.append(np.asarray(core.get(ref)["obs"]).copy())
+        for r, (want, got) in enumerate(zip(requested[:-1], inserted[1:STALE_ROUNDS])):
+            require(np.array_equal(want, got),
+                    f"sac_async: round {r + 2} did not insert the fragment requested in round {r + 1}")
+        curve, wall = learn_curve("sac_async", algo, None, 10 ** 9, ASYNC_BUDGET_S["sac_async"])
+        wall = time.perf_counter() - t0
+        launches = read_kernel_counts()
+        counters = algo._counters
+        steps, updates = counters["num_env_steps_sampled"], counters["num_env_steps_trained"] // 256
+        cols = len(rb.buffers["default_policy"]._store)
+        require(updates >= 1, "sac_async: no update")
+        require(launches["gather_rows"] == cols * updates,
+                f"sac_async: {launches['gather_rows']} row gathers in {updates} updates")
+        require(launches["scatter_rows"] == cols * len(inserted),
+                f"sac_async: {launches['scatter_rows']} row scatters in {len(inserted)} inserts")
+        split = {k: round(v, 3) for k, v in algo._timers.items()}
+        say("sac_async", budget_s=ASYNC_BUDGET_S["sac_async"], wall_s=f"{wall:.2f}",
+            stale_rounds_checked=STALE_ROUNDS - 1, env_steps=steps, updates=updates,
+            env_steps_per_s=f"{steps / wall:.1f}", updates_per_s=f"{updates / wall:.1f}",
+            launches=json.dumps(launches), split=json.dumps(split),
+            update_ms_an_update=f"{1e3 * algo._timers['update_s'] / updates:.4f}",
+            episode_reward_mean=curve[-1][1])
+        buf = rb.buffers["default_policy"]
+        p = _replay_parity("sac_async", policy, buf, False, 256)
+        say("sac_async", parity="graphed = eager", bitwise=True, **p)
+        _ring_kernels("sac_async", "default_policy", buf, 256, 32, False)
+        return launches
+    finally:
+        algo.stop()
+
+
+def _impala_cartpole(**over):
+    """cartpole-impala.yaml's widths and batch (4 envs a worker, T = 64,
+    batch 512, lr 5e-4, entropy 0.01, vf 0.5, grad clip 40) with 2
+    remote workers instead of its 0, superstep "auto" (8 on the card)."""
+    from ray_tpu_torch.algorithms.impala.impala import IMPALAConfig
+
+    return algo_from_yaml(CARTPOLE_IMPALA, IMPALAConfig, num_workers=2, **over)
+
+
+def _fused_parity(record, config, space, act_space):
+    """The first fused superstep against K eager learns of a copy of the
+    policy (its state and generators just before) on the same K stacked
+    batches: the stats and every parameter bitwise."""
+    import torch
+
+    from ray_tpu_torch.algorithms.impala.impala import ImpalaTorchPolicy
+
+    eager = ImpalaTorchPolicy(space, act_space, dict(config))
+    eager.set_state(record["state"])
+    eager.perm_generator.set_state(record["perm"])
+    k, bs = record["k"], record["bs"]
+    want = [eager.learn_on_device_batch({c: v[i] for c, v in record["stacked"].items()}, bs)
+            for i in range(k)]
+    require(want == record["infos"], f"impala_fused: fused stats {record['infos']} != eager {want}")
+    bad = [n for n, a, b in zip(eager.param_names, eager.params, record["after"])
+           if not torch.equal(a, b)]
+    require(not bad, f"impala_fused: fused and eager parameters differ in {bad}")
+    return {"k": k, "batch_unrolls": bs, "params": len(record["after"])}
+
+
+def phase_impala_fused():
+    """``_impala_cartpole`` for ASYNC_BUDGET_S["impala_fused"] seconds:
+    rates, the learner thread's fused supersteps and updates, its queue
+    wait against its grad time; then a backlog (the main thread holds
+    the thread's step lock while train() queues batches) that the
+    thread must learn as fused supersteps; the first fused superstep of
+    the run bitwise against K eager learns (``_fused_parity``); then the
+    same geometry with one aggregation actor for
+    ASYNC_BUDGET_S["impala_agg"] seconds: the train batches that came
+    through it."""
+    import torch
+
+    algo = _impala_cartpole()
+    try:
+        lt = algo._learner_thread
+        policy = algo.get_policy()
+        require(policy.device.type == "cuda" and lt._superstep_k == 8,
+                f"impala_fused: K {lt._superstep_k} on {policy.device}")
+        record = {}
+        real = policy.learn_superstep
+
+        def recorded(k, bs, **kw):
+            if record:
+                return real(k, bs, **kw)
+            record.update(state=copy.deepcopy(policy.get_state()),
+                          perm=policy.perm_generator.get_state(),
+                          stacked={c: v.clone() for c, v in kw["stacked"].items()}, k=k, bs=bs)
+            out = real(k, bs, **kw)
+            record.update(infos=out[0], after=[p.detach().clone() for p in policy.params])
+            return out
+
+        policy.learn_superstep = recorded
+        zero_kernel_counts()
+        a = _learner_snapshot(algo)
+        s0, t0 = lt.num_supersteps, time.perf_counter()
+        while time.perf_counter() - t0 < ASYNC_BUDGET_S["impala_fused"]:
+            r = algo.train()
+        torch.cuda.synchronize()
+        b = _learner_snapshot(algo)
+        wall = b["t"] - a["t"]
+        fused_in_window = lt.num_supersteps - s0
+        # a backlog: the thread waits for its lock while batches queue
+        t_hold = time.perf_counter()
+        with lt.lock:
+            while time.perf_counter() - t_hold < BACKLOG_S:
+                algo.train()
+        deadline = time.perf_counter() + 30
+        while lt.num_supersteps == s0 + fused_in_window and time.perf_counter() < deadline:
+            algo.train()
+        require(lt.num_supersteps > s0 + fused_in_window,
+                "impala_fused: the thread learned its backlog without a fused superstep")
+        require(lt.healthy(), f"impala_fused: the learner thread died: {lt.error!r}")
+        launches = read_kernel_counts()
+        with lt.lock:
+            policy.learn_superstep = real
+            parity = _fused_parity(record, algo.config, policy.observation_space,
+                                   policy.action_space)
+        d = {k: b[k] - a[k] for k in ("steps", "sampled", "trained", "queue_wait_time_s",
+                                       "grad_time_s")}
+        say("impala_fused", window_s=f"{wall:.2f}", k=lt._superstep_k,
+            fused_supersteps_in_window=fused_in_window, fused_supersteps=lt.num_supersteps,
+            learner_steps=d["steps"],
+            env_steps_per_s_sampled=f"{d['sampled'] / wall:.1f}",
+            env_steps_per_s_trained=f"{d['trained'] / wall:.1f}",
+            queue_wait_time_s=f"{d['queue_wait_time_s']:.4f}", grad_time_s=f"{d['grad_time_s']:.4f}",
+            grad_s_per_update=f"{d['grad_time_s'] / max(1, d['steps']):.5f}",
+            launches=json.dumps(launches), episode_reward_mean=r["episode_reward_mean"])
+        say("impala_fused", parity="fused graph = eager learns", bitwise=True, **parity)
+    finally:
+        algo.stop()
+    agg = _impala_cartpole(num_aggregation_workers=1)
+    try:
+        require(len(agg._aggregators) == 1, "impala_fused: no aggregation actor")
+        # warm until the first batch came through (the actor processes start)
+        t0 = time.perf_counter()
+        while agg.num_aggregated_batches == 0 and time.perf_counter() - t0 < AGG_WARM_TIMEOUT_S:
+            agg.train()
+        warm_s = time.perf_counter() - t0
+        require(agg.num_aggregated_batches >= 1,
+                f"impala_fused: nothing came through the aggregator in {warm_s:.1f} s")
+        n0, sampled0 = agg.num_aggregated_batches, agg._counters["num_env_steps_sampled"]
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < ASYNC_BUDGET_S["impala_agg"]:
+            r = agg.train()
+        wall = time.perf_counter() - t0
+        require(agg.num_aggregated_batches > n0, "impala_fused: the aggregator stopped answering")
+        require(agg._learner_thread.healthy(), "impala_fused: the learner thread died")
+        say("impala_agg", warm_s=f"{warm_s:.2f}", window_s=f"{wall:.2f}",
+            aggregated_batches=agg.num_aggregated_batches - n0,
+            env_steps_per_s_sampled=f"{(agg._counters['num_env_steps_sampled'] - sampled0) / wall:.1f}",
+            learner_steps=agg._learner_thread.num_steps,
+            fused_supersteps=agg._learner_thread.num_supersteps,
+            episode_reward_mean=r["episode_reward_mean"])
+    finally:
+        agg.stop()
+    return launches
+
+
 def kernel_counters():
     """The launch counter of every kernel wrapper."""
     from ray_tpu_torch.ops.flash_attention import flash_attention, flash_block_attention_stats
@@ -3455,7 +3864,7 @@ CARTPOLE_IMPALA = os.path.join(REPO, "tuned_examples", "impala", "cartpole-impal
 CARTPOLE_APPO = os.path.join(REPO, "tuned_examples", "appo", "cartpole-appo.yaml")
 RECURRENT_CALLS = 3
 SINGLE_ACTIONS = 8
-LSTM_IMPALA_WINDOW_S = 20.0
+LSTM_IMPALA_WINDOW_S = 15.0  # 20 s before PR 17
 RSERVE_REQUESTS, RSERVE_THREADS = 64, 8
 
 
@@ -4723,6 +5132,7 @@ def main() -> int:
     impala, impala_batch, impala_cfg = timed(phase_impala)
     timed(phase_impala_parity, impala_batch, impala_cfg)
     appo = timed(phase_appo)
+    impala_fused = timed(phase_impala_fused)
     prefetch = timed(phase_ppo_prefetch)
     sac_learner = timed(phase_sac_learner)
     timed(phase_sac_columns)
@@ -4732,6 +5142,8 @@ def main() -> int:
     ddpg = timed(phase_ddpg)
     td3 = timed(phase_td3)
     ma_dqn = timed(phase_ma_dqn)
+    apex = timed(phase_apex)
+    sac_async = timed(phase_sac_async)
     timed(phase_ma_ppo)
     timed(phase_ma_ppo_independent)
     timed(phase_views)
@@ -4767,7 +5179,9 @@ def main() -> int:
                                   "sac_learner_prioritized": sac_learner["prioritized"]["gather_rows"],
                                   "sac": sac["gather_rows"], "ckpt_ppo": ckpt_ppo,
                                   "ckpt_dqn": ckpt_dqn["gather_rows"],
-                                  **{name: run["gather_rows"] for name, run in offpolicy.items()}}
+                                  **{name: run["gather_rows"] for name, run in offpolicy.items()},
+                                  "apex": apex["gather_rows"], "sac_async": sac_async["gather_rows"],
+                                  "impala_fused": impala_fused["gather_rows"]}
     gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"],
                                "cartpole": cartpole, "gridrooms": gridrooms,
                                "ponglite_learn": pong_learn}
@@ -4776,12 +5190,15 @@ def main() -> int:
                                    "sac_learner": sac_learner["uniform"]["scatter_rows"],
                                    "sac_learner_prioritized": sac_learner["prioritized"]["scatter_rows"],
                                    "sac": sac["scatter_rows"], "ckpt_dqn": ckpt_dqn["scatter_rows"],
-                                   **{name: run["scatter_rows"] for name, run in offpolicy.items()}}
+                                   **{name: run["scatter_rows"] for name, run in offpolicy.items()},
+                                   "apex": apex["scatter_rows"],
+                                   "sac_async": sac_async["scatter_rows"]}
     descent["launches_by_path"] = {"dqn": dqn["find_prefixsum"],
                                    "transformer_dqn": tf_dqn["find_prefixsum"],
                                    "sac_learner_prioritized": sac_learner["prioritized"]["find_prefixsum"],
                                    "ckpt_dqn": ckpt_dqn["find_prefixsum"],
-                                   "rainbow": rainbow["find_prefixsum"]}
+                                   "rainbow": rainbow["find_prefixsum"],
+                                   "apex": apex["find_prefixsum"]}
     flash["launches_by_path"] = {"transformer_learner": tf_learner,
                                  "transformer_lane": tf_lane["flash"],
                                  "transformer_dqn": tf_dqn["flash_attention"],

@@ -81,6 +81,7 @@ from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.env.registry import get_env_creator
 from ray_tpu_torch.evaluation.metrics import summarize_episodes
+from ray_tpu_torch.evaluation.rollout_worker import refuse_local_async
 from ray_tpu_torch.evaluation.worker_set import WorkerSet, evaluation_worker_config
 from ray_tpu_torch.sharding.superstep import resolve_superstep
 from ray_tpu_torch.tune.trainable import Trainable
@@ -179,6 +180,7 @@ class Algorithm(Trainable):
         if self.config.get("policies") and not (actor_lane and self._multi_agent):
             refuse_policy_map(type(self).__name__, self.config["policies"], actor_lane)
         if actor_lane:
+            refuse_local_async(self.config)
             env_creator = get_env_creator(env_spec)
             specs = dict(
                 env_creator=env_creator, policy_cls=policy_cls, device=self.device,

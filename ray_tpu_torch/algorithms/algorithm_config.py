@@ -7,8 +7,10 @@ reference does). ``env_backend: "jax"`` selects the device rollout lane;
 any other value (the default, ``"actor"``) the actor lane, whose keys
 keep the reference's names and defaults and are read where they are
 used (``observation_filter``, ``batch_mode``, ``num_cpus_per_worker``,
-``horizon``, ``normalize_actions``, ``clip_actions``, ...;
-``sample_async`` raises for now). ``callbacks(cls)`` sets
+``horizon``, ``normalize_actions``, ``clip_actions``, ...).
+``sample_async`` (False) gives each remote worker a sampling thread
+(``AsyncSampler``), and the off-policy round takes the fragments it
+asked for in the round before. ``callbacks(cls)`` sets
 ``callbacks_class``; ``evaluation(...)`` sets ``evaluation_interval``
 (None: no evaluation workers), ``evaluation_duration`` (episodes),
 ``evaluation_duration_unit`` (stored and never read, as in the
@@ -73,6 +75,7 @@ class AlgorithmConfig:
         self.num_envs_per_worker = 1
         self.rollout_fragment_length = 200
         self.sample_prefetch = 0
+        self.sample_async = False
         self.max_requests_in_flight_per_rollout_worker = 2
         self.ignore_worker_failures = False
         self.recreate_failed_workers = False
@@ -156,6 +159,7 @@ class AlgorithmConfig:
         num_envs_per_worker: Optional[int] = None,
         rollout_fragment_length: Optional[int] = None,
         sample_prefetch: Optional[int] = None,
+        sample_async: Optional[bool] = None,
         max_requests_in_flight_per_rollout_worker: Optional[int] = None,
         ignore_worker_failures: Optional[bool] = None,
         recreate_failed_workers: Optional[bool] = None,
@@ -167,6 +171,7 @@ class AlgorithmConfig:
             ("num_envs_per_worker", num_envs_per_worker),
             ("rollout_fragment_length", rollout_fragment_length),
             ("sample_prefetch", sample_prefetch),
+            ("sample_async", sample_async),
             ("max_requests_in_flight_per_rollout_worker", max_requests_in_flight_per_rollout_worker),
             ("ignore_worker_failures", ignore_worker_failures),
             ("recreate_failed_workers", recreate_failed_workers),
@@ -191,10 +196,12 @@ class AlgorithmConfig:
         num_steps_sampled_before_learning_starts: Optional[int] = None,
         target_network_update_freq: Optional[int] = None,
         training_intensity: Optional[float] = None,
+        sample_async: Optional[bool] = None,
         **kwargs,
     ) -> "AlgorithmConfig":
         """Training keys; ``replay_buffer_config`` updates the current
-        dict key by key, as the reference's DQNConfig does."""
+        dict key by key, as the reference's DQNConfig does
+        (``sample_async`` here too, where ``bench_e2e.py`` sets it)."""
         if replay_buffer_config is not None:
             self.replay_buffer_config = {**self.replay_buffer_config, **replay_buffer_config}
         for name, value in (
@@ -211,6 +218,7 @@ class AlgorithmConfig:
              num_steps_sampled_before_learning_starts),
             ("target_network_update_freq", target_network_update_freq),
             ("training_intensity", training_intensity),
+            ("sample_async", sample_async),
         ):
             if value is not None:
                 setattr(self, name, value)

@@ -54,8 +54,16 @@ policy (``MultiAgentReplayBuffer``), one replay update (or superstep)
 per policy whose ring holds a batch, priorities refreshed per policy,
 and every policy's target synced.
 
-Not ported yet (ROADMAP queue 1 items 4b and 5): ``learn_while_rollout``,
-``sample_async``, Ape-X and a host-memory replay.
+With ``sample_async`` and remote workers the actor lane's round is the
+reference's one-round-stale round: it takes the fragments it asked for
+in the round before, asks for the next ones at once, and only then
+inserts and updates, so the workers sample while the learner learns
+(their weights lag the learner by one round). ``per_worker_exploration``
+gives remote worker i of n the constant epsilon ``0.4 ** (1 + 7 (i - 1)
+/ (n - 1))`` (Ape-X's ladder, ``algorithms/apex_dqn/``).
+
+Not ported yet (ROADMAP queue 1 item 4b): ``learn_while_rollout`` and a
+host-memory replay.
 """
 
 from __future__ import annotations
@@ -71,9 +79,15 @@ from ray_tpu_torch.algorithms.algorithm import (
     NUM_ENV_STEPS_TRAINED,
     Algorithm,
 )
+from ray_tpu_torch import core
 from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
 from ray_tpu_torch.algorithms.dqn.dqn_model import DQNModel, categorical_projection
-from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, MultiAgentBatch, SampleBatch
+from ray_tpu_torch.data.sample_batch import (
+    DEFAULT_POLICY_ID,
+    MultiAgentBatch,
+    SampleBatch,
+    concat_samples,
+)
 from ray_tpu_torch.execution.rollout_ops import synchronous_parallel_sample
 from ray_tpu_torch.execution.replay_buffer import (
     MultiAgentReplayBuffer,
@@ -192,11 +206,19 @@ _EPSILON_KEYS = ("initial_epsilon", "final_epsilon", "epsilon_timesteps")
 def _epsilon_exploration_config(config: Dict) -> Dict:
     """Fold DQN's flat epsilon knobs into ``exploration_config``: a
     user-supplied ``exploration_config`` wins over the flat defaults.
-    (The reference's Ape-X per-worker ladder waits for the actor lane.)"""
+    With ``per_worker_exploration`` (Ape-X), remote worker i (1-based)
+    of n explores at the constant ``eps_i = 0.4 ** (1 + 7 (i - 1) /
+    (n - 1))``, the reference's ladder; the local worker keeps the
+    schedule."""
     ec = dict(config.get("exploration_config") or {})
     for key in _EPSILON_KEYS:
         if key in config and key not in ec:
             ec[key] = config[key]
+    i = int(config.get("worker_index", 0))
+    if config.get("per_worker_exploration") and i > 0:
+        n = max(1, int(config.get("num_workers", 1)))
+        eps = 0.4 ** (1.0 + 7.0 * (i - 1) / max(1, n - 1))
+        ec.update(initial_epsilon=eps, final_epsilon=eps, epsilon_timesteps=1)
     return ec
 
 
@@ -461,6 +483,8 @@ class DQN(Algorithm):
         )
         self._last_target_update = 0
         self._training_debt = 0.0
+        # the sample_async round's requests for the next round
+        self._pending_sample_refs = None
 
     # -- the device lane ---------------------------------------------------
 
@@ -629,22 +653,41 @@ class DQN(Algorithm):
                 adjust_nstep(n_step, self.config["gamma"], b)
         return batch
 
+    def _sample_one_round_stale(self):
+        """The ``sample_async`` round's fragments (the reference's
+        ``dqn.py:993-1013``): the ones requested in the round before (at
+        the first round, requested now), one a remote worker, and the
+        next round's requested at once, before the insert and the
+        update."""
+        workers = self.workers.remote_workers()
+        refs = self._pending_sample_refs
+        if refs is None:
+            refs = [w.sample.remote() for w in workers]
+        batches = core.get(refs)
+        self._pending_sample_refs = [w.sample.remote() for w in workers]
+        return concat_samples(batches)
+
     def _training_step_actor_lane(self) -> Dict:
         """The reference's off-policy round off the device lane: sample
-        ``rollout_fragment_length x num_envs_per_worker`` env steps,
-        rebuild frame pools and fold n-step returns
-        (:meth:`_postprocess_fragment`), insert them into the device rings
-        (one ring per policy), the replay update phase, then the acting
-        weights and the timestep to every worker. The parts' seconds add
-        up in ``self._timers`` (``sample_s``, ``insert_s`` with the host
-        postprocess, ``update_s``, ``sync_weights_s``) over the run."""
+        ``rollout_fragment_length x num_envs_per_worker`` env steps (with
+        ``sample_async`` and remote workers, the fragments requested in
+        the round before: :meth:`_sample_one_round_stale`), rebuild frame
+        pools and fold n-step returns (:meth:`_postprocess_fragment`),
+        insert them into the device rings (one ring per policy), the
+        replay update phase, then the acting weights and the timestep to
+        every worker. The parts' seconds add up in ``self._timers``
+        (``sample_s``, ``insert_s`` with the host postprocess,
+        ``update_s``, ``sync_weights_s``) over the run."""
         cfg = self.config
         t0 = time.perf_counter()
-        batch = synchronous_parallel_sample(
-            worker_set=self.workers,
-            max_env_steps=int(cfg.get("rollout_fragment_length", 4))
-            * max(1, int(cfg.get("num_envs_per_worker", 1))),
-        )
+        if cfg.get("sample_async") and self.workers.remote_workers():
+            batch = self._sample_one_round_stale()
+        else:
+            batch = synchronous_parallel_sample(
+                worker_set=self.workers,
+                max_env_steps=int(cfg.get("rollout_fragment_length", 4))
+                * max(1, int(cfg.get("num_envs_per_worker", 1))),
+            )
         t1 = time.perf_counter()
         batch = self._postprocess_fragment(batch)
         sampled = batch.env_steps()
@@ -664,6 +707,10 @@ class DQN(Algorithm):
         timers["sync_weights_s"] += time.perf_counter() - t3
         return train_info
 
+    def stop(self) -> None:
+        self._pending_sample_refs = None
+        super().stop()
+
     # -- checkpoint state ----------------------------------------------------
 
     def __getstate__(self) -> Dict:
@@ -674,6 +721,7 @@ class DQN(Algorithm):
 
     def __setstate__(self, state: Dict) -> None:
         super().__setstate__(state)
+        self._pending_sample_refs = None  # sampled before the restore
         if "replay_buffer" in state:
             self.local_replay_buffer.set_state(state["replay_buffer"])
         self._last_target_update = state.get("last_target_update", 0)

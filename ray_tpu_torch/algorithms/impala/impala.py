@@ -14,12 +14,23 @@ row-gather kernel (``build_stacks``). The thread publishes its weights,
 and the main thread sends them back to the worker that produced each batch
 without touching the device.
 
-Not ported (``ROADMAP.md`` queue 1 item 5), each raising where a config
-asks for it: the aggregation actors (``num_aggregation_workers > 0``),
-the elastic fleet and recovery hooks (``on_fleet_change``,
-``on_recovery``) and the device lane (``env_backend: "jax"``);
-recreating dead workers (``recreate_failed_workers``) raises in the
-worker set (item 3d).
+With ``superstep`` K > 1 (``"auto"``: 8 on the card) the learner thread
+fuses up to K queued flat batches into one graphed superstep
+(``execution/learner_thread.py``); APPO's main-thread target refresh
+counts each of the K updates, since each puts its own stats out.
+
+``num_aggregation_workers > 0`` routes each harvested fragment's ref,
+round-robin, to an :class:`AggregatorWorker` actor, which concatenates
+fragments to ``train_batch_size`` in its own process and answers None
+until then; the main thread adds what comes back to the learner thread.
+A crashed worker's errored ref drops that worker, as the reference's.
+
+The port refuses ``env_backend: "jax"`` (the reference's IMPALA has no
+device lane: it ignores the key and samples on its actor lane; the port
+does not ignore a knob). Not ported (``ROADMAP.md`` queue 1 item 3d),
+each raising where a config asks for it: the elastic fleet and recovery
+hooks (``on_fleet_change``, ``on_recovery``); recreating dead workers
+(``recreate_failed_workers``) raises in the worker set.
 """
 
 from __future__ import annotations
@@ -41,19 +52,15 @@ from ray_tpu_torch.algorithms.algorithm import (
 )
 from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
 from ray_tpu_torch.core import api
+from ray_tpu_torch.core.object_store import RayActorError, RayTaskError, WorkerCrashedError
 from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, SampleBatch, concat_samples
-from ray_tpu_torch.execution.learner_thread import (
-    FUSION_ITEM,
-    FUSION_WHERE,
-    LearnerThread,
-    refuse_fused_superstep,
-)
+from ray_tpu_torch.execution.learner_thread import LearnerThread
 from ray_tpu_torch.execution.parallel_requests import AsyncRequestsManager
 from ray_tpu_torch.ops.framestack import FRAME_IDX, FRAMES, build_stacks, decompose_segmented_obs
 from ray_tpu_torch.ops.vtrace import vtrace_from_logits
 from ray_tpu_torch.policy.torch_policy import TorchPolicy
 
-_ITEM = "ROADMAP.md queue 1 item 5"
+_ITEM = "ROADMAP.md queue 1 item 3d"
 
 
 class IMPALAConfig(AlgorithmConfig):
@@ -277,6 +284,27 @@ class ImpalaTorchPolicy(TorchPolicy):
         return total, stats
 
 
+class AggregatorWorker:
+    """Concatenates rollout fragments to whole train batches in its own
+    process (the reference's ``impala.py:354-379``): :meth:`aggregate`
+    answers None until ``target_size`` env steps have come, then the
+    concatenated batch."""
+
+    def __init__(self, target_size: int):
+        self.target_size = int(target_size)
+        self._buf: list = []
+        self._steps = 0
+
+    def aggregate(self, batch):
+        self._buf.append(batch)
+        self._steps += batch.env_steps()
+        if self._steps < self.target_size:
+            return None
+        out = concat_samples(self._buf)
+        self._buf, self._steps = [], 0
+        return out
+
+
 class IMPALA(Algorithm):
     _default_policy_class = ImpalaTorchPolicy
     _actor_lane = True
@@ -291,13 +319,11 @@ class IMPALA(Algorithm):
         config = {**(config or {}), "_fixed_unrolls": True}
         merged = {**self.get_default_config().to_dict(), **config}
         # refused before any worker process starts
-        if int(merged.get("num_aggregation_workers") or 0) > 0:
-            raise NotImplementedError(f"the aggregation actors (num_aggregation_workers > 0) "
-                                      f"are not ported yet: {_ITEM}")
         if merged.get("env_backend") == "jax":
-            raise NotImplementedError(f"{type(self).__name__} on the device lane "
-                                      f"(env_backend='jax') is not ported yet: {_ITEM}")
-        refuse_fused_superstep(merged, FUSION_WHERE, FUSION_ITEM)
+            raise ValueError(
+                f"the port refuses env_backend='jax' under {type(self).__name__}: the "
+                "reference's IMPALA has no device lane and ignores the key (it samples on "
+                "its actor lane); leave env_backend at 'actor'")
         super().__init__(config, env)
         cfg = self.config
         # the thread publishes host weights every broadcast_interval of
@@ -315,10 +341,21 @@ class IMPALA(Algorithm):
         self._weights_ref = None
         self._weights_ref_ver = -1
         self.main_spans: collections.deque = collections.deque(maxlen=4096)
+        # (with no remote worker the local worker's batches are whole
+        # already, and the reference's aggregators sit idle: none is made)
+        self._aggregators = [
+            api.remote(AggregatorWorker).remote(int(cfg["train_batch_size"]))
+            for _ in range(int(cfg.get("num_aggregation_workers") or 0))
+        ] if self.workers.remote_workers() else []
+        self._agg_rr = 0
+        self._agg_in_flight: list = []
+        self.num_aggregated_batches = 0
+        # refs mode when the aggregators take the fragments' refs
         self._sample_manager = AsyncRequestsManager(
             self.workers.remote_workers(),
             max_remote_requests_in_flight_per_worker=int(
                 cfg.get("max_sample_requests_in_flight_per_worker", 2)),
+            return_object_refs=bool(self._aggregators),
         )
 
     def _metrics_may_lag(self) -> bool:
@@ -399,8 +436,15 @@ class IMPALA(Algorithm):
             self.main_spans.append((t_step, t0))
             self._timers["harvest_s"] += t1 - t0
             t_step = t1  # the host work after the harvest
-            for w, batches in ready.items():
-                for batch in batches:
+            for w, items in ready.items():
+                for batch in items:
+                    if self._aggregators:
+                        if not self._route_to_aggregator(mgr, w, batch):
+                            continue
+                        self._maybe_broadcast(w)
+                        if not backlogged:
+                            mgr.submit(worker=w)
+                        continue
                     self._counters[NUM_ENV_STEPS_SAMPLED] += batch.env_steps()
                     self._counters[NUM_AGENT_STEPS_SAMPLED] += batch.env_steps()
                     self._frag_buf.append(batch)
@@ -415,6 +459,8 @@ class IMPALA(Algorithm):
                         mgr.submit(worker=w)
             self._handle_dead_workers(mgr)
             self._feed_ready(lt)
+        if self._agg_in_flight:
+            self._collect_aggregated(lt)
 
         self.main_spans.append((t_step, time.perf_counter()))
         learner_info = {}
@@ -431,6 +477,35 @@ class IMPALA(Algorithm):
             "learner_queue": lt.stats(),
             "sample_manager": self._sample_manager.stats(),
         }
+
+    def _route_to_aggregator(self, mgr: AsyncRequestsManager, w, ref) -> bool:
+        """A harvested fragment's ref to the next aggregator, round-robin.
+        The call ships the fragment at once (the ref is dropped after
+        it); a crashed worker's errored ref raises here and drops that
+        worker, as a harvest in values mode does. False for a dead one."""
+        agg = self._aggregators[self._agg_rr % len(self._aggregators)]
+        self._agg_rr += 1
+        try:
+            self._agg_in_flight.append(agg.aggregate.remote(ref))
+        except (RayActorError, WorkerCrashedError, RayTaskError):
+            mgr.report_dead(w)
+            return False
+        return True
+
+    def _collect_aggregated(self, lt: LearnerThread) -> None:
+        """The aggregators' answers that are in: each whole train batch
+        counts as sampled and goes to the learner thread."""
+        ready, _ = api.wait(self._agg_in_flight, num_returns=len(self._agg_in_flight), timeout=0)
+        for ref in ready:
+            self._agg_in_flight.remove(ref)
+            batch = api.get(ref)
+            if batch is None:
+                continue
+            self.num_aggregated_batches += 1
+            self._counters[NUM_ENV_STEPS_SAMPLED] += batch.env_steps()
+            self._counters[NUM_AGENT_STEPS_SAMPLED] += batch.env_steps()
+            self._train_ready.append(batch)
+        self._feed_ready(lt)
 
     def _handle_dead_workers(self, mgr: AsyncRequestsManager) -> None:
         """A dead worker leaves the rotation and the worker set; the
@@ -467,4 +542,8 @@ class IMPALA(Algorithm):
         if lt is not None:
             lt.stop()
         self._weights_ref = None
+        self._agg_in_flight = []
+        for a in getattr(self, "_aggregators", []):
+            api.kill(a)
+        self._aggregators = []
         super().stop()

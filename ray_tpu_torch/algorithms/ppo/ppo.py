@@ -14,7 +14,11 @@ pixel fragments as frame pools, and the learner on the card rebuilds
 the stacks with the row-gather kernel in its ``learn_on_batch``.
 With ``sample_prefetch > 0`` and remote workers, the actor lane samples
 the next train batch and copies it to the card while the learner works
-on this one (``_training_step_prefetch``).
+on this one (``_training_step_prefetch``); with ``superstep`` K > 1 a
+step learns K prefetched batches in one graphed superstep, each trimmed
+on the prefetch thread to the fixed-row contract, and a frame-pool
+batch (per-batch pool sizes) demotes the run to K = 1, as the
+reference's.
 
 Multi-agent PPO (``config.multi_agent(...)``) runs the actor lane's
 synchronous step on a ``MultiAgentBatch``: the advantages standardized
@@ -52,10 +56,10 @@ from ray_tpu_torch.data.sample_batch import (
 from ray_tpu_torch.core.object_store import RayActorError
 from ray_tpu_torch.evaluation.postprocessing import compute_gae_for_sample_batch
 from ray_tpu_torch.execution.device_feed import DeviceFeeder
-from ray_tpu_torch.execution.learner_thread import refuse_fused_superstep
 from ray_tpu_torch.execution.rollout_ops import SamplePrefetcher, synchronous_parallel_sample
 from ray_tpu_torch.execution.train_ops import batch_is_finite, train_one_step
-from ray_tpu_torch.policy.torch_policy import TorchPolicy
+from ray_tpu_torch.ops.framestack import FRAMES
+from ray_tpu_torch.policy.torch_policy import CHUNK, TorchPolicy
 
 
 class PPOConfig(AlgorithmConfig):
@@ -310,12 +314,17 @@ class PPO(Algorithm):
     def _build_sample_pipeline(self) -> None:
         """A :class:`SamplePrefetcher` whose ``deliver`` (on its thread)
         standardizes the advantages, skips a non-finite batch under
-        ``nan_guard``, prepares the host tree and puts it on a
-        :class:`DeviceFeeder` of ``sample_prefetch`` batches, which copies
-        it to the card on its own stream."""
-        refuse_fused_superstep(self.config, "over prefetched batches", "ROADMAP.md queue 1 item 5")
+        ``nan_guard``, prepares the host tree (under a superstep K > 1,
+        trimmed to the largest multiple of the unroll length at or under
+        ``train_batch_size``, or demoting the run to K = 1 if it is a
+        frame pool) and puts it on a :class:`DeviceFeeder` of
+        ``max(sample_prefetch, K)`` batches, which copies it to the card
+        on its own stream."""
         policy = self.get_policy()
-        feeder = DeviceFeeder(policy.device, capacity=max(1, int(self.config["sample_prefetch"])))
+        depth = max(1, int(self.config["sample_prefetch"]), self._resolve_superstep_k())
+        feeder = DeviceFeeder(policy.device, capacity=depth)
+        T = max(1, policy._unroll_T)
+        fixed_rows = (int(self.config["train_batch_size"]) // T) * T
 
         def deliver(batch):
             _standardize_advantages(batch)
@@ -323,6 +332,13 @@ class PPO(Algorithm):
                 self._counters["num_nan_batches_skipped"] += 1
                 return
             tree, bsize = policy.prepare_batch(batch)
+            if self._superstep_k > 1 and fixed_rows > 0:
+                if FRAMES in tree:
+                    self._superstep_k = 1
+                elif bsize > fixed_rows:
+                    tree = {c: v[: fixed_rows // T] if c.startswith(CHUNK) else v[:fixed_rows]
+                            for c, v in tree.items()}
+                    bsize = fixed_rows
             feeder.put(tree, (bsize, batch.env_steps(), batch.count))
 
         self._prefetch_feeder = feeder
@@ -348,25 +364,44 @@ class PPO(Algorithm):
 
     def _training_step_prefetch(self) -> Dict:
         """One learn on the next prefetched batch (the reference's
-        ``_training_step_prefetch`` at K = 1): wait for it
-        (``prefetch_wait_s``: ~0 when the pipeline keeps up), the nest
-        on the card (``learn_s``), then the weights and the timestep to
-        every worker (``sync_weights_s``). Its first batch is the
-        synchronous path's first batch, learned on the same
-        permutations: the same stats, bitwise."""
+        ``_training_step_prefetch``): wait for it (``prefetch_wait_s``:
+        ~0 when the pipeline keeps up), the nest on the card
+        (``learn_s``), then the weights and the timestep to every worker
+        (``sync_weights_s``). Its first batch is the synchronous path's
+        first batch, learned on the same permutations: the same stats,
+        bitwise. Under a superstep K > 1 the step takes K prefetched
+        batches and learns them by one ``learn_superstep`` (the
+        coefficients read once), then applies the KL reaction to each
+        update's stats in order; K batches of unequal sizes, or frame
+        pools, learn one at a time."""
         if getattr(self, "_sample_pipeline", None) is None:
             self._build_sample_pipeline()
         pipe = self._sample_pipeline
         t0 = time.perf_counter()
-        dev, (bsize, env_steps, rows) = self._next_prefetched()
+        batches = [self._next_prefetched()]
+        K = self._resolve_superstep_k()
+        while K > 1 and len(batches) < K:
+            batches.append(self._next_prefetched())
         t1 = time.perf_counter()
-        self._counters[NUM_ENV_STEPS_SAMPLED] += env_steps
-        self._counters[NUM_AGENT_STEPS_SAMPLED] += env_steps
         policy = self.get_policy()
-        info = policy.learn_on_device_batch(dev, bsize)
+        sizes = {bsize for _, (bsize, _, _) in batches}
+        if K > 1 and len(sizes) == 1 and not any(FRAMES in dev for dev, _ in batches):
+            stacked = {c: torch.stack([dev[c] for dev, _ in batches]) for c in batches[0][0]}
+            infos, _, skipped = policy.learn_superstep(K, sizes.pop(), stacked=stacked, k_max=K)
+            for info_i in infos:
+                info_i.update(policy.after_learn_on_batch(info_i))
+            info = infos[-1]
+            self._counters["num_nan_batches_skipped"] += sum(skipped)
+            self._counters["num_prefetch_supersteps"] += 1
+        else:
+            for dev, (bsize, _, _) in batches:
+                info = policy.learn_on_device_batch(dev, bsize)
         t2 = time.perf_counter()
-        self._counters[NUM_ENV_STEPS_TRAINED] += env_steps
-        self._counters[NUM_AGENT_STEPS_TRAINED] += rows
+        for _, (_, env_steps, rows) in batches:
+            self._counters[NUM_ENV_STEPS_SAMPLED] += env_steps
+            self._counters[NUM_AGENT_STEPS_SAMPLED] += env_steps
+            self._counters[NUM_ENV_STEPS_TRAINED] += env_steps
+            self._counters[NUM_AGENT_STEPS_TRAINED] += rows
         self.workers.sync_weights(global_vars={"timestep": self._counters[NUM_ENV_STEPS_SAMPLED]})
         if self.config.get("observation_filter") not in (None, "NoFilter"):
             self.workers.sync_filters()

@@ -386,6 +386,12 @@ class SACTorchPolicy(TorchPolicy):
     def _steps_per_update(self, batch_size: int) -> int:
         return 1
 
+    def _host_permutations(self, batch_size: int) -> torch.Tensor:
+        """An update reads its rows in order: a superstep's permutation
+        slots hold zeros, and the permutation generator draws nothing (as
+        the eager update's)."""
+        return torch.zeros((self.num_sgd_iter, self._perm_width(batch_size)), dtype=torch.int64)
+
     def _info_extras(self) -> Dict[str, float]:
         return {}  # the reference's SAC stats carry no learning rate
 

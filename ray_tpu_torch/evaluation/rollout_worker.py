@@ -27,16 +27,27 @@ to the ``SyncSampler``, whose episode hooks run on this worker; the
 returns ``{"policy_states", "filters"}`` (the reference's layout) and
 ``restore(state)`` loads it back.
 
-Not ported (``ROADMAP.md`` queue 1 items 3d and 5), each raising where a config
+``sample_async`` gives a remote worker an ``AsyncSampler``: a thread
+samples while the worker answers calls, and ``set_weights`` /
+``set_global_vars`` take the sampler's lock, so the thread's act step
+never reads a half-copied net. The local worker (index 0) samples
+synchronously: beside remote workers it does not sample, and without
+them its policy is the learner, which ``Algorithm`` refuses to give a
+sampling thread (``refuse_local_async``). ``stop()`` ends the thread
+before it closes the envs.
+
+Not ported (``ROADMAP.md`` queue 1 item 3d), each raising where a config
 asks for it: ``input``/``output`` readers and writers, the fault
-injector (``fault_injection``), ``sample_async`` and tensor envs on the
-actor lane (the reference's ``JaxVectorEnvAdapter``; the port's tensor
-envs run on the device lane, ``env_backend: jax``).
+injector (``fault_injection``) and tensor envs on the actor lane (the
+reference's ``JaxVectorEnvAdapter``; the port's tensor envs run on the
+device lane, ``env_backend: jax``).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional
+
+import contextlib
 
 import numpy as np
 
@@ -46,7 +57,7 @@ from ray_tpu_torch.env.multi_agent_env import MultiAgentEnv
 from ray_tpu_torch.env.tensor_env import TensorVectorEnv
 from ray_tpu_torch.env.vector_env import VectorEnv
 from ray_tpu_torch.evaluation.multi_agent_sampler import MultiAgentSyncSampler
-from ray_tpu_torch.evaluation.sampler import SyncSampler
+from ray_tpu_torch.evaluation.sampler import AsyncSampler, SyncSampler
 from ray_tpu_torch.models.catalog import ModelCatalog
 from ray_tpu_torch.utils.filter import get_filter
 
@@ -58,10 +69,22 @@ def _refuse_unported(config: Dict) -> None:
         ("input", "input readers", _ITEM),
         ("output", "output writers", _ITEM),
         ("fault_injection", "the fault injector", _ITEM),
-        ("sample_async", "AsyncSampler (sample_async)", "ROADMAP.md queue 1 item 5"),
     ):
         if config.get(key):
             raise NotImplementedError(f"{what} on the actor lane are not ported yet: {item}")
+
+
+def refuse_local_async(config: Dict) -> None:
+    """``sample_async`` with no remote worker: the sampling thread would
+    act on the learner's own policy while its optimizer writes the
+    parameters in place (the reference's arrays are immutable, so its
+    thread reads whole weights). The port's own refusal."""
+    if config.get("sample_async") and not int(config.get("num_workers") or 0):
+        raise ValueError(
+            "sample_async needs remote rollout workers (num_workers > 0): the port does not "
+            "run a sampling thread on the learner's own policy, whose parameters the "
+            "optimizer updates in place"
+        )
 
 
 def _default_mapping_fn(agent_id, **kwargs):
@@ -152,7 +175,10 @@ class RolloutWorker:
                 )
             cb_cls = self.config.get("callbacks_class")
             self.callbacks = cb_cls() if cb_cls else None
-            self.sampler = SyncSampler(
+            sampler_cls = SyncSampler
+            if self.config.get("sample_async") and worker_index > 0:
+                sampler_cls = AsyncSampler
+            self.sampler = sampler_cls(
                 vector_env=self.vector_env,
                 callbacks=self.callbacks,
                 policy=self.policy_map[DEFAULT_POLICY_ID],
@@ -263,10 +289,15 @@ class RolloutWorker:
             if policies is None or pid in policies
         }
 
+    def _act_lock(self):
+        """The sampling thread's act lock (none without one)."""
+        return getattr(self.sampler, "lock", None) or contextlib.nullcontext()
+
     def set_weights(self, weights: Dict, global_vars: Optional[Dict] = None) -> None:
-        for pid, w in weights.items():
-            if pid in self.policy_map:
-                self.policy_map[pid].set_weights(w)
+        with self._act_lock():
+            for pid, w in weights.items():
+                if pid in self.policy_map:
+                    self.policy_map[pid].set_weights(w)
         if global_vars:
             self.set_global_vars(global_vars)
 
@@ -284,8 +315,9 @@ class RolloutWorker:
 
     def set_global_vars(self, global_vars: Dict) -> None:
         self.global_vars.update(global_vars)
-        for p in self.policy_map.values():
-            p.on_global_var_update(global_vars)
+        with self._act_lock():
+            for p in self.policy_map.values():
+                p.on_global_var_update(global_vars)
 
     # -- checkpoint state --------------------------------------------------
 
@@ -297,9 +329,10 @@ class RolloutWorker:
         }
 
     def restore(self, state: Dict) -> None:
-        for pid, s in state.get("policy_states", {}).items():
-            if pid in self.policy_map:
-                self.policy_map[pid].set_state(s)
+        with self._act_lock():
+            for pid, s in state.get("policy_states", {}).items():
+                if pid in self.policy_map:
+                    self.policy_map[pid].set_state(s)
         self.sync_filters(state.get("filters", {}))
 
     # -- the rest --------------------------------------------------------
@@ -319,6 +352,10 @@ class RolloutWorker:
         return [fn(p, pid) for pid, p in self.policy_map.items()]
 
     def stop(self) -> None:
+        # the sampling thread first: it steps the envs closed below
+        stop = getattr(self.sampler, "stop", None)
+        if stop is not None:
+            stop()
         for e in self._sub_envs():
             close = getattr(e, "close", None)
             if close is not None:

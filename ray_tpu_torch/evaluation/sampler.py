@@ -56,7 +56,14 @@ episode ends; a flushed fragment carries the state after its last step
 as ``batch.last_state_out``, which GAE's bootstrap reads
 (``postprocessing.py``).
 
-Not ported (``ROADMAP.md`` queue 1 item 5): ``AsyncSampler``.
+:class:`AsyncSampler` (``sample_async``) runs a ``SyncSampler`` on a
+daemon thread that queues up to ``queue_size`` fragments; ``sample()``
+pops one. The reference calls its weight swaps atomic because its
+arrays are immutable; here ``set_weights`` copies into the module in
+place, so the thread acts and postprocesses under the sampler's
+:attr:`AsyncSampler.lock`, which a weight or global-vars write takes
+too: every step's forward reads one whole weight set. Once the thread
+runs, it alone draws from the policy's generator.
 
 ``timers`` adds up the seconds of the loop's parts (``act_s``: the
 policy's ``compute_actions``; ``env_s``: the vector env's step;
@@ -66,6 +73,9 @@ env steps they cover.
 
 from __future__ import annotations
 
+import contextlib
+import queue
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -173,6 +183,10 @@ class SyncSampler:
             for i in range(n):
                 self._cb("on_episode_start", i)
         self.metrics_queue: List[RolloutMetrics] = []
+        self._metrics_lock = threading.Lock()
+        # held around each read of the policy's parameters (the act step,
+        # postprocessing); AsyncSampler makes it a real lock
+        self.act_lock = contextlib.nullcontext()
         self.unroll_id = 0
         self.timers = {"act_s": 0.0, "env_s": 0.0, "postprocess_s": 0.0, "steps": 0}
 
@@ -230,9 +244,10 @@ class SyncSampler:
         if self._has_state:
             state_batches = [np.stack([st[k] for st in self.states])
                              for k in range(len(self.states[0]))]
-        actions, state_out, extras = self.policy.compute_actions(
-            np.stack(self.cur_obs), state_batches, explore=True, **self._compute_views()
-        )
+        with self.act_lock:
+            actions, state_out, extras = self.policy.compute_actions(
+                np.stack(self.cur_obs), state_batches, explore=True, **self._compute_views()
+            )
         t1 = time.perf_counter()
         space = self.env.action_space
         if self.normalize_actions:
@@ -296,9 +311,10 @@ class SyncSampler:
                 if self.flush_on_episode_end:
                     self._flush_slot(i, out)
                 ep = self.episodes[i]
-                self.metrics_queue.append(RolloutMetrics(
-                    ep.length, ep.total_reward, custom_metrics=dict(ep.custom_metrics)
-                ))
+                with self._metrics_lock:
+                    self.metrics_queue.append(RolloutMetrics(
+                        ep.length, ep.total_reward, custom_metrics=dict(ep.custom_metrics)
+                    ))
                 self.episodes[i] = EpisodeRecord()
                 if self.callbacks is not None:
                     self._cb("on_episode_start", i)
@@ -342,7 +358,8 @@ class SyncSampler:
             # the state after the fragment's last step, for GAE's bootstrap
             # (no per-row state_out column)
             batch.last_state_out = [np.asarray(s) for s in self.states[i]]
-        batch = postprocess_batch(self.policy, batch)
+        with self.act_lock:
+            batch = postprocess_batch(self.policy, batch)
         # shrink the fragment before it leaves the worker (the frame
         # pool; policies opt in through compress_for_shipping)
         compress = getattr(self.policy, "compress_for_shipping", None)
@@ -352,5 +369,58 @@ class SyncSampler:
         self.timers["postprocess_s"] += time.perf_counter() - t0
 
     def get_metrics(self) -> List[RolloutMetrics]:
-        out, self.metrics_queue = self.metrics_queue, []
+        with self._metrics_lock:
+            out, self.metrics_queue = self.metrics_queue, []
         return out
+
+
+class AsyncSampler:
+    """A ``SyncSampler`` on a daemon thread (the reference's
+    ``sampler.py:371-426``): it samples without pause and queues up to
+    ``queue_size`` fragments; :meth:`sample` pops the next one. An error
+    in the thread comes back on the next :meth:`sample`; :meth:`stop`
+    ends and joins the thread. :attr:`lock` is the act step's
+    (``SyncSampler.act_lock``): hold it to write the policy's weights."""
+
+    def __init__(self, *, queue_size: int = 8, **sync_kwargs):
+        self._sync = SyncSampler(**sync_kwargs)
+        self.policy = self._sync.policy
+        self.lock = threading.Lock()
+        self._sync.act_lock = self.lock
+        self._queue: "queue.Queue" = queue.Queue(maxsize=queue_size)
+        self._stop = threading.Event()
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True, name="async_sampler")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                batch = self._sync.sample()
+            except Exception as e:  # surfaced by the next sample()
+                self._error = e
+                return
+            while not self._stop.is_set():
+                try:
+                    self._queue.put(batch, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+
+    def sample(self) -> SampleBatch:
+        while True:
+            if self._error is not None:
+                raise self._error
+            try:
+                return self._queue.get(timeout=1.0)
+            except queue.Empty:
+                if not self._thread.is_alive() and self._error is None:
+                    raise RuntimeError("the async sampler thread died")
+
+    def get_metrics(self) -> List[RolloutMetrics]:
+        return self._sync.get_metrics()
+
+    def stop(self, join_timeout: float = 5.0) -> None:
+        self._stop.set()
+        if self._thread.is_alive() and threading.current_thread() is not self._thread:
+            self._thread.join(timeout=join_timeout)

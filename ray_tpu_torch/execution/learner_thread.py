@@ -27,12 +27,20 @@ its current stream, which the feeder's event orders after each copy.
   refresh; IMPALA's ``num_workers: 0`` sampling on the learner's own
   policy).
 
+- **The fused superstep.** With deferred stats and a policy that keeps
+  the base learn composition (``supports_superstep``: IMPALA's and
+  APPO's), ``config["superstep"]`` K > 1 (``"auto"``: 8 on the card)
+  fuses up to K queued batches: each is trimmed on the host to the
+  fixed-row contract (:meth:`_trim_fixed`: ``train_batch_size`` rows,
+  or unrolls for the IMPALA family), K of them are stacked on this
+  thread's stream (which waits on the feeder's event for each) and
+  learned by one ``learn_superstep`` call, one CUDA graph replayed K
+  times, with one stats drain. A starved or ragged collection learns
+  what it gathered one update at a time. A frame-pool batch (per-batch
+  pool sizes) demotes the thread to K = 1 for good, as the reference's.
+
 A policy that overrides ``learn_on_batch`` learns through it, one batch
-at a time (:meth:`_step_sync`), the reference's dispatch rule. The
-superstep fusion of queued batches (``_step_superstep``) is not ported
-(``ROADMAP.md`` queue 1 item 5): an explicit ``superstep`` above 1
-raises; ``"auto"`` runs one update a step, which is what the reference
-does with every frame-pool batch.
+at a time (:meth:`_step_sync`), the reference's dispatch rule.
 """
 
 from __future__ import annotations
@@ -43,8 +51,11 @@ import threading
 import time
 from typing import Dict, Optional, Tuple
 
+import torch
+
 from ray_tpu_torch.execution.device_feed import DeviceFeeder
-from ray_tpu_torch.policy.torch_policy import TorchPolicy
+from ray_tpu_torch.ops.framestack import FRAMES
+from ray_tpu_torch.policy.torch_policy import CHUNK, TorchPolicy
 from ray_tpu_torch.sharding.superstep import resolve_superstep
 
 # batches copied ahead of the learn call (2: double buffering)
@@ -53,18 +64,8 @@ PIPELINE_DEPTH = 2
 # materializes the oldest (each also pins its batch on the device)
 STATS_LAG = 3
 SPANS_KEPT = 4096
-
-FUSION_WHERE = "on the learner thread (fusing queued batches)"
-FUSION_ITEM = "ROADMAP.md queue 1 item 5"
-
-
-def refuse_fused_superstep(config: Dict, where: str, item: str) -> None:
-    """Raise for an explicit ``superstep`` K > 1 on a path that has no
-    fused K-update step yet (``where``; ``item``: its ROADMAP.md item);
-    ``"auto"`` there means one update a step."""
-    mode = config.get("superstep", "auto")
-    if mode != "auto" and resolve_superstep(config) > 1:
-        raise NotImplementedError(f"superstep={mode!r} {where} is not ported yet: {item}")
+# seconds a fused collection waits for a batch already on its way
+COLLECT_TIMEOUT_S = 10.0
 
 
 class LearnerThread(threading.Thread):
@@ -77,7 +78,6 @@ class LearnerThread(threading.Thread):
         publish_weights_every: int = 0,
     ):
         super().__init__(daemon=True, name="learner_thread")
-        refuse_fused_superstep(getattr(policy, "config", None) or {}, FUSION_WHERE, FUSION_ITEM)
         self.policy = policy
         self.inqueue: "queue.Queue" = queue.Queue(maxsize=inqueue_size)
         self.outqueue: "queue.Queue" = queue.Queue(maxsize=outqueue_size)
@@ -99,6 +99,12 @@ class LearnerThread(threading.Thread):
         self._defer = self._pipelined and (
             type(policy).after_learn_on_batch is TorchPolicy.after_learn_on_batch
         )
+        # K of the fused superstep (1: one update a step)
+        self._superstep_k = 1
+        if self._defer and getattr(policy, "supports_superstep", False):
+            self._superstep_k = resolve_superstep(policy.config, policy.device)
+        self._depth = max(PIPELINE_DEPTH, self._superstep_k)
+        self.num_supersteps = 0  # fused supersteps taken (each K updates)
         self._feeder: Optional[DeviceFeeder] = None
         self._in_flight = 0
         self._lazy: "collections.deque" = collections.deque()
@@ -115,8 +121,30 @@ class LearnerThread(threading.Thread):
     def _get_feeder(self) -> DeviceFeeder:
         # built on this thread, on first use
         if self._feeder is None:
-            self._feeder = DeviceFeeder(self.policy.device, capacity=PIPELINE_DEPTH)
+            self._feeder = DeviceFeeder(self.policy.device, capacity=self._depth)
         return self._feeder
+
+    def _trim_fixed(self, tree: Dict, bsize: int) -> Tuple[Dict, int]:
+        """The fixed-row contract of a stacked superstep (the reference's
+        ``_trim_fixed``): a prepared host tree trimmed to the largest
+        multiple of the policy's unroll length at or under the config's
+        train batch (in rows, or in unrolls for the IMPALA family, whose
+        rows are whole ``unroll_len``-step unrolls), so that queued
+        batches share one shape. A frame-pool tree demotes the thread to
+        K = 1 instead."""
+        if FRAMES in tree:
+            self._superstep_k = 1
+            return tree, bsize
+        policy = self.policy
+        target = int(policy.config.get("train_batch_size", bsize))
+        frag_t = int(getattr(policy, "unroll_len", 0) or 0)
+        rows_target = target // frag_t if frag_t else target
+        T = max(1, int(getattr(policy, "_unroll_T", 1)))
+        fixed = (rows_target // T) * T
+        if fixed <= 0 or bsize <= fixed:
+            return tree, bsize
+        return {c: v[: fixed // T] if c.startswith(CHUNK) else v[:fixed]
+                for c, v in tree.items()}, fixed
 
     def run(self) -> None:
         try:
@@ -142,6 +170,8 @@ class LearnerThread(threading.Thread):
             self.stopped = True
             return False
         tree, bsize = self.policy.prepare_batch(batch)
+        if self._superstep_k > 1:
+            tree, bsize = self._trim_fixed(tree, bsize)
         self._get_feeder().put(tree, (bsize, batch.env_steps()))
         self._in_flight += 1
         return True
@@ -158,11 +188,11 @@ class LearnerThread(threading.Thread):
             except queue.Full:
                 pass
 
-    def _maybe_publish(self) -> None:
-        """Called with :attr:`lock` held."""
+    def _maybe_publish(self, steps: int = 1) -> None:
+        """Called with :attr:`lock` held, after ``steps`` updates."""
         if not self._publish_every:
             return
-        self._steps_since_publish += 1
+        self._steps_since_publish += steps
         if self._steps_since_publish < self._publish_every:
             return
         self.publish()
@@ -197,17 +227,14 @@ class LearnerThread(threading.Thread):
         # top up the copy pipeline; block only when nothing is in flight
         if self._in_flight == 0 and not self._pump(block=True):
             return
-        while self._in_flight < PIPELINE_DEPTH:
-            try:
-                if not self._pump(block=False):
-                    break
-            except queue.Empty:
-                break
+        self._top_up()
         try:
             dev, (bsize, env_steps) = self._feeder.get()
         finally:
             # a failed copy still used its slot
             self._in_flight -= 1
+        if self._defer and self._superstep_k > 1 and FRAMES not in dev:
+            return self._step_superstep([(dev, bsize, env_steps)], t0)
         self.queue_timer += time.perf_counter() - t0
         t_wait = time.perf_counter()
         with self.lock:
@@ -235,6 +262,71 @@ class LearnerThread(threading.Thread):
             self.outqueue.put_nowait((env_steps, info))
         except queue.Full:
             pass
+
+    def _top_up(self) -> None:
+        """Pump queued batches to the feeder, without blocking, up to the
+        pipeline's depth."""
+        while self._in_flight < self._depth:
+            try:
+                if not self._pump(block=False):
+                    break
+            except queue.Empty:
+                break
+
+    def _step_superstep(self, batches, t0: float) -> None:
+        """Up to K device batches, the first given: the ones already on
+        their way to the card are collected (none is waited for that is
+        not); K batches of one size are stacked and learned by one
+        ``learn_superstep`` call, and each update's stats go out in
+        order; a starved or ragged collection learns its batches one at a
+        time, with deferred stats. The collection's wait counts as queue
+        wait."""
+        k_sup = self._superstep_k
+        while len(batches) < k_sup:
+            self._top_up()
+            if self._in_flight <= 0:
+                break
+            try:
+                dev, (bsize, env_steps) = self._feeder.get(timeout=COLLECT_TIMEOUT_S)
+            except queue.Empty:
+                break
+            except BaseException:
+                self._in_flight -= 1  # a failed copy still used its slot
+                raise
+            self._in_flight -= 1
+            batches.append((dev, bsize, env_steps))
+        self.queue_timer += time.perf_counter() - t0
+        fused = len(batches) == k_sup and len({b for _, b, _ in batches}) == 1
+        t_wait = time.perf_counter()
+        with self.lock:
+            t0 = time.perf_counter()
+            self.lock_wait_timer += t0 - t_wait
+            if fused:
+                # on this thread's stream, which waited on each copy's event
+                stacked = {c: torch.stack([d[c] for d, _, _ in batches]) for c in batches[0][0]}
+                infos, _, _ = self.policy.learn_superstep(
+                    k_sup, batches[0][1], stacked=stacked, k_max=k_sup)
+            else:
+                for dev, bsize, env_steps in batches:
+                    self._lazy.append((env_steps, self.policy.learn_on_device_batch(
+                        dev, bsize, defer_stats=True)))
+            t1 = time.perf_counter()
+            self.num_steps += len(batches)
+            self._maybe_publish(steps=len(batches))
+        self.grad_timer += t1 - t0
+        self.step_spans.append((t0, t1))
+        if not fused:
+            self._drain_lazy()
+            return
+        self.num_supersteps += 1
+        # earlier updates' stats first, so the outqueue keeps update order
+        self._drain_lazy(all_of_them=True)
+        for (_, _, env_steps), info in zip(batches, infos):
+            self.learner_info = info
+            try:
+                self.outqueue.put_nowait((env_steps, info))
+            except queue.Full:
+                pass
 
     def _step_sync(self) -> None:
         """The policy's own ``learn_on_batch`` on one batch."""

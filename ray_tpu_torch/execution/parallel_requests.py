@@ -10,10 +10,12 @@ rotation and report them instead of raising.
 The reference frees a harvested ref with ``ray.free``; here dropping
 the ref is the free, because the port's object plane unlinks an
 object's segment when its last ref in the main process goes
-(``core/object_store.py``). Not ported (``ROADMAP.md`` queue 1 items 3d
-and 5): the refs mode of the aggregation actors (``return_object_refs``,
-``report_dead``), the elastic fleet's drains (``retire_worker``, dropping
-in-flight refs) and ``retry_policy`` (the resilience layer's backoff).
+(``core/object_store.py``). ``return_object_refs`` (IMPALA's
+aggregation actors) harvests the done refs themselves: the caller
+passes each on, and reports a worker whose ref turns out dead with
+``report_dead``. Not ported (``ROADMAP.md`` queue 1 item 3d): the
+elastic fleet's drains (``retire_worker``, dropping in-flight refs) and
+``retry_policy`` (the resilience layer's backoff).
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ class AsyncRequestsManager:
       requests are done, then sweeps everything else already done.
     - A worker whose harvested ref raises an actor-fatal error leaves
       the rotation and is queued for ``take_dead_workers`` (reported
-      once). A task error (``RayTaskError``) still raises.
+      once). A task error (``RayTaskError``) still raises. In refs mode
+      (``return_object_refs``) ``get_ready`` returns the refs, and the
+      caller reports a dead worker (``report_dead``).
     """
 
     def __init__(
@@ -48,8 +52,10 @@ class AsyncRequestsManager:
         workers: Optional[List] = None,
         *,
         max_remote_requests_in_flight_per_worker: int = 2,
+        return_object_refs: bool = False,
     ):
         self._max_in_flight = int(max_remote_requests_in_flight_per_worker)
+        self._return_refs = bool(return_object_refs)
         self._workers: List = []
         self._in_flight: Dict = {}  # ref -> worker
         self._counts: Dict[int, int] = {}  # id(worker) -> outstanding
@@ -141,6 +147,10 @@ class AsyncRequestsManager:
             worker = self._in_flight.pop(ref)
             wid = id(worker)
             self._counts[wid] = max(0, self._counts.get(wid, 1) - 1)
+            if self._return_refs:
+                out.setdefault(worker, []).append(ref)
+                self.num_completed += 1
+                continue
             try:
                 result = api.get(ref)
             except _ACTOR_DEAD_ERRORS:
@@ -149,6 +159,12 @@ class AsyncRequestsManager:
             out.setdefault(worker, []).append(result)
             self.num_completed += 1
         return out
+
+    def report_dead(self, worker) -> None:
+        """A death the caller saw (refs mode: a harvested ref that raises
+        where the caller reads or passes it): the worker leaves the
+        rotation and is queued for ``take_dead_workers``."""
+        self._mark_dead(worker)
 
     def _mark_dead(self, worker) -> None:
         self.num_dropped += 1

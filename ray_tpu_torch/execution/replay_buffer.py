@@ -227,7 +227,8 @@ def resolve_device_resident(config: Dict) -> bool:
     if not config.get("replay_device_resident", "auto"):
         raise ValueError(
             "replay_device_resident=False (host rings fed by the actor "
-            "lane) is not ported yet; the device lane inserts device rows"
+            "lane; Ape-X's object plane of ReplayActor shards) is not ported "
+            "yet: ROADMAP.md queue 1 item 4b"
         )
     return True
 

@@ -934,12 +934,27 @@ class TorchPolicy(Policy):
                     {**stats, "total_loss": loss.detach(), "grad_gnorm": gnorm}
                 )
         names = tuple(per_step[0])
+        # detached: deferred stats must not keep the update's autograd
+        # graph (and its parameters' gradient nodes, tied to the stream
+        # they were made on) alive until they are read
         table = torch.stack(
-            [torch.stack([s[n].float() for s in per_step]) for n in names]
+            [torch.stack([s[n].detach().float() for s in per_step]) for n in names]
         )
         return names, torch.where(self._gnorm_mask(names), table.sum(dim=1), table.mean(dim=1))
 
     # -- the K-update superstep ---------------------------------------------
+
+    @property
+    def supports_superstep(self) -> bool:
+        """Whether K queued batches of this policy may be learned by one
+        stacked :meth:`learn_superstep` (the learner thread's fusion):
+        true when the subclass keeps the base learn composition (the
+        nest and the slot's update), as the reference's identity check
+        (``jax_policy.py:904-921``)."""
+        cls = type(self)
+        return (cls.learn_on_device_batch is TorchPolicy.learn_on_device_batch
+                and cls._sgd_nest_device is TorchPolicy._sgd_nest_device
+                and cls._slot_update is TorchPolicy._slot_update)
 
     def _learner_tensors(self) -> List[torch.Tensor]:
         """What an update writes: params, Adam moments and step indices."""

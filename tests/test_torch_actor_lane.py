@@ -423,10 +423,13 @@ def test_ppo_local_worker_and_later_slices():
     # prefetch needs remote workers; without them the round is synchronous
     algo.config["sample_prefetch"] = 2
     assert algo.train()["timesteps_total"] == 128
-    for over in ({"sample_async": True}, {"output": "/nonexistent"},
-                 {"fault_injection": {"kill_worker": 1}}):
+    for over in ({"output": "/nonexistent"}, {"fault_injection": {"kill_worker": 1}}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _ppo(num_workers=0, **over)
+    # a sampling thread needs a remote worker: the local worker's policy is
+    # the learner (the AsyncSampler itself: tests/test_torch_async_loop.py)
+    with pytest.raises(ValueError, match="sample_async needs remote rollout workers"):
+        _ppo(num_workers=0, sample_async=True)
     # multi-agent policies need a MultiAgentEnv; PongLite is not one
     with pytest.raises(ValueError, match="need a MultiAgentEnv"):
         _ppo(num_workers=0, policies={"a": None})

@@ -1454,3 +1454,99 @@ def test_rainbow_served_exact_on_the_card(cuda):
     want = np.concatenate([sequential.compute_actions(obs[i:i + 1])[0] for i in range(12)])
     assert np.concatenate(got).tobytes() == want.tobytes()
     assert server.stats()["captures_after_warmup"] == 0
+
+
+def _flat_unroll_batches(n, unrolls=6, t=8, seed=0):
+    """Fixed CartPole-shaped unrolls as a rollout worker ships them."""
+    from ray_tpu_torch.data.sample_batch import SampleBatch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        rows = unrolls * t
+        obs = rng.standard_normal((rows + 1, 4)).astype(np.float32)
+        dones = rng.random(rows) < 0.1
+        out.append(SampleBatch({
+            SampleBatch.OBS: obs[:-1], SampleBatch.NEXT_OBS: obs[1:],
+            SampleBatch.ACTIONS: rng.integers(0, 2, rows),
+            SampleBatch.REWARDS: rng.standard_normal(rows).astype(np.float32),
+            SampleBatch.TERMINATEDS: dones, SampleBatch.TRUNCATEDS: np.zeros(rows, bool),
+            SampleBatch.ACTION_LOGP: np.full(rows, -0.69, np.float32),
+        }))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["impala", "appo"])
+def test_fused_learner_superstep_graph_equals_eager_learns(cuda, kind):
+    """The learner thread's fused IMPALA/APPO slot on the card: four
+    queued batches (six unrolls each, trimmed to the train batch's four)
+    copied by the feeder on its own stream, stacked on the thread's
+    stream and learned as two graphed supersteps of K = 2, bitwise the
+    eager learns of the same trimmed batches; one capture, three
+    replays."""
+    from ray_tpu_torch.algorithms.appo.appo import APPOTorchPolicy
+    from ray_tpu_torch.algorithms.impala.impala import ImpalaTorchPolicy
+    from ray_tpu_torch.env.spaces import Box, Discrete
+    from ray_tpu_torch.execution.learner_thread import LearnerThread
+
+    cls = {"impala": ImpalaTorchPolicy, "appo": APPOTorchPolicy}[kind]
+    cfg = {"rollout_fragment_length": 8, "train_batch_size": 32, "_fixed_unrolls": True,
+           "superstep": 2, "model": {"fcnet_hiddens": [256, 256]}, "seed": 3, "lr": 5e-4}
+    space, act = Box(-10.0, 10.0, (4,), np.float32), Discrete(2)
+    graphed, eager = (cls(space, act, dict(cfg), device=cuda) for _ in range(2))
+    batches = _flat_unroll_batches(4)
+    lt = LearnerThread(graphed)
+    assert lt._superstep_k == 2
+    for b in batches:
+        assert lt.add_batch(b)
+    lt.start()
+    deadline = time.time() + 120
+    while lt.num_steps < 4 and time.time() < deadline:
+        time.sleep(0.02)
+    lt.stop()
+    assert lt.error is None and lt.num_supersteps == 2
+    got = [lt.outqueue.get_nowait()[1] for _ in range(4)]
+    want = []
+    for b in batches:
+        tree, _ = eager.prepare_batch(b)
+        want.append(eager.learn_on_device_batch(
+            {k: torch.as_tensor(v[:4]).to(cuda) for k, v in tree.items()}, 4))
+    assert got == want
+    assert _same(graphed.params, eager.params)
+    assert _same(graphed.opt_state.mu, eager.opt_state.mu)
+    assert _same(graphed.opt_state.nu, eager.opt_state.nu)
+    (runner,) = graphed._superstep_runners.values()
+    assert runner.graph is not None and runner.replays == 3
+
+
+def test_apex_shards_on_the_card(cuda):
+    """Ape-X's two shards on the card (K = 2 graphed prioritized updates
+    a shard and learn pass): every ring and tree on the card, one prefix
+    descent and a row gather per column an update, a row scatter per
+    column an insert (and the trees' leaf writes), the target synced."""
+    from ray_tpu_torch.algorithms.apex_dqn.apex_dqn import ApexDQNConfig
+
+    algo = (ApexDQNConfig().environment("CartPole-v1")
+            .rollouts(num_rollout_workers=0, rollout_fragment_length=16)
+            .training(train_batch_size=32, num_steps_sampled_before_learning_starts=64,
+                      target_network_update_freq=128, replay_buffer_config={"capacity": 2048},
+                      model={"fcnet_hiddens": [64]})
+            .debugging(seed=0).resources(device=cuda).build())
+    algo.config["superstep"] = 2
+    try:
+        kernels = (framestack.gather_rows, framestack.scatter_rows, segment_tree.find_prefixsum)
+        before = [k.launches for k in kernels]
+        for _ in range(12):
+            algo.train()
+        gathers, scatters, descents = (k.launches - b for k, b in zip(kernels, before))
+        updates = algo._counters["num_env_steps_trained"] // 32
+        cols = len(algo.replay_shards[0]._store)
+        assert updates > 0 and updates % 2 == 0
+        assert descents == updates and gathers == cols * updates
+        assert scatters > cols * 12
+        assert algo._counters["num_target_updates"] >= 1
+        for shard in algo.replay_shards:
+            assert all(t.is_cuda for t in shard._store.values())
+            assert shard._dtree.sum_value.is_cuda and len(shard) == 96
+    finally:
+        algo.stop()

@@ -13,7 +13,10 @@
 - the recurrent models (``models/rnn.py``, ``models/attention.py``)
   import with the reference blocked, and recurrent PPO trains on them;
 - the rest of off-policy (Rainbow DQN, DDPG, TD3, per-policy rings)
-  trains with the reference blocked.
+  trains with the reference blocked;
+- the asynchronous actor-learner loop (Ape-X over device shards, the
+  learner thread's fused superstep, ``AsyncSampler``) runs with the
+  reference blocked, and Ape-X without a device raises.
 """
 
 from __future__ import annotations
@@ -306,6 +309,82 @@ def test_off_policy_slice_runs_with_reference_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
+def test_async_loop_runs_with_reference_blocked():
+    """Ape-X (``algorithms/apex_dqn/``) trains over its device shards,
+    IMPALA's learner thread takes fused supersteps and an
+    ``AsyncSampler`` samples, with the reference blocked."""
+    code = textwrap.dedent(
+        f"""
+        import sys, time
+
+        class _Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError(name + " blocked by test")
+                return None
+
+        sys.meta_path.insert(0, _Block())
+        from ray_tpu_torch.algorithms.apex_dqn.apex_dqn import ApexDQNConfig
+        from ray_tpu_torch.algorithms.impala.impala import IMPALAConfig
+        from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+        from ray_tpu_torch.data.sample_batch import concat_samples
+        from ray_tpu_torch.env.registry import get_env_creator
+        from ray_tpu_torch.env.vector_env import VectorEnv
+        from ray_tpu_torch.evaluation.sampler import AsyncSampler
+        from ray_tpu_torch.execution.learner_thread import LearnerThread
+
+        algo = (ApexDQNConfig().environment("CartPole-v1")
+                .rollouts(num_rollout_workers=0, rollout_fragment_length=8)
+                .training(train_batch_size=8, num_steps_sampled_before_learning_starts=16,
+                          target_network_update_freq=16, model={{"fcnet_hiddens": [8]}})
+                .resources(device="cpu").build())
+        for _ in range(6):
+            algo.train()
+        assert algo._counters["num_target_updates"] >= 1
+        algo.stop()
+        cfg = IMPALAConfig().update_from_dict({{
+            "device": "cpu", "num_workers": 0, "rollout_fragment_length": 8,
+            "train_batch_size": 16, "superstep": 2, "model": {{"fcnet_hiddens": [8]}}}})
+        cfg.env = "CartPole-v1"
+        algo = cfg.build()
+        assert algo.train()["timesteps_total"] >= 16
+        w = algo.workers.local_worker()
+        batches = [concat_samples([w.sample(), w.sample()]) for _ in range(2)]
+        algo.stop()
+        lt = LearnerThread(algo.get_policy())
+        for b in batches:  # a backlog of K = 2 before the thread starts
+            lt.add_batch(b)
+        lt.start()
+        deadline = time.time() + 60
+        while lt.num_steps < 2 and time.time() < deadline:
+            time.sleep(0.05)
+        lt.stop()
+        assert lt.num_supersteps == 1, lt.error
+        env = get_env_creator("CartPole-v1")
+        policy = PPOTorchPolicy(env({{}}).observation_space, env({{}}).action_space,
+                                {{"model": {{"fcnet_hiddens": [8]}}}}, device="cpu")
+        sampler = AsyncSampler(vector_env=VectorEnv.vectorize_gym_envs(lambda i: env({{}}), 2),
+                               policy=policy, rollout_fragment_length=8)
+        assert sampler.sample().count == 16
+        sampler.stop()
+        bad = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
+def test_apex_without_device_raises_without_cuda(monkeypatch):
+    from ray_tpu_torch.algorithms.apex_dqn.apex_dqn import ApexDQNConfig
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="none is available"):
+        ApexDQNConfig().environment("CartPole-v1").rollouts(num_rollout_workers=0).build()
 
 
 def test_ddpg_without_device_raises_without_cuda(monkeypatch):

@@ -672,11 +672,14 @@ def test_dqn_actor_lane_round_matches_reference(monkeypatch):
 
 
 def test_dqn_actor_lane_refusals():
-    """What the actor lane still refuses (``sample_async``, item 5), and
-    what it no longer refuses: ``n_step > 1`` folds on the host (the
-    ring gets the ``n_steps`` column) and pixel fragments ship as frame
-    pools and land in the ring as stacks (held bitwise against the
-    reference in ``tests/test_torch_rainbow.py``)."""
+    """What the actor lane refuses and what it runs: ``sample_async``
+    without a remote worker is the port's own refusal (the sampling
+    thread would act on the learner's policy while it is updated in
+    place), and with one remote worker it is the one-round-stale round
+    (held in ``tests/test_torch_async_loop.py``); ``n_step > 1`` folds on
+    the host (the ring gets the ``n_steps`` column) and pixel fragments
+    ship as frame pools and land in the ring as stacks (held bitwise
+    against the reference in ``tests/test_torch_rainbow.py``)."""
     base = (DQNConfig().environment("CartPole-v1").resources(device="cpu")
             .training(**DQN_COMMON))
     algo = base.training(n_step=3).build()
@@ -684,8 +687,15 @@ def test_dqn_actor_lane_refusals():
     assert "n_steps" in algo.local_replay_buffer.buffers["default_policy"]._store
     cfg = DQNConfig().environment("CartPole-v1").resources(device="cpu")
     cfg.sample_async = True
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="sample_async needs remote rollout workers"):
         cfg.build()
+    remote = cfg.rollouts(num_rollout_workers=1, rollout_fragment_length=8).build()
+    try:
+        remote.training_step()
+        assert remote._pending_sample_refs is not None  # the next round's request
+        assert remote._counters["num_env_steps_sampled"] == 8
+    finally:
+        remote.stop()
     pixel = (DQNConfig().environment("PongLite-v0", env_config={"max_steps": 8, "rallies": 1})
              .rollouts(rollout_fragment_length=8)
              .training(model={"conv_filters": [[4, [8, 8], [4, 4]], [8, [4, 4], [2, 2]]],

@@ -515,9 +515,21 @@ def test_appo_target_refresh_is_taken_between_learner_steps():
 
 
 def test_later_slices_raise():
-    for over in ({"num_aggregation_workers": 1}, {"superstep": 2}, {"env_backend": "jax"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _algo(IMPALAConfig, num_workers=0, **over)
+    """What IMPALA refuses: ``env_backend='jax'`` (the port's own: the
+    reference's IMPALA ignores the key) and the fleet and recovery hooks
+    (item 3d). The aggregation actors and an explicit ``superstep`` are
+    ported (``tests/test_torch_async_loop.py``): at ``num_workers: 0``
+    they build, with no aggregator (the local worker's batches are whole)
+    and the learner thread at K = 2."""
+    with pytest.raises(ValueError, match="the port refuses env_backend='jax'"):
+        _algo(IMPALAConfig, num_workers=0, env_backend="jax")
+    for cls in (IMPALAConfig, APPOConfig):
+        fused = _algo(cls, num_workers=0, num_aggregation_workers=1, superstep=2)
+        try:
+            assert fused._aggregators == [] and fused._learner_thread._superstep_k == 2
+            assert fused.train()["timesteps_total"] > 0
+        finally:
+            fused.stop()
     algo = _algo(IMPALAConfig, num_workers=0)
     try:
         for call in (lambda: algo.on_fleet_change([], []), lambda: algo.on_recovery("restore"),
@@ -531,8 +543,9 @@ def test_later_slices_raise():
 def test_registry_resolves_the_ported_algorithms():
     for name in ("PPO", "DQN", "IMPALA", "APPO", "SAC", "DDPG", "TD3"):
         assert get_algorithm_class(name).__name__ == name
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_algorithm_class("APEX")
+    assert get_algorithm_class("APEX").__name__ == "ApexDQN"
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        get_algorithm_class("APEX_DDPG")
     algo, stop = build_tuned_example(REPO / "tuned_examples" / "impala" / "cartpole-impala.yaml",
                                      device="cpu")
     try:
