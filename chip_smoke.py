@@ -356,6 +356,40 @@ and ``nvcc``. Phases, each printing its own lines:
                requests from RSERVE_THREADS threads, each answer bitwise
                ``compute_actions`` from the initial state, one flash
                launch a request and unit (required): requests/s;
+    offline_io -- PPO on CartPole-v1 (8 envs x 256 on the local worker on
+               the card, FCNet 256x256) with ``output`` set, for
+               OFFLINE_IO_ITERS ``train()`` calls: every batch the worker
+               sampled reads back from the JSON shards bitwise;
+               env-steps/s, shard bytes, the host's encode and decode
+               rates on those batches;
+    offline_bc -- BC, then MARWIL, from those shards on the card (train
+               batch 2000, lr 1e-4, FCNet 256x256): OFFLINE_PARITY_LEARNS
+               learns each against the same learn of a CPU copy on the
+               same batch and permutation (parameters within a tenth of
+               lr, stats within 1e-4 relative: float32 sums in other
+               orders through one Adam step), then OFFLINE_BC_ITERS timed
+               ``train()`` calls: updates/s, rows/s, finite IS and WIS
+               estimates, MARWIL's normaliser, and an offline step split
+               between the host's draw (decode, postprocess, concat) and
+               the card's learn;
+    offline_cql_crr -- SAC writes Pendulum-v1 shards with learning held
+               off (5 envs x 200 on the card's local worker,
+               OFFLINE_SAC_ITERS calls; its replay inserts must launch the
+               row scatter), then CQL (``bc_iters`` CQL_BC_ITERS) and CRR
+               (a hard target sync every CRR_SYNC_INTERVAL updates) at
+               SAC's defaults take OFFLINE_CQL_ITERS timed updates each:
+               finite losses, CQL's warmup flag 1 for its first
+               CQL_BC_ITERS updates and 0 after, updates/s, the split,
+               then one update each against a CPU copy on the card's
+               draws (the bound above);
+    external_env -- PPO with no env: its input a ``PolicyServerInput``
+               whose actions come from the policy on the card, while a
+               ``PolicyClient`` thread drives CartPole-v1 over HTTP
+               through EXTERNAL_ENV_S seconds of ``train()`` calls:
+               env-steps/s through the server, the episodes the client
+               ended and the server reported, GET_ACTION p50 and p99,
+               finite stats; ``stop()`` shuts the server and the client
+               thread ends;
 13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
@@ -397,7 +431,10 @@ as the reference's; they print their counts), the off-policy phases
 calls or the parity windows after them), the resumed train of
 ckpt_ppo, and ckpt_dqn's restores and its resumed rounds, the recurrent
 phases' timed calls (lstm_impala's at its window's start, between two
-learner steps) and recurrent_serve's requests, and read just
+learner steps) and recurrent_serve's requests, the offline phases' timed
+calls and external_env's window (paths that run no kernel; they print
+their counts) and the SAC writer of offline_cql_crr (its inserts are
+the row scatter's ``offline_sac_writer`` path), and read just
 after (on the learner-thread paths, between two learner steps) (the
 ring's in each rank, before each call), the serve phase and
 serve_torso (before its exact server is built; its exact-against-
@@ -4154,6 +4191,383 @@ def phase_recurrent_serve(policy):
     return launches
 
 
+# offline data and external envs: JSON shards written on the actor lane,
+# BC and MARWIL trained from them, CQL and CRR from SAC's Pendulum shards,
+# PPO trained through the policy server from an HTTP client thread
+OFFLINE_IO_ITERS = 3  # PPO train() calls with output set
+OFFLINE_PARITY_LEARNS = 3  # card learns held against a CPU copy, a policy
+OFFLINE_BC_ITERS = 15  # timed train() calls of BC and of MARWIL each
+OFFLINE_SPLIT_CALLS = 5  # draws and learns timed apart
+OFFLINE_SAC_ITERS = 4  # SAC train() calls that write Pendulum shards
+OFFLINE_CQL_ITERS = 40  # timed train() calls (one update each) of CQL and CRR
+CQL_BC_ITERS = 10
+CRR_SYNC_INTERVAL = 10
+EXTERNAL_ENV_S = 10.0
+# a card learn against the same learn of a CPU copy: float32 reductions
+# in other orders, through one Adam step a learn whose size is at most
+# about lr per element; a tenth of that step is the parameters' bound,
+# and the stats (means over the batch) hold to 1e-4 relative
+OFFLINE_PARAM_TOL_LR = 0.1
+OFFLINE_STAT_RTOL = 1e-4
+
+
+def _cpu_twin(policy):
+    """A CPU copy of a card policy, state and all."""
+    twin = type(policy)(policy.observation_space, policy.action_space, dict(policy.config),
+                        device="cpu")
+    twin.set_state(copy.deepcopy(policy.get_state()))
+    return twin
+
+
+def _against_cpu(phase, got, want, policy, twin, lr):
+    """The card's learn stats and parameters against the CPU copy's:
+    the largest parameter difference, required within
+    ``OFFLINE_PARAM_TOL_LR * lr``."""
+    for k, v in want.items():
+        if isinstance(v, float):
+            require(abs(got[k] - v) <= OFFLINE_STAT_RTOL * abs(v) + 1e-6,
+                    f"{phase}: stat {k} card {got[k]} cpu {v}")
+    cw, tw = policy.get_weights(), twin.get_weights()
+    diff = max(float(abs(cw[n] - tw[n]).max()) for n in cw)
+    require(diff <= OFFLINE_PARAM_TOL_LR * lr, f"{phase}: parameters part by {diff} (lr {lr})")
+    return diff
+
+
+def _equal_columns(got, want):
+    keys = {k for k, v in want.items() if v.dtype != object}
+    return set(got.keys()) == keys and all(
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and got[k].tobytes() == want[k].tobytes() for k in keys)
+
+
+def phase_offline_io(tmp):
+    """PPO on the port's CartPole-v1 (8 envs x 256 on the local worker,
+    which acts on the card; FCNet 256x256, minibatch 256, 4 epochs) with
+    ``output`` set, for OFFLINE_IO_ITERS ``train()`` calls: every batch
+    the worker's ``sample()`` returned reads back from the shards bitwise
+    (the object ``infos`` column dropped). The shards' bytes, and the
+    host's JSON encode and decode rates on those batches. Returns the
+    shards' directory."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+    from ray_tpu_torch.offline import JsonReader, JsonWriter
+
+    out_dir = os.path.join(tmp, "cartpole")
+    algo = (PPOConfig().environment("CartPole-v1")
+            .rollouts(num_rollout_workers=0, num_envs_per_worker=8, rollout_fragment_length=256)
+            .training(train_batch_size=2048, sgd_minibatch_size=256, num_sgd_iter=4,
+                      model={"fcnet_hiddens": [256, 256]})
+            .offline_data(output=out_dir).debugging(seed=0).build())
+    try:
+        require(algo.get_policy().device.type == "cuda", "offline_io does not act on the card")
+        worker = algo.workers.local_worker()
+        seen = []
+        sample = worker.sampler.sample
+        worker.sampler.sample = lambda: seen.append(sample()) or seen[-1]
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        for _ in range(OFFLINE_IO_ITERS):
+            r = algo.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = read_kernel_counts()
+        _finite_learner("offline_io", r, ["default_policy"])
+    finally:
+        algo.stop()
+    reader = JsonReader(out_dir, shuffle=False)
+    require(len(reader._lines) == len(seen) == OFFLINE_IO_ITERS,
+            f"{len(reader._lines)} lines for {len(seen)} samples")
+    t0 = time.perf_counter()
+    back = [reader.next() for _ in seen]
+    decode_s = time.perf_counter() - t0
+    require(all(_equal_columns(b, s) for b, s in zip(back, seen)),
+            "a shard does not read back bitwise as its sampled batch")
+    scratch = os.path.join(tmp, "encode")
+    writer = JsonWriter(scratch)
+    t0 = time.perf_counter()
+    for s in seen:
+        writer.write(s)
+    encode_s = time.perf_counter() - t0
+    writer.close()
+    rows = sum(s.count for s in seen)
+    shard_bytes = _dir_bytes(out_dir)
+    column_bytes = sum(v.nbytes for s in seen for v in s.values() if v.dtype != object)
+    say("offline_io", samples=len(seen), rows=rows, shards=len(reader.files),
+        shard_bytes=shard_bytes, column_bytes=column_bytes,
+        env_steps_per_s=f"{rows / train_s:.1f}", encode_rows_per_s=f"{rows / encode_s:.1f}",
+        decode_rows_per_s=f"{rows / decode_s:.1f}", bitwise=True,
+        launches=json.dumps(launches))
+    return out_dir
+
+
+def _offline_split(algo, draw):
+    """Seconds of ``draw()`` (read, decode, postprocess and concat on the
+    host) and of the learn on the card, each summed over
+    OFFLINE_SPLIT_CALLS calls."""
+    import torch
+
+    policy = algo.get_policy()
+    draw_s = learn_s = 0.0
+    for _ in range(OFFLINE_SPLIT_CALLS):
+        t0 = time.perf_counter()
+        batch = draw()
+        t1 = time.perf_counter()
+        policy.learn_on_batch(batch)
+        torch.cuda.synchronize()
+        draw_s += t1 - t0
+        learn_s += time.perf_counter() - t1
+    return draw_s, learn_s
+
+
+def phase_offline_bc(shards):
+    """BC, then MARWIL, from offline_io's shards on the card (the
+    defaults: train batch 2000, lr 1e-4, one SGD step a learn; FCNet
+    256x256). OFFLINE_PARITY_LEARNS learns each against the same learn
+    of a CPU copy (the same batch and permutation; bound above); then
+    OFFLINE_BC_ITERS timed ``train()`` calls: updates/s and rows/s, the
+    IS and WIS estimates (finite), MARWIL's normaliser; then the split of
+    an offline step between the host's draw and the card's learn."""
+    import torch
+
+    from ray_tpu_torch.algorithms.marwil.marwil import BCConfig, MARWILConfig
+
+    out = {}
+    for name, config in (("bc", BCConfig()), ("marwil", MARWILConfig())):
+        algo = (config.environment("CartPole-v1").rollouts(num_rollout_workers=0)
+                .training(model={"fcnet_hiddens": [256, 256]})
+                .offline_data(input_=shards).debugging(seed=0).build())
+        try:
+            policy = algo.get_policy()
+            require(policy.device.type == "cuda", f"{name} does not learn on the card")
+            diffs = []
+            for _ in range(OFFLINE_PARITY_LEARNS):
+                batch = algo._next_offline_batch()
+                twin = _cpu_twin(policy)
+                perms = policy.draw_permutations(batch.count)
+                got = policy.learn_on_batch(batch, perms=perms)
+                want = twin.learn_on_batch(batch, perms=perms.cpu())
+                diffs.append(_against_cpu(name, got, want, policy, twin, policy.config["lr"]))
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            for _ in range(OFFLINE_BC_ITERS):
+                r = algo.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = read_kernel_counts()
+            info = r["info"]["learner"]["default_policy"]
+            est = {k.split("/")[1]: v for k, v in info.items()
+                   if k.startswith("off_policy_estimation/")}
+            require(set(est) == {"ImportanceSampling", "WeightedImportanceSampling"},
+                    f"{name}: estimators {sorted(est)}")
+            require(all(math.isfinite(v["v_behavior"]) and math.isfinite(v["v_target"])
+                        for v in est.values())
+                    and all(math.isfinite(v) for v in info.values() if isinstance(v, float)),
+                    f"{name}: non-finite stats {info}")
+            draw_s, learn_s = _offline_split(algo, algo._next_offline_batch)
+            rows = r["info"]["num_env_steps_trained"]
+            say(f"offline_{name}", updates=OFFLINE_BC_ITERS,
+                updates_per_s=f"{OFFLINE_BC_ITERS / train_s:.2f}",
+                rows_per_s=f"{rows / train_s:.1f}",
+                max_param_diff_vs_cpu=json.dumps(diffs), policy_loss=info["policy_loss"],
+                estimates=json.dumps({k: {m: round(x, 5) for m, x in v.items()}
+                                      for k, v in est.items()}),
+                ma_sqd_adv_norm=info.get("moving_average_sqd_adv_norm"),
+                draw_ms=f"{1e3 * draw_s / OFFLINE_SPLIT_CALLS:.3f}",
+                learn_ms=f"{1e3 * learn_s / OFFLINE_SPLIT_CALLS:.3f}",
+                launches=json.dumps(launches))
+            out[name] = OFFLINE_BC_ITERS / train_s
+        finally:
+            algo.stop()
+    return out
+
+
+def phase_offline_cql_crr(tmp):
+    """SAC writes Pendulum-v1 shards with learning held off (the
+    reference's ``_pendulum_offline_data``, at 5 envs x 200 on the local
+    worker on the card, OFFLINE_SAC_ITERS ``train()`` calls; its replay
+    inserts launch the row scatter, required, and its ring then holds the
+    row gather and scatter against their plain versions at the 1000-row
+    insert: ``_ring_kernels``); CQL (``bc_iters``
+    CQL_BC_ITERS) and CRR (``weight_type`` "bin", a hard sync every
+    CRR_SYNC_INTERVAL updates) at SAC's defaults (256x256, batch 256)
+    each take OFFLINE_CQL_ITERS timed updates from them: finite losses,
+    CQL's warmup flag 1 for its first CQL_BC_ITERS updates and 0 after,
+    updates/s, the split of a step between the host's draw and the
+    card's learn; then one update of each against a CPU copy with the
+    card's draws (bound above). Returns the SAC writer's scatter
+    launches."""
+    import torch
+
+    from ray_tpu_torch.algorithms.cql.cql import CQLConfig
+    from ray_tpu_torch.algorithms.crr.crr import CRRConfig
+    from ray_tpu_torch.algorithms.sac.sac import SACConfig
+    from ray_tpu_torch.offline import JsonReader
+    from ray_tpu_torch.offline.offline_ops import sample_offline_batch
+
+    shards = os.path.join(tmp, "pendulum")
+    sac = (SACConfig().environment("Pendulum-v1")
+           .rollouts(num_rollout_workers=0, num_envs_per_worker=5, rollout_fragment_length=200)
+           .training(num_steps_sampled_before_learning_starts=10 ** 9)
+           .offline_data(output=shards).debugging(seed=0).build())
+    try:
+        zero_kernel_counts()
+        for _ in range(OFFLINE_SAC_ITERS):
+            sac.train()
+        writer_launches = read_kernel_counts()
+        _ring_kernels("offline_sac_writer", "default_policy",
+                      sac.local_replay_buffer.buffers["default_policy"], 256, 1000, False)
+    finally:
+        sac.stop()
+    require(writer_launches["scatter_rows"] > 0, "the SAC writer's inserts launched no row scatter")
+    rows = JsonReader(shards).read_all().count
+    require(rows == OFFLINE_SAC_ITERS * 1000, f"{rows} Pendulum rows written")
+    for name, config in (
+        ("cql", CQLConfig().training(bc_iters=CQL_BC_ITERS)),
+        ("crr", CRRConfig().training(target_update_grad_intervals=CRR_SYNC_INTERVAL)),
+    ):
+        algo = (config.environment("Pendulum-v1").rollouts(num_rollout_workers=0)
+                .offline_data(input_=shards).debugging(seed=0).build())
+        try:
+            policy = algo.get_policy()
+            require(policy.device.type == "cuda", f"{name} does not learn on the card")
+            zero_kernel_counts()
+            infos = []
+            t0 = time.perf_counter()
+            for _ in range(OFFLINE_CQL_ITERS):
+                infos.append(algo.train()["info"]["learner"]["default_policy"])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = read_kernel_counts()
+            require(all(math.isfinite(v) for i in infos for v in i.values()),
+                    f"{name}: non-finite stats {infos[-1]}")
+            extra = {}
+            if name == "cql":
+                flags = [i["in_bc_warmup"] for i in infos]
+                want = [1.0] * CQL_BC_ITERS + [0.0] * (OFFLINE_CQL_ITERS - CQL_BC_ITERS)
+                require(flags == want, f"cql: warmup flags {flags}")
+                extra = dict(cql_penalty=infos[-1]["cql_penalty"], warmup_flips_at=CQL_BC_ITERS)
+            else:
+                extra = dict(mean_weight=infos[-1]["mean_weight"],
+                             syncs=OFFLINE_CQL_ITERS // CRR_SYNC_INTERVAL)
+            bsize = int(algo.config["train_batch_size"])
+            draw_s, learn_s = _offline_split(algo, lambda: sample_offline_batch(
+                algo._reader, bsize, require_next_obs=True))
+            batch = sample_offline_batch(algo._reader, bsize, require_next_obs=True, seed=1)
+            twin = _cpu_twin(policy)
+            draws = policy.draw_update(bsize)
+            got = policy.learn_on_batch(batch, draws=draws)
+            want = twin.learn_on_batch(batch, draws=tuple(d.cpu() for d in draws))
+            lr = policy.config["optimization"]["critic_learning_rate"]
+            diff = _against_cpu(name, got, want, policy, twin, lr)
+            say(f"offline_{name}", updates=OFFLINE_CQL_ITERS,
+                updates_per_s=f"{OFFLINE_CQL_ITERS / train_s:.2f}",
+                critic_loss=infos[-1]["critic_loss"], actor_loss=infos[-1]["actor_loss"],
+                max_param_diff_vs_cpu=diff, draw_ms=f"{1e3 * draw_s / OFFLINE_SPLIT_CALLS:.3f}",
+                learn_ms=f"{1e3 * learn_s / OFFLINE_SPLIT_CALLS:.3f}",
+                launches=json.dumps(launches), **extra)
+        finally:
+            algo.stop()
+    say("offline_sac_writer", rows=rows, shard_bytes=_dir_bytes(shards),
+        launches=json.dumps(writer_launches))
+    return writer_launches["scatter_rows"]
+
+
+def _external_client(address, stop, counts):
+    """An external env process's loop in a thread: the port's CartPole-v1
+    driven through a ``PolicyClient`` until ``stop``; env steps,
+    episodes and each GET_ACTION's seconds into ``counts``."""
+    from ray_tpu_torch.env.cartpole import CartPoleEnv
+    from ray_tpu_torch.env.policy_client import PolicyClient
+
+    env = CartPoleEnv()
+    client = PolicyClient(address, timeout=60)
+    seed = 0
+    try:
+        while not stop.is_set():
+            obs, _ = env.reset(seed=seed)
+            seed += 1
+            eid = client.start_episode()
+            done = trunc = False
+            while not done:
+                t0 = time.perf_counter()
+                action = client.get_action(eid, obs)
+                counts["get_action_s"].append(time.perf_counter() - t0)
+                obs, reward, term, trunc, _ = env.step(int(action))
+                client.log_returns(eid, reward)
+                counts["steps"] += 1
+                done = term or trunc
+            client.end_episode(eid, obs, truncated=trunc)
+            counts["episodes"] += 1
+    except (RuntimeError, OSError) as e:
+        if not stop.is_set():
+            counts["error"] = repr(e)
+
+
+def phase_external_env():
+    """PPO with no env: its local worker's input is a
+    ``PolicyServerInput`` on 127.0.0.1 (an ephemeral port), whose
+    actions come from the policy on the card; a ``PolicyClient`` thread
+    drives the port's CartPole-v1 over HTTP while ``train()`` runs for
+    EXTERNAL_ENV_S seconds (batch 1000, minibatch 250, 4 epochs, FCNet
+    64x64): env-steps/s through the server, the episodes the client ended
+    and the ones the server reported, GET_ACTION's p50 and p99, finite
+    stats; ``stop()`` shuts the server and the client thread ends."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+    from ray_tpu_torch.env.policy_server_input import PolicyServerInput
+    from ray_tpu_torch.env.spaces import Box, Discrete
+
+    algo = (PPOConfig()
+            .environment(None, observation_space=Box(-np.inf, np.inf, (4,)),
+                         action_space=Discrete(2))
+            .rollouts(num_rollout_workers=0)
+            .training(train_batch_size=1000, sgd_minibatch_size=250, num_sgd_iter=4, lr=1e-3,
+                      model={"fcnet_hiddens": [64, 64]})
+            .offline_data(input_=lambda ioctx: PolicyServerInput(ioctx, "127.0.0.1", 0))
+            .debugging(seed=0).build())
+    stop = threading.Event()
+    counts = {"steps": 0, "episodes": 0, "get_action_s": []}
+    server = algo.workers.local_worker().input_reader
+    client = threading.Thread(target=_external_client, daemon=True,
+                              args=(f"127.0.0.1:{server.port}", stop, counts))
+    results = []
+    try:
+        require(server.policy.device.type == "cuda", "the server's policy is not on the card")
+        zero_kernel_counts()
+        client.start()
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < EXTERNAL_ENV_S:
+            results.append(algo.train())
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_kernel_counts()
+        steps = counts["steps"]
+        require(steps > 0, "the client took no step")
+    finally:
+        stop.set()
+        algo.stop()
+        client.join(timeout=60)
+    require(not client.is_alive(), "the client thread outlived the server")
+    require("error" not in counts, f"the client failed: {counts.get('error')}")
+    _finite_learner("external_env", results[-1], ["default_policy"])
+    reported = sum(r["episodes_this_iter"] for r in results)
+    require(results[-1]["timesteps_total"] >= 1000 * len(results) and reported > 0,
+            f"{results[-1]['timesteps_total']} steps, {reported} episodes reported")
+    lat = sorted(counts["get_action_s"])
+    say("external_env", iterations=len(results), env_steps=steps,
+        env_steps_per_s=f"{steps / elapsed:.1f}", trained_steps=results[-1]["timesteps_total"],
+        episodes_client=counts["episodes"], episodes_reported=reported,
+        get_action_p50_ms=f"{1e3 * _pct(lat, 50):.3f}", get_action_p99_ms=f"{1e3 * _pct(lat, 99):.3f}",
+        episode_reward_mean=results[-1]["episode_reward_mean"], launches=json.dumps(launches))
+    return steps / elapsed
+
+
 # the Algorithm's own surface: checkpoints of the actor lane and of DQN's
 # device replay, evaluation workers with callbacks, the evaluate CLI
 CARTPOLE_ACTOR = os.path.join(REPO, "tuned_examples", "ppo", "cartpole-ppo.yaml")
@@ -5151,6 +5565,14 @@ def main() -> int:
     gtrxl, gtrxl_policy = timed(phase_gtrxl_ppo)
     timed(phase_lstm_impala)
     recurrent_serve = timed(phase_recurrent_serve, gtrxl_policy)
+    offline_tmp = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+    try:
+        shards = timed(phase_offline_io, offline_tmp)
+        timed(phase_offline_bc, shards)
+        offline_sac_writer = timed(phase_offline_cql_crr, offline_tmp)
+    finally:
+        shutil.rmtree(offline_tmp, ignore_errors=True)
+    timed(phase_external_env)
     serve_tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     try:
         ckpt_ppo, serve_root, serve_newer = timed(phase_ckpt_ppo, serve_tmp)
@@ -5192,7 +5614,8 @@ def main() -> int:
                                    "sac": sac["scatter_rows"], "ckpt_dqn": ckpt_dqn["scatter_rows"],
                                    **{name: run["scatter_rows"] for name, run in offpolicy.items()},
                                    "apex": apex["scatter_rows"],
-                                   "sac_async": sac_async["scatter_rows"]}
+                                   "sac_async": sac_async["scatter_rows"],
+                                   "offline_sac_writer": offline_sac_writer}
     descent["launches_by_path"] = {"dqn": dqn["find_prefixsum"],
                                    "transformer_dqn": tf_dqn["find_prefixsum"],
                                    "sac_learner_prioritized": sac_learner["prioritized"]["find_prefixsum"],

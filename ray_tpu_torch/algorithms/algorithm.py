@@ -52,6 +52,12 @@ The ``Algorithm``'s own surface, as the reference's
   iteration included. ``export_policy_model`` writes a policy's
   ``policy_state.pkl``.
 
+Without an ``env``, an actor-lane algorithm builds its policies on the
+config's ``observation_space`` and ``action_space`` and its workers
+sample nothing themselves: the external-env setup, whose ``input`` is a
+``PolicyServerInput``. The device lane refuses ``input`` and ``output``,
+which it would never read (the reference's ignores them).
+
 Multi-agent (``config["policies"]``, an algorithm whose actor lane
 learns a policy map: ``_multi_agent``, PPO and the replay family): the
 worker set's policy map holds one policy per id, built from the
@@ -81,7 +87,7 @@ from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.env.registry import get_env_creator
 from ray_tpu_torch.evaluation.metrics import summarize_episodes
-from ray_tpu_torch.evaluation.rollout_worker import refuse_local_async
+from ray_tpu_torch.evaluation.rollout_worker import refuse_local_async, refuse_local_input_reader
 from ray_tpu_torch.evaluation.worker_set import WorkerSet, evaluation_worker_config
 from ray_tpu_torch.sharding.superstep import resolve_superstep
 from ray_tpu_torch.tune.trainable import Trainable
@@ -143,6 +149,9 @@ class Algorithm(Trainable):
     _actor_lane = False
     # whether the actor lane learns a policy map (config["policies"])
     _multi_agent = False
+    # whether every learn of the local worker's policies holds the
+    # worker's act lock (a callable input on the local worker needs it)
+    _learns_under_act_lock = False
 
     @classmethod
     def get_default_config(cls) -> AlgorithmConfig:
@@ -173,15 +182,21 @@ class Algorithm(Trainable):
         self._metrics_refs: Dict[int, Any] = {}
 
         env_spec = self.config.get("env")
-        if env_spec is None:
-            raise ValueError("config has no 'env'")
         policy_cls = self._default_policy_class
         actor_lane = self._actor_lane and self.config.get("env_backend") != "jax"
+        spaces = (self.config.get("observation_space") is not None
+                  and self.config.get("action_space") is not None)
+        if env_spec is None and not (actor_lane and spaces):
+            raise ValueError(
+                "config has no 'env' (an actor-lane algorithm without one takes "
+                "observation_space and action_space, as for an external env)"
+            )
         if self.config.get("policies") and not (actor_lane and self._multi_agent):
             refuse_policy_map(type(self).__name__, self.config["policies"], actor_lane)
         if actor_lane:
             refuse_local_async(self.config)
-            env_creator = get_env_creator(env_spec)
+            refuse_local_input_reader(self.config, self._learns_under_act_lock)
+            env_creator = get_env_creator(env_spec) if env_spec is not None else None
             specs = dict(
                 env_creator=env_creator, policy_cls=policy_cls, device=self.device,
                 policy_specs=build_policy_specs(self.config, policy_cls, env_creator),
@@ -201,6 +216,13 @@ class Algorithm(Trainable):
                     num_workers=int(self.config.get("evaluation_num_workers", 0)), **specs,
                 )
             return
+        for key in ("input", "output"):
+            if self.config.get(key) not in (None, "sampler"):
+                raise ValueError(
+                    f"{key!r} on the device lane (env_backend='jax'): the lane's rollouts never "
+                    "pass through a rollout worker, so nothing would read or write it (the "
+                    "reference's device lane ignores it); use the actor lane"
+                )
         if self.config.get("evaluation_interval"):
             raise NotImplementedError(
                 "evaluation on the device lane (evaluation workers over a tensor env, the "

@@ -49,6 +49,18 @@ defaults: ``replay_buffer_config``, ``replay_device_resident`` and
 ``execution/replay_buffer.resolve_device_resident``),
 ``replay_memory_cap_bytes``, ``num_steps_sampled_before_learning_starts``,
 ``target_network_update_freq`` and ``training_intensity``.
+
+``offline_data(input_=, output=, output_max_file_size=,
+off_policy_estimation_methods=)`` keeps the reference's keys; the dict
+spells ``input_`` as ``input``, as the reference's does. On the actor
+lane a callable ``input`` (``input(ioctx)`` → a reader with ``next()``:
+``env/policy_server_input.PolicyServerInput``) replaces each worker's
+sampler, and ``output`` (a directory) mirrors every sampled batch into
+JSON shards of ``output_max_file_size`` bytes (``offline/json_writer``);
+a path as ``input`` is read by the offline algorithms (MARWIL, BC, CQL,
+CRR). ``environment(observation_space=, action_space=)`` gives the
+policy's spaces where there is no env (an external env behind a
+``PolicyServerInput``).
 """
 
 from __future__ import annotations
@@ -65,6 +77,9 @@ class AlgorithmConfig:
         self.env = None
         self.env_config: Dict = {}
         self.env_backend = "actor"
+        # the policy's spaces when no env gives them (external envs)
+        self.observation_space = None
+        self.action_space = None
         # the actor lane's action squashing and episode horizon
         self.clip_actions = False
         self.normalize_actions = True
@@ -128,6 +143,13 @@ class AlgorithmConfig:
         self.evaluation_config: Dict = {}
         self.keep_checkpoints_num = None
 
+        # offline data: a callable or a path read instead of the sampler,
+        # a directory the sampled batches are written to
+        self.input_ = None
+        self.output = None
+        self.output_max_file_size = 64 * 1024 * 1024
+        self.off_policy_estimation_methods: list = []
+
     def environment(
         self,
         env=None,
@@ -137,11 +159,15 @@ class AlgorithmConfig:
         clip_actions: Optional[bool] = None,
         normalize_actions: Optional[bool] = None,
         horizon: Optional[int] = None,
+        observation_space=None,
+        action_space=None,
         **kwargs,
     ) -> "AlgorithmConfig":
         if env is not None:
             self.env = env
         for name, value in (
+            ("observation_space", observation_space),
+            ("action_space", action_space),
             ("env_config", env_config),
             ("env_backend", env_backend),
             ("clip_actions", clip_actions),
@@ -321,17 +347,38 @@ class AlgorithmConfig:
                 setattr(self, name, value)
         return self
 
+    def offline_data(
+        self,
+        *,
+        input_=None,
+        output: Optional[str] = None,
+        output_max_file_size: Optional[int] = None,
+        off_policy_estimation_methods=None,
+        **kwargs,
+    ) -> "AlgorithmConfig":
+        for name, value in (
+            ("input_", input_),
+            ("output", output),
+            ("output_max_file_size", output_max_file_size),
+            ("off_policy_estimation_methods", off_policy_estimation_methods),
+        ):
+            if value is not None:
+                setattr(self, name, value)
+        return self
+
     def to_dict(self) -> Dict[str, Any]:
-        return {
-            k: copy.deepcopy(v)
-            for k, v in vars(self).items()
-            if k != "algo_class"
-        }
+        out = {k: copy.deepcopy(v) for k, v in vars(self).items()
+               if k not in ("algo_class", "input_")}
+        # a path, a callable or a reader object: passed as it is
+        out["input"] = self.input_
+        return out
 
     def update_from_dict(self, d: Dict) -> "AlgorithmConfig":
         for k, v in d.items():
             if k == "num_rollout_workers":
                 self.num_workers = v
+            elif k == "input":
+                self.input_ = v
             elif k == "lambda":
                 self.lambda_ = v
             else:

@@ -105,6 +105,7 @@ class ApexDQNConfig(DQNConfig):
 
 
 class ApexDQN(DQN):
+    _learns_under_act_lock = False  # the shards' updates run outside it
     @classmethod
     def get_default_config(cls) -> ApexDQNConfig:
         return ApexDQNConfig(cls)

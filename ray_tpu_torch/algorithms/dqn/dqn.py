@@ -458,6 +458,7 @@ class DQN(Algorithm):
     _default_policy_class = DQNTorchPolicy
     _actor_lane = True
     _multi_agent = True
+    _learns_under_act_lock = True
 
     @classmethod
     def get_default_config(cls) -> DQNConfig:
@@ -694,7 +695,9 @@ class DQN(Algorithm):
         self._counters[NUM_ENV_STEPS_SAMPLED] += sampled
         self.local_replay_buffer.add(batch)
         t2 = time.perf_counter()
-        train_info = self._replay_update_phase(sampled)
+        # an input reader on the local worker acts from its own threads
+        with self.workers.local_worker().act_lock():
+            train_info = self._replay_update_phase(sampled)
         t3 = time.perf_counter()
         self.workers.sync_weights(
             global_vars={"timestep": self._counters[NUM_ENV_STEPS_SAMPLED]},

@@ -204,6 +204,7 @@ class PPO(Algorithm):
     _default_policy_class = PPOTorchPolicy
     _actor_lane = True
     _multi_agent = True
+    _learns_under_act_lock = True  # train_one_step: the worker's learn_on_batch
 
     @classmethod
     def get_default_config(cls) -> PPOConfig:

@@ -19,6 +19,10 @@ ALGORITHMS = {
     "SAC": "ray_tpu_torch.algorithms.sac.sac:SAC",
     "DDPG": "ray_tpu_torch.algorithms.ddpg.ddpg:DDPG",
     "TD3": "ray_tpu_torch.algorithms.ddpg.ddpg:TD3",
+    "MARWIL": "ray_tpu_torch.algorithms.marwil.marwil:MARWIL",
+    "BC": "ray_tpu_torch.algorithms.marwil.marwil:BC",
+    "CQL": "ray_tpu_torch.algorithms.cql.cql:CQL",
+    "CRR": "ray_tpu_torch.algorithms.crr.crr:CRR",
 }
 
 

@@ -130,6 +130,14 @@ class SampleBatch(dict):
             {k: v[start:end] for k, v in self.items() if _is_row_col(k)}
         )
 
+    def split_by_episode(self) -> List["SampleBatch"]:
+        """Slices at each change of EPS_ID (the whole batch without one)."""
+        if EPS_ID not in self:
+            return [self]
+        eps = np.asarray(self[EPS_ID])
+        starts = [0] + (np.flatnonzero(eps[1:] != eps[:-1]) + 1).tolist() + [self.count]
+        return [self.slice(a, b) for a, b in zip(starts[:-1], starts[1:])]
+
     def __getitem__(self, key):
         if isinstance(key, slice):
             return self.slice(

@@ -9,7 +9,8 @@ dynamics written out, so the card's machine, which has no gymnasium,
 runs the Pendulum and CartPole configs), and the
 tensor envs ``PongLiteJax-v0``, ``CartPoleJax-v0`` and
 ``GridRoomsJax-v0`` (the device lane's; ``-Jax`` in a name means "runs
-on the device" here).
+on the device" here), and ``SyntheticFast-v0`` (``env/synthetic_env.py``,
+a near-free host env).
 
 A name nobody registered is taken for a gymnasium id, as in the
 reference: the creator imports gymnasium when it makes the env, and
@@ -34,8 +35,9 @@ _IN_REPO = {
     "PongLiteJax-v0": "ray_tpu_torch.env.pong_lite_tensor",
     "CartPoleJax-v0": "ray_tpu_torch.env.control_tensor",
     "GridRoomsJax-v0": "ray_tpu_torch.env.control_tensor",
+    "SyntheticFast-v0": "ray_tpu_torch.env.synthetic_env",
 }
-_IN_REPO_PREFIXES = ("PongLite", "CartPoleJax", "GridRoomsJax")
+_IN_REPO_PREFIXES = ("PongLite", "CartPoleJax", "GridRoomsJax", "SyntheticFast")
 
 
 def register_env(name: str, creator: Callable[[Dict], Any]) -> None:

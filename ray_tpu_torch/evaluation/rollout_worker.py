@@ -36,11 +36,24 @@ them its policy is the learner, which ``Algorithm`` refuses to give a
 sampling thread (``refuse_local_async``). ``stop()`` ends the thread
 before it closes the envs.
 
+Offline data and external envs, as the reference's worker wires them:
+a callable ``config["input"]`` is called with an io context
+(``worker``, ``config``, ``worker_index``) and returns a reader whose
+``next()`` replaces the sampler (no sampler is built; ``get_metrics``
+is the reader's, and ``stop`` calls its ``shutdown``): the external
+envs' ``PolicyServerInput``. A reader's ``lock`` (the server's act
+lock) is the worker's: ``learn_on_batch``, ``set_weights``,
+``set_global_vars`` and ``restore`` hold it, and an algorithm that
+learns the local worker's policy another way holds it too, or refuses
+the reader (``refuse_local_input_reader``). A path as ``input`` is the offline
+algorithms' to read, not the worker's. ``config["output"]`` (a
+directory) mirrors every batch ``sample()`` returns into a
+``JsonWriter``'s shards of ``output_max_file_size`` bytes.
+
 Not ported (``ROADMAP.md`` queue 1 item 3d), each raising where a config
-asks for it: ``input``/``output`` readers and writers, the fault
-injector (``fault_injection``) and tensor envs on the actor lane (the
-reference's ``JaxVectorEnvAdapter``; the port's tensor envs run on the
-device lane, ``env_backend: jax``).
+asks for it: the fault injector (``fault_injection``) and tensor envs on
+the actor lane (the reference's ``JaxVectorEnvAdapter``; the port's
+tensor envs run on the device lane, ``env_backend: jax``).
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional
 
 import contextlib
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -65,13 +79,8 @@ _ITEM = "ROADMAP.md queue 1 item 3d"
 
 
 def _refuse_unported(config: Dict) -> None:
-    for key, what, item in (
-        ("input", "input readers", _ITEM),
-        ("output", "output writers", _ITEM),
-        ("fault_injection", "the fault injector", _ITEM),
-    ):
-        if config.get(key):
-            raise NotImplementedError(f"{what} on the actor lane are not ported yet: {item}")
+    if config.get("fault_injection"):
+        raise NotImplementedError(f"the fault injector on the actor lane is not ported yet: {_ITEM}")
 
 
 def refuse_local_async(config: Dict) -> None:
@@ -84,6 +93,21 @@ def refuse_local_async(config: Dict) -> None:
             "sample_async needs remote rollout workers (num_workers > 0): the port does not "
             "run a sampling thread on the learner's own policy, whose parameters the "
             "optimizer updates in place"
+        )
+
+
+def refuse_local_input_reader(config: Dict, learns_under_act_lock: bool) -> None:
+    """A callable ``input`` (an input reader that acts on the worker's
+    policy from its own threads, as ``PolicyServerInput`` does) on a
+    learner's only worker, for an algorithm whose learn does not hold the
+    worker's act lock: the reader would act while the optimizer writes
+    the parameters in place. The port's own refusal."""
+    if (callable(config.get("input")) and not int(config.get("num_workers") or 0)
+            and not learns_under_act_lock):
+        raise ValueError(
+            "a callable input on the learner's own worker (num_workers=0) needs an algorithm "
+            "whose learn holds the worker's act lock (PPO, DQN, SAC, DDPG, TD3); give this "
+            "one remote rollout workers to serve from"
         )
 
 
@@ -164,10 +188,19 @@ class RolloutWorker:
         for pid, (cls, obs_space, act_space, overrides) in (policy_specs or {}).items():
             self.add_policy(pid, cls, obs_space, act_space, overrides)
 
+        # ---- input reader (external envs): replaces the sampler ----
+        self.input_reader = None
+        self._output_writer = None
+        inp = self.config.get("input")
+        if callable(inp):
+            self.input_reader = inp(
+                SimpleNamespace(worker=self, config=self.config, worker_index=worker_index)
+            )
+
         # ---- sampler ----
         self.sampler = None
         self.callbacks = None
-        if self.vector_env is not None and self.policy_map:
+        if self.input_reader is None and self.vector_env is not None and self.policy_map:
             if DEFAULT_POLICY_ID not in self.policy_map:
                 raise ValueError(
                     f"policies {sorted(self.policy_map)} need a MultiAgentEnv; "
@@ -191,7 +224,7 @@ class RolloutWorker:
                 normalize_actions=self.config.get("normalize_actions", True),
                 flush_on_episode_end=not self.config.get("_fixed_unrolls", False),
             )
-        elif self._multiagent_env:
+        elif self.input_reader is None and self._multiagent_env:
             # as the reference's: the preprocessors of the policies'
             # (already preprocessed) spaces, the rest of the actor
             # lane's keys unread
@@ -250,14 +283,32 @@ class RolloutWorker:
     # -- sampling --------------------------------------------------------
 
     def sample(self):
-        return self.sampler.sample()
+        """The sampler's next batch (the input reader's, when there is
+        one), written to the ``output`` shards when that is set."""
+        if self.input_reader is not None:
+            batch = self.input_reader.next()
+        else:
+            batch = self.sampler.sample()
+        out = self.config.get("output")
+        if out:
+            if self._output_writer is None:
+                from ray_tpu_torch.offline.json_writer import JsonWriter
+
+                self._output_writer = JsonWriter(
+                    out, max_file_size=int(self.config.get("output_max_file_size", 64 * 1024 * 1024))
+                )
+            self._output_writer.write(batch)
+        return batch
 
     def sample_with_count(self):
         batch = self.sample()
         return batch, batch.env_steps()
 
     def get_metrics(self) -> List:
-        return self.sampler.get_metrics()
+        if self.input_reader is not None:
+            get = getattr(self.input_reader, "get_metrics", None)
+            return get() if get is not None else []
+        return self.sampler.get_metrics() if self.sampler is not None else []
 
     # -- learning --------------------------------------------------------
 
@@ -267,15 +318,17 @@ class RolloutWorker:
     def learn_on_batch(self, samples) -> Dict:
         """One learn call per policy batch of a ``MultiAgentBatch``, for
         the policies of ``policies_to_train`` (all when unset); a
-        SampleBatch is the default policy's."""
-        if isinstance(samples, MultiAgentBatch):
-            to_train = self.config.get("policies_to_train")
-            return {
-                pid: self.policy_map[pid].learn_on_batch(batch)
-                for pid, batch in samples.policy_batches.items()
-                if pid in self.policy_map and (to_train is None or pid in to_train)
-            }
-        return {DEFAULT_POLICY_ID: self.policy_map[DEFAULT_POLICY_ID].learn_on_batch(samples)}
+        SampleBatch is the default policy's. Under the act lock: the
+        optimizer writes the parameters in place."""
+        with self.act_lock():
+            if isinstance(samples, MultiAgentBatch):
+                to_train = self.config.get("policies_to_train")
+                return {
+                    pid: self.policy_map[pid].learn_on_batch(batch)
+                    for pid, batch in samples.policy_batches.items()
+                    if pid in self.policy_map and (to_train is None or pid in to_train)
+                }
+            return {DEFAULT_POLICY_ID: self.policy_map[DEFAULT_POLICY_ID].learn_on_batch(samples)}
 
     # -- weights and filters ---------------------------------------------
 
@@ -289,12 +342,15 @@ class RolloutWorker:
             if policies is None or pid in policies
         }
 
-    def _act_lock(self):
-        """The sampling thread's act lock (none without one)."""
-        return getattr(self.sampler, "lock", None) or contextlib.nullcontext()
+    def act_lock(self):
+        """The lock of whatever acts on this worker's policies from
+        another thread: the input reader's (a ``PolicyServerInput``'s
+        handler threads) or the sampling thread's; none without one."""
+        return (getattr(self.input_reader, "lock", None) or getattr(self.sampler, "lock", None)
+                or contextlib.nullcontext())
 
     def set_weights(self, weights: Dict, global_vars: Optional[Dict] = None) -> None:
-        with self._act_lock():
+        with self.act_lock():
             for pid, w in weights.items():
                 if pid in self.policy_map:
                     self.policy_map[pid].set_weights(w)
@@ -315,7 +371,7 @@ class RolloutWorker:
 
     def set_global_vars(self, global_vars: Dict) -> None:
         self.global_vars.update(global_vars)
-        with self._act_lock():
+        with self.act_lock():
             for p in self.policy_map.values():
                 p.on_global_var_update(global_vars)
 
@@ -329,7 +385,7 @@ class RolloutWorker:
         }
 
     def restore(self, state: Dict) -> None:
-        with self._act_lock():
+        with self.act_lock():
             for pid, s in state.get("policy_states", {}).items():
                 if pid in self.policy_map:
                     self.policy_map[pid].set_state(s)
@@ -356,6 +412,11 @@ class RolloutWorker:
         stop = getattr(self.sampler, "stop", None)
         if stop is not None:
             stop()
+        shutdown = getattr(self.input_reader, "shutdown", None)
+        if shutdown is not None:
+            shutdown()
+        if self._output_writer is not None:
+            self._output_writer.close()
         for e in self._sub_envs():
             close = getattr(e, "close", None)
             if close is not None:

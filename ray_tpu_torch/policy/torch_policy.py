@@ -539,6 +539,15 @@ class TorchPolicy(Policy):
         obs = torch.as_tensor(np.asarray(obs_batch), device=self.device)
         return self._act_forward(obs, self._device_state(state_batches))[1].cpu().numpy()
 
+    @torch.no_grad()
+    def compute_log_likelihoods(self, actions, obs_batch, state_batches=None) -> np.ndarray:
+        """The log-probabilities of ``actions`` under the current policy
+        at ``obs_batch`` (the IS/WIS estimators' target policy)."""
+        obs = torch.as_tensor(np.asarray(obs_batch), device=self.device)
+        dist_inputs = self._act_forward(obs, self._device_state(state_batches))[0]
+        acts = torch.as_tensor(np.asarray(actions), device=self.device)
+        return self.dist_class(dist_inputs).logp(acts).cpu().numpy()
+
     # -- learning --------------------------------------------------------
 
     def _update_scheduled_coeffs(self) -> None:

@@ -28,7 +28,11 @@ joined with dots (:func:`plain_to_state_dict`).
 
 SAC's trees (``{"actor", "critic", "log_alpha"}`` params, the target
 critic as aux state and three optax Adam states) go into a
-``SACTorchPolicy`` whole through :func:`from_jax_sac_state`, DDPG's and
+``SACTorchPolicy`` whole through :func:`from_jax_sac_state`; CQL's add
+the BC-warmup counter (:func:`from_jax_cql_state`), CRR's a target
+actor and the sync counter (:func:`from_jax_crr_state`); MARWIL's and
+BC's model, Adam state and squared-advantage normaliser go in through
+:func:`from_jax_marwil_state`. DDPG's and
 TD3's (``{"actor", "critic"}`` params; the target actor, target critic
 and update ``step`` as aux state; two Adam states; the OU process's
 carried state) into a ``DDPGTorchPolicy`` through
@@ -217,6 +221,62 @@ def from_jax_sac_state(policy, params, aux_state, opt_state):
     return policy
 
 
+def _load_adam(policy, opt_state) -> None:
+    """An optax chain's Adam state into the policy's one Adam state."""
+    count, mu, nu = from_jax_adam_state(opt_state)
+    st = policy.opt_state
+    with torch.no_grad():
+        st.count = count
+        for i, name in enumerate(policy.param_names):
+            st.mu[i].copy_(torch.as_tensor(np.asarray(mu[name])))
+            st.nu[i].copy_(torch.as_tensor(np.asarray(nu[name])))
+
+
+def from_jax_cql_state(policy, params, aux_state, opt_state):
+    """A reference CQL policy's state into ``policy`` (a ``CQLTorchPolicy``)
+    in place: SAC's part through :func:`from_jax_sac_state`, and the
+    update counter that switches off the BC warmup (``aux_state["step"]``).
+    Returns ``policy``."""
+    from_jax_sac_state(policy, params, aux_state, opt_state)
+    if aux_state is not None:
+        policy.aux_state["step"].fill_(int(np.asarray(aux_state["step"])))
+    return policy
+
+
+def from_jax_crr_state(policy, params, aux_state, opt_state):
+    """A reference CRR policy's state into ``policy`` (a ``CRRTorchPolicy``)
+    in place: the nets and ``log_alpha`` (``params``), the target actor,
+    the target critic and the update counter that times the hard sync
+    (``aux_state``), and the critic's, actor's and ``log_alpha``'s Adam
+    states (``opt_state``; ``log_alpha``'s is never stepped). Returns
+    ``policy``."""
+    from_jax_sac_state(policy, params, None, opt_state)
+    with torch.no_grad():
+        if aux_state is not None:
+            for key, names in (("target_actor", policy.actor_names),
+                               ("target_critic", policy.critic_names)):
+                target = to_state_dict(aux_state[key])
+                for name, t in zip(names, policy.aux_state[key]):
+                    t.copy_(torch.as_tensor(np.asarray(target[name])))
+            policy.aux_state["step"].fill_(int(np.asarray(aux_state["step"])))
+    return policy
+
+
+def from_jax_marwil_state(policy, params, opt_state=None, coeff_values=None):
+    """A reference MARWIL or BC policy's state into ``policy`` (a
+    ``MARWILTorchPolicy``) in place: the model (``params``), the Adam
+    state (``opt_state``) and the moving-average squared-advantage
+    normaliser (``coeff_values["ma_sqd_adv_norm"]``, the reference
+    policy's ``coeff_values``). None leaves a part as it is. Returns
+    ``policy``."""
+    from_jax_params(params, policy.model)
+    if opt_state is not None:
+        _load_adam(policy, opt_state)
+    if coeff_values is not None and "ma_sqd_adv_norm" in coeff_values:
+        policy.coeff_values["ma_sqd_adv_norm"] = float(coeff_values["ma_sqd_adv_norm"])
+    return policy
+
+
 def _copy_group_adam(st, opt_state, names, prefix: str) -> None:
     adam = _find_adam(opt_state)
     if adam is None:
@@ -316,13 +376,7 @@ def from_jax_policy_state(policy, ps: Mapping):
         from_jax_sac_state(policy, ps["weights"], None, ps["opt_state"])
     else:
         from_jax_params(ps["weights"], policy.model)
-        count, mu, nu = from_jax_adam_state(ps["opt_state"])
-        st = policy.opt_state
-        with torch.no_grad():
-            st.count = count
-            for i, name in enumerate(policy.param_names):
-                st.mu[i].copy_(torch.as_tensor(np.asarray(mu[name])))
-                st.nu[i].copy_(torch.as_tensor(np.asarray(nu[name])))
+        _load_adam(policy, ps["opt_state"])
     policy.coeff_values.update({k: float(v) for k, v in ps.get("coeff_values", {}).items()})
     policy.global_timestep = int(ps.get("global_timestep", 0))
     policy.num_grad_updates = int(ps.get("num_grad_updates", 0))

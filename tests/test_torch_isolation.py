@@ -16,7 +16,11 @@
   trains with the reference blocked;
 - the asynchronous actor-learner loop (Ape-X over device shards, the
   learner thread's fused superstep, ``AsyncSampler``) runs with the
-  reference blocked, and Ape-X without a device raises.
+  reference blocked, and Ape-X without a device raises;
+- offline data and external envs (the JSON writer and reader, MARWIL,
+  BC, CQL, CRR, ``BaseEnv``, ``SyntheticFast-v0``, the policy server and
+  client) run with the reference and gymnasium blocked, and the offline
+  algorithms without a device raise.
 """
 
 from __future__ import annotations
@@ -522,3 +526,108 @@ def test_serving_without_device_raises_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="none is available"):
         PolicyDeployment(path, watch=False)
     assert restore_policy(path, device="cpu")[0].device.type == "cpu"
+
+
+def test_offline_and_external_envs_run_with_reference_and_gymnasium_blocked(tmp_path):
+    """The slice's modules (``offline/``, ``algorithms/marwil``, ``cql``,
+    ``crr``, ``env/base_env.py``, ``synthetic_env.py``,
+    ``policy_server_input.py``, ``policy_client.py``) import with the
+    reference and gymnasium blocked; PPO and SAC write shards, MARWIL,
+    BC, CQL and CRR train from them, and a client drives a server over
+    SyntheticFast-v0 and a BaseEnv."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+
+        BLOCKED = {BLOCKED + ("gymnasium",)!r}
+
+        class _Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(name + " blocked by test")
+                return None
+
+        sys.meta_path.insert(0, _Block())
+        import types
+        import numpy as np
+        from ray_tpu_torch.algorithms.cql.cql import CQLConfig
+        from ray_tpu_torch.algorithms.crr.crr import CRRConfig
+        from ray_tpu_torch.algorithms.marwil.marwil import BCConfig, MARWILConfig
+        from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+        from ray_tpu_torch.algorithms.sac.sac import SACConfig
+        from ray_tpu_torch.env.base_env import convert_to_base_env
+        from ray_tpu_torch.env.policy_client import PolicyClient
+        from ray_tpu_torch.env.policy_server_input import PolicyServerInput
+        from ray_tpu_torch.env.registry import get_env_creator
+
+        tmp = {str(tmp_path)!r}
+        ppo = (PPOConfig().environment("CartPole-v1")
+               .rollouts(num_rollout_workers=0, rollout_fragment_length=32)
+               .training(train_batch_size=32, sgd_minibatch_size=32, num_sgd_iter=1,
+                         model={{"fcnet_hiddens": [8]}})
+               .offline_data(output=tmp + "/cp").resources(device="cpu").build())
+        ppo.train()
+        for cfg in (MARWILConfig(), BCConfig()):
+            algo = (cfg.environment("CartPole-v1").training(train_batch_size=32,
+                    model={{"fcnet_hiddens": [8]}}).offline_data(input_=tmp + "/cp")
+                    .resources(device="cpu").build())
+            assert np.isfinite(algo.train()["info"]["learner"]["default_policy"]["policy_loss"])
+            algo.stop()
+        hidden = dict(policy_model_config={{"fcnet_hiddens": [8]}},
+                      q_model_config={{"fcnet_hiddens": [8]}})
+        sac = (SACConfig().environment("Pendulum-v1").rollouts(rollout_fragment_length=32)
+               .training(train_batch_size=16, num_steps_sampled_before_learning_starts=10**9,
+                         **hidden)
+               .offline_data(output=tmp + "/pd").resources(device="cpu").build())
+        sac.train()
+        sac.stop()
+        for cfg in (CQLConfig().training(bc_iters=1, num_actions=2, **hidden),
+                    CRRConfig().training(n_action_sample=2, **hidden)):
+            algo = (cfg.environment("Pendulum-v1").training(train_batch_size=16)
+                    .offline_data(input_=tmp + "/pd").resources(device="cpu").build())
+            for _ in range(2):
+                info = algo.train()["info"]["learner"]["default_policy"]
+            assert np.isfinite(info["critic_loss"])
+            algo.stop()
+        worker = types.SimpleNamespace(policy_map={{"default_policy": ppo.get_policy()}},
+                                       preprocessor=None, filters={{}})
+        server = PolicyServerInput(types.SimpleNamespace(worker=worker), "127.0.0.1", 0)
+        client = PolicyClient(f"127.0.0.1:{{server.port}}")
+        env = get_env_creator("SyntheticFast-v0")({{"obs_dim": 4, "num_actions": 2,
+                                                    "episode_len": 5}})
+        obs, _ = env.reset()
+        eid = client.start_episode()
+        done = False
+        while not done:
+            obs, r, term, done, _ = env.step(int(client.get_action(eid, obs)))
+            client.log_returns(eid, r)
+        client.end_episode(eid, obs, truncated=True)
+        assert server.next().count == 5
+        server.shutdown()
+        ppo.stop()
+        base = convert_to_base_env(env)
+        obs = base.poll()[0]
+        base.send_actions({{0: {{"agent0": 1}}}})
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
+def test_offline_algorithms_without_device_raise_without_cuda(monkeypatch):
+    from ray_tpu_torch.algorithms.cql.cql import CQLConfig
+    from ray_tpu_torch.algorithms.crr.crr import CRRConfig
+    from ray_tpu_torch.algorithms.marwil.marwil import BCConfig, MARWILConfig
+
+    _no_cuda(monkeypatch)
+    for cfg, env in ((MARWILConfig(), "CartPole-v1"), (BCConfig(), "CartPole-v1"),
+                     (CQLConfig(), "Pendulum-v1"), (CRRConfig(), "Pendulum-v1")):
+        with pytest.raises(RuntimeError, match="none is available"):
+            cfg.environment(env).build()
+        algo = cfg.resources(device="cpu").build()
+        assert algo.get_policy().device.type == "cpu"
+        algo.stop()
