@@ -390,6 +390,42 @@ and ``nvcc``. Phases, each printing its own lines:
                ended and the server reported, GET_ACTION p50 and p99,
                finite stats; ``stop()`` shuts the server and the client
                thread ends;
+    apex_ddpg -- ``ApexDDPGConfig()``'s own defaults on Pendulum-v1 (4
+               CPU workers, two prioritized device shards of 50,000 rows,
+               8 graphed DDPG updates a shard and pass) for
+               APEX_DDPG_BUDGET_S seconds after learning starts: rates,
+               the split, rows 1, 3 and 4 against the shards' schedule,
+               no shard spilled; each shard's kernels against their plain
+               versions;
+    apex_host -- cartpole-apex.yaml plus ``replay_device_resident:
+               False``: two ``ReplayActor`` processes over host rings, the
+               learner on the card, for APEX_HOST_BUDGET_S seconds after
+               learning starts: rates and the split (learning, routing,
+               the wait for the replay actors);
+    dqn_interleave -- bench.py:3889-3915's geometry (CartPoleJax-v0, 8
+               envs x 8 steps, batch 256, a prioritized 16,384-row ring on
+               the device tree, ``training_intensity`` 32, K = 8, FCNet
+               64x64) serially, then under ``learn_while_rollout``, each
+               for INTERLEAVE_WINDOW_S seconds: env-steps/s, updates/s,
+               rows 1, 3 and 4 against the schedule, and from a profiler
+               trace of INTERLEAVE_PROFILED_ROUNDS rounds the share of the
+               fill's kernel time under the superstep graph's kernels;
+               the interleaved ring's kernels against their plain
+               versions;
+    host_tree -- the same geometry with ``replay_device_tree: False``:
+               two rings (host trees, device tree) on the same rows and
+               priorities draw the same indices and IS weights, bitwise;
+               REPLAY_PLANE_ROUNDS rounds of the lane (a gather per
+               column an update, no descent); rows 1 and 3 against their
+               plain versions on its ring;
+    spill    -- the same geometry under a SPILL_CAP_BYTES cap: the ring
+               spills, a spilled ring draws the unspilled ring's indices
+               and IS weights bitwise, and REPLAY_PLANE_ROUNDS rounds run
+               the host stacked superstep; the default cap printed;
+    lane_eval -- cartpolejax-ppo.yaml on the lane with one evaluation
+               worker on the card over ``TensorVectorEnvAdapter``, two
+               iterations: each result's evaluation, the worker's weights
+               bitwise the learner's, the lane's GAE launches;
 13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
@@ -434,7 +470,10 @@ phases' timed calls (lstm_impala's at its window's start, between two
 learner steps) and recurrent_serve's requests, the offline phases' timed
 calls and external_env's window (paths that run no kernel; they print
 their counts) and the SAC writer of offline_cql_crr (its inserts are
-the row scatter's ``offline_sac_writer`` path), and read just
+the row scatter's ``offline_sac_writer`` path), the Ape-X phases' runs
+(apex_host's plane runs no kernel), dqn_interleave's windows,
+host_tree's and spill's rounds (the spill ring runs none) and
+lane_eval's iterations, and read just
 after (on the learner-thread paths, between two learner steps) (the
 ring's in each rank, before each call), the serve phase and
 serve_torso (before its exact server is built; its exact-against-
@@ -1318,7 +1357,8 @@ def phase_dqn():
     require(all(math.isfinite(v) for v in learner.values()), f"non-finite learner stats {learner}")
     buf = algo.local_replay_buffer.buffers["default_policy"]
     on_card = (
-        all(r.is_cuda for r in buf._store.values())
+        not buf.spilled
+        and all(r.is_cuda for r in buf._store.values())
         and buf._dtree.sum_value.is_cuda and buf._dtree.min_value.is_cuda
         and all(p.is_cuda for p in policy.params)
         and all(t.is_cuda for t in policy.aux_state["target_params"])
@@ -1896,14 +1936,24 @@ CARTPOLE_BAR, CARTPOLE_STEPS = 150.0, 200000
 PONG_BAR, PONG_STEPS, PONG_LEARN_S = 18.0, 2000000, 10.0  # 30 s before PR 17
 
 
+# how many budgets learn_curve runs at most while the learner has not reported
+LEARN_CURVE_MAX_BUDGETS = 4
+
+
 def learn_curve(phase, algo, bar, max_steps, budget_s=None, pids=("default_policy",)):
     """Train until ``episode_reward_mean`` >= ``bar`` (when ``bar`` is not
     None), ``max_steps`` env steps or ``budget_s`` seconds: the (steps,
     reward, seconds) curve and the seconds; the last learner stats of
-    each of ``pids`` must be finite."""
+    each of ``pids`` must be finite. A budget that ends before the
+    learner has reported (learning starts after a fill, which a slower
+    machine samples more slowly) runs on until it has, up to
+    LEARN_CURVE_MAX_BUDGETS budgets; with a budget, the phase's line
+    ``learn_budget_s``, ``learn_wall_s`` and ``budget_extended`` says
+    which window the phase's rates cover."""
     import torch
 
     curve = []
+    extended = False
     t0 = time.perf_counter()
     while True:
         r = algo.train()
@@ -1911,14 +1961,22 @@ def learn_curve(phase, algo, bar, max_steps, budget_s=None, pids=("default_polic
                       round(time.perf_counter() - t0, 2)))
         if (bar is not None and r["episode_reward_mean"] >= bar) or r["timesteps_total"] >= max_steps:
             break
-        if budget_s is not None and time.perf_counter() - t0 >= budget_s:
-            break
+        elapsed = time.perf_counter() - t0
+        if budget_s is not None and elapsed >= budget_s:
+            if all(r["info"]["learner"].get(pid) for pid in pids):
+                break
+            if elapsed >= budget_s * LEARN_CURVE_MAX_BUDGETS:
+                break
+            extended = True
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     for pid in pids:
         learner = r["info"]["learner"].get(pid)
         require(learner and all(math.isfinite(v) for v in learner.values()),
                 f"no or non-finite {phase} stats of {pid}: {learner}")
-    return curve, time.perf_counter() - t0
+    if budget_s is not None:
+        say(phase, learn_budget_s=budget_s, learn_wall_s=f"{wall:.2f}", budget_extended=extended)
+    return curve, wall
 
 
 def phase_cartpole():
@@ -3121,13 +3179,15 @@ def _ring_kernels(phase, pid, buf, batch_size, insert_rows, prioritized):
     trees' leaf write too), and the prefix descent on the ring's own sum
     tree with a batch's stratified masses (``find_prefixsum_plain``).
     All bitwise; draws from a generator of their own, so the ring's
-    stream is left as it was."""
+    stream is left as it was. The ring must not have spilled: a main
+    path's rings live on the card."""
     import numpy as np
     import torch
 
     from ray_tpu_torch.ops.framestack import gather_rows, scatter_rows
     from ray_tpu_torch.ops.segment_tree import draw_scalars, find_prefixsum, find_prefixsum_plain
 
+    require(not buf.spilled, f"{phase} {pid}: the ring spilled to the host ({buf.stats()})")
     rng, dev = np.random.default_rng(11), buf.device
     size, cap = len(buf), buf.capacity
     if prioritized:
@@ -3642,6 +3702,544 @@ def phase_impala_fused():
     finally:
         agg.stop()
     return launches
+
+
+# the rest of replay and the device lane: Ape-X DDPG on device shards,
+# Ape-X's object plane of replay actors, learn_while_rollout, host trees
+# beside device rows, the memory-cap spill, device-lane evaluation
+APEX_DDPG_BUDGET_S = 4.0
+APEX_HOST_BUDGET_S = 4.0
+INTERLEAVE_WINDOW_S = 3.0
+# rounds profiled per cadence for the fill's overlap with the graph
+INTERLEAVE_PROFILED_ROUNDS = 3
+# rounds from the seed in which the two cadences' counters, and two
+# interleaved runs' states, are held equal (the cadence engages at the
+# fifth)
+INTERLEAVE_FIXED_ROUNDS = 12
+INTERLEAVE_COUNTERS = ("num_env_steps_sampled", "num_env_steps_trained", "num_target_updates")
+# rounds of host_tree's and spill's main paths after the lane is warm
+REPLAY_PLANE_ROUNDS = 8
+# the spill phase's cap: below the 16,384-row ring's projection (its
+# five columns' rows take 41 bytes)
+SPILL_CAP_BYTES = 1 << 18
+
+
+def _apex_window(phase, algo, budget_s):
+    """Ape-X's main path: the launch counts set to 0 just before, then
+    ``train()`` until learning starts and ``budget_s`` seconds after it.
+    Returns the launches, the fragments routed, the env steps sampled and
+    the updates (in the window), the fill's and the window's seconds and
+    the reward curve."""
+    cfg = algo.config
+    inserts = [0]
+    route = algo._route_to_replay
+
+    def counted_route(batch):
+        inserts[0] += 1
+        return route(batch)
+
+    algo._route_to_replay = counted_route
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    while algo._counters["num_env_steps_sampled"] < cfg["num_steps_sampled_before_learning_starts"]:
+        algo.train()
+    fill_s = time.perf_counter() - t0
+    sampled0 = algo._counters["num_env_steps_sampled"]
+    curve, wall = learn_curve(phase, algo, None, 10 ** 9, budget_s)
+    return {"launches": read_kernel_counts(), "inserts": inserts[0], "fill_s": fill_s,
+            "wall": wall, "curve": curve,
+            "sampled": algo._counters["num_env_steps_sampled"] - sampled0,
+            "updates": algo._counters["num_env_steps_trained"] // int(cfg["train_batch_size"])}
+
+
+def phase_apex_ddpg():
+    """``ApexDDPGConfig()``'s own defaults on the port's Pendulum-v1 (4 CPU
+    workers with OU noise, n-step 3, two prioritized device shards of
+    50,000 rows on the device tree, batch 256, fragment 50, learning from
+    1000 steps; superstep "auto": 8 graphed updates a shard and pass):
+    the main path for APEX_DDPG_BUDGET_S seconds after learning starts;
+    rates, the split, the launches against the shards' schedule (a
+    descent and a gather per column an update, more scatters than
+    columns x inserts: the trees' writes), no shard spilled; then each
+    shard's three kernels against their plain versions."""
+    from ray_tpu_torch.algorithms.apex_dqn.apex_dqn import ApexDDPGConfig
+
+    algo = ApexDDPGConfig().environment("Pendulum-v1").build()
+    try:
+        policy, shards = algo.get_policy(), algo.replay_shards
+        n = algo.workers.num_remote_workers()
+        require(type(policy).__name__ == "DDPGTorchPolicy" and policy.device.type == "cuda",
+                f"apex_ddpg: {type(policy).__name__} on {policy.device}")
+        require(n == 4 and all(s.tree_plane == "device" for s in shards),
+                f"apex_ddpg: {n} workers, trees {[s.tree_plane for s in shards]}")
+        w = _apex_window("apex_ddpg", algo, APEX_DDPG_BUDGET_S)
+        launches, updates = w["launches"], w["updates"]
+        cols = {len(s._store) for s in shards}
+        require(len(cols) == 1, f"apex_ddpg: shards hold other columns {cols}")
+        (cols,) = cols
+        require(updates >= 1, "apex_ddpg: no update")
+        require(launches["find_prefixsum"] == updates,
+                f"apex_ddpg: {launches['find_prefixsum']} descents in {updates} updates")
+        require(launches["gather_rows"] == cols * updates,
+                f"apex_ddpg: {launches['gather_rows']} row gathers in {updates} updates of {cols}")
+        require(launches["scatter_rows"] > cols * w["inserts"],
+                f"apex_ddpg: {launches['scatter_rows']} row scatters in {w['inserts']} inserts")
+        require(not any(s.spilled for s in shards), "apex_ddpg: a shard spilled")
+        runners = list(policy._superstep_runners.values())
+        require(len(runners) == len(shards) and all(r.graph is not None for r in runners),
+                f"apex_ddpg: {len(runners)} replay slots for {len(shards)} shards")
+        say("apex_ddpg", budget_s=APEX_DDPG_BUDGET_S, fill_s=f"{w['fill_s']:.2f}",
+            wall_s=f"{w['wall']:.2f}", env_steps_per_s_sampled=f"{w['sampled'] / w['wall']:.1f}",
+            updates=updates, updates_per_s=f"{updates / w['wall']:.1f}", inserts=w["inserts"],
+            replay_columns=cols, shard_rows=json.dumps([len(s) for s in shards]),
+            shard_capacity=json.dumps([s.capacity for s in shards]),
+            spilled=json.dumps([s.spilled for s in shards]), launches=json.dumps(launches),
+            split=json.dumps({k: round(v, 3) for k, v in algo._timers.items()}),
+            episode_reward_mean=w["curve"][-1][1])
+        frag = int(algo.config["rollout_fragment_length"])
+        for i, shard in enumerate(shards):
+            _ring_kernels("apex_ddpg", f"shard_{i}", shard, int(algo.config["train_batch_size"]),
+                          frag, True)
+        return launches
+    finally:
+        algo.stop()
+
+
+def phase_apex_host():
+    """cartpole-apex.yaml as written plus ``replay_device_resident:
+    False``: 3 CPU workers on the epsilon ladder and two 25,000-row
+    ``ReplayActor`` processes over host rings; the learner on the card
+    takes one upload a batch and sends its priorities back to the actor
+    that drew it. The main path for APEX_HOST_BUDGET_S seconds after
+    learning starts: rates and the split (learning, routing, the wait for
+    the replay actors' batches); no replay kernel runs on this plane."""
+    from ray_tpu_torch import core as ray_core
+    from ray_tpu_torch.utils.tuned_example import build_tuned_example
+
+    algo, _ = build_tuned_example(APEX_TUNED, replay_device_resident=False)
+    try:
+        policy = algo.get_policy()
+        require(policy.device.type == "cuda" and not algo._apex_device
+                and len(algo.replay_actors) == 2 and algo.replay_shards == [],
+                f"apex_host: plane {algo._apex_device}, {len(algo.replay_actors)} actors")
+        w = _apex_window("apex_host", algo, APEX_HOST_BUDGET_S)
+        require(w["updates"] >= 1 and algo._counters["num_target_updates"] >= 1,
+                f"apex_host: {w['updates']} updates, no target update")
+        sizes = ray_core.get([a.size.remote() for a in algo.replay_actors])
+        require(all(s > 0 for s in sizes), f"apex_host: actor rows {sizes}")
+        split = {k: round(v, 3) for k, v in algo._timers.items()}
+        say("apex_host", budget_s=APEX_HOST_BUDGET_S, fill_s=f"{w['fill_s']:.2f}",
+            wall_s=f"{w['wall']:.2f}", env_steps_per_s_sampled=f"{w['sampled'] / w['wall']:.1f}",
+            updates=w["updates"], updates_per_s=f"{w['updates'] / w['wall']:.1f}",
+            target_updates=algo._counters["num_target_updates"], inserts=w["inserts"],
+            actor_rows=json.dumps(sizes), launches=json.dumps(w["launches"]),
+            learning_s=split.get("update_s"), routing_s=split.get("insert_s"),
+            replay_wait_s=split.get("replay_wait_s"), split=json.dumps(split),
+            episode_reward_mean=w["curve"][-1][1])
+        return w["launches"]
+    finally:
+        algo.stop()
+
+
+def interleave_config(**over):
+    """bench.py:3889-3915's geometry on the port: CartPoleJax-v0 on the
+    device lane, 8 envs x 8 steps a round, batch 256, a prioritized
+    16,384-row ring on the device tree, ``training_intensity`` 32 (8
+    updates a round: one superstep of K = 8), FCNet 64x64, learning from
+    256 steps, the target every 2048 trained steps, seed 0; ``over``
+    names what a phase changes."""
+    from ray_tpu_torch.algorithms.dqn.dqn import DQNConfig
+
+    cfg = (DQNConfig().environment("CartPoleJax-v0", env_backend="jax")
+           .rollouts(num_rollout_workers=0, rollout_fragment_length=8, num_envs_per_worker=8)
+           .training(train_batch_size=256, num_steps_sampled_before_learning_starts=256,
+                     replay_buffer_config={"prioritized_replay": True, "capacity": 1 << 14},
+                     training_intensity=32.0, replay_device_resident=True,
+                     replay_device_tree=True, target_network_update_freq=2048,
+                     model={"fcnet_hiddens": [64, 64]})
+           .debugging(seed=0))
+    cfg.superstep = 8
+    return cfg.update_from_dict(over)
+
+
+def _warm_lane(algo):
+    """Rounds until learning has started and the first superstep ran (its
+    capture), and, under ``learn_while_rollout``, until the cadence is
+    engaged."""
+    import torch
+
+    while not (algo._counters["num_env_steps_trained"] > 0
+               and (not algo.config.get("learn_while_rollout") or algo._interleave_ready())):
+        algo.train()
+    algo.train()
+    torch.cuda.synchronize()
+
+
+def _fill_overlap(algo, rounds):
+    """The share of the fill's device time that the superstep's graph
+    covers, from one ``torch.profiler`` trace of ``rounds`` rounds: the
+    fill's kernels are those launched inside the rollout (a
+    ``record_function`` range around ``engine.rollout``) and not by a
+    graph launch, the graph's those whose launch is a graph launch
+    (CUPTI reports a graph's kernels under the graph launch's
+    correlation id); with the streams each ran on."""
+    import torch
+
+    eng = algo._rollout_engine
+    rollout = eng.rollout
+
+    def marked(*a, **kw):
+        with torch.profiler.record_function("dqn_fill"):
+            return rollout(*a, **kw)
+
+    eng.rollout = marked
+    try:
+        with profiled() as prof:
+            for _ in range(rounds):
+                algo.train()
+    finally:
+        eng.rollout = rollout
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = list(prof.profiler.kineto_results.events())
+    fills = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                   if e.device_type() == cpu and e.name() == "dqn_fill")
+    launches = {e.correlation_id(): (e.name(), e.start_ns()) for e in events
+                if e.device_type() == cpu and "aunch" in e.name()}
+    fill_k, graph_k, streams = [], [], {"fill": set(), "graph": set()}
+    # per round (the fill ranges in order): the graph kernels launched
+    # before its fill began and after the previous fill ended, its fill's
+    rounds_k = [([], []) for _ in fills]
+    for e in events:
+        if e.device_type() != cuda or e.is_user_annotation():
+            continue
+        launch = launches.get(e.linked_correlation_id()) or launches.get(e.correlation_id())
+        if launch is None:
+            continue
+        span = (e.start_ns(), e.start_ns() + e.duration_ns())
+        r = sum(1 for a, _ in fills if a <= launch[1])  # fills begun by the launch
+        if "Graph" in launch[0]:
+            graph_k.append(span)
+            streams["graph"].add(e.device_resource_id())
+            if r < len(fills):
+                rounds_k[r][0].append(span)
+        elif r and launch[1] <= fills[r - 1][1]:
+            fill_k.append(span)
+            streams["fill"].add(e.device_resource_id())
+            rounds_k[r - 1][1].append(span)
+    share = span_overlap(fill_k, sorted(graph_k)) if fill_k and graph_k else None
+    # how long the round's graph ran past its fill's first kernel (<= 0:
+    # it was done before the fill reached the card)
+    past = [round((max(b for _, b in g) - min(a for a, _ in f)) / 1e3, 1)
+            for g, f in rounds_k if g and f]
+    return {"rounds": rounds, "fill_kernels": len(fill_k), "graph_kernels": len(graph_k),
+            "fill_device_ms": round(sum(b - a for a, b in fill_k) / 1e6, 4),
+            "graph_device_ms": round(sum(b - a for a, b in graph_k) / 1e6, 4),
+            "overlap_share": None if share is None else round(share, 4),
+            "fill_host_ms": [round((b - a) / 1e6, 3) for a, b in fills],
+            "graph_past_first_fill_kernel_us": past,
+            "fill_streams": sorted(streams["fill"]), "graph_streams": sorted(streams["graph"])}
+
+
+def _lane_window(algo, window_s):
+    """``algo.train()`` for ``window_s`` seconds after warming: env
+    steps a second and updates a second of host clock."""
+    import torch
+
+    bs = int(algo.config["train_batch_size"])
+    s0, t0_ = algo._counters["num_env_steps_sampled"], algo._counters["num_env_steps_trained"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rounds = 0
+    while time.perf_counter() - t0 < window_s:
+        algo.train()
+        rounds += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = algo._counters["num_env_steps_sampled"] - s0
+    updates = (algo._counters["num_env_steps_trained"] - t0_) // bs
+    return {"rounds": rounds, "wall_s": round(wall, 3), "env_steps_per_s": round(steps / wall, 1),
+            "updates_per_s": round(updates / wall, 1), "updates": updates}
+
+
+def _interleave_fixed_rounds(interleave):
+    """INTERLEAVE_FIXED_ROUNDS rounds of :func:`interleave_config` from
+    its seed: the algorithm and each round's counters. Under
+    ``learn_while_rollout`` the last round is watched: its superstep's
+    draws are made before its fill's rows are in (the ring's count at
+    each draw is the round's start count), the fill acts through the
+    acting copy, which holds the parameters the round started from
+    when the fill begins and after the round, bitwise, while the
+    policy's moved (the fill read no updated weight)."""
+    import torch
+
+    algo = interleave_config(learn_while_rollout=interleave).build()
+    counters = []
+    for i in range(INTERLEAVE_FIXED_ROUNDS):
+        last = interleave and i == INTERLEAVE_FIXED_ROUNDS - 1
+        if last:
+            require(algo._interleave_ready(), "dqn_interleave: the cadence did not engage")
+            buf = algo.local_replay_buffer.buffers["default_policy"]
+            start, seen, feed = buf.num_added, [], buf.superstep_feed
+            before = [p.detach().clone() for p in algo.get_policy().params]
+            eng, acted = algo._rollout_engine, []
+
+            def recorded(*a, _feed=feed, **kw):
+                seen.append(buf.num_added)
+                return _feed(*a, **kw)
+
+            def watched(*a, _rollout=eng.rollout, **kw):
+                model = algo.get_policy().model
+                acted.append(model is algo._acting_model and all(
+                    torch.equal(x, y) for x, y in zip(model.parameters(), before)))
+                return _rollout(*a, **kw)
+
+            buf.superstep_feed, eng.rollout = recorded, watched
+        algo.train()
+        counters.append(tuple(algo._counters[k] for k in INTERLEAVE_COUNTERS))
+        if last:
+            del buf.superstep_feed, eng.rollout
+            torch.cuda.synchronize()
+            acting = list(algo._acting_model.parameters())
+            require(seen == [start] and buf.num_added == start + 64,
+                    f"dqn_interleave: draws at ring counts {seen}, round start {start}")
+            require(acted == [True], "dqn_interleave: the fill did not act on the round's "
+                    f"starting weights through the acting copy ({acted})")
+            require(all(torch.equal(a, b) for a, b in zip(acting, before)),
+                    "dqn_interleave: the acting copy is not the round's starting weights")
+            require(not all(torch.equal(a, b) for a, b in zip(algo.get_policy().params, before)),
+                    "dqn_interleave: the round's updates left the weights as they were")
+    return algo, counters
+
+
+def _interleave_parity():
+    """The cadence's semantics on the card: :func:`_interleave_fixed_rounds`
+    serially and twice under ``learn_while_rollout``. The sampled, trained
+    and target-update counters equal the serial cadence's round by round;
+    the two interleaved runs end bitwise equal (parameters, the device
+    sum tree, the ring's and the action generator's states). Returns the
+    serial and the first interleaved algorithm, and what was checked."""
+    import torch
+
+    serial, c0 = _interleave_fixed_rounds(False)
+    a, c1 = _interleave_fixed_rounds(True)
+    b, c2 = _interleave_fixed_rounds(True)
+    try:
+        require(c0[-1][1] > 0 and c1 == c0, f"dqn_interleave: counters {c1} against serial {c0}")
+        require(c2 == c1, f"dqn_interleave: two interleaved runs' counters {c1}, {c2}")
+        pa, pb = a.get_policy(), b.get_policy()
+        require(all(torch.equal(x, y) for x, y in zip(pa.params, pb.params)),
+                "dqn_interleave: two fixed-seed interleaved runs' parameters differ")
+        ba, bb = (x.local_replay_buffer.buffers["default_policy"] for x in (a, b))
+        require(torch.equal(ba._dtree.sum_value, bb._dtree.sum_value)
+                and ba._rng.bit_generator.state == bb._rng.bit_generator.state
+                and torch.equal(pa.action_generator.get_state(), pb.action_generator.get_state()),
+                "dqn_interleave: two fixed-seed interleaved runs' trees or generators differ")
+    finally:
+        b.stop()
+    return serial, a, {"fixed_rounds": INTERLEAVE_FIXED_ROUNDS,
+                       "counters_equal_serial": True, "runs_bitwise": True,
+                       "acting_copy_is_round_start": True,
+                       "final_counters": dict(zip(INTERLEAVE_COUNTERS, c1[-1]))}
+
+
+def phase_dqn_interleave():
+    """:func:`interleave_config` serially and under
+    ``learn_while_rollout`` (the fill on the acting copy, on the same
+    stream, launched while the superstep's graph runs): first the
+    cadence's semantics (:func:`_interleave_parity`); then each run for
+    INTERLEAVE_WINDOW_S seconds (the interleaved one's main path, with
+    the launch counts set to 0 just before: a descent and a gather per
+    column an update, a scatter per column an insert and the trees'
+    writes), then INTERLEAVE_PROFILED_ROUNDS rounds under the profiler
+    for the fill's overlap with the graph. Then rows 1, 3 and 4 against
+    their plain versions on the interleaved run's ring."""
+    serial, interleaved, parity = _interleave_parity()
+    say("dqn_interleave", **{k: json.dumps(v) if isinstance(v, dict) else v
+                             for k, v in parity.items()})
+    out = {}
+    for cadence, algo in (("serial", serial), ("interleaved", interleaved)):
+        _warm_lane(algo)
+        buf = algo.local_replay_buffer.buffers["default_policy"]
+        inserts = [0]
+        add = buf.add_device_tree
+
+        def counted(tree, *a, _add=add, **kw):
+            inserts[0] += 1
+            return _add(tree, *a, **kw)
+
+        buf.add_device_tree = counted
+        zero_kernel_counts()
+        rates = _lane_window(algo, INTERLEAVE_WINDOW_S)
+        launches = read_kernel_counts()
+        cols, updates = len(buf._store), rates["updates"]
+        require(not buf.spilled and buf._store["obs"].is_cuda, "dqn_interleave: the ring left the card")
+        require(launches["find_prefixsum"] == updates and launches["gather_rows"] == cols * updates,
+                f"dqn_interleave {cadence}: {launches} in {updates} updates of {cols} columns")
+        require(launches["scatter_rows"] > cols * inserts[0],
+                f"dqn_interleave {cadence}: {launches['scatter_rows']} scatters, {inserts[0]} inserts")
+        overlap = _fill_overlap(algo, INTERLEAVE_PROFILED_ROUNDS)
+        say("dqn_interleave", cadence=cadence, **{k: v for k, v in rates.items() if k != "updates"},
+            updates=updates, inserts=inserts[0], launches=json.dumps(launches),
+            counters=json.dumps({k: algo._counters[k] for k in (
+                "num_env_steps_sampled", "num_env_steps_trained", "num_target_updates")}),
+            overlap=json.dumps(overlap))
+        out[cadence] = {"launches": launches, "algo": algo, "rates": rates, "overlap": overlap}
+    algo = out["interleaved"]["algo"]
+    _ring_kernels("dqn_interleave", "default_policy", algo.local_replay_buffer.buffers["default_policy"],
+                  256, 64, True)
+    for v in out.values():
+        v["algo"].stop()
+    return out["interleaved"]["launches"]
+
+
+def _draw_of(batch):
+    """(indices, IS weights) of a draw as host arrays: a device batch's,
+    or a spilled ring's host ``SampleBatch``'s."""
+    import numpy as np
+
+    if isinstance(batch, dict):
+        return np.asarray(batch["batch_indexes"]), np.asarray(batch["weights"])
+    idx = batch.indices
+    return (idx.cpu().numpy() if hasattr(idx, "cpu") else np.asarray(idx),
+            batch.tree["weights"].cpu().numpy())
+
+
+def _same_draws(phase, a, b, rounds, rows):
+    """``rounds`` times: the next 64 of ``rows`` into buffers ``a`` and
+    ``b`` (the same seed), a draw of 256 from each, whose indices and IS
+    weights must be bitwise equal, then the same priorities at them."""
+    import numpy as np
+
+    gen = np.random.default_rng(5)
+    for r in range(rounds):
+        tree = {k: v[r * 64:(r + 1) * 64] for k, v in rows.items()}
+        a.add_device_tree(dict(tree))
+        b.add_device_tree(dict(tree))
+        (ia, wa), (ib, wb) = _draw_of(a.sample(256, beta=0.4)), _draw_of(b.sample(256, beta=0.4))
+        require(np.array_equal(ia, ib) and wa.tobytes() == wb.tobytes(),
+                f"{phase}: draw {r} differs from the device tree's")
+        pri = gen.random(256) * 3
+        a.update_priorities(ia, pri)
+        b.update_priorities(ib, pri)
+    return rounds
+
+
+def _lane_rows(algo, rounds):
+    """``rounds`` rollouts of the lane's engine, concatenated on the card."""
+    import torch
+
+    trees = [algo._jax_rollout_engine_get().rollout()[0] for _ in range(rounds)]
+    return {k: torch.cat([t[k] for t in trees]) for k in trees[0]}
+
+
+def _replay_plane_run(algo):
+    """REPLAY_PLANE_ROUNDS rounds of a warmed lane with the launch counts
+    set to 0 just before: the launches, updates and rates."""
+    _warm_lane(algo)
+    zero_kernel_counts()
+    bs = int(algo.config["train_batch_size"])
+    t0, tr0 = time.perf_counter(), algo._counters["num_env_steps_trained"]
+    for _ in range(REPLAY_PLANE_ROUNDS):
+        algo.train()
+    wall = time.perf_counter() - t0
+    return read_kernel_counts(), (algo._counters["num_env_steps_trained"] - tr0) // bs, wall
+
+
+def phase_host_tree():
+    """:func:`interleave_config` with ``replay_device_tree: False``: the
+    sum and min trees in host numpy beside rows on the card. Two rings of
+    that geometry and seed, one per tree plane, take the same lane rows
+    and priorities: every draw's indices and IS weights bitwise equal.
+    Then the main path (REPLAY_PLANE_ROUNDS rounds with the counts set to
+    0 just before: a gather per column an update, no descent: the draw
+    is on the host) and rows 1 and 3 against their plain versions on its
+    ring."""
+    from ray_tpu_torch.execution.replay_buffer import DevicePrioritizedReplayBuffer
+
+    algo = interleave_config(replay_device_tree=False).build()
+    try:
+        rows = _lane_rows(algo, 8)
+        host = DevicePrioritizedReplayBuffer(1 << 14, 0.6, 3, device_tree=False)
+        dev = DevicePrioritizedReplayBuffer(1 << 14, 0.6, 3)
+        draws = _same_draws("host_tree", host, dev, 8, rows)
+        launches, updates, wall = _replay_plane_run(algo)
+        buf = algo.local_replay_buffer.buffers["default_policy"]
+        cols = len(buf._store)
+        require(buf.tree_plane == "host" and buf._store["obs"].is_cuda, "host_tree: not host trees")
+        require(updates >= 1 and launches["find_prefixsum"] == 0
+                and launches["gather_rows"] == cols * updates and launches["scatter_rows"] >= cols,
+                f"host_tree: {launches} in {updates} updates of {cols} columns")
+        say("host_tree", draws_equal_device_tree=draws, bitwise=True, rounds=REPLAY_PLANE_ROUNDS,
+            updates=updates, updates_per_s=f"{updates / wall:.1f}", launches=json.dumps(launches))
+        _ring_kernels("host_tree", "default_policy", buf, 256, 64, False)
+        return launches
+    finally:
+        algo.stop()
+
+
+def phase_spill():
+    """:func:`interleave_config` under ``replay_memory_cap_bytes`` below
+    the ring's projection (SPILL_CAP_BYTES): the ring spills to its host
+    ring at the first insert, and a spilled ring of that geometry draws
+    the unspilled ring's indices and IS weights, bitwise, on the same
+    rows and priorities. The main path then runs REPLAY_PLANE_ROUNDS
+    rounds, its supersteps on the host stacked path (one upload of K
+    stacked draws), with the counts set to 0 just before; the default
+    cap (60% of the card's memory) is printed beside."""
+    from ray_tpu_torch.execution.replay_buffer import DevicePrioritizedReplayBuffer
+
+    algo = interleave_config(replay_memory_cap_bytes=SPILL_CAP_BYTES).build()
+    try:
+        rows = _lane_rows(algo, 8)
+        sp = DevicePrioritizedReplayBuffer(1 << 14, 0.6, 3, memory_cap_bytes=SPILL_CAP_BYTES)
+        dev = DevicePrioritizedReplayBuffer(1 << 14, 0.6, 3)
+        draws = _same_draws("spill", sp, dev, 8, rows)
+        require(sp.spilled and not dev.spilled, "spill: the capped ring did not spill")
+        launches, updates, wall = _replay_plane_run(algo)
+        buf = algo.local_replay_buffer.buffers["default_policy"]
+        require(buf.spilled and buf.stats()["device_resident"] is False and updates >= 1,
+                f"spill: {buf.stats()}, {updates} updates")
+        say("spill", spilled=True, cap_bytes=SPILL_CAP_BYTES, draws_equal_unspilled=draws,
+            bitwise=True, default_cap_bytes=dev._memory_limit(), rounds=REPLAY_PLANE_ROUNDS,
+            updates=updates, updates_per_s=f"{updates / wall:.1f}", stats=json.dumps(buf.stats()),
+            launches=json.dumps(launches))
+        return launches
+    finally:
+        algo.stop()
+
+
+def phase_lane_eval():
+    """cartpolejax-ppo.yaml on the device lane (K = auto) with
+    ``evaluation_interval: 1``: the evaluation set's one worker, on the
+    card, drives CartPoleJax-v0 through ``TensorVectorEnvAdapter`` with
+    the learner's weights. Two iterations, the launch counts set to 0
+    just before: the lane's GAE launches, each result's ``evaluation``
+    summary, and the evaluation worker's weights bitwise the learner's."""
+    import numpy as np
+
+    algo = ppo_from_yaml(CARTPOLE, evaluation_interval=1, evaluation_duration=10)
+    try:
+        lw = algo.evaluation_workers.local_worker()
+        require(type(lw.vector_env).__name__ == "TensorVectorEnvAdapter"
+                and lw.vector_env.device.type == "cuda", "lane_eval: no adapter on the card")
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        results = [algo.train() for _ in range(2)]
+        wall = time.perf_counter() - t0
+        launches = read_kernel_counts()
+        ev = [r["evaluation"] for r in results]
+        require(all(e["episodes_this_iter"] >= 10 and math.isfinite(e["episode_reward_mean"])
+                    for e in ev), f"lane_eval: {ev}")
+        got, want = lw.policy().get_weights(), algo.policy.get_weights()
+        require(all(np.array_equal(got[k], want[k]) for k in want), "lane_eval: weights differ")
+        require(launches["compute_gae_fragment"] >= 1, "lane_eval: the lane launched no GAE")
+        say("lane_eval", iterations=2, wall_s=f"{wall:.2f}", launches=json.dumps(launches),
+            evaluation=json.dumps([{k: e[k] for k in ("episode_reward_mean", "episode_len_mean",
+                                                      "episodes_this_iter")} for e in ev]),
+            timesteps_total=results[-1]["timesteps_total"])
+        return launches
+    finally:
+        algo.stop()
 
 
 def kernel_counters():
@@ -5558,6 +6156,12 @@ def main() -> int:
     ma_dqn = timed(phase_ma_dqn)
     apex = timed(phase_apex)
     sac_async = timed(phase_sac_async)
+    apex_ddpg = timed(phase_apex_ddpg)
+    timed(phase_apex_host)
+    interleave = timed(phase_dqn_interleave)
+    host_tree = timed(phase_host_tree)
+    timed(phase_spill)
+    lane_eval = timed(phase_lane_eval)
     timed(phase_ma_ppo)
     timed(phase_ma_ppo_independent)
     timed(phase_views)
@@ -5603,10 +6207,14 @@ def main() -> int:
                                   "ckpt_dqn": ckpt_dqn["gather_rows"],
                                   **{name: run["gather_rows"] for name, run in offpolicy.items()},
                                   "apex": apex["gather_rows"], "sac_async": sac_async["gather_rows"],
-                                  "impala_fused": impala_fused["gather_rows"]}
+                                  "impala_fused": impala_fused["gather_rows"],
+                                  "apex_ddpg": apex_ddpg["gather_rows"],
+                                  "dqn_interleave": interleave["gather_rows"],
+                                  "host_tree": host_tree["gather_rows"]}
     gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"],
                                "cartpole": cartpole, "gridrooms": gridrooms,
-                               "ponglite_learn": pong_learn}
+                               "ponglite_learn": pong_learn,
+                               "lane_eval": lane_eval["compute_gae_fragment"]}
     scatter["launches_by_path"] = {"dqn": dqn["scatter_rows"],
                                    "transformer_dqn": tf_dqn["scatter_rows"],
                                    "sac_learner": sac_learner["uniform"]["scatter_rows"],
@@ -5615,13 +6223,18 @@ def main() -> int:
                                    **{name: run["scatter_rows"] for name, run in offpolicy.items()},
                                    "apex": apex["scatter_rows"],
                                    "sac_async": sac_async["scatter_rows"],
-                                   "offline_sac_writer": offline_sac_writer}
+                                   "offline_sac_writer": offline_sac_writer,
+                                   "apex_ddpg": apex_ddpg["scatter_rows"],
+                                   "dqn_interleave": interleave["scatter_rows"],
+                                   "host_tree": host_tree["scatter_rows"]}
     descent["launches_by_path"] = {"dqn": dqn["find_prefixsum"],
                                    "transformer_dqn": tf_dqn["find_prefixsum"],
                                    "sac_learner_prioritized": sac_learner["prioritized"]["find_prefixsum"],
                                    "ckpt_dqn": ckpt_dqn["find_prefixsum"],
                                    "rainbow": rainbow["find_prefixsum"],
-                                   "apex": apex["find_prefixsum"]}
+                                   "apex": apex["find_prefixsum"],
+                                   "apex_ddpg": apex_ddpg["find_prefixsum"],
+                                   "dqn_interleave": interleave["find_prefixsum"]}
     flash["launches_by_path"] = {"transformer_learner": tf_learner,
                                  "transformer_lane": tf_lane["flash"],
                                  "transformer_dqn": tf_dqn["flash_attention"],

@@ -29,8 +29,10 @@ The ``Algorithm``'s own surface, as the reference's
   it the learner's weights and filters and samples until it has
   ``evaluation_duration`` episodes; ``train()`` puts the summary under
   ``results["evaluation"]`` on every ``evaluation_interval``-th
-  iteration. On the device lane it raises (tensor envs on the actor
-  lane: ``ROADMAP.md`` queue 1 item 3d).
+  iteration. A device-lane run builds the same set, whatever
+  ``env_backend`` says (the reference's rule): its workers drive the
+  tensor env through ``TensorVectorEnvAdapter`` and get the learner's
+  weights (the lane has no filter).
 - **Acting.** ``compute_single_action`` applies the local worker's
   preprocessor and filter (``update=False``) and takes ``explore`` from
   the config when not given.
@@ -223,16 +225,18 @@ class Algorithm(Trainable):
                     "pass through a rollout worker, so nothing would read or write it (the "
                     "reference's device lane ignores it); use the actor lane"
                 )
-        if self.config.get("evaluation_interval"):
-            raise NotImplementedError(
-                "evaluation on the device lane (evaluation workers over a tensor env, the "
-                "reference's JaxVectorEnvAdapter) is not ported yet: ROADMAP.md queue 1 item 3d"
-            )
-        self.env = get_env_creator(env_spec)(dict(self.config.get("env_config") or {}))
+        env_creator = get_env_creator(env_spec)
+        self.env = env_creator(dict(self.config.get("env_config") or {}))
         self.policy = policy_cls(
             self.env.observation_space, self.env.action_space,
             self.config, device=self.device,
         )
+        if self.config.get("evaluation_interval"):
+            self.evaluation_workers = WorkerSet(
+                config=evaluation_worker_config(self.config),
+                num_workers=int(self.config.get("evaluation_num_workers", 0)),
+                env_creator=env_creator, policy_cls=policy_cls, device=self.device,
+            )
 
     def get_policy(self, policy_id: str = DEFAULT_POLICY_ID):
         """The policy of that id; ``KeyError`` when there is none."""
@@ -361,10 +365,13 @@ class Algorithm(Trainable):
         ``evaluation_duration`` episodes have finished; their summary."""
         if self.evaluation_workers is None:
             raise ValueError("evaluate() needs evaluation workers: set evaluation_interval")
-        local = self.workers.local_worker()
-        with self._state_lock():
-            weights = local.get_weights()
-        filters = local.get_filters()
+        if self.workers is not None:
+            local = self.workers.local_worker()
+            with self._state_lock():
+                weights = local.get_weights()
+            filters = local.get_filters()
+        else:  # the device lane: one policy, no filter
+            weights, filters = {DEFAULT_POLICY_ID: self.policy.get_weights()}, {}
         lw = self.evaluation_workers.local_worker()
         lw.set_weights(weights)
         lw.sync_filters(filters)

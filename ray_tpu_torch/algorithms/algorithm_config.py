@@ -45,10 +45,12 @@ and ``jax_fused_rollout`` keep the reference's names and defaults (see
 
 The replay keys of the off-policy family keep the reference's names and
 defaults: ``replay_buffer_config``, ``replay_device_resident`` and
-``replay_device_tree`` (``"auto"``: on; ``False`` raises, see
-``execution/replay_buffer.resolve_device_resident``),
-``replay_memory_cap_bytes``, ``num_steps_sampled_before_learning_starts``,
-``target_network_update_freq`` and ``training_intensity``.
+``replay_device_tree`` (``"auto"``: on; ``False``: host rings, host
+trees; see ``execution/replay_buffer.resolve_device_resident``),
+``replay_memory_cap_bytes`` (the spill's cap; None: 60% of the card's
+memory), ``num_steps_sampled_before_learning_starts``,
+``target_network_update_freq``, ``training_intensity`` and
+``learn_while_rollout`` (the DQN device lane's interleaved cadence).
 
 ``offline_data(input_=, output=, output_max_file_size=,
 off_policy_estimation_methods=)`` keeps the reference's keys; the dict
@@ -114,6 +116,7 @@ class AlgorithmConfig:
         self.num_steps_sampled_before_learning_starts = 0
         self.target_network_update_freq = 0
         self.training_intensity = None
+        self.learn_while_rollout = False
 
         # learner plane: K updates per host call, the in-slot non-finite
         # batch guard, and rollout + learn fused into one superstep slot
@@ -223,6 +226,7 @@ class AlgorithmConfig:
         target_network_update_freq: Optional[int] = None,
         training_intensity: Optional[float] = None,
         sample_async: Optional[bool] = None,
+        learn_while_rollout: Optional[bool] = None,
         **kwargs,
     ) -> "AlgorithmConfig":
         """Training keys; ``replay_buffer_config`` updates the current
@@ -239,12 +243,14 @@ class AlgorithmConfig:
             ("grad_clip", grad_clip),
             ("replay_device_resident", replay_device_resident),
             ("replay_device_tree", replay_device_tree),
-            ("replay_memory_cap_bytes", replay_memory_cap_bytes),
+            ("replay_memory_cap_bytes",
+             None if replay_memory_cap_bytes is None else int(replay_memory_cap_bytes)),
             ("num_steps_sampled_before_learning_starts",
              num_steps_sampled_before_learning_starts),
             ("target_network_update_freq", target_network_update_freq),
             ("training_intensity", training_intensity),
             ("sample_async", sample_async),
+            ("learn_while_rollout", None if learn_while_rollout is None else bool(learn_while_rollout)),
         ):
             if value is not None:
                 setattr(self, name, value)

@@ -1,12 +1,18 @@
-"""Ape-X DQN: distributed prioritized replay over device shards.
+"""Ape-X DQN and Ape-X DDPG: distributed prioritized replay.
 
-Counterpart of ``ray_tpu/algorithms/apex_dqn/apex_dqn.py``, on its
-device plane (``replay_device_resident`` on, the port's only plane):
-rollout workers, each exploring at its rung of the per-worker epsilon
-ladder (``per_worker_exploration``: ``dqn._epsilon_exploration_config``),
-feed ``num_replay_buffer_shards`` :class:`DevicePrioritizedReplayBuffer`
-rings of ``capacity // num_replay_buffer_shards`` rows on the learner's
-device, seeded ``seed + 100 + i``, as the reference's shards are.
+Counterpart of ``ray_tpu/algorithms/apex_dqn/apex_dqn.py``. Rollout
+workers, each exploring at its rung of the per-worker epsilon ladder
+(``per_worker_exploration``: ``dqn._epsilon_exploration_config``), feed
+``num_replay_buffer_shards`` prioritized shards of ``capacity //
+num_replay_buffer_shards`` rows, seeded ``seed + 100 + i``, on one of
+the reference's two planes:
+
+- **device shards** (``replay_device_resident`` "auto" or True):
+  :class:`DevicePrioritizedReplayBuffer` rings on the learner's device
+  (on the device tree unless ``replay_device_tree=False``);
+- **the object plane** (``replay_device_resident=False``): one
+  :class:`ReplayActor` process a shard, over a host
+  ``PrioritizedReplayBuffer``; the learner learns on its own device.
 
 A round (:meth:`ApexDQN.training_step`, the reference's ``:272-408``):
 
@@ -14,38 +20,42 @@ A round (:meth:`ApexDQN.training_step`, the reference's ``:272-408``):
   sample requests; ``core.wait(num_returns=1, timeout=1.0)`` takes the
   fragments that are done;
 - each fragment is routed (:meth:`ApexDQN._route_to_replay`): frame
-  pools back to stacks, the n-step fold, its replay columns to the
-  device once, and the insert into the next shard, round-robin (one
-  row-scatter launch a column and one for the tree's leaves), at the
-  shard's max priority or, with ``worker_side_prioritization``, at the
-  rows' TD errors computed on the uploaded columns;
+  pools back to stacks, the n-step fold, then the next shard,
+  round-robin. A device shard takes its replay columns to the device
+  once (one row-scatter launch a column and one for the tree's leaves),
+  at the shard's max priority or, with ``worker_side_prioritization``,
+  at the rows' TD errors computed on the uploaded columns; a replay
+  actor takes the fragment as it is (``add.remote``);
 - a worker gets the learner's weights after every ``broadcast_interval``
   of its fragments;
-- once ``num_steps_sampled_before_learning_starts`` env steps are in,
-  every shard holding a batch gets one learn pass
-  (:meth:`ApexDQN._learn_from_device_shards`): under a superstep K > 1
-  (``"auto"``: 8 on the card) one ``superstep_train_replay`` of K
-  prioritized updates (each slot's prefix descent and row gathers in
-  the graph, the priorities refreshed in update order), else one draw
-  (prefix-descent kernel, row gathers), one learn call and the |TD|
-  refresh; the target network syncs every ``target_network_update_freq``
-  trained steps, checked after each shard.
+- once ``num_steps_sampled_before_learning_starts`` env steps are in:
+  on device shards, every shard holding a batch gets one learn pass
+  (:meth:`ApexDQN._learn_from_device_shards`: under a superstep K > 1,
+  "auto" 8 on the card, one ``superstep_train_replay`` of K prioritized
+  updates, each slot's prefix descent and row gathers in the graph, the
+  priorities refreshed in update order; else one draw, one learn call
+  and the |TD| refresh); on the object plane
+  (:meth:`ApexDQN._learn_from_replay_actors`) one sample request stays
+  in flight per replay actor, each batch that arrives is learned with
+  one upload and its |TD| priorities go back to the actor that drew it
+  (``update_priorities.remote``); the target network syncs every
+  ``target_network_update_freq`` trained steps.
 
 With no remote worker the local worker samples a fragment a round and
 the weights go out by ``sync_weights``, as the reference's degenerate
-mode.
-
-Refused: ``replay_device_resident=False`` (the reference's object plane
-of ``ReplayActor`` shards over host rings) raises in
-``resolve_device_resident``, and the registry's ``APEX_DDPG``, both
-naming ``ROADMAP.md`` queue 1 item 4b.
+mode. :class:`ApexDDPG` is this loop around DDPG's policy
+(``algorithms/ddpg/ddpg.py``), with every DDPG policy knob in its
+config (:class:`ApexDDPGConfig`).
 """
 
 from __future__ import annotations
 
 import collections
+import inspect
 import time
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from ray_tpu_torch import core
 from ray_tpu_torch.algorithms.algorithm import (
@@ -53,17 +63,50 @@ from ray_tpu_torch.algorithms.algorithm import (
     NUM_ENV_STEPS_TRAINED,
     Algorithm,
 )
+from ray_tpu_torch.algorithms.ddpg.ddpg import DDPGConfig, DDPGTorchPolicy
 from ray_tpu_torch.algorithms.dqn.dqn import DQN, DQNConfig, adjust_nstep
 from ray_tpu_torch.core.object_store import RayActorError, WorkerCrashedError
 from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, MultiAgentBatch, SampleBatch
 from ray_tpu_torch.execution.replay_buffer import (
     DevicePrioritizedReplayBuffer,
     DeviceTrainBatch,
+    PrioritizedReplayBuffer,
     resolve_device_resident,
     resolve_device_tree,
 )
 from ray_tpu_torch.execution.train_ops import superstep_train_replay
 from ray_tpu_torch.ops.framestack import FRAMES, materialize_fragment
+
+
+@core.remote
+class ReplayActor:
+    """One prioritized replay shard in a process of its own (the
+    reference's ``ReplayActor``): a host ``PrioritizedReplayBuffer``."""
+
+    def __init__(self, capacity: int, alpha: float, beta: float, seed: Optional[int] = None):
+        self.buffer = PrioritizedReplayBuffer(capacity=capacity, alpha=alpha, seed=seed)
+        self.beta = beta
+
+    def add(self, batch: SampleBatch, priorities=None) -> int:
+        if priorities is not None:
+            self.buffer.add_with_priorities(batch, priorities)
+        else:
+            self.buffer.add(batch)
+        return self.buffer.num_added
+
+    def sample(self, num_items: int) -> Optional[SampleBatch]:
+        if len(self.buffer) < num_items:
+            return None
+        return self.buffer.sample(num_items, beta=self.beta)
+
+    def update_priorities(self, batch_indexes, priorities) -> None:
+        self.buffer.update_priorities(batch_indexes, priorities)
+
+    def size(self) -> int:
+        return len(self.buffer)
+
+    def stats(self) -> Dict:
+        return self.buffer.stats()
 
 
 class ApexDQNConfig(DQNConfig):
@@ -116,27 +159,38 @@ class ApexDQN(DQN):
         if cfg.get("policies"):
             raise ValueError("Ape-X learns the default policy alone (the reference's "
                              "shards hold its batches only)")
-        resolve_device_resident(cfg)
-        resolve_device_tree(cfg)
         rb = cfg.get("replay_buffer_config") or {}
         n_shards = max(1, int(cfg.get("num_replay_buffer_shards", 2)))
         per_shard = max(1, int(rb.get("capacity", 100000)) // n_shards)
         seed = cfg.get("seed")
+        alpha = rb.get("prioritized_replay_alpha", 0.6)
         self._replay_beta = rb.get("prioritized_replay_beta", 0.4)
         # the shards replace DQN's one buffer, as the reference's
         self.local_replay_buffer = None
-        self.replay_shards: List[DevicePrioritizedReplayBuffer] = [
-            DevicePrioritizedReplayBuffer(
-                per_shard,
-                rb.get("prioritized_replay_alpha", 0.6),
-                None if seed is None else seed + 100 + i,
-                device=self.device,
-                memory_cap_bytes=cfg.get("replay_memory_cap_bytes"),
-                label=f"apex_shard_{i}",
-            )
-            for i in range(n_shards)
-        ]
+        self._apex_device = resolve_device_resident(cfg)
+        self.replay_shards: List[DevicePrioritizedReplayBuffer] = []
+        self.replay_actors: List = []
+        if self._apex_device:
+            self.replay_shards = [
+                DevicePrioritizedReplayBuffer(
+                    per_shard, alpha, None if seed is None else seed + 100 + i,
+                    device=self.device,
+                    memory_cap_bytes=cfg.get("replay_memory_cap_bytes"),
+                    label=f"apex_shard_{i}",
+                    device_tree=resolve_device_tree(cfg),
+                )
+                for i in range(n_shards)
+            ]
+        else:
+            if not core.is_initialized():
+                core.init()
+            self.replay_actors = [
+                ReplayActor.remote(per_shard, alpha, self._replay_beta,
+                                   None if seed is None else seed + 100 + i)
+                for i in range(n_shards)
+            ]
         self._sample_in_flight: Dict = {}  # ref -> worker
+        self._replay_in_flight: Dict = {}  # ref -> replay actor
         self._shard_rr = 0
         self._batches_since_broadcast: Dict[int, int] = {}
 
@@ -156,11 +210,21 @@ class ApexDQN(DQN):
         n_step = int(cfg.get("n_step", 1))
         if n_step > 1:
             adjust_nstep(n_step, cfg["gamma"], batch)
+        side = cfg.get("worker_side_prioritization")
+        if not self._apex_device:
+            actor = self.replay_actors[self._shard_rr % len(self.replay_actors)]
+            self._shard_rr += 1
+            actor.add.remote(batch, policy.compute_td_error(batch) + 1e-6 if side else None)
+            return
         shard = self.replay_shards[self._shard_rr % len(self.replay_shards)]
         self._shard_rr += 1
+        if shard.spilled:  # the host protocol: placement changed, sampling did not
+            prios = policy.compute_td_error(batch) + 1e-6 if side else None
+            shard.add_device_tree(policy.replay_columns(batch), priorities=prios)
+            return
         tree = {c: shard._to_device(v) for c, v in policy.replay_columns(batch).items()}
         prios = None
-        if cfg.get("worker_side_prioritization"):
+        if side:
             n = int(next(iter(tree.values())).shape[0])
             prios = policy.compute_td_error(DeviceTrainBatch(tree, n)) + 1e-6
         shard.add_device_tree(tree, priorities=prios)
@@ -171,8 +235,9 @@ class ApexDQN(DQN):
         """Sample requests topped up, the done fragments routed and the
         producing workers' weights refreshed, then a learn pass over the
         shards. ``self._timers`` adds up ``sample_s`` (the wait),
-        ``insert_s`` (routing), ``update_s`` (learning) and
-        ``broadcast_s``."""
+        ``insert_s`` (routing), ``update_s`` (learning), ``broadcast_s``
+        and, on the object plane, ``replay_wait_s`` (the wait for the
+        replay actors' batches)."""
         cfg = self.config
         workers = self.workers.remote_workers()
         policy = self.get_policy()
@@ -223,9 +288,12 @@ class ApexDQN(DQN):
         if self._counters[NUM_ENV_STEPS_SAMPLED] >= cfg.get(
             "num_steps_sampled_before_learning_starts", 0
         ):
-            t1 = time.perf_counter()
-            info = self._learn_from_device_shards(policy)
-            timers["update_s"] += time.perf_counter() - t1
+            if self._apex_device:
+                t1 = time.perf_counter()
+                info = self._learn_from_device_shards(policy)
+                timers["update_s"] += time.perf_counter() - t1
+            else:
+                info = self._learn_from_replay_actors(policy)
             if info:
                 train_info = info
         if not workers:
@@ -252,24 +320,68 @@ class ApexDQN(DQN):
         for shard in self.replay_shards:
             if len(shard) < bs:
                 continue
-            if K > 1:
+            if K > 1 and not shard.spilled:
                 info = superstep_train_replay(self, policy, shard, K, K, bs, prioritized=True,
                                               beta=self._replay_beta)
                 self._counters[NUM_ENV_STEPS_TRAINED] += K * bs
             else:
                 batch = shard.sample(bs, beta=self._replay_beta)
-                info = policy.learn_on_device_batch(dict(batch.tree), batch.count)
+                if getattr(batch, "is_device_resident", False):
+                    info = policy.learn_on_device_batch(dict(batch.tree), batch.count)
+                    idx = batch.indices
+                else:  # a spilled shard's host batch
+                    info = policy.learn_on_batch(batch)
+                    idx = batch["batch_indexes"]
                 self._counters[NUM_ENV_STEPS_TRAINED] += batch.count
-                shard.update_priorities(batch.indices, policy.compute_td_error(batch) + 1e-6)
+                shard.update_priorities(idx, policy.compute_td_error(batch) + 1e-6)
             train_info[DEFAULT_POLICY_ID] = info
             self._maybe_update_target(policy)
+        return train_info
+
+    def _learn_from_replay_actors(self, policy) -> Dict:
+        """The object plane's learn pass: a sample request kept in flight
+        per replay actor, then each batch that is in within a second
+        learned on the policy's device (one upload), its per-row |TD|
+        errors sent back to the actor that drew it, and the target
+        checked. Seconds: ``replay_wait_s``, ``update_s``."""
+        timers = self._timers
+        bs = int(self.config["train_batch_size"])
+        busy = {id(a) for a in self._replay_in_flight.values()}
+        for actor in self.replay_actors:
+            if id(actor) not in busy:
+                self._replay_in_flight[actor.sample.remote(bs)] = actor
+        t0 = time.perf_counter()
+        ready, _ = core.wait(list(self._replay_in_flight), num_returns=1, timeout=1.0)
+        timers["replay_wait_s"] += time.perf_counter() - t0
+        train_info: Dict = {}
+        for ref in ready:
+            actor = self._replay_in_flight.pop(ref)
+            t1 = time.perf_counter()
+            batch = core.get(ref)
+            if batch is None:
+                continue
+            train_info[DEFAULT_POLICY_ID] = policy.learn_on_batch(batch)
+            self._counters[NUM_ENV_STEPS_TRAINED] += batch.count
+            actor.update_priorities.remote(
+                np.asarray(batch["batch_indexes"]), policy.compute_td_error(batch) + 1e-6)
+            self._maybe_update_target(policy)
+            timers["update_s"] += time.perf_counter() - t1
         return train_info
 
     # -- lifetime and state ----------------------------------------------------
 
     def stop(self) -> None:
+        """The workers' and the replay actors' processes end (the
+        reference's ``cleanup``)."""
         # the fragments still on their way were sampled for this run alone
         self._sample_in_flight = {}
+        self._replay_in_flight = {}
+        for actor in self.replay_actors:
+            try:
+                core.kill(actor)
+            except Exception:  # its process is gone already
+                pass
+        self.replay_actors = []
         super().stop()
 
     def __getstate__(self) -> Dict:
@@ -287,3 +399,47 @@ class ApexDQN(DQN):
         self._shard_rr = int(state.get("shard_rr", 0))
         self._last_target_update = state.get("last_target_update", 0)
 
+
+class ApexDDPGConfig(ApexDQNConfig):
+    """The reference's ``ApexDDPGConfig``: the Ape-X loop's settings with
+    every DDPG policy knob on top, taken by diffing ``DDPGConfig``
+    against ``DQNConfig`` outside the loop's own keys, so a DDPG knob
+    cannot drift out of it."""
+
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or ApexDDPG)
+        ddpg, base = vars(DDPGConfig()), vars(DQNConfig())
+        loop_keys = {
+            "algo_class", "num_workers", "train_batch_size", "rollout_fragment_length", "n_step",
+            "num_steps_sampled_before_learning_starts", "replay_buffer_config",
+            "target_network_update_freq",
+        }
+        for key, val in ddpg.items():
+            if key not in loop_keys and (key not in base or base[key] != val):
+                setattr(self, key, val)
+        self.n_step = 3
+        self.per_worker_exploration = False
+        self.train_batch_size = 256
+
+    def training(self, **kwargs) -> "ApexDDPGConfig":
+        """Ape-X's training keys and DDPG's policy knobs (those of
+        ``DDPGConfig.training``)."""
+        knobs = {k: kwargs.pop(k) for k in list(kwargs) if k in _DDPG_KNOBS}
+        super().training(**kwargs)
+        for k, v in knobs.items():
+            setattr(self, k, list(v) if k.endswith("_hiddens") else v)
+        return self
+
+
+_DDPG_KNOBS = frozenset(inspect.signature(DDPGConfig.training).parameters) - {"self", "kwargs"}
+
+
+class ApexDDPG(ApexDQN):
+    """The Ape-X loop around DDPG's policy (the reference's ``ApexDDPG``);
+    its blends run inside each update, so ``update_target`` is a no-op."""
+
+    @classmethod
+    def get_default_config(cls) -> ApexDDPGConfig:
+        return ApexDDPGConfig(cls)
+
+    _default_policy_class = DDPGTorchPolicy

@@ -62,14 +62,31 @@ inserts and updates, so the workers sample while the learner learns
 gives remote worker i of n the constant epsilon ``0.4 ** (1 + 7 (i - 1)
 / (n - 1))`` (Ape-X's ladder, ``algorithms/apex_dqn/``).
 
-Not ported yet (ROADMAP queue 1 item 4b): ``learn_while_rollout`` and a
-host-memory replay.
+The replay placement follows the reference's knobs
+(``execution/replay_buffer.py``): device rings by default, host rings
+with ``replay_device_resident=False`` (an update draws on the host and
+uploads the drawn batch; a superstep uploads its k stacked draws once;
+the device lane pulls each rollout back once to insert it), and host
+trees beside device rows with ``replay_device_tree=False``.
+
+``learn_while_rollout`` on the device lane (the reference's cadence,
+``_interleave_ready``): once the lane is warm, a round's fill acts with
+the weights from before this round's updates, the updates draw rows of
+earlier rounds only, and the fill's rows go in after them, so the
+sampled and trained counts are the serial cadence's. The reference
+dispatches its fill asynchronously against immutable arrays; the
+port's optimizer writes the parameters in place, so the round copies
+the acting weights into a second model first, launches the replay
+superstep, and runs the eager fill on that copy, on the same stream,
+while the superstep's graph runs: the fill's host launches overlap the
+graph (:meth:`DQN._interleaved_round`).
 """
 
 from __future__ import annotations
 
+import copy
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -468,19 +485,17 @@ class DQN(Algorithm):
         super().__init__(config, env)
         cfg = self.config
         rb_cfg = cfg.get("replay_buffer_config") or {}
-        prioritized = rb_cfg.get("prioritized_replay", False)
-        resolve_device_resident(cfg)  # both raise where the port has no path
-        if prioritized:
-            resolve_device_tree(cfg)
         self.local_replay_buffer = MultiAgentReplayBuffer(
             capacity=rb_cfg.get("capacity", 50000),
-            prioritized=prioritized,
+            prioritized=rb_cfg.get("prioritized_replay", False),
             alpha=rb_cfg.get("prioritized_replay_alpha", 0.6),
             seed=cfg.get("seed"),
             device=self.device,
             memory_cap_bytes=cfg.get("replay_memory_cap_bytes"),
             # host fragments convert to the policy's columns once, at insert
             replay_columns_fn=lambda pid, sb: self.get_policy(pid).replay_columns(sb),
+            device_resident=resolve_device_resident(cfg),
+            device_tree=resolve_device_tree(cfg),
         )
         self._last_target_update = 0
         self._training_debt = 0.0
@@ -511,8 +526,12 @@ class DQN(Algorithm):
         return self._rollout_engine
 
     def _insert_rollout_tree(self, tree: Dict[str, torch.Tensor]) -> None:
-        """Absorb one rollout's device rows into the device rings."""
-        self.local_replay_buffer.add_device_tree(tree, DEFAULT_POLICY_ID)
+        """Absorb one rollout's device rows: into the device rings, or
+        pulled back once into a host ring."""
+        if self.local_replay_buffer.device_resident:
+            self.local_replay_buffer.add_device_tree(tree, DEFAULT_POLICY_ID)
+        else:
+            self.local_replay_buffer.add(SampleBatch({k: v.cpu().numpy() for k, v in tree.items()}))
 
     def _jax_rollout_fill(self) -> int:
         """One rollout into the replay buffer; returns the env steps."""
@@ -522,44 +541,54 @@ class DQN(Algorithm):
 
     # -- replay updates ----------------------------------------------------
 
-    def _single_update(self, prioritized: bool, kwargs: Dict) -> Dict:
+    def _single_update(self, prioritized: bool, kwargs: Dict, overlap=None) -> Dict:
         """One replay sample + learn call, then the per-row priority
         refresh ``|td| + 1e-6`` (added in float32, as the reference's
-        host call site rounds it). Under a superstep (K > 1: on CUDA by
-        default) the update is one replay of the superstep's captured
-        slot, as the reference's is one compiled program: the same draws,
-        the same update bitwise, one host call instead of the eager
-        update's few hundred launches."""
+        host call site rounds it). A host ring's batch is a host
+        ``SampleBatch``, learned with one upload. Under a superstep
+        (K > 1: on CUDA by default) the update is one replay of the
+        superstep's captured slot, as the reference's is one compiled
+        program: the same draws, the same update bitwise, one host call
+        instead of the eager update's few hundred launches."""
         K = self._resolve_superstep_k()
         if K > 1:
-            return self._superstep_round(1, K, prioritized, kwargs.get("beta", 0.4))
+            return self._superstep_round(1, K, prioritized, kwargs.get("beta", 0.4), overlap)
         train_info: Dict = {}
         train_batch = self.local_replay_buffer.sample(self.config["train_batch_size"], **kwargs)
         for pid, b in train_batch.items():
             policy = self.get_policy(pid)
-            train_info[pid] = policy.learn_on_device_batch(dict(b.tree), b.count)
+            if getattr(b, "is_device_resident", False):
+                train_info[pid] = policy.learn_on_device_batch(dict(b.tree), b.count)
+                idx = b.indices
+            else:
+                train_info[pid] = policy.learn_on_batch(b)
+                idx = b.get("batch_indexes")
             if prioritized:
                 self.local_replay_buffer.buffers[pid].update_priorities(
-                    b.indices, policy.compute_td_error(b) + 1e-6
+                    idx, policy.compute_td_error(b) + 1e-6
                 )
             self._counters[NUM_ENV_STEPS_TRAINED] += b.count
         return train_info
 
-    def _chained_updates(self, updates: int, prioritized: bool, beta: float) -> Dict:
+    def _chained_updates(self, updates: int, prioritized: bool, beta: float, overlap=None) -> Dict:
         """``updates`` replay updates back to back: every full window of
-        K runs as one superstep per policy, the rest one at a time."""
+        K runs as one superstep per policy, the rest one at a time
+        (``overlap`` goes with the first superstep)."""
         K = self._resolve_superstep_k()
         train_info: Dict = {}
         left = updates
         while K > 1 and left >= K:
-            train_info.update(self._superstep_round(K, K, prioritized, beta))
+            train_info.update(self._superstep_round(K, K, prioritized, beta, overlap))
+            overlap = None
             left -= K
         kwargs = {"beta": beta} if prioritized else {}
         for _ in range(left):
-            train_info.update(self._single_update(prioritized, kwargs))
+            train_info.update(self._single_update(prioritized, kwargs, overlap))
+            overlap = None
         return train_info
 
-    def _superstep_round(self, k: int, K: int, prioritized: bool, beta: float) -> Dict:
+    def _superstep_round(self, k: int, K: int, prioritized: bool, beta: float,
+                         overlap=None) -> Dict:
         """``k`` <= ``K`` replay updates of every policy whose buffer
         holds a batch, as one ``superstep_train_replay`` call each (one
         captured slot per (batch size, K), shared by every k)."""
@@ -570,16 +599,20 @@ class DQN(Algorithm):
                 continue
             train_info[pid] = superstep_train_replay(
                 self, self.get_policy(pid), buf, k, K, bs, prioritized=prioritized, beta=beta,
+                overlap=overlap,
             )
+            overlap = None
             self._counters[NUM_ENV_STEPS_TRAINED] += k * bs
         return train_info
 
-    def _replay_update_phase(self, sampled_steps: int) -> Dict:
+    def _replay_update_phase(self, sampled_steps: int,
+                             overlap: Optional[Callable[[], None]] = None) -> Dict:
         """Once learning has started: ``training_intensity`` debt → the
         number of updates this round (one by default; prioritized replay
         takes the debt only under a superstep, whose stacked refresh
         keeps the update order, and otherwise refreshes between
-        samples), then the target-network sync."""
+        samples), then the target-network sync. ``overlap`` runs while
+        the round's first superstep runs on the card, if there is one."""
         cfg = self.config
         train_info: Dict = {}
         if not (
@@ -598,9 +631,10 @@ class DQN(Algorithm):
             updates = int(self._training_debt // cfg["train_batch_size"])
             self._training_debt -= updates * cfg["train_batch_size"]
         if updates > 1:
-            train_info = self._chained_updates(updates, prioritized, beta)
+            train_info = self._chained_updates(updates, prioritized, beta, overlap)
         elif updates == 1:
-            train_info = self._single_update(prioritized, {"beta": beta} if prioritized else {})
+            train_info = self._single_update(
+                prioritized, {"beta": beta} if prioritized else {}, overlap)
         if (
             self._counters[NUM_ENV_STEPS_TRAINED] - self._last_target_update
             >= cfg.get("target_network_update_freq", 500)
@@ -617,12 +651,59 @@ class DQN(Algorithm):
         cfg = self.config
         if cfg.get("env_backend") != "jax":
             return self._training_step_actor_lane()
-        if cfg.get("learn_while_rollout"):
-            raise NotImplementedError("learn_while_rollout is not ported yet")
-        sampled = self._jax_rollout_fill()
-        self._counters[NUM_ENV_STEPS_SAMPLED] += sampled
-        train_info = self._replay_update_phase(sampled)
+        if self._interleave_ready():
+            train_info = self._interleaved_round()
+        else:
+            sampled = self._jax_rollout_fill()
+            self._counters[NUM_ENV_STEPS_SAMPLED] += sampled
+            train_info = self._replay_update_phase(sampled)
         self.get_policy().global_timestep = self._counters[NUM_ENV_STEPS_SAMPLED]
+        return train_info
+
+    def _interleave_ready(self) -> bool:
+        """``learn_while_rollout``'s cadence engages once the lane is
+        warm (the reference's): the engine built, learning started, and
+        a full batch of earlier rounds' rows in the buffer."""
+        cfg = self.config
+        if not cfg.get("learn_while_rollout") or self._rollout_engine is None:
+            return False
+        buf = self.local_replay_buffer.buffers.get(DEFAULT_POLICY_ID)
+        if buf is None or len(buf) < int(cfg["train_batch_size"]):
+            return False
+        return self._counters[NUM_ENV_STEPS_SAMPLED] >= cfg.get(
+            "num_steps_sampled_before_learning_starts", 0)
+
+    def _interleaved_round(self) -> Dict:
+        """One ``learn_while_rollout`` round: the acting weights copied
+        into the acting model, the update phase launched, the fill run
+        on the copy while the updates' superstep runs (``overlap``), then
+        the fill's rows inserted. Everything is on the current stream:
+        the copy is ordered before the graph's in-place updates and the
+        fill's kernels after them, so what overlaps the graph is the
+        fill's host work (its eager launches)."""
+        engine = self._rollout_engine
+        policy = self.get_policy()
+        acting = self.__dict__.get("_acting_model")
+        if acting is None:
+            acting = self._acting_model = copy.deepcopy(policy.model)
+        with torch.no_grad():
+            torch._foreach_copy_(list(acting.parameters()), [p.detach() for p in policy.params])
+        out: Dict[str, Any] = {}
+
+        def fill() -> None:
+            if out:
+                return
+            live = policy.model
+            policy.model = acting
+            try:
+                out["tree"] = engine.rollout()[0]
+            finally:
+                policy.model = live
+
+        self._counters[NUM_ENV_STEPS_SAMPLED] += engine.batch_size
+        train_info = self._replay_update_phase(engine.batch_size, overlap=fill)
+        fill()  # no superstep ran it
+        self._insert_rollout_tree(out["tree"])
         return train_info
 
     def _materialize_compressed(self, batch):

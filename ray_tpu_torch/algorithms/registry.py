@@ -12,6 +12,7 @@ import importlib
 
 ALGORITHMS = {
     "APEX": "ray_tpu_torch.algorithms.apex_dqn.apex_dqn:ApexDQN",
+    "APEX_DDPG": "ray_tpu_torch.algorithms.apex_dqn.apex_dqn:ApexDDPG",
     "PPO": "ray_tpu_torch.algorithms.ppo.ppo:PPO",
     "DQN": "ray_tpu_torch.algorithms.dqn.dqn:DQN",
     "IMPALA": "ray_tpu_torch.algorithms.impala.impala:IMPALA",
@@ -26,17 +27,8 @@ ALGORITHMS = {
 }
 
 
-# names the reference registers whose port is a later slice
-REFUSED = {
-    "APEX_DDPG": "ApexDDPG (the Ape-X loop around DDPG's policy) is not ported yet: "
-                 "ROADMAP.md queue 1 item 4b",
-}
-
-
 def get_algorithm_class(name: str):
     """The class registered as ``name``; raises for any other name."""
-    if name in REFUSED:
-        raise NotImplementedError(REFUSED[name])
     try:
         module, cls = ALGORITHMS[name].split(":")
     except KeyError:

@@ -50,10 +50,14 @@ algorithms' to read, not the worker's. ``config["output"]`` (a
 directory) mirrors every batch ``sample()`` returns into a
 ``JsonWriter``'s shards of ``output_max_file_size`` bytes.
 
-Not ported (``ROADMAP.md`` queue 1 item 3d), each raising where a config
-asks for it: the fault injector (``fault_injection``) and tensor envs on
-the actor lane (the reference's ``JaxVectorEnvAdapter``; the port's
-tensor envs run on the device lane, ``env_backend: jax``).
+A tensor env (``TensorVectorEnv``, the device lane's) is driven through
+one ``TensorVectorEnvAdapter`` of ``num_envs_per_worker`` slots on the
+worker's device, seeded as the worker's envs are, as the reference
+wires its ``JaxVectorEnvAdapter``: evaluation workers of a device-lane
+run sample this way.
+
+Not ported (``ROADMAP.md`` queue 1 item 3d), raising where a config
+asks for it: the fault injector (``fault_injection``).
 """
 
 from __future__ import annotations
@@ -68,7 +72,8 @@ import numpy as np
 from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID, MultiAgentBatch
 from ray_tpu_torch.env.env_context import EnvContext
 from ray_tpu_torch.env.multi_agent_env import MultiAgentEnv
-from ray_tpu_torch.env.tensor_env import TensorVectorEnv
+from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.env.tensor_env import TensorVectorEnv, TensorVectorEnvAdapter
 from ray_tpu_torch.env.vector_env import VectorEnv
 from ray_tpu_torch.evaluation.multi_agent_sampler import MultiAgentSyncSampler
 from ray_tpu_torch.evaluation.sampler import AsyncSampler, SyncSampler
@@ -163,14 +168,12 @@ class RolloutWorker:
                 return env_creator(env_config.copy_with_overrides(vector_index=vector_index))
 
             self.env = make_sub_env(0)
-            if isinstance(self.env, TensorVectorEnv):
-                raise NotImplementedError(
-                    f"tensor env {type(self.env).__name__} on the actor lane (the reference's "
-                    f"JaxVectorEnvAdapter) is not ported yet: {_ITEM}; set env_backend='jax' "
-                    "to run it on the device lane"
-                )
             self._multiagent_env = isinstance(self.env, MultiAgentEnv)
-            if not self._multiagent_env:
+            if isinstance(self.env, TensorVectorEnv):
+                self.vector_env = TensorVectorEnvAdapter(
+                    self.env, num_envs, seed=seed, device=resolve_device(device)
+                )
+            elif not self._multiagent_env:
                 envs = [self.env] + [make_sub_env(i) for i in range(1, num_envs)]
                 self.vector_env = VectorEnv.vectorize_gym_envs(
                     lambda i: envs[i], num_envs, seed=seed

@@ -39,9 +39,22 @@ the slot's CUDA graph. The (k, B) |TD| errors come back in one copy;
 ``refresh_priorities_stacked`` powers them on the host and writes them
 as one stacked tree update, in update order.
 
-Not ported yet (ROADMAP): the reference's memory-cap spill to a host
-ring. Where a ring would not fit its memory cap, the port raises with
-the numbers; it never moves rows to the host.
+Two more placements, as the reference's:
+
+- **Host rings** (``replay_device_resident=False``): the numpy
+  :class:`ReplayBuffer` / :class:`PrioritizedReplayBuffer`; an update
+  draws on the host and uploads the drawn batch once, and a superstep
+  stacks its k draws into one upload (``train_ops``' host stacked path).
+- **Host trees beside device rows** (``replay_device_tree=False``):
+  :class:`DevicePrioritizedReplayBuffer` keeps the numpy sum and min
+  trees of :class:`_PrioritySampling`; a draw runs on the host and only
+  the drawn positions and IS weights cross, for the row gather.
+- **The memory-cap spill**: the first insert of a column projects
+  ``capacity`` x row bytes; past ``memory_cap_bytes`` (default: 60% of
+  the card's memory from ``torch.cuda.mem_get_info``, none for CPU
+  tensors) the buffer hands everything to a host ring built on the same
+  generator object, so the spill changes where rows live, never which
+  rows a draw takes. ``spilled`` and ``stats()`` say so.
 """
 
 from __future__ import annotations
@@ -102,8 +115,16 @@ class ReplayBuffer:
         idx = self._rng.integers(0, self._size, num_items)
         return self._make_batch(idx)
 
+    def draw_index_sets(self, k: int, num_items: int) -> np.ndarray:
+        """(k, num_items) uniform draws: k sequential generator calls, as
+        k ``sample`` calls make them (never one k·n call)."""
+        return np.stack([self._rng.integers(0, self._size, num_items) for _ in range(k)])
+
     def _make_batch(self, idx: np.ndarray) -> SampleBatch:
         return SampleBatch({k: col[idx] for k, col in self._cols.items()})
+
+    def stats(self) -> Dict:
+        return {"size": self._size, "num_added": self._num_added}
 
     def get_state(self) -> Dict:
         return {
@@ -135,13 +156,16 @@ class _PrioritySampling:
     stratified draw, IS weights, priority updates): the oracle both tree
     planes are held against."""
 
-    def _init_priority_trees(self, capacity: int, alpha: float) -> None:
+    def _init_priority_trees(self, capacity: int, alpha: float, host_trees: bool = True) -> None:
+        """``host_trees=False`` allocates no host sum and min trees (the
+        device tree plane never reads them)."""
         if alpha < 0:
             raise ValueError(f"alpha must be >= 0, got {alpha}")
         self._alpha = alpha
         self._tree_capacity = next_pow2(capacity)
-        self._sum_tree = SumSegmentTree(self._tree_capacity)
-        self._min_tree = MinSegmentTree(self._tree_capacity)
+        if host_trees:
+            self._sum_tree = SumSegmentTree(self._tree_capacity)
+            self._min_tree = MinSegmentTree(self._tree_capacity)
         self._max_priority = 1.0
 
     def _draw_prioritized(self, num_items: int, beta: float):
@@ -156,6 +180,13 @@ class _PrioritySampling:
         p_sample = self._sum_tree[idx] / total
         weights = (p_sample * self._size) ** (-beta) / max_weight
         return idx, weights.astype(np.float32)
+
+    def draw_prioritized_sets(self, k: int, num_items: int, beta: float):
+        """k sequential stratified draws → (k, n) indices and IS weights,
+        the trees frozen between them (the superstep's within-chain
+        staleness); the generator's calls are k ``sample`` calls'."""
+        idx, weights = zip(*(self._draw_prioritized(num_items, beta) for _ in range(k)))
+        return np.stack(idx), np.stack(weights)
 
     def update_priorities(self, idx, priorities: np.ndarray) -> None:
         powered, clamped = powered_priorities(priorities, self._alpha)
@@ -219,32 +250,20 @@ class PrioritizedReplayBuffer(_PrioritySampling, ReplayBuffer):
 
 def resolve_device_resident(config: Dict) -> bool:
     """The ``replay_device_resident`` knob. ``"auto"`` (the default)
-    and ``True`` keep the rings on the policy's device. The reference
-    turned "auto" off on its CPU client, where each extra jitted program
-    cost a compile; PyTorch compiles nothing, so the port's CPU runs use
-    the same tensor rings as the card. ``False`` (host rings, fed by the
-    actor lane) is not ported yet and raises."""
-    if not config.get("replay_device_resident", "auto"):
-        raise ValueError(
-            "replay_device_resident=False (host rings fed by the actor "
-            "lane; Ape-X's object plane of ReplayActor shards) is not ported "
-            "yet: ROADMAP.md queue 1 item 4b"
-        )
-    return True
+    and ``True`` keep the rings on the policy's device; ``False`` keeps
+    the reference's numpy host rings. The reference turned "auto" off on
+    its CPU client, where each extra jitted program cost a compile;
+    PyTorch compiles nothing, so the port's CPU runs use the same tensor
+    rings as the card."""
+    return bool(config.get("replay_device_resident", "auto"))
 
 
 def resolve_device_tree(config: Dict) -> bool:
     """The ``replay_device_tree`` knob: ``"auto"`` and ``True`` keep the
-    priorities on the device beside the rows. ``False`` (the
-    reference's host sum tree beside device rows) raises: it would draw
-    on the host while the rows are on the card."""
-    resolve_device_resident(config)
-    if not config.get("replay_device_tree", "auto"):
-        raise ValueError(
-            "replay_device_tree=False would keep the priorities in host "
-            "trees beside device rows; the port draws on the device only"
-        )
-    return True
+    priorities in a device tree beside device rows; ``False``, or host
+    rings, keep the host numpy trees (a draw on the host, the drawn rows
+    gathered on the device)."""
+    return bool(config.get("replay_device_tree", "auto")) and resolve_device_resident(config)
 
 
 class DeviceTrainBatch:
@@ -266,15 +285,20 @@ class SuperstepRingFeed:
     (``TorchPolicy.learn_superstep(rings=...)``): static device buffers
     of the (k_max, B) pre-drawn schedule, which :meth:`batch` turns into
     a slot's rows inside the slot. Uniform: the (k_max, B) ring
-    positions. Prioritized: the (k_max, B) f64 uniforms and the frozen
-    tree's total, largest IS weight and size; the slot runs the draw's
-    descent and writes its positions into ``idx`` for the refresh."""
+    positions. Host tree (``host_weights``): the positions and IS
+    weights the host trees drew. Device tree: the (k_max, B) f64
+    uniforms and the frozen tree's total, largest IS weight and size;
+    the slot runs the draw's descent and writes its positions into
+    ``idx`` for the refresh."""
 
-    def __init__(self, buf, k_max: int, num_items: int, beta: Optional[float]):
+    def __init__(self, buf, k_max: int, num_items: int, beta: Optional[float],
+                 host_weights: bool = False):
         dev = buf.device
         self.buf = buf
         self.beta = beta
         self.idx = torch.zeros((k_max, num_items), dtype=torch.int64, device=dev)
+        self.weights = (torch.ones((k_max, num_items), dtype=torch.float32, device=dev)
+                        if host_weights else None)
         if beta is not None:
             self.rand = torch.zeros((k_max, num_items), dtype=F64, device=dev)
             self.total = torch.zeros((), dtype=F64, device=dev)
@@ -296,7 +320,10 @@ class SuperstepRingFeed:
     def batch(self, slot: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The rows of slot ``slot`` (a (1,) device index)."""
         if self.beta is None:
-            return self.buf._gather_columns(self.idx.index_select(0, slot)[0])
+            cols = self.buf._gather_columns(self.idx.index_select(0, slot)[0])
+            if self.weights is not None:
+                cols["weights"] = self.weights.index_select(0, slot)[0]
+            return cols
         idx, weights = self.draw(self.rand.index_select(0, slot)[0])
         self.idx.index_copy_(0, slot, idx[None])
         cols = self.buf._gather_columns(idx)
@@ -310,6 +337,23 @@ _CANONICAL_NP = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
 _CANONICAL_TORCH = {torch.float64: torch.float32, torch.int64: torch.int32}
 
 
+def _canonical(v):
+    """One column in the rings' dtypes, where it lies: a tensor stays on
+    its device, anything else becomes a contiguous numpy array."""
+    if isinstance(v, torch.Tensor):
+        return v.to(_CANONICAL_TORCH.get(v.dtype, v.dtype))
+    v = np.ascontiguousarray(v)
+    return v.astype(_CANONICAL_NP.get(v.dtype, v.dtype), copy=False)
+
+
+def _torch_dtype(v) -> torch.dtype:
+    return v.dtype if isinstance(v, torch.Tensor) else torch.from_numpy(np.empty(0, v.dtype)).dtype
+
+
+def _host_columns(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v for k, v in tree.items()}
+
+
 class DeviceReplayBuffer:
     """Uniform ring whose columns live on ``device`` (default: CUDA;
     ``"cpu"`` runs the same code on CPU tensors with the kernels' plain
@@ -321,9 +365,12 @@ class DeviceReplayBuffer:
       rows cross once, here.
     - **Sample** draws indices on the host from the seeded generator,
       then gathers every column (``gather_rows``).
-    - **Memory:** the first insert of a column projects ``capacity`` ×
+    - **Spill:** the first insert of a column projects ``capacity`` ×
       row bytes; past ``memory_cap_bytes`` (default: 60% of the card's
-      memory, none on the CPU) it raises with the numbers.
+      total memory, none for CPU tensors) every call goes to a host
+      :class:`ReplayBuffer` on the same generator object, whose rows
+      the resident ones are replayed into when a later column tips the
+      projection over.
     """
 
     is_device_resident = True
@@ -351,16 +398,32 @@ class DeviceReplayBuffer:
         self._size = 0
         self._num_added = 0
         self.storage_bytes = 0
+        self._host: Optional[ReplayBuffer] = None  # the spill ring
 
-    # -- storage ----------------------------------------------------------
+    # -- spill ------------------------------------------------------------
+
+    @property
+    def spilled(self) -> bool:
+        return self._host is not None
+
+    def _make_host_fallback(self) -> ReplayBuffer:
+        buf = ReplayBuffer(self.capacity)
+        # the same generator object: a spill moves rows, never the draws
+        buf._rng = self._rng
+        return buf
 
     def _memory_limit(self) -> Optional[int]:
         if self.memory_cap_bytes is not None:
             return int(self.memory_cap_bytes)
         if self.device.type == "cuda":
-            total = torch.cuda.get_device_properties(self.device).total_memory
-            return int(0.6 * total)
+            return int(0.6 * torch.cuda.mem_get_info(self.device)[1])
         return None
+
+    def _reset_storage(self) -> None:
+        self._store, self._meta, self.storage_bytes = {}, {}, 0
+        self.__dict__.pop("_feeds", None)
+
+    # -- storage ----------------------------------------------------------
 
     @staticmethod
     def _packable(row_shape: tuple, dtype) -> bool:
@@ -369,43 +432,43 @@ class DeviceReplayBuffer:
 
     def _to_device(self, v) -> torch.Tensor:
         """One column → a canonical tensor on the buffer's device."""
-        if isinstance(v, torch.Tensor):
-            t = v.to(self.device)
-            return t.to(_CANONICAL_TORCH.get(t.dtype, t.dtype))
-        v = np.ascontiguousarray(v)
-        v = v.astype(_CANONICAL_NP.get(v.dtype, v.dtype), copy=False)
-        return torch.from_numpy(v).to(self.device)
+        v = _canonical(v)
+        return v.to(self.device) if isinstance(v, torch.Tensor) else torch.from_numpy(v).to(self.device)
 
-    def _ensure_storage(self, tree: Dict[str, torch.Tensor]) -> None:
+    def _ensure_storage(self, tree: Dict[str, Any]) -> bool:
+        """Rings for the tree's new columns (canonical host arrays or
+        tensors); False when the buffer has spilled, or spills now."""
+        if self._host is not None:
+            return False
         new_cols = {k: v for k, v in tree.items() if k not in self._store}
         if not new_cols:
-            return
-        projected = self.storage_bytes + sum(
-            self.capacity * int(np.prod(v.shape[1:])) * v.element_size()
-            for v in new_cols.values()
-        )
+            return True
+        row_bytes = {k: int(np.prod(v.shape[1:])) * _torch_dtype(v).itemsize
+                     for k, v in new_cols.items()}
+        projected = self.storage_bytes + self.capacity * sum(row_bytes.values())
         limit = self._memory_limit()
         if limit is not None and projected > limit:
-            raise MemoryError(
-                f"replay buffer {self.label!r}: {self.capacity} rows of "
-                f"{sorted(new_cols)} would bring the rings to {projected} bytes, "
-                f"over the {limit}-byte cap on {self.device}; lower "
-                "replay_buffer_config['capacity'] or raise replay_memory_cap_bytes "
-                "(spilling to a host ring is not ported)"
-            )
+            # the state before the fallback exists (get_state delegates after)
+            prior = self.get_state() if self._store else None
+            self._host = self._make_host_fallback()
+            self._reset_storage()
+            if prior is not None:
+                # a later column tipped the projection over: the resident
+                # rows move to the host ring
+                self._host.set_state({k: prior[k] for k in ("cols", "idx", "size", "num_added")})
+            return False
         for k, v in new_cols.items():
-            row_shape = tuple(v.shape[1:])
-            packed = self._packable(row_shape, v.dtype)
+            row_shape, dtype = tuple(v.shape[1:]), _torch_dtype(v)
+            packed = self._packable(row_shape, dtype)
             if packed:
                 shape = (self.capacity, int(np.prod(row_shape)) // 4)
                 ring = torch.zeros(shape, dtype=torch.int32, device=self.device)
             else:
-                ring = torch.zeros(
-                    (self.capacity,) + row_shape, dtype=v.dtype, device=self.device
-                )
+                ring = torch.zeros((self.capacity,) + row_shape, dtype=dtype, device=self.device)
             self._store[k] = ring
-            self._meta[k] = (row_shape, v.dtype, packed)
-            self.storage_bytes += self.capacity * int(np.prod(row_shape)) * v.element_size()
+            self._meta[k] = (row_shape, dtype, packed)
+            self.storage_bytes += self.capacity * row_bytes[k]
+        return True
 
     def _scatter(self, tree: Dict[str, torch.Tensor], pos: torch.Tensor) -> None:
         n = int(pos.shape[0])
@@ -435,23 +498,27 @@ class DeviceReplayBuffer:
     # -- ring bookkeeping (the host ring's, exactly) ----------------------
 
     def __len__(self) -> int:
-        return self._size
+        return len(self._host) if self._host is not None else self._size
 
     @property
     def num_added(self) -> int:
-        return self._num_added
+        return self._host.num_added if self._host is not None else self._num_added
 
     def add_device_tree(self, tree: Dict[str, Any]) -> None:
         """Insert a column tree (equal leading dims): one in-place
         scatter per column. Device rows (the rollout lane's) make no
-        host copy; host arrays cross to the device once, here."""
-        tree = {k: self._to_device(v) for k, v in tree.items()}
+        host copy; host arrays cross to the device once, here. A spilled
+        buffer takes the rows into its host ring."""
+        tree = {k: _canonical(v) for k, v in tree.items()}
         if not tree:
             return
         n = int(next(iter(tree.values())).shape[0])
         if n == 0:
             return
-        self._ensure_storage(tree)
+        if not self._ensure_storage(tree):
+            self._host.add(SampleBatch(_host_columns(tree)))
+            return
+        tree = {k: self._to_device(v) for k, v in tree.items()}
         pos = torch.as_tensor(
             (self._idx + np.arange(n)) % self.capacity, device=self.device
         )
@@ -462,7 +529,10 @@ class DeviceReplayBuffer:
 
     # -- sampling ---------------------------------------------------------
 
-    def sample(self, num_items: int) -> DeviceTrainBatch:
+    def sample(self, num_items: int):
+        """A :class:`DeviceTrainBatch`; a spilled buffer's host batch."""
+        if self._host is not None:
+            return self._host.sample(num_items)
         idx = self._rng.integers(0, self._size, num_items)
         return self.gather(idx)
 
@@ -472,21 +542,30 @@ class DeviceReplayBuffer:
         idx_t = torch.as_tensor(idx.astype(np.int64), device=self.device)
         return DeviceTrainBatch(self._gather_columns(idx_t), len(idx), indices=idx)
 
+    def stats(self) -> Dict:
+        return {"size": len(self), "num_added": self.num_added,
+                "device_resident": self._host is None, "storage_bytes": self.storage_bytes}
+
     # -- the superstep's feed ---------------------------------------------
 
     def draw_index_sets(self, k: int, num_items: int) -> np.ndarray:
         """(k, num_items) uniform draws: k sequential generator calls, as
-        k ``sample`` calls make them (never one k·n call)."""
-        return np.stack([self._rng.integers(0, self._size, num_items) for _ in range(k)])
+        k ``sample`` calls make them (never one k·n call); spilled or
+        not, since the spill ring shares the generator."""
+        size = len(self)
+        return np.stack([self._rng.integers(0, size, num_items) for _ in range(k)])
 
-    def _feed(self, k_max: int, num_items: int, beta: Optional[float]) -> SuperstepRingFeed:
+    def _feed(self, k_max: int, num_items: int, beta: Optional[float],
+              host_weights: bool = False) -> SuperstepRingFeed:
         """The feed's static buffers, one set per (k_max, B, beta), so a
         captured slot reads the same memory on every superstep."""
+        if self._host is not None:
+            raise RuntimeError("superstep_feed on a spilled buffer: use the host stacked path")
         feeds = self.__dict__.setdefault("_feeds", {})
-        key = (k_max, num_items, beta, id(self._store))
+        key = (k_max, num_items, beta, host_weights, id(self._store))
         feed = feeds.get(key)
         if feed is None:
-            feed = feeds[key] = SuperstepRingFeed(self, k_max, num_items, beta)
+            feed = feeds[key] = SuperstepRingFeed(self, k_max, num_items, beta, host_weights)
         return feed
 
     def superstep_feed(self, k: int, k_max: int, num_items: int) -> SuperstepRingFeed:
@@ -499,6 +578,8 @@ class DeviceReplayBuffer:
     # -- checkpoint state (the reference's layout) --------------------------
 
     def get_state(self) -> Dict:
+        if self._host is not None:
+            return {**self._host.get_state(), "spilled": True}
         cols = {}
         for k, ring in self._store.items():
             row_shape, _, packed = self._meta[k]
@@ -515,41 +596,60 @@ class DeviceReplayBuffer:
         }
 
     def set_state(self, state: Dict) -> None:
-        """Restore a state of either package (a reference state saved
-        from a spilled host ring has the same layout). The whole ring is
-        one scatter of ``capacity`` rows per column, into the ring
-        tensors the buffer has when the columns match (so a superstep
-        slot captured before the restore reads the restored rows), into
-        new ones otherwise (which drops the feeds and their graphs)."""
+        """Restore a state of either package, spilled or not. The whole
+        ring is one scatter of ``capacity`` rows per column, into the
+        ring tensors the buffer has when the columns match (so a
+        superstep slot captured before the restore reads the restored
+        rows), into new ones otherwise (which drops the feeds and their
+        graphs). A state over this buffer's budget lands in the spill
+        ring."""
+        if state.get("spilled"):
+            self._reset_storage()
+            self._host = self._make_host_fallback()
+            self._host.set_state(state)
+            return
+        self._host = None
         size = int(state["size"])
         full = {}
         for k, v in state["cols"].items():
-            v = np.asarray(v)
-            v = v.astype(_CANONICAL_NP.get(v.dtype, v.dtype), copy=False)
+            v = _canonical(np.asarray(v))
             ring = np.zeros((self.capacity,) + v.shape[1:], v.dtype)
             ring[:size] = v
-            full[k] = self._to_device(ring)
+            full[k] = ring
         same = set(full) == set(self._store) and all(
-            self._meta[k][:2] == (tuple(v.shape[1:]), v.dtype) for k, v in full.items()
+            self._meta[k][:2] == (tuple(v.shape[1:]), _torch_dtype(v)) for k, v in full.items()
         )
         if not same:
-            self._store, self._meta, self.storage_bytes = {}, {}, 0
-            self.__dict__.pop("_feeds", None)
-            self._ensure_storage(full)
+            self._reset_storage()
+            if full and not self._ensure_storage(full):
+                self._host.set_state(state)
+                return
         if full:
-            self._scatter(full, torch.arange(self.capacity, device=self.device))
+            self._scatter({k: self._to_device(v) for k, v in full.items()},
+                          torch.arange(self.capacity, device=self.device))
         self._idx = int(state["idx"])
         self._size = size
         self._num_added = int(state["num_added"])
 
 
-class DevicePrioritizedReplayBuffer(DeviceReplayBuffer):
-    """Prioritized replay with the rows and the priorities on the device:
-    the priorities live in a :class:`DeviceSumTree`, a sample is draw →
-    gather → weights on the device, and ``indices`` is a device int64
-    tensor that feeds the priority refresh directly. Only the
-    alpha-power runs on the host (``powered_priorities``), as in the
-    oracle, whose host trees draw the same rows from the same seed."""
+class DevicePrioritizedReplayBuffer(_PrioritySampling, DeviceReplayBuffer):
+    """Prioritized replay with the rows on the device, on one of the
+    reference's two tree planes:
+
+    - ``device_tree=True``: the priorities live in a
+      :class:`DeviceSumTree`; a sample is draw → gather → weights on the
+      device, and ``indices`` is a device int64 tensor that feeds the
+      priority refresh directly. Only the alpha-power runs on the host
+      (``powered_priorities``), as in the oracle, whose host trees draw
+      the same rows from the same seed.
+    - ``device_tree=False``: the sum and min trees and every priority
+      write stay in the host code of :class:`_PrioritySampling`; a draw
+      runs there and the drawn positions are gathered on the device
+      (the row-gather kernel), beside the IS weights.
+
+    A spill hands the rows and the priorities to a host
+    :class:`PrioritizedReplayBuffer` (the device tree's leaves are read
+    across once), which every later call goes to."""
 
     def __init__(
         self,
@@ -560,20 +660,40 @@ class DevicePrioritizedReplayBuffer(DeviceReplayBuffer):
         device=None,
         memory_cap_bytes: Optional[int] = None,
         label: str = DEFAULT_POLICY_ID,
+        device_tree: bool = True,
     ):
-        super().__init__(
-            capacity, seed, device=device, memory_cap_bytes=memory_cap_bytes, label=label
+        DeviceReplayBuffer.__init__(
+            self, capacity, seed, device=device, memory_cap_bytes=memory_cap_bytes, label=label
         )
-        if alpha < 0:
-            raise ValueError(f"alpha must be >= 0, got {alpha}")
-        self._alpha = alpha
-        self._max_priority = 1.0
-        self._dtree = DeviceSumTree(next_pow2(capacity), self.device)
+        self._init_priority_trees(capacity, alpha, host_trees=not device_tree)
+        self._device_tree = bool(device_tree)
+        self._dtree = DeviceSumTree(self._tree_capacity, self.device) if device_tree else None
+
+    @property
+    def tree_plane(self) -> str:
+        """Which trees serve the draws now: "device" or "host"."""
+        return "device" if self._dtree is not None and self._host is None else "host"
+
+    def _make_host_fallback(self) -> ReplayBuffer:
+        buf = PrioritizedReplayBuffer(self.capacity, self._alpha)
+        buf._rng = self._rng
+        if self._dtree is not None:
+            buf._set_priority_state({"leaf_values": self._dtree.leaf_values(self._size),
+                                     "max_priority": self._max_priority})
+            self._dtree = None
+        else:
+            buf._sum_tree, buf._min_tree = self._sum_tree, self._min_tree
+            buf._max_priority = self._max_priority
+        return buf
 
     def update_priorities(self, idx, priorities: np.ndarray) -> None:
-        """The host alpha-power, then one leaf write + rebuild on the
-        device; ``idx`` may be host indices or the device tensor a sample
-        returned."""
+        """The host alpha-power, then the leaf write: on the device tree
+        (``idx`` host indices or the device tensor a sample returned),
+        the host trees, or the spill ring's."""
+        if self._host is not None:
+            return self._host.update_priorities(np.asarray(idx), priorities)
+        if self._dtree is None:
+            return _PrioritySampling.update_priorities(self, np.asarray(idx), priorities)
         powered, clamped = powered_priorities(priorities, self._alpha)
         self._dtree.set_powered(idx, powered)
         self._max_priority = max(self._max_priority, float(clamped.max()))
@@ -587,13 +707,28 @@ class DevicePrioritizedReplayBuffer(DeviceReplayBuffer):
         n = int(next(iter(tree.values())).shape[0])
         if n == 0:
             return
+        if self._host is not None:
+            rows = SampleBatch(_host_columns({k: _canonical(v) for k, v in tree.items()}))
+            if priorities is None:
+                self._host.add(rows)
+            else:
+                self._host.add_with_priorities(rows, priorities)
+            return
         if priorities is None:
             priorities = np.full(n, self._max_priority)
         idx = (self._idx + np.arange(n)) % self.capacity
         DeviceReplayBuffer.add_device_tree(self, tree)
+        # (this insert may have spilled: update_priorities follows the rows)
         self.update_priorities(idx, np.asarray(priorities, np.float64))
 
-    def sample(self, num_items: int, beta: float = 0.4) -> DeviceTrainBatch:
+    def sample(self, num_items: int, beta: float = 0.4):
+        if self._host is not None:
+            return self._host.sample(num_items, beta=beta)
+        if self._dtree is None:
+            idx, weights = self._draw_prioritized(num_items, beta)
+            batch = self.gather(idx)
+            batch.tree["weights"] = torch.from_numpy(weights).to(self.device)
+            return batch
         rand = torch.as_tensor(self._rng.random(num_items), device=self.device)
         tree = self._dtree
         idx, weights, _ = draw_body(
@@ -606,10 +741,18 @@ class DevicePrioritizedReplayBuffer(DeviceReplayBuffer):
     def superstep_feed(
         self, k: int, k_max: int, num_items: int, beta: float = 0.4
     ) -> SuperstepRingFeed:
-        """The superstep's schedule against the tree as it stands: k
+        """The superstep's schedule against the trees as they stand: k
         sequential ``random(num_items)`` calls (the per-update stream
-        order) in one copy, and the frozen tree's total, largest IS
-        weight and size; each slot's descent runs in the slot."""
+        order) in one copy. Device tree: the uniforms and the frozen
+        tree's total, largest IS weight and size; each slot's descent
+        runs in the slot. Host trees: the k draws made on the host,
+        positions and IS weights in one copy each."""
+        if self._dtree is None:
+            feed = self._feed(k_max, num_items, None, host_weights=True)
+            idx, weights = self.draw_prioritized_sets(k, num_items, float(beta))
+            feed.idx[:k].copy_(torch.from_numpy(idx))
+            feed.weights[:k].copy_(torch.from_numpy(weights))
+            return feed
         feed = self._feed(k_max, num_items, float(beta))
         rand = np.stack([self._rng.random(num_items) for _ in range(k)])
         feed.rand[:k].copy_(torch.from_numpy(rand))
@@ -639,40 +782,61 @@ class DevicePrioritizedReplayBuffer(DeviceReplayBuffer):
     def refresh_priorities_stacked(self, idx: torch.Tensor, abs_td: np.ndarray, active) -> None:
         """A superstep's priority refresh: the (k, B) |TD| errors
         ``+ 1e-6`` (in their float32, as the per-update call site adds
-        it) powered on the host, then one tree write of the active
-        updates' rows in update order — the per-update
-        ``update_priorities(idx[i], td[i] + 1e-6)`` loop, whose repeated
-        positions keep the last write."""
+        it) powered on the host, then the active updates' rows written in
+        update order — the per-update ``update_priorities(idx[i], td[i] +
+        1e-6)`` loop, whose repeated positions keep the last write; on
+        the device tree as one stacked write."""
         rows = np.flatnonzero(np.asarray(active, bool))
         if not len(rows):
             return
-        powered, clamped = powered_priorities(np.asarray(abs_td)[rows] + 1e-6, self._alpha)
+        abs_td = np.asarray(abs_td)
+        if self._dtree is None:
+            host_idx = idx.cpu().numpy() if isinstance(idx, torch.Tensor) else np.asarray(idx)
+            for i in rows:
+                self.update_priorities(host_idx[i], abs_td[i] + 1e-6)
+            return
+        powered, clamped = powered_priorities(abs_td[rows] + 1e-6, self._alpha)
         self._dtree.set_powered(idx[torch.as_tensor(rows, device=idx.device)], powered)
         self._max_priority = max(self._max_priority, float(clamped.max()))
 
+    def _priority_state(self) -> Dict:
+        if self._dtree is None:
+            return _PrioritySampling._priority_state(self)
+        return {"leaf_values": self._dtree.leaf_values(self._size),
+                "max_priority": self._max_priority}
+
+    def _set_priority_state(self, state: Dict) -> None:
+        if not self._device_tree:
+            return _PrioritySampling._set_priority_state(self, state)
+        if self._dtree is None:  # a spill dropped it
+            self._dtree = DeviceSumTree(self._tree_capacity, self.device)
+        self._dtree.set_leaf_values(state["leaf_values"])
+        self._max_priority = float(state.get("max_priority", 1.0))
+
     def get_state(self) -> Dict:
-        state = super().get_state()
-        state["priorities"] = {
-            "leaf_values": self._dtree.leaf_values(self._size),
-            "max_priority": self._max_priority,
-        }
+        state = DeviceReplayBuffer.get_state(self)
+        if self._host is None:
+            state["priorities"] = self._priority_state()
         return state
 
     def set_state(self, state: Dict) -> None:
-        super().set_state(state)
-        if "priorities" in state:
-            self._dtree.set_leaf_values(state["priorities"]["leaf_values"])
-            self._max_priority = float(state["priorities"].get("max_priority", 1.0))
+        """Either package's state, on either tree plane: the priorities
+        are leaf values whichever trees wrote them."""
+        DeviceReplayBuffer.set_state(self, state)
+        if "priorities" in state and self._host is None:
+            self._set_priority_state(state["priorities"])
 
 
 class MultiAgentReplayBuffer:
-    """Per-policy device buffers, as the reference's: ``add`` of a
+    """Per-policy buffers, as the reference's: ``add`` of a
     ``MultiAgentBatch`` fills one ring per policy, each with the same
     ``seed``. ``sample`` returns ``{policy_id: batch}`` for every buffer
-    holding at least ``num_items`` rows.
+    holding at least ``num_items`` rows. ``device_resident`` (default)
+    gives device rings, on the device tree under ``device_tree``;
+    otherwise host rings, which take each policy batch as it is.
     ``replay_columns_fn(policy_id, SampleBatch) -> {column: array}``
     turns a host fragment into the columns the policy's learn call reads
-    (``TorchPolicy.replay_columns``), once, at insert."""
+    (``TorchPolicy.replay_columns``), once, at a device ring's insert."""
 
     def __init__(
         self,
@@ -684,6 +848,8 @@ class MultiAgentReplayBuffer:
         device=None,
         memory_cap_bytes: Optional[int] = None,
         replay_columns_fn: Optional[Callable[[str, SampleBatch], Dict[str, np.ndarray]]] = None,
+        device_resident: bool = True,
+        device_tree: bool = True,
     ):
         self.capacity = capacity
         self.prioritized = prioritized
@@ -692,30 +858,46 @@ class MultiAgentReplayBuffer:
         self.device = device
         self.memory_cap_bytes = memory_cap_bytes
         self.replay_columns_fn = replay_columns_fn
-        self.buffers: Dict[str, DeviceReplayBuffer] = {}
+        self.device_resident = device_resident
+        self.device_tree = device_tree
+        self.buffers: Dict[str, Any] = {}
 
-    def _buffer(self, pid: str) -> DeviceReplayBuffer:
+    def _buffer(self, pid: str):
         if pid not in self.buffers:
-            kwargs = dict(device=self.device, memory_cap_bytes=self.memory_cap_bytes, label=pid)
-            if self.prioritized:
-                buf = DevicePrioritizedReplayBuffer(self.capacity, self.alpha, self.seed, **kwargs)
+            if self.device_resident:
+                kwargs = dict(device=self.device, memory_cap_bytes=self.memory_cap_bytes, label=pid)
+                if self.prioritized:
+                    buf = DevicePrioritizedReplayBuffer(self.capacity, self.alpha, self.seed,
+                                                        device_tree=self.device_tree, **kwargs)
+                else:
+                    buf = DeviceReplayBuffer(self.capacity, self.seed, **kwargs)
+            elif self.prioritized:
+                buf = PrioritizedReplayBuffer(self.capacity, self.alpha, self.seed)
             else:
-                buf = DeviceReplayBuffer(self.capacity, self.seed, **kwargs)
+                buf = ReplayBuffer(self.capacity, self.seed)
             self.buffers[pid] = buf
         return self.buffers[pid]
 
     def add_device_tree(self, tree: Dict[str, Any], policy_id: str = DEFAULT_POLICY_ID) -> None:
-        self._buffer(policy_id).add_device_tree(tree)
+        buf = self._buffer(policy_id)
+        if not isinstance(buf, DeviceReplayBuffer):
+            raise TypeError("add_device_tree needs device rings (replay_device_resident)")
+        buf.add_device_tree(tree)
 
     def add(self, batch, policy_id: str = DEFAULT_POLICY_ID) -> None:
-        """A host fragment (the actor lane's): its replay columns (the
-        policy's, or every numeric column) cross to the device once each
-        and land with one scatter per column (``add_device_tree``). A
+        """A host fragment (the actor lane's). Device rings: its replay
+        columns (the policy's, or every numeric column) cross to the
+        device once each and land with one scatter per column
+        (``add_device_tree``). Host rings: the batch as it is. A
         ``MultiAgentBatch`` goes policy batch by policy batch into each
         policy's ring."""
         if isinstance(batch, MultiAgentBatch):
             for pid, sb in batch.policy_batches.items():
                 self.add(sb, pid)
+            return
+        buf = self._buffer(policy_id)
+        if not isinstance(buf, DeviceReplayBuffer):
+            buf.add(batch)
             return
         if self.replay_columns_fn is not None:
             tree = self.replay_columns_fn(policy_id, batch)
@@ -724,7 +906,7 @@ class MultiAgentReplayBuffer:
                 k: np.asarray(v) for k, v in batch.items()
                 if isinstance(v, np.ndarray) and v.dtype != object
             }
-        self._buffer(policy_id).add_device_tree(tree)
+        buf.add_device_tree(tree)
 
     def sample(self, num_items: int, **kwargs) -> Dict[str, Any]:
         out = {}

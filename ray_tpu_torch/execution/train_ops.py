@@ -9,12 +9,13 @@ runs when it makes several updates per round.
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from ray_tpu_torch.data.sample_batch import MultiAgentBatch
-from ray_tpu_torch.execution.replay_buffer import DevicePrioritizedReplayBuffer
+from ray_tpu_torch.execution.replay_buffer import DeviceReplayBuffer
 
 NUM_ENV_STEPS_TRAINED = "num_env_steps_trained"
 NUM_AGENT_STEPS_TRAINED = "num_agent_steps_trained"
@@ -61,31 +62,60 @@ def superstep_train_replay(
     *,
     prioritized: bool = False,
     beta: float = 0.4,
+    overlap: Optional[Callable[[], None]] = None,
 ) -> Dict:
-    """``k`` replay updates of ``policy`` from the device buffer ``buf``
-    in one host call.
+    """``k`` replay updates of ``policy`` from ``buf`` in one host call.
 
     The k index sets are drawn up front on the host, in the per-update
-    generator order, against the tree as it stands (the reference's
-    documented within-chain staleness), and ship once into the feed's
-    static buffers (``buf.superstep_feed``). Each slot of
-    ``policy.learn_superstep`` then draws (prefix-descent kernel) and
-    gathers (row-gather kernel) its rows in place and updates. A
-    prioritized buffer gets the slots' post-update |TD| errors as one
-    (k, B) copy, powered on the host and written as one stacked tree
-    update in update order; the nan guard's skipped updates write no
-    priorities. Returns the last update's stats."""
-    if prioritized:
-        if not isinstance(buf, DevicePrioritizedReplayBuffer):
-            raise TypeError("a prioritized superstep needs a DevicePrioritizedReplayBuffer")
-        feed = buf.superstep_feed(k, k_max, batch_size, beta)
+    generator order, against the trees as they stand (the reference's
+    documented within-chain staleness).
+
+    - **Device rings** ship them once into the feed's static buffers
+      (``buf.superstep_feed``); each slot of ``policy.learn_superstep``
+      then draws (prefix-descent kernel, under the device tree) and
+      gathers (row-gather kernel) its rows in place and updates.
+    - **Host rings** (and a spilled device buffer) take the reference's
+      host stacked path: the k drawn batches' replay columns stacked
+      into one (k, B, ...) upload, which the slots read from their
+      static input buffers.
+
+    A prioritized buffer gets the slots' post-update |TD| errors as one
+    (k, B) copy, applied in update order (one stacked write on the device
+    tree); the nan guard's skipped updates write no priorities.
+    ``overlap`` runs on the host while the slots run on the card (see
+    ``TorchPolicy.learn_superstep``). Returns the last update's stats."""
+    if isinstance(buf, DeviceReplayBuffer) and not buf.spilled:
+        if prioritized:
+            feed = buf.superstep_feed(k, k_max, batch_size, beta)
+        else:
+            feed = buf.superstep_feed(k, k_max, batch_size)
+        infos, pri, skipped = policy.learn_superstep(
+            k, batch_size, rings=feed, k_max=k_max, refresh_priorities=prioritized,
+            overlap=overlap,
+        )
+        if prioritized:
+            buf.refresh_priorities_stacked(feed.idx[:k], pri, active=[not s for s in skipped])
     else:
-        feed = buf.superstep_feed(k, k_max, batch_size)
-    infos, pri, skipped = policy.learn_superstep(
-        k, batch_size, rings=feed, k_max=k_max, refresh_priorities=prioritized
-    )
-    if prioritized:
-        buf.refresh_priorities_stacked(feed.idx[:k], pri, active=[not s for s in skipped])
+        src = buf._host if isinstance(buf, DeviceReplayBuffer) else buf
+        if prioritized:
+            idx, weights = src.draw_prioritized_sets(k, batch_size, beta)
+        else:
+            idx = src.draw_index_sets(k, batch_size)
+        trees = []
+        for i in range(k):
+            b = src._make_batch(idx[i])
+            if prioritized:
+                b["weights"] = weights[i]
+            trees.append(policy.replay_columns(b))
+        stacked = {c: torch.from_numpy(np.stack([t[c] for t in trees])) for c in trees[0]}
+        infos, pri, skipped = policy.learn_superstep(
+            k, batch_size, stacked=stacked, k_max=k_max, refresh_priorities=prioritized,
+            overlap=overlap,
+        )
+        if prioritized:
+            for i in range(k):
+                if not skipped[i]:
+                    buf.update_priorities(idx[i], pri[i] + 1e-6)
     n_skipped = sum(skipped)
     if n_skipped and algorithm is not None:
         algorithm._counters["num_nan_batches_skipped"] += n_skipped

@@ -48,7 +48,7 @@ expanded to its T rows.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1022,7 +1022,7 @@ class TorchPolicy(Policy):
             self._superstep_runners[key] = runner
         return runner
 
-    def _run_superstep(self, runner, k: int, k_max: int, batch_size: int):
+    def _run_superstep(self, runner, k: int, k_max: int, batch_size: int, overlap=None):
         """Host work of a superstep, then the k slots and the one drain:
         the scheduled and exploration coefficients read once, the k
         updates' permutations drawn in sequential order and shipped in
@@ -1036,7 +1036,7 @@ class TorchPolicy(Policy):
         runner.perms[:k].copy_(perms)
         steps = self._steps_per_update(batch_size)
         self._load_corrections(k_max * steps)
-        out = runner.run(k)
+        out = runner.run(k, overlap)
         skipped = [bool(s > 0.5) for s in out["stats"][:, -1]]
         self._advance_adam_counts(steps * (k - sum(skipped)))
         self.num_grad_updates += k * steps
@@ -1066,6 +1066,7 @@ class TorchPolicy(Policy):
         rings=None,
         k_max: Optional[int] = None,
         refresh_priorities: bool = False,
+        overlap: Optional[Callable[[], None]] = None,
     ):
         """``k`` updates in one host call (the reference's
         ``JaxPolicy.learn_superstep``): bitwise ``k`` sequential
@@ -1080,9 +1081,11 @@ class TorchPolicy(Policy):
         ``rings``, a ``SuperstepRingFeed`` of the device replay buffer
         (``buf.superstep_feed(...)``), whose slots gather their rows in
         place. ``refresh_priorities`` adds each update's post-update
-        |TD| errors. Returns ``(infos, priorities, skipped)``: per-update
-        stat dicts, the (k, B) host |TD| matrix (or None) and the
-        nan guard's per-update skip flags."""
+        |TD| errors. ``overlap`` runs on the host after the k slots are
+        launched and before their drain, so its own device work can run
+        beside theirs. Returns ``(infos, priorities, skipped)``:
+        per-update stat dicts, the (k, B) host |TD| matrix (or None) and
+        the nan guard's per-update skip flags."""
         if (stacked is None) == (rings is None):
             raise ValueError("learn_superstep needs exactly one of stacked/rings")
         k = int(k)
@@ -1117,7 +1120,7 @@ class TorchPolicy(Policy):
                 }
             for c, v in stacked.items():
                 runner.stacked[c][:k].copy_(torch.as_tensor(v)[:k])
-        infos, skipped, out = self._run_superstep(runner, k, k_max, batch_size)
+        infos, skipped, out = self._run_superstep(runner, k, k_max, batch_size, overlap)
         pri = out["priorities"] if refresh_priorities else None
         return infos, pri, skipped
 

@@ -176,8 +176,10 @@ class SuperstepRunner:
         self.slot_fn(self)
         self.slot.add_(1)
 
-    def run(self, k: int) -> Dict[str, np.ndarray]:
-        """k slots, then the drain: ``{name: (k, ...) host array}``."""
+    def run(self, k: int, overlap: Optional[Callable[[], None]] = None) -> Dict[str, np.ndarray]:
+        """k slots, then ``overlap()`` (host work whose device work may
+        run beside the slots', which are launched and not waited for),
+        then the drain: ``{name: (k, ...) host array}``."""
         if not 1 <= k <= self.k_max:
             raise ValueError(f"k={k} outside [1, k_max={self.k_max}]")
         self.slot.zero_()
@@ -186,6 +188,8 @@ class SuperstepRunner:
         else:
             for _ in range(k):
                 self._slot()
+        if overlap is not None:
+            overlap()
         return self.drain(k)
 
     def _run_graph(self, k: int) -> None:

@@ -46,7 +46,12 @@ checkpoint's unpickled ``algorithm_state.pkl`` goes into a port
 states into a port policy through :func:`from_jax_policy_state` (the
 serving plane's restore and hot reload, which tell the two layouts
 apart with :func:`is_jax_policy_state`), and one of its observation
-filters through :func:`from_jax_filter`.
+filters through :func:`from_jax_filter`. A reference replay buffer's
+``get_state()`` (a host ring, a host or device tree beside device rows,
+spilled or not) becomes a state any port buffer restores through
+:func:`from_jax_replay_state`; an Ape-X algorithm's learner and shards
+(its DDPG form's through :func:`from_jax_ddpg_state`) go across through
+:func:`from_jax_apex_state`.
 """
 
 from __future__ import annotations
@@ -404,4 +409,44 @@ def from_jax_algorithm_state(algo, state: Mapping):
     algo._counters.clear()
     algo._counters.update({k: int(v) for k, v in state.get("counters", {}).items()})
     algo._episodes_total = int(state.get("episodes_total", 0))
+    return algo
+
+
+def from_jax_replay_state(state: Mapping) -> Dict:
+    """A reference replay buffer's ``get_state()`` (numpy or jax arrays)
+    as host numpy in the same layout, ``cols``, ring position, size,
+    count, ``spilled`` and the priorities' leaf values (f64) and max
+    priority, which every port buffer's ``set_state`` takes, whatever
+    plane wrote it."""
+    out = {
+        "cols": {k: np.array(v) for k, v in state["cols"].items()},
+        "idx": int(state["idx"]),
+        "size": int(state["size"]),
+        "num_added": int(state["num_added"]),
+        "spilled": bool(state.get("spilled", False)),
+    }
+    if "priorities" in state:
+        pri = state["priorities"]
+        out["priorities"] = {
+            "leaf_values": np.array(pri["leaf_values"], np.float64),
+            "max_priority": float(pri.get("max_priority", 1.0)),
+        }
+    return out
+
+
+def from_jax_apex_state(algo, policy_state: Mapping, shard_states=(), counters=None):
+    """A reference Ape-X run into the port ``ApexDQN`` or ``ApexDDPG``
+    ``algo`` built for the same config, in place: the learner's policy
+    state (:func:`from_jax_policy_state`; DDPG's trees, targets, update
+    step and two Adam states through :func:`from_jax_ddpg_state`), each
+    device shard's ``get_state()`` (:func:`from_jax_replay_state`), and
+    the counters. Returns ``algo``."""
+    from_jax_policy_state(algo.get_policy(), policy_state)
+    for shard, st in zip(algo.replay_shards, shard_states):
+        shard.set_state(from_jax_replay_state(st))
+    if counters is not None:
+        algo._counters.clear()
+        algo._counters.update({k: int(v) for k, v in counters.items()})
+    if algo.workers is not None:
+        algo.workers.sync_weights()
     return algo

@@ -435,10 +435,18 @@ def test_ppo_local_worker_and_later_slices():
     # multi-agent policies need a MultiAgentEnv; PongLite is not one
     with pytest.raises(ValueError, match="need a MultiAgentEnv"):
         _ppo(num_workers=0, policies={"a": None})
-    cfg = PPOConfig().update_from_dict({"device": "cpu", "num_workers": 0})
-    cfg.env = "PongLiteJax-v0"  # a tensor env runs on the device lane only
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.build()
+    # a tensor env on the actor lane runs through the adapter, with the
+    # device lane's draws (tests/test_torch_lane_interleave.py)
+    cfg = PPOConfig().update_from_dict({"device": "cpu", "num_workers": 0,
+                                        "rollout_fragment_length": 8, "model": SMALL_CNN})
+    cfg.env = "PongLiteJax-v0"
+    tensor = cfg.build()
+    try:
+        worker = tensor.workers.local_worker()
+        assert type(worker.vector_env).__name__ == "TensorVectorEnvAdapter"
+        assert worker.sample().count == 8
+    finally:
+        tensor.stop()
     # shifted views run through the ViewCollector; recurrent state does
     # not run through the multi-agent sampler
     shifted = PPOTorchPolicy(Box(0, 255, (24, 24, 4), np.uint8), Discrete(3),

@@ -19,8 +19,10 @@
 - The registry builds "APEX"; ``cartpole-apex.yaml`` builds and trains
   through ``build_tuned_example`` (two remote workers instead of the
   yaml's three, to keep the test's processes few), each worker at its
-  rung of the ladder; a checkpoint round-trips the shards; ``APEX_DDPG``
-  and ``replay_device_resident=False`` raise naming ROADMAP item 4b.
+  rung of the ladder; a checkpoint round-trips the shards; the registry
+  resolves ``APEX_DDPG``, ``replay_device_resident=False`` builds the
+  object plane of ``ReplayActor`` processes (``tests/test_torch_apex_host.py``
+  holds both against the reference), whose actors ``stop`` ends.
 """
 
 from __future__ import annotations
@@ -257,9 +259,14 @@ def test_tuned_example_trains_with_the_ladder_and_round_trips():
 
 
 def test_what_stays_out_raises():
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        get_algorithm_class("APEX_DDPG")
-    cfg = (ApexDQNConfig().environment("CartPole-v1").rollouts(num_rollout_workers=0)
-           .training(replay_device_resident=False).resources(device="cpu"))
-    with pytest.raises(ValueError, match="item 4b"):
-        cfg.build()
+    """What item 4b refused builds now: the registry's ``APEX_DDPG`` and
+    the object plane, whose replay actors ``stop`` ends."""
+    assert get_algorithm_class("APEX_DDPG").__name__ == "ApexDDPG"
+    algo = (ApexDQNConfig().environment("CartPole-v1").rollouts(num_rollout_workers=0)
+            .training(replay_device_resident=False, num_replay_buffer_shards=1)
+            .resources(device="cpu").build())
+    try:
+        assert not algo._apex_device and len(algo.replay_actors) == 1 and algo.replay_shards == []
+    finally:
+        algo.stop()
+    assert algo.replay_actors == []

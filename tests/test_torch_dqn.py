@@ -308,12 +308,12 @@ MODEL = {"conv_filters": PONG_FILTERS, "post_fcnet_hiddens": [16]}
 RB = {"capacity": 64, "prioritized_replay": True}
 
 
-def _port_dqn(seed):
+def _port_dqn(seed, **training):
     cfg = (
         DQNConfig()
         .environment("PongLiteJax-v0", env_config=ENV_CFG, env_backend="jax")
         .rollouts(num_envs_per_worker=2, rollout_fragment_length=4)
-        .training(replay_buffer_config=RB, model=MODEL, **TRAIN_STEPS)
+        .training(replay_buffer_config=RB, model=MODEL, **TRAIN_STEPS, **training)
     )
     return cfg.debugging(seed=seed).resources(device="cpu").build()
 
@@ -396,6 +396,14 @@ def test_dqn_train_repeatable_and_checkpoint():
     for k in xa.tree:
         assert torch.equal(xa.tree[k], xc.tree[k]), k
     assert c._counters == a._counters
-    with pytest.raises(ValueError, match="replay_device_resident"):
-        (DQNConfig().environment("PongLiteJax-v0", env_backend="jax")
-         .training(replay_device_resident=False).resources(device="cpu").build())
+    # the lane's rollouts pulled back once into a host ring: the same
+    # draws and the same learns, bitwise
+    h = _port_dqn(11, replay_device_resident=False)
+    rh = [h.train() for _ in range(4)]
+    sh = h.local_replay_buffer.buffers["default_policy"]
+    assert type(sh).__name__ == "PrioritizedReplayBuffer"
+    for x, y in zip(ra, rh):
+        y["info"].pop("timers", None)  # the host ring's learns time their upload
+        assert x["info"] == y["info"]
+    np.testing.assert_array_equal(sh._priority_state()["leaf_values"],
+                                  sa.get_state()["priorities"]["leaf_values"])

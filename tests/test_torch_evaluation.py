@@ -14,8 +14,10 @@ Contracts:
   observation) on seeded gymnasium CartPole, the evaluation's episodes
   (lengths and rewards) and its summary equal the reference's
   ``evaluate()``;
-- ``evaluation_interval`` on the device lane (a tensor env) raises,
-  naming ROADMAP item 3d;
+- ``evaluation_interval`` on the device lane (a tensor env) builds the
+  evaluation workers over ``TensorVectorEnvAdapter`` and reports
+  ``evaluation`` as the actor lane does; the lane's ``input`` still
+  raises;
 - ``python -m ray_tpu_torch.evaluate`` on a checkpoint made here, with
   ``--config '{"device": "cpu", ...}'``, exits 0 and its last line is
   the reference's JSON.
@@ -139,10 +141,26 @@ def test_evaluation_lands_on_the_named_iterations():
 
 
 def test_evaluation_on_the_device_lane_raises():
+    """What the device lane refuses is ``input`` and ``output``; its
+    evaluation runs, on the same weights as the learner's."""
     cfg = (PPOConfig().environment("CartPoleJax-v0", env_backend="jax")
-           .evaluation(evaluation_interval=1).resources(device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 3d"):
-        cfg.build()
+           .rollouts(num_envs_per_worker=4, rollout_fragment_length=16)
+           .training(train_batch_size=64, sgd_minibatch_size=32, num_sgd_iter=1,
+                     model={"fcnet_hiddens": [16]})
+           .evaluation(evaluation_interval=1, evaluation_duration=3).resources(device="cpu"))
+    algo = cfg.build()
+    try:
+        result = algo.train()
+        lw = algo.evaluation_workers.local_worker()
+        assert type(lw.vector_env).__name__ == "TensorVectorEnvAdapter"
+        for name, w in lw.policy().get_weights().items():
+            assert np.array_equal(w, algo.policy.get_weights()[name]), name
+    finally:
+        algo.stop()
+    assert result["evaluation"]["episodes_this_iter"] >= 3
+    assert set(result["evaluation"]) >= {"episode_reward_mean", "episode_len_mean"}
+    with pytest.raises(ValueError, match="device lane"):
+        cfg.update_from_dict({"input": "/nonexistent"}).build()
 
 
 # -- the port against the reference ------------------------------------------------------

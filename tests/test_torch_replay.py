@@ -364,10 +364,10 @@ def test_host_rings_match_reference():
 
 def test_multi_agent_buffer_knobs_and_memory_cap():
     assert trb.resolve_device_resident({}) and trb.resolve_device_tree({})
-    with pytest.raises(ValueError, match="replay_device_resident=False"):
-        trb.resolve_device_tree({"replay_device_resident": False})
-    with pytest.raises(ValueError, match="replay_device_tree=False"):
-        trb.resolve_device_tree({"replay_device_tree": False})
+    assert not trb.resolve_device_resident({"replay_device_resident": False})
+    assert not trb.resolve_device_tree({"replay_device_resident": False})
+    assert not trb.resolve_device_tree({"replay_device_tree": False})
+    assert trb.resolve_device_tree({"replay_device_tree": True})
     ma = trb.MultiAgentReplayBuffer(16, prioritized=True, seed=0, device="cpu")
     rng = np.random.default_rng(4)
     ma.add_device_tree({k: torch.as_tensor(v) for k, v in _fragment(6, 0, rng).items()})
@@ -379,5 +379,11 @@ def test_multi_agent_buffer_knobs_and_memory_cap():
     ma2.set_state(state)
     assert len(ma2) == 6
     small = trb.DeviceReplayBuffer(capacity=1000, device="cpu", memory_cap_bytes=10_000)
-    with pytest.raises(MemoryError, match="10000-byte cap"):
-        small.add_device_tree(_fragment(2, 0, rng))
+    small.add_device_tree(_fragment(2, 0, rng))
+    assert small.spilled and len(small) == 2 and small.stats()["device_resident"] is False
+    host = trb.MultiAgentReplayBuffer(16, prioritized=True, seed=0, device_resident=False)
+    with pytest.raises(TypeError, match="device rings"):
+        host.add_device_tree(_fragment(2, 0, rng))
+    host.add(SampleBatch(_fragment(6, 0, np.random.default_rng(4))))
+    assert type(host.buffers["default_policy"]).__name__ == "PrioritizedReplayBuffer"
+    assert host.sample(4, beta=0.4)["default_policy"].count == 4

@@ -544,8 +544,9 @@ def test_registry_resolves_the_ported_algorithms():
     for name in ("PPO", "DQN", "IMPALA", "APPO", "SAC", "DDPG", "TD3"):
         assert get_algorithm_class(name).__name__ == name
     assert get_algorithm_class("APEX").__name__ == "ApexDQN"
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        get_algorithm_class("APEX_DDPG")
+    assert get_algorithm_class("APEX_DDPG").__name__ == "ApexDDPG"
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        get_algorithm_class("R2D2")
     algo, stop = build_tuned_example(REPO / "tuned_examples" / "impala" / "cartpole-impala.yaml",
                                      device="cpu")
     try:
