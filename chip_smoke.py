@@ -149,7 +149,9 @@ and ``nvcc``. Phases, each printing its own lines:
                (:func:`impala_config`: PongLite-v0, 2 worker processes x
                8 envs, fixed unrolls of T = 64, train batch 1024, the
                default bf16 Nature CNN) for IMPALA_WINDOW_S seconds after
-               one warm iteration: env-steps/s sampled and trained, the
+               warm iterations until the learner has reported (at most
+               ACTOR_LEARNER_WARM_S; a window without a learner step runs
+               on, up to 4 windows): env-steps/s sampled and trained, the
                learner thread's steps, queue wait, grad and publish time,
                the main thread's harvest, concat and broadcast time, the
                feeder's bytes and copy times per batch, the busy share of
@@ -288,6 +290,29 @@ and ``nvcc``. Phases, each printing its own lines:
                of the fresh one on the same draws, bitwise; one
                ``train()`` of each; the scatter, descent and gather
                launches, save and load seconds, bytes;
+    chaos_ppo -- ponglite-ppo.yaml's learner on 4 rollout worker
+               processes (T = 32, batch 1024, 2 epochs) under a fault
+               spec that kills two workers and poisons one learn batch,
+               with ``recreate_failed_workers`` and ``nan_guard``: 4
+               ``train()`` calls; the recovery counts, the fleet back at
+               4, the skipped learn leaving the learner on the card
+               bitwise, row gathers one a pooled learn; the nan guard's
+               graphed slot on the card bitwise a clean eager run;
+               replacement seconds;
+    stream_impala -- ``_impala_pong``'s geometry with
+               ``checkpoint_streaming`` and ``crash_learner_thread`` (2
+               restores into new learner threads): snapshots written
+               while training goes on bitwise the state their capture
+               saw, the parameters after each restore bitwise the
+               snapshot's, the card's memory no higher after the second
+               restore than after the first; the capture's main-thread
+               ms, restore seconds, snapshot lag, row gathers;
+    restore_dqn -- :func:`dqn_config` with ``checkpoint_frequency: 1``,
+               ``restore_on_failure`` and ``crash_learner``: the restore
+               writes the rings and the tree in place, its state bitwise
+               the checkpoint's, the first graphed update after it bitwise
+               an eager one; the crash iteration's scatter and descent
+               launches, restore seconds;
     evaluate -- cartpole-ppo.yaml's model with ``evaluation_interval: 1``,
                ``evaluation_num_workers: 1``, ``evaluation_duration: 5``
                and a callbacks class: two ``train()`` calls with at least 5
@@ -465,7 +490,8 @@ and views phases (whose paths run no kernel: host GAE, no frame pool,
 as the reference's; they print their counts), the off-policy phases
 (rainbow, ddpg, td3, ma_dqn: their budgets' runs, not the busy-share
 calls or the parity windows after them), the resumed train of
-ckpt_ppo, and ckpt_dqn's restores and its resumed rounds, the recurrent
+ckpt_ppo, and ckpt_dqn's restores and its resumed rounds, chaos_ppo's
+and stream_impala's runs and restore_dqn's crash iteration, the recurrent
 phases' timed calls (lstm_impala's at its window's start, between two
 learner steps) and recurrent_serve's requests, the offline phases' timed
 calls and external_env's window (paths that run no kernel; they print
@@ -480,7 +506,8 @@ serve_torso (before its exact server is built; its exact-against-
 vectorized comparison is read after the count); the comparison launches of
 phases 2-6, of graph_parity, of sac_learner's parity windows, of
 sac_columns, of the actor_lane's pooled-against-stacked learns and
-ckpt_dqn's graphed-against-eager update do not count. The actor
+ckpt_dqn's and restore_dqn's graphed-against-eager updates and
+chaos_ppo's guarded slot do not count. The actor
 phases stop their worker processes; serve_replicas starts the runtime
 again with the card visible to its workers, and the ingress phase
 shuts it down before the ring. Under a
@@ -2249,9 +2276,11 @@ def phase_actor_learn():
         algo.stop()
 
 
-# cut from 60, 30 and 20 s to pay for the asynchronous loop's phases
-IMPALA_WINDOW_S = 15.0
-APPO_WINDOW_S = 10.0
+# the workers' start and the learner's first steps come before these
+# windows, in actor_learner_window's warm calls
+IMPALA_WINDOW_S = 10.0
+APPO_WINDOW_S = 6.0
+ACTOR_LEARNER_WARM_S = 90.0
 PREFETCH_WINDOW_S = 6.0
 PREFETCH_FUSED_S = 3.0
 
@@ -2294,11 +2323,15 @@ def span_overlap(spans, others):
 
 
 def actor_learner_window(phase, algo, window_s):
-    """``algo.train()`` for ``window_s`` seconds after one warm call, the
-    row-gather count set to 0 at the window's start (between two learner
-    steps): rates, the learner's and the main thread's splits, the feeder's
-    copies, the row-gather launches against learner steps (one each:
-    every learn rebuilt a pooled batch) and the last learner stats."""
+    """``algo.train()`` for ``window_s`` seconds after warm calls until
+    the learner has reported stats (its workers' start and first steps
+    stay out of the window; at most ACTOR_LEARNER_WARM_S), the row-gather
+    count set to 0 at the window's start (between two learner steps); a
+    window in which the learner took no step runs on until it has, up to
+    LEARN_CURVE_MAX_BUDGETS windows (``budget_extended``). Rates, the
+    learner's and the main thread's splits, the feeder's copies, the
+    row-gather launches against learner steps (one each: every learn
+    rebuilt a pooled batch) and the last learner stats."""
     import torch
 
     from ray_tpu_torch.ops.framestack import gather_rows
@@ -2307,12 +2340,20 @@ def actor_learner_window(phase, algo, window_s):
     require(algo.get_policy().device.type == "cuda", f"the {phase} learner is not on the card")
     t0 = time.perf_counter()
     algo.train()
+    while not lt.learner_info and time.perf_counter() - t0 < ACTOR_LEARNER_WARM_S:
+        algo.train()
     warm_s = time.perf_counter() - t0
+    require(lt.learner_info, f"the {phase} learner reported no stats in {warm_s:.1f} s of warm calls")
     with lt.lock:
         gather_rows.launches = 0
     a = _learner_snapshot(algo)
-    iters = 0
-    while time.perf_counter() - a["t"] < window_s:
+    iters, extended = 0, False
+    while True:
+        elapsed = time.perf_counter() - a["t"]
+        if iters and elapsed >= window_s:
+            if lt.num_steps > a["steps"] or elapsed >= window_s * LEARN_CURVE_MAX_BUDGETS:
+                break
+            extended = True
         r = algo.train()
         iters += 1
     torch.cuda.synchronize()
@@ -2337,7 +2378,8 @@ def actor_learner_window(phase, algo, window_s):
     learner = lt.learner_info
     require(learner and all(math.isfinite(v) for v in learner.values()),
             f"non-finite {phase} learner stats {learner}")
-    say(phase, window_s=f"{wall:.2f}", warm_s=f"{warm_s:.2f}", iterations=iters,
+    say(phase, window_s=f"{wall:.2f}", window_budget_s=window_s, budget_extended=extended,
+        warm_s=f"{warm_s:.2f}", iterations=iters,
         env_steps_per_s_sampled=f"{d['sampled'] / wall:.1f}",
         env_steps_per_s_trained=f"{d['trained'] / wall:.1f}",
         learner_steps=d["steps"], row_gather_launches=d["gathers"],
@@ -2378,7 +2420,7 @@ def _vtrace_times():
 
 def phase_impala():
     """IMPALA at ``impala_config``'s geometry for IMPALA_WINDOW_S seconds
-    of wall clock after one warm iteration (``actor_learner_window``),
+    of wall clock after its warm iterations (``actor_learner_window``),
     the busy share of one more call, the workers' act time per step and
     V-trace's device time; then one more round's batch (real PongLite
     unrolls, frame pools) for the impala_parity phase."""
@@ -2754,7 +2796,7 @@ SAC_OBS, SAC_ACT, SAC_BATCH, SAC_CAPACITY, SAC_K = 17, 6, 256, 400_000, 8
 SAC_FILL_CHUNK, SAC_WINDOWS = 50_000, 3
 SAC_COLUMNS = 5  # obs, new_obs, actions, rewards, dones
 SAC_TUNED = os.path.join(REPO, "tuned_examples", "sac", "pendulum-sac.yaml")
-SAC_BUDGET_S = 12.0  # cut from 60 s to pay for the asynchronous loop's phases
+SAC_BUDGET_S = 8.0
 PENDULUM_PPO = os.path.join(REPO, "tuned_examples", "ppo", "pendulum-ppo.yaml")
 # the replay columns' row widths: Pendulum (obs 3, act 1) and HalfCheetah
 SAC_WIDTHS = {"pendulum": (3, 1, 100_000), "halfcheetah": (SAC_OBS, SAC_ACT, SAC_CAPACITY)}
@@ -3075,7 +3117,7 @@ def phase_pendulum_ppo():
 
 
 MA_TIMED_CALLS = 2  # 3 before PR 17
-MA_LEARN_S = 8.0  # 40 s before PR 17
+MA_LEARN_S = 5.0
 
 
 # the rest of off-policy on the actor lane: the tuned examples as
@@ -3398,7 +3440,7 @@ def phase_ma_dqn():
 # a sampling thread on its remote worker, IMPALA's fused learner
 # superstep and its aggregation actor
 APEX_TUNED = os.path.join(REPO, "tuned_examples", "apex_dqn", "cartpole-apex.yaml")
-ASYNC_BUDGET_S = {"apex": 15.0, "sac_async": 12.0, "impala_fused": 15.0, "impala_agg": 8.0}
+ASYNC_BUDGET_S = {"apex": 15.0, "sac_async": 8.0, "impala_fused": 15.0, "impala_agg": 8.0}
 # train() calls of apex's busy-share reading (profiled, 16 graphed
 # updates each)
 APEX_BUSY_CALLS = 4
@@ -4499,7 +4541,7 @@ CARTPOLE_IMPALA = os.path.join(REPO, "tuned_examples", "impala", "cartpole-impal
 CARTPOLE_APPO = os.path.join(REPO, "tuned_examples", "appo", "cartpole-appo.yaml")
 RECURRENT_CALLS = 3
 SINGLE_ACTIONS = 8
-LSTM_IMPALA_WINDOW_S = 15.0  # 20 s before PR 17
+LSTM_IMPALA_WINDOW_S = 10.0
 RSERVE_REQUESTS, RSERVE_THREADS = 64, 8
 
 
@@ -4800,7 +4842,7 @@ OFFLINE_SAC_ITERS = 4  # SAC train() calls that write Pendulum shards
 OFFLINE_CQL_ITERS = 40  # timed train() calls (one update each) of CQL and CRR
 CQL_BC_ITERS = 10
 CRR_SYNC_INTERVAL = 10
-EXTERNAL_ENV_S = 10.0
+EXTERNAL_ENV_S = 6.0  # 10 s before the fault-tolerance phases
 # a card learn against the same learn of a CPU copy: float32 reductions
 # in other orders, through one Adam step a learn whose size is at most
 # about lr per element; a tenth of that step is the parameters' bound,
@@ -5274,10 +5316,7 @@ def phase_ckpt_dqn():
     generators (``graph_parity``'s method; not counted); then one
     ``train()`` of each, counted. Save and load seconds, bytes,
     launches."""
-    import torch
-
     from ray_tpu_torch.algorithms.algorithm import Algorithm
-    from ray_tpu_torch.execution.train_ops import superstep_train_replay
 
     algo, back = dqn_filled(), None
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -5312,29 +5351,7 @@ def phase_ckpt_dqn():
                 and (ba._dtree.sum_value.data_ptr(), ba._dtree.min_value.data_ptr()) == trees,
                 "ckpt_dqn: the restore replaced the rings the captured graph reads")
         rb = saved["replay_buffer"]["default_policy"]
-        # the first update after the restore: graphed on algo, eager on back
-        pb = back.get_policy()
-        bb = back.local_replay_buffer.buffers["default_policy"]
-        bb._rng.bit_generator.state = ba._rng.bit_generator.state
-        pb.perm_generator.set_state(pa.perm_generator.get_state())
-        pb.action_generator.set_state(pa.action_generator.get_state())
-        idx, weights = bb.draw_prioritized_sets_device(1, K, TRAIN_BATCH, 0.4)
-        tree = bb._gather_columns(idx[0])
-        tree["weights"] = weights[0]
-        eager = pb.learn_on_device_batch(tree, TRAIN_BATCH)
-        with torch.no_grad():
-            td = torch.abs(pb._td_error(tree, pb.aux_state)[0]).cpu().numpy()
-        bb.update_priorities(idx[0], td + 1e-6)
-        replays = runner.replays
-        graphed = superstep_train_replay(algo, pa, ba, 1, K, TRAIN_BATCH, prioritized=True, beta=0.4)
-        require(runner.replays == replays + 1, "ckpt_dqn: the first update after the restore was not a replay")
-        require(graphed == eager, f"ckpt_dqn: graphed {graphed} != eager {eager}")
-        pairs = _lane_pairs(pa, None, pb, None)
-        pairs += [("sum tree", ba._dtree.sum_value, bb._dtree.sum_value),
-                  ("min tree", ba._dtree.min_value, bb._dtree.min_value)]
-        pairs += [("target", x, y) for x, y in zip(pa.aux_state["target_params"], pb.aux_state["target_params"])]
-        n = _graph_equal("ckpt_dqn", pairs)
-        require(ba._max_priority == bb._max_priority, "ckpt_dqn: max priority differs")
+        n = _graphed_update_equals_eager("ckpt_dqn", algo, back)
         zero_kernel_counts()
         infos = [a.train()["info"]["learner"] for a in (algo, back)]
         counts = read_kernel_counts()
@@ -5349,6 +5366,395 @@ def phase_ckpt_dqn():
             rings_in_place=True, graphed_equals_eager=True, tensors=n,
             restore_launches=json.dumps(restore_counts), train_on_launches=json.dumps(counts))
         return {k: restore_counts[k] + counts[k] for k in counts}
+    finally:
+        algo.stop()
+        if back is not None:
+            back.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _graphed_update_equals_eager(phase, algo, back):
+    """The first update after a restore: one replay of ``algo``'s captured
+    superstep slot against an eager update of ``back`` (restored from the
+    same state) on the same draws, bitwise in stats, parameters, Adam
+    moments, target, trees and generators; the number of tensors
+    compared. Its launches are not a path's: the caller sets the counts
+    to 0 after it."""
+    import torch
+
+    from ray_tpu_torch.execution.train_ops import superstep_train_replay
+
+    pa, pb = algo.get_policy(), back.get_policy()
+    (runner,) = pa._superstep_runners.values()
+    require(runner.graph is not None, f"{phase}: the superstep slot was not captured")
+    K = runner.k_max
+    ba = algo.local_replay_buffer.buffers["default_policy"]
+    bb = back.local_replay_buffer.buffers["default_policy"]
+    bb._rng.bit_generator.state = ba._rng.bit_generator.state
+    pb.perm_generator.set_state(pa.perm_generator.get_state())
+    pb.action_generator.set_state(pa.action_generator.get_state())
+    idx, weights = bb.draw_prioritized_sets_device(1, K, TRAIN_BATCH, 0.4)
+    tree = bb._gather_columns(idx[0])
+    tree["weights"] = weights[0]
+    eager = pb.learn_on_device_batch(tree, TRAIN_BATCH)
+    with torch.no_grad():
+        td = torch.abs(pb._td_error(tree, pb.aux_state)[0]).cpu().numpy()
+    bb.update_priorities(idx[0], td + 1e-6)
+    replays = runner.replays
+    graphed = superstep_train_replay(algo, pa, ba, 1, K, TRAIN_BATCH, prioritized=True, beta=0.4)
+    require(runner.replays == replays + 1, f"{phase}: the first update after the restore was not a replay")
+    require(graphed == eager, f"{phase}: graphed {graphed} != eager {eager}")
+    pairs = _lane_pairs(pa, None, pb, None)
+    pairs += [("sum tree", ba._dtree.sum_value, bb._dtree.sum_value),
+              ("min tree", ba._dtree.min_value, bb._dtree.min_value)]
+    pairs += [("target", x, y) for x, y in zip(pa.aux_state["target_params"], pb.aux_state["target_params"])]
+    n = _graph_equal(phase, pairs)
+    require(ba._max_priority == bb._max_priority, f"{phase}: max priority differs")
+    return n
+
+
+# -- fault tolerance on the training loop ------------------------------------------
+
+CHAOS_WORKERS, CHAOS_ITERS = 4, 4
+CHAOS_FAULTS = {
+    "kill_worker": [{"worker_index": 2, "on_call": 2}, {"worker_index": 3, "on_call": 2}],
+    "nan_batch": {"on_learn_call": 2},
+}
+CHAOS_COUNTS = {"failures": 1, "worker_restarts": 2, "recoveries": {"workers": 1},
+                "skipped_batches": 1}
+STREAM_RESTORES, STREAM_CHECKED_SNAPSHOTS, STREAM_DEADLINE_S = 2, 3, 120.0
+STREAM_CRASH_STEP = 3
+RESTORE_DQN_CRASH_CALL = 3
+
+
+def _learner_tensors(policy):
+    return [t.detach().clone() for t in policy._learner_tensors()]
+
+
+def _guarded_slot_on_card():
+    """The nan guard's graphed slot on the card: two PPO policies of one
+    seed (FCNet 64x64, CartPole's spaces); one learns two stacked
+    supersteps of K = 2 (the first captures the slot, the second, whose
+    second batch the fault injector poisoned, replays it), the other the
+    same clean updates eagerly, slot 4's permutations drawn and dropped.
+    Parameters and Adam moments bitwise equal, the poisoned slot
+    skipped. Returns the number of tensors compared."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+    from ray_tpu_torch.env.spaces import Box, Discrete
+    from ray_tpu_torch.resilience.faults import FaultInjector
+
+    cfg = {"seed": 0, "model": {"fcnet_hiddens": [64, 64]}, "lr": 1e-3, "train_batch_size": 256,
+           "sgd_minibatch_size": 64, "num_sgd_iter": 2, "kl_coeff": 0.0, "nan_guard": True}
+    space, acts = Box(-10, 10, (4,), np.float32), Discrete(2)
+    pg, pe = (PPOTorchPolicy(space, acts, cfg) for _ in range(2))
+    gen = np.random.default_rng(3)
+    batches = [{
+        "obs": gen.standard_normal((256, 4)).astype(np.float32),
+        "actions": gen.integers(0, 2, 256), "action_logp": np.full(256, -0.69, np.float32),
+        "action_dist_inputs": gen.standard_normal((256, 2)).astype(np.float32),
+        "advantages": gen.standard_normal(256).astype(np.float32),
+        "value_targets": gen.standard_normal(256).astype(np.float32),
+    } for _ in range(4)]
+    inj = FaultInjector({"nan_batch": {"on_learn_call": 4}})
+    for b in batches:
+        inj.on_learn(b)
+    require(not np.isfinite(batches[3]["obs"]).all(), "guarded_slot: the injector poisoned nothing")
+    dev = [{c: torch.as_tensor(v).to(pg.device) for c, v in b.items()} for b in batches]
+    skipped = []
+    for pair in (dev[:2], dev[2:]):
+        stacked = {c: torch.stack([d[c] for d in pair]) for c in pair[0]}
+        skipped += pg.learn_superstep(2, 256, stacked=stacked, k_max=2)[2]
+    (runner,) = pg._superstep_runners.values()
+    require(runner.graph is not None and runner.replays >= 2,
+            f"guarded_slot: the poisoned slot was no replay ({runner.replays} replays)")
+    require(skipped == [False, False, False, True], f"guarded_slot: skipped {skipped}")
+    for i, d in enumerate(dev):
+        perms = pe.draw_permutations(256)
+        if i < 3:
+            pe.learn_on_device_batch(d, 256, perms=perms)
+    return _graph_equal("guarded_slot", _lane_pairs(pg, None, pe, None))
+
+
+def phase_chaos_ppo():
+    """ponglite-ppo.yaml's learner (PongLite-v0 frame pools, the bf16 Nature
+    CNN at full width, lr, clip, entropy) with these cuts named: 4 rollout
+    worker processes x 8 envs, T = 32, a 1024-step train batch, 2 epochs;
+    ``recreate_failed_workers``, ``nan_guard`` and a fault spec that kills
+    workers 2 and 3 at their 2nd sample call (one recreate starts both
+    replacements together) and poisons the 2nd learn batch. CHAOS_ITERS
+    ``train()`` calls, counted: the recovery counts (the reference's run
+    of the same spec on CartPole-v1, tests/test_torch_resilience.py's
+    ``test_chaos_ppo_counts_equal_the_reference_run[same_call]``), the
+    replacements numbered as their dead workers, the fleet back at 4 and every worker
+    answering a probe, the skipped learn leaving the parameters and Adam
+    moments on the card bitwise as they were, finite stats, row-gather
+    launches (one a pooled learn). Then the graphed slot's guard
+    (:func:`_guarded_slot_on_card`). Replacement seconds: a recreate
+    until every replacement answers a ping."""
+    from ray_tpu_torch import core as ray_core
+
+    algo = ppo_from_yaml(ACTOR_TUNED, num_workers=CHAOS_WORKERS, rollout_fragment_length=32,
+                         train_batch_size=1024, num_sgd_iter=2, recreate_failed_workers=True,
+                         nan_guard=True, max_failures=10, fault_injection=CHAOS_FAULTS)
+    try:
+        ws = algo.workers
+        real = ws.recreate_failed_workers
+        replace_s = []
+
+        def recreate():
+            t0 = time.perf_counter()
+            n = real()
+            ray_core.get([w.ping.remote() for w in ws.remote_workers()[-n:]], timeout=300)
+            replace_s.append(time.perf_counter() - t0)
+            return n
+
+        ws.recreate_failed_workers = recreate
+        policy = algo.get_policy()
+        zero_kernel_counts()
+        walls, results, skipped_same = [], [], None
+        for i in range(CHAOS_ITERS):
+            before = _learner_tensors(policy) if i == 1 else None
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            walls.append(time.perf_counter() - t0)
+            if before is not None:
+                skipped_same = all(a.equal(b) for a, b in zip(before, _learner_tensors(policy)))
+        counts = read_kernel_counts()
+        rec = results[-1]["info"]["recovery"]
+        got = {k: rec[k] for k in CHAOS_COUNTS}
+        require(got == CHAOS_COUNTS, f"chaos_ppo: recovery counts {got} != {CHAOS_COUNTS}")
+        require(skipped_same, "chaos_ppo: the skipped learn changed the learner on the card")
+        require(results[1]["info"]["num_nan_batches_skipped"] == 1, "chaos_ppo: no batch skipped")
+        require(ws.num_remote_workers() == CHAOS_WORKERS and ws.probe_unhealthy_workers() == [],
+                "chaos_ppo: the fleet is not back to full health")
+        reports = ws.foreach_worker(_actor_report)[1:]
+        indices = sorted(r["worker_index"] for r in reports)
+        require(indices == list(range(1, CHAOS_WORKERS + 1)),
+                f"chaos_ppo: worker indices {indices} (a replacement takes its dead worker's)")
+        require(not any(r["cuda_initialized"] for r in reports),
+                "chaos_ppo: a rollout worker initialised CUDA")
+        for r in results[2:]:
+            _finite_learner("chaos_ppo", r, ["default_policy"])
+        # the skipped learn (iteration 2) leaves the previous learn's timers
+        pooled = sum(int(r["info"]["timers"]["default_policy"]["learn_frame_pool"])
+                     for i, r in enumerate(results) if i != 1)
+        require(counts["gather_rows"] >= 1 and counts["gather_rows"] == pooled,
+                f"chaos_ppo: {counts['gather_rows']} row gathers for {pooled} pooled learns")
+        slot_tensors = _guarded_slot_on_card()
+        say("chaos_ppo", workers=CHAOS_WORKERS, iter_s=json.dumps([round(w, 3) for w in walls]),
+            replacement_s=json.dumps([round(t, 3) for t in replace_s]),
+            time_lost_s=rec["time_lost_s"], recovery=json.dumps(got),
+            skipped_learn_bitwise=True, guarded_slot_bitwise=slot_tensors,
+            launches=json.dumps(counts))
+        return counts["gather_rows"]
+    finally:
+        algo.stop()
+
+
+def phase_stream_impala():
+    """bench_e2e.py's ``_impala_pong`` geometry (:func:`impala_config`:
+    PongLite-v0 frame pools, 2 workers x 8 envs, T = 64, batch 1024, the
+    bf16 Nature CNN) with ``checkpoint_streaming`` (a capture every
+    round) and ``restore_on_failure``; once a learner thread has learned,
+    it is armed with ``crash_learner_thread`` at its STREAM_CRASH_STEP-th
+    step from then (the rebuilt thread too), for STREAM_RESTORES
+    restores. Checks: each
+    of the first STREAM_CHECKED_SNAPSHOTS snapshots, written by the writer
+    thread while the learner thread trains on, is bitwise the state the
+    capture saw (read under the learner's lock); the parameters right
+    after each restore are the restored snapshot's, bitwise; the card's
+    allocated memory after the second restore is no more than after the
+    first (each read after the restore's new thread started); the learn
+    path's row gathers counted. Reports the capture's main-thread ms a
+    round (with the learner's lock wait), the restore seconds and the
+    snapshot lag."""
+    import gc
+    import pickle
+
+    import torch
+
+    from ray_tpu_torch.algorithms.impala.impala import IMPALAConfig
+    from ray_tpu_torch.resilience.faults import FaultInjector
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    algo = impala_config(
+        IMPALAConfig, checkpoint_streaming=True, checkpoint_root=tmp, restore_on_failure=True,
+        max_failures=5,
+    ).build()
+    try:
+        st = algo._ckpt_streamer
+        seen = {}
+        real_capture = st._capture
+
+        def capture():
+            header, tensors = real_capture()
+            if len(seen) < STREAM_CHECKED_SNAPSHOTS:
+                # under the learner's lock: the state the copies saw
+                seen[header["superstep"]] = pickle.loads(pickle.dumps(algo.get_policy().get_state()))
+            return header, tensors
+
+        st._capture = capture
+        restores = []
+        real_restore = algo._recovery.restore_latest
+
+        def restore_latest():
+            t0 = time.perf_counter()
+            path = real_restore()
+            dt = time.perf_counter() - t0
+            with open(path, "rb") as f:
+                snap = pickle.load(f)["policy_states"]["default_policy"]
+            bad = _tree_mismatches(snap, algo.get_policy().get_state())
+            require(not bad, f"stream_impala: the restore differs from its snapshot at {bad[:5]}")
+            restores.append({"path": os.path.basename(path), "restore_s": round(dt, 4)})
+            return path
+
+        algo._recovery.restore_latest = restore_latest
+        # each captured snapshot against its capture's state, on the writer
+        # thread just after it is written (before the pruning takes it)
+        checked, mismatched = [], []
+        real_prune = st._prune
+
+        def prune():
+            for superstep, state in list(seen.items()):
+                path = os.path.join(st.root, f"snapshot_{superstep:010d}.pkl")
+                if superstep in checked or not os.path.exists(path):
+                    continue
+                with open(path, "rb") as f:
+                    snap = pickle.load(f)["policy_states"]["default_policy"]
+                checked.append(superstep)
+                mismatched.extend(_tree_mismatches(snap, state)[:5])
+            real_prune()
+
+        st._prune = prune
+        memory = []
+        real_recovery = algo.on_recovery
+
+        def arm():
+            # the thread counts every step call, idle polls of its queue
+            # too (as the reference's), so it is armed once it learns
+            algo._learner_thread._fault_injector = FaultInjector(
+                {"crash_learner_thread": {"on_step": STREAM_CRASH_STEP}})
+
+        def on_recovery(kind):
+            real_recovery(kind)
+            gc.collect()
+            torch.cuda.synchronize()
+            memory.append(torch.cuda.memory_allocated())
+
+        algo.on_recovery = on_recovery
+        zero_kernel_counts()
+        deadline = time.perf_counter() + STREAM_DEADLINE_S
+        rounds, armed = 0, 0
+        while len(restores) < STREAM_RESTORES and time.perf_counter() < deadline:
+            steps = algo._learner_thread.num_steps
+            r = algo.train()
+            rounds += 1
+            if armed == len(restores) and algo._learner_thread.num_steps > steps:
+                arm()
+                armed += 1
+        with algo._learner_thread.lock:
+            counts = read_kernel_counts()
+        require(len(restores) == STREAM_RESTORES, f"stream_impala: {len(restores)} restores in {rounds} iterations")
+        stats = r["info"]["recovery"]
+        require(stats["recoveries"] == {"restore": STREAM_RESTORES}, f"stream_impala: {stats['recoveries']}")
+        require(memory[1] <= memory[0], f"stream_impala: memory after the restores {memory}")
+        require(st.flush(60) and st.error is None, f"stream_impala: the writer failed {st.error}")
+        st._capture, st._prune = real_capture, real_prune
+        require(not mismatched, f"stream_impala: a snapshot differs from its capture at {mismatched}")
+        # a capture replaced while pending is never written
+        require(len(checked) >= 1, f"stream_impala: no snapshot was checked against its capture {seen.keys()}")
+        require(counts["gather_rows"] >= 1, f"stream_impala: the learn path gathered nothing {counts}")
+        ms, wait = list(st.capture_ms), list(st.lock_wait_ms)
+        stream = st.stats()
+        say("stream_impala", iterations=rounds, restores=json.dumps(restores),
+            memory_after_restores=json.dumps(memory), snapshots_checked_bitwise=len(checked),
+            capture_ms=json.dumps(spread(ms)), lock_wait_ms=json.dumps(spread(wait)),
+            copy_ms=json.dumps(spread([a - b for a, b in zip(ms, wait)])), captures=len(ms),
+            snapshots_written=stream["snapshots_written"], lag_supersteps=stream["lag_supersteps"],
+            launches=json.dumps(counts))
+        return counts["gather_rows"]
+    finally:
+        algo.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_restore_dqn():
+    """:func:`dqn_config` (prioritized DQN on the PongLite device lane,
+    full width, K = auto) with ``checkpoint_frequency`` 1 (kept: 2),
+    ``restore_on_failure`` and ``crash_learner`` at the replay phase's
+    RESTORE_DQN_CRASH_CALL-th learn call. Filled to learning starts, then
+    trained until the crash: the restore of the newest periodic
+    checkpoint writes the rings and the sum tree in place (their storage
+    unchanged under the captured slot's graph; the state bitwise the
+    checkpoint's), and the first update after it, one replay of the
+    captured slot, is bitwise an eager update of a fresh algorithm
+    restored from the same checkpoint (:func:`_graphed_update_equals_eager`,
+    not counted); the crash's iteration (its restore and the retried
+    round) counted: row scatters and prefix descents on the restored rings
+    and tree. Restore seconds."""
+    import pickle
+
+    from ray_tpu_torch.algorithms.algorithm import Algorithm
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_restore_")
+    cfg = dqn_config().fault_tolerance(
+        checkpoint_frequency=1, checkpoint_root=tmp, keep_checkpoints_num=2,
+        restore_on_failure=True, max_failures=3,
+        fault_injection={"crash_learner": {"on_learn_call": RESTORE_DQN_CRASH_CALL}})
+    algo, back = cfg.build(), None
+    try:
+        # the fill (learning starts at 1000 steps), then learn calls up to
+        # the one before the crash
+        while algo._fault_injector._learn_calls < RESTORE_DQN_CRASH_CALL - 1:
+            algo.train()
+        pa = algo.get_policy()
+        require(any(r.graph is not None for r in pa._superstep_runners.values()),
+                "restore_dqn: the superstep slot was not captured before the crash")
+        ba = algo.local_replay_buffer.buffers["default_policy"]
+        rings = {k: v.data_ptr() for k, v in ba._store.items()}
+        trees = (ba._dtree.sum_value.data_ptr(), ba._dtree.min_value.data_ptr())
+        checks = {}
+        real_recovery = algo.on_recovery
+
+        def on_recovery(kind):
+            nonlocal back
+            real_recovery(kind)
+            restored = read_kernel_counts()
+            path = algo._recovery.latest_checkpoint
+            with open(os.path.join(path, "algorithm_state.pkl"), "rb") as f:
+                saved = pickle.load(f)
+            bad = _tree_mismatches(saved, algo.__getstate__())
+            require(not bad, f"restore_dqn: the restore differs from its checkpoint at {bad[:5]}")
+            require({k: v.data_ptr() for k, v in ba._store.items()} == rings
+                    and (ba._dtree.sum_value.data_ptr(), ba._dtree.min_value.data_ptr()) == trees,
+                    "restore_dqn: the restore replaced the rings the captured graph reads")
+            back = Algorithm.from_checkpoint(path)
+            checks["tensors"] = _graphed_update_equals_eager("restore_dqn", algo, back)
+            checks["path"] = os.path.basename(path)
+            zero_kernel_counts()
+            for k, v in restored.items():
+                setattr(next(c for c in kernel_counters() if c.__name__ == k), "launches", v)
+
+        algo.on_recovery = on_recovery
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        r = algo.train()
+        wall = time.perf_counter() - t0
+        counts = read_kernel_counts()
+        rec = r["info"]["recovery"]
+        require(rec["recoveries"] == {"restore": 1} and rec["failures"] == 1,
+                f"restore_dqn: recovery {rec}")
+        require("tensors" in checks, "restore_dqn: the crash was not recovered")
+        _finite_learner("restore_dqn", r, ["default_policy"])
+        require(counts["scatter_rows"] >= 1 and counts["find_prefixsum"] >= 1,
+                f"restore_dqn: the restore and the retried round missed a kernel {counts}")
+        say("restore_dqn", restored_from=checks["path"], restore_s=rec["time_lost_s"],
+            crash_iteration_s=f"{wall:.3f}", rings_in_place=True, graphed_equals_eager=True,
+            tensors=checks["tensors"], launches=json.dumps(counts))
+        return counts
     finally:
         algo.stop()
         if back is not None:
@@ -6181,6 +6587,9 @@ def main() -> int:
     try:
         ckpt_ppo, serve_root, serve_newer = timed(phase_ckpt_ppo, serve_tmp)
         ckpt_dqn = timed(phase_ckpt_dqn)
+        chaos_ppo = timed(phase_chaos_ppo)
+        stream_impala = timed(phase_stream_impala)
+        restore_dqn = timed(phase_restore_dqn)
         cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
         try:
             cli_ckpt = timed(phase_evaluate, os.path.join(cli_tmp, "checkpoint_000002"))
@@ -6205,6 +6614,8 @@ def main() -> int:
                                   "sac_learner_prioritized": sac_learner["prioritized"]["gather_rows"],
                                   "sac": sac["gather_rows"], "ckpt_ppo": ckpt_ppo,
                                   "ckpt_dqn": ckpt_dqn["gather_rows"],
+                                  "chaos_ppo": chaos_ppo, "stream_impala": stream_impala,
+                                  "restore_dqn": restore_dqn["gather_rows"],
                                   **{name: run["gather_rows"] for name, run in offpolicy.items()},
                                   "apex": apex["gather_rows"], "sac_async": sac_async["gather_rows"],
                                   "impala_fused": impala_fused["gather_rows"],
@@ -6220,6 +6631,7 @@ def main() -> int:
                                    "sac_learner": sac_learner["uniform"]["scatter_rows"],
                                    "sac_learner_prioritized": sac_learner["prioritized"]["scatter_rows"],
                                    "sac": sac["scatter_rows"], "ckpt_dqn": ckpt_dqn["scatter_rows"],
+                                   "restore_dqn": restore_dqn["scatter_rows"],
                                    **{name: run["scatter_rows"] for name, run in offpolicy.items()},
                                    "apex": apex["scatter_rows"],
                                    "sac_async": sac_async["scatter_rows"],
@@ -6231,6 +6643,7 @@ def main() -> int:
                                    "transformer_dqn": tf_dqn["find_prefixsum"],
                                    "sac_learner_prioritized": sac_learner["prioritized"]["find_prefixsum"],
                                    "ckpt_dqn": ckpt_dqn["find_prefixsum"],
+                                   "restore_dqn": restore_dqn["find_prefixsum"],
                                    "rainbow": rainbow["find_prefixsum"],
                                    "apex": apex["find_prefixsum"],
                                    "apex_ddpg": apex_ddpg["find_prefixsum"],

@@ -60,6 +60,25 @@ sample nothing themselves: the external-env setup, whose ``input`` is a
 ``PolicyServerInput``. The device lane refuses ``input`` and ``output``,
 which it would never read (the reference's ignores them).
 
+Fault tolerance (``AlgorithmConfig.fault_tolerance``; the resilience
+layer, ``resilience/``), as the reference wires it into every step:
+
+- ``train()`` hands a failed ``training_step`` to the
+  ``RecoveryManager`` (``self._recovery``), which recreates dead workers
+  or restores the newest periodic checkpoint or stream snapshot, and
+  then calls :meth:`on_recovery`; a failure it does not absorb raises.
+- Between training-step rounds ``train()`` runs the elastic fleet's
+  ``reconcile()`` (``elastic``: a ``FleetController`` over the remote
+  workers, whose drains and joins reach :meth:`on_fleet_change`) and the
+  checkpoint streamer's ``offer()`` (``checkpoint_streaming``); at the
+  end of each iteration, ``maybe_checkpoint()`` (``checkpoint_frequency``).
+- ``info/recovery`` holds the manager's counts, with ``fleet`` and
+  ``stream`` when those run; ``stop()`` joins the fleet's thread and the
+  streamer before it ends the workers.
+- ``self._fault_injector`` (the config's fault spec) is the main
+  process's learn choke points' injector (``train_ops.train_one_step``, PPO's
+  prefetch ``deliver``).
+
 Multi-agent (``config["policies"]``, an algorithm whose actor lane
 learns a policy map: ``_multi_agent``, PPO and the replay family): the
 worker set's policy map holds one policy per id, built from the
@@ -84,6 +103,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 from ray_tpu_torch import core as ray_core
 from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
+from ray_tpu_torch.autoscaler.fleet import FleetController
 from ray_tpu_torch.core import serialization
 from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID
 from ray_tpu_torch.device import resolve_device
@@ -91,6 +111,9 @@ from ray_tpu_torch.env.registry import get_env_creator
 from ray_tpu_torch.evaluation.metrics import summarize_episodes
 from ray_tpu_torch.evaluation.rollout_worker import refuse_local_async, refuse_local_input_reader
 from ray_tpu_torch.evaluation.worker_set import WorkerSet, evaluation_worker_config
+from ray_tpu_torch.resilience import faults
+from ray_tpu_torch.resilience.recovery import RecoveryManager
+from ray_tpu_torch.resilience.streamer import CheckpointStreamer
 from ray_tpu_torch.sharding.superstep import resolve_superstep
 from ray_tpu_torch.tune.trainable import Trainable
 from ray_tpu_torch.util.atomic_io import atomic_write, fsync_dir
@@ -182,6 +205,12 @@ class Algorithm(Trainable):
         self.callbacks = cb_cls() if cb_cls else None
         # id(remote worker) -> its pending get_metrics ref (_remote_episodes)
         self._metrics_refs: Dict[int, Any] = {}
+        # the resilience layer: the main process's fault injector (None unless a
+        # spec arms it) and the recovery manager train() consults
+        self._fault_injector = faults.from_config(self.config)
+        self._recovery = RecoveryManager(self)
+        self._fleet = None
+        self._ckpt_streamer = None
 
         env_spec = self.config.get("env")
         policy_cls = self._default_policy_class
@@ -217,6 +246,7 @@ class Algorithm(Trainable):
                     config=evaluation_worker_config(self.config),
                     num_workers=int(self.config.get("evaluation_num_workers", 0)), **specs,
                 )
+            self._setup_resilience()
             return
         for key in ("input", "output"):
             if self.config.get(key) not in (None, "sampler"):
@@ -236,6 +266,29 @@ class Algorithm(Trainable):
                 config=evaluation_worker_config(self.config),
                 num_workers=int(self.config.get("evaluation_num_workers", 0)),
                 env_creator=env_creator, policy_cls=policy_cls, device=self.device,
+            )
+        self._setup_resilience()
+
+    def _setup_resilience(self) -> None:
+        """The elastic fleet (``elastic`` with remote workers; its monitor
+        thread is this algorithm's, stopped in :meth:`stop`) and the
+        checkpoint streamer (``checkpoint_streaming``, under
+        ``<checkpoint_root>/stream``, default root ``<logdir>/resilience``)."""
+        cfg = self.config
+        if cfg.get("elastic"):
+            if self.workers is None:
+                raise ValueError(
+                    "elastic on the device lane (env_backend='jax'): the lane has no rollout "
+                    "fleet to scale; use the actor lane"
+                )
+            if self.workers.num_remote_workers() > 0:
+                self._fleet = FleetController(self, self.workers, cfg)
+                self._extra_metric_sources.append(self._fleet.take_drained_metrics)
+        if cfg.get("checkpoint_streaming"):
+            root = cfg.get("checkpoint_root") or os.path.join(self.logdir, "resilience")
+            self._ckpt_streamer = CheckpointStreamer(
+                self, CheckpointStreamer.stream_root(root),
+                every=int(cfg.get("checkpoint_stream_interval", 1) or 1),
             )
 
     def get_policy(self, policy_id: str = DEFAULT_POLICY_ID):
@@ -266,17 +319,39 @@ class Algorithm(Trainable):
         min_ts = self.config.get("min_sample_timesteps_per_iteration") or 0
         ts_before = self._counters[NUM_ENV_STEPS_SAMPLED]
         train_info: Dict = {}
+        self._recovery.begin_iteration()
         while True:
-            info = self.training_step()
+            try:
+                info = self.training_step()
+            except Exception as e:
+                # a dead worker: recreate or go on without it; a
+                # restartable failure: restore; else (or past the
+                # max_failures budget) it propagates
+                if not self._recovery.handle_failure(e):
+                    raise
+                continue
             if info:
                 train_info = info
+            # between rounds: the only point where the fleet may change
+            # shape, and the superstep boundary the stream captures at
+            if self._fleet is not None:
+                self._fleet.reconcile()
+            if self._ckpt_streamer is not None:
+                self._ckpt_streamer.offer()
             done_t = min_t is None or time.perf_counter() - t0 >= min_t
             if done_t and self._counters[NUM_ENV_STEPS_SAMPLED] - ts_before >= min_ts:
                 break
+        self._recovery.maybe_checkpoint()
         self._iteration += 1
         results: Dict[str, Any] = {
             "info": {"learner": train_info, **self._counters},
         }
+        recovery = self._recovery.stats()
+        if self._fleet is not None:
+            recovery["fleet"] = self._fleet.stats()
+        if self._ckpt_streamer is not None:
+            recovery["stream"] = self._ckpt_streamer.stats()
+        results["info"]["recovery"] = recovery
         results.update(self._collect_rollout_metrics())
         learn_timers = {pid: dict(p.last_learn_timers) for pid, p in self._policy_map().items()
                         if getattr(p, "last_learn_timers", None)}
@@ -299,6 +374,26 @@ class Algorithm(Trainable):
         results["time_this_iter_s"] = dur
         results["time_total_s"] = self._time_total
         return results
+
+    # -- the resilience hooks ---------------------------------------------
+
+    def on_recovery(self, kind: str) -> None:
+        """The recovery manager just absorbed a failure of ``kind``
+        (``"workers"`` or ``"restore"``): a subclass rebuilds what the
+        failure broke (PPO: the prefetch pipeline; IMPALA: the learner
+        thread)."""
+
+    def on_fleet_change(self, added: List, removed: List) -> None:
+        """The fleet controller changed the fleet: ``added`` joined (weights
+        and filters synced), ``removed`` drained out. A subclass wires the
+        joiners into its own sampling machinery (PPO's prefetch pipeline,
+        IMPALA's rotation); the synchronous rounds read
+        ``workers.remote_workers()`` each time and need nothing."""
+
+    def sampler_queue_depths(self) -> Dict[str, int]:
+        """The depths of the queues between the samplers and the learner
+        (the fleet controller's starvation signal); none here."""
+        return {}
 
     def _metrics_may_lag(self) -> bool:
         """Whether the workers' episode metrics are taken without waiting
@@ -533,8 +628,13 @@ class Algorithm(Trainable):
         self.get_policy(policy_id).export_checkpoint(export_dir)
 
     def stop(self) -> None:
-        """Stop the workers (the evaluation workers too) and end the
-        remote workers' processes."""
+        """Join the fleet's monitor thread and the streamer (which writes
+        its pending snapshot first), then stop the workers (the
+        evaluation workers too) and end the remote workers' processes."""
+        if getattr(self, "_fleet", None) is not None:
+            self._fleet.stop()
+        if getattr(self, "_ckpt_streamer", None) is not None:
+            self._ckpt_streamer.stop()
         if self.workers is not None:
             self.workers.stop()
         if self.evaluation_workers is not None:

@@ -15,11 +15,13 @@ asked for in the round before. ``callbacks(cls)`` sets
 (None: no evaluation workers), ``evaluation_duration`` (episodes),
 ``evaluation_duration_unit`` (stored and never read, as in the
 reference), ``evaluation_num_workers`` and ``evaluation_config``;
-``fault_tolerance(keep_checkpoints_num=N)`` keeps the newest N
-``checkpoint_*`` directories beside a saved one (its other knobs raise
-and name ROADMAP item 3d, except the three the port already reads:
-``ignore_worker_failures``, ``recreate_failed_workers`` and
-``nan_guard``). ``explore`` (True) is read by
+``fault_tolerance(...)`` takes every knob of the reference's, with its
+defaults (``resilience/``, ``autoscaler/fleet.py``): the failure budget
+and the worker flags, periodic checkpoints and restore on failure
+(``keep_checkpoints_num`` keeps the newest N ``checkpoint_*``
+directories beside a saved one), the nan guard, the retry schedule, the
+fault injector, the elastic fleet and checkpoint streaming; a knob it
+does not know raises ``TypeError``. ``explore`` (True) is read by
 ``Algorithm.compute_single_action`` only; the sampler always explores,
 as the reference's. ``sample_prefetch`` (0: off)
 samples the next train batch and copies it to the card while the
@@ -28,9 +30,9 @@ learner works on this one (PPO with remote workers);
 worker. ``min_time_s_per_iteration`` and
 ``min_sample_timesteps_per_iteration`` bound an iteration from below
 (``Algorithm.train``). ``ignore_worker_failures`` and
-``recreate_failed_workers`` say what a dead worker does to the
-asynchronous paths (recreating raises: the elastic worker set is not
-ported).
+``recreate_failed_workers`` say what a dead worker does: the
+recovery manager (synchronous rounds) and the asynchronous paths drop it,
+or replace it.
 ``multi_agent(policies, policy_mapping_fn, policies_to_train)`` keeps
 the reference's keys: ``policies`` maps a policy id to a ``(cls,
 obs_space, act_space, config_overrides)`` tuple (``cls`` None: the
@@ -144,7 +146,31 @@ class AlgorithmConfig:
         self.evaluation_duration_unit = "episodes"
         self.evaluation_num_workers = 0
         self.evaluation_config: Dict = {}
+
+        # fault tolerance: the reference's knobs and defaults
+        self.max_failures = -1
+        self.checkpoint_frequency = 0
+        self.checkpoint_root = None
         self.keep_checkpoints_num = None
+        self.restore_on_failure = False
+        self.worker_health_probe_timeout_s = 10.0
+        self.retry_max_attempts = 3
+        self.retry_timeout_s = 60.0
+        self.retry_backoff_s = 0.05
+        self.retry_backoff_mult = 2.0
+        self.retry_max_backoff_s = 2.0
+        self.retry_jitter = 0.1
+        self.fault_injection: Optional[Dict] = None
+        self.elastic = False
+        self.min_workers = None  # None: 1
+        self.max_workers = None  # None: 2 x num_workers
+        self.drain_grace_s = 15.0
+        self.fleet_interval_s = 1.0
+        self.fleet_idle_timeout_s = 30.0
+        self.fleet_starvation_patience = 3
+        self.scale_up_step = 1
+        self.checkpoint_streaming = False
+        self.checkpoint_stream_interval = 1
 
         # offline data: a callable or a path read instead of the sampler,
         # a directory the sampled batches are written to
@@ -324,33 +350,41 @@ class AlgorithmConfig:
         self.callbacks_class = callbacks_class
         return self
 
-    def fault_tolerance(
-        self,
-        *,
-        keep_checkpoints_num: Optional[int] = None,
-        ignore_worker_failures: Optional[bool] = None,
-        recreate_failed_workers: Optional[bool] = None,
-        nan_guard: Optional[bool] = None,
-        **kwargs,
-    ) -> "AlgorithmConfig":
-        """``keep_checkpoints_num`` and the knobs the port reads; the
-        reference's other knobs (periodic checkpoints and restore on
-        failure, retries, the fault injector, the elastic fleet,
-        checkpoint streaming) raise."""
-        unported = sorted(k for k, v in kwargs.items() if v is not None)
-        if unported:
-            raise NotImplementedError(
-                f"fault_tolerance({', '.join(unported)}) is not ported yet: "
-                "ROADMAP.md queue 1 item 3d"
-            )
-        for name, value in (
-            ("keep_checkpoints_num", keep_checkpoints_num),
-            ("ignore_worker_failures", ignore_worker_failures),
-            ("recreate_failed_workers", recreate_failed_workers),
-            ("nan_guard", nan_guard),
-        ):
+    _FAULT_TOLERANCE_CASTS = {
+        "ignore_worker_failures": bool, "recreate_failed_workers": bool, "max_failures": int,
+        "checkpoint_frequency": int, "checkpoint_root": None, "keep_checkpoints_num": int,
+        "restore_on_failure": bool, "nan_guard": bool, "worker_health_probe_timeout_s": float,
+        "retry_max_attempts": int, "retry_timeout_s": None, "retry_backoff_s": float,
+        "retry_backoff_mult": float, "retry_max_backoff_s": float, "retry_jitter": float,
+        "fault_injection": None, "elastic": bool, "min_workers": int, "max_workers": int,
+        "drain_grace_s": float, "fleet_interval_s": float, "fleet_idle_timeout_s": float,
+        "fleet_starvation_patience": int, "scale_up_step": int, "checkpoint_streaming": bool,
+        "checkpoint_stream_interval": int,
+    }
+
+    def fault_tolerance(self, **knobs) -> "AlgorithmConfig":
+        """The reference's fault-tolerance knobs, each cast as the
+        reference casts it (None leaves a knob as it is):
+        ``recreate_failed_workers`` / ``ignore_worker_failures`` (a dead
+        worker is replaced, or dropped), ``max_failures`` (the recovery
+        budget; < 0: none), ``checkpoint_frequency`` + ``checkpoint_root``
+        + ``keep_checkpoints_num`` + ``restore_on_failure`` (periodic
+        checkpoints as the restore target of a main-process failure),
+        ``nan_guard``, ``worker_health_probe_timeout_s``, ``retry_*`` (the
+        ``RetryPolicy``), ``fault_injection`` (the chaos spec),
+        ``elastic`` + ``min_workers`` / ``max_workers`` / ``drain_grace_s``
+        / ``fleet_interval_s`` / ``fleet_idle_timeout_s`` /
+        ``fleet_starvation_patience`` / ``scale_up_step`` (the
+        ``FleetController``), ``checkpoint_streaming`` +
+        ``checkpoint_stream_interval`` (the ``CheckpointStreamer``). A
+        knob the reference does not have raises ``TypeError``."""
+        unknown = sorted(k for k in knobs if k not in self._FAULT_TOLERANCE_CASTS)
+        if unknown:
+            raise TypeError(f"fault_tolerance() got unknown knobs {unknown}")
+        for name, value in knobs.items():
             if value is not None:
-                setattr(self, name, value)
+                cast = self._FAULT_TOLERANCE_CASTS[name]
+                setattr(self, name, cast(value) if cast is not None else value)
         return self
 
     def offline_data(

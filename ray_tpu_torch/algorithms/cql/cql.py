@@ -41,7 +41,7 @@ import torch
 from ray_tpu_torch.algorithms.sac.sac import SAC, SACConfig, SACTorchPolicy
 from ray_tpu_torch.data.sample_batch import SampleBatch
 from ray_tpu_torch.offline.offline_ops import offline_training_step, setup_offline_reader
-from ray_tpu_torch.policy.torch_policy import adam_update
+from ray_tpu_torch.policy.torch_policy import adam_update, host_read
 
 CQL_STATS = ("actor_loss", "critic_loss", "td_loss", "cql_penalty", "alpha_value", "mean_q",
              "in_bc_warmup", "total_loss")
@@ -207,9 +207,10 @@ class CQLTorchPolicy(SACTorchPolicy):
         tuple, else drawn."""
         return super().learn_on_batch(samples, normals=draws)
 
-    def get_state(self) -> Dict[str, Any]:
-        state = super().get_state()
-        state["aux_step"] = int(self.aux_state["step"])
+    def get_state(self, read=None) -> Dict[str, Any]:
+        read = read or host_read
+        state = super().get_state(read)
+        state["aux_step"] = read(self.aux_state["step"], scalar=True)
         return state
 
     @torch.no_grad()

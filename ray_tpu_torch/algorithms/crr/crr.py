@@ -39,7 +39,7 @@ from ray_tpu_torch.algorithms.sac.sac import SAC, SACConfig, SACTorchPolicy
 from ray_tpu_torch.data.sample_batch import SampleBatch
 from ray_tpu_torch.models.distributions import SquashedGaussian
 from ray_tpu_torch.offline.offline_ops import offline_training_step, setup_offline_reader
-from ray_tpu_torch.policy.torch_policy import AdamState, adam_update
+from ray_tpu_torch.policy.torch_policy import AdamState, adam_update, host_read
 
 CRR_STATS = ("actor_loss", "critic_loss", "mean_q", "mean_advantage", "mean_weight", "total_loss")
 
@@ -180,12 +180,13 @@ class CRRTorchPolicy(SACTorchPolicy):
         pair, else drawn."""
         return super().learn_on_batch(samples, normals=draws)
 
-    def get_state(self) -> Dict[str, Any]:
-        state = super().get_state()
+    def get_state(self, read=None) -> Dict[str, Any]:
+        read = read or host_read
+        state = super().get_state(read)
         state["target_actor_weights"] = {
-            n: t.detach().cpu().numpy() for n, t in zip(self.actor_names, self.aux_state["target_actor"])
+            n: read(t) for n, t in zip(self.actor_names, self.aux_state["target_actor"])
         }
-        state["aux_step"] = int(self.aux_state["step"])
+        state["aux_step"] = read(self.aux_state["step"], scalar=True)
         return state
 
     @torch.no_grad()

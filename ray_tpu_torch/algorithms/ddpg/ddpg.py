@@ -51,7 +51,7 @@ from ray_tpu_torch.algorithms.sac.sac import _TwinQNet, _flat
 from ray_tpu_torch.data.sample_batch import SampleBatch
 from ray_tpu_torch.models.base import Dense, TorchModel, get_activation
 from ray_tpu_torch.models.distributions import Deterministic
-from ray_tpu_torch.policy.torch_policy import AdamState, TorchPolicy, adam_update, global_norm
+from ray_tpu_torch.policy.torch_policy import AdamState, TorchPolicy, adam_update, global_norm, host_read
 
 DDPG_STATS = ("actor_loss", "critic_loss", "mean_q", "mean_td_error", "total_loss")
 # the columns an update reads, and so the replay columns
@@ -500,13 +500,15 @@ class DDPGTorchPolicy(TorchPolicy):
 
     # -- state -------------------------------------------------------------
 
-    def get_state(self) -> Dict[str, Any]:
+    def get_state(self, read=None) -> Dict[str, Any]:
+        read = read or host_read
+
         def host(ts, names):
-            return {n: t.detach().cpu().numpy() for n, t in zip(names, ts)}
+            return {n: read(t) for n, t in zip(names, ts)}
 
         aux = self.aux_state
         return {
-            "weights": self.get_weights(),
+            "weights": self.get_weights(read),
             "opt_state": {
                 g: {"count": self.opt_states[g].count,
                     "mu": host(self.opt_states[g].mu, self.group_param_names(g)),
@@ -516,14 +518,14 @@ class DDPGTorchPolicy(TorchPolicy):
             "aux_state": {
                 "target_actor": host(aux["target_actor"], self.actor_names),
                 "target_critic": host(aux["target_critic"], self.critic_names),
-                "step": int(aux["step"]),
+                "step": read(aux["step"], scalar=True),
             },
             "coeff_values": dict(self.coeff_values),
             "global_timestep": self.global_timestep,
             "num_grad_updates": self.num_grad_updates,
             "exploration_state": {
                 **self.exploration.get_state(),
-                "carried": [t.cpu().numpy() for t in self._expl_state],
+                "carried": [read(t) for t in self._expl_state],
             },
         }
 

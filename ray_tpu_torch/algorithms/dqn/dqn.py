@@ -80,6 +80,14 @@ the acting weights into a second model first, launches the replay
 superstep, and runs the eager fill on that copy, on the same stream,
 while the superstep's graph runs: the fill's host launches overlap the
 graph (:meth:`DQN._interleaved_round`).
+
+Fault tolerance: each replay update phase is one learn call of the
+fault injector (``crash_learner``; the reference's replay round consults
+none, so its DQN ignores the knob), and a restore writes the rings, the
+sum tree and the target in place, under the captured slot's graph.
+``nan_batch`` raises here: it poisons a host learn batch, and the replay
+family learns from its rings. ``on_fleet_change`` and ``on_recovery``
+drop the ``sample_async`` round's pending refs.
 """
 
 from __future__ import annotations
@@ -115,7 +123,7 @@ from ray_tpu_torch.execution.train_ops import superstep_train_replay
 from ray_tpu_torch.models.catalog import MODEL_DEFAULTS
 from ray_tpu_torch.models.cnn import get_filter_config
 from ray_tpu_torch.ops.framestack import FRAMES, materialize_fragment
-from ray_tpu_torch.policy.torch_policy import TorchPolicy
+from ray_tpu_torch.policy.torch_policy import TorchPolicy, host_read
 
 
 class DQNConfig(AlgorithmConfig):
@@ -453,10 +461,11 @@ class DQNTorchPolicy(TorchPolicy):
         td, _, _ = self._td_error(self._td_input_tree(samples), self.aux_state, noise)
         return np.abs(td.cpu().numpy())
 
-    def get_state(self) -> Dict[str, Any]:
-        state = super().get_state()
+    def get_state(self, read=None) -> Dict[str, Any]:
+        read = read or host_read
+        state = super().get_state(read)
         state["target_weights"] = {
-            n: t.cpu().numpy() for n, t in zip(self.param_names, self.aux_state["target_params"])
+            n: read(t) for n, t in zip(self.param_names, self.aux_state["target_params"])
         }
         return state
 
@@ -501,6 +510,12 @@ class DQN(Algorithm):
         self._training_debt = 0.0
         # the sample_async round's requests for the next round
         self._pending_sample_refs = None
+        if self._fault_injector is not None and "nan_batch" in self._fault_injector.spec:
+            raise ValueError(
+                "fault_injection nan_batch poisons a host learn batch; the replay family "
+                "learns from its rings, whose rows no injector reaches (the nan guard's "
+                "masked slot is checked on a poisoned ring row instead)"
+            )
 
     # -- the device lane ---------------------------------------------------
 
@@ -621,6 +636,11 @@ class DQN(Algorithm):
             and len(self.local_replay_buffer) > 0
         ):
             return train_info
+        if self._fault_injector is not None:
+            # the replay family's learn choke point: one learn call a round
+            # (``crash_learner``; the reference's replay round consults no
+            # injector, the port's own)
+            self._fault_injector.on_learn(None)
         rb_cfg = cfg.get("replay_buffer_config") or {}
         prioritized = rb_cfg.get("prioritized_replay", False)
         beta = rb_cfg.get("prioritized_replay_beta", 0.4)
@@ -790,6 +810,21 @@ class DQN(Algorithm):
         timers["update_s"] += t3 - t2
         timers["sync_weights_s"] += time.perf_counter() - t3
         return train_info
+
+    def on_fleet_change(self, added, removed) -> None:
+        """The synchronous round reads the fleet each time; the
+        ``sample_async`` round holds one pending ref per worker of the
+        last round's fleet: drop them, so the next round asks the fleet of
+        now instead of reading a drained worker's ref."""
+        super().on_fleet_change(added, removed)
+        if removed:
+            self._pending_sample_refs = None
+
+    def on_recovery(self, kind: str) -> None:
+        """After a recovery the pending ``sample_async`` refs name dead
+        workers (or were sampled before a restore): drop them."""
+        super().on_recovery(kind)
+        self._pending_sample_refs = None
 
     def stop(self) -> None:
         self._pending_sample_refs = None

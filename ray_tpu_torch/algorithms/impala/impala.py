@@ -27,10 +27,21 @@ A crashed worker's errored ref drops that worker, as the reference's.
 
 The port refuses ``env_backend: "jax"`` (the reference's IMPALA has no
 device lane: it ignores the key and samples on its actor lane; the port
-does not ignore a knob). Not ported (``ROADMAP.md`` queue 1 item 3d),
-each raising where a config asks for it: the elastic fleet and recovery
-hooks (``on_fleet_change``, ``on_recovery``); recreating dead workers
-(``recreate_failed_workers``) raises in the worker set.
+does not ignore a knob).
+
+Fault tolerance: a dead worker leaves the rotation and, with
+``recreate_failed_workers``, its replacement joins it (as do the
+workers that the recovery manager's probe recreates, in
+``on_recovery("workers")``); the elastic
+fleet's joiners join it too (``on_fleet_change``), and the fleet reads
+the rotation's in-flight counts and the learner's inqueue depth. A dead
+learner thread (``crash_learner_thread``, or a bug) raises from
+``training_step``; with ``restore_on_failure`` the recovery manager
+restores the newest checkpoint or stream snapshot and ``on_recovery``
+starts a new learner thread around the restored policy, whose feeder is
+its own (the old thread released its pinned buffers and copy stream
+when it ended) and whose fault injector is disarmed (the reference's
+rebuilt thread reads the spec again and dies at the same step).
 """
 
 from __future__ import annotations
@@ -59,8 +70,6 @@ from ray_tpu_torch.execution.parallel_requests import AsyncRequestsManager
 from ray_tpu_torch.ops.framestack import FRAME_IDX, FRAMES, build_stacks, decompose_segmented_obs
 from ray_tpu_torch.ops.vtrace import vtrace_from_logits
 from ray_tpu_torch.policy.torch_policy import TorchPolicy
-
-_ITEM = "ROADMAP.md queue 1 item 3d"
 
 
 class IMPALAConfig(AlgorithmConfig):
@@ -328,12 +337,7 @@ class IMPALA(Algorithm):
         cfg = self.config
         # the thread publishes host weights every broadcast_interval of
         # its steps; the main thread broadcasts them without touching the card
-        self._learner_thread = LearnerThread(
-            self.get_policy(),
-            inqueue_size=int(cfg.get("learner_queue_size", 16)),
-            publish_weights_every=max(1, int(cfg.get("broadcast_interval", 1))),
-        )
-        self._learner_thread.start()
+        self._learner_thread = self._new_learner_thread()
         self._frag_buf: list = []
         self._frag_steps = 0
         self._train_ready: list = []  # train batches waiting for queue room
@@ -356,7 +360,27 @@ class IMPALA(Algorithm):
             max_remote_requests_in_flight_per_worker=int(
                 cfg.get("max_sample_requests_in_flight_per_worker", 2)),
             return_object_refs=bool(self._aggregators),
+            retry_policy=self.workers.retry_policy,
         )
+        # the elastic fleet drains workers out of this rotation and reads
+        # its in-flight counts for idleness
+        if self._fleet is not None:
+            self._fleet.register_manager(self._sample_manager)
+
+    def _new_learner_thread(self, disarmed: bool = False) -> LearnerThread:
+        """The learner thread, started; ``disarmed``: without the config's
+        fault injector (a rebuilt thread does not die its predecessor's
+        death, as replacement workers get an empty spec)."""
+        cfg = self.config
+        lt = LearnerThread(
+            self.get_policy(),
+            inqueue_size=int(cfg.get("learner_queue_size", 16)),
+            publish_weights_every=max(1, int(cfg.get("broadcast_interval", 1))),
+        )
+        if disarmed:
+            lt._fault_injector = None
+        lt.start()
+        return lt
 
     def _metrics_may_lag(self) -> bool:
         return True
@@ -380,10 +404,39 @@ class IMPALA(Algorithm):
             self._worker_weight_ver[id(w)] = ver
 
     def on_fleet_change(self, added, removed) -> None:
-        raise NotImplementedError(f"the elastic fleet under IMPALA is not ported yet: {_ITEM}")
+        """Joiners enter the rotation at once; the fleet controller took
+        the drained ones out of it, and their weight versions go."""
+        super().on_fleet_change(added, removed)
+        if added:
+            self._sample_manager.add_workers(added)
+        for w in removed:
+            self._worker_weight_ver.pop(id(w), None)
 
     def on_recovery(self, kind: str) -> None:
-        raise NotImplementedError(f"checkpoint recovery under IMPALA is not ported yet: {_ITEM}")
+        """After the recovery manager's worker probe, the rotation becomes
+        the worker set: the recreated workers join it and the dropped ones
+        leave. After a restore the old learner thread is dead (usually why
+        the restore ran) or stale: stop it and start a new one around the
+        restored policy. The new thread's weight versions start again, and
+        every worker has the restored weights (the restore synced them),
+        so the version book starts empty."""
+        super().on_recovery(kind)
+        if kind == "workers":
+            mgr = self._sample_manager
+            live = self.workers.remote_workers()
+            mgr.remove_workers([w for w in mgr.workers() if w not in live], drop_in_flight=True)
+            mgr.add_workers(live)
+            return
+        if kind != "restore":
+            return
+        old = self._learner_thread
+        if old.is_alive():
+            old.stop()
+        self._learner_thread = self._new_learner_thread(disarmed=True)
+        self._worker_weight_ver = {}
+
+    def sampler_queue_depths(self) -> Dict[str, int]:
+        return {"learner_in": self._learner_thread.inqueue.qsize()}
 
     def _feed_ready(self, lt: LearnerThread) -> None:
         """Queue the waiting train batches while the learner has room."""
@@ -508,15 +561,17 @@ class IMPALA(Algorithm):
         self._feed_ready(lt)
 
     def _handle_dead_workers(self, mgr: AsyncRequestsManager) -> None:
-        """A dead worker leaves the rotation and the worker set; the
-        loop goes on with the others."""
+        """A dead worker leaves the rotation and the worker set; with
+        ``recreate_failed_workers`` its replacement joins both. The loop
+        never stops for it."""
         dead = mgr.take_dead_workers()
         if not dead:
             return
         self._counters["num_dead_rollout_workers"] += len(dead)
         if self.config.get("recreate_failed_workers"):
-            self.workers.replace_failed_workers(dead)
-        self.workers.remove_workers(dead)
+            mgr.add_workers(self.workers.replace_failed_workers(dead))
+        else:
+            self.workers.remove_workers(dead)
 
     def _maybe_broadcast(self, w) -> None:
         """Send worker ``w`` the learner thread's newest published

@@ -57,7 +57,7 @@ from ray_tpu_torch.core.object_store import RayActorError
 from ray_tpu_torch.evaluation.postprocessing import compute_gae_for_sample_batch
 from ray_tpu_torch.execution.device_feed import DeviceFeeder
 from ray_tpu_torch.execution.rollout_ops import SamplePrefetcher, synchronous_parallel_sample
-from ray_tpu_torch.execution.train_ops import batch_is_finite, train_one_step
+from ray_tpu_torch.execution.train_ops import batch_is_finite, note_skipped_batch, train_one_step
 from ray_tpu_torch.ops.framestack import FRAMES
 from ray_tpu_torch.policy.torch_policy import CHUNK, TorchPolicy
 
@@ -257,7 +257,7 @@ class PPO(Algorithm):
                 info_i.update(policy.after_learn_on_batch(info_i))
             info = infos[-1]
             if any(skipped):
-                self._counters["num_nan_batches_skipped"] += sum(skipped)
+                note_skipped_batch(self, sum(skipped))
         else:
             for _ in range(K):
                 batch, bsize = eng.rollout()
@@ -329,8 +329,11 @@ class PPO(Algorithm):
 
         def deliver(batch):
             _standardize_advantages(batch)
+            # the prefetch path's learn choke point (train_one_step's twin)
+            if self._fault_injector is not None:
+                self._fault_injector.on_learn(batch)
             if self.config.get("nan_guard") and not batch_is_finite(batch):
-                self._counters["num_nan_batches_skipped"] += 1
+                note_skipped_batch(self)
                 return
             tree, bsize = policy.prepare_batch(batch)
             if self._superstep_k > 1 and fixed_rows > 0:
@@ -349,6 +352,8 @@ class PPO(Algorithm):
             deliver=deliver,
             max_in_flight=int(self.config.get("max_requests_in_flight_per_rollout_worker", 2)),
         )
+        if self._fleet is not None:
+            self._fleet.register_manager(self._sample_pipeline.manager)
 
     def _next_prefetched(self):
         """The next prefetched device batch, handling dead workers while
@@ -392,7 +397,8 @@ class PPO(Algorithm):
             for info_i in infos:
                 info_i.update(policy.after_learn_on_batch(info_i))
             info = infos[-1]
-            self._counters["num_nan_batches_skipped"] += sum(skipped)
+            if any(skipped):
+                note_skipped_batch(self, sum(skipped))
             self._counters["num_prefetch_supersteps"] += 1
         else:
             for dev, (bsize, _, _) in batches:
@@ -412,19 +418,43 @@ class PPO(Algorithm):
         return {DEFAULT_POLICY_ID: info, "sample_pipeline": pipe.stats()}
 
     def _recover_pipeline_workers(self, pipe) -> None:
-        """Workers the pipeline saw die: raise, unless
-        ``ignore_worker_failures`` (they leave the worker set);
-        ``recreate_failed_workers`` raises (the elastic set is not
-        ported)."""
+        """Workers the pipeline saw die: ``recreate_failed_workers``
+        replaces them (no ping probe: the pipeline's request manager saw
+        the deaths) and the replacements join the pipeline;
+        ``ignore_worker_failures`` drops them from the worker set; else
+        raise."""
         dead = pipe.take_dead_workers()
         if not dead:
             return
         self._counters["num_dead_rollout_workers"] += len(dead)
         if self.config.get("recreate_failed_workers"):
-            self.workers.replace_failed_workers(dead)
-        if not self.config.get("ignore_worker_failures"):
+            pipe.add_workers(self.workers.replace_failed_workers(dead))
+        elif self.config.get("ignore_worker_failures"):
+            self.workers.remove_workers(dead)
+        else:
             raise RayActorError(f"{len(dead)} rollout worker(s) died in the sample pipeline")
-        self.workers.remove_workers(dead)
+
+    def on_fleet_change(self, added, removed) -> None:
+        """Joiners (weights and filters synced already) enter the prefetch
+        pipeline's rotation; the fleet controller took the drained ones
+        out of its request manager."""
+        super().on_fleet_change(added, removed)
+        pipe = getattr(self, "_sample_pipeline", None)
+        if pipe is not None and added:
+            pipe.add_workers(added)
+
+    def sampler_queue_depths(self) -> Dict[str, int]:
+        feeder = getattr(self, "_prefetch_feeder", None)
+        return {"feeder_out": feeder.qsize()} if feeder is not None else {}
+
+    def on_recovery(self, kind: str) -> None:
+        """A restore invalidates the prefetch pipeline (its thread may be
+        dead: a crash in ``deliver`` is how the restore came about, and
+        its queued batches are the old policy's): tear it down; the next
+        step builds it again."""
+        super().on_recovery(kind)
+        if kind == "restore":
+            self._teardown_pipeline()
 
     def _teardown_pipeline(self) -> None:
         # the flag first: a deliver blocked on the feeder's back-pressure

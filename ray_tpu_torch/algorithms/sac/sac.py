@@ -48,7 +48,7 @@ from ray_tpu_torch.algorithms.dqn.dqn import DQN, DQNConfig
 from ray_tpu_torch.data.sample_batch import SampleBatch
 from ray_tpu_torch.models.base import Dense, TorchModel, get_activation
 from ray_tpu_torch.models.distributions import SquashedGaussian
-from ray_tpu_torch.policy.torch_policy import AdamState, TorchPolicy, adam_update
+from ray_tpu_torch.policy.torch_policy import AdamState, TorchPolicy, adam_update, host_read
 
 SAC_STATS = ("actor_loss", "critic_loss", "alpha_loss", "alpha_value", "mean_q", "total_loss")
 # the columns an update reads, and so the replay columns
@@ -430,12 +430,14 @@ class SACTorchPolicy(TorchPolicy):
 
     # -- state -------------------------------------------------------------
 
-    def get_state(self) -> Dict[str, Any]:
+    def get_state(self, read=None) -> Dict[str, Any]:
+        read = read or host_read
+
         def host(ts, names):
-            return {n: t.detach().cpu().numpy() for n, t in zip(names, ts)}
+            return {n: read(t) for n, t in zip(names, ts)}
 
         return {
-            "weights": self.get_weights(),
+            "weights": self.get_weights(read),
             "opt_state": {
                 g: {"count": self.opt_states[g].count,
                     "mu": host(self.opt_states[g].mu, self.group_param_names(g)),

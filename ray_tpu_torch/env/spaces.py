@@ -1,14 +1,16 @@
 """Minimal observation and action spaces.
 
-The port does not depend on gymnasium. These two classes carry what the
-catalog, the sampler and the envs read (``shape``, ``dtype``,
-``low``/``high``, ``n``); the catalog duck-types, so gymnasium's spaces
-work too.
+The port does not depend on gymnasium. These classes carry what the
+catalog, the preprocessors, the sampler and the envs read (``shape``,
+``dtype``, ``low``/``high``, ``n``, a composite space's ``spaces``);
+the catalog and the preprocessors duck-type, so gymnasium's spaces work
+too. :class:`Dict` holds its sub-spaces under sorted keys, as
+gymnasium's ``Dict`` does when given a plain dict.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -38,3 +40,36 @@ class Discrete:
 
     def __repr__(self):
         return f"Discrete({self.n})"
+
+
+class Dict:
+    """Named sub-spaces (``spaces``: a dict in sorted key order)."""
+
+    def __init__(self, spaces: Mapping):
+        self.spaces = {k: spaces[k] for k in sorted(spaces)}
+        self.shape = None
+        self.dtype = None
+
+    def __getitem__(self, key):
+        return self.spaces[key]
+
+    def __repr__(self):
+        return f"Dict({self.spaces})"
+
+
+class Tuple:
+    """Ordered sub-spaces (``spaces``: a tuple)."""
+
+    def __init__(self, spaces: Sequence):
+        self.spaces = tuple(spaces)
+        self.shape = None
+        self.dtype = None
+
+    def __getitem__(self, i):
+        return self.spaces[i]
+
+    def __len__(self):
+        return len(self.spaces)
+
+    def __repr__(self):
+        return f"Tuple({self.spaces})"

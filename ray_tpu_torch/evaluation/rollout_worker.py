@@ -56,8 +56,14 @@ worker's device, seeded as the worker's envs are, as the reference
 wires its ``JaxVectorEnvAdapter``: evaluation workers of a device-lane
 run sample this way.
 
-Not ported (``ROADMAP.md`` queue 1 item 3d), raising where a config
-asks for it: the fault injector (``fault_injection``).
+The resilience layer's hooks (``resilience/faults.py``): with a fault
+spec (``config["fault_injection"]`` or ``RAY_TPU_FAULTS``) each
+``sample`` call is counted and handed to the injector, which may delay
+it, announce a preemption or end the process; ``preemption_notice``
+reads the injector's notice, else the provider's
+(``resilience/provider_notice.py``); ``drain_for_preemption`` hands
+over the worker's flushed filter deltas and episodes before the fleet
+controller ends it.
 """
 
 from __future__ import annotations
@@ -78,14 +84,8 @@ from ray_tpu_torch.env.vector_env import VectorEnv
 from ray_tpu_torch.evaluation.multi_agent_sampler import MultiAgentSyncSampler
 from ray_tpu_torch.evaluation.sampler import AsyncSampler, SyncSampler
 from ray_tpu_torch.models.catalog import ModelCatalog
+from ray_tpu_torch.resilience import faults, provider_notice
 from ray_tpu_torch.utils.filter import get_filter
-
-_ITEM = "ROADMAP.md queue 1 item 3d"
-
-
-def _refuse_unported(config: Dict) -> None:
-    if config.get("fault_injection"):
-        raise NotImplementedError(f"the fault injector on the actor lane is not ported yet: {_ITEM}")
 
 
 def refuse_local_async(config: Dict) -> None:
@@ -134,7 +134,9 @@ class RolloutWorker:
         device=None,
     ):
         self.config = dict(config or {})
-        _refuse_unported(self.config)
+        # the chaos hooks: None (no cost) unless a fault spec arms them
+        self._fault_injector = faults.from_config(self.config)
+        self._num_sample_calls = 0
         self.worker_index = worker_index
         self.num_workers = num_workers
         self.global_vars: Dict[str, Any] = {"timestep": 0}
@@ -287,7 +289,11 @@ class RolloutWorker:
 
     def sample(self):
         """The sampler's next batch (the input reader's, when there is
-        one), written to the ``output`` shards when that is set."""
+        one), written to the ``output`` shards when that is set. The
+        call is counted and handed to the fault injector first."""
+        self._num_sample_calls += 1
+        if self._fault_injector is not None:
+            self._fault_injector.on_sample(self.worker_index, self._num_sample_calls)
         if self.input_reader is not None:
             batch = self.input_reader.next()
         else:
@@ -306,6 +312,28 @@ class RolloutWorker:
     def sample_with_count(self):
         batch = self.sample()
         return batch, batch.env_steps()
+
+    # -- preemption and drain ----------------------------------------------
+
+    def preemption_notice(self) -> Optional[float]:
+        """Seconds of grace left before this worker's preemption ends its
+        process, or None: the injector's notice, else the provider's
+        probe. The fleet controller polls it."""
+        if self._fault_injector is not None:
+            grace = self._fault_injector.preemption_notice()
+            if grace is not None:
+                return grace
+        return provider_notice.probe()
+
+    def drain_for_preemption(self) -> Dict[str, Any]:
+        """A graceful exit: the flushed filter deltas and the episodes not
+        yet harvested. A worker runs its calls in order, so every sample
+        sent before this one has finished and its result is in."""
+        return {
+            "filters": self.get_filters(flush_after=True),
+            "metrics": self.get_metrics(),
+            "num_sample_calls": self._num_sample_calls,
+        }
 
     def get_metrics(self) -> List:
         if self.input_reader is not None:

@@ -41,6 +41,13 @@ its current stream, which the feeder's event orders after each copy.
 
 A policy that overrides ``learn_on_batch`` learns through it, one batch
 at a time (:meth:`_step_sync`), the reference's dispatch rule.
+
+The fault injector of the policy's config counts the thread's steps
+(``crash_learner_thread``); the exception ends the thread and parks in
+:attr:`error`, and IMPALA's recovery builds a new thread. The feeder
+goes with the thread that made it: its pinned staging buffers and copy
+stream are released when the thread ends (:meth:`run`), so a rebuilt
+thread starts a feeder of its own.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ import torch
 from ray_tpu_torch.execution.device_feed import DeviceFeeder
 from ray_tpu_torch.ops.framestack import FRAMES
 from ray_tpu_torch.policy.torch_policy import CHUNK, TorchPolicy
+from ray_tpu_torch.resilience import faults
 from ray_tpu_torch.sharding.superstep import resolve_superstep
 
 # batches copied ahead of the learn call (2: double buffering)
@@ -112,7 +120,10 @@ class LearnerThread(threading.Thread):
         self._weights_lock = threading.Lock()
         self._published: Optional[Tuple[int, Dict]] = None
         self._steps_since_publish = 0
+        # an exception of the thread parks here (healthy() turns False);
+        # the fault injector can raise one on a chosen step
         self.error: Optional[BaseException] = None
+        self._fault_injector = faults.from_config(policy.config)
 
     @property
     def feeder(self) -> Optional[DeviceFeeder]:
@@ -221,6 +232,8 @@ class LearnerThread(threading.Thread):
         return self.error is None and self.is_alive()
 
     def step(self) -> None:
+        if self._fault_injector is not None:
+            self._fault_injector.on_learner_thread_step()
         if not self._pipelined:
             return self._step_sync()
         t0 = time.perf_counter()

@@ -13,9 +13,15 @@ object's segment when its last ref in the main process goes
 (``core/object_store.py``). ``return_object_refs`` (IMPALA's
 aggregation actors) harvests the done refs themselves: the caller
 passes each on, and reports a worker whose ref turns out dead with
-``report_dead``. Not ported (``ROADMAP.md`` queue 1 item 3d): the
-elastic fleet's drains (``retire_worker``, dropping in-flight refs) and
-``retry_policy`` (the resilience layer's backoff).
+``report_dead``.
+
+The elastic half (the fleet controller's drains): ``retire_worker``
+takes a worker out of the rotation, keeps its done requests for the
+normal harvest, drops its pending ones and keeps a later death of it
+from being reported; ``remove_workers(drop_in_flight=True)`` drops every
+request of the removed workers. ``retry_policy`` (the resilience
+layer's ``RetryPolicy``) bounds a harvest the caller did not bound and
+retries a submission's transport faults.
 """
 
 from __future__ import annotations
@@ -53,9 +59,11 @@ class AsyncRequestsManager:
         *,
         max_remote_requests_in_flight_per_worker: int = 2,
         return_object_refs: bool = False,
+        retry_policy=None,
     ):
         self._max_in_flight = int(max_remote_requests_in_flight_per_worker)
         self._return_refs = bool(return_object_refs)
+        self._retry = retry_policy
         self._workers: List = []
         self._in_flight: Dict = {}  # ref -> worker
         self._counts: Dict[int, int] = {}  # id(worker) -> outstanding
@@ -78,11 +86,42 @@ class AsyncRequestsManager:
                 self._dead_ids.discard(id(w))
                 self._dead = [d for d in self._dead if d is not w]
 
-    def remove_workers(self, workers: List) -> None:
-        """Stop submitting to ``workers``; their in-flight refs stay
-        tracked and drain through ``get_ready``."""
+    def remove_workers(self, workers: List, *, drop_in_flight: bool = False) -> int:
+        """Stop submitting to ``workers``. Their in-flight refs stay
+        tracked and drain through ``get_ready``, or, with
+        ``drop_in_flight``, are dropped (and so freed). Returns the
+        number dropped."""
         drop = {id(w) for w in workers}
         self._workers = [w for w in self._workers if id(w) not in drop]
+        if not drop_in_flight:
+            return 0
+        return self._drop_refs(drop)
+
+    def _drop_refs(self, worker_ids: set, pending_only: bool = False) -> int:
+        """Drop the in-flight refs of ``worker_ids``; ``pending_only``
+        keeps the done ones, whose results harvest normally even after
+        the worker's process is gone."""
+        victims = [ref for ref, w in self._in_flight.items() if id(w) in worker_ids]
+        if pending_only and victims:
+            ready, _ = api.wait(victims, num_returns=len(victims), timeout=0)
+            done = {r.id for r in ready}
+            victims = [r for r in victims if r.id not in done]
+        for ref in victims:
+            wid = id(self._in_flight.pop(ref))
+            self._counts[wid] = max(0, self._counts.get(wid, 1) - 1)
+            self.num_dropped += 1
+        return len(victims)
+
+    def retire_worker(self, worker) -> int:
+        """A planned exit (a drain or a reap): out of the rotation, its
+        done requests kept for the harvest, its pending ones dropped, and
+        a later death of it not reported (a planned exit is no failure).
+        Returns the number dropped."""
+        self._workers = [w for w in self._workers if w is not worker]
+        dropped = self._drop_refs({id(worker)}, pending_only=True)
+        self._dead_ids.add(id(worker))
+        self._dead = [d for d in self._dead if d is not worker]
+        return dropped
 
     def workers(self) -> List:
         return list(self._workers)
@@ -113,7 +152,11 @@ class AsyncRequestsManager:
         elif worker not in self._workers or self._counts.get(id(worker), 0) >= self._max_in_flight:
             return False
         try:
-            ref = remote_fn(worker)
+            if self._retry is not None:
+                # transport faults retry on the schedule; a death does not
+                ref = self._retry.call(lambda: remote_fn(worker))
+            else:
+                ref = remote_fn(worker)
         except _ACTOR_DEAD_ERRORS:
             self._mark_dead(worker)
             return False
@@ -139,6 +182,10 @@ class AsyncRequestsManager:
         refs = list(self._in_flight)
         if not refs:
             return {}
+        if timeout is None and self._retry is not None:
+            # no wait without a bound against a wedged actor: the caller
+            # sees an empty harvest and polls again
+            timeout = self._retry.timeout_s
         if timeout is None or timeout > 0:
             api.wait(refs, num_returns=min(max(1, min_results), len(refs)), timeout=timeout)
         ready, _ = api.wait(refs, num_returns=len(refs), timeout=0)

@@ -162,8 +162,18 @@ class SamplePrefetcher:
     def healthy(self) -> bool:
         return self.error is None and self._thread.is_alive()
 
+    @property
+    def manager(self) -> AsyncRequestsManager:
+        """The request manager of the thread's rotation (the elastic
+        fleet drains workers out of it and reads its in-flight counts)."""
+        return self._manager
+
     def take_dead_workers(self) -> List:
         return self._manager.take_dead_workers()
+
+    def add_workers(self, workers: List) -> None:
+        """Workers that join the rotation (replacements, joiners)."""
+        self._manager.add_workers(workers)
 
     def stats(self) -> dict:
         return {"num_train_batches": self.num_batches, "num_fragments": self.num_fragments,

@@ -1,7 +1,8 @@
 """Train ops.
 
 Counterpart of ``ray_tpu/execution/train_ops.py``: :func:`train_one_step`,
-the actor lane's learn call on the local worker, and
+the actor lane's learn call on the local worker (and the main process's learn
+choke point of the resilience layer), and
 :func:`superstep_train_replay`, the replay superstep that the DQN family
 runs when it makes several updates per round.
 """
@@ -16,31 +17,26 @@ import torch
 
 from ray_tpu_torch.data.sample_batch import MultiAgentBatch
 from ray_tpu_torch.execution.replay_buffer import DeviceReplayBuffer
+from ray_tpu_torch.resilience.recovery import batch_is_finite  # noqa: F401 -- re-exported
 
 NUM_ENV_STEPS_TRAINED = "num_env_steps_trained"
 NUM_AGENT_STEPS_TRAINED = "num_agent_steps_trained"
 
 
-def batch_is_finite(batch) -> bool:
-    """True when no float column of a host batch (every policy batch of
-    a ``MultiAgentBatch``) holds a NaN or an Inf (the nan guard's test,
-    ``ray_tpu/resilience/recovery.py``)."""
-    policy_batches = getattr(batch, "policy_batches", None)
-    for b in policy_batches.values() if policy_batches is not None else [batch]:
-        for v in b.values():
-            if isinstance(v, np.ndarray) and np.issubdtype(v.dtype, np.floating) and not np.isfinite(v).all():
-                return False
-    return True
-
-
 def train_one_step(algorithm, train_batch) -> Dict:
     """One ``learn_on_batch`` of the local worker on a host batch (a
-    ``MultiAgentBatch`` counts its env steps and its agent steps). With
-    ``config["nan_guard"]`` a batch with a non-finite float is skipped
-    and counted (``num_nan_batches_skipped``), not learned from. The
+    ``MultiAgentBatch`` counts its env steps and its agent steps). The
+    main process's learn choke point: the fault injector counts the call here
+    (and may poison the host batch before it goes to the card, or
+    raise), and with ``config["nan_guard"]`` a batch with a non-finite
+    float is skipped and counted (``num_nan_batches_skipped``, and the
+    recovery manager's ``skipped_batches``), not learned from. The
     call's seconds go to ``algorithm._timers["learn_on_batch_s"]``."""
+    injector = getattr(algorithm, "_fault_injector", None)
+    if injector is not None:
+        injector.on_learn(train_batch)
     if algorithm.config.get("nan_guard") and not batch_is_finite(train_batch):
-        algorithm._counters["num_nan_batches_skipped"] += 1
+        note_skipped_batch(algorithm)
         return {}
     t0 = time.perf_counter()
     info = algorithm.workers.local_worker().learn_on_batch(train_batch)
@@ -50,6 +46,16 @@ def train_one_step(algorithm, train_batch) -> Dict:
         train_batch.agent_steps() if isinstance(train_batch, MultiAgentBatch) else train_batch.count
     )
     return info
+
+
+def note_skipped_batch(algorithm, n: int = 1) -> None:
+    """``n`` non-finite batches skipped by a learn choke point: the
+    algorithm's counter and its recovery manager's."""
+    algorithm._counters["num_nan_batches_skipped"] += n
+    recovery = getattr(algorithm, "_recovery", None)
+    if recovery is not None:
+        for _ in range(n):
+            recovery.note_skipped_batch()
 
 
 def superstep_train_replay(
@@ -118,5 +124,5 @@ def superstep_train_replay(
                     buf.update_priorities(idx[i], pri[i] + 1e-6)
     n_skipped = sum(skipped)
     if n_skipped and algorithm is not None:
-        algorithm._counters["num_nan_batches_skipped"] += n_skipped
+        note_skipped_batch(algorithm, n_skipped)
     return infos[-1]

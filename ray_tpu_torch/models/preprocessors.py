@@ -5,11 +5,14 @@ workers before observations enter a batch, so the learner sees flat,
 fixed-shape float or uint8 arrays. Spaces are read by their attributes,
 not their class (the port's spaces and gymnasium's alike): a discrete
 space has ``n`` and shape (), a multi-discrete one ``nvec``, a
-composite one ``spaces``. ``DictFlatteningPreprocessor`` waits for a
-Dict or Tuple space in the port (``ROADMAP.md`` queue 1 item 3d).
+composite one ``spaces`` (a mapping for a Dict space, whose keys it
+flattens in sorted order, as the reference does; a sequence for a Tuple
+space).
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 
@@ -87,13 +90,35 @@ class FlattenPreprocessor(Preprocessor):
         return np.asarray(observation, dtype=np.float32).reshape(-1)
 
 
+class DictFlatteningPreprocessor(Preprocessor):
+    """A Dict or Tuple space → one flat float32 vector: each sub-space's
+    preprocessor, Dict keys in sorted order (the reference's
+    ``DictFlatteningPreprocessor`` / ``TupleFlatteningPreprocessor``)."""
+
+    def _init_shape(self, obs_space):
+        subs = obs_space.spaces
+        if isinstance(subs, Mapping):
+            self._keys = sorted(subs)
+            items = [subs[k] for k in self._keys]
+        else:
+            self._keys = None
+            items = list(subs)
+        self._children = [get_preprocessor_for_space(sp) for sp in items]
+        return (sum(c.size for c in self._children),)
+
+    def transform(self, observation):
+        if self._keys is not None:
+            parts = [c.transform(observation[k]).reshape(-1)
+                     for c, k in zip(self._children, self._keys)]
+        else:
+            parts = [c.transform(o).reshape(-1) for c, o in zip(self._children, observation)]
+        return np.concatenate([p.astype(np.float32) for p in parts])
+
+
 def get_preprocessor_for_space(obs_space) -> Preprocessor:
     """The reference's ``ModelCatalog.get_preprocessor``."""
     if _is_discrete(obs_space) or _is_multi_discrete(obs_space):
         return OneHotPreprocessor(obs_space)
     if getattr(obs_space, "spaces", None) is not None:
-        raise NotImplementedError(
-            "Dict and Tuple observation spaces (DictFlatteningPreprocessor) "
-            "are not ported yet: ROADMAP.md queue 1 item 3d"
-        )
+        return DictFlatteningPreprocessor(obs_space)
     return NoPreprocessor(obs_space)

@@ -118,7 +118,7 @@ class Policy:
     def learn_on_batch(self, samples) -> Dict[str, Any]:
         raise NotImplementedError
 
-    def get_weights(self) -> Dict[str, np.ndarray]:
+    def get_weights(self, read=None) -> Dict[str, np.ndarray]:
         raise NotImplementedError
 
     def get_inference_weights(self) -> Dict[str, np.ndarray]:
@@ -128,9 +128,13 @@ class Policy:
     def set_weights(self, weights) -> None:
         raise NotImplementedError
 
-    def get_state(self) -> Dict[str, Any]:
+    def get_state(self, read=None) -> Dict[str, Any]:
+        """The policy's state; ``read`` (``torch_policy.host_read`` when
+        None) turns each device tensor the state holds into its host
+        value, so a caller can copy the tensors its own way (the
+        checkpoint streamer's device snapshot)."""
         return {
-            "weights": self.get_weights(),
+            "weights": self.get_weights(read),
             "global_timestep": self.global_timestep,
         }
 

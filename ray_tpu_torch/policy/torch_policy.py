@@ -78,6 +78,13 @@ def _torch_dtype(np_dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, np.dtype(np_dtype))).dtype
 
 
+def host_read(t: torch.Tensor, scalar: bool = False):
+    """A device tensor of a policy's state as its host value: a numpy
+    copy, or (``scalar``) a Python int. The default reader of
+    ``get_state`` and ``get_weights``."""
+    return int(t) if scalar else t.detach().cpu().numpy()
+
+
 class AdamState:
     """optax ``scale_by_adam`` moments and step count, per parameter.
 
@@ -1150,11 +1157,9 @@ class TorchPolicy(Policy):
 
     # -- weights and state -------------------------------------------------
 
-    def get_weights(self) -> Dict[str, np.ndarray]:
-        return {
-            n: p.detach().cpu().numpy()
-            for n, p in zip(self.param_names, self.params)
-        }
+    def get_weights(self, read=None) -> Dict[str, np.ndarray]:
+        read = read or host_read
+        return {n: read(p) for n, p in zip(self.param_names, self.params)}
 
     def get_inference_weights(self) -> Dict[str, np.ndarray]:
         """The weights that acting reads: those under
@@ -1174,14 +1179,15 @@ class TorchPolicy(Policy):
             if n in weights:
                 p.copy_(torch.as_tensor(np.asarray(weights[n])))
 
-    def get_state(self) -> Dict[str, Any]:
+    def get_state(self, read=None) -> Dict[str, Any]:
+        read = read or host_read
         st = self.opt_state
         return {
-            "weights": self.get_weights(),
+            "weights": self.get_weights(read),
             "opt_state": {
                 "count": st.count,
-                "mu": {n: m.cpu().numpy() for n, m in zip(self.param_names, st.mu)},
-                "nu": {n: v.cpu().numpy() for n, v in zip(self.param_names, st.nu)},
+                "mu": {n: read(m) for n, m in zip(self.param_names, st.mu)},
+                "nu": {n: read(v) for n, v in zip(self.param_names, st.nu)},
             },
             "coeff_values": dict(self.coeff_values),
             "global_timestep": self.global_timestep,

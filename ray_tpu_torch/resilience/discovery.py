@@ -1,19 +1,18 @@
-"""Checkpoint discovery for the serving plane.
+"""Checkpoint discovery, shared by recovery and serving.
 
 Counterpart of ``ray_tpu/resilience/discovery.py``: one place answers
 "what is the newest restorable state under this ``checkpoint_root``?"
-for the serve plane's hot-reload watcher (``serve/policy_server.py``),
-and :class:`MembershipFeed` surfaces a deployment's replica membership
-to the ingress router.
+for the main process's ``RecoveryManager`` (a crash's restore, or a training
+run started again on the same root) and the serve plane's hot-reload
+watcher (``serve/policy_server.py``), so both restore the same
+snapshot. :class:`MembershipFeed` surfaces a deployment's replica
+membership to the ingress router.
 
-The reference prefers a continuous-stream snapshot
-(``<root>/stream/snapshot_*.pkl``, written by its checkpoint streamer)
-over the newest periodic ``checkpoint_*`` directory whenever the
-snapshot's iteration is at least the checkpoint's. The port has no
-streamer yet (ROADMAP queue 1 item 3d): a root without a ``stream``
-directory is discovered exactly as the reference discovers it, and a
-root with one raises, naming the item, rather than serving an older
-periodic checkpoint in its place.
+The preference: a stream tail (the ``CheckpointStreamer``'s newest
+``<root>/stream/snapshot_*.pkl``) wins whenever its iteration is at
+least the newest periodic ``checkpoint_*`` directory's; an unreadable
+tail (pruned or torn while being read) falls back to the periodic
+checkpoint.
 """
 
 from __future__ import annotations
@@ -22,14 +21,6 @@ import os
 from typing import Any, List, Optional, Tuple
 
 PERIODIC_PREFIX = "checkpoint_"
-STREAM_DIR = "stream"
-
-
-def _stream_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: continuous-stream snapshots (the reference's CheckpointStreamer) are not "
-        "ported yet: ROADMAP.md queue 1 item 3d"
-    )
 
 
 class MembershipFeed:
@@ -77,11 +68,12 @@ def latest_periodic(checkpoint_root: Optional[str]) -> Optional[str]:
 
 
 def latest_stream_tail(checkpoint_root: Optional[str]) -> Optional[str]:
-    """None when the root has no ``stream`` directory; raises when it
-    has one (the port cannot read stream snapshots yet)."""
-    if not checkpoint_root or not os.path.isdir(os.path.join(checkpoint_root, STREAM_DIR)):
+    """The newest stream snapshot under ``<root>/stream/``, or None."""
+    if not checkpoint_root:
         return None
-    raise _stream_not_ported(f"{checkpoint_root!r} holds a stream directory")
+    from ray_tpu_torch.resilience.streamer import CheckpointStreamer
+
+    return CheckpointStreamer.latest(CheckpointStreamer.stream_root(checkpoint_root))
 
 
 def periodic_iteration(path: Optional[str]) -> int:
@@ -98,10 +90,22 @@ def periodic_iteration(path: Optional[str]) -> int:
 def pick_restore_target(
     periodic: Optional[str], stream_tail: Optional[str]
 ) -> Tuple[str, Optional[str]]:
-    """``(kind, path)``: the periodic checkpoint (kind
-    ``"checkpoint"``); a stream tail raises (item 3d)."""
-    if stream_tail is not None:
-        raise _stream_not_ported(f"stream tail {stream_tail!r}")
+    """``(kind, path)``: the newest of a periodic checkpoint and a
+    stream tail (kinds ``"checkpoint"`` and ``"stream"``). The tail wins
+    when its iteration is at least the checkpoint's; an unreadable tail
+    loses."""
+    if stream_tail is None:
+        return ("checkpoint", periodic)
+    if periodic is None:
+        return ("stream", stream_tail)
+    from ray_tpu_torch.resilience.streamer import CheckpointStreamer
+
+    try:
+        tail_iter = CheckpointStreamer.peek(stream_tail)["iteration"]
+    except Exception:
+        return ("checkpoint", periodic)
+    if tail_iter >= periodic_iteration(periodic):
+        return ("stream", stream_tail)
     return ("checkpoint", periodic)
 
 
@@ -116,10 +120,14 @@ def discover(checkpoint_root: Optional[str]) -> Tuple[str, Optional[str]]:
 
 def target_version(kind: str, path: str) -> Tuple[int, int]:
     """Orderable ``(iteration, superstep)`` freshness of a restore
-    target. Periodic checkpoints carry no superstep (0); raises when the
-    name carries no iteration."""
+    target, comparable across kinds. Periodic checkpoints carry no
+    superstep (0); raises when the target is gone or torn, or the name
+    carries no iteration (a poller tries again)."""
     if kind == "stream":
-        raise _stream_not_ported(f"stream snapshot {path!r}")
+        from ray_tpu_torch.resilience.streamer import CheckpointStreamer
+
+        head = CheckpointStreamer.peek(path)
+        return (int(head["iteration"]), int(head["superstep"]))
     it = periodic_iteration(path)
     if it < 0:
         raise ValueError(f"unversioned periodic checkpoint {path!r}")

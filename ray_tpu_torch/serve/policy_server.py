@@ -700,17 +700,17 @@ def _set_policy_state(policy, state) -> None:
 
 def load_policy_state(kind: str, path: str, policy_id: str = DEFAULT_POLICY_ID) -> Dict[str, Any]:
     """Policy state dict out of a restore target: a periodic checkpoint
-    directory's ``algorithm_state.pkl`` worker state (a stream snapshot
-    raises, ROADMAP queue 1 item 3d). Raises on torn or pruned targets;
-    pollers retry next round."""
-    if kind != "checkpoint":
-        raise NotImplementedError(
-            f"{kind} target {path!r}: stream snapshots are not ported yet: ROADMAP.md queue 1 "
-            "item 3d"
-        )
-    with open(os.path.join(path, "algorithm_state.pkl"), "rb") as f:
-        state = pickle.load(f)
-    states = state.get("worker", {}).get("policy_states", {})
+    directory's ``algorithm_state.pkl`` worker state, or a stream
+    snapshot's ``policy_states`` (``resilience/streamer.py``; the
+    reference's snapshots too, whose nested trees ``apply_state`` carries
+    in). Raises on torn or pruned targets; pollers retry next round."""
+    if kind == "stream":
+        with open(path, "rb") as f:
+            states = pickle.load(f).get("policy_states", {})
+    else:
+        with open(os.path.join(path, "algorithm_state.pkl"), "rb") as f:
+            state = pickle.load(f)
+        states = state.get("worker", {}).get("policy_states", {})
     if policy_id not in states:
         raise KeyError(f"policy {policy_id!r} not in {kind} target {path!r} (has {sorted(states)})")
     return states[policy_id]

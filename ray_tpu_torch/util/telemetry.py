@@ -1,6 +1,7 @@
-"""No-op stand-ins for the serving plane's telemetry.
+"""No-op stand-ins for the serving plane's and the resilience layer's
+telemetry.
 
-The reference's serve, router and ingress modules report Prometheus
+The reference's serve, router, ingress and resilience modules report Prometheus
 counters, gauges and histograms (``ray_tpu/telemetry/metrics.py``) and
 trace spans (``ray_tpu/util/tracing.py``). Their port waits for ROADMAP
 queue 1 item 9 (telemetry: metrics, the device ledger, the fleet view).
@@ -37,6 +38,15 @@ set_ingress_policy_inflight = _noop
 inc_ingress_shed = _noop
 inc_ingress_request = _noop
 observe_ingress_latency = _noop
+# resilience: recoveries, skipped batches, the stream, the fleet
+inc_recoveries = _noop
+inc_skipped_batches = _noop
+inc_worker_restarts = _noop
+inc_dead_workers = _noop
+inc_preemptions = _noop
+inc_stream_snapshots = _noop
+set_stream_lag = _noop
+set_fleet_size = _noop
 
 
 # trace spans (ray_tpu/util/tracing.py)

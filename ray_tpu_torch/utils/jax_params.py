@@ -51,7 +51,9 @@ filters through :func:`from_jax_filter`. A reference replay buffer's
 spilled or not) becomes a state any port buffer restores through
 :func:`from_jax_replay_state`; an Ape-X algorithm's learner and shards
 (its DDPG form's through :func:`from_jax_ddpg_state`) go across through
-:func:`from_jax_apex_state`.
+:func:`from_jax_apex_state`. A reference stream snapshot (its
+``CheckpointStreamer``'s payload) becomes the port's through
+:func:`from_jax_stream_snapshot`.
 """
 
 from __future__ import annotations
@@ -450,3 +452,38 @@ def from_jax_apex_state(algo, policy_state: Mapping, shard_states=(), counters=N
     if algo.workers is not None:
         algo.workers.sync_weights()
     return algo
+
+
+def from_jax_stream_snapshot(payload: Mapping, algo=None) -> Dict:
+    """A reference stream snapshot (``ray_tpu/resilience/streamer.py``'s
+    payload: ``policy_states`` of flax weights and optax Adam state,
+    counters, filters, superstep, iteration) as the port's payload, which
+    ``resilience/streamer.load_payload`` loads. Each policy state: the
+    weights through :func:`to_state_dict`, the Adam state through
+    :func:`from_jax_adam_state` (the one-optimizer layout of PPO, IMPALA,
+    APPO and DQN); with ``algo``, each goes through
+    :func:`from_jax_policy_state` into ``algo``'s policy of that id (every
+    layout it takes, SAC's and DDPG's too) and the port state is that
+    policy's ``get_state()``. The filters through :func:`from_jax_filter`."""
+    states = {}
+    for pid, ps in payload.get("policy_states", {}).items():
+        if algo is not None:
+            states[pid] = from_jax_policy_state(algo.get_policy(pid), ps).get_state()
+            continue
+        count, mu, nu = from_jax_adam_state(ps["opt_state"])
+        states[pid] = {
+            "weights": to_state_dict(ps["weights"]),
+            "opt_state": {"count": count, "mu": mu, "nu": nu},
+            "coeff_values": {k: float(v) for k, v in ps.get("coeff_values", {}).items()},
+            "global_timestep": int(ps.get("global_timestep", 0)),
+            "num_grad_updates": int(ps.get("num_grad_updates", 0)),
+            "exploration_state": ps.get("exploration_state", {}),
+        }
+    return {
+        "superstep": int(payload.get("superstep", 0)),
+        "iteration": int(payload.get("iteration", 0)),
+        "counters": {k: int(v) for k, v in payload.get("counters", {}).items()},
+        "episodes_total": int(payload.get("episodes_total", 0)),
+        "policy_states": states,
+        "filters": {pid: from_jax_filter(f) for pid, f in payload.get("filters", {}).items()},
+    }

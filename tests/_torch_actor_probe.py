@@ -51,6 +51,37 @@ class StandInSampler:
         os._exit(1)
 
 
+class FleetProbe:
+    """A stand-in rollout worker for the resilience tests: ``sample`` and
+    ``ping`` (each after an optional sleep), and the fleet controller's
+    ``preemption_notice`` (``notice``: the grace it answers) and
+    ``drain_for_preemption``."""
+
+    def __init__(self, ping_delay=0.0, notice=None):
+        self.ping_delay = float(ping_delay)
+        self.notice = notice
+
+    def sample(self, delay=0.0):
+        import time
+
+        if delay:
+            time.sleep(delay)
+        return "result"
+
+    def ping(self):
+        import time
+
+        if self.ping_delay:
+            time.sleep(self.ping_delay)
+        return "pong"
+
+    def preemption_notice(self):
+        return self.notice
+
+    def drain_for_preemption(self):
+        return {"filters": {}, "metrics": [], "num_sample_calls": 0}
+
+
 class EpisodeCallbacks:
     """Callbacks (``algorithms/callbacks.DefaultCallbacks``'s hooks,
     duck-typed so that this module imports nothing of the port) that a

@@ -173,8 +173,18 @@ def test_preprocessors_match_reference(case):
 
 
 def test_dict_spaces_wait_with_a_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pre.get_preprocessor_for_space(gym.spaces.Dict({"a": gym.spaces.Discrete(2)}))
+    """Dict spaces are ported: ``DictFlatteningPreprocessor`` on
+    gymnasium's Dict and the port's, bitwise the reference's (nested
+    cases: tests/test_torch_wrappers.py)."""
+    from ray_tpu_torch.env import spaces as port_spaces
+
+    ref_p = ref_pre.get_preprocessor_for_space(gym.spaces.Dict({"a": gym.spaces.Discrete(2)}))
+    for space in (gym.spaces.Dict({"a": gym.spaces.Discrete(2)}),
+                  port_spaces.Dict({"a": port_spaces.Discrete(2)})):
+        p = pre.get_preprocessor_for_space(space)
+        assert type(p).__name__ == "DictFlatteningPreprocessor" and p.shape == ref_p.shape == (2,)
+        for o in (0, 1):
+            assert p.transform({"a": o}).tobytes() == ref_p.transform({"a": o}).tobytes()
 
 
 def _assert_filters_equal(p, r):

@@ -423,10 +423,14 @@ def test_ppo_local_worker_and_later_slices():
     # prefetch needs remote workers; without them the round is synchronous
     algo.config["sample_prefetch"] = 2
     assert algo.train()["timesteps_total"] == 128
-    # the fault injector is a later slice; output writers are ported
-    # (their shards: tests/test_torch_offline.py), and open at the first sample
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _ppo(num_workers=0, fault_injection={"kill_worker": 1})
+    # the fault injector is ported (tests/test_torch_resilience.py): a
+    # spec aimed at remote worker 1 leaves the local worker (index 0) be;
+    # output writers are ported (their shards: tests/test_torch_offline.py),
+    # and open at the first sample
+    armed = _ppo(num_workers=0, fault_injection={"kill_worker": [{"worker_index": 1, "on_call": 1}]})
+    assert armed.train()["timesteps_total"] == 64
+    assert armed.workers.local_worker()._num_sample_calls == 2  # 64 steps of 32
+    armed.stop()
     _ppo(num_workers=0, output="/nonexistent").stop()
     # a sampling thread needs a remote worker: the local worker's policy is
     # the learner (the AsyncSampler itself: tests/test_torch_async_loop.py)

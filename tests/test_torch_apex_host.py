@@ -65,6 +65,7 @@ def _batch(n=8, seed=0):
 
 
 def test_replay_actor_roundtrip():
+    core.shutdown()  # a runtime an earlier module left up
     core.init(num_cpus=2)
     actor = ReplayActor.remote(256, 0.6, 0.4, 0)
     ref = JPrioritizedReplayBuffer(256, 0.6, seed=0)

@@ -75,6 +75,7 @@ from test_torch_async import _pair, _pooled_batch, _run_thread
 
 @pytest.fixture(scope="module")
 def runtime():
+    core.shutdown()  # a runtime an earlier module left up
     core.init(num_cpus=1)
     yield
     core.shutdown()

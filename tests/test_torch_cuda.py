@@ -1119,6 +1119,138 @@ def test_dqn_device_replay_round_trip_on_the_card(cuda, tmp_path):
         assert all(np.isfinite(v) for v in info["default_policy"].values())
 
 
+# -- fault tolerance on the card ------------------------------------------------------
+
+
+def test_nan_guard_graphed_slot_on_the_card(cuda):
+    """A poisoned batch (the fault injector's) in a replayed superstep
+    slot is a masked no-op on the card: parameters and Adam moments
+    bitwise an eager run of the clean updates (the poisoned slot's
+    permutations drawn and dropped)."""
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+    from ray_tpu_torch.env.spaces import Box, Discrete
+    from ray_tpu_torch.resilience.faults import FaultInjector
+
+    cfg = {"seed": 0, "model": {"fcnet_hiddens": [32]}, "lr": 1e-3, "train_batch_size": 64,
+           "sgd_minibatch_size": 32, "num_sgd_iter": 2, "kl_coeff": 0.0, "nan_guard": True}
+    space, acts = Box(-10, 10, (4,), np.float32), Discrete(2)
+    pg, pe = PPOTorchPolicy(space, acts, cfg, device=cuda), PPOTorchPolicy(space, acts, cfg, device=cuda)
+    rng = np.random.default_rng(3)
+    batches = [{"obs": rng.standard_normal((64, 4)).astype(np.float32),
+                "actions": rng.integers(0, 2, 64), "action_logp": np.full(64, -0.69, np.float32),
+                "action_dist_inputs": rng.standard_normal((64, 2)).astype(np.float32),
+                "advantages": rng.standard_normal(64).astype(np.float32),
+                "value_targets": rng.standard_normal(64).astype(np.float32)} for _ in range(4)]
+    inj = FaultInjector({"nan_batch": {"on_learn_call": 4}})
+    for b in batches:
+        inj.on_learn(b)
+    dev = [{c: torch.as_tensor(v).to(cuda) for c, v in b.items()} for b in batches]
+    skipped = []
+    for pair in (dev[:2], dev[2:]):
+        stacked = {c: torch.stack([d[c] for d in pair]) for c in pair[0]}
+        skipped += pg.learn_superstep(2, 64, stacked=stacked, k_max=2)[2]
+    (runner,) = pg._superstep_runners.values()
+    assert runner.graph is not None and skipped == [False, False, False, True]
+    for i, d in enumerate(dev):
+        perms = pe.draw_permutations(64)
+        if i < 3:
+            pe.learn_on_device_batch(d, 64, perms=perms)
+    for a, b in zip(pg._learner_tensors(), pe._learner_tensors()):
+        assert torch.equal(a, b)
+
+
+def test_stream_snapshot_on_the_card_is_its_superstep(cuda, tmp_path, monkeypatch):
+    """The checkpoint stream on the card: the writer held inside its pull
+    while two more supersteps update the parameters in place; each
+    written snapshot is bitwise the state its capture saw."""
+    import pickle
+    import threading
+
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOConfig
+    from ray_tpu_torch.resilience import streamer as streamer_mod
+
+    gate, entered = threading.Event(), threading.Event()
+    real_pull = streamer_mod._Buffer.pull
+
+    def held_pull(self, stream):
+        entered.set()
+        assert gate.wait(60)
+        return real_pull(self, stream)
+
+    monkeypatch.setattr(streamer_mod._Buffer, "pull", held_pull)
+    algo = (PPOConfig().environment("CartPoleJax-v0", env_backend="jax")
+            .rollouts(num_envs_per_worker=8, rollout_fragment_length=16)
+            .training(train_batch_size=128, sgd_minibatch_size=64, num_sgd_iter=2,
+                      model={"fcnet_hiddens": [32]})
+            .fault_tolerance(checkpoint_streaming=True, checkpoint_root=str(tmp_path))
+            .debugging(seed=0).resources(device=cuda).build())
+    try:
+        st, states = algo._ckpt_streamer, {}
+        for superstep in (1, 2, 3):
+            algo.train()
+            states[superstep] = pickle.loads(pickle.dumps(algo.get_policy().get_state()))
+            if superstep == 1:
+                assert entered.wait(30)
+        assert [b.state for b in st._buffers] == ["reading", "pending"]
+        assert all(t.is_cuda for b in st._buffers for t in b.dev)
+        gate.set()
+        assert st.flush(30) and st.error is None
+        for superstep in (1, 3):
+            with open(tmp_path / "stream" / f"snapshot_{superstep:010d}.pkl", "rb") as f:
+                _same_state(pickle.load(f)["policy_states"]["default_policy"], states[superstep])
+    finally:
+        gate.set()
+        algo.stop()
+
+
+def test_crash_restores_dqn_in_place_under_its_graph(cuda, tmp_path):
+    """Prioritized DQN with periodic checkpoints and ``crash_learner``:
+    the restore writes the rings and the sum tree in place (their
+    storage unchanged under the captured slot), bitwise the checkpoint's
+    state, and the run trains on."""
+    import pickle
+
+    from ray_tpu_torch.algorithms.dqn.dqn import DQNConfig
+
+    algo = (DQNConfig()
+            .environment("PongLiteJax-v0", env_config={"max_steps": 20, "rallies": 2},
+                         env_backend="jax")
+            .rollouts(num_envs_per_worker=4, rollout_fragment_length=4)
+            .training(replay_buffer_config={"capacity": 256, "prioritized_replay": True},
+                      model={"conv_filters": [[4, [8, 8], [4, 4]], [8, [4, 4], [2, 2]]],
+                             "post_fcnet_hiddens": [16]},
+                      train_batch_size=16, num_steps_sampled_before_learning_starts=32,
+                      target_network_update_freq=64, training_intensity=8)
+            .fault_tolerance(checkpoint_frequency=1, checkpoint_root=str(tmp_path),
+                             keep_checkpoints_num=2, restore_on_failure=True, max_failures=2,
+                             fault_injection={"crash_learner": {"on_learn_call": 4}})
+            .debugging(seed=0).resources(device=cuda).build())
+    try:
+        while algo._fault_injector._learn_calls < 3:
+            algo.train()
+        runners = algo.get_policy()._superstep_runners
+        assert any(r.graph is not None for r in runners.values())
+        buf = algo.local_replay_buffer.buffers["default_policy"]
+        ptrs = {k: v.data_ptr() for k, v in buf._store.items()}
+        tree = buf._dtree.sum_value.data_ptr()
+        seen = []
+        real = algo.on_recovery
+
+        def on_recovery(kind):
+            real(kind)
+            with open(f"{algo._recovery.latest_checkpoint}/algorithm_state.pkl", "rb") as f:
+                _same_state(pickle.load(f), algo.__getstate__())
+            seen.append({k: v.data_ptr() for k, v in buf._store.items()} == ptrs
+                        and buf._dtree.sum_value.data_ptr() == tree)
+
+        algo.on_recovery = on_recovery
+        r = algo.train()
+        assert seen == [True] and r["info"]["recovery"]["recoveries"] == {"restore": 1}
+        assert all(np.isfinite(v) for v in r["info"]["learner"]["default_policy"].values())
+    finally:
+        algo.stop()
+
+
 # -- the serving plane: one CUDA graph a bucket ----------------------------------------
 
 SERVE_TORSO = {"use_transformer": True, "transformer_dim": 64, "transformer_num_layers": 2,

@@ -22,8 +22,8 @@ Contracts:
   through a float64 ``exp``/``cumprod``), and ``v_gain`` 1 where the
   target is the behaviour policy;
 - a Data-layer dataset as input raises, naming item 9; the device lane
-  refuses ``input`` and ``output``; the fault injector still raises,
-  naming item 3d.
+  refuses ``input`` and ``output``; the fault injector's KV family
+  raises, naming item 7.
 """
 
 from __future__ import annotations
@@ -235,5 +235,7 @@ def test_refusals_of_the_offline_layer(tmp_path):
              .rollouts(num_envs_per_worker=2, rollout_fragment_length=8)
              .training(train_batch_size=16).update_from_dict({key: str(tmp_path)})
              .resources(device="cpu").build())
-    with pytest.raises(NotImplementedError, match="item 3d"):
-        RolloutWorker(config={"fault_injection": {"kill_worker": 1}})
+    # the fault injector is ported; its KV family arms the learner fleet's
+    # control plane, which is not
+    with pytest.raises(NotImplementedError, match="item 7"):
+        RolloutWorker(config={"fault_injection": {"kv_drop": [{"kv_op": "put", "on_call": 1}]}})

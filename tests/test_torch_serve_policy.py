@@ -24,7 +24,7 @@ against the reference's and against its own contracts, on the CPU.
   blends, monotone versions; the parameters' storage kept), the closed
   train → save → serve → reload loop on the port's ``CartPole-v1``, the
   provider notice; vectorized mode within 1e-5 relative of the exact one;
-- refusals: ``aot_cache`` (item 6.3), a stream root (item 3d); a policy
+- refusals: ``aot_cache`` (item 6.3); an empty stream root has no tail; a policy
   without batched serving (a recurrent model) is no longer refused: it
   takes the reference's sequential fallback, with no program built.
 """
@@ -293,10 +293,10 @@ def test_discovery_equals_the_reference_on_periodic_roots(tmp_path):
         assert discovery.periodic_iteration(p) == ref.periodic_iteration(p)
     with pytest.raises(ValueError):
         discovery.target_version("checkpoint", "x/checkpoint_abc")
-    # a stream tail is the reference's streamer's: the port refuses it
+    # an empty stream directory holds no tail: the periodic checkpoint
+    # wins, as in the reference (stream tails: tests/test_torch_stream.py)
     os.makedirs(os.path.join(root, "stream"))
-    with pytest.raises(NotImplementedError, match="item 3d"):
-        discovery.discover(root)
+    assert discovery.discover(root) == ref.discover(root) == ("checkpoint", latest)
 
 
 def test_provider_notice_probe(tmp_path, monkeypatch):
@@ -415,9 +415,9 @@ def test_hot_reload_mid_traffic_no_drops_no_blends():
 def test_refusals_name_their_roadmap_items(tmp_path):
     with pytest.raises(NotImplementedError, match="item 6.3"):
         BatchedPolicyServer(_ppo(), aot_cache=str(tmp_path), start=False)
+    # stream roots are ported (tests/test_torch_stream.py): an empty one has no tail
     os.makedirs(tmp_path / "stream")
-    with pytest.raises(NotImplementedError, match="item 3d"):
-        discovery.latest_stream_tail(str(tmp_path))
+    assert discovery.latest_stream_tail(str(tmp_path)) is None
 
     recurrent = PPOTorchPolicy(OBS, ACT, {**PPOConfig().to_dict(), "model": {
         "use_lstm": True, "lstm_cell_size": 8, "fcnet_hiddens": [8]}}, device="cpu")

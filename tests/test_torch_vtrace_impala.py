@@ -516,11 +516,13 @@ def test_appo_target_refresh_is_taken_between_learner_steps():
 
 def test_later_slices_raise():
     """What IMPALA refuses: ``env_backend='jax'`` (the port's own: the
-    reference's IMPALA ignores the key) and the fleet and recovery hooks
-    (item 3d). The aggregation actors and an explicit ``superstep`` are
-    ported (``tests/test_torch_async_loop.py``): at ``num_workers: 0``
-    they build, with no aggregator (the local worker's batches are whole)
-    and the learner thread at K = 2."""
+    reference's IMPALA ignores the key). The fleet and recovery hooks are
+    ported (``tests/test_torch_stream.py``): a fleet change with nobody
+    added is a no-op, a restore's recovery starts a new learner thread,
+    and replacing no worker starts none. The aggregation actors and an
+    explicit ``superstep`` are ported (``tests/test_torch_async_loop.py``):
+    at ``num_workers: 0`` they build, with no aggregator (the local
+    worker's batches are whole) and the learner thread at K = 2."""
     with pytest.raises(ValueError, match="the port refuses env_backend='jax'"):
         _algo(IMPALAConfig, num_workers=0, env_backend="jax")
     for cls in (IMPALAConfig, APPOConfig):
@@ -532,10 +534,13 @@ def test_later_slices_raise():
             fused.stop()
     algo = _algo(IMPALAConfig, num_workers=0)
     try:
-        for call in (lambda: algo.on_fleet_change([], []), lambda: algo.on_recovery("restore"),
-                     lambda: algo.workers.replace_failed_workers([])):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                call()
+        algo.on_fleet_change([], [])
+        old = algo._learner_thread
+        algo.on_recovery("restore")
+        assert algo._learner_thread is not old and algo._learner_thread.is_alive()
+        assert not old.is_alive()
+        assert algo.workers.replace_failed_workers([]) == []
+        assert algo.train()["timesteps_total"] > 0
     finally:
         algo.stop()
 
