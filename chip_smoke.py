@@ -80,9 +80,26 @@ and ``nvcc``. Phases, each printing its own lines:
                GAE launches of that run (one a slot, replays counted),
                and that params, env state and batch live on the card;
                then the lane at K = 1 and K = auto, each for LANE_CALLS
-               (2) calls, the first also profiled: env-steps/s (median,
+               (1) call, also profiled: env-steps/s (median,
                min, max), the device's busy share and the card's peak
                memory;
+   telemetry -- the telemetry layer on that lane (K = auto): two seeded
+               runs of TELEMETRY_CALLS (2) calls, telemetry off (the lane
+               phase's run) and ``telemetry(trace=True, device_ledger=True,
+               metrics_port=0)``: params bitwise; the device ledger's
+               ``rollout_superstep[...]`` program (executions = the
+               runner's run calls after its capture, FLOPs > 0, MFU in
+               (0, 1]) and its CUDA-event time against
+               ``torch.profiler``'s span of the same replays (then one
+               profiled superstep call of K slots on the lane's runner;
+               within 10% or 20 µs); the rate of the
+               second call with telemetry on and off; one scrape of
+               ``/metrics`` with the program's series; an
+               ``export_timeline`` file with the ``device:`` lanes. (In
+               ppo_prefetch, traced calls after its window until one
+               rolls up its workers' sampling: its ``info/telemetry``
+               overlap fraction beside this script's own
+               ``span_overlap`` over the same spans.)
 9. dqn      -- ``DQN`` on the PongLite device lane at full width
                (:func:`dqn_config`: ``training_intensity`` 4, so a round
                owes 8 replay updates, one superstep at K = 8) for 16 fill
@@ -93,7 +110,7 @@ and ``nvcc``. Phases, each printing its own lines:
                synchronised eager split (fill, insert, sample, learn,
                priority update), the same update with the ring filled to
                50000 rows, then K = 1 (one eager update a round) and
-               K = auto, LANE_CALLS (2) calls each: updates/s, busy share, peak
+               K = auto, LANE_CALLS (1) call each: updates/s, busy share, peak
                memory;
 10. transformer_learner -- the decoder-transformer torso at the width of
                bench.py's model-parallel A/B (d_model 256, 4 layers, 8
@@ -1189,7 +1206,7 @@ def spread(values):
 
 
 # timed calls of each K in the lane phases' K = 1 against K = auto
-LANE_CALLS = 2
+LANE_CALLS = 1  # 2 before PR 21
 
 
 def lane_rates(algo, units_per_call, calls=LANE_CALLS):
@@ -1258,6 +1275,8 @@ def phase_lane():
     require(launches == 2 * k, f"the device lane launched the GAE kernel {launches} times in "
             f"2 iterations of {k} slots (replays count)")
     policy = algo.get_policy()
+    # the telemetry phase's run with telemetry off: this seeded run
+    off = {"params": [p.detach().clone() for p in policy.params], "iter_s": times}
     eng = algo._rollout_engine
     # one more update, split into its two halves (host clock, synchronised)
     t0 = time.perf_counter()
@@ -1290,7 +1309,200 @@ def phase_lane():
     say("lane", learner=json.dumps({key: round(v, 6) for key, v in learner.items()}))
     del algo
     rates = superstep_rates("lane", lambda **kw: ppo_from_yaml(TUNED, **kw), bsize)
-    return compute_gae_fragment.launches, rates
+    return compute_gae_fragment.launches, rates, off
+
+
+# train() calls of each seeded run of the telemetry phase (the first
+# captures the lane's graph); slots of the profiled call after them
+TELEMETRY_CALLS = 2
+# the ledger's event time against the profiler's span of the same replays
+LEDGER_TOL, LEDGER_TOL_S = 0.10, 20e-6
+
+
+@contextlib.contextmanager
+def profiled_card():
+    """:func:`profiled` over the card's activities alone (kernels,
+    copies and the CUDA runtime's calls), which a graphed call's 10^5
+    kernels gather faster without their CPU operators."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def _graph_kernel_span(prof):
+    """The span (first start to last end, seconds) of the device
+    activities that ``torch.profiler`` ties to ``cudaGraphLaunch`` calls
+    (by correlation id), their count, the launches', and the seconds from
+    the first launch call's start on the host to the first of them."""
+    import torch
+
+    events = prof.profiler.kineto_results.events()
+    launches = {e.correlation_id(): e.start_ns() for e in events
+                if e.name() == "cudaGraphLaunch" and e.device_type() != torch.autograd.DeviceType.CUDA}
+    dev = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation() and e.correlation_id() in launches]
+    require(dev, f"the profiler tied no device activity to the {len(launches)} graph launches")
+    start = min(e.start_ns() for e in dev)
+    end = max(e.start_ns() + e.duration_ns() for e in dev)
+    return (end - start) / 1e9, len(dev), len(launches), (start - min(launches.values())) / 1e9
+
+
+def phase_telemetry(off):
+    """ponglitejax-ppo.yaml at K = auto from its seed with
+    ``telemetry(trace=True, device_ledger=True, metrics_port=0)``,
+    against the lane phase's run of it with telemetry off (``off``: its
+    params after TELEMETRY_CALLS calls and its calls' seconds); see the
+    module docstring. The profiled call is the lane's own superstep call
+    (K slots on its runner), outside ``train()``, whose other kernels
+    and the profiler's CPU records would only slow the gathering.
+    Returns the GAE launches of the run."""
+    import urllib.request
+
+    import torch
+
+    from ray_tpu_torch import telemetry
+    from ray_tpu_torch.ops.gae import compute_gae_fragment
+    from ray_tpu_torch.telemetry import device as device_ledger
+    from ray_tpu_torch.util import tracing
+
+    compute_gae_fragment.launches = 0
+    algo = ppo_from_yaml(TUNED, telemetry_config={"metrics_port": 0, "trace": True,
+                                                  "device_ledger": True})
+    try:
+        walls_on = []
+        for _ in range(TELEMETRY_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            algo.train()
+            torch.cuda.synchronize()
+            walls_on.append(time.perf_counter() - t0)
+        k, bsize = algo._resolve_superstep_k(), int(algo.config["train_batch_size"])
+        walls_off = off["iter_s"]
+        policy = algo.get_policy()
+        require(all(torch.equal(a, b) for a, b in zip(policy.params, off["params"])),
+                f"params after {TELEMETRY_CALLS} train() calls differ with telemetry on")
+        (runner,) = [r for r in policy._superstep_runners.values()
+                     if r.label.startswith("rollout_superstep[")]
+        before = {p["label"]: p for p in device_ledger.snapshot()["programs"]}[runner.label]
+        eng = algo._rollout_engine
+        with profiled_card() as prof:
+            _, carry, metrics, _ = policy.learn_rollout_superstep(
+                k, eng.batch_size, eng.superstep_feed(), k_max=k)
+        eng.advance(carry, metrics)
+        span_s, n_dev, n_launch, launch_gap_s = _graph_kernel_span(prof)
+        snap = device_ledger.snapshot()
+        lane = {p["label"]: p for p in snap["programs"]}[runner.label]
+        event_s = lane["device_time_s"] - before["device_time_s"]
+        say("telemetry", superstep_k=k, params_equal_with_telemetry=True,
+            env_steps_per_s_off=f"{k * bsize / walls_off[1]:.1f}",  # the lane phase's run
+            env_steps_per_s_on=f"{k * bsize / walls_on[1]:.1f}",
+            iter_s_off=json.dumps([round(w, 4) for w in walls_off]),
+            iter_s_on=json.dumps([round(w, 4) for w in walls_on]))
+        say("telemetry", program=runner.label, executions=lane["executions"],
+            traces=lane["traces"], run_calls=runner.runs, flops=lane["flops"],
+            bytes_accessed=lane["bytes_accessed"], mfu=lane["mfu"],
+            bandwidth_util=lane["bandwidth_util"], device_time_s=lane["device_time_s"],
+            capture_s=lane["compile_time_s"], memory=json.dumps(lane["memory"]))
+        say("telemetry", call_event_s=f"{event_s:.6f}", profiler_span_s=f"{span_s:.6f}",
+            ratio=f"{event_s / span_s:.4f}", first_launch_to_kernel_s=f"{launch_gap_s:.6f}",
+            graph_launches=n_launch, graph_activities=n_dev)
+        require(lane["executions"] == runner.runs - runner.captures,
+                f"{lane['executions']} ledger executions for {runner.runs} run calls "
+                f"and {runner.captures} capture")
+        require(lane["flops"] and lane["flops"] > 0, f"no FLOPs counted: {lane}")
+        require(lane["mfu"] is not None and 0 < lane["mfu"] <= 1, f"MFU {lane['mfu']}")
+        require(n_launch == k, f"{n_launch} graph launches profiled for {k} slots")
+        require(abs(event_s - span_s) <= max(LEDGER_TOL * span_s, LEDGER_TOL_S),
+                f"ledger event time {event_s:.6f} s against the profiler's span {span_s:.6f} s")
+        port = algo._telemetry.metrics_port
+        blob = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10).read().decode()
+        for series in ("ray_tpu_program_executions_total", "ray_tpu_program_device_seconds_total",
+                       "ray_tpu_program_flops"):
+            require(f'{series}{{program="{runner.label}"}}' in blob, f"no {series} in the scrape")
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_timeline_")
+        try:
+            path = algo.export_timeline(os.path.join(tmp, "timeline.json"), last_n=2)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        lanes = {e["args"]["name"] for e in events if e["ph"] == "M"}
+        device_spans = [e for e in events if e["ph"] == "X" and e["name"].startswith("device:")]
+        require(f"device:{runner.label}" in lanes and device_spans,
+                f"no device lane in the timeline ({sorted(lanes)})")
+        say("telemetry", scrape_bytes=len(blob), timeline_events=len(events),
+            device_lane_spans=len(device_spans),
+            programs=json.dumps({p["label"]: p["executions"] for p in snap["programs"]}))
+    finally:
+        algo.stop()
+        runtime = telemetry.runtime()
+        if runtime is not None:
+            runtime.shutdown()
+        device_ledger.clear()
+        tracing.clear()
+    return compute_gae_fragment.launches
+
+
+# traced calls of ppo_prefetch's algorithm, at most, until one rolls up
+# its workers' sampling spans
+PREFETCH_TRACED_CALLS = 8
+
+
+def _prefetch_traced(algo):
+    """Traced ``train()`` calls of the prefetch phase's algorithm (its
+    workers up already) until one's ``info/telemetry`` holds sampling;
+    its overlap fraction beside
+    :func:`span_overlap` over the same spans and window (learn spans
+    against the merged sampling spans, clipped to the window)."""
+    from ray_tpu_torch import telemetry
+    from ray_tpu_torch.util import tracing
+
+    runtime = telemetry.init(trace=True, device_ledger=False)
+    try:
+        # the requests in flight and the batches queued were sent and
+        # sampled untraced: calls until one's window holds the workers'
+        # sampling spans (traced requests' replies)
+        for calls in range(1, PREFETCH_TRACED_CALLS + 1):
+            prev = algo._prev_iter_window
+            r = algo.train()
+            tel = r["info"]["telemetry"]
+            if tel["sample_s"] > 0:
+                break
+        require(tel["sample_s"] > 0, f"no sampling span in {calls} traced calls")
+        spans = tracing.get_spans()
+        window = algo._prev_iter_window if tel["window_iterations_ago"] == 0 else prev
+
+        def clipped(prefixes):
+            out = []
+            for s in spans:
+                if s["name"].startswith(prefixes):
+                    a, b = max(s["start"], window[0]), min(s["end"] or s["start"], window[1])
+                    if b > a:
+                        out.append((a, b))
+            return sorted(out)
+
+        merged = []
+        for a, b in clipped(("rollout:", "sampler:")):
+            if merged and a <= merged[-1][1]:
+                merged[-1] = (merged[-1][0], max(b, merged[-1][1]))
+            else:
+                merged.append((a, b))
+        own = span_overlap(clipped(("learn:nest", "learn:superstep")), merged)
+        require(abs(own - tel["overlap_fraction"]) < 1e-9,
+                f"overlap_fraction {tel['overlap_fraction']} against span_overlap {own}")
+        say("ppo_prefetch", traced_overlap_fraction=f"{tel['overlap_fraction']:.6f}",
+            span_overlap=f"{own:.6f}", window_iterations_ago=tel["window_iterations_ago"],
+            sample_s=f"{tel['sample_s']:.4f}", learn_s=f"{tel['learn_s']:.4f}",
+            transfer_s=f"{tel['transfer_s']:.4f}", iteration_s=f"{tel['iteration_s']:.4f}",
+            spans=len(spans), processes=len({s["pid"] for s in spans}), traced_calls=calls)
+    finally:
+        runtime.shutdown()
+        tracing.clear()
 
 
 # DQN's replay intensity on the lane: 64 sampled steps a round owe 8
@@ -1960,7 +2172,7 @@ CARTPOLE = os.path.join(REPO, "tuned_examples", "ppo", "cartpolejax-ppo.yaml")
 # budget of the PongLite learning run (the whole script must end within
 # its time limit)
 CARTPOLE_BAR, CARTPOLE_STEPS = 150.0, 200000
-PONG_BAR, PONG_STEPS, PONG_LEARN_S = 18.0, 2000000, 10.0  # 30 s before PR 17
+PONG_BAR, PONG_STEPS, PONG_LEARN_S = 18.0, 2000000, 6.0  # 30 s before PR 17, 10 before PR 21
 
 
 # how many budgets learn_curve runs at most while the learner has not reported
@@ -2076,7 +2288,7 @@ def phase_ponglite_learn():
 # envs on the host's CPUs, T = 128, the learner on the card), and its
 # learning run's wall budget
 ACTOR_TUNED = os.path.join(REPO, "tuned_examples", "ppo", "ponglite-ppo.yaml")
-ACTOR_LEARN_S = 8.0  # 25 s before PR 17
+ACTOR_LEARN_S = 5.0  # 25 s before PR 17, 8 before PR 21
 ACTOR_TIMED_CALLS = 3
 
 
@@ -2606,6 +2818,7 @@ def phase_ppo_prefetch():
             feeder_bytes=json.dumps(sorted({c["bytes"] for c in copies})),
             feeder_copy_s=json.dumps(spread([c["copy_s"] for c in copies])),
             feeder_h2d_ms=json.dumps(spread([c["h2d_ms"] for c in copies])))
+        _prefetch_traced(algo)
     finally:
         algo.stop()
     _ppo_prefetch_fused()
@@ -2796,7 +3009,7 @@ SAC_OBS, SAC_ACT, SAC_BATCH, SAC_CAPACITY, SAC_K = 17, 6, 256, 400_000, 8
 SAC_FILL_CHUNK, SAC_WINDOWS = 50_000, 3
 SAC_COLUMNS = 5  # obs, new_obs, actions, rewards, dones
 SAC_TUNED = os.path.join(REPO, "tuned_examples", "sac", "pendulum-sac.yaml")
-SAC_BUDGET_S = 8.0
+SAC_BUDGET_S = 5.0  # 8 before PR 21
 PENDULUM_PPO = os.path.join(REPO, "tuned_examples", "ppo", "pendulum-ppo.yaml")
 # the replay columns' row widths: Pendulum (obs 3, act 1) and HalfCheetah
 SAC_WIDTHS = {"pendulum": (3, 1, 100_000), "halfcheetah": (SAC_OBS, SAC_ACT, SAC_CAPACITY)}
@@ -6535,7 +6748,8 @@ def main() -> int:
     flash_block = timed(phase_flash_block)
     # the main paths, each with its launch counts set to 0 just before
     learner_gathers = timed(phase_learner, rng)
-    lane_gaes, _ = timed(phase_lane)
+    lane_gaes, _, lane_off = timed(phase_lane)
+    telemetry_gaes = timed(phase_telemetry, lane_off)
     dqn = timed(phase_dqn)
     tf_learner = timed(phase_transformer_learner)
     tf_lane = timed(phase_transformer_lane)
@@ -6622,7 +6836,8 @@ def main() -> int:
                                   "apex_ddpg": apex_ddpg["gather_rows"],
                                   "dqn_interleave": interleave["gather_rows"],
                                   "host_tree": host_tree["gather_rows"]}
-    gae["launches_by_path"] = {"lane": lane_gaes, "transformer_lane": tf_lane["gae"],
+    gae["launches_by_path"] = {"lane": lane_gaes, "telemetry": telemetry_gaes,
+                               "transformer_lane": tf_lane["gae"],
                                "cartpole": cartpole, "gridrooms": gridrooms,
                                "ponglite_learn": pong_learn,
                                "lane_eval": lane_eval["compute_gae_fragment"]}

@@ -79,6 +79,22 @@ layer, ``resilience/``), as the reference wires it into every step:
   process's learn choke points' injector (``train_ops.train_one_step``, PPO's
   prefetch ``deliver``).
 
+Telemetry (``AlgorithmConfig.telemetry``; ``telemetry/``), as the
+reference wires it:
+
+- the runtime starts (``init_from_config``) before the ``WorkerSet``
+  exists, so the first remote submission already carries a trace
+  context; ``self._telemetry`` is it (None: off);
+- each ``train()`` runs under a ``train:iteration`` span, the root of
+  the iteration's driver and worker spans;
+- every result gets the throughput gauges; with tracing on,
+  ``info/telemetry`` (the iteration roll-up with ``overlap_fraction``,
+  ``window_iterations_ago``, throughput, h2d/d2h bytes, ``superstep``);
+  with the ledger on, ``info/device_ledger``;
+- ``profile_iters`` wraps the first N iterations in a
+  ``torch.profiler`` capture written to ``<logdir>/torch_profile``;
+- :meth:`export_timeline` writes the chrome trace.
+
 Multi-agent (``config["policies"]``, an algorithm whose actor lane
 learns a policy map: ``_multi_agent``, PPO and the replay family): the
 worker set's policy map holds one policy per id, built from the
@@ -102,6 +118,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from ray_tpu_torch import core as ray_core
+from ray_tpu_torch import telemetry as telemetry_lib
 from ray_tpu_torch.algorithms.algorithm_config import AlgorithmConfig
 from ray_tpu_torch.autoscaler.fleet import FleetController
 from ray_tpu_torch.core import serialization
@@ -116,6 +133,7 @@ from ray_tpu_torch.resilience.recovery import RecoveryManager
 from ray_tpu_torch.resilience.streamer import CheckpointStreamer
 from ray_tpu_torch.sharding.superstep import resolve_superstep
 from ray_tpu_torch.tune.trainable import Trainable
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.atomic_io import atomic_write, fsync_dir
 
 NUM_ENV_STEPS_SAMPLED = "num_env_steps_sampled"
@@ -211,6 +229,14 @@ class Algorithm(Trainable):
         self._recovery = RecoveryManager(self)
         self._fleet = None
         self._ckpt_streamer = None
+        # telemetry: on before any worker exists, so the first remote
+        # submission already carries a trace context (None: off)
+        self._telemetry = telemetry_lib.init_from_config(self.config)
+        # iteration start stamps, for export_timeline(last_n=...)
+        self._iteration_marks: collections.deque = collections.deque(maxlen=1024)
+        tc = self.config.get("telemetry_config") or {}
+        self._profile_iters = int(tc.get("profile_iters", 0) or 0)
+        self._profiler = None
 
         env_spec = self.config.get("env")
         policy_cls = self._default_policy_class
@@ -314,34 +340,51 @@ class Algorithm(Trainable):
         raise NotImplementedError
 
     def train(self) -> Dict[str, Any]:
+        tm = telemetry_lib.metrics
         t0 = time.perf_counter()
+        w0 = time.time()
+        self._iteration_marks.append(w0)
+        before = {
+            "learn": tm.learn_steps_total(),
+            "superstep": tm.counter_total(tm.SUPERSTEP_UPDATES_TOTAL),
+            "h2d": tm.h2d_bytes_by_path(),
+            "d2h": tm.d2h_bytes_by_path(),
+        }
         min_t = self.config.get("min_time_s_per_iteration")
         min_ts = self.config.get("min_sample_timesteps_per_iteration") or 0
         ts_before = self._counters[NUM_ENV_STEPS_SAMPLED]
         train_info: Dict = {}
         self._recovery.begin_iteration()
-        while True:
-            try:
-                info = self.training_step()
-            except Exception as e:
-                # a dead worker: recreate or go on without it; a
-                # restartable failure: restore; else (or past the
-                # max_failures budget) it propagates
-                if not self._recovery.handle_failure(e):
-                    raise
-                continue
-            if info:
-                train_info = info
-            # between rounds: the only point where the fleet may change
-            # shape, and the superstep boundary the stream captures at
-            if self._fleet is not None:
-                self._fleet.reconcile()
-            if self._ckpt_streamer is not None:
-                self._ckpt_streamer.offer()
-            done_t = min_t is None or time.perf_counter() - t0 >= min_t
-            if done_t and self._counters[NUM_ENV_STEPS_SAMPLED] - ts_before >= min_ts:
-                break
-        self._recovery.maybe_checkpoint()
+        self._maybe_start_profile()
+        # the driver-side root every submission of this iteration
+        # parents under
+        with tracing.start_span("train:iteration", iteration=self._iteration + 1):
+            while True:
+                try:
+                    info = self.training_step()
+                except Exception as e:
+                    # a dead worker: recreate or go on without it; a
+                    # restartable failure: restore; else (or past the
+                    # max_failures budget) it propagates
+                    if not self._recovery.handle_failure(e):
+                        raise
+                    continue
+                if info:
+                    train_info = info
+                # between rounds: the only point where the fleet may change
+                # shape, and the superstep boundary the stream captures at
+                if self._fleet is not None:
+                    self._fleet.reconcile()
+                if self._ckpt_streamer is not None:
+                    self._ckpt_streamer.offer()
+                done_t = min_t is None or time.perf_counter() - t0 >= min_t
+                if done_t and self._counters[NUM_ENV_STEPS_SAMPLED] - ts_before >= min_ts:
+                    break
+            # inside the span: its recovery:checkpoint span lands in
+            # this iteration's window
+            self._recovery.maybe_checkpoint()
+        w1 = time.time()
+        self._maybe_stop_profile()
         self._iteration += 1
         results: Dict[str, Any] = {
             "info": {"learner": train_info, **self._counters},
@@ -352,6 +395,7 @@ class Algorithm(Trainable):
         if self._ckpt_streamer is not None:
             recovery["stream"] = self._ckpt_streamer.stats()
         results["info"]["recovery"] = recovery
+        self._telemetry_results(results, before, ts_before, w0, w1)
         results.update(self._collect_rollout_metrics())
         learn_timers = {pid: dict(p.last_learn_timers) for pid, p in self._policy_map().items()
                         if getattr(p, "last_learn_timers", None)}
@@ -375,6 +419,146 @@ class Algorithm(Trainable):
         results["time_total_s"] = self._time_total
         return results
 
+    # -- telemetry ------------------------------------------------------------
+
+    def _telemetry_results(self, results: Dict, before: Dict, ts_before: int,
+                           w0: float, w1: float) -> None:
+        """The iteration's telemetry into ``results["info"]``: the
+        throughput gauges always; ``device_ledger`` while the ledger
+        runs; ``telemetry`` (the span roll-up of ``[w0, w1]`` and the
+        counters' deltas) while tracing runs. The roll-up prefers this
+        iteration's window and falls back to the previous, settled one
+        when this window holds no sampling span yet (the pipelined path's
+        sampling still in flight): ``window_iterations_ago`` says which.
+        Spans first seen now that ended before a window opened are
+        credited to it (``late``)."""
+        tm = telemetry_lib.metrics
+        env_steps = float(max(0, self._counters[NUM_ENV_STEPS_SAMPLED] - ts_before))
+        learn_delta = tm.learn_steps_total() - before["learn"]
+        throughput = tm.record_iteration_throughput(
+            env_steps=env_steps, learn_steps=learn_delta, wall_s=w1 - w0
+        )
+        runtime_vals = tm.sample_runtime_gauges()
+        if telemetry_lib.device.enabled():
+            results["info"]["device_ledger"] = telemetry_lib.device.snapshot()
+        if not tracing.is_enabled():
+            self._prev_iter_window = (w0, w1)
+            return
+        spans = tracing.get_spans()
+        seen = getattr(self, "_rollup_seen_span_ids", frozenset())
+        fresh = [s for s in spans if s.get("span_id") not in seen]
+        self._rollup_seen_span_ids = frozenset(s.get("span_id") for s in spans)
+        first = getattr(self, "_first_window_start", None)
+        if first is None:
+            self._first_window_start = first = w0
+
+        def late_for(window_start):
+            return [s for s in fresh
+                    if (s.get("end") or s.get("start")) is not None
+                    and first <= (s.get("end") or s.get("start")) <= window_start]
+
+        rollup = telemetry_lib.iteration_rollup(spans, w0, w1, late=late_for(w0))
+        lag = 0
+        prev = getattr(self, "_prev_iter_window", None)
+        if rollup["sample_s"] == 0.0 and prev is not None:
+            settled = telemetry_lib.iteration_rollup(spans, *prev, late=late_for(prev[0]))
+            if settled["sample_s"] > 0.0:
+                rollup, lag = settled, 1
+        rollup["window_iterations_ago"] = lag
+        tm.gauge(tm.OVERLAP_FRACTION, "rollout/learn overlap fraction (last iter)").set(
+            rollup["overlap_fraction"]
+        )
+
+        def delta(after, was):
+            return {p: after.get(p, 0.0) - was.get(p, 0.0) for p in set(after) | set(was)}
+
+        h2d = delta(tm.h2d_bytes_by_path(), before["h2d"])
+        d2h = delta(tm.d2h_bytes_by_path(), before["d2h"])
+        superstep_delta = tm.counter_total(tm.SUPERSTEP_UPDATES_TOTAL) - before["superstep"]
+        backend = "jax" if self.workers is None else self.config.get("env_backend", "actor")
+        results["info"]["telemetry"] = {
+            **rollup,
+            **throughput,
+            **runtime_vals,
+            "h2d_bytes": {**h2d, "total": sum(h2d.values())},
+            "rollout_lane": {
+                "backend": backend,
+                "env_steps": env_steps,
+                "h2d_bytes": (h2d.get("rollout", 0.0) if backend == "jax"
+                              else h2d.get("feeder", 0.0) + h2d.get("learn", 0.0)),
+            },
+            "replay": {
+                "tree": self._replay_tree_plane(),
+                "sample_h2d_bytes": h2d.get("replay_sample", 0.0),
+                "rng_h2d_bytes": h2d.get("replay_rng", 0.0),
+                "d2h_bytes": d2h.get("replay_priorities", 0.0),
+            },
+            "superstep": {
+                "updates": superstep_delta,
+                "learn_steps": learn_delta,
+                "fused_fraction": superstep_delta / learn_delta if learn_delta else 0.0,
+            },
+        }
+        self._prev_iter_window = (w0, w1)
+
+    def _replay_tree_plane(self) -> str:
+        """Which sum-tree implementation served this run's prioritized
+        draws: ``"device"`` | ``"host"`` (one plane), ``"mixed"``, or
+        ``"none"`` (no prioritized buffer)."""
+        planes = set()
+        for shard in getattr(self, "replay_shards", None) or ():
+            plane = getattr(shard, "tree_plane", None)
+            if plane:
+                planes.add(plane)
+        buf = getattr(self, "local_replay_buffer", None)
+        for b in (getattr(buf, "buffers", None) or {}).values():
+            plane = getattr(b, "tree_plane", None)
+            if plane:
+                planes.add(plane)
+        if not planes:
+            return "none"
+        return planes.pop() if len(planes) == 1 else "mixed"
+
+    def _maybe_start_profile(self) -> None:
+        """Begin the ``telemetry(profile_iters=N)`` capture at the first
+        iteration: ``torch.profiler`` over the CPU and (on the card) CUDA
+        activities. It only observes, so the run computes the same."""
+        if self._profile_iters <= 0 or self._profiler is not None:
+            return
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=activities)
+        self._profiler.__enter__()
+
+    def _maybe_stop_profile(self) -> None:
+        """After the N-th profiled iteration: stop the capture and write
+        its chrome trace to ``<logdir>/torch_profile/trace.json``."""
+        if self._profiler is None:
+            return
+        self._profile_iters -= 1
+        if self._profile_iters > 0:
+            return
+        prof, self._profiler = self._profiler, None
+        prof.__exit__(None, None, None)
+        path = os.path.join(self.logdir, "torch_profile")
+        os.makedirs(path, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(path, "trace.json"))
+
+    def export_timeline(self, path: str, last_n: Optional[int] = None) -> str:
+        """Write the chrome://tracing JSON of the recorded spans (driver
+        threads, worker processes, the device ledger's ``device:`` lanes;
+        tracing on with ``trace=True`` or ``RAY_TPU_TRACE=1``).
+        ``last_n`` keeps the last N train iterations, bounded by the span
+        buffer (``RAY_TPU_TRACE_BUFFER``)."""
+        since = None
+        marks = self._iteration_marks
+        if last_n and marks:
+            since = marks[-min(int(last_n), len(marks))]
+        return tracing.export_chrome_trace(path, since=since)
+
     # -- the resilience hooks ---------------------------------------------
 
     def on_recovery(self, kind: str) -> None:
@@ -389,11 +573,6 @@ class Algorithm(Trainable):
         joiners into its own sampling machinery (PPO's prefetch pipeline,
         IMPALA's rotation); the synchronous rounds read
         ``workers.remote_workers()`` each time and need nothing."""
-
-    def sampler_queue_depths(self) -> Dict[str, int]:
-        """The depths of the queues between the samplers and the learner
-        (the fleet controller's starvation signal); none here."""
-        return {}
 
     def _metrics_may_lag(self) -> bool:
         """Whether the workers' episode metrics are taken without waiting
@@ -631,6 +810,9 @@ class Algorithm(Trainable):
         """Join the fleet's monitor thread and the streamer (which writes
         its pending snapshot first), then stop the workers (the
         evaluation workers too) and end the remote workers' processes."""
+        if getattr(self, "_profiler", None) is not None:
+            self._profile_iters = 1
+            self._maybe_stop_profile()
         if getattr(self, "_fleet", None) is not None:
             self._fleet.stop()
         if getattr(self, "_ckpt_streamer", None) is not None:

@@ -65,6 +65,14 @@ a path as ``input`` is read by the offline algorithms (MARWIL, BC, CQL,
 CRR). ``environment(observation_space=, action_space=)`` gives the
 policy's spaces where there is no env (an external env behind a
 ``PolicyServerInput``).
+
+``telemetry(metrics_port=, trace=, device_ledger=, profile_iters=,
+peak_flops=)`` fills ``telemetry_config`` (empty: off), as the
+reference's: a Prometheus scrape target, span tracing with
+``info/telemetry`` in every result and ``Algorithm.export_timeline``,
+the device ledger under ``info/device_ledger``, a ``torch.profiler``
+capture of the first N iterations, the MFU peak. The fleet view
+(``fleetview``) raises, naming ROADMAP.md item 6.2.
 """
 
 from __future__ import annotations
@@ -172,6 +180,9 @@ class AlgorithmConfig:
         self.checkpoint_streaming = False
         self.checkpoint_stream_interval = 1
 
+        # telemetry (telemetry/runtime.py): empty dict = off
+        self.telemetry_config: Dict = {}
+
         # offline data: a callable or a path read instead of the sampler,
         # a directory the sampled batches are written to
         self.input_ = None
@@ -257,7 +268,9 @@ class AlgorithmConfig:
     ) -> "AlgorithmConfig":
         """Training keys; ``replay_buffer_config`` updates the current
         dict key by key, as the reference's DQNConfig does
-        (``sample_async`` here too, where ``bench_e2e.py`` sets it)."""
+        (``sample_async`` here too, where ``bench_e2e.py`` sets it); any
+        other keyword is set as it is, as the reference sets it
+        (``superstep``, ``nan_guard``, ...)."""
         if replay_buffer_config is not None:
             self.replay_buffer_config = {**self.replay_buffer_config, **replay_buffer_config}
         for name, value in (
@@ -280,6 +293,8 @@ class AlgorithmConfig:
         ):
             if value is not None:
                 setattr(self, name, value)
+        for name, value in kwargs.items():
+            setattr(self, name, value)
         return self
 
     def multi_agent(
@@ -385,6 +400,53 @@ class AlgorithmConfig:
             if value is not None:
                 cast = self._FAULT_TOLERANCE_CASTS[name]
                 setattr(self, name, cast(value) if cast is not None else value)
+        return self
+
+    def telemetry(
+        self,
+        *,
+        metrics_port: Optional[int] = None,
+        trace: Optional[bool] = None,
+        device_ledger=None,
+        profile_iters: Optional[int] = None,
+        peak_flops: Optional[float] = None,
+        peak_hbm_bytes_per_s: Optional[float] = None,
+        **kwargs,
+    ) -> "AlgorithmConfig":
+        """Run-telemetry activation, the reference's knobs.
+
+        ``metrics_port``: start a Prometheus ``MetricsServer`` on this
+        port when the algorithm is built (0 = a free port; read it back
+        from ``algo._telemetry.metrics_port``). ``trace``: span tracing
+        end to end (remote submissions carry the trace context, every
+        ``train()`` result gains ``info/telemetry``,
+        ``Algorithm.export_timeline(path)`` writes the chrome trace).
+        ``device_ledger``: the program ledger under
+        ``info/device_ledger``, on whenever telemetry is; ``"light"``
+        skips the FLOP and byte count, ``False`` disables.
+        ``profile_iters``: a ``torch.profiler`` capture of the first N
+        iterations into ``<logdir>/torch_profile`` (numerics untouched).
+        ``peak_flops`` / ``peak_hbm_bytes_per_s``: the peaks MFU and
+        bandwidth divide by, over the device-name table."""
+        if "fleetview" in kwargs:
+            raise NotImplementedError(
+                "telemetry(fleetview=...): the fleet view (the reference's "
+                "telemetry/fleetview.py) is not ported yet: ROADMAP.md queue 1 item 6.2"
+            )
+        if kwargs:
+            raise TypeError(f"telemetry() got unknown knobs {sorted(kwargs)}")
+        tc = dict(self.telemetry_config)
+        for name, value, cast in (
+            ("metrics_port", metrics_port, int),
+            ("trace", trace, bool),
+            ("device_ledger", device_ledger, None),
+            ("profile_iters", profile_iters, int),
+            ("peak_flops", peak_flops, float),
+            ("peak_hbm_bytes_per_s", peak_hbm_bytes_per_s, float),
+        ):
+            if value is not None:
+                tc[name] = cast(value) if cast is not None else value
+        self.telemetry_config = tc
         return self
 
     def offline_data(

@@ -76,6 +76,7 @@ from ray_tpu_torch.execution.replay_buffer import (
 )
 from ray_tpu_torch.execution.train_ops import superstep_train_replay
 from ray_tpu_torch.ops.framestack import FRAMES, materialize_fragment
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
 
 
 @core.remote
@@ -222,7 +223,10 @@ class ApexDQN(DQN):
             prios = policy.compute_td_error(batch) + 1e-6 if side else None
             shard.add_device_tree(policy.replay_columns(batch), priorities=prios)
             return
-        tree = {c: shard._to_device(v) for c, v in policy.replay_columns(batch).items()}
+        cols = policy.replay_columns(batch)
+        # each transition's one crossing to the card
+        telemetry_metrics.add_h2d_bytes("replay_insert", sum(v.nbytes for v in cols.values()))
+        tree = {c: shard._to_device(v) for c, v in cols.items()}
         prios = None
         if side:
             n = int(next(iter(tree.values())).shape[0])

@@ -361,6 +361,7 @@ class IMPALA(Algorithm):
                 cfg.get("max_sample_requests_in_flight_per_worker", 2)),
             return_object_refs=bool(self._aggregators),
             retry_policy=self.workers.retry_policy,
+            name="impala_sampler",
         )
         # the elastic fleet drains workers out of this rotation and reads
         # its in-flight counts for idleness
@@ -434,9 +435,6 @@ class IMPALA(Algorithm):
             old.stop()
         self._learner_thread = self._new_learner_thread(disarmed=True)
         self._worker_weight_ver = {}
-
-    def sampler_queue_depths(self) -> Dict[str, int]:
-        return {"learner_in": self._learner_thread.inqueue.qsize()}
 
     def _feed_ready(self, lt: LearnerThread) -> None:
         """Queue the waiting train batches while the learner has room."""

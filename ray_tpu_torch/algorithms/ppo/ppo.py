@@ -60,6 +60,7 @@ from ray_tpu_torch.execution.rollout_ops import SamplePrefetcher, synchronous_pa
 from ray_tpu_torch.execution.train_ops import batch_is_finite, note_skipped_batch, train_one_step
 from ray_tpu_torch.ops.framestack import FRAMES
 from ray_tpu_torch.policy.torch_policy import CHUNK, TorchPolicy
+from ray_tpu_torch.util import tracing
 
 
 class PPOConfig(AlgorithmConfig):
@@ -359,14 +360,20 @@ class PPO(Algorithm):
         """The next prefetched device batch, handling dead workers while
         it waits."""
         pipe = self._sample_pipeline
+        t_wait0 = time.time()
         while True:
             if not pipe.healthy():
                 raise pipe.error or RuntimeError("the sample pipeline thread died")
             self._recover_pipeline_workers(pipe)
             try:
-                return self._prefetch_feeder.get(timeout=1.0)
+                item = self._prefetch_feeder.get(timeout=1.0)
+                break
             except queue.Empty:
                 continue
+        # how long the learner sat starved on the pipeline (~0 when the
+        # prefetch overlap does its job)
+        tracing.record_span("learner:queue_wait", t_wait0, time.time())
+        return item
 
     def _training_step_prefetch(self) -> Dict:
         """One learn on the next prefetched batch (the reference's
@@ -442,10 +449,6 @@ class PPO(Algorithm):
         pipe = getattr(self, "_sample_pipeline", None)
         if pipe is not None and added:
             pipe.add_workers(added)
-
-    def sampler_queue_depths(self) -> Dict[str, int]:
-        feeder = getattr(self, "_prefetch_feeder", None)
-        return {"feeder_out": feeder.qsize()} if feeder is not None else {}
 
     def on_recovery(self, kind: str) -> None:
         """A restore invalidates the prefetch pipeline (its thread may be

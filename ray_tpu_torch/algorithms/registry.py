@@ -1,18 +1,29 @@
 """The algorithm registry: a tuned example's ``run`` name → its class.
 
-Counterpart of ``ray_tpu/algorithms/registry.py``, cut to the
-algorithms the port has. Each class is imported when it is asked for,
-and records the name (``_registry_name``), which a checkpoint's
-metadata keeps for ``Algorithm.from_checkpoint``.
+Counterpart of ``ray_tpu/algorithms/registry.py``, over the same names.
+Each class is imported when it is asked for, and records the name
+(``_registry_name``), which a checkpoint's metadata keeps for
+``Algorithm.from_checkpoint``. ``register_algorithm(name, loader)`` adds
+a name (``loader()`` returns the class), ahead of the built-in ones, as
+in the reference.
+
+A name the reference knows and the port has not ported raises
+``NotImplementedError`` naming its ROADMAP.md item (:data:`NOT_PORTED`);
+a name neither package knows raises the reference's ``ValueError``.
 """
 
 from __future__ import annotations
 
 import importlib
+from typing import Callable, Dict
+
+_ALGORITHMS: Dict[str, Callable] = {}
 
 ALGORITHMS = {
     "APEX": "ray_tpu_torch.algorithms.apex_dqn.apex_dqn:ApexDQN",
+    "ApexDQN": "ray_tpu_torch.algorithms.apex_dqn.apex_dqn:ApexDQN",
     "APEX_DDPG": "ray_tpu_torch.algorithms.apex_dqn.apex_dqn:ApexDDPG",
+    "ApexDDPG": "ray_tpu_torch.algorithms.apex_dqn.apex_dqn:ApexDDPG",
     "PPO": "ray_tpu_torch.algorithms.ppo.ppo:PPO",
     "DQN": "ray_tpu_torch.algorithms.dqn.dqn:DQN",
     "IMPALA": "ray_tpu_torch.algorithms.impala.impala:IMPALA",
@@ -26,16 +37,38 @@ ALGORITHMS = {
     "CRR": "ray_tpu_torch.algorithms.crr.crr:CRR",
 }
 
+# the reference's names the port has not ported yet, with their item
+_ITEM_9_3 = (
+    "PG", "A2C", "A3C", "SimpleQ", "R2D2", "RNNSAC", "ES", "ARS", "MADDPG", "QMIX", "SlateQ",
+    "BanditLinUCB", "BanditLinTS",
+)
+NOT_PORTED = {
+    **{name: "9.3" for name in _ITEM_9_3},
+    "DDPPO": "7",
+    **{name: "9" for name in ("AlphaStar", "AlphaZero", "Dreamer", "MAML", "MBMPO")},
+}
+
+
+def register_algorithm(name: str, loader: Callable) -> None:
+    """``name`` resolves to ``loader()`` (over a built-in of that name)."""
+    _ALGORITHMS[name] = loader
+
 
 def get_algorithm_class(name: str):
-    """The class registered as ``name``; raises for any other name."""
-    try:
+    """The class registered as ``name``."""
+    if name in _ALGORITHMS:
+        algo_cls = _ALGORITHMS[name]()
+    elif name in ALGORITHMS:
         module, cls = ALGORITHMS[name].split(":")
-    except KeyError:
+        algo_cls = getattr(importlib.import_module(module), cls)
+    elif name in NOT_PORTED:
         raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet (ported: {sorted(ALGORITHMS)}): "
-            "ROADMAP.md queue 1"
-        ) from None
-    algo_cls = getattr(importlib.import_module(module), cls)
+            f"algorithm {name!r} is not ported yet: ROADMAP.md queue 1 item {NOT_PORTED[name]}"
+        )
+    else:
+        raise ValueError(
+            f"Unknown algorithm {name!r}; known: "
+            f"{sorted(set(_ALGORITHMS) | set(ALGORITHMS) | set(NOT_PORTED))}"
+        )
     algo_cls._registry_name = name
     return algo_cls

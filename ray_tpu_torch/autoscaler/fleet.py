@@ -21,12 +21,11 @@ dropped, its filter deltas and episodes handed over) → gone. The reaper
 never takes a worker with a request in flight or a drain under way. A
 drained preemption spends no recovery budget.
 
-The starvation signal: the reference reads its telemetry's queue-depth
-gauges, which the port does not have yet (``ROADMAP.md`` queue 1 item
-9); here the algorithm reports the same queues' depths
-(``Algorithm.sampler_queue_depths``: IMPALA's learner inqueue, PPO's
-prefetch feeder), and a synchronous algorithm reports none, so nothing
-scales it up on its own, as in the reference.
+The starvation signal, as the reference's: the queue-depth gauges
+(``ray_tpu_queue_depth``) of the sampler-side queues, ``learner_in``
+(the learner thread's inqueue) and ``feeder_in`` / ``feeder_out`` (the
+device feeder's), which the execution layer sets. A synchronous
+algorithm runs none of them, so nothing scales it up on its own.
 """
 
 from __future__ import annotations
@@ -37,9 +36,12 @@ from typing import Dict, List
 
 from ray_tpu_torch.core import api
 from ray_tpu_torch.core.object_store import RayActorError, WorkerCrashedError
-from ray_tpu_torch.util import telemetry
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
 
 _ACTOR_DEAD_ERRORS = (RayActorError, WorkerCrashedError)
+# the sampler-side queues whose depth gauges signal a starved learner
+_STARVATION_QUEUES = ("learner_in", "feeder_in", "feeder_out")
 
 
 class FleetController:
@@ -143,13 +145,16 @@ class FleetController:
             if grace is not None:
                 with self._lock:
                     self._noticed[wid] = w
-                telemetry.event("fleet:preemption_notice", grace_s=float(grace))
+                tracing.event("fleet:preemption_notice", grace_s=float(grace))
 
     def _poll_starvation(self) -> None:
-        """A scale-up step when every sampler-side queue the algorithm
-        reports sits empty for ``starvation_patience`` polls in a row."""
-        report = getattr(self.algo, "sampler_queue_depths", None)
-        depths = list(report().values()) if report is not None else []
+        """A scale-up step when every sampler-side queue the run exports
+        sits at depth 0 for ``starvation_patience`` polls in a row."""
+        m = telemetry_metrics.get_metric(telemetry_metrics.QUEUE_DEPTH)
+        if m is None:
+            return
+        depths = [v for tags, v in m.series()
+                  if dict(tags).get("queue") in _STARVATION_QUEUES]
         if not depths or any(d > 0 for d in depths):
             self._starved_polls = 0
             return
@@ -225,11 +230,11 @@ class FleetController:
         self._set_gauges()
 
     def _scale_up(self, k: int) -> None:
-        with telemetry.span("fleet:scale_up", workers=k):
+        with tracing.start_span("fleet:scale_up", workers=k):
             new = self.workers.scale_up(k)
         self.num_scale_ups += len(new)
         if new:
-            telemetry.event("fleet:joined", workers=len(new), fleet=self.workers.num_remote_workers())
+            tracing.event("fleet:joined", workers=len(new), fleet=self.workers.num_remote_workers())
             self.algo.on_fleet_change(added=new, removed=[])
 
     def _retire(self, w, *, preempted: bool) -> bool:
@@ -251,7 +256,7 @@ class FleetController:
             self.workers.remove_workers([w])
             if preempted:
                 self.num_preempt_lost += 1
-                telemetry.inc_preemptions(drained=False)
+                telemetry_metrics.inc_preemptions(drained=False)
                 if recovery is not None:
                     recovery.note_preemption(drained=False)
             return False
@@ -265,7 +270,7 @@ class FleetController:
         self._probe_refs.pop(id(w), None)
         if preempted:
             self.num_drained += 1
-            telemetry.inc_preemptions(drained=True)
+            telemetry_metrics.inc_preemptions(drained=True)
             if recovery is not None:
                 recovery.note_preemption(drained=True)
         else:
@@ -279,7 +284,7 @@ class FleetController:
     def _set_gauges(self) -> None:
         with self._lock:
             draining = len(self._draining)
-        telemetry.set_fleet_size(active=max(0, self.workers.num_remote_workers() - draining),
+        telemetry_metrics.set_fleet_size(active=max(0, self.workers.num_remote_workers() - draining),
                                  draining=draining)
 
     def stats(self) -> Dict:

@@ -27,6 +27,10 @@ Worker processes hide the card (``worker_proc.worker_main``) unless
 ``options(runtime_env={"env_vars": {...}})`` adds variables for the
 actors it makes (the serve core's replicas, ``serve/serve.py``).
 
+Tracing: every submission carries ``tracing.inject_context()`` (None
+while tracing is off), and the spans a worker finished ride back on its
+reply into this process's span buffer (``worker_proc.worker_main``).
+
 Left for later (``ROADMAP.md`` queue 1 item 9): the native SPSC ring,
 placement groups, named actors, task retries and actor restarts, the
 client server, jobs, the rest of ``runtime_env``, the memory and log
@@ -55,6 +59,7 @@ from ray_tpu_torch.core.object_store import (
 )
 from ray_tpu_torch.core.serialization import CodeRef
 from ray_tpu_torch.core.worker_proc import RefArg, worker_main
+from ray_tpu_torch.util import tracing
 
 _runtime: Optional["_Runtime"] = None
 _init_lock = threading.Lock()
@@ -254,7 +259,7 @@ class _Runtime:
                   for k, v in kwargs.items()}
         ref = self._new_ref()
         msg = {"kind": kind, "task": ref.id, "target": target, "method": method,
-               "args": store.pack((args, kwargs))}
+               "args": store.pack((args, kwargs)), "trace_ctx": tracing.inject_context()}
         with self.cond:
             if not w.alive or w.death is not None:
                 store.discard(msg["args"])
@@ -284,6 +289,8 @@ class _Runtime:
     # -- the reader thread ---------------------------------------------------
 
     def _on_reply(self, w: _Worker, msg: Dict) -> None:
+        if msg.get("spans"):
+            tracing.record_spans(msg["spans"])
         with self.cond:
             name, _ = w.pending.pop(msg["task"], ("?", None))
             e = self.entries.get(msg["task"])

@@ -20,6 +20,13 @@ A reader thread queues the main process's messages, so its sends do not
 wait for the call that is running. Calls run one at a time in
 arrival order: an actor's methods see each other's effects in the order
 they were submitted.
+
+Tracing, as the reference's worker: a submission that carries a trace
+context (``trace_ctx``, the driver's ``tracing.inject_context()``) runs
+inside ``tracing.remote_span`` (``task:<fn>`` or
+``actor:<Class>.<method>``), which also turns tracing on for the spans
+the call opens itself; the finished spans ride back on the reply
+(``spans``), a few small dicts in the pipe message.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ def worker_main(conn, env):
     import traceback
 
     from ray_tpu_torch.core.object_store import pack
+    from ray_tpu_torch.util import tracing
 
     inbox: "queue.Queue" = queue.Queue()
 
@@ -79,19 +87,28 @@ def worker_main(conn, env):
             break
         try:
             args, kwargs = _load_args(msg["args"])
+            ctx = msg.get("trace_ctx")
             if msg["kind"] == "task":
-                value = msg["target"].resolve()(*args, **kwargs)
+                fn = msg["target"].resolve()
+                with tracing.remote_span(ctx, f"task:{getattr(fn, '__name__', 'fn')}"):
+                    value = fn(*args, **kwargs)
             elif msg["kind"] == "create":
                 instance = msg["target"].resolve()(*args, **kwargs)
                 value = None
             else:
-                value = getattr(instance, msg["method"])(*args, **kwargs)
+                with tracing.remote_span(
+                    ctx, f"actor:{type(instance).__name__}.{msg['method']}"
+                ):
+                    value = getattr(instance, msg["method"])(*args, **kwargs)
             reply = {"task": msg["task"], "ok": True, "value": pack(value)}
         except Exception as e:  # every failure goes back to the caller
             reply = {
                 "task": msg["task"], "ok": False, "error_cls": type(e).__name__,
                 "traceback": traceback.format_exc(),
             }
+        spans = tracing.drain_finished()
+        if spans:
+            reply["spans"] = spans
         try:
             conn.send(reply)
         except (BrokenPipeError, OSError):

@@ -33,6 +33,14 @@ import numpy as np
 from ray_tpu_torch.env.registry import register_env
 from ray_tpu_torch.env.spaces import Box, Discrete
 
+
+def float_option(x) -> float:
+    """A reset option as a float, refused as gymnasium refuses it."""
+    try:
+        return float(x)
+    except (ValueError, TypeError) as e:
+        raise ValueError(f"An option ({x}) could not be converted to a float.") from e
+
 MAX_EPISODE_STEPS = 500
 
 
@@ -63,11 +71,17 @@ class CartPoleEnv:
         self._elapsed_steps = 0
 
     def reset(self, *, seed: Optional[int] = None, options=None):
-        if options:
-            raise NotImplementedError("CartPole-v1 reset options (low, high)")
+        """gymnasium's reset: ``options`` may give the uniform draw's
+        ``low`` and ``high`` (default -0.05 and 0.05)."""
+        low, high = -0.05, 0.05
+        if options is not None:
+            low = float_option(options.get("low", low))
+            high = float_option(options.get("high", high))
+            if low > high:
+                raise ValueError(f"Lower bound ({low}) must be lower than higher bound ({high}).")
         if seed is not None or self.np_random is None:
             self.np_random = np.random.Generator(np.random.PCG64(np.random.SeedSequence(seed)))
-        self.state = self.np_random.uniform(low=-0.05, high=0.05, size=(4,))
+        self.state = self.np_random.uniform(low=low, high=high, size=(4,))
         self.steps_beyond_terminated = None
         self._elapsed_steps = 0
         return np.array(self.state, dtype=np.float32), {}

@@ -28,6 +28,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ray_tpu_torch.env.cartpole import float_option
 from ray_tpu_torch.env.registry import register_env
 from ray_tpu_torch.env.spaces import Box
 
@@ -56,11 +57,16 @@ class PendulumEnv:
         self._elapsed_steps = 0
 
     def reset(self, *, seed: Optional[int] = None, options=None):
-        if options:
-            raise NotImplementedError("Pendulum-v1 reset options (x_init, y_init)")
+        """gymnasium's reset: ``options`` may give the symmetric draw's
+        bounds ``x_init`` (angle, default pi) and ``y_init`` (angular
+        velocity, default 1)."""
+        x, y = np.pi, 1.0
+        if options is not None:
+            x = float_option(options.get("x_init", x))
+            y = float_option(options.get("y_init", y))
         if seed is not None or self.np_random is None:
             self.np_random = np.random.Generator(np.random.PCG64(np.random.SeedSequence(seed)))
-        high = np.array([np.pi, 1.0])
+        high = np.array([x, y])
         self.state = self.np_random.uniform(low=-high, high=high)
         self._elapsed_steps = 0
         return self._get_obs(), {}

@@ -85,6 +85,7 @@ from ray_tpu_torch.evaluation.multi_agent_sampler import MultiAgentSyncSampler
 from ray_tpu_torch.evaluation.sampler import AsyncSampler, SyncSampler
 from ray_tpu_torch.models.catalog import ModelCatalog
 from ray_tpu_torch.resilience import faults, provider_notice
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.utils.filter import get_filter
 
 
@@ -294,10 +295,12 @@ class RolloutWorker:
         self._num_sample_calls += 1
         if self._fault_injector is not None:
             self._fault_injector.on_sample(self.worker_index, self._num_sample_calls)
-        if self.input_reader is not None:
-            batch = self.input_reader.next()
-        else:
-            batch = self.sampler.sample()
+        with tracing.start_span("rollout:sample", worker_index=self.worker_index) as span:
+            if self.input_reader is not None:
+                batch = self.input_reader.next()
+            else:
+                batch = self.sampler.sample()
+            span.set_attribute("env_steps", int(batch.env_steps()))
         out = self.config.get("output")
         if out:
             if self._output_writer is None:

@@ -85,6 +85,7 @@ from ray_tpu_torch.data.sample_batch import SampleBatch, concat_samples
 from ray_tpu_torch.evaluation.episode import EpisodeRecord
 from ray_tpu_torch.evaluation.metrics import RolloutMetrics
 from ray_tpu_torch.evaluation.view_collector import ViewCollector
+from ray_tpu_torch.util import tracing
 
 
 class _EnvSlotCollector:
@@ -216,6 +217,12 @@ class SyncSampler:
     # -- main loop -------------------------------------------------------
 
     def sample(self) -> SampleBatch:
+        # on a remote worker this parents under the call's
+        # "actor:RolloutWorker.sample" span (core/worker_proc.py)
+        with tracing.start_span("sampler:collect"):
+            return self._sample()
+
+    def _sample(self) -> SampleBatch:
         n = self.env.num_envs
         out: List[SampleBatch] = []
         if self.batch_mode == "truncate_episodes":
@@ -358,7 +365,8 @@ class SyncSampler:
             # the state after the fragment's last step, for GAE's bootstrap
             # (no per-row state_out column)
             batch.last_state_out = [np.asarray(s) for s in self.states[i]]
-        with self.act_lock:
+        with self.act_lock, tracing.start_span("sampler:postprocess", env_index=i,
+                                               rows=batch.count):
             batch = postprocess_batch(self.policy, batch)
         # shrink the fragment before it leaves the worker (the frame
         # pool; policies opt in through compress_for_shipping)

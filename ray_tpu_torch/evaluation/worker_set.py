@@ -38,7 +38,7 @@ from ray_tpu_torch.core import api
 from ray_tpu_torch.core.object_store import GetTimeoutError, RayActorError, WorkerCrashedError
 from ray_tpu_torch.evaluation.rollout_worker import RolloutWorker
 from ray_tpu_torch.resilience.retry import RetryPolicy, probe_actors
-from ray_tpu_torch.util import telemetry
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
 from ray_tpu_torch.utils.filter import MeanStdFilter
 
 STOP_TIMEOUT_S = 10.0
@@ -111,6 +111,7 @@ class WorkerSet:
             )
             self._remote_workers.append(w)
             self._indices[id(w)] = index
+        self._update_fleet_gauge()
         if sync:
             self._sync_new_workers(self._remote_workers[start:])
 
@@ -122,6 +123,11 @@ class WorkerSet:
         for w in new_workers:
             w.set_weights.remote(ref)
             w.sync_filters.remote(filters)
+
+    def _update_fleet_gauge(self) -> None:
+        telemetry_metrics.gauge(
+            telemetry_metrics.ROLLOUT_WORKERS, "live remote rollout workers in this WorkerSet",
+        ).set(float(len(self._remote_workers)))
 
     def local_worker(self) -> RolloutWorker:
         return self._local_worker
@@ -145,6 +151,7 @@ class WorkerSet:
                 api.kill(w)
                 self._indices.pop(id(w), None)
         self._remote_workers = [w for w in self._remote_workers if id(w) not in drop]
+        self._update_fleet_gauge()
 
     # -- the elastic set ---------------------------------------------------
 
@@ -169,7 +176,7 @@ class WorkerSet:
         self.remove_workers(dead)
         before = len(self._remote_workers)
         self.add_workers(len(dead), config_overrides=self._REPLACEMENT_OVERRIDES, indices=indices)
-        telemetry.inc_worker_restarts(len(dead))
+        telemetry_metrics.inc_worker_restarts(len(dead))
         return self._remote_workers[before:]
 
     def recreate_failed_workers(self) -> int:

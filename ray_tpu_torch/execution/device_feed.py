@@ -37,6 +37,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
+from ray_tpu_torch.utils.metrics import timer_histogram
+
 STATS_KEPT = 64
 
 
@@ -63,6 +67,13 @@ class DeviceFeeder:
         """The tree on the device and the event after its copies (None
         on the CPU); blocks this thread until the copies are done."""
         nbytes = int(sum(np.asarray(v).nbytes for v in host.values()))
+        telemetry_metrics.add_h2d_bytes("feeder", nbytes)
+        # nbytes on the span: the timeline's transfer lane and the
+        # report CLI read each transfer's payload off it
+        with tracing.start_span("feeder:transfer", nbytes=nbytes):
+            return self._copy(host, nbytes)
+
+    def _copy(self, host: Dict[str, np.ndarray], nbytes: int):
         t0 = time.perf_counter()
         if self._stream is None:
             dev = {k: torch.as_tensor(np.asarray(v)) for k, v in host.items()}
@@ -83,6 +94,8 @@ class DeviceFeeder:
         return dev, done
 
     def _record(self, nbytes: int, copy_s: float, h2d_ms: Optional[float]) -> None:
+        # the sync path's transfer series (TorchPolicy.learn_on_batch)
+        timer_histogram("ray_tpu_learner_transfer_seconds").observe(copy_s)
         entry = {"bytes": nbytes, "copy_s": copy_s}
         if h2d_ms is not None:
             entry["h2d_ms"] = h2d_ms
@@ -92,10 +105,15 @@ class DeviceFeeder:
 
     def _run(self) -> None:
         while True:
+            # queue wait against transfer: two spans on this thread's
+            # lane show whether the feeder starved or moved bytes
+            t_wait0 = time.time()
             item = self._in.get()
+            tracing.record_span("feeder:queue_wait", t_wait0, time.time())
             if item is None:
                 return
             host, meta = item
+            telemetry_metrics.set_queue_depth("feeder_in", self._in.qsize())
             try:
                 out = (*self._to_device(host), meta)
             except Exception as e:  # surfaced to the consumer, meta intact
@@ -136,6 +154,7 @@ class DeviceFeeder:
         calling thread's current stream. Raises the copy's error if
         that batch failed (``queue.Empty`` after ``timeout``)."""
         dev, event, meta = self._out.get(timeout=timeout)
+        telemetry_metrics.set_queue_depth("feeder_out", self._out.qsize())
         if isinstance(dev, Exception):
             raise dev
         if event is not None:

@@ -35,6 +35,8 @@ from ray_tpu_torch.data.sample_batch import SampleBatch
 from ray_tpu_torch.env.tensor_env import TensorVectorEnv, tree_where, where_rows
 from ray_tpu_torch.evaluation.metrics import RolloutMetrics
 from ray_tpu_torch.ops.gae import compute_gae_fragment
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
 
 # columns the PPO-family learn call drops (its loss never reads them)
 _LEARN_DROP = (SampleBatch.NEXT_OBS, SampleBatch.AGENT_INDEX, SampleBatch.T)
@@ -121,8 +123,11 @@ class DeviceRolloutEngine:
         absorbed (one readback)."""
         policy = self.policy
         policy.exploration.update_coeffs(policy.coeff_values, policy.global_timestep)
-        batch, met = self._rollout_slot(policy.coeff_values, draws)
-        self._record_metrics(met.cpu())
+        with tracing.start_span("rollout:device", num_envs=self.N, steps=self.T):
+            batch, met = self._rollout_slot(policy.coeff_values, draws)
+            met = met.cpu()
+        self._record_metrics(met)
+        telemetry_metrics.inc_env_steps_on_device(self.batch_size)
         return batch, self.batch_size
 
     @torch.no_grad()
@@ -217,6 +222,7 @@ class DeviceRolloutEngine:
             raise ValueError("advance: the carry is not this engine's")
         for met in metrics:
             self._record_metrics(torch.from_numpy(np.ascontiguousarray(met)))
+        telemetry_metrics.inc_env_steps_on_device(int(np.asarray(metrics)[:, :, 2].size))
 
     def _gae(self, rows: Dict[str, torch.Tensor]) -> None:
         """Advantages and value targets of (T, N) rows, in place."""

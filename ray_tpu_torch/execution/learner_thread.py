@@ -65,6 +65,8 @@ from ray_tpu_torch.ops.framestack import FRAMES
 from ray_tpu_torch.policy.torch_policy import CHUNK, TorchPolicy
 from ray_tpu_torch.resilience import faults
 from ray_tpu_torch.sharding.superstep import resolve_superstep
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
 
 # batches copied ahead of the learn call (2: double buffering)
 PIPELINE_DEPTH = 2
@@ -176,7 +178,10 @@ class LearnerThread(threading.Thread):
 
     def _pump(self, block: bool) -> bool:
         """One host batch from the inqueue to the feeder; True if moved."""
+        t_wait0 = time.time()
         batch = self.inqueue.get(timeout=0.5) if block else self.inqueue.get_nowait()
+        tracing.record_span("learner:queue_wait", t_wait0, time.time())
+        telemetry_metrics.set_queue_depth("learner_in", self.inqueue.qsize())
         if batch is None:
             self.stopped = True
             return False
@@ -344,8 +349,11 @@ class LearnerThread(threading.Thread):
     def _step_sync(self) -> None:
         """The policy's own ``learn_on_batch`` on one batch."""
         t0 = time.perf_counter()
+        t_wait0 = time.time()
         batch = self.inqueue.get(timeout=0.5)
         self.queue_timer += time.perf_counter() - t0
+        tracing.record_span("learner:queue_wait", t_wait0, time.time())
+        telemetry_metrics.set_queue_depth("learner_in", self.inqueue.qsize())
         if batch is None:
             self.stopped = True
             return
@@ -367,6 +375,7 @@ class LearnerThread(threading.Thread):
         """Queue a rollout batch; False if it was dropped (queue full)."""
         try:
             self.inqueue.put(batch, block=block, timeout=5.0)
+            telemetry_metrics.set_queue_depth("learner_in", self.inqueue.qsize())
             return True
         except queue.Full:
             return False
@@ -383,6 +392,7 @@ class LearnerThread(threading.Thread):
             self.join(timeout=join_timeout)
 
     def stats(self) -> Dict:
+        telemetry_metrics.set_queue_depth("learner_out", self.outqueue.qsize())
         return {
             "learner_queue_size": self.inqueue.qsize(),
             "num_steps_trained_this_thread": self.num_steps,

@@ -31,6 +31,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 from ray_tpu_torch.core import api
 from ray_tpu_torch.core.object_store import RayActorError, WorkerCrashedError
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
 
 # actor-fatal errors: the worker is gone, and its pending results with it
 _ACTOR_DEAD_ERRORS = (RayActorError, WorkerCrashedError)
@@ -60,7 +62,10 @@ class AsyncRequestsManager:
         max_remote_requests_in_flight_per_worker: int = 2,
         return_object_refs: bool = False,
         retry_policy=None,
+        name: str = "default",
     ):
+        # the manager's tag on its in-flight gauge and dead-worker counter
+        self.name = name
         self._max_in_flight = int(max_remote_requests_in_flight_per_worker)
         self._return_refs = bool(return_object_refs)
         self._retry = retry_policy
@@ -166,10 +171,15 @@ class AsyncRequestsManager:
 
     def submit_available(self, remote_fn: Optional[Callable] = None) -> int:
         """Top every live worker up to the cap; returns the count sent."""
+        t0 = time.time()
         n = 0
         for w in list(self._workers):
             while self.submit(remote_fn, worker=w):
                 n += 1
+        if n:
+            telemetry_metrics.set_requests_in_flight(self.name, len(self._in_flight))
+            tracing.record_span("requests:submit", t0, time.time(), manager=self.name,
+                                submitted=n, in_flight=len(self._in_flight))
         return n
 
     # -- harvest ---------------------------------------------------------
@@ -189,6 +199,7 @@ class AsyncRequestsManager:
         if timeout is None or timeout > 0:
             api.wait(refs, num_returns=min(max(1, min_results), len(refs)), timeout=timeout)
         ready, _ = api.wait(refs, num_returns=len(refs), timeout=0)
+        t_harvest0 = time.time()
         out: Dict[Any, List] = {}
         for ref in ready:
             worker = self._in_flight.pop(ref)
@@ -205,6 +216,10 @@ class AsyncRequestsManager:
                 continue
             out.setdefault(worker, []).append(result)
             self.num_completed += 1
+        if ready:
+            telemetry_metrics.set_requests_in_flight(self.name, len(self._in_flight))
+            tracing.record_span("requests:harvest", t_harvest0, time.time(), manager=self.name,
+                                harvested=len(ready), workers=len(out))
         return out
 
     def report_dead(self, worker) -> None:
@@ -219,6 +234,8 @@ class AsyncRequestsManager:
         if id(worker) not in self._dead_ids:
             self._dead_ids.add(id(worker))
             self._dead.append(worker)
+            telemetry_metrics.inc_dead_workers(self.name)
+            tracing.event("worker:dead", manager=self.name, live_workers=len(self._workers))
 
     def stats(self) -> Dict[str, int]:
         return {

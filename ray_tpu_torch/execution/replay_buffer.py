@@ -76,6 +76,8 @@ from ray_tpu_torch.ops.segment_tree import (
     draw_with,
     next_pow2,
 )
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
 
 
 class ReplayBuffer:
@@ -179,6 +181,7 @@ class _PrioritySampling:
         max_weight = (p_min * self._size) ** (-beta)
         p_sample = self._sum_tree[idx] / total
         weights = (p_sample * self._size) ** (-beta) / max_weight
+        telemetry_metrics.inc_tree_op("sample", "host")
         return idx, weights.astype(np.float32)
 
     def draw_prioritized_sets(self, k: int, num_items: int, beta: float):
@@ -193,6 +196,7 @@ class _PrioritySampling:
         self._sum_tree.set_items(np.asarray(idx), powered)
         self._min_tree.set_items(np.asarray(idx), powered)
         self._max_priority = max(self._max_priority, float(clamped.max()))
+        telemetry_metrics.inc_tree_op("update", "host")
 
     def _priority_state(self) -> Dict:
         idx = np.arange(self._size)
@@ -231,8 +235,9 @@ class PrioritizedReplayBuffer(_PrioritySampling, ReplayBuffer):
         self.update_priorities(idx, np.asarray(priorities, np.float64))
 
     def sample(self, num_items: int, beta: float = 0.4) -> SampleBatch:
-        idx, weights = self._draw_prioritized(num_items, beta)
-        batch = self._make_batch(idx)
+        with tracing.start_span("replay:sample", n=num_items, tree="host"):
+            idx, weights = self._draw_prioritized(num_items, beta)
+            batch = self._make_batch(idx)
         batch["weights"] = weights
         batch["batch_indexes"] = idx.astype(np.int64)
         return batch
@@ -526,6 +531,9 @@ class DeviceReplayBuffer:
         self._idx = int((self._idx + n) % self.capacity)
         self._size = int(min(self._size + n, self.capacity))
         self._num_added += n
+        telemetry_metrics.set_replay_occupancy(
+            self.label, self._size, self.capacity, self.storage_bytes, device=True
+        )
 
     # -- sampling ---------------------------------------------------------
 
@@ -533,8 +541,9 @@ class DeviceReplayBuffer:
         """A :class:`DeviceTrainBatch`; a spilled buffer's host batch."""
         if self._host is not None:
             return self._host.sample(num_items)
-        idx = self._rng.integers(0, self._size, num_items)
-        return self.gather(idx)
+        with tracing.start_span("replay:sample", n=num_items):
+            idx = self._rng.integers(0, self._size, num_items)
+            return self.gather(idx)
 
     def gather(self, idx) -> DeviceTrainBatch:
         """Rows at caller-chosen ring positions (host indices)."""
@@ -697,6 +706,7 @@ class DevicePrioritizedReplayBuffer(_PrioritySampling, DeviceReplayBuffer):
         powered, clamped = powered_priorities(priorities, self._alpha)
         self._dtree.set_powered(idx, powered)
         self._max_priority = max(self._max_priority, float(clamped.max()))
+        telemetry_metrics.inc_tree_op("update", "device")
 
     def add_device_tree(self, tree: Dict[str, Any], priorities: Optional[np.ndarray] = None) -> None:
         """Insert with the host priority protocol: new rows enter the
@@ -729,13 +739,15 @@ class DevicePrioritizedReplayBuffer(_PrioritySampling, DeviceReplayBuffer):
             batch = self.gather(idx)
             batch.tree["weights"] = torch.from_numpy(weights).to(self.device)
             return batch
-        rand = torch.as_tensor(self._rng.random(num_items), device=self.device)
-        tree = self._dtree
-        idx, weights, _ = draw_body(
-            tree.sum_value, tree.min_value, rand, self._size, beta, tree.capacity
-        )
-        cols = self._gather_columns(idx)
-        cols["weights"] = weights
+        telemetry_metrics.inc_tree_op("sample", "device")
+        with tracing.start_span("replay:sample", n=num_items, tree="device"):
+            rand = torch.as_tensor(self._rng.random(num_items), device=self.device)
+            tree = self._dtree
+            idx, weights, _ = draw_body(
+                tree.sum_value, tree.min_value, rand, self._size, beta, tree.capacity
+            )
+            cols = self._gather_columns(idx)
+            cols["weights"] = weights
         return DeviceTrainBatch(cols, num_items, indices=idx)
 
     def superstep_feed(
@@ -754,6 +766,7 @@ class DevicePrioritizedReplayBuffer(_PrioritySampling, DeviceReplayBuffer):
             feed.weights[:k].copy_(torch.from_numpy(weights))
             return feed
         feed = self._feed(k_max, num_items, float(beta))
+        telemetry_metrics.inc_tree_op("sample", "device", k)
         rand = np.stack([self._rng.random(num_items) for _ in range(k)])
         feed.rand[:k].copy_(torch.from_numpy(rand))
         tree = self._dtree
@@ -798,6 +811,7 @@ class DevicePrioritizedReplayBuffer(_PrioritySampling, DeviceReplayBuffer):
         powered, clamped = powered_priorities(abs_td[rows] + 1e-6, self._alpha)
         self._dtree.set_powered(idx[torch.as_tensor(rows, device=idx.device)], powered)
         self._max_priority = max(self._max_priority, float(clamped.max()))
+        telemetry_metrics.inc_tree_op("update", "device")
 
     def _priority_state(self) -> Dict:
         if self._dtree is None:

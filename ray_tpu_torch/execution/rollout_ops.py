@@ -41,6 +41,7 @@ from ray_tpu_torch.execution.parallel_requests import (
     AsyncRequestsManager,
     asynchronous_parallel_requests,
 )
+from ray_tpu_torch.util import tracing
 
 
 def synchronous_parallel_sample(
@@ -107,6 +108,7 @@ class SamplePrefetcher:
         self._manager = AsyncRequestsManager(
             worker_set.remote_workers(),
             max_remote_requests_in_flight_per_worker=max_in_flight,
+            name="sample_prefetcher",
         )
         self._target = int(target_steps)
         self._deliver = deliver
@@ -153,7 +155,12 @@ class SamplePrefetcher:
                     del fifos[wid]  # a dead worker's fragments go with it
                 frags = self._take_rounds(fifos)
                 while frags is not None:
-                    self._deliver(concat_samples(frags))
+                    with tracing.start_span("prefetch:assemble", fragments=len(frags),
+                                            steps=sum(b.env_steps() for b in frags)):
+                        batch = concat_samples(frags)
+                    # blocks on the feeder's backpressure: the prefetch depth
+                    with tracing.start_span("prefetch:deliver"):
+                        self._deliver(batch)
                     self.num_batches += 1
                     frags = self._take_rounds(fifos)
         except BaseException as e:  # surfaced through healthy() and error

@@ -2,8 +2,7 @@
 TCP socket and a replica's batched forward:
 
 - :mod:`~ray_tpu_torch.ingress.http`: the asyncio HTTP/ASGI ingress
-  (``POST /v1/policy/<name>/actions``, ``/healthz``; ``/metrics`` waits
-  for ROADMAP queue 1 item 9);
+  (``POST /v1/policy/<name>/actions``, ``/healthz``, ``/metrics``);
 - :mod:`~ray_tpu_torch.ingress.router`: cross-replica batch coalescing
   into full power-of-two buckets, with deadlines and dead-replica
   rerouting;

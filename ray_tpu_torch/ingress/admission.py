@@ -27,7 +27,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
-from ray_tpu_torch.util import telemetry
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
 
 
 class AdmissionDecision:
@@ -124,15 +124,15 @@ class AdmissionController:
                     policy_inflight = self._policy_inflight[policy]
         if reason is not None:
             return self._shed(reason, 429, self.retry_after_s)
-        telemetry.set_ingress_inflight(inflight)
+        telemetry_metrics.set_ingress_inflight(inflight)
         if policy is not None:
-            telemetry.set_ingress_policy_inflight(policy, policy_inflight)
+            telemetry_metrics.set_ingress_policy_inflight(policy, policy_inflight)
         return None
 
     def _shed(self, reason: str, status: int, retry_after_s: float) -> AdmissionDecision:
         with self._lock:
             self.shed_total[reason] = self.shed_total.get(reason, 0) + 1
-        telemetry.inc_ingress_shed(reason)
+        telemetry_metrics.inc_ingress_shed(reason)
         return AdmissionDecision(status, reason, retry_after_s)
 
     def release(self, policy: Optional[str] = None) -> None:
@@ -142,9 +142,9 @@ class AdmissionController:
             if policy is not None:
                 self._policy_inflight[policy] = max(0, self._policy_inflight.get(policy, 0) - 1)
                 policy_inflight = self._policy_inflight[policy]
-        telemetry.set_ingress_inflight(inflight)
+        telemetry_metrics.set_ingress_inflight(inflight)
         if policy is not None:
-            telemetry.set_ingress_policy_inflight(policy, policy_inflight)
+            telemetry_metrics.set_ingress_policy_inflight(policy, policy_inflight)
 
     class _Admit:
         __slots__ = ("ctrl", "decision", "policy")

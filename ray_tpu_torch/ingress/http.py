@@ -15,9 +15,9 @@ Protocol:
   429/503 + ``Retry-After`` when admission sheds, 504 when the deadline
   expires (before dispatch: dropped, not computed);
 - ``GET /healthz`` → liveness and a per-policy router/admission summary;
-- ``GET /metrics`` → 501: the reference serves its Prometheus exposition
-  (``utils/metrics_exporter``, ``telemetry/fleetview``), which the port
-  has not yet (ROADMAP queue 1 item 9); it never answers an empty 200.
+- ``GET /metrics`` → 200 with this process's Prometheus exposition
+  (``utils/metrics_exporter.format_prometheus``); the reference's merged
+  multi-host exposition comes with its fleet view (ROADMAP.md item 6.2).
 
 Deployments resolve through the serve core:
 :meth:`PolicyIngress.serve_deployment` wraps a named
@@ -35,6 +35,7 @@ import asyncio
 import json
 import threading
 import time
+import uuid
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -45,10 +46,12 @@ from ray_tpu_torch.ingress.router import (
     DeadlineExpired,
     NoReplicasAvailable,
 )
-from ray_tpu_torch.util import telemetry
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
 
 # a client may hand a trace id in this header; it is echoed in the
-# response (spans themselves wait for ROADMAP queue 1 item 9)
+# response, and the request's spans (ingress:request, router:dispatch,
+# serve:batch) join that trace (tracing.context_span)
 TRACE_HEADER = "x-ray-tpu-trace"
 
 _REASONS = {
@@ -477,6 +480,8 @@ class PolicyIngress:
                         405, "POST required"
                     )
                 else:
+                    if trace_id is None and tracing.is_enabled():
+                        trace_id = uuid.uuid4().hex[:16]
                     (
                         status,
                         headers,
@@ -494,8 +499,8 @@ class PolicyIngress:
                 )
         except Exception as e:  # pragma: no cover - defensive
             status, headers, payload = self._error(500, repr(e))
-        telemetry.inc_ingress_request(route, status)
-        telemetry.observe_ingress_latency(
+        telemetry_metrics.inc_ingress_request(route, status)
+        telemetry_metrics.observe_ingress_latency(
             route, time.perf_counter() - t0
         )
         return status, headers, payload
@@ -524,13 +529,18 @@ class PolicyIngress:
             if deadline_ms is not None
             else None
         )
+        # one ingress:request span per admitted request, on the client's
+        # trace when a header arrived; its context rides the router
+        # request, so router:dispatch and serve:batch stitch under it
+        ctx = {"trace_id": trace_id, "parent_span_id": None} if trace_id is not None else None
         t_req = time.perf_counter()
-        with telemetry.span("ingress:request", trace_id=trace_id, policy=name):
+        with tracing.context_span(ctx, "ingress:request", policy=name):
             decision = admission.try_admit(deadline_s, policy=name)
             if decision is not None:
                 return self._shed_response(decision)
             try:
-                fut = router.submit(obs, explore=explore, deadline_s=deadline_s)
+                fut = router.submit(obs, explore=explore, deadline_s=deadline_s,
+                                    trace=tracing.inject_context())
                 timeout = (
                     deadline_s
                     if deadline_s is not None
@@ -617,10 +627,12 @@ class PolicyIngress:
         )
 
     def _metrics(self):
-        return self._error(
-            501,
-            "/metrics needs the port's Prometheus exporter and fleet view, which are not "
-            "ported yet: ROADMAP.md queue 1 item 9",
+        from ray_tpu_torch.utils.metrics_exporter import format_prometheus
+
+        return (
+            200,
+            [("Content-Type", "text/plain; version=0.0.4")],
+            format_prometheus().encode(),
         )
 
     @staticmethod

@@ -35,7 +35,8 @@ import numpy as np
 
 from ray_tpu_torch.core.api import ActorHandle
 from ray_tpu_torch.serve.policy_server import TrailingWindow, default_buckets
-from ray_tpu_torch.util import telemetry
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
 
 
 class DeadlineExpired(RuntimeError):
@@ -57,8 +58,8 @@ class LocalReplica:
         self.name = name
         self.dead = False
 
-    def begin(self, rows: Sequence[Any], explore):
-        return self.server.submit_many(rows, explore=explore)
+    def begin(self, rows: Sequence[Any], explore, trace=None):
+        return self.server.submit_many(rows, explore=explore, trace=trace)
 
     def finish(self, token, timeout_s: float) -> List[Dict[str, Any]]:
         out = []
@@ -87,9 +88,10 @@ class ActorReplica:
         self.name = name
         self.dead = False
 
-    def begin(self, rows: Sequence[Any], explore):
+    def begin(self, rows: Sequence[Any], explore, trace=None):
         return self.actor.call_method.remote(
-            "handle_rows", [[np.asarray(r).tolist() for r in rows]], {"explore": explore},
+            "handle_rows", [[np.asarray(r).tolist() for r in rows]],
+            {"explore": explore, "trace": trace},
         )
 
     def finish(self, token, timeout_s: float) -> List[Dict[str, Any]]:
@@ -148,14 +150,15 @@ def _safe_resolve(fut: Future, value) -> None:
 
 
 class _RouterRequest:
-    __slots__ = ("obs", "explore", "deadline", "future", "t_submit")
+    __slots__ = ("obs", "explore", "deadline", "future", "t_submit", "trace")
 
-    def __init__(self, obs, explore, deadline, future, t_submit):
+    def __init__(self, obs, explore, deadline, future, t_submit, trace=None):
         self.obs = obs
         self.explore = explore
         self.deadline = deadline
         self.future = future
         self.t_submit = t_submit
+        self.trace = trace
 
 
 class CoalescingRouter:
@@ -225,12 +228,14 @@ class CoalescingRouter:
     # -- client side -----------------------------------------------------
 
     def submit(self, obs, explore: Optional[bool] = None,
-               deadline_s: Optional[float] = None) -> Future:
+               deadline_s: Optional[float] = None,
+               trace: Optional[Dict[str, Any]] = None) -> Future:
         """Enqueue one observation; returns a ``concurrent.futures``
         Future of ``{"action", "params_version", ...}`` (or raising
         :class:`DeadlineExpired` / :class:`NoReplicasAvailable`).
         ``deadline_s`` is relative; an expired request is dropped before
-        dispatch, never computed."""
+        dispatch, never computed. ``trace``: a tracing context
+        (``tracing.inject_context()``) the bucket's spans stitch under."""
         if self._stop.is_set():
             raise RuntimeError("router is stopped")
         now = time.perf_counter()
@@ -238,7 +243,7 @@ class CoalescingRouter:
             deadline_s = self.default_deadline_s
         fut: Future = Future()
         req = _RouterRequest(obs, explore, now + deadline_s if deadline_s is not None else None,
-                             fut, now)
+                             fut, now, trace)
         with self._cv:
             self._queue.append(req)
             self._cv.notify_all()
@@ -318,7 +323,7 @@ class CoalescingRouter:
         if not expired:
             return
         self.expired_total += len(expired)
-        telemetry.inc_router_expired(self.name, len(expired))
+        telemetry_metrics.inc_router_expired(self.name, len(expired))
         for req in expired:
             _safe_reject(req.future, DeadlineExpired(
                 f"request expired before dispatch (waited {time.perf_counter() - req.t_submit:.3f}s)"
@@ -352,14 +357,18 @@ class CoalescingRouter:
         rows = [req.obs for req in batch]
         t0 = time.perf_counter()
         try:
-            token = replica.begin(rows, batch[0].explore)
+            # a traced bucket hands its context on; an untraced one keeps
+            # the replica protocol's two-argument call
+            trace = batch[0].trace
+            token = (replica.begin(rows, batch[0].explore) if trace is None
+                     else replica.begin(rows, batch[0].explore, trace=trace))
         except Exception:
             replica.dead = True
             self._requeue(batch)
             return
         self.batches_total += 1
         self.merged_rows_total += len(batch)
-        telemetry.observe_router_batch(self.name, len(batch))
+        telemetry_metrics.observe_router_batch(self.name, len(batch))
         for req in batch:
             self._wait_window.observe(t0 - req.t_submit, t=t0)
         self._pool.submit(self._finish, replica, token, batch)
@@ -369,7 +378,7 @@ class CoalescingRouter:
         their original order (the next collection filters expired
         ones)."""
         self.rerouted_total += len(batch)
-        telemetry.inc_router_rerouted(self.name, len(batch))
+        telemetry_metrics.inc_router_rerouted(self.name, len(batch))
         with self._cv:
             for req in reversed(batch):
                 self._queue.appendleft(req)
@@ -379,7 +388,10 @@ class CoalescingRouter:
         """Harvest one dispatched bucket on a pool thread; a dead or
         wedged replica sends the bucket back through the queue."""
         try:
-            with telemetry.span("router:dispatch", rows=len(batch), replica=replica.name):
+            # on the trace of the bucket's first request (its
+            # ingress:request span); a fresh span when it carried none
+            with tracing.context_span(batch[0].trace, "router:dispatch", rows=len(batch),
+                                      replica=replica.name):
                 results = replica.finish(token, self.dispatch_timeout_s)
             if len(results) != len(batch):
                 raise RuntimeError(

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.ops import _kernels
+from ray_tpu_torch.telemetry import device as device_ledger
 
 NEG_INF = -1e30  # the reference's mask fill
 MAX_HEAD_DIM = 128
@@ -126,6 +127,13 @@ def _launch(q, k, v, causal_offset: Optional[int]) -> torch.Tensor:
     if rc:
         _kernels.check(rc, lib, "flash_fwd_error_string", "flash_fwd")
     flash_attention.launches += 1
+    # q, k, v read once, o written once; two multiply-adds per visible
+    # (query, key) pair and head dim (device ledger)
+    if device_ledger.counting():
+        device_ledger.add_kernel_cost(
+            4 * b * h * device_ledger.band_pairs(t, k.shape[2], causal_offset) * d,
+            q.element_size() * b * h * 2 * (t + k.shape[2]) * d,
+        )
     return out
 
 
@@ -223,6 +231,14 @@ def flash_block_attention_stats(
         )
     _kernels.check(rc, lib, "flash_block_error_string", "flash_block")
     flash_block_attention_stats.launches += 1
+    # q, k, v read once; acc, m, l written once in float32; two
+    # multiply-adds per visible pair and head dim (device ledger)
+    s = k.shape[1]
+    if device_ledger.counting():
+        device_ledger.add_kernel_cost(
+            4 * d * n * device_ledger.band_pairs(t, s, offset),
+            (n * t * d + 2 * n * s * d) * q.element_size() + (n * t * d + 2 * n * t) * 4,
+        )
     return acc, m, l
 
 

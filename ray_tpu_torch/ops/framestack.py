@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.ops import _kernels
+from ray_tpu_torch.telemetry import device as device_ledger
 
 # Batch columns of the deduplicated format.
 FRAMES = "obs_frames"
@@ -85,6 +86,9 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         )
     _kernels.check(rc, lib, "row_gather_error_string", "row_gather")
     gather_rows.launches += 1
+    # rows read once, written once, and the index (device ledger)
+    if device_ledger.counting():
+        device_ledger.add_kernel_cost(0, 2 * out.nbytes + flat_idx.nbytes)
     return out
 
 
@@ -165,6 +169,9 @@ def scatter_rows(
         )
     _kernels.check(rc, lib, "row_scatter_error_string", "row_scatter")
     scatter_rows.launches += 1
+    # rows read once, written once, and the positions (device ledger)
+    if device_ledger.counting():
+        device_ledger.add_kernel_cost(0, 2 * vals.nbytes + flat_pos.nbytes)
     return ring
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.ops import _kernels
+from ray_tpu_torch.telemetry import device as device_ledger
 
 
 def discount_cumsum_np(x: np.ndarray, gamma: float) -> np.ndarray:
@@ -128,6 +129,11 @@ def compute_gae_fragment(
     if rc:
         _kernels.check(rc, lib, "gae_fragment_error_string", "gae_scan")
     compute_gae_fragment.launches += 1
+    # three float inputs and two flags read once, two outputs written
+    # once; seven operations an element (the delta's four, the
+    # recurrence's two, the value target's one) (device ledger)
+    if device_ledger.counting():
+        device_ledger.add_kernel_cost(7 * n * t, 3 * n * t * 4 + 2 * n * t + 2 * n * t * 4)
     return adv, vt
 
 

@@ -46,6 +46,7 @@ import torch
 
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops.framestack import scatter_rows
+from ray_tpu_torch.telemetry import device as device_ledger
 
 F64 = torch.float64
 
@@ -233,6 +234,11 @@ def find_prefixsum(
     if rc:
         _kernels.check(rc, lib, "prefix_descent_error_string", "prefix_descent")
     find_prefixsum.launches += 1
+    # a node pair read and a compare-subtract at each level of each
+    # descent; the masses read, the leaves written (device ledger)
+    levels = capacity.bit_length() - 1
+    if device_ledger.counting():
+        device_ledger.add_kernel_cost(2 * n * levels, n * levels * 8 + n * 8 + n * 8)
     return out if flat else out.reshape(prefixsum.shape)
 
 

@@ -66,6 +66,10 @@ from ray_tpu_torch.ops.framestack import (
 )
 from ray_tpu_torch.policy.policy import Policy, ViewRequirement
 from ray_tpu_torch.sharding.superstep import SuperstepRunner, batch_finite
+from ray_tpu_torch.telemetry import device as device_ledger
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
+from ray_tpu_torch.utils.metrics import timer_histogram
 from ray_tpu_torch.utils.exploration import exploration_from_config
 from ray_tpu_torch.utils.schedules import make_schedule
 
@@ -157,6 +161,7 @@ class DeferredStats:
         learn call's ``cur_lr``."""
         if self._event is not None:
             self._event.synchronize()
+        device_ledger.drain_point()
         out = dict(zip(self.names, self._host.tolist()))
         out["cur_lr"] = self.lr
         return out
@@ -278,6 +283,9 @@ class TorchPolicy(Policy):
         self.num_sgd_iter = int(config.get("num_sgd_iter", 1))
         self.num_grad_updates = 0
         self.last_learn_timers: Dict[str, float] = {}
+        # one card holds the whole tree: global = per-shard
+        nbytes = sum(p.nbytes for p in self.params)
+        telemetry_metrics.set_params_bytes(type(self).__name__, nbytes, nbytes)
 
         self.exploration = exploration_from_config(
             config, action_space, self.model_config,
@@ -527,14 +535,18 @@ class TorchPolicy(Policy):
             if prev_reward_batch is not None:
                 recurrent["prev_rewards"] = torch.as_tensor(
                     np.asarray(prev_reward_batch, np.float32), device=self.device)
-        actions, state_out, extra = self._action_step_body(
-            obs, self.action_generator, explore, **recurrent
-        )
-        return (
+        label = f"act[{type(self).__name__}:{obs.shape[0]}]"
+        with device_ledger.eager_program(label, self.device, (obs,)):
+            actions, state_out, extra = self._action_step_body(
+                obs, self.action_generator, explore, **recurrent
+            )
+        out = (
             actions.cpu().numpy(),
             [s.cpu().numpy() for s in state_out],
             {k: v.cpu().numpy() for k, v in extra.items()},
         )
+        device_ledger.drain_point()
+        return out
 
     def _device_state(self, state_batches) -> List[torch.Tensor]:
         return [torch.as_tensor(np.asarray(s), device=self.device) for s in state_batches or ()]
@@ -802,18 +814,23 @@ class TorchPolicy(Policy):
         would wait for it anyway); ``learn_frame_pool`` is 1 for a
         frame-pool batch, whose stacks the row-gather kernel rebuilds."""
         batch, bsize = self.prepare_batch(samples)
+        nbytes = sum(v.nbytes for v in batch.values())
+        telemetry_metrics.add_h2d_bytes("learn", nbytes)
         t0 = time.perf_counter()
-        dev = {
-            k: torch.as_tensor(v).to(self.device, non_blocking=True)
-            for k, v in batch.items()
-        }
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        with tracing.start_span("learn:transfer", batch_size=bsize):
+            dev = {
+                k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()
+            }
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        transfer_s = time.perf_counter() - t0
         self.last_learn_timers = {
-            "learn_transfer_s": time.perf_counter() - t0,
-            "learn_transfer_bytes": float(sum(v.nbytes for v in batch.values())),
+            "learn_transfer_s": transfer_s,
+            "learn_transfer_bytes": float(nbytes),
             "learn_frame_pool": float(FRAMES in batch),
         }
+        timer_histogram("ray_tpu_learner_transfer_seconds").observe(transfer_s)
         return self.learn_on_device_batch(dev, bsize, perms=perms)
 
     def _with_stacks(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -855,20 +872,33 @@ class TorchPolicy(Policy):
         skips :meth:`after_learn_on_batch`, whose host coefficient
         updates need host stats (the reference's rule: defer only for
         policies that do not override it)."""
-        batch = self._with_stacks(dict(dev_batch))
-        self._update_scheduled_coeffs()
-        if perms is None:
-            perms = self.draw_permutations(batch_size)
-        steps = self._steps_per_update(batch_size)
-        self._load_corrections(steps)
-        names, reduced = self._sgd_nest_device(
-            batch, batch_size, perms.to(self.device), self._load_coeffs()
-        )
-        self.opt_state.count += steps
-        self.num_grad_updates += steps
-        if defer_stats:
-            return DeferredStats(names, reduced, self.coeff_values["lr"])
-        out = dict(zip(names, reduced.tolist()))
+        t0 = time.perf_counter()
+        with tracing.start_span("learn:nest", batch_size=batch_size) as span:
+            batch = self._with_stacks(dict(dev_batch))
+            self._update_scheduled_coeffs()
+            if perms is None:
+                perms = self.draw_permutations(batch_size)
+            steps = self._steps_per_update(batch_size)
+            self._load_corrections(steps)
+            with device_ledger.eager_program(
+                f"learn[{type(self).__name__}:{batch_size}]", self.device, (batch,)
+            ):
+                names, reduced = self._sgd_nest_device(
+                    batch, batch_size, perms.to(self.device), self._load_coeffs()
+                )
+            self.opt_state.count += steps
+            self.num_grad_updates += steps
+            span.set_attribute("deferred", bool(defer_stats))
+            telemetry_metrics.counter(
+                telemetry_metrics.LEARN_STEPS_TOTAL, "SGD-nest programs dispatched",
+            ).inc()
+            if defer_stats:
+                return DeferredStats(names, reduced, self.coeff_values["lr"])
+            values = reduced.tolist()
+            # the stats landed: the nest has finished
+            device_ledger.drain_point()
+        timer_histogram("ray_tpu_learner_step_seconds").observe(time.perf_counter() - t0)
+        out = dict(zip(names, values))
         out.update(self.after_learn_on_batch(out))
         out["cur_lr"] = self.coeff_values["lr"]
         return out
@@ -1015,13 +1045,19 @@ class TorchPolicy(Policy):
         if priorities:
             runner.write("priorities", self._slot_priorities(batch))
 
-    def _superstep_runner(self, key, k_max: int, batch_size: int, slot_fn, generators=()):
+    def _superstep_runner(self, key, k_max: int, batch_size: int, slot_fn, generators=(),
+                          kind: str = "superstep"):
         runner = self._superstep_runners.get(key)
         if runner is None:
             runner = SuperstepRunner(
                 self.device, k_max, slot_fn,
                 generators=(self.action_generator, *generators),
+                label=f"{kind}[{type(self).__name__}:{batch_size}x{k_max}]",
             )
+            runner.sig_inputs = {
+                "params": self.params,
+                "adam_tables": [st.table for st in self._adam_states()],
+            }
             runner.perms = torch.zeros(
                 (k_max, self.num_sgd_iter, self._perm_width(batch_size)), dtype=torch.int64,
                 device=self.device,
@@ -1029,7 +1065,8 @@ class TorchPolicy(Policy):
             self._superstep_runners[key] = runner
         return runner
 
-    def _run_superstep(self, runner, k: int, k_max: int, batch_size: int, overlap=None):
+    def _run_superstep(self, runner, k: int, k_max: int, batch_size: int, overlap=None,
+                       h2d_path: str = "learn"):
         """Host work of a superstep, then the k slots and the one drain:
         the scheduled and exploration coefficients read once, the k
         updates' permutations drawn in sequential order and shipped in
@@ -1040,10 +1077,21 @@ class TorchPolicy(Policy):
         self._update_scheduled_coeffs()
         self._load_coeffs()
         perms = torch.stack([self._host_permutations(batch_size) for _ in range(k)])
+        if self.device.type == "cuda":
+            # the device lane's whole H2D payload ("rollout")
+            telemetry_metrics.add_h2d_bytes(h2d_path, perms.nbytes)
         runner.perms[:k].copy_(perms)
         steps = self._steps_per_update(batch_size)
         self._load_corrections(k_max * steps)
-        out = runner.run(k, overlap)
+        t0 = time.perf_counter()
+        with tracing.start_span("learn:superstep", k=k, batch_size=batch_size,
+                                rollout=h2d_path == "rollout"):
+            out = runner.run(k, overlap)
+        timer_histogram("ray_tpu_learner_step_seconds").observe(time.perf_counter() - t0)
+        telemetry_metrics.counter(
+            telemetry_metrics.LEARN_STEPS_TOTAL, "SGD-nest programs dispatched",
+        ).inc(float(k))
+        telemetry_metrics.inc_superstep_updates(k)
         skipped = [bool(s > 0.5) for s in out["stats"][:, -1]]
         self._advance_adam_counts(steps * (k - sum(skipped)))
         self.num_grad_updates += k * steps
@@ -1125,10 +1173,16 @@ class TorchPolicy(Policy):
                                    device=self.device)
                     for c, v in stacked.items()
                 }
+            host = sum(v[:k].nbytes for v in stacked.values()
+                       if not isinstance(v, torch.Tensor) or v.device.type == "cpu")
+            if self.device.type == "cuda":
+                telemetry_metrics.add_h2d_bytes("learn", host)
             for c, v in stacked.items():
                 runner.stacked[c][:k].copy_(torch.as_tensor(v)[:k])
         infos, skipped, out = self._run_superstep(runner, k, k_max, batch_size, overlap)
         pri = out["priorities"] if refresh_priorities else None
+        if pri is not None:
+            telemetry_metrics.add_d2h_bytes("replay_priorities", pri[:k].nbytes)
         return infos, pri, skipped
 
     def learn_rollout_superstep(self, k: int, batch_size: int, feed, *, k_max: Optional[int] = None):
@@ -1151,8 +1205,10 @@ class TorchPolicy(Policy):
             self._update_slot(runner, batch, batch_size)
 
         key = ("rollout", batch_size, k_max, feed.key)
-        runner = self._superstep_runner(key, k_max, batch_size, slot, feed.generators)
-        infos, skipped, out = self._run_superstep(runner, k, k_max, batch_size)
+        runner = self._superstep_runner(key, k_max, batch_size, slot, feed.generators,
+                                        kind="rollout_superstep")
+        infos, skipped, out = self._run_superstep(runner, k, k_max, batch_size,
+                                                  h2d_path="rollout")
         return infos, feed.carry, out["metrics"], skipped
 
     # -- weights and state -------------------------------------------------

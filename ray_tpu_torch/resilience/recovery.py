@@ -18,9 +18,10 @@ training step raises.
 
 Each action spends one unit of the ``max_failures`` budget (negative:
 unlimited); a drained preemption spends none. ``stats()`` is what
-``train()`` puts under ``info/recovery``. The reference's Prometheus
-counters and ``recovery:*`` spans go to the no-ops of
-``util/telemetry.py`` (``ROADMAP.md`` queue 1 item 9).
+``train()`` puts under ``info/recovery``; the actions also feed the
+reference's Prometheus counters (``ray_tpu_recoveries_total``,
+``ray_tpu_skipped_batches_total``) and ``recovery:*`` spans, which the
+iteration roll-up reads as its ``recovery`` stage.
 
 :func:`batch_is_finite` is the nan guard's test, here as in the
 reference (``execution/train_ops`` re-exports it).
@@ -38,7 +39,8 @@ import numpy as np
 from ray_tpu_torch.core.object_store import RayActorError, WorkerCrashedError
 from ray_tpu_torch.resilience import discovery
 from ray_tpu_torch.resilience.streamer import CheckpointStreamer
-from ray_tpu_torch.util import telemetry
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
 
 ACTOR_DEAD_ERRORS = (RayActorError, WorkerCrashedError)
 
@@ -90,7 +92,7 @@ class RecoveryManager:
         self.time_lost_s += dt
         self.iter_time_lost_s += dt
         self.num_recoveries[kind] += 1
-        telemetry.inc_recoveries(kind)
+        telemetry_metrics.inc_recoveries(kind)
 
     # -- the failure protocol --------------------------------------------
 
@@ -137,7 +139,7 @@ class RecoveryManager:
         if not self._budget_ok():
             return False
         t0 = time.time()
-        with telemetry.span("recovery:workers", error=type(exc).__name__):
+        with tracing.start_span("recovery:workers", error=type(exc).__name__):
             if recreate:
                 restarted = self.algo.workers.recreate_failed_workers()
             else:
@@ -155,7 +157,7 @@ class RecoveryManager:
         if not self._budget_ok():
             return False
         t0 = time.time()
-        with telemetry.span("recovery:restore", error=type(exc).__name__):
+        with tracing.start_span("recovery:restore", error=type(exc).__name__):
             restored = self.restore_latest()
         if restored is None:
             return False
@@ -166,8 +168,8 @@ class RecoveryManager:
     def note_skipped_batch(self) -> None:
         """A learn choke point skipped a non-finite batch."""
         self.num_skipped_batches += 1
-        telemetry.inc_skipped_batches()
-        telemetry.event("recovery:skip_nan_batch")
+        telemetry_metrics.inc_skipped_batches()
+        tracing.event("recovery:skip_nan_batch")
 
     def note_preemption(self, drained: bool) -> None:
         """A worker's preemption ran its course. A drained one is no
@@ -177,7 +179,7 @@ class RecoveryManager:
             self.num_preemptions_drained += 1
         else:
             self.num_preemptions_lost += 1
-        telemetry.event("recovery:preemption", drained=drained)
+        tracing.event("recovery:preemption", drained=drained)
 
     # -- periodic checkpoints --------------------------------------------
 
@@ -194,7 +196,7 @@ class RecoveryManager:
         root = self.checkpoint_root or os.path.join(self.algo.logdir, "resilience")
         os.makedirs(root, exist_ok=True)
         t0 = time.time()
-        with telemetry.span("recovery:checkpoint", iteration=it):
+        with tracing.start_span("recovery:checkpoint", iteration=it):
             path = self.algo.save(os.path.join(root, f"checkpoint_{it:06d}"))
         self.iter_time_lost_s += time.time() - t0
         self.latest_checkpoint = path

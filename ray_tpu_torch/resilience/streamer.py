@@ -53,7 +53,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ray_tpu_torch.util import telemetry
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.atomic_io import atomic_write
 
 
@@ -174,7 +175,7 @@ class CheckpointStreamer:
         """End of a superstep (the main thread, between training-step
         rounds): count it and, every ``every`` supersteps, capture."""
         self._superstep += 1
-        telemetry.set_stream_lag(self._superstep - self._last_written)
+        telemetry_metrics.set_stream_lag(self._superstep - self._last_written)
         if self._superstep - self._last_offered < self.every:
             return
         self._last_offered = self._superstep
@@ -277,7 +278,7 @@ class CheckpointStreamer:
             if buf.event is not None and self._stream is None:
                 self._stream = torch.cuda.Stream(buf.dev[0].device)
             header = buf.header
-            with telemetry.span("stream:snapshot", superstep=header["superstep"]):
+            with tracing.start_span("stream:snapshot", superstep=header["superstep"]):
                 payload = _fill(header, buf.pull(self._stream))
                 path = os.path.join(self.root, f"snapshot_{header['superstep']:010d}.pkl")
                 atomic_write(path, lambda f: pickle.dump(payload, f))
@@ -287,8 +288,8 @@ class CheckpointStreamer:
         self.latest_path = path
         self._last_written = header["superstep"]
         self.num_snapshots += 1
-        telemetry.inc_stream_snapshots()
-        telemetry.set_stream_lag(self._superstep - self._last_written)
+        telemetry_metrics.inc_stream_snapshots()
+        telemetry_metrics.set_stream_lag(self._superstep - self._last_written)
         self._prune()
         with self._lock:
             if not any(b.state in ("pending", "capturing") for b in self._buffers):

@@ -64,9 +64,15 @@ current stream and is the only thread that touches the policy after
 CUDA work that another thread of the process issues meanwhile (a learner
 training the policy that is served) neither fails nor invalidates it.
 
+Telemetry, as the reference's: the serve counters and histograms of
+``telemetry/metrics.py`` (always on, under their locks), the
+``serve:batch`` span on the trace of the batch's first request, and each
+bucket program as a program of the device ledger
+(``serve[<name>:<bucket>:<greedy|explore>]``: its capture, and one
+execution a forward, timed by CUDA events).
+
 Not ported: the AOT executable cache (``aot_cache=`` raises, ROADMAP
-queue 1 item 6.3, with item 7's ``sharding/aot.py``); the reference's
-counters and spans are ``util/telemetry.py``'s no-ops (item 9).
+queue 1 item 6.3, with item 7's ``sharding/aot.py``).
 """
 
 from __future__ import annotations
@@ -85,7 +91,9 @@ import torch
 from ray_tpu_torch.data.sample_batch import DEFAULT_POLICY_ID
 from ray_tpu_torch.resilience import discovery
 from ray_tpu_torch.serve.long_poll import LongPollHost
-from ray_tpu_torch.util import telemetry
+from ray_tpu_torch.telemetry import device as device_ledger
+from ray_tpu_torch.telemetry import metrics as telemetry_metrics
+from ray_tpu_torch.util import tracing
 
 
 def _no_aot_cache(aot_cache) -> None:
@@ -97,12 +105,14 @@ def _no_aot_cache(aot_cache) -> None:
 
 
 def device_ledger_summary(device=None) -> Optional[Dict[str, Any]]:
-    """The device slice of ``stats()``: ``mfu`` (None until the device
-    ledger is ported, ROADMAP queue 1 item 9) and the fraction of the
-    card's memory still free, from ``torch.cuda.mem_get_info`` on
-    ``device`` (the serve autoscaler's ledger signal gates scale-up on
-    it). ``RAY_TPU_HBM_HEADROOM`` overrides the headroom. None when
-    neither is knowable (a CPU device and no override)."""
+    """The device slice of ``stats()``: ``mfu``, the device ledger's
+    aggregate (``telemetry/device.snapshot()["totals"]``; None while the
+    ledger is off), and the fraction of the card's memory still free,
+    from ``torch.cuda.mem_get_info`` on ``device`` (the serve
+    autoscaler's ledger signal gates scale-up on it).
+    ``RAY_TPU_HBM_HEADROOM`` overrides the headroom. None when neither
+    is knowable (the ledger off, a CPU device and no override)."""
+    mfu = device_ledger.snapshot()["totals"]["mfu"] if device_ledger.enabled() else None
     headroom = None
     env = os.environ.get("RAY_TPU_HBM_HEADROOM")
     if env:
@@ -113,9 +123,9 @@ def device_ledger_summary(device=None) -> Optional[Dict[str, Any]]:
     if headroom is None and device is not None and torch.device(device).type == "cuda":
         free, total = torch.cuda.mem_get_info(torch.device(device))
         headroom = max(0.0, free / total)
-    if headroom is None:
+    if headroom is None and mfu is None:
         return None
-    return {"mfu": None, "hbm_headroom": headroom}
+    return {"mfu": mfu, "hbm_headroom": headroom}
 
 
 def default_buckets(max_batch_size: int) -> Tuple[int, ...]:
@@ -205,9 +215,10 @@ class ServeFuture:
 
 
 class _Request:
-    __slots__ = ("obs", "explore", "future", "t_submit", "flush")
+    __slots__ = ("obs", "explore", "future", "t_submit", "flush", "trace")
 
-    def __init__(self, obs, explore, future, t_submit, flush=False):
+    def __init__(self, obs, explore, future, t_submit, flush=False, trace=None):
+        self.trace = trace
         self.obs = obs
         self.explore = explore
         self.future = future
@@ -238,6 +249,7 @@ class _Program:
         self.draws = tuple(d.expand((bucket,) + tuple(d.shape[1:])).clone() for d in probe)
         self.coeffs = {k: torch.tensor(float(v), dtype=torch.float32, device=dev)
                        for k, v in policy.exploration.init_coeffs().items()}
+        self.label = f"serve[{server.name}:{bucket}:{'explore' if explore else 'greedy'}]"
         self.graph = None
         self.replays = 0  # forwards run (graph replays on the card)
         self.counts: Tuple = ()
@@ -270,14 +282,31 @@ class _Program:
             return
         from ray_tpu_torch.sharding.superstep import capture_graph
 
+        t0 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved(self.policy.device)
         current = torch.cuda.current_stream(self.policy.device)
         stream = torch.cuda.Stream(self.policy.device)
         stream.wait_stream(current)
         with torch.no_grad():
             with torch.cuda.stream(stream):
-                self.body()
+                with device_ledger.count_costs() as cost:
+                    self.body()
             self.graph, self.counts, self.outputs = capture_graph(self.body, stream)
         current.wait_stream(stream)
+        if device_ledger.enabled():
+            static = (self.obs, self.draws, self.coeffs)
+            grown = torch.cuda.memory_reserved(self.policy.device) - reserved
+            device_ledger.on_capture(
+                self.label, device_ledger.signature_of(static, {}), time.perf_counter() - t0,
+                cost, {
+                    "argument_bytes": float(device_ledger.tensor_bytes(static)),
+                    "output_bytes": float(device_ledger.tensor_bytes(self.outputs)),
+                    "temp_bytes": float(max(0, grown)), "alias_bytes": None,
+                    "generated_code_bytes": None,
+                },
+            )
+        else:
+            device_ledger.on_capture(self.label, None, time.perf_counter() - t0)
         self.host_obs = torch.empty(self.obs.shape, dtype=self.obs.dtype, pin_memory=True)
         self.host_out = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
                          for k, v in self.outputs.items()}
@@ -298,15 +327,19 @@ class _Program:
                 buf[:n].copy_(torch.cat([d[j] for d in draws]))
         self.replays += 1
         if not self.cuda:
-            with torch.no_grad():
+            with torch.no_grad(), device_ledger.eager_program(self.label, "cpu", (self.obs,)):
                 out = self.body()
+            device_ledger.drain_point()
             return {k: v[:n].numpy().copy() for k, v in out.items()}
+        ex = device_ledger.begin(self.label, self.policy.device)
         self.graph.replay()
+        device_ledger.end(ex, self.policy.device)
         for fn, count in self.counts:
             fn.launches += count
         for k, v in self.outputs.items():
             self.host_out[k][:n].copy_(v[:n], non_blocking=True)
         torch.cuda.current_stream(self.policy.device).synchronize()
+        device_ledger.drain_point()
         return {k: v[:n].numpy().copy() for k, v in self.host_out.items()}
 
 
@@ -367,7 +400,7 @@ class BatchedPolicyServer:
         self._applied_swap = 0
         self.params_version = 1
         self.reload_info: Optional[Dict[str, Any]] = None
-        telemetry.set_serve_params_version(self.name, self.params_version)
+        telemetry_metrics.set_serve_params_version(self.name, self.params_version)
 
         self._queue: "collections.deque[_Request]" = collections.deque()
         self._cv = threading.Condition()
@@ -417,14 +450,17 @@ class BatchedPolicyServer:
         singleton submits rely on the batcher's timeout coalescing."""
         return self._enqueue([obs], explore, flush=False)[0]
 
-    def submit_many(self, obs_rows, explore: Optional[bool] = None) -> List[ServeFuture]:
+    def submit_many(self, obs_rows, explore: Optional[bool] = None,
+                    trace: Optional[Dict[str, Any]] = None) -> List[ServeFuture]:
         """Enqueue a pre-coalesced run of observations atomically (one
         lock acquisition, one batcher wakeup): the ingress router's
         dispatch path. The last request carries a flush hint, so the run
-        becomes one forward without waiting out the batch timeout."""
-        return self._enqueue(obs_rows, explore, flush=True)
+        becomes one forward without waiting out the batch timeout.
+        ``trace``: the tracing context the run's ``serve:batch`` span
+        joins."""
+        return self._enqueue(obs_rows, explore, flush=True, trace=trace)
 
-    def _enqueue(self, obs_rows, explore, flush: bool) -> List[ServeFuture]:
+    def _enqueue(self, obs_rows, explore, flush: bool, trace=None) -> List[ServeFuture]:
         if self._stop.is_set():
             raise RuntimeError("policy server is stopped")
         obs_rows = list(obs_rows)
@@ -434,7 +470,7 @@ class BatchedPolicyServer:
         now = time.perf_counter()
         reqs = [
             _Request(self._transform_obs(obs), explore, ServeFuture(), now,
-                     flush=flush and i == len(obs_rows) - 1)
+                     flush=flush and i == len(obs_rows) - 1, trace=trace)
             for i, obs in enumerate(obs_rows)
         ]
         with self._cv:
@@ -444,8 +480,8 @@ class BatchedPolicyServer:
             if flush:
                 self._flush_hints += 1
             self._cv.notify_all()
-        telemetry.inc_serve_requests(self.name, len(reqs))
-        telemetry.set_serve_queue_depth(self.name, depth)
+        telemetry_metrics.inc_serve_requests(self.name, len(reqs))
+        telemetry_metrics.set_serve_queue_depth(self.name, depth)
         return [r.future for r in reqs]
 
     def compute_actions(self, obs_batch, explore: Optional[bool] = None):
@@ -480,8 +516,8 @@ class BatchedPolicyServer:
         self._applied_swap = ver
         self.params_version += 1
         self.reload_info = info
-        telemetry.set_serve_params_version(self.name, self.params_version)
-        telemetry.event("serve:hot_reload", version=self.params_version)
+        telemetry_metrics.set_serve_params_version(self.name, self.params_version)
+        tracing.event("serve:hot_reload", version=self.params_version)
 
     # -- the programs ----------------------------------------------------
 
@@ -518,8 +554,8 @@ class BatchedPolicyServer:
         prog = self._program(self._bucket_for(n), explore)
         with torch.no_grad():
             draws = [policy.action_draws(policy.action_generator, explore) for _ in range(n)]
-            telemetry.add_h2d_bytes("serve", obs_rows.nbytes)
-            with telemetry.span("serve:forward", bucket=prog.bucket, rows=n):
+            telemetry_metrics.add_h2d_bytes("serve", obs_rows.nbytes)
+            with tracing.start_span("serve:forward", bucket=prog.bucket, rows=n):
                 out = prog.run(obs_rows, draws, policy.coeff_values)
         actions = out.pop("actions")
         return actions, out
@@ -591,7 +627,7 @@ class BatchedPolicyServer:
                 if req.flush:
                     self._flush_hints -= 1
                 batch.append(req)
-            telemetry.set_serve_queue_depth(self.name, len(self._queue))
+            telemetry_metrics.set_serve_queue_depth(self.name, len(self._queue))
             return batch
 
     def _process_batch(self, batch: List[_Request]) -> None:
@@ -599,7 +635,8 @@ class BatchedPolicyServer:
         n = len(batch)
         explore = batch[0].explore
         version = self.params_version
-        with telemetry.span("serve:batch", rows=n, version=version):
+        trace = next((r.trace for r in batch if r.trace is not None), None)
+        with tracing.context_span(trace, "serve:batch", rows=n, version=version):
             try:
                 actions, extra = self.forward_padded(np.stack([r.obs for r in batch]),
                                                      explore=explore)
@@ -614,15 +651,15 @@ class BatchedPolicyServer:
         self.batches_total += 1
         self.batch_rows_total += n
         self.padded_rows_total += executed - n
-        telemetry.observe_serve_batch(self.name, n)
-        telemetry.set_serve_batch_fill(self.name, n / executed)
+        telemetry_metrics.observe_serve_batch(self.name, n)
+        telemetry_metrics.set_serve_batch_fill(self.name, n / executed)
         for req, value in zip(batch, results):
             lat = t1 - req.t_submit
             wait = t0 - req.t_submit
             self._lat.observe(lat, t=t1)
             self._queue_wait.observe(wait, t=t1)
-            telemetry.observe_serve_latency(self.name, lat)
-            telemetry.observe_serve_queue_wait(self.name, wait)
+            telemetry_metrics.observe_serve_latency(self.name, lat)
+            telemetry_metrics.observe_serve_queue_wait(self.name, wait)
             req.future._resolve(value, version, lat)
 
     # -- introspection ---------------------------------------------------
@@ -971,11 +1008,12 @@ class PolicyDeployment:
     def compute_actions(self, obs_batch, explore=None):
         return self.server.compute_actions(obs_batch, explore=explore)
 
-    def handle_rows(self, rows, explore=None, timeout_s: float = 60.0):
+    def handle_rows(self, rows, explore=None, timeout_s: float = 60.0, trace=None):
         """Batch entry point for the ingress coalescing router: one
         pre-coalesced bucket in (enqueued atomically, ``submit_many``),
         one JSON-friendly row per request out."""
-        futs = self.server.submit_many([np.asarray(r) for r in rows], explore=explore)
+        futs = self.server.submit_many([np.asarray(r) for r in rows], explore=explore,
+                                       trace=trace)
         out = []
         for fut in futs:
             action, extra = fut.result(timeout_s)

@@ -37,15 +37,27 @@ The kernel wrappers' ``launches`` counters are host integers that a
 graph would bump once, at capture. The runner sets them back after the
 capture and adds the captured counts on each replay, so they count the
 launches the card makes.
+
+A runner with a ``label`` is a program of the device ledger
+(``telemetry/device.py``): its first ``run`` captures (on the CPU, runs
+its first slot as the analysis call) and is recorded as a trace, with
+the FLOPs and bytes of the first slot counted and the signature of
+``sig_inputs`` diffed against the label's last capture; every later
+``run`` is one execution, timed by a CUDA event pair around its
+replays and closed at the drain.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import time
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+
+from ray_tpu_torch.telemetry import device as device_ledger
 
 # stats key of the nan guard's skip flag (1.0: the slot's update was
 # suppressed because its batch held a non-finite float)
@@ -135,7 +147,8 @@ class SuperstepRunner:
     A slot reads ``runner.slot`` (a (1,) device int64, the slot's index,
     set to 0 before the first slot and advanced after each) and writes
     its outputs with :meth:`write`. ``generators``: the CUDA generators
-    the slot draws from."""
+    the slot draws from. ``label``: the runner's name in the device
+    ledger (None: not a ledger program)."""
 
     def __init__(
         self,
@@ -143,8 +156,15 @@ class SuperstepRunner:
         k_max: int,
         slot_fn: Callable[["SuperstepRunner"], None],
         generators: Iterable[torch.Generator] = (),
+        label: Optional[str] = None,
     ):
         self.device = torch.device(device)
+        self.label = label
+        # what the ledger's signature of a capture covers beside the
+        # runner's own buffers (the policy's parameters and tables)
+        self.sig_inputs: Dict[str, object] = {}
+        self.runs = 0
+        self.captures = 0
         self.k_max = int(k_max)
         self.slot_fn = slot_fn
         self.generators = tuple(g for g in generators if g.device.type == "cuda")
@@ -183,41 +203,96 @@ class SuperstepRunner:
         if not 1 <= k <= self.k_max:
             raise ValueError(f"k={k} outside [1, k_max={self.k_max}]")
         self.slot.zero_()
+        self.runs += 1
         if self.device.type == "cuda":
             self._run_graph(k)
         else:
-            for _ in range(k):
-                self._slot()
+            self._run_eager(k)
         if overlap is not None:
             overlap()
         return self.drain(k)
 
+    def _run_eager(self, k: int) -> None:
+        first = self.label is not None and self.runs == 1
+        if first:  # the CPU's analysis call: its first slot counted
+            t0 = time.perf_counter()
+            with device_ledger.count_costs() as cost:
+                self._slot()
+            self.captures += 1
+            device_ledger.on_capture(
+                self.label, self._signature() if device_ledger.enabled() else None,
+                time.perf_counter() - t0, cost, self._memory(None), graph=False,
+            )
+            k -= 1
+        ex = None if first or self.label is None else device_ledger.begin(
+            self.label, self.device, k
+        )
+        for _ in range(k):
+            self._slot()
+        device_ledger.end(ex, self.device)
+
     def _run_graph(self, k: int) -> None:
-        done = 0
+        done, ex = 0, None
         if self.graph is None:
             self._capture()
             done = 1
+        elif self.label is not None:
+            ex = device_ledger.begin(self.label, self.device, k)
         for _ in range(k - done):
             self.graph.replay()
             self.replays += 1
             for fn, n in self._counts:
                 fn.launches += n
+        device_ledger.end(ex, self.device)
 
     def _capture(self) -> None:
-        """The eager first slot on the capture stream, then the capture."""
+        """The eager first slot on the capture stream, then the capture
+        (a trace of the device ledger when the runner has a label)."""
+        t0 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved(self.device)
         current = torch.cuda.current_stream(self.device)
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
-            self._slot()
+            counting = (device_ledger.count_costs() if self.label is not None
+                        else contextlib.nullcontext())
+            with counting as cost:
+                self._slot()
         self.graph, self._counts, _ = capture_graph(self._slot, stream, self.generators)
         current.wait_stream(stream)
+        self.captures += 1
+        if self.label is not None:
+            grown = torch.cuda.memory_reserved(self.device) - reserved
+            device_ledger.on_capture(
+                self.label, self._signature() if device_ledger.enabled() else None,
+                time.perf_counter() - t0, cost, self._memory(float(max(0, grown))),
+            )
+
+    def _static_inputs(self) -> Dict[str, object]:
+        return {"perms": self.perms, "slot": self.slot, "stacked": self.stacked}
+
+    def _signature(self):
+        return device_ledger.signature_of(
+            ({**self._static_inputs(), **self.sig_inputs},), {}
+        )
+
+    def _memory(self, temp_bytes: Optional[float]) -> Optional[Dict[str, Optional[float]]]:
+        if not device_ledger.enabled():
+            return None
+        return {
+            "argument_bytes": float(device_ledger.tensor_bytes(self._static_inputs())),
+            "output_bytes": float(device_ledger.tensor_bytes(self.outputs)),
+            "temp_bytes": temp_bytes,
+            "alias_bytes": None,
+            "generated_code_bytes": None,
+        }
 
     def drain(self, k: int) -> Dict[str, np.ndarray]:
         """Every output's first k rows to the host in one copy."""
         names = list(self.outputs)
         flat = torch.cat([self.outputs[n].reshape(-1) for n in names]).cpu().numpy()
         self.drains += 1
+        device_ledger.drain_point()
         out, offset = {}, 0
         for n in names:
             buf = self.outputs[n]

@@ -1,0 +1,272 @@
+"""Flight-recorder report: render a run's trace + ledger as text.
+
+::
+
+    python -m ray_tpu_torch.telemetry.report trace.json \
+        [--ledger ledger.json] [--top 10] [--json]
+
+``trace.json`` is what ``Algorithm.export_timeline`` (or
+``tracing.export_chrome_trace``) wrote; ``ledger.json`` is an optional
+``telemetry.device.dump()`` snapshot that adds FLOPs / MFU / HBM
+columns the trace alone doesn't carry. Sections:
+
+- **top programs by device time** — the ``device:`` lanes: execution
+  count, total/mean busy time, and (with the ledger) per-execution
+  FLOPs, MFU, HBM footprint;
+- **recompiles with causes** — every ``jit:recompile`` event (in the
+  port: a CUDA-graph capture of a label beyond its first), with the
+  forensics diff (which leaf's shape/dtype moved);
+- **stage busy / overlap breakdown** — the iteration-rollup math over
+  the whole trace window (sample/assemble/transfer/learn/device busy
+  seconds, rollout↔learn overlap fraction);
+- **transfer lane** — the device_feed H2D lane: transfer count,
+  busy seconds, payload bytes (from the spans' ``nbytes``).
+
+``--json`` prints the same report as one JSON object (tests and
+dashboards); default is aligned text for humans. The port's copy of
+``ray_tpu/telemetry/report.py``: it reads either package's files.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Any, Dict, List, Optional
+
+
+def _load_spans(trace_path: str) -> List[dict]:
+    """Chrome-trace events back into the span-dict shape the rollup
+    math consumes (seconds, not microseconds)."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans = []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        start = e.get("ts", 0.0) / 1e6
+        spans.append(
+            {
+                "name": e.get("name", ""),
+                "start": start,
+                "end": start + e.get("dur", 0.0) / 1e6,
+                "pid": e.get("pid"),
+                "tid": e.get("tid"),
+                "attributes": {
+                    k: v
+                    for k, v in (e.get("args") or {}).items()
+                    if k
+                    not in ("trace_id", "span_id", "parent_id")
+                },
+            }
+        )
+    return spans
+
+
+def build_report(
+    trace_path: str,
+    ledger_path: Optional[str] = None,
+    top: int = 10,
+) -> Dict[str, Any]:
+    from ray_tpu_torch.telemetry.rollup import iteration_rollup
+
+    spans = _load_spans(trace_path)
+    ledger = None
+    if ledger_path:
+        with open(ledger_path) as f:
+            ledger = json.load(f)
+    by_label: Dict[str, Dict[str, Any]] = {}
+    recompiles: List[Dict[str, Any]] = []
+    transfer = {"count": 0, "busy_s": 0.0, "bytes": 0.0}
+    for s in spans:
+        name = s["name"]
+        dur = max(0.0, s["end"] - s["start"])
+        if name.startswith("device:"):
+            row = by_label.setdefault(
+                name[len("device:"):],
+                {"executions": 0, "device_time_s": 0.0},
+            )
+            row["executions"] += 1
+            row["device_time_s"] += dur
+        elif name == "jit:recompile":
+            recompiles.append(
+                {
+                    "label": s["attributes"].get("label", "?"),
+                    "cause": s["attributes"].get("cause"),
+                }
+            )
+        elif name == "feeder:transfer":
+            transfer["count"] += 1
+            transfer["busy_s"] += dur
+            transfer["bytes"] += float(
+                s["attributes"].get("nbytes", 0) or 0
+            )
+    # graft ledger columns onto the trace's device rows (and pick up
+    # programs the trace window missed entirely)
+    ledger_rows = {
+        p["label"]: p
+        for p in (ledger or {}).get("programs", ())
+    }
+    for label, p in ledger_rows.items():
+        row = by_label.setdefault(
+            label,
+            {
+                "executions": p["executions"],
+                "device_time_s": p["device_time_s"],
+            },
+        )
+        row.update(
+            flops=p.get("flops"),
+            mfu=p.get("mfu"),
+            bytes_accessed=p.get("bytes_accessed"),
+            hbm_temp_bytes=(p.get("memory") or {}).get(
+                "temp_bytes"
+            ),
+            recompiles=p.get("recompiles"),
+            compile_time_s=p.get("compile_time_s"),
+        )
+    programs = [
+        {"label": label, **row} for label, row in by_label.items()
+    ]
+    programs.sort(
+        key=lambda r: r["device_time_s"], reverse=True
+    )
+    window = None
+    rollup = None
+    if spans:
+        t0 = min(s["start"] for s in spans)
+        t1 = max(s["end"] for s in spans)
+        rollup = iteration_rollup(spans, t0, t1)
+        window = {"start": t0, "end": t1, "wall_s": t1 - t0}
+    report: Dict[str, Any] = {
+        "trace": trace_path,
+        "spans": len(spans),
+        "window": window,
+        "programs": programs[: max(1, int(top))],
+        "programs_total": len(programs),
+        "recompiles": recompiles,
+        "stages": rollup,
+        "transfer_lane": transfer,
+    }
+    if ledger:
+        report["ledger"] = {
+            "device_kind": ledger.get("device_kind"),
+            "peak_flops_per_device": ledger.get(
+                "peak_flops_per_device"
+            ),
+            "totals": ledger.get("totals"),
+            "recompile_causes": ledger.get("recompile_causes"),
+        }
+    return report
+
+
+def _fmt_num(v, unit: str = "") -> str:
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        if abs(v) >= 1e9:
+            return f"{v / 1e9:.2f}G{unit}"
+        if abs(v) >= 1e6:
+            return f"{v / 1e6:.2f}M{unit}"
+        if abs(v) >= 1e3:
+            return f"{v / 1e3:.2f}k{unit}"
+        return f"{v:.4g}{unit}"
+    return f"{v}{unit}"
+
+
+def render_text(report: Dict[str, Any]) -> str:
+    out: List[str] = []
+    w = report.get("window") or {}
+    out.append(
+        f"== flight recorder: {report['trace']} "
+        f"({report['spans']} spans, "
+        f"{_fmt_num(w.get('wall_s'), 's')} window) =="
+    )
+    led = report.get("ledger")
+    if led:
+        tot = led.get("totals") or {}
+        mfu = tot.get("mfu")
+        out.append(
+            f"device: {led.get('device_kind')}  "
+            f"peak {_fmt_num(led.get('peak_flops_per_device'))}"
+            "FLOP/s  aggregate MFU "
+            + (f"{100 * mfu:.2f}%" if mfu else "-")
+        )
+    out.append("")
+    out.append(
+        f"-- top programs by device time "
+        f"({report['programs_total']} total) --"
+    )
+    hdr = (
+        f"{'program':44s} {'execs':>6s} {'busy_s':>9s} "
+        f"{'mean_s':>9s} {'flops':>9s} {'mfu%':>6s} {'recomp':>6s}"
+    )
+    out.append(hdr)
+    for p in report["programs"]:
+        execs = p["executions"]
+        busy = p["device_time_s"]
+        mean = busy / execs if execs else 0.0
+        mfu = p.get("mfu")
+        out.append(
+            f"{p['label'][:44]:44s} {execs:>6d} {busy:>9.4f} "
+            f"{mean:>9.5f} {_fmt_num(p.get('flops')):>9s} "
+            f"{(f'{100 * mfu:.2f}' if mfu else '-'):>6s} "
+            f"{str(p.get('recompiles', '-')):>6s}"
+        )
+    out.append("")
+    rec = report["recompiles"]
+    out.append(f"-- recompiles ({len(rec)}) --")
+    for r in rec:
+        out.append(
+            f"{r['label']}: {r.get('cause') or '(no cause recorded)'}"
+        )
+    causes = (led or {}).get("recompile_causes") or {}
+    for label, cs in causes.items():
+        for c in cs:
+            out.append(
+                f"[ledger] {label}: {c['cause']} x{c['count']}"
+            )
+    out.append("")
+    st = report.get("stages")
+    if st:
+        out.append("-- stage busy / overlap --")
+        for k in sorted(st):
+            if k.endswith("_s") or k == "overlap_fraction":
+                out.append(f"{k:24s} {st[k]:.4f}")
+    tr = report.get("transfer_lane") or {}
+    out.append("")
+    out.append(
+        f"-- transfer lane -- {tr.get('count', 0)} transfers, "
+        f"{tr.get('busy_s', 0.0):.4f}s busy, "
+        f"{_fmt_num(tr.get('bytes'), 'B')}"
+    )
+    return "\n".join(out)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m ray_tpu_torch.telemetry.report",
+        description=__doc__.splitlines()[0],
+    )
+    ap.add_argument("trace", help="chrome trace JSON (export_timeline)")
+    ap.add_argument(
+        "--ledger",
+        help="device-ledger JSON (telemetry.device.dump)",
+    )
+    ap.add_argument("--top", type=int, default=10)
+    ap.add_argument(
+        "--json", action="store_true", help="emit JSON, not text"
+    )
+    args = ap.parse_args(argv)
+    report = build_report(
+        args.trace, ledger_path=args.ledger, top=args.top
+    )
+    if args.json:
+        print(json.dumps(report, indent=1))
+    else:
+        print(render_text(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,406 @@
+"""Distributed span tracing across task/actor boundaries.
+
+Counterpart of the reference's OpenTelemetry integration
+(``python/ray/util/tracing/tracing_helper.py``: every remote
+function/actor method is wrapped with span-propagating proxies,
+``_inject_tracing_into_function :324``, ``_inject_tracing_into_class
+:449``). Same shape without the OTel dependency: when tracing is
+enabled, submissions carry a trace context (trace_id + parent span
+id), workers open a child span around execution — user code can open
+nested spans via :func:`start_span` and they parent correctly — and
+finished spans ride back on the result message into the driver's
+tracer, exportable as a span list or a chrome://tracing file.
+
+Usage::
+
+    from ray_tpu_torch.util import tracing
+    tracing.enable()
+    with tracing.start_span("rollout-phase"):
+        ray.get(worker.sample.remote())   # worker span is a child
+    spans = tracing.get_spans()
+    tracing.export_chrome_trace("/tmp/trace.json")
+
+Enable for every process with ``RAY_TPU_TRACE=1`` (workers inherit the
+env), or per-driver with :func:`enable`.
+
+The port's copy of ``ray_tpu/util/tracing.py`` (it holds no JAX): the
+same span records, the same ``RAY_TPU_TRACE`` / ``RAY_TPU_TRACE_BUFFER``
+reading, and the same chrome export, so one trace viewer reads either
+package's files. In the port the driver side is ``core/api.py`` (every
+submission carries :func:`inject_context`) and the worker side
+``core/worker_proc.py`` (:func:`remote_span` around the call, the
+finished spans on the reply).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import json
+import os
+import threading
+import time
+import uuid
+from typing import Any, Dict, List, Optional
+
+_enabled = os.environ.get("RAY_TPU_TRACE") == "1"
+_current: contextvars.ContextVar[Optional["Span"]] = (
+    contextvars.ContextVar("ray_tpu_span", default=None)
+)
+_finished: List[Dict] = []
+_lock = threading.Lock()
+# bound the span buffer: long-running jobs must not grow driver memory
+# monotonically — oldest spans drop first (export/inspect regularly,
+# or raise via RAY_TPU_TRACE_BUFFER)
+_MAX_SPANS = int(os.environ.get("RAY_TPU_TRACE_BUFFER", 100_000))
+
+
+def _append_bounded(records: List[Dict]) -> None:
+    with _lock:
+        _finished.extend(records)
+        if len(_finished) > _MAX_SPANS:
+            del _finished[: len(_finished) - _MAX_SPANS]
+
+
+def enable() -> None:
+    global _enabled
+    _enabled = True
+
+
+def disable() -> None:
+    global _enabled
+    _enabled = False
+
+
+def is_enabled() -> bool:
+    return _enabled
+
+
+class Span:
+    __slots__ = (
+        "trace_id",
+        "span_id",
+        "parent_id",
+        "name",
+        "start",
+        "end",
+        "attributes",
+        "process",
+        "thread",
+        "thread_name",
+    )
+
+    def __init__(self, name: str, trace_id=None, parent_id=None):
+        self.trace_id = trace_id or uuid.uuid4().hex[:16]
+        self.span_id = uuid.uuid4().hex[:16]
+        self.parent_id = parent_id
+        self.name = name
+        self.start = time.time()
+        self.end: Optional[float] = None
+        self.attributes: Dict[str, Any] = {}
+        self.process = os.getpid()
+        # thread identity so prefetcher/feeder/learner threads render
+        # as separate chrome-trace lanes instead of one flat tid 0
+        t = threading.current_thread()
+        self.thread = t.ident or 0
+        self.thread_name = t.name
+
+    def set_attribute(self, key: str, value: Any) -> None:
+        self.attributes[key] = value
+
+    def finish(self, end: Optional[float] = None) -> Dict:
+        self.end = time.time() if end is None else end
+        record = {
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "name": self.name,
+            "start": self.start,
+            "end": self.end,
+            "attributes": dict(self.attributes),
+            "pid": self.process,
+            "tid": self.thread,
+            "thread_name": self.thread_name,
+        }
+        if _enabled:  # disabled tracing records nothing
+            _append_bounded([record])
+        return record
+
+
+class _NullSpan:
+    """Returned by start_span when tracing is off: every operation is a
+    no-op, so the disabled hot path costs one flag check (no uuid, no
+    clock reads, no allocation)."""
+
+    __slots__ = ()
+    trace_id = None
+    span_id = None
+    parent_id = None
+
+    def set_attribute(self, key: str, value: Any) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+
+@contextlib.contextmanager
+def start_span(name: str, **attributes):
+    """Open a span under the current one (driver or worker side)."""
+    if not _enabled:
+        yield _NULL_SPAN
+        return
+    parent = _current.get()
+    span = Span(
+        name,
+        trace_id=parent.trace_id if parent else None,
+        parent_id=parent.span_id if parent else None,
+    )
+    for k, v in attributes.items():
+        span.set_attribute(k, v)
+    token = _current.set(span)
+    try:
+        yield span
+    finally:
+        _current.reset(token)
+        span.finish()
+
+
+def event(name: str, **attributes) -> None:
+    """Record a zero-duration span (dead worker, recompile, ...)
+    parented under the current span. No-op when tracing is off."""
+    if not _enabled:
+        return
+    parent = _current.get()
+    span = Span(
+        name,
+        trace_id=parent.trace_id if parent else None,
+        parent_id=parent.span_id if parent else None,
+    )
+    span.attributes.update(attributes)
+    span.finish(end=span.start)
+
+
+def record_span(
+    name: str, start: float, end: float, **attributes
+) -> None:
+    """Record a span whose interval was measured out-of-band (e.g. a
+    queue wait that ended when ``get()`` returned). ``start``/``end``
+    are ``time.time()`` stamps. No-op when tracing is off."""
+    if not _enabled:
+        return
+    parent = _current.get()
+    span = Span(
+        name,
+        trace_id=parent.trace_id if parent else None,
+        parent_id=parent.span_id if parent else None,
+    )
+    span.start = start
+    span.attributes.update(attributes)
+    span.finish(end=end)
+
+
+def get_current_span() -> Optional[Span]:
+    return _current.get()
+
+
+# -- boundary plumbing (called by core/api.py and core/worker_proc.py) --
+
+
+def inject_context() -> Optional[Dict]:
+    """Driver-side: the context a submission carries
+    (tracing_helper's span injection role)."""
+    if not _enabled:
+        return None
+    parent = _current.get()
+    if parent is not None:
+        return {
+            "trace_id": parent.trace_id,
+            "parent_span_id": parent.span_id,
+        }
+    return {"trace_id": uuid.uuid4().hex[:16], "parent_span_id": None}
+
+
+@contextlib.contextmanager
+def remote_span(ctx: Optional[Dict], name: str):
+    """Worker-side: execution span as a child of the submitted
+    context; no-op when the submission carried none. A present
+    context IS the worker's enable signal (the driver's enable() flag
+    doesn't cross the process boundary; the injected context does),
+    so nested user spans inside the execution record too."""
+    global _enabled
+    if ctx is None:
+        yield None
+        return
+    span = Span(
+        name,
+        trace_id=ctx.get("trace_id"),
+        parent_id=ctx.get("parent_span_id"),
+    )
+    token = _current.set(span)
+    was_enabled = _enabled
+    _enabled = True
+    try:
+        yield span
+    finally:
+        _current.reset(token)
+        span.finish()
+        _enabled = was_enabled
+
+
+@contextlib.contextmanager
+def context_span(ctx: Optional[Dict], name: str, **attributes):
+    """Open a span under an EXPLICIT trace context (the serving path's
+    ``x-ray-tpu-trace`` propagation: ingress → router → replica spans
+    stitch into one trace even though they run on different threads,
+    where contextvars can't carry the parent). Unlike
+    :func:`remote_span` this never force-enables tracing — when the
+    process has tracing off it costs one flag check and yields the
+    null span, so it is safe on the serve hot path. ``ctx`` is an
+    :func:`inject_context`-shaped dict; ``None`` falls back to the
+    calling context's current span (plain :func:`start_span`
+    semantics)."""
+    if not _enabled:
+        yield _NULL_SPAN
+        return
+    if ctx is None:
+        with start_span(name, **attributes) as span:
+            yield span
+        return
+    span = Span(
+        name,
+        trace_id=ctx.get("trace_id"),
+        parent_id=ctx.get("parent_span_id"),
+    )
+    for k, v in attributes.items():
+        span.set_attribute(k, v)
+    token = _current.set(span)
+    try:
+        yield span
+    finally:
+        _current.reset(token)
+        span.finish()
+
+
+def drain_finished() -> List[Dict]:
+    """Worker-side: hand finished spans to the result pipe."""
+    with _lock:
+        out = list(_finished)
+        _finished.clear()
+    return out
+
+
+def record_spans(spans: List[Dict]) -> None:
+    """Driver-side: absorb spans shipped back from a worker."""
+    if not spans:
+        return
+    _append_bounded(spans)
+
+
+def get_spans() -> List[Dict]:
+    with _lock:
+        return list(_finished)
+
+
+def clear() -> None:
+    with _lock:
+        _finished.clear()
+
+
+def _clamped_intervals(spans: List[Dict]) -> Dict[str, tuple]:
+    """Per-span [start, end] intervals with cross-actor clock skew
+    contained: a child span is clamped into its parent's (clamped)
+    interval, and end never precedes start. Worker clocks are plain
+    ``time.time()`` — a worker ahead of the driver used to render its
+    execution span outside (or "before") the submitting span, which
+    chrome://tracing draws as negative-duration garbage. Parentage is
+    ground truth (the submission carried the context), so the parent
+    interval bounds the child."""
+    by_id = {
+        s["span_id"]: s for s in spans if s.get("span_id")
+    }
+    out: Dict[str, tuple] = {}
+
+    def resolve(s, seen) -> tuple:
+        sid = s.get("span_id")
+        if sid in out:
+            return out[sid]
+        start = s["start"]
+        end = s["end"] if s["end"] is not None else start
+        end = max(end, start)
+        pid = s.get("parent_id")
+        parent = by_id.get(pid)
+        if parent is not None and pid not in seen:
+            ps, pe = resolve(parent, seen | {pid})
+            start = min(max(start, ps), pe)
+            end = min(max(end, start), pe)
+        if sid:
+            out[sid] = (start, end)
+        return (start, end)
+
+    for s in spans:
+        resolve(s, {s.get("span_id")})
+    return out
+
+
+def export_chrome_trace(
+    path: str, since: Optional[float] = None
+) -> str:
+    """chrome://tracing JSON (the reference's ray.timeline format,
+    _private/state.py:435, with span parent/trace ids attached).
+    ``since`` keeps only spans that END at or after that
+    ``time.time()`` stamp (Algorithm.export_timeline's last-N-iteration
+    window). Each (pid, tid) lane carries a thread_name metadata event
+    so prefetcher/feeder/learner threads are labeled in the viewer.
+    Child spans are clamped into their parent's interval so cross-actor
+    clock skew can't produce negative durations or out-of-parent
+    rendering (raw stamps stay available in the span list API)."""
+    with _lock:
+        spans = list(_finished)
+    if since is not None:
+        spans = [
+            s for s in spans if (s["end"] or s["start"]) >= since
+        ]
+    clamped = _clamped_intervals(spans)
+    events = []
+    for s in spans:
+        start, end = clamped.get(
+            s.get("span_id"),
+            (s["start"], s["end"] or s["start"]),
+        )
+        events.append(
+            {
+                "name": s["name"],
+                "cat": "span",
+                "ph": "X",
+                "ts": start * 1e6,
+                "dur": (end - start) * 1e6,
+                "pid": s["pid"],
+                "tid": s.get("tid", 0),
+                "args": {
+                    "trace_id": s["trace_id"],
+                    "span_id": s["span_id"],
+                    "parent_id": s["parent_id"],
+                    **s["attributes"],
+                },
+            }
+        )
+    lanes = {}
+    for s in spans:
+        lanes.setdefault(
+            (s["pid"], s.get("tid", 0)), s.get("thread_name")
+        )
+    for (pid, tid), tname in sorted(lanes.items()):
+        if tname:
+            events.append(
+                {
+                    "name": "thread_name",
+                    "ph": "M",
+                    "pid": pid,
+                    "tid": tid,
+                    "args": {"name": tname},
+                }
+            )
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events}, f)
+    return path

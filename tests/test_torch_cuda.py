@@ -717,6 +717,60 @@ def test_launch_counters_count_replays(cuda):
         assert out["adv"].shape == (k, 1)
 
 
+def test_runner_device_ledger_on_the_card(cuda):
+    """A labelled runner with the device ledger on: its first run
+    captures (a trace, its eager slot counted, the GAE kernel's cost
+    added by its wrapper), each later run is one execution whose
+    CUDA-event time is positive and within the profiler's span of its
+    replays; a second runner of the label at a new shape records the
+    recompile cause."""
+    from ray_tpu_torch.sharding.superstep import SuperstepRunner
+    from ray_tpu_torch.telemetry import device as device_ledger
+
+    def make(n):
+        args = _gae_args(n, 16, cuda)
+        w = torch.ones(16, 16, device=cuda)
+        runner = SuperstepRunner(cuda, 3, None, label="superstep[Probe:3]")
+
+        def slot(r):
+            adv, vt = gae.compute_gae_fragment(*args, 0.99, 0.95)
+            r.write("y", ((adv @ w) + vt).sum().reshape(1))
+
+        runner.slot_fn = slot
+        runner.sig_inputs = {"rewards": args[0]}
+        return runner
+
+    device_ledger.enable(analyze=True)
+    device_ledger.clear()
+    try:
+        runner = make(4)
+        runner.run(3)
+        for _ in range(3):
+            runner.run(3)
+        before = device_ledger.snapshot()["programs"][0]["device_time_s"]
+        with _profiled() as prof:
+            runner.run(3)
+        (row,) = device_ledger.snapshot()["programs"]
+        event_s = row["device_time_s"] - before
+        assert row["traces"] == 1 and row["executions"] == 4 == runner.runs - runner.captures
+        # the matmul's 2·4·16·16 and the GAE kernel's 7 an element
+        assert row["flops"] >= 3 * (2 * 4 * 16 * 16 + 7 * 4 * 16)
+        assert row["memory"]["temp_bytes"] >= 0 and row["device_time_s"] > 0
+        # the profiled run's device activities (its replays, the slot
+        # reset and the drain's copy) span at least the replays
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e6
+        assert 0 < event_s <= span + 20e-6
+        other = make(8)
+        other.run(2)
+        row = device_ledger.snapshot()["programs"][0]
+        assert row["recompiles"] == 1
+        assert "float32[4,16] -> float32[8,16]" in row["recompile_causes"][0]
+    finally:
+        device_ledger.disable()
+        device_ledger.clear()
+
+
 def test_capture_survives_a_graph_collected_during_it(cuda):
     """A captured graph that becomes cyclic garbage while another slot
     is being captured is not collected during the capture (its

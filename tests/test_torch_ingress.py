@@ -15,7 +15,8 @@ reference's ``tests/test_ingress.py`` as port counterparts.
   shedding (503 with a Retry-After of twice the wait, the signal cached
   between polls), dead-on-arrival refusal (504);
 - HTTP over real sockets: POST bitwise against sequential calls,
-  keep-alive, ``/healthz``, ``/metrics`` answering 501 naming item 9,
+  keep-alive, ``/healthz``, ``/metrics`` answering 200 with the
+  process's exposition (the ingress counters among its series),
   404 and 405; concurrent socket clients coalescing; an overload burst
   answered 429/503 with Retry-After and a bounded admitted queue; the
   ASGI 3 app over the same dispatch;
@@ -328,9 +329,10 @@ def test_http_ingress_socket_end_to_end():
         with urllib.request.urlopen(ingress.url + "/healthz", timeout=10) as r:
             health = json.loads(r.read())
         assert health["status"] == "ok" and health["policies"]["cartpole"]["replicas"] == 1
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(ingress.url + "/metrics", timeout=10)
-        assert ei.value.code == 501 and "item 9" in json.loads(ei.value.read())["error"]
+        with urllib.request.urlopen(ingress.url + "/metrics", timeout=10) as r:
+            assert r.status == 200
+            scrape = r.read().decode()
+        assert 'ray_tpu_ingress_requests_total{route="actions",status="200"}' in scrape
         with pytest.raises(urllib.error.HTTPError) as ei:
             _post(ingress.url + "/v1/policy/nope/actions", {"obs": [0, 0, 0, 0]})
         assert ei.value.code == 404
