@@ -468,6 +468,43 @@ and ``nvcc``. Phases, each printing its own lines:
                worker on the card over ``TensorVectorEnvAdapter``, two
                iterations: each result's evaluation, the worker's weights
                bitwise the learner's, the lane's GAE launches;
+    model_surface -- PPO policies on the card and on the CPU from one
+               seed over MultiDiscrete([3, 4, 5]) (the catalog's FCNet),
+               MultiBinary(6) (a registered custom model) and
+               MultiDiscrete([3, 4, 5]) again with the custom model and a
+               registered custom action distribution: greedy acts through
+               ``compute_actions(explore=False)`` and sampled acts (the
+               sample's uniforms drawn on the host and handed to both)
+               equal, log-probabilities within SURFACE_TOL, and one
+               ``learn_on_batch`` on a fixed batch with the same
+               permutations within SURFACE_TOL in stats and parameters;
+               then cartpole-ppo.yaml as written (``num_workers: 0``) with
+               ``exploration_config`` Curiosity, then RND, at their
+               default widths (feature_dim 288, embed_dim 128), for
+               SURFACE_ITERS ``train()`` calls: the nets on the card, every
+               fragment's intrinsic reward finite and above 0, and the
+               exploration state bitwise through ``save`` and
+               ``Algorithm.from_checkpoint``;
+    ingress_bank -- ``IngressSupervisor(num_workers=2)`` started from
+               this process, which holds a CUDA context: each worker is
+               spawned, restores the serve phase's checkpoint root into a
+               ``BatchedPolicyServer`` on the card (graphs captured at
+               warmup, no AOT cache) behind a ``CoalescingRouter`` over a
+               ``LocalReplica`` that follows the supervisor's forwarded
+               membership. BANK_CLIENTS keep-alive clients post the serve
+               phase's frames for BANK_WINDOW_S seconds, greedy: every
+               answer equal to an in-process server's on the same frames,
+               both workers served, no capture after warmup, and
+               ``/metrics`` from the bank shows ``host="ingress-w0"`` and
+               ``host="ingress-w1"`` whose request counters sum to the
+               answers. Then one worker SIGKILLed: the replacement has the
+               forwarded membership and merged text, answers as the
+               in-process server does, and the respawn is counted; then
+               ``drain()``: ``/healthz`` 503 from the whole bank. Each
+               worker's cold start split into process start and imports,
+               CUDA context, restore, warmup captures and the bind, and its
+               device memory (the card's free memory before and after the
+               bank came up, and torch's allocated and reserved bytes);
 13. ring     -- ``ring_attention`` through ``parallel.distributed.initialize``
                and ``make_mesh``: 4 rank processes of this script
                (``--ring-rank gloo``) on the one card over a gloo group
@@ -516,7 +553,9 @@ their counts) and the SAC writer of offline_cql_crr (its inserts are
 the row scatter's ``offline_sac_writer`` path), the Ape-X phases' runs
 (apex_host's plane runs no kernel), dqn_interleave's windows,
 host_tree's and spill's rounds (the spill ring runs none) and
-lane_eval's iterations, and read just
+lane_eval's iterations, model_surface's card calls and its train()
+calls, ingress_bank's client window (paths that run no kernel; they
+print their counts), and read just
 after (on the learner-thread paths, between two learner steps) (the
 ring's in each rank, before each call), the serve phase and
 serve_torso (before its exact server is built; its exact-against-
@@ -2288,7 +2327,7 @@ def phase_ponglite_learn():
 # envs on the host's CPUs, T = 128, the learner on the card), and its
 # learning run's wall budget
 ACTOR_TUNED = os.path.join(REPO, "tuned_examples", "ppo", "ponglite-ppo.yaml")
-ACTOR_LEARN_S = 5.0  # 25 s before PR 17, 8 before PR 21
+ACTOR_LEARN_S = 4.0
 ACTOR_TIMED_CALLS = 3
 
 
@@ -3330,7 +3369,7 @@ def phase_pendulum_ppo():
 
 
 MA_TIMED_CALLS = 2  # 3 before PR 17
-MA_LEARN_S = 5.0
+MA_LEARN_S = 4.0
 
 
 # the rest of off-policy on the actor lane: the tuned examples as
@@ -3339,7 +3378,8 @@ MA_LEARN_S = 5.0
 RAINBOW_TUNED = os.path.join(REPO, "tuned_examples", "dqn", "cartpole-rainbow.yaml")
 DDPG_TUNED = os.path.join(REPO, "tuned_examples", "ddpg", "pendulum-ddpg.yaml")
 TD3_TUNED = os.path.join(REPO, "tuned_examples", "td3", "pendulum-td3.yaml")
-OFFPOLICY_BUDGET_S = {"rainbow": 10.0, "ddpg": 8.0, "td3": 10.0, "ma_dqn": 8.0}  # 15/12/15/12 before PR 17
+# td3 runs on past its budget until its first update, whatever the budget
+OFFPOLICY_BUDGET_S = {"rainbow": 7.0, "ddpg": 6.0, "td3": 10.0, "ma_dqn": 6.0}
 # graphed windows of OFFPOLICY_K slots against as many eager updates
 OFFPOLICY_K, OFFPOLICY_WINDOWS = 4, 3
 # train() calls of the busy-share reading after each run
@@ -3653,7 +3693,7 @@ def phase_ma_dqn():
 # a sampling thread on its remote worker, IMPALA's fused learner
 # superstep and its aggregation actor
 APEX_TUNED = os.path.join(REPO, "tuned_examples", "apex_dqn", "cartpole-apex.yaml")
-ASYNC_BUDGET_S = {"apex": 15.0, "sac_async": 8.0, "impala_fused": 15.0, "impala_agg": 8.0}
+ASYNC_BUDGET_S = {"apex": 10.0, "sac_async": 6.0, "impala_fused": 10.0, "impala_agg": 6.0}
 # train() calls of apex's busy-share reading (profiled, 16 graphed
 # updates each)
 APEX_BUSY_CALLS = 4
@@ -4754,7 +4794,7 @@ CARTPOLE_IMPALA = os.path.join(REPO, "tuned_examples", "impala", "cartpole-impal
 CARTPOLE_APPO = os.path.join(REPO, "tuned_examples", "appo", "cartpole-appo.yaml")
 RECURRENT_CALLS = 3
 SINGLE_ACTIONS = 8
-LSTM_IMPALA_WINDOW_S = 10.0
+LSTM_IMPALA_WINDOW_S = 7.0
 RSERVE_REQUESTS, RSERVE_THREADS = 64, 8
 
 
@@ -5055,7 +5095,7 @@ OFFLINE_SAC_ITERS = 4  # SAC train() calls that write Pendulum shards
 OFFLINE_CQL_ITERS = 40  # timed train() calls (one update each) of CQL and CRR
 CQL_BC_ITERS = 10
 CRR_SYNC_INTERVAL = 10
-EXTERNAL_ENV_S = 6.0  # 10 s before the fault-tolerance phases
+EXTERNAL_ENV_S = 4.0
 # a card learn against the same learn of a CPU copy: float32 reductions
 # in other orders, through one Adam step a learn whose size is at most
 # about lr per element; a tenth of that step is the parameters' bound,
@@ -6055,10 +6095,10 @@ def phase_evaluate_cli(ckpt_dir):
 # server, a torso server, replica actors on the card and the front door
 SERVE_MAX_BATCH = 32
 SERVE_CLIENTS = 64
-SERVE_WINDOW_S = 8.0
+SERVE_WINDOW_S = 6.0
 SERVE_TORSO_WINDOW_S = 4.0
 INGRESS_CLIENTS = 16
-INGRESS_WINDOW_S = 6.0
+INGRESS_WINDOW_S = 4.0
 INGRESS_BURST = 64
 INGRESS_TIGHT_INFLIGHT = 8
 REPLICA_TIMEOUT_S = 180
@@ -6456,6 +6496,447 @@ def phase_ingress(name):
         ray_core.shutdown()
 
 
+BANK_WORKERS = 2
+BANK_CLIENTS = 8
+BANK_WINDOW_S = 2.0
+BANK_FRAMES = 16
+BANK_TIMEOUT_S = 180
+
+
+class _BankFeed:
+    """The bank's membership: one local replica a worker (a static
+    controller feed the supervisor forwards)."""
+
+    def current(self):
+        return 1, ["local"]
+
+
+def _bank_worker_init(root, ctx):
+    """An ingress bank worker's init, inside the spawned worker: the
+    checkpoint root restored into a ``BatchedPolicyServer`` on the card
+    (its bucket graphs captured at warmup), mounted behind a router over
+    a ``LocalReplica`` that follows the forwarded membership; the cold
+    start's split and the worker's counters shipped home on its
+    heartbeat (``extra_stats``). Raises where the card is out of reach:
+    the bank then fails to start."""
+    t0 = time.time()
+    import torch
+
+    from ray_tpu_torch.ingress import CoalescingRouter, LocalReplica
+    from ray_tpu_torch.serve.policy_server import BatchedPolicyServer, restore_policy
+    from ray_tpu_torch.telemetry import fleetview
+
+    t_import = time.time()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t_ctx = time.time()
+    policy, prep, obs_filter, _ = restore_policy(root)
+    require(policy.device.type == "cuda", f"ingress_bank: a worker restored onto {policy.device}")
+    t_restore = time.time()
+    server = BatchedPolicyServer(policy, name="pong", max_batch_size=SERVE_MAX_BATCH,
+                                 explore=False, obs_filter=obs_filter, preprocessor=prep,
+                                 start=False)
+    server.warmup()
+    torch.cuda.synchronize()
+    t_warm = time.time()
+    server.start()
+    feed = ctx.membership("pong")
+    router = CoalescingRouter("pong", membership=feed, wrap=lambda m, i: LocalReplica(server),
+                              max_batch_size=SERVE_MAX_BATCH, batch_wait_timeout_s=0.002)
+    ctx.ingress.add_policy("pong", router)
+    split = {"init_imports_s": t_import - t0, "cuda_context_s": t_ctx - t_import,
+             "restore_s": t_restore - t_ctx, "warmup_captures_s": t_warm - t_restore}
+
+    def extra():
+        st = server.stats()
+        return {"split": split, "captures": st["captures"],
+                "captures_after_warmup": st["captures_after_warmup"],
+                "served": st["requests_total"], "device": str(policy.device),
+                "allocated_mb": torch.cuda.memory_allocated() / 2 ** 20,
+                "reserved_mb": torch.cuda.memory_reserved() / 2 ** 20,
+                "membership_version": feed.current()[0],
+                "merged": fleetview.render_installed() is not None}
+
+    ctx.ingress.extra_stats = extra
+
+
+def _bank_scrape(url, path="/metrics"):
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def _actions_200(text):
+    """``{host: count}`` of the merged text's answered action requests."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("ray_tpu_ingress_requests_total{") and 'route="actions"' in line \
+                and 'status="200"' in line:
+            host = line.split('host="', 1)[1].split('"', 1)[0]
+            out[host] = out.get(host, 0.0) + float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def _wait_for(cond, what, timeout=BANK_TIMEOUT_S):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(0.1)
+    raise AssertionError(f"ingress_bank: {what} within {timeout} s")
+
+
+def phase_ingress_bank(root):
+    """The front-door fleet on the card (module docstring). Returns the
+    kernel counts of its client window."""
+    import functools
+    import http.client
+    import signal
+    import threading
+    import urllib.error
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ingress import IngressSupervisor
+    from ray_tpu_torch.serve.policy_server import BatchedPolicyServer, restore_policy
+    from ray_tpu_torch.telemetry import metrics as catalog
+
+    require(torch.cuda.is_initialized(), "ingress_bank: this process holds no CUDA context")
+    frames = np.random.default_rng(14).integers(0, 256, (64, H, W, C), dtype=np.uint8)[:BANK_FRAMES]
+    bodies = [json.dumps({"obs": f.tolist(), "explore": False}).encode() for f in frames]
+    policy, prep, obs_filter, _ = restore_policy(root)
+    local = BatchedPolicyServer(policy, name="pong_local", max_batch_size=SERVE_MAX_BATCH,
+                                explore=False, obs_filter=obs_filter, preprocessor=prep)
+    try:
+        want = [int(f.result(60.0)[0]) for f in local.submit_many(list(frames), explore=False)]
+    finally:
+        local.stop()
+    del policy, local
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the card's free memory before and after the bank came up: what the
+    # workers hold, CUDA contexts included (nvidia-smi lists no process
+    # inside the machine's sandbox)
+    free0 = torch.cuda.mem_get_info()[0]
+    respawns0 = catalog.counter_total(catalog.INGRESS_WORKER_RESPAWNS_TOTAL)
+    sup = IngressSupervisor(num_workers=BANK_WORKERS,
+                            worker_init=functools.partial(_bank_worker_init, root),
+                            heartbeat_s=0.25, metrics_interval_s=0.5)
+    sup.follow_membership("pong", feed=_BankFeed())
+    t0 = time.perf_counter()
+    sup.start(timeout_s=BANK_TIMEOUT_S)
+    start_s = time.perf_counter() - t0
+    try:
+        stats = _wait_for(lambda: (lambda st: st if all(v is not None and v["extra"]
+                                                        for v in st.values()) else None)(
+            sup.worker_stats()), "a heartbeat from each worker")
+        pids = sup.worker_pids()
+        require(sorted(v["pid"] for v in stats.values()) == sorted(pids),
+                f"ingress_bank: heartbeat pids {[v['pid'] for v in stats.values()]} != {pids}")
+        bank_mb = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 20
+        path = "/v1/policy/pong/actions"
+        tls = threading.local()
+
+        def post(body, fresh=False):
+            conn = None if fresh else getattr(tls, "conn", None)
+            if conn is None:
+                conn = http.client.HTTPConnection(sup.host, sup.port, timeout=BANK_TIMEOUT_S)
+                if not fresh:
+                    tls.conn = conn
+            conn.request("POST", path, body=body, headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            if fresh:
+                conn.close()
+            require(resp.status == 200, f"ingress_bank: status {resp.status} {data[:200]}")
+            return json.loads(data)
+
+        zero_kernel_counts()
+        answers = 0
+        # fresh connections first: the kernel spreads them over the bank
+        for rnd in range(2):
+            for i, b in enumerate(bodies):
+                require(post(b, fresh=True)["action"] == want[i],
+                        f"ingress_bank: frame {i} answered unlike the in-process server")
+                answers += 1
+        rate, lat, results, errors = _closed_loop(
+            lambda i: (i, post(bodies[i])), lambda c, i: (c + i) % BANK_FRAMES, BANK_CLIENTS,
+            BANK_WINDOW_S)
+        launches = read_kernel_counts()
+        require(not errors, f"ingress_bank: {len(errors)} requests failed: {errors[:3]}")
+        require(all(out["action"] == want[i] for _, _, (i, out) in results),
+                "ingress_bank: a greedy action differs from the in-process server's")
+        answers += len(results)
+
+        def served_by_both():
+            st = sup.worker_stats()
+            return st if all(v["extra"]["served"] > 0 for v in st.values()) else None
+
+        # where the kernel gave one worker every connection, fresh ones
+        # until both have served (their heartbeats report it)
+        time.sleep(4 * sup.heartbeat_s)
+        for rnd in range(10):
+            if served_by_both():
+                break
+            for i, b in enumerate(bodies):
+                require(post(b, fresh=True)["action"] == want[i],
+                        f"ingress_bank: frame {i} answered unlike the in-process server")
+                answers += 1
+            time.sleep(4 * sup.heartbeat_s)
+        stats = _wait_for(served_by_both, "answers from both workers")
+
+        def merged_counts():
+            text = _bank_scrape(sup.url)[1]
+            counts = _actions_200(text)
+            return (text, counts) if (set(counts) == {"ingress-w0", "ingress-w1"}
+                                      and sum(counts.values()) == answers) else None
+
+        text, counts = _wait_for(merged_counts, f"a merged /metrics summing {answers} answers")
+        for i, v in stats.items():
+            require(v["extra"]["captures_after_warmup"] == 0 and v["extra"]["captures"] == 6
+                    and v["extra"]["device"].startswith("cuda"),
+                    f"ingress_bank: worker {i} reported {v['extra']}")
+        boots = {}
+        for i, v in sorted(stats.items()):
+            b, x = v["boot"], v["extra"]
+            boots[i] = {"pid": v["pid"],
+                        "process_start_and_import_s": round(b["entered_at"] - b["spawned_at"], 4),
+                        "init_imports_s": round(x["split"]["init_imports_s"], 4),
+                        "cuda_context_s": round(x["split"]["cuda_context_s"], 4),
+                        "restore_s": round(x["split"]["restore_s"], 4),
+                        "warmup_captures_s": round(x["split"]["warmup_captures_s"], 4),
+                        "bind_s": round(b["ready_at"] - b["init_done_at"], 4),
+                        "total_s": round(b["ready_at"] - b["spawned_at"], 4),
+                        "allocated_mb": round(x["allocated_mb"], 1),
+                        "reserved_mb": round(x["reserved_mb"], 1)}
+        say("ingress_bank", workers=BANK_WORKERS, start_s=f"{start_s:.2f}", clients=BANK_CLIENTS,
+            requests=len(lat), requests_per_s=f"{rate:.1f}",
+            p50_ms=f"{_pct(lat, 50) * 1e3:.3f}", p99_ms=f"{_pct(lat, 99) * 1e3:.3f}",
+            greedy_bitwise=answers, served_by_worker=json.dumps(
+                {i: v["extra"]["served"] for i, v in sorted(stats.items())}),
+            merged_actions_200=json.dumps(counts), captures_after_warmup=0,
+            launches=json.dumps(launches))
+        for i, b in boots.items():
+            say("ingress_bank", cold_start_worker=i, **{k: json.dumps(v) for k, v in b.items()})
+        say("ingress_bank", bank_device_mb=f"{bank_mb:.1f}",
+            per_worker_device_mb=f"{bank_mb / BANK_WORKERS:.1f}")
+        # one worker SIGKILLed: the replacement converges onto the bank
+        victim = pids[0]
+        t0 = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+
+        def replaced():
+            st = sup.worker_stats()[0]
+            return (st if sup.respawned_total >= 1 and sup.num_live() == BANK_WORKERS
+                    and st is not None and st["pid"] != victim and st["extra"]
+                    and st["extra"]["membership_version"] == 1 and st["extra"]["merged"]
+                    else None)
+
+        fresh = _wait_for(replaced, "a replacement with the forwarded membership and metrics")
+        respawn_s = time.perf_counter() - t0
+        posts = 0
+        while sup.worker_stats()[0]["extra"]["served"] == 0:
+            require(posts < 400, "ingress_bank: the replacement never answered")
+            i = posts % BANK_FRAMES
+            require(post(bodies[i], fresh=True)["action"] == want[i],
+                    f"ingress_bank: frame {i} answered unlike the in-process server after the respawn")
+            posts += 1
+        fresh = sup.worker_stats()[0]
+        require(catalog.counter_total(catalog.INGRESS_WORKER_RESPAWNS_TOTAL) == respawns0 + 1
+                and sup.respawned_total == 1, "ingress_bank: the respawn was not counted")
+        require(fresh["extra"]["captures_after_warmup"] == 0,
+                f"ingress_bank: the replacement captured after warmup {fresh['extra']}")
+        b, x = fresh["boot"], fresh["extra"]
+        say("ingress_bank", respawned_pid=fresh["pid"], killed_pid=victim,
+            respawn_s=f"{respawn_s:.2f}", respawns_counted=sup.respawned_total,
+            membership_version=x["membership_version"], merged_text=x["merged"],
+            posts_until_answer=posts + 1,
+            cold_start=json.dumps({"process_start_and_import_s": round(b["entered_at"] - b["spawned_at"], 4),
+                                   **{k: round(v, 4) for k, v in x["split"].items()},
+                                   "total_s": round(b["ready_at"] - b["spawned_at"], 4)}))
+        sup.drain(grace_s=5.0)
+        time.sleep(0.5)
+        codes = []
+        for _ in range(8):  # fresh connections: the whole bank
+            try:
+                codes.append(_bank_scrape(sup.url, "/healthz")[0])
+            except urllib.error.HTTPError as e:
+                codes.append(e.code)
+        require(codes == [503] * 8, f"ingress_bank: healthz after drain() answered {codes}")
+        say("ingress_bank", drained=True, healthz=json.dumps(codes))
+        return launches
+    finally:
+        sup.stop()
+
+
+SURFACE_TOL = 1.5e-5  # the port's learn contract
+SURFACE_ITERS = 2  # train() calls of each exploration run
+
+
+def _surface_policies():
+    """(name, action space, model config) of the model_surface phase's
+    three PPO policies."""
+    from ray_tpu_torch.env.spaces import MultiBinary, MultiDiscrete
+
+    return [("multi_discrete", MultiDiscrete([3, 4, 5]), {"fcnet_hiddens": [64, 64]}),
+            ("multi_binary", MultiBinary(6), {"custom_model": "smoke_mlp",
+                                              "custom_model_config": {"hidden": 64}}),
+            ("custom_dist", MultiDiscrete([3, 4, 5]), {"custom_model": "smoke_mlp",
+                                                       "custom_action_dist": "smoke_tempered"})]
+
+
+def _register_surface():
+    """The phase's custom model and action distribution, registered."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import distributions as dists
+    from ray_tpu_torch.models.base import Dense, TorchModel
+    from ray_tpu_torch.models.catalog import ModelCatalog
+
+    class SmokeMLP(TorchModel):
+        def __init__(self, obs_shape, num_outputs, generator=None, hidden=32):
+            super().__init__()
+            n = int(np.prod(obs_shape))
+            self.torso = Dense(n, hidden, generator=generator)
+            self.head = Dense(hidden, num_outputs, kernel_scale=0.01, generator=generator)
+            self.vf = Dense(hidden, 1, generator=generator)
+
+        def forward(self, obs):
+            h = torch.tanh(self.torso(obs.reshape(obs.shape[0], -1).float()))
+            return self.head(h), self.vf(h).squeeze(-1), ()
+
+    base = dists.MultiCategorical.with_lens((3, 4, 5))
+
+    class SmokeTempered(base):
+        def __init__(self, inputs):
+            super().__init__(inputs * 0.5)
+
+        @staticmethod
+        def required_model_output_shape(action_space):
+            return int(np.sum(action_space.nvec))
+
+    ModelCatalog.register_custom_model("smoke_mlp", SmokeMLP)
+    ModelCatalog.register_custom_action_dist("smoke_tempered", SmokeTempered)
+
+
+def phase_model_surface():
+    """MultiDiscrete, MultiBinary, a custom model and a custom action
+    distribution under PPO on the card against the CPU, then Curiosity
+    and RND in cartpole-ppo.yaml (module docstring). Returns the kernel
+    counts of its card calls."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.algorithms.algorithm import Algorithm
+    from ray_tpu_torch.algorithms.ppo.ppo import PPOTorchPolicy
+    from ray_tpu_torch.env.spaces import Box
+
+    _register_surface()
+    obs_space = Box(-1.0, 1.0, (16,), np.float32)
+    rng = np.random.default_rng(22)
+    obs = rng.standard_normal((256, 16)).astype(np.float32)
+    cfg = {"train_batch_size": 256, "sgd_minibatch_size": 64, "num_sgd_iter": 2, "lr": 5e-4,
+           "kl_coeff": 0.2, "entropy_coeff": 0.01, "grad_clip": 40.0, "seed": 5}
+    zero_kernel_counts()
+    report = {}
+    for name, space, model in _surface_policies():
+        card = PPOTorchPolicy(obs_space, space, {**cfg, "model": model})
+        cpu = PPOTorchPolicy(obs_space, space, {**cfg, "model": model}, device="cpu")
+        require(card.device.type == "cuda", f"model_surface {name}: the policy is on {card.device}")
+        width = card.num_outputs
+        out = {}
+        for tag, pol in (("card", card), ("cpu", cpu)):
+            # greedy through the user's entry point; sampled with one set
+            # of draws injected into both (their generators differ)
+            greedy, _, g_extra = pol.compute_actions(obs, explore=False)
+            x = torch.as_tensor(obs, device=pol.device)
+            u = torch.rand((len(obs), width), generator=torch.Generator().manual_seed(3))
+            with torch.no_grad():
+                sampled, _, s_extra = pol._action_step_body(x, None, True, draws=(u.to(pol.device),))
+            out[tag] = [torch.from_numpy(greedy), torch.from_numpy(g_extra["action_logp"]),
+                        sampled.cpu(), s_extra["action_logp"].cpu(),
+                        s_extra["action_dist_inputs"].cpu()]
+        g, gl, a, al, di = out["card"]
+        require(g.dtype == torch.int64 and tuple(g.shape) == (len(obs), space.shape[0]),
+                f"model_surface {name}: greedy actions {g.dtype} {tuple(g.shape)}")
+        require(torch.equal(g, out["cpu"][0]) and torch.equal(a, out["cpu"][2]),
+                f"model_surface {name}: card and CPU actions differ")
+        err = max(float((x - y).abs().max())
+                  for x, y in ((gl, out["cpu"][1]), (al, out["cpu"][3]), (di, out["cpu"][4])))
+        require(err <= SURFACE_TOL, f"model_surface {name}: act outputs differ by {err}")
+        batch = {"obs": obs, "actions": a.numpy(), "action_logp": al.numpy(),
+                 "action_dist_inputs": di.numpy(),
+                 "advantages": rng.standard_normal(len(obs)).astype(np.float32),
+                 "value_targets": rng.standard_normal(len(obs)).astype(np.float32)}
+        perms = cpu.draw_permutations(len(obs))
+        s_card = card.learn_on_batch(batch, perms=perms.to(card.device))
+        s_cpu = cpu.learn_on_batch(batch, perms=perms)
+        stat_err = max(abs(s_card[k] - s_cpu[k]) / max(1.0, abs(s_cpu[k])) for k in s_cpu)
+        w_card, w_cpu = card.get_weights(), cpu.get_weights()
+        w_err = max(float(np.abs(w_card[k] - w_cpu[k]).max()) for k in w_cpu)
+        require(stat_err <= 1e-4 and w_err <= SURFACE_TOL,
+                f"model_surface {name}: the learn differs (stats {stat_err}, weights {w_err})")
+        report[name] = {"space": repr(space), "model": type(card.model).__name__,
+                        "dist": card.dist_class.__name__, "act_max_abs_err": err,
+                        "learn_stat_rel_err": stat_err, "learn_weight_max_abs_err": w_err}
+        say("model_surface", policy=name, **{k: json.dumps(v) for k, v in report[name].items()})
+    for typ in ("Curiosity", "RND"):  # at the reference's default widths
+        algo = ppo_from_yaml(CARTPOLE_ACTOR, exploration_config={"type": typ})
+        back = None
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_surface_")
+        try:
+            pol = algo.get_policy()
+            expl = pol.exploration
+            require(type(expl).__name__ == typ and algo.workers.num_remote_workers() == 0,
+                    f"model_surface: {typ} on {algo.workers.num_remote_workers()} workers")
+            intrinsic = []
+            real = expl.postprocess_trajectory
+
+            def recorded(policy, batch, real=real):
+                before = np.array(batch["rewards"], np.float32)
+                out = real(policy, batch)
+                intrinsic.append(np.asarray(out["rewards"], np.float32) - before)
+                return out
+
+            expl.postprocess_trajectory = recorded
+            t0 = time.perf_counter()
+            results = [algo.train() for _ in range(SURFACE_ITERS)]
+            wall = time.perf_counter() - t0
+            _finite_learner(f"model_surface {typ}", results[-1], ["default_policy"])
+            nets = expl.icm if typ == "Curiosity" else expl.predictor
+            require(nets.lr.device.type == "cuda" and all(p.is_cuda for p in nets.params),
+                    f"model_surface: {typ}'s nets are not on the card")
+            flat = np.concatenate(intrinsic)
+            require(len(intrinsic) > 0 and bool(np.isfinite(flat).all()) and bool((flat > 0).all()),
+                    f"model_surface: {typ}'s intrinsic rewards {flat.min()} .. {flat.max()}")
+            del expl.postprocess_trajectory
+            path = algo.save(os.path.join(tmp, "checkpoint_000001"))
+            back = Algorithm.from_checkpoint(path)
+            state = expl.get_state()
+            again = back.get_policy().exploration.get_state()
+            bad = _tree_mismatches(state, again)
+            require(not bad and set(state) == set(again),
+                    f"model_surface: {typ}'s state differs after the checkpoint at {bad[:5]}")
+            say("model_surface", exploration=typ, iterations=SURFACE_ITERS,
+                wall_s=f"{wall:.2f}", fragments=len(intrinsic),
+                intrinsic_min=f"{flat.min():.6g}", intrinsic_mean=f"{flat.mean():.6g}",
+                intrinsic_max=f"{flat.max():.6g}", nets_on=str(nets.lr.device),
+                state_bitwise=True, state_keys=json.dumps(sorted(state)),
+                episode_reward_mean=results[-1]["episode_reward_mean"])
+        finally:
+            algo.stop()
+            if back is not None:
+                back.stop()
+            shutil.rmtree(tmp, ignore_errors=True)
+    launches = read_kernel_counts()
+    say("model_surface", launches=json.dumps(launches))
+    return launches
+
+
 def _free_port():
     import socket
 
@@ -6702,12 +7183,37 @@ def phase_ring():
     return launches
 
 
+PHASE_SECONDS = []  # each timed phase's wall time, for the run's sum
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line of its wall time."""
     t0 = time.perf_counter()
     out = phase(*args)
-    say("timing", name=phase.__name__[len("phase_"):], seconds=f"{time.perf_counter() - t0:.1f}")
+    seconds = time.perf_counter() - t0
+    PHASE_SECONDS.append(seconds)
+    say("timing", name=phase.__name__[len("phase_"):], seconds=f"{seconds:.1f}")
     return out
+
+
+def budget_cuts():
+    """(knob, old seconds, seconds now) of the run budgets and windows
+    cut to pay for the ingress_bank and model_surface phases."""
+    return [
+        ("OFFPOLICY_BUDGET_S[rainbow]", 10.0, OFFPOLICY_BUDGET_S["rainbow"]),
+        ("OFFPOLICY_BUDGET_S[ddpg]", 8.0, OFFPOLICY_BUDGET_S["ddpg"]),
+        ("OFFPOLICY_BUDGET_S[ma_dqn]", 8.0, OFFPOLICY_BUDGET_S["ma_dqn"]),
+        ("ASYNC_BUDGET_S[apex]", 15.0, ASYNC_BUDGET_S["apex"]),
+        ("ASYNC_BUDGET_S[impala_fused]", 15.0, ASYNC_BUDGET_S["impala_fused"]),
+        ("ASYNC_BUDGET_S[sac_async]", 8.0, ASYNC_BUDGET_S["sac_async"]),
+        ("ASYNC_BUDGET_S[impala_agg]", 8.0, ASYNC_BUDGET_S["impala_agg"]),
+        ("LSTM_IMPALA_WINDOW_S", 10.0, LSTM_IMPALA_WINDOW_S),
+        ("EXTERNAL_ENV_S", 6.0, EXTERNAL_ENV_S),
+        ("ACTOR_LEARN_S", 5.0, ACTOR_LEARN_S),
+        ("MA_LEARN_S", 5.0, MA_LEARN_S),
+        ("SERVE_WINDOW_S", 8.0, SERVE_WINDOW_S),
+        ("INGRESS_WINDOW_S", 6.0, INGRESS_WINDOW_S),
+    ]
 
 
 def card_line():
@@ -6739,6 +7245,8 @@ def main() -> int:
     say("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0))
     rng = np.random.default_rng(0)
+    for knob, old, new in budget_cuts():
+        say("cut", knob=knob, old_s=old, new_s=new)
     timed(phase_build)
     gather = timed(phase_gather, rng)
     gae = timed(phase_gae)
@@ -6797,6 +7305,7 @@ def main() -> int:
     finally:
         shutil.rmtree(offline_tmp, ignore_errors=True)
     timed(phase_external_env)
+    timed(phase_model_surface)
     serve_tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     try:
         ckpt_ppo, serve_root, serve_newer = timed(phase_ckpt_ppo, serve_tmp)
@@ -6812,6 +7321,7 @@ def main() -> int:
             shutil.rmtree(cli_tmp, ignore_errors=True)
         # the serving paths, each with its launch counts set to 0 just before
         timed(phase_serve, serve_root, serve_newer)
+        timed(phase_ingress_bank, serve_root)
         serve_torso = timed(phase_serve_torso)
         served = timed(phase_serve_replicas, serve_root)
         timed(phase_ingress, served)
@@ -6873,6 +7383,8 @@ def main() -> int:
     kernels = [gather, gae, scatter, descent, flash, flash_block]
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
+    say("timing", sum_seconds=f"{sum(PHASE_SECONDS):.1f}", phases=len(PHASE_SECONDS),
+        cut_seconds=f"{sum(old - new for _, old, new in budget_cuts()):.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({

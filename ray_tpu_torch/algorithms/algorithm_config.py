@@ -71,8 +71,9 @@ peak_flops=)`` fills ``telemetry_config`` (empty: off), as the
 reference's: a Prometheus scrape target, span tracing with
 ``info/telemetry`` in every result and ``Algorithm.export_timeline``,
 the device ledger under ``info/device_ledger``, a ``torch.profiler``
-capture of the first N iterations, the MFU peak. The fleet view
-(``fleetview``) raises, naming ROADMAP.md item 6.2.
+capture of the first N iterations, the MFU peak. A training run's fleet
+view (``fleetview``), which publishes over the KV plane, raises, naming
+ROADMAP.md item 7.
 """
 
 from __future__ import annotations
@@ -340,6 +341,17 @@ class AlgorithmConfig:
             self.seed = seed
         return self
 
+    def exploration(self, *, explore: Optional[bool] = None,
+                    exploration_config: Optional[Dict] = None) -> "AlgorithmConfig":
+        """``explore`` and ``exploration_config`` (the strategy's
+        ``type`` and knobs: Curiosity and RND as the reference's), as the
+        reference's setter."""
+        if explore is not None:
+            self.explore = explore
+        if exploration_config is not None:
+            self.exploration_config = exploration_config
+        return self
+
     def evaluation(
         self,
         *,
@@ -430,8 +442,10 @@ class AlgorithmConfig:
         bandwidth divide by, over the device-name table."""
         if "fleetview" in kwargs:
             raise NotImplementedError(
-                "telemetry(fleetview=...): the fleet view (the reference's "
-                "telemetry/fleetview.py) is not ported yet: ROADMAP.md queue 1 item 6.2"
+                "telemetry(fleetview=...): a training run's fleet view publishes "
+                "through a HostExporter over the KV plane, which is not ported yet: "
+                "ROADMAP.md queue 1 item 7 (telemetry/fleetview.FleetAggregator "
+                "works without it)"
             )
         if kwargs:
             raise TypeError(f"telemetry() got unknown knobs {sorted(kwargs)}")

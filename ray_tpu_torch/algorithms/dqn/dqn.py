@@ -263,23 +263,21 @@ class DQNTorchPolicy(TorchPolicy):
                 "replay — use the R2D2 algorithm (reference r2d2.py; not ported yet: "
                 "ROADMAP.md queue 1 item 9) instead"
             )
-        if model_cfg.get("custom_model"):
-            raise NotImplementedError(
-                "DQN with model option 'custom_model' is not ported yet: ROADMAP.md queue 1 item 9"
-            )
-        # the catalog's torso stands in for DQNModel and its logits are
-        # read as Q values: no atoms, no weight noise
-        self._uses_dqn_model = not model_cfg.get("use_transformer")
+        # the catalog's model (the transformer torso, a custom model)
+        # stands in for DQNModel and its logits are read as Q values: no
+        # atoms, no weight noise
+        self._uses_dqn_model = not (model_cfg.get("use_transformer")
+                                    or model_cfg.get("custom_model"))
         if not self._uses_dqn_model:
             if int(config.get("num_atoms", 1)) > 1:
                 raise ValueError(
                     "distributional Q (num_atoms > 1) requires the built-in "
-                    "DQNModel; it is unavailable with use_transformer"
+                    "DQNModel; it is unavailable with use_transformer/custom_model"
                 )
             if config.get("noisy"):
                 raise ValueError(
                     "noisy nets require the built-in DQNModel; unavailable "
-                    "with use_transformer"
+                    "with use_transformer/custom_model"
                 )
         self._noisy = self._uses_dqn_model and bool(config.get("noisy"))
         self._num_atoms = int(config.get("num_atoms", 1))

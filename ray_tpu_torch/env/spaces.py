@@ -4,7 +4,9 @@ The port does not depend on gymnasium. These classes carry what the
 catalog, the preprocessors, the sampler and the envs read (``shape``,
 ``dtype``, ``low``/``high``, ``n``, a composite space's ``spaces``);
 the catalog and the preprocessors duck-type, so gymnasium's spaces work
-too. :class:`Dict` holds its sub-spaces under sorted keys, as
+too. :class:`MultiDiscrete` (``nvec``) and :class:`MultiBinary` (``n``
+bits, shape ``(n,)``) are the action spaces of ``MultiCategorical`` and
+``Bernoulli``. :class:`Dict` holds its sub-spaces under sorted keys, as
 gymnasium's ``Dict`` does when given a plain dict.
 """
 
@@ -40,6 +42,31 @@ class Discrete:
 
     def __repr__(self):
         return f"Discrete({self.n})"
+
+
+class MultiDiscrete:
+    """A vector of discrete components, component ``i`` in
+    ``[0, nvec[i])``."""
+
+    def __init__(self, nvec: Sequence[int]):
+        self.nvec = np.asarray(nvec, np.int64).reshape(-1)
+        self.shape = (int(self.nvec.size),)
+        self.dtype = np.dtype(np.int64)
+
+    def __repr__(self):
+        return f"MultiDiscrete({self.nvec.tolist()})"
+
+
+class MultiBinary:
+    """``n`` independent bits."""
+
+    def __init__(self, n: int):
+        self.n = int(n)
+        self.shape = (self.n,)
+        self.dtype = np.dtype(np.int8)
+
+    def __repr__(self):
+        return f"MultiBinary({self.n})"
 
 
 class Dict:

@@ -86,6 +86,15 @@ class DeviceRolloutEngine:
                 "config.env_backend='jax' but the device rollout lane is unavailable: policy "
                 f"{type(policy).__name__} cannot lower its act path (recurrent model)"
             )
+        from ray_tpu_torch.utils.exploration.exploration import postprocesses
+
+        if postprocesses(policy.exploration):
+            raise ValueError(
+                "config.env_backend='jax' but the device rollout lane is unavailable: "
+                f"exploration {type(policy.exploration).__name__} trains its own nets in "
+                "postprocess_trajectory, which the device lane never runs (the reference's "
+                "lane skips it silently); use the actor lane"
+            )
         if postprocess not in ("gae", "none"):
             raise ValueError(f"unknown postprocess {postprocess!r}")
         self.postprocess = postprocess

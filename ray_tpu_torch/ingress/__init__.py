@@ -7,10 +7,10 @@ TCP socket and a replica's batched forward:
   into full power-of-two buckets, with deadlines and dead-replica
   rerouting;
 - :mod:`~ray_tpu_torch.ingress.admission`: a bounded in-flight budget,
-  per-policy quotas and queue-wait shedding (429/503 + Retry-After).
-
-The multi-process front-door fleet (the reference's ``supervisor.py``)
-is ROADMAP queue 1 item 6.2.
+  per-policy quotas and queue-wait shedding (429/503 + Retry-After);
+- :mod:`~ray_tpu_torch.ingress.supervisor`: N ingress processes on one
+  port, with crash respawn, forwarded membership, whole-bank drain and
+  one merged ``/metrics``.
 """
 
 from ray_tpu_torch.ingress.admission import AdmissionController, AdmissionDecision
@@ -23,6 +23,12 @@ from ray_tpu_torch.ingress.router import (
     NoReplicasAvailable,
     wrap_replica,
 )
+from ray_tpu_torch.ingress.supervisor import (
+    ForwardedFeed,
+    IngressSupervisor,
+    WorkerContext,
+    reuseport_available,
+)
 
 __all__ = [
     "AdmissionController",
@@ -34,4 +40,8 @@ __all__ = [
     "DeadlineExpired",
     "NoReplicasAvailable",
     "wrap_replica",
+    "ForwardedFeed",
+    "IngressSupervisor",
+    "WorkerContext",
+    "reuseport_available",
 ]

@@ -15,18 +15,19 @@ Protocol:
   429/503 + ``Retry-After`` when admission sheds, 504 when the deadline
   expires (before dispatch: dropped, not computed);
 - ``GET /healthz`` → liveness and a per-policy router/admission summary;
-- ``GET /metrics`` → 200 with this process's Prometheus exposition
-  (``utils/metrics_exporter.format_prometheus``); the reference's merged
-  multi-host exposition comes with its fleet view (ROADMAP.md item 6.2).
+- ``GET /metrics`` → 200 with the installed fleet view's merged
+  exposition (``telemetry/fleetview.render_installed``: an ingress
+  bank's worker serves the whole bank's), else this process's
+  (``utils/metrics_exporter.format_prometheus``).
 
 Deployments resolve through the serve core:
 :meth:`PolicyIngress.serve_deployment` wraps a named
 ``RunningDeployment``'s replicas behind a router fed by the controller's
 membership feed; :meth:`PolicyIngress.add_policy` mounts any router.
-The multi-process front-door fleet (the reference's
-``ingress/supervisor.py``, N ingress processes on one port) is ROADMAP
-queue 1 item 6.2; ``reuse_port`` and ``listen_sock``, the hooks it
-drives, work on their own.
+The multi-process front-door fleet
+(:class:`~ray_tpu_torch.ingress.supervisor.IngressSupervisor`, N ingress
+processes on one port) drives the ``reuse_port`` and ``listen_sock``
+hooks.
 """
 
 from __future__ import annotations
@@ -627,13 +628,19 @@ class PolicyIngress:
         )
 
     def _metrics(self):
+        from ray_tpu_torch.telemetry import fleetview
         from ray_tpu_torch.utils.metrics_exporter import format_prometheus
 
-        return (
-            200,
-            [("Content-Type", "text/plain; version=0.0.4")],
-            format_prometheus().encode(),
-        )
+        # a process holding a fleet view (an ingress bank's worker, a
+        # fleet aggregator) serves the merged, host-labelled exposition
+        # from the same route; everyone else the process-local one
+        try:
+            text = fleetview.render_installed()
+        except Exception:
+            text = None
+        if text is None:
+            text = format_prometheus()
+        return 200, [("Content-Type", "text/plain; version=0.0.4")], text.encode()
 
     @staticmethod
     def _error(status: int, message: str):

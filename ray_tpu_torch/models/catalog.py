@@ -4,11 +4,32 @@ Counterpart of ``ray_tpu/models/catalog.py`` for the models this slice
 ports: ``use_transformer`` gets :class:`TransformerPolicyNet`, then
 ``use_lstm`` :class:`LSTMWrapper` and ``use_attention`` :class:`GTrXLNet`
 (in the reference's order, before the image branch), image observations
-(H, W, C) :class:`VisionNet`, flat ones :class:`FCNet`; Discrete action spaces
-:class:`Categorical` and Box ones :class:`DiagGaussian`. The ``dtype`` key picks the compute dtype (None:
+(H, W, C) :class:`VisionNet`, flat ones :class:`FCNet`; Discrete action
+spaces :class:`Categorical`, Box ones :class:`DiagGaussian`,
+MultiDiscrete ones :class:`MultiCategorical` and MultiBinary ones
+:class:`Bernoulli`. The ``dtype`` key picks the compute dtype (None:
 bfloat16 for the vision net, float32 for the MLP and the transformer),
-as in the reference. Spaces are duck-typed (``shape``; ``n`` for a
-discrete space, ``low``/``high`` for a box).
+as in the reference. Spaces are duck-typed (``shape``; ``n`` and shape
+() for a discrete space, ``nvec`` for a multi-discrete one, ``n`` and
+shape ``(n,)`` for a multi-binary one, ``low``/``high`` for a box), so
+gymnasium's and the port's alike.
+
+Custom models and action distributions, as the reference's:
+:meth:`ModelCatalog.register_custom_model` /
+:meth:`~ModelCatalog.register_custom_action_dist` name them, and
+``custom_model`` (a registered name or a class) / ``custom_action_dist``
+(a registered name or a class) pick them. A custom model is a
+:class:`~ray_tpu_torch.models.base.TorchModel` subclass built as
+``cls(obs_shape=..., num_outputs=..., generator=...,
+**custom_model_config)``: a torch module needs its input shape and draws
+its initial weights from the policy's generator, where the reference's
+flax module (``cls(num_outputs=..., **custom_model_config)``) infers
+the one and takes the other at ``init``. Its ``forward(obs)`` returns
+``(logits, value, state_out)`` like every model of the port. A custom
+action distribution is an :class:`~ray_tpu_torch.models.distributions.
+ActionDistribution` subclass with ``draw``, ``sample``,
+``deterministic_sample``, ``logp``, ``entropy``, ``kl`` and
+``required_model_output_shape``.
 """
 
 from __future__ import annotations
@@ -61,9 +82,13 @@ MODEL_DEFAULTS: Dict[str, Any] = {
     "transformer_ff_dim": None,  # None → 4 * dim
     "transformer_seq_len": 8,
     "partition_rules": None,
+    "custom_model": None,
+    "custom_model_config": {},
+    "custom_action_dist": None,
 }
 
-_UNPORTED = ("custom_model",)
+_custom_models: Dict[str, type] = {}
+_custom_action_dists: Dict[str, type] = {}
 
 
 def _is_box(space) -> bool:
@@ -79,7 +104,27 @@ def _pair(v) -> Tuple[int, int]:
     return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
 
 
+def _resolve(registry: Dict[str, type], what: str, key) -> type:
+    if isinstance(key, str):
+        try:
+            return registry[key]
+        except KeyError:
+            raise ValueError(f"no {what} registered as {key!r}; registered: "
+                             f"{sorted(registry)}") from None
+    return key
+
+
 class ModelCatalog:
+    @staticmethod
+    def register_custom_model(name: str, model_cls: type) -> None:
+        """Name a :class:`TorchModel` subclass for ``custom_model``."""
+        _custom_models[name] = model_cls
+
+    @staticmethod
+    def register_custom_action_dist(name: str, dist_cls: type) -> None:
+        """Name an action distribution class for ``custom_action_dist``."""
+        _custom_action_dists[name] = dist_cls
+
     @staticmethod
     def get_preprocessor_for_space(obs_space):
         """The observation preprocessor of ``models/preprocessors.py``."""
@@ -87,18 +132,28 @@ class ModelCatalog:
 
     @staticmethod
     def get_action_dist(action_space, config: Optional[Dict] = None) -> Tuple[type, int]:
-        """→ (dist_class, required model output size): Discrete →
+        """→ (dist_class, required model output size): the
+        ``custom_action_dist`` when one is set, else Discrete →
         :class:`Categorical`, Box → :class:`DiagGaussian` (mean and
-        log-std per dimension, the reference's default for Box)."""
+        log-std per dimension, the reference's default for Box),
+        MultiDiscrete → :class:`MultiCategorical` over its ``nvec``,
+        MultiBinary → :class:`Bernoulli`."""
+        config = config or {}
+        if config.get("custom_action_dist"):
+            cls = _resolve(_custom_action_dists, "custom action distribution",
+                           config["custom_action_dist"])
+            return cls, int(cls.required_model_output_shape(action_space))
         shape = tuple(getattr(action_space, "shape", None) or ())
+        if getattr(action_space, "nvec", None) is not None:
+            lens = tuple(int(n) for n in np.asarray(action_space.nvec).reshape(-1))
+            return dists.MultiCategorical.with_lens(lens), int(sum(lens))
         if getattr(action_space, "n", None) is not None and shape == ():
             return dists.Categorical, int(action_space.n)
+        if getattr(action_space, "n", None) is not None and len(shape) >= 1:
+            return dists.Bernoulli, dists.Bernoulli.required_model_output_shape(action_space)
         if _is_box(action_space):
             return dists.DiagGaussian, dists.DiagGaussian.required_model_output_shape(action_space)
-        raise NotImplementedError(
-            f"action space {action_space} is not ported yet (the port takes Discrete and "
-            "Box): ROADMAP.md queue 1 item 9"
-        )
+        raise NotImplementedError(f"Unsupported action space: {action_space}")
 
     @staticmethod
     def get_model(
@@ -110,11 +165,12 @@ class ModelCatalog:
     ) -> TorchModel:
         """→ an ``nn.Module`` on the CPU, initialised from ``generator``."""
         cfg = {**MODEL_DEFAULTS, **(model_config or {})}
-        for key in _UNPORTED:
-            if cfg.get(key):
-                raise NotImplementedError(
-                    f"model option {key!r} is not ported yet: ROADMAP.md queue 1 item 9"
-                )
+        if cfg.get("custom_model"):
+            cls = _resolve(_custom_models, "custom model", cfg["custom_model"])
+            if not (isinstance(cls, type) and issubclass(cls, TorchModel)):
+                raise TypeError(f"custom_model {cls!r} is not a TorchModel subclass")
+            return cls(obs_shape=tuple(obs_space.shape), num_outputs=num_outputs,
+                       generator=generator, **(cfg.get("custom_model_config") or {}))
         if cfg.get("partition_rules"):
             raise NotImplementedError(
                 "partition_rules (tensor-parallel placement) waits for the "

@@ -1,9 +1,13 @@
 """Action distributions over model outputs.
 
 Counterpart of ``ray_tpu/models/distributions.py``: :class:`Categorical`
-(Discrete spaces), :class:`DiagGaussian` (Box spaces; the PPO family)
-and :class:`SquashedGaussian` (SAC: a tanh-squashed normal mapped onto
-``[low, high]``), with the reference's ``SMALL_NUMBER`` and log-std clip.
+(Discrete spaces), :class:`MultiCategorical` (MultiDiscrete: one
+categorical a component), :class:`Bernoulli` (MultiBinary: one
+independent bit a component), :class:`DiagGaussian` (Box spaces; the PPO
+family) and :class:`SquashedGaussian` (SAC: a tanh-squashed normal
+mapped onto ``[low, high]``), with the reference's ``SMALL_NUMBER`` and
+log-std clip. Sampled discrete actions are int64 where the reference's
+are int32.
 Sampling draws from an explicit ``torch.Generator`` on the inputs'
 device (Gumbel-max for the categorical, the method of
 ``jax.random.categorical``); the two frameworks' random streams differ,
@@ -84,6 +88,103 @@ class Categorical(ActionDistribution):
     @staticmethod
     def required_model_output_shape(action_space) -> int:
         return int(action_space.n)
+
+
+class MultiCategorical(ActionDistribution):
+    """A vector of discrete actions: the inputs are the components'
+    logits side by side, ``input_lens`` wide each. The class is bound to
+    its lens (:meth:`with_lens`, as the catalog builds it) so a policy
+    instantiates it from its inputs alone, like every other
+    distribution. One draw is uniforms over all the logits at once (each
+    component's Gumbel-max reads its own slice)."""
+
+    input_lens: tuple = ()
+    _bound: dict = {}
+
+    def __init__(self, inputs: torch.Tensor):
+        super().__init__(inputs)
+        self.cats = [Categorical(x) for x in torch.split(inputs, list(self.input_lens), dim=-1)]
+
+    @classmethod
+    def with_lens(cls, input_lens) -> type:
+        """This class bound to ``input_lens`` (one class a lens tuple)."""
+        lens = tuple(int(n) for n in input_lens)
+        bound = MultiCategorical._bound.get(lens)
+        if bound is None:
+            bound = MultiCategorical._bound[lens] = type(
+                f"MultiCategorical{list(lens)}", (MultiCategorical,), {"input_lens": lens})
+        return bound
+
+    @classmethod
+    def draw(cls, shape, dtype, device, generator):
+        return Categorical.draw(shape, dtype, device, generator)
+
+    def sample(self, generator: Optional[torch.Generator], uniform=None) -> torch.Tensor:
+        if uniform is None:
+            uniform = self.draw(self.inputs.shape, self.inputs.dtype, self.inputs.device,
+                                generator)
+        parts = torch.split(uniform, list(self.input_lens), dim=-1)
+        return torch.stack([c.sample(None, u) for c, u in zip(self.cats, parts)], dim=-1)
+
+    def deterministic_sample(self) -> torch.Tensor:
+        return torch.stack([c.deterministic_sample() for c in self.cats], dim=-1)
+
+    def logp(self, x: torch.Tensor) -> torch.Tensor:
+        return sum(c.logp(x[..., i]) for i, c in enumerate(self.cats))
+
+    def entropy(self) -> torch.Tensor:
+        return sum(c.entropy() for c in self.cats)
+
+    def kl(self, other: "MultiCategorical") -> torch.Tensor:
+        return sum(c.kl(o) for c, o in zip(self.cats, other.cats))
+
+    @staticmethod
+    def required_model_output_shape(action_space) -> int:
+        return int(np.sum(action_space.nvec))
+
+
+class Bernoulli(ActionDistribution):
+    """Independent Bernoulli bits from logits (MultiBinary spaces). One
+    draw is a uniform a bit; a bit is 1 where its uniform is below
+    ``sigmoid(logit)``, as in the reference."""
+
+    @classmethod
+    def draw(cls, shape, dtype, device, generator):
+        return torch.rand(shape, generator=generator, device=device, dtype=dtype)
+
+    def sample(self, generator: Optional[torch.Generator], uniform=None) -> torch.Tensor:
+        if uniform is None:
+            uniform = self.draw(self.inputs.shape, self.inputs.dtype, self.inputs.device,
+                                generator)
+        return (uniform < torch.sigmoid(self.inputs)).long()
+
+    def deterministic_sample(self) -> torch.Tensor:
+        return (self.inputs > 0).long()
+
+    def logp(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.inputs.dtype)
+        z = self.inputs
+        return -torch.sum(
+            torch.clamp_min(z, 0) - z * x + torch.log1p(torch.exp(-torch.abs(z))), dim=-1
+        )
+
+    def entropy(self) -> torch.Tensor:
+        z = self.inputs
+        p = torch.sigmoid(z)
+        return -torch.sum(p * F.logsigmoid(z) + (1 - p) * F.logsigmoid(-z), dim=-1)
+
+    def kl(self, other: "Bernoulli") -> torch.Tensor:
+        z, o = self.inputs, other.inputs
+        p = torch.sigmoid(z)
+        return torch.sum(
+            p * (F.logsigmoid(z) - F.logsigmoid(o))
+            + (1 - p) * (F.logsigmoid(-z) - F.logsigmoid(-o)),
+            dim=-1,
+        )
+
+    @staticmethod
+    def required_model_output_shape(action_space) -> int:
+        return int(np.prod(action_space.shape))
 
 
 def _normal(like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:

@@ -11,10 +11,13 @@ training loop; the port's counterpart of ``ray_tpu/telemetry``.
 - :mod:`~ray_tpu_torch.telemetry.device` — the program ledger over the
   CUDA graphs and eager nests, timed by CUDA events, under
   ``info/device_ledger``;
-- :mod:`~ray_tpu_torch.telemetry.report` — the flight-recorder CLI.
-
-The reference's fleet view (``FleetAggregator``, ``HostExporter``,
-``fleetview``) comes with ROADMAP.md item 6.2.
+- :mod:`~ray_tpu_torch.telemetry.report` — the flight-recorder CLI;
+- :mod:`~ray_tpu_torch.telemetry.fleetview` — the fleet view: per-host
+  registry snapshots merged into one host-labelled exposition, the
+  skew-corrected fleet timeline and barrier attribution
+  (:class:`FleetAggregator`); its KV publisher (``HostExporter``) is
+  ROADMAP.md item 7;
+- :mod:`~ray_tpu_torch.telemetry.fleet_report` — the fleet report CLI.
 """
 
 from ray_tpu_torch.telemetry import device  # noqa: F401
@@ -33,7 +36,19 @@ from ray_tpu_torch.telemetry.runtime import (  # noqa: F401
     runtime,
 )
 
+# imported last: fleetview pulls in tracing and the metric catalog above
+from ray_tpu_torch.telemetry import fleetview  # noqa: E402,F401
+from ray_tpu_torch.telemetry.fleetview import (  # noqa: E402,F401
+    FleetAggregator,
+    HostExporter,
+    registry_snapshot,
+)
+
 __all__ = [
+    "FleetAggregator",
+    "HostExporter",
+    "fleetview",
+    "registry_snapshot",
     "TelemetryRuntime",
     "STAGE_PREFIXES",
     "device",

@@ -24,8 +24,9 @@ Names kept for comparability, and what they count in the port:
   times are CUDA-event times (``telemetry/device.py``).
 
 Left out, with the parts that feed them (ROADMAP.md): the learner
-fleet and KV series (item 7), the AOT cache events (item 6.3), the
-multi-process ingress bank's gauges and the flood harness's (item 6.2).
+fleet and KV series (item 7; the fleet view's clock offset with its
+``HostExporter``), the AOT cache events (item 6.3), the flood harness's
+gauges (item 1, the port's benchmark).
 """
 
 from __future__ import annotations
@@ -67,6 +68,14 @@ SKIPPED_BATCHES_TOTAL = "ray_tpu_skipped_batches_total"
 # ordinary kill path), and the continuous checkpoint stream's
 # snapshot count + how many supersteps the written tail lags the run
 FLEET_SIZE = "ray_tpu_fleet_size"
+# fleet view (telemetry/fleetview.py): per-host barrier wall at each
+# epoch-scoped barrier (seconds a host's arrival led the LAST
+# arriver's, skew-corrected), straggler attribution (times a host WAS
+# the last arriver), and how many hosts the aggregator holds live
+# snapshots for
+FLEET_BARRIER_WAIT_SECONDS = "ray_tpu_fleet_barrier_wait_seconds"
+FLEET_STRAGGLER_TOTAL = "ray_tpu_fleet_straggler_total"
+FLEET_HOSTS_REPORTING = "ray_tpu_fleet_hosts_reporting"
 PREEMPTIONS_TOTAL = "ray_tpu_preemptions_total"
 CKPT_STREAM_SNAPSHOTS_TOTAL = (
     "ray_tpu_checkpoint_stream_snapshots_total"
@@ -133,6 +142,12 @@ INGRESS_SHED_TOTAL = "ray_tpu_ingress_shed_total"
 INGRESS_LATENCY_SECONDS = "ray_tpu_ingress_latency_seconds"
 # admitted in-flight per policy (the per-tenant quota's observable)
 INGRESS_POLICY_INFLIGHT = "ray_tpu_ingress_policy_inflight"
+# multi-process front door (ingress/supervisor.py): worker processes in
+# the bank by state, and workers respawned after a crash
+INGRESS_WORKERS = "ray_tpu_ingress_workers"
+INGRESS_WORKER_RESPAWNS_TOTAL = (
+    "ray_tpu_ingress_worker_respawns_total"
+)
 # cross-replica coalescing router (ingress/router.py): dispatched
 # buckets, rows merged into them, requests dropped at their deadline
 # BEFORE dispatch, and batches re-routed off a dead replica
@@ -551,6 +566,57 @@ def observe_ingress_latency(route: str, seconds: float) -> None:
 
 
 
+
+
+def set_ingress_workers(state: str, n: int) -> None:
+    """Worker-process census of the multi-process front door bank
+    (ingress/supervisor.py): ``state="live"`` is the processes
+    currently accepting on the shared port; ``state="target"`` the
+    configured bank size."""
+    gauge(
+        INGRESS_WORKERS,
+        "ingress worker processes by state",
+        ("state",),
+    ).set(float(n), {"state": state})
+
+
+def inc_ingress_worker_respawns(n: int = 1) -> None:
+    """One crashed ingress worker the supervisor replaced (the bank
+    keeps accepting on the shared port throughout)."""
+    counter(
+        INGRESS_WORKER_RESPAWNS_TOTAL,
+        "ingress worker processes respawned after a crash",
+    ).inc(float(n))
+
+
+def set_barrier_wait(host: str, epoch: int, seconds: float) -> None:
+    """How long ``host``'s arrival at the latest barrier or drain point
+    led the LAST arriver's (0 for the straggler itself), skew-corrected
+    by the fleet aggregator (telemetry/fleetview.py)."""
+    gauge(
+        FLEET_BARRIER_WAIT_SECONDS,
+        "seconds a host waited on the barrier's last arriver",
+        ("host", "epoch"),
+    ).set(float(seconds), {"host": host, "epoch": str(epoch)})
+
+
+def inc_straggler(host: str, n: int = 1) -> None:
+    """One barrier where ``host`` was the LAST arriver (the fleet's
+    measured straggler)."""
+    counter(
+        FLEET_STRAGGLER_TOTAL,
+        "barriers where this host arrived last",
+        ("host",),
+    ).inc(float(n), {"host": host})
+
+
+def set_hosts_reporting(n: int) -> None:
+    """Hosts the fleet aggregator currently holds a live (non-aged)
+    snapshot for."""
+    gauge(
+        FLEET_HOSTS_REPORTING,
+        "hosts with a live snapshot at the fleet aggregator",
+    ).set(float(n))
 
 
 def set_ingress_policy_inflight(policy: str, n: int) -> None:

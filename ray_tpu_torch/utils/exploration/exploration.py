@@ -3,8 +3,11 @@ strategies.
 
 Counterpart of ``ray_tpu/utils/exploration/exploration.py``; ported:
 :class:`StochasticSampling`, the default of the PPO family,
-:class:`EpsilonGreedy`, the DQN family's, and :class:`GaussianNoise` and
-:class:`OrnsteinUhlenbeckNoise`, TD3's and DDPG's. The OU process is
+:class:`EpsilonGreedy`, the DQN family's, :class:`GaussianNoise` and
+:class:`OrnsteinUhlenbeckNoise`, TD3's and DDPG's, and the strategies
+with learners of their own, ``Curiosity`` (``curiosity.py``) and ``RND``
+(``rnd.py``), which register themselves (:func:`register_exploration`)
+and train in ``postprocess_trajectory``. The OU process is
 stateful: its per-slot ``x`` is carried state (:meth:`Exploration.initial_state`),
 which ``sample_fn`` takes and returns, so the serving plane sends such a
 policy to its sequential fallback. A strategy's ``sample_fn``
@@ -75,14 +78,16 @@ class Exploration:
 
     def postprocess_trajectory(self, policy, sample_batch):
         """A fragment's host postprocessing before the policy's own (the
-        actor lane's sampler calls it); the ported strategies add
-        nothing."""
+        actor lane's sampler calls it; the device lane runs none, so it
+        refuses a strategy that overrides this). Curiosity and RND add
+        their intrinsic rewards here; the others add nothing."""
         return sample_batch
 
     def get_state(self) -> Dict:
         """The strategy's own state for a checkpoint (the policy's
-        ``exploration_state``); the ported strategies keep theirs in
-        ``coeff_values`` and have none."""
+        ``exploration_state``): Curiosity's and RND's nets and Adam
+        states; the others keep theirs in ``coeff_values`` and have
+        none."""
         return {}
 
     def set_state(self, state: Dict) -> None:
@@ -230,6 +235,16 @@ _REGISTRY = {
     "GaussianNoise": GaussianNoise,
     "OrnsteinUhlenbeckNoise": OrnsteinUhlenbeckNoise,
 }
+
+
+def register_exploration(name: str, cls) -> None:
+    _REGISTRY[name] = cls
+
+
+def postprocesses(exploration) -> bool:
+    """Whether ``exploration`` does work of its own in
+    ``postprocess_trajectory`` (Curiosity, RND)."""
+    return type(exploration).postprocess_trajectory is not Exploration.postprocess_trajectory
 
 
 def exploration_from_config(

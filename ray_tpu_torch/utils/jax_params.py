@@ -53,7 +53,11 @@ spilled or not) becomes a state any port buffer restores through
 (its DDPG form's through :func:`from_jax_ddpg_state`) go across through
 :func:`from_jax_apex_state`. A reference stream snapshot (its
 ``CheckpointStreamer``'s payload) becomes the port's through
-:func:`from_jax_stream_snapshot`.
+:func:`from_jax_stream_snapshot`. Curiosity's and RND's exploration
+states (their nets, Adam states and RND's normaliser) become the port
+strategies' through :func:`from_jax_exploration_state`. A reference
+custom model's flax tree goes through :func:`from_jax_params` like any
+other: its layers' names are the port model's.
 """
 
 from __future__ import annotations
@@ -387,8 +391,49 @@ def from_jax_policy_state(policy, ps: Mapping):
     policy.coeff_values.update({k: float(v) for k, v in ps.get("coeff_values", {}).items()})
     policy.global_timestep = int(ps.get("global_timestep", 0))
     policy.num_grad_updates = int(ps.get("num_grad_updates", 0))
-    policy.exploration.set_state(ps.get("exploration_state", {}))
+    policy.exploration.set_state(from_jax_exploration_state(ps.get("exploration_state", {})))
     return policy
+
+
+# the ICM's nets by the reference's keys: its forward model is the
+# port's ``forward_net`` (an nn.Module's ``forward`` is its call)
+_ICM_NETS = {"phi": "phi", "inverse": "inverse", "forward": "forward_net"}
+
+
+def _icm_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
+    out = {}
+    for ref_key, port_key in _ICM_NETS.items():
+        for name, value in flax_to_state_dict(tree[ref_key]).items():
+            out[f"{port_key}.{name}"] = value
+    return out
+
+
+def _adam_dict(opt_state, to_sd) -> Dict:
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no scale_by_adam state in the optax state")
+    return {"count": int(np.asarray(adam.count)), "mu": to_sd(adam.mu), "nu": to_sd(adam.nu)}
+
+
+def from_jax_exploration_state(state: Mapping) -> Dict:
+    """A reference exploration's ``get_state()`` (numpy trees) as the
+    port strategy's: Curiosity's ICM (``params``: phi, inverse and
+    forward flax trees; their optax Adam state) and RND's target and
+    predictor trees, the predictor's Adam state and the reward
+    normaliser (``norm``: count, mean, M2). A state that is neither (the
+    other strategies', or already the port's) passes through as it is."""
+    state = dict(state or {})
+    if isinstance(state.get("params"), Mapping) and "phi" in state["params"]:
+        return {"params": _icm_state_dict(state["params"]),
+                "opt_state": _adam_dict(state["opt_state"], _icm_state_dict)}
+    if isinstance(state.get("target_params"), Mapping) and "params" in state["target_params"]:
+        return {
+            "target_params": flax_to_state_dict(state["target_params"]),
+            "predictor_params": flax_to_state_dict(state["predictor_params"]),
+            "opt_state": _adam_dict(state["opt_state"], flax_to_state_dict),
+            "norm": tuple(float(v) for v in state["norm"]),
+        }
+    return state
 
 
 def from_jax_algorithm_state(algo, state: Mapping):

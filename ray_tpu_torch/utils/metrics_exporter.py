@@ -2,10 +2,9 @@
 
 Counterpart of ``ray_tpu/utils/metrics_exporter.py``: for the same
 events the exposition text is the reference's, byte for byte, and
-:class:`MetricsServer` serves it at ``/metrics``. The reference's
-``render`` hook, through which its fleet aggregator serves a merged
-multi-host exposition, comes with the fleet view (ROADMAP.md item
-6.2)."""
+:class:`MetricsServer` serves it at ``/metrics``, or what its ``render`` hook returns (the
+fleet view's merged multi-host exposition,
+``telemetry/fleetview.render_installed``)."""
 
 from __future__ import annotations
 
@@ -79,9 +78,16 @@ def format_prometheus() -> str:
 
 class MetricsServer:
     """Serves /metrics (Prometheus scrape target) from a daemon
-    thread; ``port=0`` takes a free port (read it back from ``port``)."""
+    thread; ``port=0`` takes a free port (read it back from ``port``).
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+    ``render`` swaps the exposition source (the fleet view's merged
+    renderer, ``fleetview.render_installed``); a renderer that raises
+    or returns None falls back to the process-local exposition rather
+    than failing the scrape."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0, render=None):
+        self.render = render
+        outer = self
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, *args):
@@ -92,7 +98,15 @@ class MetricsServer:
                     self.send_response(404)
                     self.end_headers()
                     return
-                blob = format_prometheus().encode()
+                text = None
+                if outer.render is not None:
+                    try:
+                        text = outer.render()
+                    except Exception:
+                        text = None
+                if text is None:
+                    text = format_prometheus()
+                blob = text.encode()
                 self.send_response(200)
                 self.send_header(
                     "Content-Type", "text/plain; version=0.0.4"

@@ -94,3 +94,49 @@ class EnvReport:
 
     def env(self, name):
         return os.environ.get(name)
+
+
+class EchoPidReplica:
+    """A replica for the ingress bank's tests: action = this process's
+    pid (plus ``offset``), so a response shows which worker process
+    served it."""
+
+    def __init__(self, index, offset=0):
+        self.name = f"echo{index}"
+        self.dead = False
+        self.offset = offset
+
+    def begin(self, rows, explore, trace=None):
+        return [{"action": os.getpid() + self.offset, "params_version": 0} for _ in rows]
+
+    def finish(self, token, timeout_s):
+        return token
+
+    def alive(self):
+        return True
+
+    def queue_wait_p50_s(self):
+        return None
+
+
+class StaticFeed:
+    def __init__(self, members=(0, 1)):
+        self._members = list(members)
+
+    def current(self):
+        return 1, self._members
+
+
+def echo_worker_init(ctx):
+    """An ingress bank worker's init: one echo policy behind a router
+    that follows the forwarded membership feed."""
+    from ray_tpu_torch.ingress import CoalescingRouter
+
+    router = CoalescingRouter("echo", membership=ctx.membership("echo"),
+                              wrap=lambda m, i: EchoPidReplica(i), batch_wait_timeout_s=0.001)
+    ctx.ingress.add_policy("echo", router)
+
+
+def failing_worker_init(ctx):
+    """A worker_init that cannot get what it asks for."""
+    raise RuntimeError("no card for this worker")

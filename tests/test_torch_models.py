@@ -128,13 +128,19 @@ def test_catalog_models_and_dists():
     assert ModelCatalog.get_action_dist(Discrete(6)) == (tdists.Categorical, 6)
     assert ModelCatalog.get_action_dist(Box(-1, 1, (2,))) == (tdists.DiagGaussian, 4)
 
-    class MultiDiscrete:  # neither Discrete nor Box
+    class MultiDiscrete:  # duck-typed: nvec
         shape, nvec = (2,), (3, 4)
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ModelCatalog.get_action_dist(MultiDiscrete())
+    cls, size = ModelCatalog.get_action_dist(MultiDiscrete())
+    assert issubclass(cls, tdists.MultiCategorical) and cls.input_lens == (3, 4) and size == 7
+
+    class Unknown:  # none of Discrete, Box, MultiDiscrete, MultiBinary
+        shape = None
+
+    with pytest.raises(NotImplementedError, match="Unsupported action space"):
+        ModelCatalog.get_action_dist(Unknown())
     assert ModelCatalog.get_model(Box(-1, 1, (5,)), Discrete(2), 2, {"use_lstm": True}).is_recurrent
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no custom model registered as 'm'"):
         ModelCatalog.get_model(Box(-1, 1, (5,)), Discrete(2), 2, {"custom_model": "m"})
 
 

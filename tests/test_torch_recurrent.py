@@ -204,7 +204,7 @@ def test_catalog_builds_recurrent_models_at_the_reference_defaults():
     assert att.num_transformer_units == 1 and att.mlp0_0.weight.shape == (32, 64)
     assert float(att.gate_attn_0.bz.detach()[0]) == 2.0 and att.ln_q_0.eps == 1e-6
     assert [s.shape for s in att.initial_state(3)] == [(3, 50, 64)]
-    with pytest.raises(NotImplementedError, match="custom_model"):
+    with pytest.raises(ValueError, match="no custom model registered as 'x'"):
         ModelCatalog.get_model(space, act, 2, {"custom_model": "x"})
 
 

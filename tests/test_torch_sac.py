@@ -442,18 +442,31 @@ def test_sac_fixed_seed_repeats_and_state_roundtrip():
 
 
 @pytest.mark.parametrize("typ,item", [("GaussianNoise", "item 4b"),
-                                      ("OrnsteinUhlenbeckNoise", "item 4b"), ("Curiosity", "item 9")])
+                                      ("OrnsteinUhlenbeckNoise", "item 4b"),
+                                      ("Curiosity", "item 9.2"), ("RND", "item 9.2"),
+                                      ("ParameterNoise", "item 9")])
 def test_unported_explorations_name_their_item(typ, item):
     """The noise strategies were item 4b's and are ported with DDPG and
-    TD3 (``tests/test_torch_ddpg.py``); the rest still name item 9."""
+    TD3 (``tests/test_torch_ddpg.py``); Curiosity and RND were item
+    9.2's (``tests/test_torch_model_surface.py``), Curiosity refusing a
+    Box action space as the reference's does; the rest still name item
+    9."""
+    from gymnasium.spaces import Discrete as GymDiscrete
+
     from ray_tpu_torch.utils.exploration import exploration_from_config
 
+    cfg = {"exploration_config": {"type": typ}}
     if item == "item 4b":
-        assert type(exploration_from_config({"exploration_config": {"type": typ}},
-                                            Box(-1, 1, (1,)))).__name__ == typ
+        assert type(exploration_from_config(cfg, Box(-1, 1, (1,)))).__name__ == typ
+        return
+    if item == "item 9.2":
+        assert type(exploration_from_config(cfg, GymDiscrete(2))).__name__ == typ
+        if typ == "Curiosity":
+            with pytest.raises(ValueError, match="Discrete action spaces"):
+                exploration_from_config(cfg, Box(-1, 1, (1,)))
         return
     with pytest.raises(NotImplementedError, match=item):
-        exploration_from_config({"exploration_config": {"type": typ}}, Box(-1, 1, (1,)))
+        exploration_from_config(cfg, Box(-1, 1, (1,)))
 
 
 def test_sac_config_defaults_match_reference():

@@ -146,16 +146,14 @@ def test_histogram_concurrent_observe_threadsafe():
 OMITTED = {
     # the learner fleet and KV (item 7)
     "ray_tpu_learner_fleet_hosts", "ray_tpu_mesh_epoch", "ray_tpu_mesh_resizes_total",
-    "ray_tpu_fleet_aot_preseeds_total", "ray_tpu_fleet_barrier_wait_seconds",
-    "ray_tpu_fleet_straggler_total", "ray_tpu_fleet_clock_offset_seconds",
-    "ray_tpu_fleet_hosts_reporting", "ray_tpu_kv_rtt_seconds", "ray_tpu_kv_retries_total",
+    "ray_tpu_fleet_aot_preseeds_total", "ray_tpu_fleet_clock_offset_seconds",
+    "ray_tpu_kv_rtt_seconds", "ray_tpu_kv_retries_total",
     "ray_tpu_kv_reconnects_total", "ray_tpu_fleet_fenced_writes_total",
     "ray_tpu_fleet_coordinator_term", "ray_tpu_fleet_failovers_total",
     "ray_tpu_fleet_self_fences_total",
     # the AOT cache (item 6.3)
     "ray_tpu_aot_cache_events_total",
-    # the ingress bank and the flood harness (item 6.2)
-    "ray_tpu_ingress_workers", "ray_tpu_ingress_worker_respawns_total",
+    # the flood harness, which belongs to the port's benchmark (item 1)
     "ray_tpu_flood_offered_rps", "ray_tpu_flood_goodput_rps", "ray_tpu_flood_responses_total",
 }
 
@@ -264,7 +262,7 @@ def test_config_telemetry_knobs():
               peak_flops=1e12)
     assert (PPOConfig().telemetry(**kw).telemetry_config
             == RefPPOConfig().telemetry(**kw).telemetry_config)
-    with pytest.raises(NotImplementedError, match="item 6.2"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         PPOConfig().telemetry(fleetview=True)
     with pytest.raises(TypeError):
         PPOConfig().telemetry(no_such_knob=1)
