@@ -485,6 +485,31 @@ and ``nvcc``. Phases, each printing its own lines:
                fragment's intrinsic reward finite and above 0, and the
                exploration state bitwise through ``save`` and
                ``Algorithm.from_checkpoint``;
+    actor_starts -- A3C's algorithm and ES's and ARS's, built before the
+               next phases so their worker processes start while those
+               run; then item 9.3's single-agent phases, each printing
+               the card's name and power limit:
+    pg_a2c   -- cartpole-pg.yaml and cartpole-a2c.yaml: one learn on a
+               fixed train batch on the card and on a CPU copy (the learn
+               contract), then PG_A2C_ITERS train() calls: env-steps/s
+               and the split;
+    simple_q -- cartpole-dqn.yaml as SimpleQ with prioritized replay:
+               the off-policy run (rows 1, 3, 4 against the replay's
+               schedule and their plain versions), graphed against eager;
+    r2d2     -- cartpole-r2d2.yaml zero-init and stored-state: a budget
+               of train() (target updates counted), one learn on card and
+               CPU (``_r2d2_stats_close``);
+    a3c      -- two CPU workers: one fixed gradient applied on card and
+               CPU, a window with both workers' gradients applied and
+               every worker's weights the learner's; gradients a second;
+    rnnsac   -- Pendulum-v1: a window of updates, one update on card and
+               CPU with injected normals (SAC's tolerances);
+    es_ars   -- cartpole-es.yaml and cartpole-ars.yaml: theta bitwise a
+               numpy recomputation each iteration, greedy actions on card
+               and CPU equal;
+    bandits  -- LinUCB and LinTS on ``LinearContextBandit``: statistics
+               and scores on card and CPU, the late reward above a
+               uniform policy's;
     ingress_bank -- ``IngressSupervisor(num_workers=2)`` started from
                this process, which holds a CUDA context: each worker is
                spawned, restores the serve phase's checkpoint root into a
@@ -555,7 +580,8 @@ the row scatter's ``offline_sac_writer`` path), the Ape-X phases' runs
 host_tree's and spill's rounds (the spill ring runs none) and
 lane_eval's iterations, model_surface's card calls and its train()
 calls, ingress_bank's client window (paths that run no kernel; they
-print their counts), and read just
+print their counts), the single-agent phases' runs (only simple_q's
+runs kernels; its replay parity windows do not count), and read just
 after (on the learner-thread paths, between two learner steps) (the
 ring's in each rank, before each call), the serve phase and
 serve_torso (before its exact server is built; its exact-against-
@@ -2328,7 +2354,7 @@ def phase_ponglite_learn():
 # learning run's wall budget
 ACTOR_TUNED = os.path.join(REPO, "tuned_examples", "ppo", "ponglite-ppo.yaml")
 ACTOR_LEARN_S = 4.0
-ACTOR_TIMED_CALLS = 3
+ACTOR_TIMED_CALLS = 2  # 3 before PR 23
 
 
 def _actor_report(worker):
@@ -2529,11 +2555,11 @@ def phase_actor_learn():
 
 # the workers' start and the learner's first steps come before these
 # windows, in actor_learner_window's warm calls
-IMPALA_WINDOW_S = 10.0
-APPO_WINDOW_S = 6.0
+IMPALA_WINDOW_S = 7.0  # 10 before PR 23
+APPO_WINDOW_S = 4.0  # 6 before PR 23
 ACTOR_LEARNER_WARM_S = 90.0
-PREFETCH_WINDOW_S = 6.0
-PREFETCH_FUSED_S = 3.0
+PREFETCH_WINDOW_S = 4.0  # 6 before PR 23
+PREFETCH_FUSED_S = 2.0  # 3 before PR 23
 
 
 def impala_config(config_cls, **over):
@@ -3048,7 +3074,7 @@ SAC_OBS, SAC_ACT, SAC_BATCH, SAC_CAPACITY, SAC_K = 17, 6, 256, 400_000, 8
 SAC_FILL_CHUNK, SAC_WINDOWS = 50_000, 3
 SAC_COLUMNS = 5  # obs, new_obs, actions, rewards, dones
 SAC_TUNED = os.path.join(REPO, "tuned_examples", "sac", "pendulum-sac.yaml")
-SAC_BUDGET_S = 5.0  # 8 before PR 21
+SAC_BUDGET_S = 4.0  # 8 before PR 21, 5 before PR 23
 PENDULUM_PPO = os.path.join(REPO, "tuned_examples", "ppo", "pendulum-ppo.yaml")
 # the replay columns' row widths: Pendulum (obs 3, act 1) and HalfCheetah
 SAC_WIDTHS = {"pendulum": (3, 1, 100_000), "halfcheetah": (SAC_OBS, SAC_ACT, SAC_CAPACITY)}
@@ -3368,7 +3394,7 @@ def phase_pendulum_ppo():
         algo.stop()
 
 
-MA_TIMED_CALLS = 2  # 3 before PR 17
+MA_TIMED_CALLS = 1  # 3 before PR 17, 2 before PR 23
 MA_LEARN_S = 4.0
 
 
@@ -4792,7 +4818,7 @@ def phase_views():
 # LSTM, and GTrXL's policy behind the server's sequential fallback
 CARTPOLE_IMPALA = os.path.join(REPO, "tuned_examples", "impala", "cartpole-impala.yaml")
 CARTPOLE_APPO = os.path.join(REPO, "tuned_examples", "appo", "cartpole-appo.yaml")
-RECURRENT_CALLS = 3
+RECURRENT_CALLS = 2  # 3 before PR 23
 SINGLE_ACTIONS = 8
 LSTM_IMPALA_WINDOW_S = 7.0
 RSERVE_REQUESTS, RSERVE_THREADS = 64, 8
@@ -6096,7 +6122,7 @@ def phase_evaluate_cli(ckpt_dir):
 SERVE_MAX_BATCH = 32
 SERVE_CLIENTS = 64
 SERVE_WINDOW_S = 6.0
-SERVE_TORSO_WINDOW_S = 4.0
+SERVE_TORSO_WINDOW_S = 3.0  # 4 before PR 23
 INGRESS_CLIENTS = 16
 INGRESS_WINDOW_S = 4.0
 INGRESS_BURST = 64
@@ -6937,6 +6963,502 @@ def phase_model_surface():
     return launches
 
 
+# item 9.3's single-agent algorithms: PG, A2C, A3C, SimpleQ, R2D2, RNNSAC,
+# ES, ARS and the linear bandits
+PG_TUNED = os.path.join(REPO, "tuned_examples", "pg", "cartpole-pg.yaml")
+A2C_TUNED = os.path.join(REPO, "tuned_examples", "a2c", "cartpole-a2c.yaml")
+DQN_CARTPOLE = os.path.join(REPO, "tuned_examples", "dqn", "cartpole-dqn.yaml")
+R2D2_TUNED = os.path.join(REPO, "tuned_examples", "r2d2", "cartpole-r2d2.yaml")
+ES_TUNED = os.path.join(REPO, "tuned_examples", "es", "cartpole-es.yaml")
+ARS_TUNED = os.path.join(REPO, "tuned_examples", "ars", "cartpole-ars.yaml")
+LEARN_RTOL, LEARN_ATOL = 1e-5, 1.5e-5  # the port's learn contract
+PG_A2C_ITERS = 3  # timed train() calls of PG and of A2C each
+A3C_WINDOW_S = 4.0
+OFFPOLICY_BUDGET_S["simple_q"] = 3.0
+R2D2_BUDGET_S = 3.0  # each state strategy
+RNNSAC_WINDOW_S = 3.0
+RNNSAC_LEARN_STARTS = 400  # env steps before RNNSAC's first update
+ES_ITERS = 2
+BANDIT_ITERS = 40  # train() calls of each bandit, 32 env steps each
+BANDIT_LAST = 10  # the calls whose mean reward is held above a uniform policy's
+BANDIT_ENV = {"dim": 16, "num_arms": 8, "noise": 0.1}
+
+
+def _learn_close(phase, what, got, want):
+    """Two weight dicts within the learn contract; the largest
+    difference."""
+    import numpy as np
+
+    worst = 0.0
+    for n, w in want.items():
+        g = np.asarray(got[n], np.float64)
+        w = np.asarray(w, np.float64)
+        d = np.abs(g - w)
+        require((d <= LEARN_RTOL * np.abs(w) + LEARN_ATOL).all(),
+                f"{phase}: {what} {n} part by {float(d.max())}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def _stats_close(phase, got, want, rtol=1e-4, atol=1e-6):
+    for k, v in want.items():
+        if isinstance(v, float):
+            require(abs(got[k] - v) <= rtol * abs(v) + atol, f"{phase}: stat {k} card {got[k]} cpu {v}")
+
+
+def phase_pg_a2c():
+    """cartpole-pg.yaml's PG and cartpole-a2c.yaml's A2C as written (the
+    local worker samples, the learner on the card): one learn on a fixed
+    train batch on the card and on a CPU copy with the same permutation
+    (stats within 1e-4 relative, parameters and Adam moments within the
+    learn contract), then PG_A2C_ITERS train() calls each with the launch
+    counts at 0: env-steps/s and the iteration's split."""
+    import torch
+
+    from ray_tpu_torch.execution.rollout_ops import synchronous_parallel_sample
+    from ray_tpu_torch.utils.tuned_example import build_tuned_example
+
+    out = {}
+    for name, path in (("pg", PG_TUNED), ("a2c", A2C_TUNED)):
+        algo, _ = build_tuned_example(path)
+        try:
+            policy = algo.get_policy()
+            require(policy.device.type == "cuda", f"{name}: the learner is not on the card")
+            batch = synchronous_parallel_sample(worker_set=algo.workers,
+                                                max_env_steps=algo.config["train_batch_size"])
+            twin = _cpu_twin(policy)
+            perms = policy.draw_permutations(batch.count).cpu()
+            got = policy.learn_on_batch(batch.copy(), perms=perms)
+            want = twin.learn_on_batch(batch.copy(), perms=perms)
+            _stats_close(name, got, want)
+            diff = _learn_close(name, "parameter", policy.get_weights(), twin.get_weights())
+            st, tw = policy.get_state()["opt_state"], twin.get_state()["opt_state"]
+            _learn_close(name, "Adam mu", st["mu"], tw["mu"])
+            _learn_close(name, "Adam nu", st["nu"], tw["nu"])
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            for _ in range(PG_A2C_ITERS):
+                r = algo.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_kernel_counts()
+            learner = r["info"]["learner"]["default_policy"]
+            require(all(math.isfinite(v) for v in learner.values()), f"{name}: {learner}")
+            sampler = algo.workers.local_worker().sampler
+            say(name, card=card_line(), learn_card_vs_cpu="within contract", rows=batch.count,
+                max_param_diff=diff, calls=PG_A2C_ITERS, wall_s=f"{wall:.3f}",
+                env_steps=r["timesteps_total"], env_steps_per_s=f"{r['timesteps_total'] / wall:.1f}",
+                episode_reward_mean=r["episode_reward_mean"],
+                split=json.dumps({"learn_on_batch_s": round(algo._timers["learn_on_batch_s"], 4),
+                                  "act_s": round(sampler.timers["act_s"], 3),
+                                  "env_s": round(sampler.timers["env_s"], 3)}),
+                launches=json.dumps(launches))
+            out[name] = launches
+        finally:
+            algo.stop()
+    return out
+
+
+def _a3c_algo():
+    from ray_tpu_torch.utils.tuned_example import build_tuned_example
+
+    return build_tuned_example(A2C_TUNED, run="A3C", num_workers=2)[0]
+
+
+def _es_algos():
+    from ray_tpu_torch.utils.tuned_example import build_tuned_example
+
+    return {"es": build_tuned_example(ES_TUNED)[0], "ars": build_tuned_example(ARS_TUNED)[0]}
+
+
+def phase_actor_starts():
+    """A3C's algorithm (two remote workers) and ES's and ARS's (two ES
+    actors each), built before the single-agent phases, so their worker
+    processes start while those phases run; a3c and es_ars take them."""
+    return {"a3c": _a3c_algo(), **_es_algos()}
+
+
+def phase_a3c(algo=None):
+    """A3C on cartpole-a2c.yaml's config with two remote CPU workers:
+    one fixed numpy gradient (a CPU copy's gradient of a sampled batch)
+    applied on the card and on the CPU copy, weights and Adam state
+    within the learn contract; then A3C_WINDOW_S seconds of train() with
+    the launch counts at 0: gradients of both workers applied, one call in
+    flight a worker, and every worker's weights afterwards bitwise the
+    learner's; gradients applied a second."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import core as ray_core
+
+    algo = algo or _a3c_algo()
+    try:
+        require(type(algo).__name__ == "A3C", "not A3C")
+        policy, local = algo.get_policy(), algo.workers.local_worker()
+        twin = _cpu_twin(policy)
+        grads, _ = twin.compute_gradients(local.sample())
+        local.apply_gradients(grads)
+        twin.apply_gradients(grads)
+        diff = _learn_close("a3c", "parameter", policy.get_weights(), twin.get_weights())
+        _learn_close("a3c", "Adam mu", policy.get_state()["opt_state"]["mu"],
+                     twin.get_state()["opt_state"]["mu"])
+        algo.train()  # the workers' first calls: their processes start
+        zero_kernel_counts()
+        before = dict(algo.grads_applied)
+        t0 = time.perf_counter()
+        steps = 0
+        while time.perf_counter() - t0 < A3C_WINDOW_S:
+            r = algo.train()
+            steps += 1
+            require(len(algo._grad_refs) == 2, f"a3c: {len(algo._grad_refs)} calls in flight")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_kernel_counts()
+        applied = {i: n - before.get(i, 0) for i, n in algo.grads_applied.items()}
+        require(set(applied) == {1, 2} and min(applied.values()) >= 1,
+                f"a3c: gradients applied by worker {applied}")
+        learner = policy.get_weights()
+        remote = ray_core.get([w.get_weights.remote() for w in algo.workers.remote_workers()],
+                              timeout=120)
+        for w in remote:
+            require(all(np.array_equal(w["default_policy"][k], v) for k, v in learner.items()),
+                    "a3c: a worker's weights are not the learner's")
+        total = sum(applied.values())
+        say("a3c", card=card_line(), apply_card_vs_cpu="within contract", max_param_diff=diff,
+            window_s=A3C_WINDOW_S, wall_s=f"{wall:.3f}", train_calls=steps,
+            grads_applied=json.dumps(applied), grads_per_s=f"{total / wall:.1f}",
+            env_steps_per_s=f"{r['timesteps_total'] / max(wall, 1e-9):.1f}",
+            workers_synced=len(remote), launches=json.dumps(launches))
+        return launches
+    finally:
+        algo.stop()
+
+
+def phase_simple_q():
+    """cartpole-dqn.yaml run as SimpleQ (no double Q, no dueling, n-step
+    1) with prioritized replay on the device rings, the local worker
+    acting on the card: the main path for its budget (``_offpolicy_run``:
+    launches against the replay's schedule, each ring's gather, scatter
+    and descent against their plain versions), then graphed slots against
+    eager updates on its ring, bitwise."""
+    from ray_tpu_torch.utils.tuned_example import build_tuned_example
+
+    algo, _ = build_tuned_example(DQN_CARTPOLE, run="SimpleQ", replay_buffer_config={
+        "capacity": 50000, "prioritized_replay": True, "prioritized_replay_alpha": 0.6,
+        "prioritized_replay_beta": 0.4})
+    try:
+        policy = algo.get_policy()
+        require(type(algo).__name__ == "SimpleQ" and not policy.config["double_q"]
+                and "value_head.weight" not in policy.param_names, "not SimpleQ's model")
+        launches = _offpolicy_run("simple_q", algo)
+        p = _replay_parity("simple_q", policy, algo.local_replay_buffer.buffers["default_policy"],
+                           True, int(algo.config["train_batch_size"]))
+        say("simple_q", card=card_line(), parity="graphed = eager", bitwise=True, **p)
+        return launches
+    finally:
+        algo.stop()
+
+
+def _r2d2_stats_close(name, got, want, twin, seqs):
+    """R2D2's learn stats, card against CPU. ``mean_q`` within 1e-4
+    relative. The TD-error stats pass through ``h_inverse``, the
+    reference's closed form, whose float32 cancellation moves in steps of
+    ``ulp(2 eps |y| + 2 eps + 1) / (2 eps^2)`` (0.0596 at eps 1e-3 and |y|
+    < 500): the card's and the CPU's target Q values, a rounding apart,
+    can land one step apart, and ``h_function`` (slope at most 0.5 + eps)
+    then moves that element's target by up to ``reach = gamma (0.5 + eps)
+    step``. ``mean_td_error`` and the Huber ``total_loss`` (slope at most
+    1) are held within 1e-4 relative plus that reach; ``grad_gnorm``'s
+    difference is printed: no bound on it follows from the stats."""
+    import numpy as np
+    import torch
+
+    cfg = twin.config
+    eps, gamma = float(cfg.get("h_function_epsilon", 1e-3)), float(cfg.get("gamma", 0.99))
+    with torch.no_grad():
+        tq = twin.functional_forward(
+            twin.aux_state["target_params"], torch.as_tensor(seqs["obs"]),
+            (torch.as_tensor(seqs["state_in_0"]), torch.as_tensor(seqs["state_in_1"])),
+            resets=torch.as_tensor(seqs["resets"]))[0]
+    lead = np.float32(2 * eps * float(tq.abs().max()) + 2 * eps + 1)
+    reach = gamma * (0.5 + eps) * float(np.spacing(lead)) / (2 * eps ** 2)
+    for k, extra in (("mean_q", 0.0), ("mean_td_error", reach), ("total_loss", reach)):
+        require(abs(got[k] - want[k]) <= 1e-4 * abs(want[k]) + 1e-6 + extra,
+                f"{name}: stat {k} card {got[k]} cpu {want[k]} (h_inverse reach {reach})")
+    return {"h_inverse_reach": reach,
+            "grad_gnorm_rel_diff": abs(got["grad_gnorm"] - want["grad_gnorm"])
+            / max(abs(want["grad_gnorm"]), 1e-12)}
+
+
+def phase_r2d2():
+    """cartpole-r2d2.yaml (LSTM 64 over fcnet 64, burn-in 4, sequences of
+    20, 16 sequences a learn), zero-init and stored-state: R2D2_BUDGET_S
+    of train() each with the launch counts at 0 (env-steps/s, updates/s,
+    target updates counted: at least one), then one learn on 16 sequences
+    from its buffer on the card and on a CPU copy with one permutation:
+    parameters and Adam moments within the learn contract, the stats as
+    ``_r2d2_stats_close`` holds them."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.data.sample_batch import SampleBatch
+    from ray_tpu_torch.utils.tuned_example import build_tuned_example
+
+    out = {}
+    for zero_init in (True, False):
+        name = f"r2d2_{'zero' if zero_init else 'stored'}"
+        algo, _ = build_tuned_example(R2D2_TUNED, zero_init_states=zero_init)
+        try:
+            policy = algo.get_policy()
+            require(policy.device.type == "cuda" and policy.model.is_recurrent,
+                    f"{name}: the recurrent learner is not on the card")
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            while True:
+                r = algo.train()
+                if (time.perf_counter() - t0 >= R2D2_BUDGET_S
+                        and algo._counters["num_target_updates"] >= 1):
+                    break
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_kernel_counts()
+            c = algo._counters
+            updates = policy.num_grad_updates
+            require(c["num_target_updates"] >= 1 and updates >= 1, f"{name}: {dict(c)}")
+            seqs = algo.seq_buffer.sample(int(algo.config["train_batch_size"]))
+            starts = np.abs(seqs["state_in_0"]).sum()
+            require((starts == 0) == zero_init, f"{name}: stored states {starts}")
+            twin = _cpu_twin(policy)
+            perms = policy.draw_permutations(len(seqs["mask"])).cpu()
+            got = policy.learn_on_batch(SampleBatch(dict(seqs)), perms=perms)
+            want = twin.learn_on_batch(SampleBatch(dict(seqs)), perms=perms)
+            diff = _learn_close(name, "parameter", policy.get_weights(), twin.get_weights())
+            st, tw = policy.get_state()["opt_state"], twin.get_state()["opt_state"]
+            _learn_close(name, "Adam mu", st["mu"], tw["mu"])
+            _learn_close(name, "Adam nu", st["nu"], tw["nu"])
+            stats = _r2d2_stats_close(name, got, want, twin, seqs)
+            say(name, card=card_line(), learn_card_vs_cpu="within contract", max_param_diff=diff,
+                **stats,
+                budget_s=R2D2_BUDGET_S, wall_s=f"{wall:.3f}", env_steps=c["num_env_steps_sampled"],
+                env_steps_per_s=f"{c['num_env_steps_sampled'] / wall:.1f}", updates=updates,
+                updates_per_s=f"{updates / wall:.2f}", target_updates=c["num_target_updates"],
+                trained=c["num_env_steps_trained"], sequences=len(algo.seq_buffer),
+                episode_reward_mean=r["episode_reward_mean"], launches=json.dumps(launches))
+            out[name] = launches
+        finally:
+            algo.stop()
+    return out
+
+
+def phase_rnnsac():
+    """RNNSAC on the port's Pendulum-v1 at its defaults (actor and twin Q
+    nets 256x256 into LSTMs of 64; 12 sequences of 20 a learn), fragments
+    of 20, learning from RNNSAC_LEARN_STARTS env steps: RNNSAC_WINDOW_S
+    of train() after learning starts with the launch counts at 0
+    (updates/s), then one update on 12 sequences from its buffer with
+    host-drawn (B, T, 1) normals on the card and on a CPU copy: every
+    parameter, target and Adam moment within SAC's 1e-6 plus 1e-5
+    relative (``tests/test_torch_sac.py``), the stats within 1e-4
+    relative (the other phases' card against CPU)."""
+    import torch
+
+    from ray_tpu_torch.algorithms.sac.rnnsac import RNNSACConfig
+    from ray_tpu_torch.data.sample_batch import SampleBatch
+
+    algo = (RNNSACConfig().environment("Pendulum-v1")
+            .rollouts(num_rollout_workers=0, rollout_fragment_length=20)
+            .training(num_steps_sampled_before_learning_starts=RNNSAC_LEARN_STARTS)
+            .debugging(seed=0).build())
+    try:
+        policy = algo.get_policy()
+        require(policy.device.type == "cuda", "rnnsac: the learner is not on the card")
+        while policy.num_grad_updates == 0:
+            algo.train()
+        zero_kernel_counts()
+        u0 = policy.num_grad_updates
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < RNNSAC_WINDOW_S:
+            r = algo.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_kernel_counts()
+        updates = policy.num_grad_updates - u0
+        seqs = algo.seq_buffer.sample(int(algo.config["train_batch_size"]) // 20)
+        twin = _cpu_twin(policy)
+        g = torch.Generator().manual_seed(5)
+        shape = seqs["actions"].shape
+        normals = (torch.randn(shape, generator=g), torch.randn(shape, generator=g))
+        got = policy.learn_on_batch(SampleBatch(dict(seqs)),
+                                    normals=tuple(n.cuda() for n in normals))
+        want = twin.learn_on_batch(SampleBatch(dict(seqs)), normals=normals)
+        _stats_close("rnnsac", got, want)
+        worst = 0.0
+        for name, a, b in _policy_state_pairs(policy, twin):
+            if isinstance(a, torch.Tensor) and a.is_floating_point():
+                a64, b64 = a.detach().cpu().double(), b.detach().cpu().double()
+                d = (a64 - b64).abs()
+                require(bool((d <= 1e-5 * b64.abs() + 1e-6).all()),
+                        f"rnnsac: {name} part by {float(d.max())}")
+                worst = max(worst, float(d.max()))
+        say("rnnsac", card=card_line(), update_card_vs_cpu="within SAC's tolerances",
+            max_state_diff=worst, window_s=RNNSAC_WINDOW_S, wall_s=f"{wall:.3f}",
+            updates=updates, updates_per_s=f"{updates / wall:.2f}",
+            env_steps=r["timesteps_total"], sequences=len(algo.seq_buffer),
+            stats=json.dumps({k: round(v, 5) for k, v in got.items()}),
+            launches=json.dumps(launches))
+        return launches
+    finally:
+        algo.stop()
+
+
+def _es_recompute(algo, agg, theta0, opt0):
+    """The driver's update recomputed in numpy from the indices and
+    returns the iteration gathered."""
+    import numpy as np
+    from ray_tpu_torch.algorithms.es.es import ARS, compute_centered_ranks
+
+    cfg = algo.config
+    rows = np.stack([algo.noise.get(i, theta0.size) for i in agg["indices"]])
+    pos, neg = np.asarray(agg["pos"], np.float32), np.asarray(agg["neg"], np.float32)
+    if isinstance(algo, ARS):
+        k = min(int(cfg["rollouts_used"]), len(pos))
+        order = np.argsort(-np.maximum(pos, neg))[:k]
+        std = max(float(np.concatenate([pos[order], neg[order]]).std()), 1e-6)
+        return theta0 + float(cfg["sgd_stepsize"]) * ((pos[order] - neg[order]) @ rows[order]
+                                                       / (k * std))
+    ranks = compute_centered_ranks(np.stack([pos, neg], axis=1))
+    grad = (ranks[:, 0] - ranks[:, 1]) @ rows / (len(pos) * float(cfg["noise_stdev"]))
+    return opt0.update(theta0, -grad + float(cfg["l2_coeff"]) * theta0)
+
+
+def phase_es_ars(algos=None):
+    """cartpole-es.yaml and cartpole-ars.yaml as written (two ES actors
+    each, on the CPU; noise tables of 5,000,000; both built before either
+    trains, by ``phase_actor_starts`` in the smoke's run, so their actors
+    start together and early): ES_ITERS iterations each with
+    the launch counts at 0, each iteration's new theta bitwise a numpy
+    recomputation from its gathered indices and returns; then the card
+    policy's greedy actions on 256 observations equal to a CPU rollout
+    engine's for the same theta. Iteration seconds and env-steps/s."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.algorithms.es.es import _RolloutEngine
+
+    algos = algos or _es_algos()
+    out = {}
+    try:
+        for name, algo in algos.items():
+            policy = algo.get_policy()
+            require(policy.device.type == "cuda", f"{name}: the policy is not on the card")
+            require(len(algo._es_workers) == 2, f"{name}: {len(algo._es_workers)} ES actors")
+            zero_kernel_counts()
+            secs, steps0 = [], algo._counters["num_env_steps_sampled"]
+            for _ in range(ES_ITERS):
+                theta0, opt0 = algo._theta.copy(), copy.deepcopy(algo._optimizer)
+                t0 = time.perf_counter()
+                r = algo.train()
+                secs.append(round(time.perf_counter() - t0, 3))
+                require(np.array_equal(algo._theta, _es_recompute(algo, algo.last_iteration,
+                                                                  theta0, opt0)),
+                        f"{name}: theta is not the numpy recomputation")
+            launches = read_kernel_counts()
+            steps = algo._counters["num_env_steps_sampled"] - steps0
+            engine = _RolloutEngine(algo.config, algo.config["env"])
+            engine.flat.set(algo._theta)
+            obs = np.random.default_rng(3).standard_normal((256, 4)).astype(np.float32)
+            card = policy.compute_actions(obs, explore=False)[0]
+            require(np.array_equal(card, engine.act(obs)), f"{name}: greedy actions differ")
+            torch.cuda.synchronize()
+            say(name, card=card_line(), theta="numpy recomputation, bitwise",
+                greedy_card_vs_cpu="equal", observations=len(obs), iteration_s=json.dumps(secs),
+                env_steps=steps, env_steps_per_s=f"{steps / sum(secs):.1f}",
+                episodes_this_iter=r["episodes_this_iter"],
+                episode_reward_mean=r["episode_reward_mean"], params=int(algo._theta.size),
+                launches=json.dumps(launches))
+            out[name] = launches
+    finally:
+        for algo in algos.values():
+            algo.stop()
+    return out
+
+
+def phase_bandits():
+    """LinUCB and LinTS on the port's linear-context bandit
+    (BANDIT_ENV: 16-dim contexts, 8 arms; numpy): after 6 updates of 64
+    rows, the precision and moment on the card and on a CPU copy within
+    1e-5 relative plus 1e-6, and the scores of 64 contexts with one
+    injected draw within 1e-5 relative plus 1e-5, greedy and exploring;
+    then BANDIT_ITERS train() calls of 32 steps with the launch counts at
+    0: the mean reward of the last BANDIT_LAST calls above a uniform
+    random policy's expected reward."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.algorithms.bandit.bandit import (
+        BanditLinTSConfig,
+        BanditLinUCBConfig,
+        LinearContextBandit,
+    )
+    from ray_tpu_torch.data.sample_batch import SampleBatch
+
+    env = LinearContextBandit(BANDIT_ENV)
+    rng = np.random.default_rng(0)
+    uniform = float(env.expected_rewards(
+        rng.standard_normal((100_000, env.dim)).astype(np.float32)).mean())
+    out = {}
+    for name, cfg_cls in (("lin_ucb", BanditLinUCBConfig), ("lin_ts", BanditLinTSConfig)):
+        algo = (cfg_cls().environment(LinearContextBandit, env_config=BANDIT_ENV)
+                .rollouts(num_rollout_workers=0, rollout_fragment_length=32)
+                .training(train_batch_size=32).debugging(seed=0).build())
+        try:
+            policy = algo.get_policy()
+            require(policy.precision.is_cuda, f"{name}: the statistics are not on the card")
+            twin = type(policy)(policy.observation_space, policy.action_space,
+                                dict(policy.config), device="cpu")
+            probe = type(policy)(policy.observation_space, policy.action_space,
+                                 dict(policy.config))
+            for _ in range(6):
+                ctx = rng.standard_normal((64, env.dim)).astype(np.float32)
+                act = rng.integers(0, env.arms, 64)
+                b = {"obs": ctx, "actions": act, "rewards": (env.expected_rewards(ctx)[
+                    np.arange(64), act]).astype(np.float32)}
+                probe.learn_on_batch(SampleBatch(dict(b)))
+                twin.learn_on_batch(SampleBatch(dict(b)))
+            for a, w in ((probe.precision, twin.precision), (probe.moment, twin.moment)):
+                require(bool(torch.allclose(a.cpu(), w, rtol=1e-5, atol=1e-6)),
+                        f"{name}: statistics part by {float((a.cpu() - w).abs().max())}")
+            ctx = torch.as_tensor(rng.standard_normal((64, env.dim)).astype(np.float32))
+            noise = torch.randn((env.arms, env.dim), generator=torch.Generator().manual_seed(1))
+            worst = 0.0
+            for explore in (False, True):
+                s = probe.scores(ctx.cuda(), explore, noise.cuda()).cpu()
+                w = twin.scores(ctx, explore, noise)
+                require(bool(torch.allclose(s, w, rtol=1e-5, atol=1e-5)),
+                        f"{name}: scores part by {float((s - w).abs().max())}")
+                worst = max(worst, float((s - w).abs().max()))
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            rewards = []
+            for _ in range(BANDIT_ITERS):
+                r = algo.train()
+                rewards.append(r["info"]["learner"]["default_policy"]["mean_reward"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_kernel_counts()
+            late = float(np.mean(rewards[-BANDIT_LAST:]))
+            require(late > uniform, f"{name}: late mean reward {late} <= uniform {uniform}")
+            say(name, card=card_line(), card_vs_cpu="statistics and scores within 1e-5",
+                max_score_diff=worst, calls=BANDIT_ITERS, wall_s=f"{wall:.3f}",
+                env_steps_per_s=f"{r['timesteps_total'] / wall:.1f}",
+                first_mean_reward=round(rewards[0], 4), last_mean_reward=round(late, 4),
+                uniform_expected_reward=round(uniform, 4), launches=json.dumps(launches))
+            out[name] = launches
+        finally:
+            algo.stop()
+    return out
+
+
 def _free_port():
     import socket
 
@@ -7197,9 +7719,10 @@ def timed(phase, *args):
 
 
 def budget_cuts():
-    """(knob, old seconds, seconds now) of the run budgets and windows
-    cut to pay for the ingress_bank and model_surface phases."""
-    return [
+    """(knob, old value, value now, unit) of the run budgets, windows
+    and timed calls cut to pay for the ingress_bank and model_surface
+    phases (PR 22) and for item 9.3's seven phases (PR 23)."""
+    pr22 = [
         ("OFFPOLICY_BUDGET_S[rainbow]", 10.0, OFFPOLICY_BUDGET_S["rainbow"]),
         ("OFFPOLICY_BUDGET_S[ddpg]", 8.0, OFFPOLICY_BUDGET_S["ddpg"]),
         ("OFFPOLICY_BUDGET_S[ma_dqn]", 8.0, OFFPOLICY_BUDGET_S["ma_dqn"]),
@@ -7214,6 +7737,18 @@ def budget_cuts():
         ("SERVE_WINDOW_S", 8.0, SERVE_WINDOW_S),
         ("INGRESS_WINDOW_S", 6.0, INGRESS_WINDOW_S),
     ]
+    pr23 = [
+        ("ACTOR_TIMED_CALLS", 3, ACTOR_TIMED_CALLS, "calls"),
+        ("MA_TIMED_CALLS", 2, MA_TIMED_CALLS, "calls"),
+        ("RECURRENT_CALLS", 3, RECURRENT_CALLS, "calls"),
+        ("IMPALA_WINDOW_S", 10.0, IMPALA_WINDOW_S, "s"),
+        ("APPO_WINDOW_S", 6.0, APPO_WINDOW_S, "s"),
+        ("PREFETCH_WINDOW_S", 6.0, PREFETCH_WINDOW_S, "s"),
+        ("PREFETCH_FUSED_S", 3.0, PREFETCH_FUSED_S, "s"),
+        ("SAC_BUDGET_S", 5.0, SAC_BUDGET_S, "s"),
+        ("SERVE_TORSO_WINDOW_S[exact and vectorized]", 4.0, SERVE_TORSO_WINDOW_S, "s"),
+    ]
+    return [(k, old, new, "s") for k, old, new in pr22] + pr23
 
 
 def card_line():
@@ -7245,8 +7780,8 @@ def main() -> int:
     say("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0))
     rng = np.random.default_rng(0)
-    for knob, old, new in budget_cuts():
-        say("cut", knob=knob, old_s=old, new_s=new)
+    for knob, old, new, unit in budget_cuts():
+        say("cut", knob=knob, old=old, new=new, unit=unit)
     timed(phase_build)
     gather = timed(phase_gather, rng)
     gae = timed(phase_gae)
@@ -7306,6 +7841,21 @@ def main() -> int:
         shutil.rmtree(offline_tmp, ignore_errors=True)
     timed(phase_external_env)
     timed(phase_model_surface)
+    # item 9.3's single-agent algorithms; only simple_q's path runs
+    # kernels. A3C's workers and the ES actors start first: their process
+    # starts overlap the phases before theirs
+    started = timed(phase_actor_starts)
+    try:
+        timed(phase_pg_a2c)
+        simple_q = timed(phase_simple_q)
+        timed(phase_r2d2)
+        timed(phase_a3c, started.pop("a3c"))
+        timed(phase_rnnsac)
+        timed(phase_es_ars, {k: started.pop(k) for k in ("es", "ars")})
+        timed(phase_bandits)
+    finally:
+        for algo in started.values():  # a phase before theirs failed
+            algo.stop()
     serve_tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     try:
         ckpt_ppo, serve_root, serve_newer = timed(phase_ckpt_ppo, serve_tmp)
@@ -7345,7 +7895,8 @@ def main() -> int:
                                   "impala_fused": impala_fused["gather_rows"],
                                   "apex_ddpg": apex_ddpg["gather_rows"],
                                   "dqn_interleave": interleave["gather_rows"],
-                                  "host_tree": host_tree["gather_rows"]}
+                                  "host_tree": host_tree["gather_rows"],
+                                  "simple_q": simple_q["gather_rows"]}
     gae["launches_by_path"] = {"lane": lane_gaes, "telemetry": telemetry_gaes,
                                "transformer_lane": tf_lane["gae"],
                                "cartpole": cartpole, "gridrooms": gridrooms,
@@ -7363,7 +7914,8 @@ def main() -> int:
                                    "offline_sac_writer": offline_sac_writer,
                                    "apex_ddpg": apex_ddpg["scatter_rows"],
                                    "dqn_interleave": interleave["scatter_rows"],
-                                   "host_tree": host_tree["scatter_rows"]}
+                                   "host_tree": host_tree["scatter_rows"],
+                                   "simple_q": simple_q["scatter_rows"]}
     descent["launches_by_path"] = {"dqn": dqn["find_prefixsum"],
                                    "transformer_dqn": tf_dqn["find_prefixsum"],
                                    "sac_learner_prioritized": sac_learner["prioritized"]["find_prefixsum"],
@@ -7372,7 +7924,8 @@ def main() -> int:
                                    "rainbow": rainbow["find_prefixsum"],
                                    "apex": apex["find_prefixsum"],
                                    "apex_ddpg": apex_ddpg["find_prefixsum"],
-                                   "dqn_interleave": interleave["find_prefixsum"]}
+                                   "dqn_interleave": interleave["find_prefixsum"],
+                                   "simple_q": simple_q["find_prefixsum"]}
     flash["launches_by_path"] = {"transformer_learner": tf_learner,
                                  "transformer_lane": tf_lane["flash"],
                                  "transformer_dqn": tf_dqn["flash_attention"],
@@ -7384,7 +7937,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     say("timing", sum_seconds=f"{sum(PHASE_SECONDS):.1f}", phases=len(PHASE_SECONDS),
-        cut_seconds=f"{sum(old - new for _, old, new in budget_cuts()):.1f}")
+        cut_seconds=f"{sum(old - new for _, old, new, unit in budget_cuts() if unit == 's'):.1f}",
+        cut_calls=sum(old - new for _, old, new, unit in budget_cuts() if unit == "calls"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({

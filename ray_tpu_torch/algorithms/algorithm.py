@@ -185,6 +185,17 @@ def refuse_policy_map(name: str, policies: Dict, actor_lane: bool) -> None:
     )
 
 
+def refuse_device_lane(algo) -> None:
+    """The algorithms whose training step samples through rollout workers
+    have no device lane (``env_backend: "jax"``), as the reference's
+    step samples through its worker set whatever the backend."""
+    if algo.workers is None:
+        raise NotImplementedError(
+            f"{type(algo).__name__} runs on the actor lane: env_backend='jax' builds no "
+            "rollout workers for its training step"
+        )
+
+
 class Algorithm(Trainable):
     _default_policy_class = None
     # whether training_step has an actor-lane path (PPO); the others

@@ -252,32 +252,37 @@ class DQNTorchPolicy(TorchPolicy):
     acting, and the target network as aux state."""
 
     default_exploration = "EpsilonGreedy"
+    # a recurrent Q model needs sequence replay with burn-in: R2D2's
+    # policy sets this; DQN's row replay cannot train an LSTM
+    _supports_recurrent = False
 
     def __init__(self, observation_space, action_space, config: Dict, device=None):
         config = dict(config)
         config["exploration_config"] = _epsilon_exploration_config(config)
         model_cfg = config.get("model") or {}
-        if model_cfg.get("use_lstm") or model_cfg.get("use_attention"):
+        recurrent = model_cfg.get("use_lstm") or model_cfg.get("use_attention")
+        if recurrent and not self._supports_recurrent:
             raise ValueError(
                 "DQN with a recurrent model (use_lstm/use_attention) requires sequence "
-                "replay — use the R2D2 algorithm (reference r2d2.py; not ported yet: "
-                "ROADMAP.md queue 1 item 9) instead"
+                "replay — use the R2D2 algorithm (reference r2d2.py; ported: "
+                "ray_tpu_torch/algorithms/r2d2) instead"
             )
-        # the catalog's model (the transformer torso, a custom model)
-        # stands in for DQNModel and its logits are read as Q values: no
-        # atoms, no weight noise
+        # the catalog's model (the transformer torso, a custom model,
+        # R2D2's LSTM) stands in for DQNModel and its logits are read as
+        # Q values: no atoms, no weight noise
         self._uses_dqn_model = not (model_cfg.get("use_transformer")
-                                    or model_cfg.get("custom_model"))
+                                    or model_cfg.get("custom_model") or recurrent)
         if not self._uses_dqn_model:
             if int(config.get("num_atoms", 1)) > 1:
                 raise ValueError(
                     "distributional Q (num_atoms > 1) requires the built-in "
-                    "DQNModel; it is unavailable with use_transformer/custom_model"
+                    "DQNModel; it is unavailable with use_lstm/use_attention/"
+                    "use_transformer/custom_model"
                 )
             if config.get("noisy"):
                 raise ValueError(
                     "noisy nets require the built-in DQNModel; unavailable "
-                    "with use_transformer/custom_model"
+                    "with use_lstm/use_attention/use_transformer/custom_model"
                 )
         self._noisy = self._uses_dqn_model and bool(config.get("noisy"))
         self._num_atoms = int(config.get("num_atoms", 1))
@@ -832,13 +837,36 @@ class DQN(Algorithm):
 
     def __getstate__(self) -> Dict:
         state = super().__getstate__()
-        state["replay_buffer"] = self.local_replay_buffer.get_state()
+        # R2D2 and RNNSAC replay sequences and checkpoint no buffer, as
+        # the reference's
+        if self.local_replay_buffer is not None:
+            state["replay_buffer"] = self.local_replay_buffer.get_state()
         state["last_target_update"] = self._last_target_update
         return state
 
     def __setstate__(self, state: Dict) -> None:
         super().__setstate__(state)
         self._pending_sample_refs = None  # sampled before the restore
-        if "replay_buffer" in state:
+        if "replay_buffer" in state and self.local_replay_buffer is not None:
             self.local_replay_buffer.set_state(state["replay_buffer"])
         self._last_target_update = state.get("last_target_update", 0)
+
+
+class SimpleQConfig(DQNConfig):
+    """The reference's SimpleQConfig: DQN without double Q, dueling or
+    n-step returns."""
+
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or SimpleQ)
+        self.double_q = False
+        self.dueling = False
+        self.n_step = 1
+
+
+class SimpleQ(DQN):
+    """DQN with :class:`SimpleQConfig`'s defaults: both of DQN's lanes,
+    its device rings, graphed slots and kernels."""
+
+    @classmethod
+    def get_default_config(cls) -> SimpleQConfig:
+        return SimpleQConfig(cls)

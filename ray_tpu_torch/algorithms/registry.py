@@ -35,13 +35,20 @@ ALGORITHMS = {
     "BC": "ray_tpu_torch.algorithms.marwil.marwil:BC",
     "CQL": "ray_tpu_torch.algorithms.cql.cql:CQL",
     "CRR": "ray_tpu_torch.algorithms.crr.crr:CRR",
+    "PG": "ray_tpu_torch.algorithms.pg.pg:PG",
+    "A2C": "ray_tpu_torch.algorithms.a2c.a2c:A2C",
+    "A3C": "ray_tpu_torch.algorithms.a2c.a2c:A3C",
+    "SimpleQ": "ray_tpu_torch.algorithms.dqn.dqn:SimpleQ",
+    "R2D2": "ray_tpu_torch.algorithms.r2d2.r2d2:R2D2",
+    "RNNSAC": "ray_tpu_torch.algorithms.sac.rnnsac:RNNSAC",
+    "ES": "ray_tpu_torch.algorithms.es.es:ES",
+    "ARS": "ray_tpu_torch.algorithms.es.es:ARS",
+    "BanditLinUCB": "ray_tpu_torch.algorithms.bandit.bandit:BanditLinUCB",
+    "BanditLinTS": "ray_tpu_torch.algorithms.bandit.bandit:BanditLinTS",
 }
 
 # the reference's names the port has not ported yet, with their item
-_ITEM_9_3 = (
-    "PG", "A2C", "A3C", "SimpleQ", "R2D2", "RNNSAC", "ES", "ARS", "MADDPG", "QMIX", "SlateQ",
-    "BanditLinUCB", "BanditLinTS",
-)
+_ITEM_9_3 = ("MADDPG", "QMIX", "SlateQ")
 NOT_PORTED = {
     **{name: "9.3" for name in _ITEM_9_3},
     "DDPPO": "7",

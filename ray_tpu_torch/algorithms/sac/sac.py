@@ -201,9 +201,9 @@ class SACTorchPolicy(TorchPolicy):
             if cfg.get("use_lstm") or cfg.get("use_attention"):
                 raise ValueError(
                     f"SAC with a recurrent {key} (use_lstm/use_attention) requires sequence "
-                    "replay — use RNNSAC (reference rnnsac.py) or, for Q-learning, the R2D2 "
-                    "algorithm (reference r2d2.py); neither is ported yet: ROADMAP.md queue 1 "
-                    "item 9"
+                    "replay — use RNNSAC (reference rnnsac.py; ported: "
+                    "ray_tpu_torch/algorithms/sac/rnnsac.py) or, for Q-learning, the R2D2 "
+                    "algorithm (reference r2d2.py; ported: ray_tpu_torch/algorithms/r2d2)"
                 )
         self.action_dim = int(np.prod(action_space.shape))
         self.low = float(np.min(action_space.low))
@@ -259,8 +259,11 @@ class SACTorchPolicy(TorchPolicy):
 
     # -- acting ------------------------------------------------------------
 
-    def _dist(self, obs: torch.Tensor) -> SquashedGaussian:
-        return SquashedGaussian(self.actor(obs), low=self.low, high=self.high)
+    def _dist(self, obs: torch.Tensor, resets: Optional[torch.Tensor] = None) -> SquashedGaussian:
+        """The actor's squashed Gaussian at ``obs`` (``resets``: the
+        recurrent actor's, :meth:`_net_forward`)."""
+        return SquashedGaussian(self._net_forward(self.actor, obs, resets=resets),
+                                low=self.low, high=self.high)
 
     @torch.no_grad()
     def act_dist_signature(self):
@@ -301,16 +304,32 @@ class SACTorchPolicy(TorchPolicy):
         return (torch.randn(shape, generator=g, device=self.device),
                 torch.randn(shape, generator=g, device=self.device))
 
-    def _target_q(self, next_obs: torch.Tensor, eps: torch.Tensor, alpha: torch.Tensor):
+    def _target_q(self, next_obs: torch.Tensor, eps: torch.Tensor, alpha: torch.Tensor,
+                  resets: Optional[torch.Tensor] = None):
         """``min(target q1, q2) - alpha * logp`` at a squashed sample of the
         next action (no gradient)."""
         with torch.no_grad():
-            next_a, next_logp = self._dist(next_obs).sampled_action_logp(None, eps)
-            tq1, tq2 = torch.func.functional_call(
-                self.critic, dict(zip(self.critic_names, self.aux_state["target_critic"])),
-                (next_obs, next_a),
-            )
+            next_a, next_logp = self._dist(next_obs, resets).sampled_action_logp(None, eps)
+            target = dict(zip(self.critic_names, self.aux_state["target_critic"]))
+            args = (next_obs, next_a) if resets is None else (next_obs, next_a, resets)
+            tq1, tq2 = torch.func.functional_call(self.critic, target, args)
             return torch.minimum(tq1, tq2) - alpha * next_logp
+
+    # -- the sequence hooks (RNNSAC overrides them; feed-forward SAC's are
+    # the identity, so its update is unchanged) ----------------------------
+
+    def _seq_resets(self, batch: Dict[str, torch.Tensor]):
+        """``(resets of the time-t forwards, resets of the next-obs
+        forwards)``; None for feed-forward nets."""
+        return None, None
+
+    def _net_forward(self, net, *args, resets: Optional[torch.Tensor] = None):
+        """An actor or critic forward; feed-forward nets take no resets."""
+        return net(*args) if resets is None else net(*args, resets)
+
+    def _loss_mask(self, batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+        """The losses' per-element validity mask (None: every element)."""
+        return None
 
     def _sac_update(
         self,
@@ -327,6 +346,15 @@ class SACTorchPolicy(TorchPolicy):
         not_done = 1.0 - batch[SampleBatch.TERMINATEDS].to(torch.float32)
         actions = batch[SampleBatch.ACTIONS].to(torch.float32)
         eps_t, eps_a = self._draw_normals(obs.shape[0]) if normals is None else normals
+        resets_t, resets_tp1 = self._seq_resets(batch)
+        mask = self._loss_mask(batch)
+        if mask is None:
+            mean = torch.mean
+        else:
+            denom = torch.clamp_min(torch.sum(mask), 1.0)
+
+            def mean(x):
+                return torch.sum(x * mask) / denom
         log_alpha = self.model.log_alpha
         alpha = torch.exp(log_alpha.detach())
         st = self.opt_states
@@ -334,23 +362,23 @@ class SACTorchPolicy(TorchPolicy):
         # the critic against the soft TD target
         with torch.no_grad():
             td_target = (rewards + self.gamma ** self.n_step * not_done
-                         * self._target_q(next_obs, eps_t, alpha))
+                         * self._target_q(next_obs, eps_t, alpha, resets_tp1))
         critic_p = self._group_params("critic")
-        q1, q2 = self.critic(obs, actions)
-        c_loss = torch.mean(torch.square(q1 - td_target)) + torch.mean(torch.square(q2 - td_target))
+        q1, q2 = self._net_forward(self.critic, obs, actions, resets=resets_t)
+        c_loss = mean(torch.square(q1 - td_target)) + mean(torch.square(q2 - td_target))
         c_grads = torch.autograd.grad(c_loss, critic_p)
         adam_update(critic_p, list(c_grads), st["critic"], coeffs["critic_lr"], self.adam_eps, None)
 
         # the actor through the updated critic
         actor_p = self._group_params("actor")
-        a, logp = self._dist(obs).sampled_action_logp(None, eps_a)
-        aq1, aq2 = self.critic(obs, a)
-        a_loss = torch.mean(alpha * logp - torch.minimum(aq1, aq2))
+        a, logp = self._dist(obs, resets_t).sampled_action_logp(None, eps_a)
+        aq1, aq2 = self._net_forward(self.critic, obs, a, resets=resets_t)
+        a_loss = mean(alpha * logp - torch.minimum(aq1, aq2))
         a_grads = torch.autograd.grad(a_loss, actor_p)
         adam_update(actor_p, list(a_grads), st["actor"], coeffs["actor_lr"], self.adam_eps, None)
 
         # the temperature
-        al_loss = -torch.mean(log_alpha * (logp.detach() + self.target_entropy))
+        al_loss = -mean(log_alpha * (logp.detach() + self.target_entropy))
         (al_grad,) = torch.autograd.grad(al_loss, [log_alpha])
         adam_update([log_alpha], [al_grad], st["log_alpha"], coeffs["log_alpha_lr"],
                     self.adam_eps, None)
@@ -362,7 +390,7 @@ class SACTorchPolicy(TorchPolicy):
             a_loss, c_loss, al_loss = a_loss.detach(), c_loss.detach(), al_loss.detach()
             stats = torch.stack([
                 a_loss, c_loss, al_loss, alpha,
-                torch.mean(torch.minimum(q1, q2)).detach(), a_loss + c_loss + al_loss,
+                mean(torch.minimum(q1, q2)).detach(), a_loss + c_loss + al_loss,
             ])
         return SAC_STATS, stats
 

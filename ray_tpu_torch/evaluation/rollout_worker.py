@@ -364,6 +364,21 @@ class RolloutWorker:
                 }
             return {DEFAULT_POLICY_ID: self.policy_map[DEFAULT_POLICY_ID].learn_on_batch(samples)}
 
+    def compute_gradients(self, samples):
+        """The default policy's ``(gradients, stats)`` on ``samples`` (a
+        ``MultiAgentBatch`` gives its default policy's batch), as the
+        reference's."""
+        if isinstance(samples, MultiAgentBatch):
+            samples = samples.policy_batches[DEFAULT_POLICY_ID]
+        with self.act_lock():
+            return self.policy_map[DEFAULT_POLICY_ID].compute_gradients(samples)
+
+    def apply_gradients(self, grads) -> None:
+        """One optimizer step of the default policy on ``grads``, under
+        the act lock: the step writes the parameters in place."""
+        with self.act_lock():
+            self.policy_map[DEFAULT_POLICY_ID].apply_gradients(grads)
+
     # -- weights and filters ---------------------------------------------
 
     def get_weights(self, policies: Optional[List[str]] = None, inference_only: bool = False) -> Dict:

@@ -142,6 +142,10 @@ class WorkerSet:
     def retry_policy(self) -> RetryPolicy:
         return self._retry
 
+    def index_of(self, worker) -> int:
+        """A live remote worker's 1-based ``worker_index``."""
+        return self._indices[id(worker)]
+
     def remove_workers(self, workers: List) -> None:
         """Drop these worker handles (seen dead by the caller, or wedged)
         and end their processes."""

@@ -111,20 +111,29 @@ class LSTMWrapper(TorchModel):
         for i in range(self.num_hiddens):
             x = self.act(getattr(self, f"fc_{i}")(x))
 
-        cell = self.OptimizedLSTMCell_0
-        xi = torch.nn.functional.linear(x, cell.input_weight())  # (B, T, 4·cell)
-        w_h, b_h = cell.hidden_weight_bias()
-        keep = None if resets is None else 1.0 - resets.float()
-        h, c = state[0].float(), state[1].float()
-        ys = []
-        for t in range(T):
-            if keep is not None:
-                k = keep[:, t, None]
-                c, h = c * k, h * k
-            gates = torch.nn.functional.linear(h, w_h, b_h) + xi[:, t]
-            i, f, g, o = gates.chunk(4, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
-            ys.append(h)
-        y = torch.stack(ys, dim=1).reshape(B * T, self.cell_size)
+        y, (h, c) = lstm_unroll(self.OptimizedLSTMCell_0, x, state[0], state[1], resets)
+        y = y.reshape(B * T, self.cell_size)
         return self.logits(y), self.value(y).squeeze(-1), (h, c)
+
+
+def lstm_unroll(cell: OptimizedLSTMCell, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                resets: Optional[torch.Tensor] = None):
+    """``cell`` stepped over x (B, T, in) from ``(h, c)``, each (B,
+    cell), the carry multiplied by ``1 - resets[:, t]`` before step t:
+    ``(y (B, T, cell), (h, c) after the last step)``."""
+    T = x.shape[1]
+    xi = torch.nn.functional.linear(x, cell.input_weight())  # (B, T, 4·cell)
+    w_h, b_h = cell.hidden_weight_bias()
+    keep = None if resets is None else 1.0 - resets.float()
+    h, c = h.float(), c.float()
+    ys = []
+    for t in range(T):
+        if keep is not None:
+            k = keep[:, t, None]
+            c, h = c * k, h * k
+        gates = torch.nn.functional.linear(h, w_h, b_h) + xi[:, t]
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        ys.append(h)
+    return torch.stack(ys, dim=1), (h, c)

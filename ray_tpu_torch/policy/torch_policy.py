@@ -927,6 +927,21 @@ class TorchPolicy(Policy):
         out["total_loss"] = float(loss.detach())
         return {n: g.cpu().numpy() for n, g in zip(self.param_names, grads)}, out
 
+    def apply_gradients(self, gradients: Dict[str, np.ndarray]) -> None:
+        """One optimizer step on ``gradients`` (``{param name:
+        gradient}``, as :meth:`compute_gradients` returns them): the
+        learn's [clip] → Adam → ``-lr · u`` step at the current ``lr``,
+        as the reference's ``apply_gradients`` runs its optax chain. The
+        caller holds whatever lock its learns hold (the worker's
+        ``apply_gradients`` takes the act lock)."""
+        grads = [torch.as_tensor(np.asarray(gradients[n])).to(self.device)
+                 for n in self.param_names]
+        self._load_corrections(1)
+        adam_update(self.params, grads, self.opt_state, self._load_coeffs()["lr"],
+                    self.adam_eps, self.grad_clip)
+        self.opt_state.count += 1
+        self.num_grad_updates += 1
+
     def _gnorm_mask(self, names: Tuple[str, ...]) -> torch.Tensor:
         """(len(names),) device bool: which stats are summed (``grad_gnorm``)
         and which averaged; made once per name list, outside any graph."""

@@ -57,7 +57,13 @@ spilled or not) becomes a state any port buffer restores through
 states (their nets, Adam states and RND's normaliser) become the port
 strategies' through :func:`from_jax_exploration_state`. A reference
 custom model's flax tree goes through :func:`from_jax_params` like any
-other: its layers' names are the port model's.
+other: its layers' names are the port model's. R2D2's online and target
+LSTM Q nets and Adam state go in through :func:`from_jax_r2d2_state`;
+RNNSAC's recurrent actor, twin Q nets, their target, ``log_alpha`` and
+three Adam states through :func:`from_jax_rnnsac_state`; an ES or ARS
+driver's theta, flat Adam and observation filter through
+:func:`from_jax_es_state`; a linear bandit's precision and moment
+through :func:`from_jax_bandit_state`.
 """
 
 from __future__ import annotations
@@ -532,3 +538,51 @@ def from_jax_stream_snapshot(payload: Mapping, algo=None) -> Dict:
         "policy_states": states,
         "filters": {pid: from_jax_filter(f) for pid, f in payload.get("filters", {}).items()},
     }
+
+
+def from_jax_r2d2_state(policy, params, aux_state=None, opt_state=None):
+    """A reference R2D2 policy's state into ``policy`` (an
+    ``R2D2TorchPolicy``) in place: the online LSTM Q net (``params``),
+    its target (``aux_state["target_params"]``) and the Adam state
+    (``opt_state``). None leaves a part as it is. Returns ``policy``."""
+    from_jax_params(params, policy.model)
+    if aux_state is not None:
+        from_jax_dqn_target(policy, aux_state)
+    if opt_state is not None:
+        _load_adam(policy, opt_state)
+    return policy
+
+
+def from_jax_rnnsac_state(policy, params, aux_state=None, opt_state=None):
+    """A reference RNNSAC policy's state into ``policy`` (an
+    ``RNNSACTorchPolicy``) in place: the recurrent actor, the twin Q
+    nets and ``log_alpha`` (``params``), the target critic
+    (``aux_state``) and the three Adam states (``opt_state``). The
+    port's nets keep the flax names (the actor's ``_fcs_i`` as ``fc_i``),
+    so SAC's loader carries them. Returns ``policy``."""
+    return from_jax_sac_state(policy, params, aux_state, opt_state)
+
+
+def from_jax_es_state(algo, es_state: Mapping):
+    """A reference ES or ARS driver's ``__getstate__()["es"]`` (``theta``,
+    the ``_FlatAdam``'s ``__dict__``, the observation filter) into the
+    port ``algo`` in place: theta (the same ravel order, so the same
+    weights) into the policy on the card too. Returns ``algo``."""
+    algo._theta = np.array(es_state["theta"], np.float32)
+    opt = dict(es_state.get("optimizer") or {})
+    for key in ("m", "v"):
+        if key in opt:
+            opt[key] = np.array(opt[key], np.float32)
+    algo._optimizer.__dict__.update(opt)
+    if es_state.get("filter") is not None:
+        algo._filter.sync(from_jax_filter(es_state["filter"]))
+    algo.get_policy().set_flat_weights(algo._theta)
+    return algo
+
+
+def from_jax_bandit_state(policy, weights: Mapping):
+    """A reference linear bandit policy's ``get_weights()`` (precision
+    (A, d, d), moment (A, d)) into the port ``policy``. Returns
+    ``policy``."""
+    policy.set_weights({k: np.asarray(weights[k]) for k in ("precision", "moment")})
+    return policy

@@ -79,11 +79,13 @@ def load_tuned_example(path) -> Dict[str, Any]:
 def build_tuned_example(path, **overrides):
     """``(algorithm, stop)`` for a one-experiment yaml: the class its
     ``run`` names (``algorithms/registry.py``), built from its config
-    and env with ``overrides`` on top (``device``, ``env``, ...)."""
+    and env with ``overrides`` on top (``device``, ``env``, ...); a
+    ``run`` override names another class (cartpole-dqn.yaml as
+    ``SimpleQ``)."""
     from ray_tpu_torch.algorithms.registry import get_algorithm_class
 
     (exp,) = load_tuned_example(path).values()
-    cls = get_algorithm_class(exp["run"])
+    cls = get_algorithm_class(overrides.pop("run", exp["run"]))
     env = overrides.pop("env", exp["env"])
     cfg = cls.get_default_config().update_from_dict({**exp.get("config", {}), **overrides})
     cfg.env = env

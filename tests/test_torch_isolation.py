@@ -20,7 +20,11 @@
 - offline data and external envs (the JSON writer and reader, MARWIL,
   BC, CQL, CRR, ``BaseEnv``, ``SyntheticFast-v0``, the policy server and
   client) run with the reference and gymnasium blocked, and the offline
-  algorithms without a device raise.
+  algorithms without a device raise;
+- the single-agent algorithms of item 9.3 (PG, A2C, A3C, SimpleQ, R2D2,
+  RNNSAC, ES and ARS's rollout engine, the linear bandits) train with
+  the reference and gymnasium blocked, and each raises without a
+  device.
 """
 
 from __future__ import annotations
@@ -631,3 +635,100 @@ def test_offline_algorithms_without_device_raise_without_cuda(monkeypatch):
         algo = cfg.resources(device="cpu").build()
         assert algo.get_policy().device.type == "cpu"
         algo.stop()
+
+
+def test_single_agent_algorithms_run_with_reference_and_gymnasium_blocked():
+    """PG, A2C, SimpleQ, R2D2, RNNSAC and both bandits train an
+    iteration, A3C's gradient API steps the learner, and ES's rollout
+    engine builds CartPole-v1 through the port's registry, with the
+    reference and gymnasium blocked."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+
+        BLOCKED = {BLOCKED + ("gymnasium",)!r}
+
+        class _Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(name + " blocked by test")
+                return None
+
+        sys.meta_path.insert(0, _Block())
+        import numpy as np
+        from ray_tpu_torch.algorithms.a2c.a2c import A2CConfig, A3CConfig
+        from ray_tpu_torch.algorithms.bandit.bandit import (
+            BanditLinTSConfig, BanditLinUCBConfig, LinearContextBandit)
+        from ray_tpu_torch.algorithms.dqn.dqn import SimpleQConfig
+        from ray_tpu_torch.algorithms.es.es import _RolloutEngine
+        from ray_tpu_torch.algorithms.pg.pg import PGConfig
+        from ray_tpu_torch.algorithms.r2d2.r2d2 import R2D2Config
+        from ray_tpu_torch.algorithms.sac.rnnsac import RNNSACConfig
+
+        small = {{"fcnet_hiddens": [8]}}
+        cfgs = [
+            PGConfig().environment("CartPole-v1").training(train_batch_size=64, model=small),
+            A2CConfig().environment("CartPole-v1").training(train_batch_size=40, model=small),
+            SimpleQConfig().environment("CartPole-v1").training(
+                train_batch_size=8, num_steps_sampled_before_learning_starts=4, model=small),
+            R2D2Config().environment("CartPole-v1").training(
+                train_batch_size=2, num_steps_sampled_before_learning_starts=20,
+                model={{"use_lstm": True, "lstm_cell_size": 8, "fcnet_hiddens": [8]}}),
+            RNNSACConfig().environment("Pendulum-v1").rollouts(rollout_fragment_length=20).training(
+                train_batch_size=40, num_steps_sampled_before_learning_starts=20,
+                policy_model_config={{"fcnet_hiddens": [8], "lstm_cell_size": 4}},
+                q_model_config={{"fcnet_hiddens": [8], "lstm_cell_size": 4}}),
+            BanditLinUCBConfig().environment(LinearContextBandit),
+            BanditLinTSConfig().environment(LinearContextBandit),
+        ]
+        for cfg in cfgs:
+            algo = cfg.resources(device="cpu").build()
+            for _ in range(3):
+                r = algo.train()
+            assert r["timesteps_total"] > 0, type(algo).__name__
+            algo.stop()
+        algo = A3CConfig().environment("CartPole-v1").training(model=small).resources(
+            device="cpu").build()
+        worker = algo.workers.local_worker()
+        grads, info = worker.compute_gradients(worker.sample())
+        worker.apply_gradients(grads)
+        assert algo.get_policy().opt_state.count == 1 and np.isfinite(info["total_loss"])
+        algo.stop()
+        engine = _RolloutEngine({{"model": small}}, "CartPole-v1")
+        ret, steps = engine.rollout(np.zeros(engine.num_params, np.float32))
+        assert steps > 0
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
+_SINGLE_AGENT = {
+    "PG": ("ray_tpu_torch.algorithms.pg.pg", "PGConfig", "CartPole-v1"),
+    "A2C": ("ray_tpu_torch.algorithms.a2c.a2c", "A2CConfig", "CartPole-v1"),
+    "A3C": ("ray_tpu_torch.algorithms.a2c.a2c", "A3CConfig", "CartPole-v1"),
+    "SimpleQ": ("ray_tpu_torch.algorithms.dqn.dqn", "SimpleQConfig", "CartPole-v1"),
+    "R2D2": ("ray_tpu_torch.algorithms.r2d2.r2d2", "R2D2Config", "CartPole-v1"),
+    "RNNSAC": ("ray_tpu_torch.algorithms.sac.rnnsac", "RNNSACConfig", "Pendulum-v1"),
+    "ES": ("ray_tpu_torch.algorithms.es.es", "ESConfig", "CartPole-v1"),
+    "ARS": ("ray_tpu_torch.algorithms.es.es", "ARSConfig", "CartPole-v1"),
+    "BanditLinUCB": ("ray_tpu_torch.algorithms.bandit.bandit", "BanditLinUCBConfig", None),
+    "BanditLinTS": ("ray_tpu_torch.algorithms.bandit.bandit", "BanditLinTSConfig", None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SINGLE_AGENT))
+def test_single_agent_algorithm_without_device_raises_without_cuda(monkeypatch, name):
+    import importlib
+
+    module, cfg_name, env = _SINGLE_AGENT[name]
+    mod = importlib.import_module(module)
+    if env is None:
+        from ray_tpu_torch.algorithms.bandit.bandit import LinearContextBandit as env
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="none is available"):
+        getattr(mod, cfg_name)().environment(env).build()
