@@ -510,6 +510,23 @@ and ``nvcc``. Phases, each printing its own lines:
     bandits  -- LinUCB and LinTS on ``LinearContextBandit``: statistics
                and scores on card and CPU, the late reward above a
                uniform policy's;
+               then item 9.3's multi-agent and slate phases, each
+               printing the card's name and power limit:
+    maddpg   -- MADDPG at (64, 64) on ``CoopSpreadEnv``: a budget of
+               train(), one learn on card and CPU from the same state and
+               rows (the learn contract); env-steps/s and updates/s;
+    qmix     -- QMIX at its defaults (fc 64, GRU 64, mixer 32/64,
+               episodes padded to 64, a ring of 5000) on
+               ``RecallCoopEnv``: a budget of train() with one row
+               scatter a column an episode and one row gather a column a
+               learn counted, one learn on card and CPU on the same
+               gathered episodes, the episode ring's (65, 2, 3) f32,
+               (64, 2) int32 and (64,) f32 rows against the kernels'
+               plain versions, bitwise;
+    slateq   -- synthetic-slateq.yaml (10 candidates, slates of 2: 90):
+               the off-policy run (rows 1 and 3 against DQN's schedule
+               and their plain versions), one learn on card and CPU,
+               graphed against eager;
     ingress_bank -- ``IngressSupervisor(num_workers=2)`` started from
                this process, which holds a CUDA context: each worker is
                spawned, restores the serve phase's checkpoint root into a
@@ -581,7 +598,9 @@ host_tree's and spill's rounds (the spill ring runs none) and
 lane_eval's iterations, model_surface's card calls and its train()
 calls, ingress_bank's client window (paths that run no kernel; they
 print their counts), the single-agent phases' runs (only simple_q's
-runs kernels; its replay parity windows do not count), and read just
+runs kernels; its replay parity windows do not count), the multi-agent
+and slate phases' runs (maddpg's runs no kernel; qmix's parity learn,
+slateq's parity learn and replay parity windows do not count), and read just
 after (on the learner-thread paths, between two learner steps) (the
 ring's in each rank, before each call), the serve phase and
 serve_torso (before its exact server is built; its exact-against-
@@ -7459,6 +7478,331 @@ def phase_bandits():
     return out
 
 
+# item 9.3's multi-agent and slate algorithms: MADDPG, QMIX and SlateQ
+SLATEQ_TUNED = os.path.join(REPO, "tuned_examples", "slateq", "synthetic-slateq.yaml")
+MADDPG_BUDGET_S = 3.0
+QMIX_BUDGET_S = 4.0
+OFFPOLICY_BUDGET_S["slateq"] = 3.0
+JOINT_MAX_BUDGETS = 4  # a budget that ends before the first learn runs on, up to this
+
+
+class CoopSpreadEnv:
+    """Two agents on a line move toward each other (reward: minus their
+    distance; 25 steps): MADDPG's env, the port's copy of the one the
+    reference keeps in ``tests/test_bandit_qmix.py``."""
+
+    def __init__(self, config=None):
+        from ray_tpu_torch.env.spaces import Box
+
+        self.agents = ["a0", "a1"]
+        self.observation_space = Box(-5.0, 5.0, (2,))
+        self.action_space = Box(-1.0, 1.0, (1,))
+        self._pos = None
+        self._t = 0
+
+    def _obs(self):
+        import numpy as np
+
+        return {"a0": np.array([self._pos[0], self._pos[1]], np.float32),
+                "a1": np.array([self._pos[1], self._pos[0]], np.float32)}
+
+    def reset(self, *, seed=None, options=None):
+        import numpy as np
+
+        self._pos = np.random.default_rng(seed).uniform(-3, 3, 2).astype(np.float32)
+        self._t = 0
+        return self._obs(), {a: {} for a in self.agents}
+
+    def step(self, action_dict):
+        import numpy as np
+
+        for i, a in enumerate(self.agents):
+            self._pos[i] = np.clip(self._pos[i] + 0.3 * float(np.asarray(action_dict[a])[0]), -5, 5)
+        self._t += 1
+        reward = -float(abs(self._pos[0] - self._pos[1]))
+        return (self._obs(), {a: reward / 2.0 for a in self.agents}, {"__all__": self._t >= 25},
+                {"__all__": False}, {})
+
+
+class TwoStepCoopEnv:
+    """The QMIX paper's two-step cooperative matrix game: agent 0's first
+    action picks the second stage (7 for both, or the coordination matrix
+    [[0, 1], [1, 8]]). The port's copy of the reference test's env."""
+
+    def __init__(self, config=None):
+        from ray_tpu_torch.env.spaces import Box, Discrete
+
+        self.agents = ["a0", "a1"]
+        self.observation_space = Box(0.0, 1.0, (3,))
+        self.action_space = Discrete(2)
+        self._state = 0
+
+    def _obs(self):
+        import numpy as np
+
+        o = np.zeros(3, np.float32)
+        o[self._state] = 1.0
+        return {a: o.copy() for a in self.agents}
+
+    def reset(self, *, seed=None, options=None):
+        self._state = 0
+        return self._obs(), {a: {} for a in self.agents}
+
+    def step(self, action_dict):
+        a0, a1 = action_dict["a0"], action_dict["a1"]
+        if self._state == 0:
+            self._state = 1 if a0 == 0 else 2
+            return (self._obs(), {a: 0.0 for a in self.agents}, {"__all__": False},
+                    {"__all__": False}, {})
+        reward = 7.0 if self._state == 1 else float([[0.0, 1.0], [1.0, 8.0]][a0][a1])
+        return (self._obs(), {a: reward / 2.0 for a in self.agents}, {"__all__": True},
+                {"__all__": False}, {})
+
+
+class RecallCoopEnv:
+    """Memory probe: each agent sees its cue bit at t = 0 only; the team
+    is paid at t = 2 when both final actions match their cues. The port's
+    copy of the reference test's env (``config["seed"]`` seeds the cues)."""
+
+    def __init__(self, config=None):
+        import numpy as np
+
+        from ray_tpu_torch.env.spaces import Box, Discrete
+
+        config = config or {}
+        self.agents = ["a0", "a1"]
+        self.observation_space = Box(0.0, 1.0, (3,))
+        self.action_space = Discrete(2)
+        self._rng = np.random.default_rng(config.get("seed", 0))
+
+    def _obs(self, show_cue):
+        import numpy as np
+
+        out = {}
+        for i, a in enumerate(self.agents):
+            o = np.zeros(3, np.float32)
+            o[0] = self._t / 2.0
+            if show_cue:
+                o[1 + self._cues[i]] = 1.0
+            out[a] = o
+        return out
+
+    def reset(self, *, seed=None, options=None):
+        self._cues = self._rng.integers(0, 2, size=2)
+        self._t = 0
+        return self._obs(True), {a: {} for a in self.agents}
+
+    def step(self, action_dict):
+        self._t += 1
+        done = self._t >= 2
+        reward = float(done and all(int(action_dict[a]) == int(self._cues[i])
+                                    for i, a in enumerate(self.agents)))
+        return (self._obs(False), {a: reward / 2.0 for a in self.agents}, {"__all__": done},
+                {"__all__": False}, {})
+
+
+def register_coop_envs():
+    from ray_tpu_torch.env.registry import register_env
+
+    register_env("coop_spread", lambda cfg: CoopSpreadEnv(cfg))
+    register_env("two_step_coop", lambda cfg: TwoStepCoopEnv(cfg))
+    register_env("recall_coop", lambda cfg: RecallCoopEnv(cfg))
+
+
+def _joint_budget(phase, algo, budget_s):
+    """train() for ``budget_s`` seconds with the launch counts at 0 (run on
+    until the learner has reported, up to JOINT_MAX_BUDGETS budgets):
+    ``(last result, train calls, wall seconds, launches)``."""
+    import torch
+
+    zero_kernel_counts()
+    calls, t0 = 0, time.perf_counter()
+    while True:
+        r = algo.train()
+        calls += 1
+        elapsed = time.perf_counter() - t0
+        if elapsed >= budget_s and (r["info"]["learner"] or elapsed >= budget_s * JOINT_MAX_BUDGETS):
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_kernel_counts()
+    learner = r["info"]["learner"].get("default_policy")
+    require(learner and all(math.isfinite(v) for v in learner.values()),
+            f"{phase}: no or non-finite learner stats {learner}")
+    return r, calls, wall, launches
+
+
+def _flat_state(state, prefix=""):
+    """A joint collector's ``__getstate__`` parts as one flat dict of arrays."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(_flat_state(v, f"{prefix}{k}/"))
+        elif hasattr(v, "shape"):
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _joint_learn_against_cpu(phase, algo, batch):
+    """One learn of a joint collector (MADDPG, QMIX) on the card and on a
+    CPU copy of its state, on the same batch: stats within 1e-4
+    relative, every parameter, target and Adam moment within the learn
+    contract, the Adam counts equal. Returns the largest difference."""
+    import torch
+
+    twin = type(algo)(config={**algo.config, "device": "cpu"})
+    try:
+        twin.__setstate__(copy.deepcopy(algo.__getstate__()))
+        cpu_batch = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+        got, want = algo.learn_on_batch(batch), twin.learn_on_batch(cpu_batch)
+        _stats_close(phase, got, want)
+        card, cpu = algo.__getstate__(), twin.__getstate__()
+
+        def counts(opt):  # QMIX's one Adam state, MADDPG's two
+            return opt["count"] if "count" in opt else {g: s["count"] for g, s in opt.items()}
+
+        require(counts(card["opt_state"]) == counts(cpu["opt_state"]),
+                f"{phase}: Adam counts {counts(card['opt_state'])} != {counts(cpu['opt_state'])}")
+        parts = ("params", "target_params", "opt_state")
+        return _learn_close(phase, "state", _flat_state({p: card[p] for p in parts}),
+                            _flat_state({p: cpu[p] for p in parts}))
+    finally:
+        twin.stop()
+
+
+def phase_maddpg():
+    """MADDPG at its defaults (actors and centralized critics 64x64, batch
+    64, fragments of 16, learning from 500 env steps) on ``CoopSpreadEnv``:
+    MADDPG_BUDGET_S of train() with the launch counts at 0 (the path runs
+    no kernel, as the reference's), then one learn from the same state on
+    the card and on a CPU copy, on the same drawn rows (the learn
+    contract)."""
+    from ray_tpu_torch.algorithms.maddpg.maddpg import MADDPGConfig
+
+    register_coop_envs()
+    algo = MADDPGConfig().environment("coop_spread").debugging(seed=0).build()
+    try:
+        w = algo.model.actor.fc_0.weight
+        require(w.is_cuda and tuple(w.shape) == (2, 64, 2), f"maddpg: actor layer {tuple(w.shape)}")
+        r, calls, wall, launches = _joint_budget("maddpg", algo, MADDPG_BUDGET_S)
+        require(not any(launches.values()), f"maddpg: kernel launches {launches}")
+        c, bs = algo._counters, int(algo.config["train_batch_size"])
+        updates = c["num_env_steps_trained"] // bs
+        diff = _joint_learn_against_cpu("maddpg", algo, algo.sample_rows(bs))
+        say("maddpg", card=card_line(), learn_card_vs_cpu="within contract", max_param_diff=diff,
+            budget_s=MADDPG_BUDGET_S, wall_s=f"{wall:.3f}", train_calls=calls,
+            env_steps=c["num_env_steps_sampled"],
+            env_steps_per_s=f"{c['num_env_steps_sampled'] / wall:.1f}", updates=updates,
+            updates_per_s=f"{updates / wall:.2f}", episodes=algo._episodes_total,
+            episode_reward_mean=r["episode_reward_mean"], launches=json.dumps(launches))
+        return launches
+    finally:
+        algo.stop()
+
+
+def phase_qmix():
+    """QMIX at its defaults (agent net fc 64 → GRU 64 → Q, mixer embed 32
+    and hypernet 64, episodes padded to 64 steps in a device ring of 5000,
+    32 episodes a learn, learning from 200 env steps) on
+    ``RecallCoopEnv``: QMIX_BUDGET_S of train() with the launch counts at
+    0, one row scatter a column an episode and one row gather a column a
+    learn, the trained steps from the host's step counts; then one learn
+    on the card and on a CPU copy on the same gathered episodes (the
+    learn contract), and the ring's rows against the kernels' plain
+    versions (``_ring_kernels``), bitwise."""
+    import torch
+
+    from ray_tpu_torch.algorithms.qmix.qmix import QMIXConfig
+
+    register_coop_envs()
+    algo = QMIXConfig().environment("recall_coop").debugging(seed=0).build()
+    try:
+        ring = algo._dev_buffer
+        require(ring is not None and ring.device.type == "cuda", "qmix: no episode ring on the card")
+        counts = {"inserts": 0, "learns": 0}
+        add_tree, sample = ring.add_tree, algo.sample_episodes
+
+        def counted_add(tree):
+            counts["inserts"] += 1
+            return add_tree(tree)
+
+        def counted_sample(n):
+            counts["learns"] += 1
+            return sample(n)
+
+        ring.add_tree, algo.sample_episodes = counted_add, counted_sample
+        r, calls, wall, launches = _joint_budget("qmix", algo, QMIX_BUDGET_S)
+        ring.add_tree, algo.sample_episodes = add_tree, sample
+        require(not ring.spilled and algo._dev_buffer is ring, "qmix: the ring left the card")
+        cols = len(ring._store)
+        shapes = {k: (tuple(v.shape[1:]), str(v.dtype).replace("torch.", ""))
+                  for k, v in ring._store.items()}
+        require(shapes["obs"] == ((65, 2, 3), "float32") and shapes["actions"] == ((64, 2), "int32"),
+                f"qmix: ring rows {shapes}")
+        learns, c = counts["learns"], algo._counters
+        require(learns >= 1 and launches["gather_rows"] == cols * learns,
+                f"qmix: {launches['gather_rows']} row gathers in {learns} learns of {cols} columns")
+        require(launches["scatter_rows"] == cols * counts["inserts"],
+                f"qmix: {launches['scatter_rows']} row scatters in {counts['inserts']} inserts")
+        # RecallCoop's episodes are two steps long: 64 trained steps a learn
+        require(c["num_env_steps_trained"] == 64 * learns and c["num_target_updates"] >= 1,
+                f"qmix: counters {dict(c)} after {learns} learns")
+        batch, _ = algo.sample_episodes(int(algo.config["train_batch_size"]))
+        diff = _joint_learn_against_cpu("qmix", algo, batch)
+        _ring_kernels("qmix", "qmix_episodes", ring, int(algo.config["train_batch_size"]), 1, False)
+        torch.cuda.synchronize()
+        rewards = [m.episode_reward for m in algo._episode_history[-50:]]
+        say("qmix", card=card_line(), learn_card_vs_cpu="within contract", max_param_diff=diff,
+            budget_s=QMIX_BUDGET_S, wall_s=f"{wall:.3f}", train_calls=calls,
+            env_steps=c["num_env_steps_sampled"],
+            env_steps_per_s=f"{c['num_env_steps_sampled'] / wall:.1f}", updates=learns,
+            updates_per_s=f"{learns / wall:.2f}", episodes_stored=len(ring),
+            inserts=counts["inserts"], target_updates=c["num_target_updates"],
+            last_50_episodes_mean=f"{sum(rewards) / max(1, len(rewards)):.3f}",
+            ring_rows=json.dumps(shapes), launches=json.dumps(launches))
+        return launches
+    finally:
+        algo.stop()
+
+
+def phase_slateq():
+    """synthetic-slateq.yaml as written (10 candidates, slates of 2: 90
+    ordered slates; item Q net 64x64; learning from 500 env steps; the
+    local worker acts on the card) on SyntheticSlate-v0: the off-policy
+    run (``_offpolicy_run``: the launches against DQN's replay schedule,
+    the ring's gather and scatter against their plain versions), one
+    learn on the card and on a CPU copy on the same drawn rows (the learn
+    contract, both Adam states), then graphed slots against eager
+    updates on its ring, bitwise."""
+    from ray_tpu_torch.utils.tuned_example import build_tuned_example
+
+    algo, _ = build_tuned_example(SLATEQ_TUNED)
+    try:
+        policy = algo.get_policy()
+        require(type(algo).__name__ == "SlateQ" and (policy.E, policy.C, policy.S) == (4, 10, 2)
+                and tuple(policy.slates.shape) == (90, 2), "slateq: not the tuned example's sizes")
+        launches = _offpolicy_run("slateq", algo)
+        buf = algo.local_replay_buffer.buffers["default_policy"]
+        bs = int(algo.config["train_batch_size"])
+        tree = dict(buf.sample(bs).tree)
+        twin = _cpu_twin(policy)
+        got = policy.learn_on_device_batch(tree, bs)
+        want = twin.learn_on_device_batch({k: v.cpu() for k, v in tree.items()}, bs)
+        _stats_close("slateq", got, want)
+        diff = _learn_close("slateq", "parameter", policy.get_weights(), twin.get_weights())
+        st, tw = policy.get_state()["opt_state"], twin.get_state()["opt_state"]
+        for g in ("q", "choice"):
+            require(st[g]["count"] == tw[g]["count"], f"slateq: Adam {g} counts")
+            _learn_close("slateq", f"Adam {g} mu", st[g]["mu"], tw[g]["mu"])
+            _learn_close("slateq", f"Adam {g} nu", st[g]["nu"], tw[g]["nu"])
+        p = _replay_parity("slateq", policy, buf, False, bs)
+        say("slateq", card=card_line(), learn_card_vs_cpu="within contract", max_param_diff=diff,
+            choice_beta=got["choice_beta"], parity="graphed = eager", bitwise=True, **p)
+        return launches
+    finally:
+        algo.stop()
+
+
 def _free_port():
     import socket
 
@@ -7856,6 +8200,11 @@ def main() -> int:
     finally:
         for algo in started.values():  # a phase before theirs failed
             algo.stop()
+    # item 9.3's multi-agent and slate algorithms; QMIX's episode ring and
+    # SlateQ's rings run rows 1 and 3
+    timed(phase_maddpg)
+    qmix = timed(phase_qmix)
+    slateq = timed(phase_slateq)
     serve_tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     try:
         ckpt_ppo, serve_root, serve_newer = timed(phase_ckpt_ppo, serve_tmp)
@@ -7896,7 +8245,8 @@ def main() -> int:
                                   "apex_ddpg": apex_ddpg["gather_rows"],
                                   "dqn_interleave": interleave["gather_rows"],
                                   "host_tree": host_tree["gather_rows"],
-                                  "simple_q": simple_q["gather_rows"]}
+                                  "simple_q": simple_q["gather_rows"],
+                                  "qmix": qmix["gather_rows"], "slateq": slateq["gather_rows"]}
     gae["launches_by_path"] = {"lane": lane_gaes, "telemetry": telemetry_gaes,
                                "transformer_lane": tf_lane["gae"],
                                "cartpole": cartpole, "gridrooms": gridrooms,
@@ -7915,7 +8265,8 @@ def main() -> int:
                                    "apex_ddpg": apex_ddpg["scatter_rows"],
                                    "dqn_interleave": interleave["scatter_rows"],
                                    "host_tree": host_tree["scatter_rows"],
-                                   "simple_q": simple_q["scatter_rows"]}
+                                   "simple_q": simple_q["scatter_rows"],
+                                   "qmix": qmix["scatter_rows"], "slateq": slateq["scatter_rows"]}
     descent["launches_by_path"] = {"dqn": dqn["find_prefixsum"],
                                    "transformer_dqn": tf_dqn["find_prefixsum"],
                                    "sac_learner_prioritized": sac_learner["prioritized"]["find_prefixsum"],

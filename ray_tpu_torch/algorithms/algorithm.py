@@ -60,6 +60,10 @@ sample nothing themselves: the external-env setup, whose ``input`` is a
 ``PolicyServerInput``. The device lane refuses ``input`` and ``output``,
 which it would never read (the reference's ignores them).
 
+A joint collector (``_joint_collector``: MADDPG, QMIX) builds neither:
+it makes its one multi-agent env and steps it itself, as the reference's
+does after building its base with ``env=None``.
+
 Fault tolerance (``AlgorithmConfig.fault_tolerance``; the resilience
 layer, ``resilience/``), as the reference wires it into every step:
 
@@ -203,6 +207,9 @@ class Algorithm(Trainable):
     _actor_lane = False
     # whether the actor lane learns a policy map (config["policies"])
     _multi_agent = False
+    # whether the algorithm steps its own multi-agent env (MADDPG, QMIX):
+    # no worker set, no policy (:meth:`_setup_joint_collector`)
+    _joint_collector = False
     # whether every learn of the local worker's policies holds the
     # worker's act lock (a callable input on the local worker needs it)
     _learns_under_act_lock = False
@@ -250,6 +257,9 @@ class Algorithm(Trainable):
         self._profiler = None
 
         env_spec = self.config.get("env")
+        if self._joint_collector:
+            self._setup_joint_collector(env_spec)
+            return
         policy_cls = self._default_policy_class
         actor_lane = self._actor_lane and self.config.get("env_backend") != "jax"
         spaces = (self.config.get("observation_space") is not None
@@ -304,6 +314,22 @@ class Algorithm(Trainable):
                 num_workers=int(self.config.get("evaluation_num_workers", 0)),
                 env_creator=env_creator, policy_cls=policy_cls, device=self.device,
             )
+        self._setup_resilience()
+
+    def _setup_joint_collector(self, env_spec) -> None:
+        """A joint collector's construction (MADDPG, QMIX): the algorithm
+        steps one multi-agent env itself, as the reference's builds its
+        base with ``env=None``; no worker set and no policy. The device
+        lane has no tensor env for it."""
+        if env_spec is None:
+            raise ValueError("config has no 'env'")
+        if self.config.get("env_backend") == "jax":
+            raise NotImplementedError(
+                f"{type(self).__name__} steps its multi-agent env on the host with its own joint "
+                "collector, as the reference's: env_backend='jax' has no tensor env for it"
+            )
+        self.env = get_env_creator(env_spec)(dict(self.config.get("env_config") or {}))
+        self.policy = None
         self._setup_resilience()
 
     def _setup_resilience(self) -> None:
@@ -820,7 +846,10 @@ class Algorithm(Trainable):
     def stop(self) -> None:
         """Join the fleet's monitor thread and the streamer (which writes
         its pending snapshot first), then stop the workers (the
-        evaluation workers too) and end the remote workers' processes."""
+        evaluation workers too) and end the remote workers' processes; a
+        joint collector closes its env."""
+        if self._joint_collector and getattr(getattr(self, "env", None), "close", None):
+            self.env.close()
         if getattr(self, "_profiler", None) is not None:
             self._profile_iters = 1
             self._maybe_stop_profile()

@@ -45,12 +45,13 @@ ALGORITHMS = {
     "ARS": "ray_tpu_torch.algorithms.es.es:ARS",
     "BanditLinUCB": "ray_tpu_torch.algorithms.bandit.bandit:BanditLinUCB",
     "BanditLinTS": "ray_tpu_torch.algorithms.bandit.bandit:BanditLinTS",
+    "MADDPG": "ray_tpu_torch.algorithms.maddpg.maddpg:MADDPG",
+    "QMIX": "ray_tpu_torch.algorithms.qmix.qmix:QMIX",
+    "SlateQ": "ray_tpu_torch.algorithms.slateq.slateq:SlateQ",
 }
 
 # the reference's names the port has not ported yet, with their item
-_ITEM_9_3 = ("MADDPG", "QMIX", "SlateQ")
 NOT_PORTED = {
-    **{name: "9.3" for name in _ITEM_9_3},
     "DDPPO": "7",
     **{name: "9" for name in ("AlphaStar", "AlphaZero", "Dreamer", "MAML", "MBMPO")},
 }

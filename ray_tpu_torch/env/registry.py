@@ -10,7 +10,8 @@ runs the Pendulum and CartPole configs), and the
 tensor envs ``PongLiteJax-v0``, ``CartPoleJax-v0`` and
 ``GridRoomsJax-v0`` (the device lane's; ``-Jax`` in a name means "runs
 on the device" here), and ``SyntheticFast-v0`` (``env/synthetic_env.py``,
-a near-free host env).
+a near-free host env) and ``SyntheticSlate-v0`` (``env/synthetic_slate.py``,
+SlateQ's recommender).
 
 A name nobody registered is taken for a gymnasium id, as in the
 reference: the creator imports gymnasium when it makes the env, and
@@ -36,8 +37,9 @@ _IN_REPO = {
     "CartPoleJax-v0": "ray_tpu_torch.env.control_tensor",
     "GridRoomsJax-v0": "ray_tpu_torch.env.control_tensor",
     "SyntheticFast-v0": "ray_tpu_torch.env.synthetic_env",
+    "SyntheticSlate-v0": "ray_tpu_torch.env.synthetic_slate",
 }
-_IN_REPO_PREFIXES = ("PongLite", "CartPoleJax", "GridRoomsJax", "SyntheticFast")
+_IN_REPO_PREFIXES = ("PongLite", "CartPoleJax", "GridRoomsJax", "SyntheticFast", "SyntheticSlate")
 
 
 def register_env(name: str, creator: Callable[[Dict], Any]) -> None:

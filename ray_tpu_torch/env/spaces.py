@@ -100,3 +100,21 @@ class Tuple:
 
     def __repr__(self):
         return f"Tuple({self.spaces})"
+
+
+def of_kind(space, kind: str) -> bool:
+    """Whether ``space`` is the port's space class named ``kind``
+    (``"Box"``, ``"Discrete"``, ...) or gymnasium's of that name (by class
+    name: the port imports no gymnasium)."""
+    return type(space).__name__ == kind
+
+
+def agent_space(space, agent_id):
+    """One agent's space of a multi-agent env's ``space``, by the
+    reference joint collectors' rule: a plain dict's entry for
+    ``agent_id``, a ``Dict`` space's first sub-space, else the space."""
+    if isinstance(space, dict):
+        return space[agent_id]
+    if of_kind(space, "Dict"):
+        return next(iter(space.spaces.values()))
+    return space

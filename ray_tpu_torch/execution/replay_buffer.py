@@ -367,7 +367,8 @@ class DeviceReplayBuffer:
     - **Insert** scatters the rows of every column at positions
       ``(idx + arange(n)) % capacity`` (``scatter_rows``, in place).
       Rows from the device rollout lane never leave the device; host
-      rows cross once, here.
+      rows cross once, here (``add_tree``: a host tree, the reference's
+      host insert).
     - **Sample** draws indices on the host from the seeded generator,
       then gathers every column (``gather_rows``).
     - **Spill:** the first insert of a column projects ``capacity`` ×
@@ -534,6 +535,16 @@ class DeviceReplayBuffer:
         telemetry_metrics.set_replay_occupancy(
             self.label, self._size, self.capacity, self.storage_bytes, device=True
         )
+
+    def add_tree(self, tree: Dict[str, np.ndarray]) -> None:
+        """Insert a host column tree (equal leading dims), the reference's
+        host insert (QMIX's episode rows): the arrays cross to the device
+        once, counted as ``replay_insert`` bytes, then one scatter a
+        column (:meth:`add_device_tree`)."""
+        tree = {k: _canonical(np.asarray(v)) for k, v in tree.items()}
+        if tree and self._host is None and self.device.type == "cuda":
+            telemetry_metrics.add_h2d_bytes("replay_insert", sum(v.nbytes for v in tree.values()))
+        self.add_device_tree(tree)
 
     # -- sampling ---------------------------------------------------------
 

@@ -1,4 +1,4 @@
-"""Recurrent (LSTM) model wrapper.
+"""Recurrent models: the LSTM wrapper and flax's GRU cell.
 
 Counterpart of ``ray_tpu/models/rnn.py``'s ``LSTMWrapper``
 (``model_config["use_lstm"]``): dense ``fc_i`` layers, then an LSTM cell
@@ -24,6 +24,14 @@ num_outputs), value (B·T,) and the state after the last step.
 ``prev_actions`` enter as the raw action cast to float and reshaped to
 (B, T, -1) (a Discrete action is its index, not a one-hot) and
 ``prev_rewards`` as (B, T, 1), when the model was built to read them.
+
+:class:`GRUCell` is flax's ``nn.GRUCell`` (QMIX's agent net), with its
+parameter names: input projections ``ir``, ``iz``, ``in`` with bias,
+hidden projections ``hr`` and ``hz`` without, ``hn`` with; ``r =
+σ(ir(x) + hr(h))``, ``z = σ(iz(x) + hz(h))``, ``n = tanh(in(x) + r ·
+hn(h))``, ``h' = (1 - z) · n + z · h``. ``torch.nn.GRUCell`` has biases
+on ``hr`` and ``hz`` too, so the cell is written out, and
+:func:`gru_unroll` steps it over T as :func:`lstm_unroll` steps the LSTM.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from torch import nn
 from ray_tpu_torch.models.base import Dense, TorchModel, get_activation
 
 GATES = ("i", "f", "g", "o")
+GRU_GATES = ("r", "z", "n")
 
 
 class OptimizedLSTMCell(nn.Module):
@@ -137,3 +146,60 @@ def lstm_unroll(cell: OptimizedLSTMCell, x: torch.Tensor, h: torch.Tensor, c: to
         h = torch.sigmoid(o) * torch.tanh(c)
         ys.append(h)
     return torch.stack(ys, dim=1), (h, c)
+
+
+class GRUCell(nn.Module):
+    """flax's ``nn.GRUCell``: LeCun-normal input kernels, orthogonal
+    hidden kernels, zero biases."""
+
+    def __init__(self, in_features: int, cell_size: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cell_size = int(cell_size)
+        for gate in GRU_GATES:
+            setattr(self, f"i{gate}", Dense(in_features, cell_size, generator=generator))
+            hidden = Dense(cell_size, cell_size, generator=generator, use_bias=gate == "n")
+            with torch.no_grad():
+                nn.init.orthogonal_(hidden.weight, generator=generator)
+            setattr(self, f"h{gate}", hidden)
+
+    def input_projection(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., 3·cell): ``ir(x)``, ``iz(x)``, ``in(x)`` side by side."""
+        w = torch.cat([getattr(self, f"i{g}").weight for g in GRU_GATES])
+        b = torch.cat([getattr(self, f"i{g}").bias for g in GRU_GATES])
+        return torch.nn.functional.linear(x, w, b)
+
+    def step(self, xi: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """One step from the input projection ``xi`` (B, 3·cell) and the
+        carry ``h`` (B, cell): the new carry."""
+        w_h = torch.cat([getattr(self, f"h{g}").weight for g in GRU_GATES])
+        hh = torch.nn.functional.linear(h, w_h)
+        x_r, x_z, x_n = xi.chunk(3, dim=-1)
+        h_r, h_z, h_n = hh.chunk(3, dim=-1)
+        r = torch.sigmoid(x_r + h_r)
+        z = torch.sigmoid(x_z + h_z)
+        n = torch.tanh(x_n + r * (h_n + self.hn.bias))
+        return (1.0 - z) * n + z * h
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor):
+        """flax's call: ``(carry, inputs) -> (new carry, output)``."""
+        h = self.step(self.input_projection(x), h)
+        return h, h
+
+
+def gru_unroll(cell: GRUCell, x: torch.Tensor, h: torch.Tensor,
+               resets: Optional[torch.Tensor] = None):
+    """``cell`` stepped over x (B, T, in) from ``h`` (B, cell), the carry
+    multiplied by ``1 - resets[:, t]`` before step t: ``(y (B, T,
+    cell), h after the last step)``. The input projections of all T
+    steps are one product before the loop."""
+    xi = cell.input_projection(x)
+    keep = None if resets is None else 1.0 - resets.float()
+    h = h.float()
+    ys = []
+    for t in range(x.shape[1]):
+        if keep is not None:
+            h = h * keep[:, t, None]
+        h = cell.step(xi[:, t], h)
+        ys.append(h)
+    return torch.stack(ys, dim=1), h

@@ -63,7 +63,14 @@ RNNSAC's recurrent actor, twin Q nets, their target, ``log_alpha`` and
 three Adam states through :func:`from_jax_rnnsac_state`; an ES or ARS
 driver's theta, flat Adam and observation filter through
 :func:`from_jax_es_state`; a linear bandit's precision and moment
-through :func:`from_jax_bandit_state`.
+through :func:`from_jax_bandit_state`. MADDPG's agent-stacked actors and
+critics (kernels (n, in, out) → weights (n, out, in)), their targets and
+two Adam states go into a port ``MADDPG`` through
+:func:`from_jax_maddpg_state`; QMIX's agent net (flax's GRU names) and
+mixer, target and Adam state into a ``QMIX`` through
+:func:`from_jax_qmix_state`; SlateQ's item Q net and choice model, target
+and ``multi_transform`` Adam states into a ``SlateQTorchPolicy`` through
+:func:`from_jax_slateq_state`.
 """
 
 from __future__ import annotations
@@ -585,4 +592,114 @@ def from_jax_bandit_state(policy, weights: Mapping):
     (A, d, d), moment (A, d)) into the port ``policy``. Returns
     ``policy``."""
     policy.set_weights({k: np.asarray(weights[k]) for k in ("precision", "moment")})
+    return policy
+
+
+def _stacked_to_state_dict(tree) -> Dict[str, np.ndarray]:
+    """A reference tree of agent-stacked flax Dense layers (kernels (n,
+    in, out), biases (n, out): MADDPG's ``vmap``ped init) → ``{"layer.weight":
+    (n, out, in), "layer.bias": (n, out)}``."""
+    out = {}
+    for layer, leaves in tree.get("params", tree).items():
+        out[f"{layer}.weight"] = np.transpose(np.asarray(leaves["kernel"]), (0, 2, 1))
+        out[f"{layer}.bias"] = np.asarray(leaves["bias"])
+    return out
+
+
+def _copy_named(tensors, names, values: Mapping) -> None:
+    with torch.no_grad():
+        for t, n in zip(tensors, names):
+            src = torch.as_tensor(np.array(values[n]))
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{n}: {tuple(src.shape)} != {tuple(t.shape)}")
+            t.copy_(src)
+
+
+def from_jax_maddpg_state(algo, params, target_params=None, opt_state=None):
+    """A reference MADDPG's state into the port ``algo`` (a ``MADDPG``) in
+    place: the agent-stacked actors and critics (``params``, ``{"actor",
+    "critic"}``), their targets (``target_params``) and the actors' and
+    critics' Adam states (``opt_state``). None leaves a part as it is.
+    Returns ``algo``."""
+    for group in ("actor", "critic"):
+        names = algo.group_param_names(group)
+        sd = _stacked_to_state_dict(params[group])
+        if set(sd) != set(names):
+            raise ValueError(f"MADDPG {group}: {sorted(set(sd) ^ set(names))}")
+        _copy_named(algo._group(group), names, sd)
+        if target_params is not None:
+            _copy_named(algo.target[group], names, _stacked_to_state_dict(target_params[group]))
+        if opt_state is not None:
+            adam = _find_adam(opt_state[group])
+            st = algo.opt_states[group]
+            st.count = int(np.asarray(adam.count))
+            _copy_named(st.mu, names, _stacked_to_state_dict(adam.mu))
+            _copy_named(st.nu, names, _stacked_to_state_dict(adam.nu))
+    return algo
+
+
+def _qmix_state_dict(tree) -> Dict[str, np.ndarray]:
+    """QMIX's ``{"agent": flax tree, "mixer": flax tree}`` → the port
+    model's names (``agent.gru.ir.weight``, ``mixer.hyper_w1.bias``, ...)."""
+    return {f"{part}.{k}": v for part in ("agent", "mixer")
+            for k, v in flax_to_state_dict(tree[part]).items()}
+
+
+def from_jax_qmix_state(algo, params, target_params=None, opt_state=None):
+    """A reference QMIX's state into the port ``algo`` (a ``QMIX``) in
+    place: the agent net (flax's GRU names) and the mixer (``params``),
+    their target (``target_params``) and the one Adam state
+    (``opt_state``). None leaves a part as it is. Returns ``algo``."""
+    sd = _qmix_state_dict(params)
+    if set(sd) != set(algo.param_names):
+        raise ValueError(f"QMIX trees and model disagree: {sorted(set(sd) ^ set(algo.param_names))}")
+    _copy_named(algo.params, algo.param_names, sd)
+    if target_params is not None:
+        _copy_named(algo.target, algo.param_names, _qmix_state_dict(target_params))
+    if opt_state is not None:
+        adam = _find_adam(opt_state)
+        st = algo.opt_state
+        st.count = int(np.asarray(adam.count))
+        _copy_named(st.mu, algo.param_names, _qmix_state_dict(adam.mu))
+        _copy_named(st.nu, algo.param_names, _qmix_state_dict(adam.nu))
+    return algo
+
+
+def _slateq_group(tree, group: str) -> Dict[str, np.ndarray]:
+    """One group of SlateQ's ``{"q", "choice"}`` params under the port's
+    names: the item Q net's flax layers, the choice model's two scalars."""
+    if group == "q":
+        return {f"q.{k}": v for k, v in flax_to_state_dict(tree).items()}
+    leaves = tree.get("params", tree)
+    return {f"choice.{k}": np.asarray(leaves[k]) for k in ("beta", "score_no_click")}
+
+
+def from_jax_slateq_state(policy, params, aux_state=None, opt_state=None):
+    """A reference SlateQ policy's state into ``policy`` (a
+    ``SlateQTorchPolicy``) in place: the item Q net and the choice model
+    (``params``, ``{"q", "choice"}``), the target Q net
+    (``aux_state["target_params"]``) and the two Adam states of optax's
+    ``multi_transform`` (``opt_state``: one ``scale_by_adam`` a group,
+    its moments under the group's own key). None leaves a part as it is.
+    Returns ``policy``."""
+    weights = {k: np.array(v) for k, v in {**_slateq_group(params["q"], "q"),
+                                           **_slateq_group(params["choice"], "choice")}.items()}
+    if set(weights) != set(policy.param_names):
+        raise ValueError(
+            f"SlateQ trees and policy disagree: {sorted(set(weights) ^ set(policy.param_names))}"
+        )
+    policy.set_weights(weights)
+    if aux_state is not None:
+        _copy_named(policy.aux_state["target_params"], policy.group_param_names("q"),
+                    _slateq_group(aux_state["target_params"], "q"))
+    if opt_state is not None:
+        for group, st in policy.opt_states.items():
+            inner = opt_state.inner_states[group]
+            adam = _find_adam(getattr(inner, "inner_state", inner))
+            if adam is None:
+                raise ValueError(f"no scale_by_adam state for {group!r}")
+            st.count = int(np.asarray(adam.count))
+            names = policy.group_param_names(group)
+            _copy_named(st.mu, names, _slateq_group(adam.mu[group], group))
+            _copy_named(st.nu, names, _slateq_group(adam.nu[group], group))
     return policy

@@ -24,7 +24,11 @@
 - the single-agent algorithms of item 9.3 (PG, A2C, A3C, SimpleQ, R2D2,
   RNNSAC, ES and ARS's rollout engine, the linear bandits) train with
   the reference and gymnasium blocked, and each raises without a
-  device.
+  device;
+- the multi-agent and slate algorithms (MADDPG and QMIX on the port's
+  copies of the coop envs that ``chip_smoke.py`` defines, QMIX's episode
+  ring included, SlateQ on ``SyntheticSlate-v0``) train with the
+  reference and gymnasium blocked, and each raises without a device.
 """
 
 from __future__ import annotations
@@ -729,6 +733,76 @@ def test_single_agent_algorithm_without_device_raises_without_cuda(monkeypatch, 
     mod = importlib.import_module(module)
     if env is None:
         from ray_tpu_torch.algorithms.bandit.bandit import LinearContextBandit as env
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="none is available"):
+        getattr(mod, cfg_name)().environment(env).build()
+
+
+def test_multi_agent_and_slate_algorithms_run_with_reference_and_gymnasium_blocked():
+    """MADDPG, QMIX (its device episode ring on CPU tensors) and SlateQ
+    (DQN's rings) train until they learn, with the reference and
+    gymnasium blocked."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+
+        BLOCKED = {BLOCKED + ("gymnasium",)!r}
+
+        class _Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(name + " blocked by test")
+                return None
+
+        sys.meta_path.insert(0, _Block())
+        import chip_smoke
+        from ray_tpu_torch.algorithms.maddpg.maddpg import MADDPGConfig
+        from ray_tpu_torch.algorithms.qmix.qmix import QMIXConfig
+        from ray_tpu_torch.algorithms.slateq.slateq import SlateQConfig
+
+        chip_smoke.register_coop_envs()
+        cfgs = [
+            MADDPGConfig().environment("coop_spread").training(
+                actor_hiddens=[8], critic_hiddens=[8], train_batch_size=8,
+                num_steps_sampled_before_learning_starts=16),
+            QMIXConfig().environment("two_step_coop").training(
+                train_batch_size=4, num_steps_sampled_before_learning_starts=16,
+                episode_limit=4, agent_hiddens=[8], agent_cell_size=8),
+            SlateQConfig().environment("SyntheticSlate-v0").training(
+                train_batch_size=8, num_steps_sampled_before_learning_starts=20, hiddens=[8]),
+        ]
+        for cfg in cfgs:
+            algo = cfg.debugging(seed=0).resources(device="cpu").build()
+            for _ in range(4):
+                r = algo.train()
+            assert r["info"]["learner"]["default_policy"], type(algo).__name__
+            algo.stop()
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
+_MULTI_AGENT = {
+    "MADDPG": ("ray_tpu_torch.algorithms.maddpg.maddpg", "MADDPGConfig", "CoopSpreadEnv"),
+    "QMIX": ("ray_tpu_torch.algorithms.qmix.qmix", "QMIXConfig", "TwoStepCoopEnv"),
+    "SlateQ": ("ray_tpu_torch.algorithms.slateq.slateq", "SlateQConfig", None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_MULTI_AGENT))
+def test_multi_agent_algorithm_without_device_raises_without_cuda(monkeypatch, name):
+    import importlib
+
+    import test_bandit_qmix
+
+    module, cfg_name, env = _MULTI_AGENT[name]
+    mod = importlib.import_module(module)
+    env = getattr(test_bandit_qmix, env) if env else "SyntheticSlate-v0"
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="none is available"):
         getattr(mod, cfg_name)().environment(env).build()

@@ -551,7 +551,7 @@ def test_registry_resolves_the_ported_algorithms():
     assert get_algorithm_class("APEX").__name__ == "ApexDQN"
     assert get_algorithm_class("APEX_DDPG").__name__ == "ApexDDPG"
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_algorithm_class("QMIX")
+        get_algorithm_class("Dreamer")
     algo, stop = build_tuned_example(REPO / "tuned_examples" / "impala" / "cartpole-impala.yaml",
                                      device="cpu")
     try:
